@@ -1,0 +1,75 @@
+"""Carry a state across between the two packages.
+
+A JAX `KVState` is a tree of arrays; pulled to the host with `np.asarray`
+and named by their attribute paths (`"index.table"`, `"pool.pages"`,
+`"stats"`, ...) its leaves become a dict of numpy arrays, which
+`state_from_numpy` turns into this package's `KVState` — the counterpart
+of carrying weights across. `state_to_numpy` goes the other way, with the
+same names and the JAX package's dtypes (u32 words as numpy uint32), so
+two states compare leaf by leaf.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from pmdfc_tpu_torch import kv as kv_mod
+from pmdfc_tpu_torch.config import IndexKind, KVConfig
+from pmdfc_tpu_torch.models.linear import LinearState
+from pmdfc_tpu_torch.ops.bloom import BloomState
+from pmdfc_tpu_torch.ops.pagepool import PoolState
+from pmdfc_tpu_torch.utils import u32
+
+# leaves holding u32 words (uint32 in JAX, int32 bits here)
+U32_LEAVES = frozenset({"index.table", "index.head", "pool.pages",
+                        "pool.sums", "extents.recs", "extents.cursor"})
+
+
+def _tensor(name: str, a: np.ndarray, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if name in U32_LEAVES:
+        return u32.from_numpy(a.astype(np.uint32, copy=False), device)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def state_from_numpy(leaves: dict[str, np.ndarray], config: KVConfig,
+                     device="cuda") -> kv_mod.KVState:
+    """The JAX package's `KVState` leaves (numpy, by dotted path) -> this
+    package's `KVState` on `device`. Linear index, flat pool only."""
+    if config.index.kind != IndexKind.LINEAR:
+        raise NotImplementedError("only the linear index is ported")
+    dev = kv_mod.resolve_device(device)
+
+    def t(name):
+        return _tensor(name, leaves[name], dev)
+
+    return kv_mod.KVState(
+        index=LinearState(table=t("index.table"), head=t("index.head")),
+        bloom=BloomState(counters=t("bloom.counters"))
+        if config.bloom else None,
+        pool=PoolState(pages=t("pool.pages"), sums=t("pool.sums"),
+                       free=t("pool.free"), top=t("pool.top"))
+        if config.paged else None,
+        extents=kv_mod.ExtentState(recs=t("extents.recs"),
+                                   cursor=t("extents.cursor")),
+        stats=t("stats"),
+        evicted_filter=t("evicted_filter"),
+    )
+
+
+def state_to_numpy(state: kv_mod.KVState) -> dict[str, np.ndarray]:
+    """This package's `KVState` -> {dotted leaf path: numpy array}, with
+    the JAX package's leaf names and dtypes."""
+    out = {}
+
+    def walk(prefix, node):
+        if isinstance(node, torch.Tensor):
+            out[prefix] = (u32.to_numpy(node) if prefix in U32_LEAVES
+                           else node.detach().cpu().numpy())
+        elif node is not None:
+            for f in node.__dataclass_fields__:
+                walk(f"{prefix}.{f}" if prefix else f, getattr(node, f))
+
+    walk("", state)
+    return out

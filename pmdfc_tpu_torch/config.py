@@ -1,0 +1,102 @@
+"""Typed configuration (twin of `pmdfc_tpu/config.py`, this slice's part).
+
+The same frozen dataclasses with the same fields and defaults, so one
+configuration reads the same in both packages. Two differences:
+
+- `KVConfig.tier` exists but only `None` (the flat pool) is served yet;
+- there is no `fused_get` switch: on CUDA a configuration that
+  `ops.fused.supports` accepts always runs the fused GET kernel, and one
+  it rejects runs the composed GET, as the JAX package composes it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+
+
+class IndexKind(str, enum.Enum):
+    """Pluggable index selection (ref `server/KV.cpp:63-79` -D matrix).
+    Only LINEAR is ported so far."""
+
+    LINEAR = "linear"          # linear probing w/ FIFO cluster eviction (default)
+    CCEH = "cceh"              # cacheline-conscious extendible hashing
+    CUCKOO = "cuckoo"          # 2-hash cuckoo w/ path search
+    CUCKOO_PROBING = "ccp"     # linear probing + second-chance cuckoo
+    LEVEL = "level"            # two-level hashing
+    PATH = "path"              # path hashing (binary-tree fallback cells)
+    EXTENDIBLE = "extendible"  # classic LSB extendible hashing
+    STATIC = "static"          # single fixed array
+    HOTRING = "hotring"        # hotspot-aware ordered ring
+
+
+@dataclasses.dataclass(frozen=True)
+class IndexConfig:
+    """Shape/behavior of one index instance; `capacity` is the total
+    number of (key, value) slots (ref `tablesize`,
+    `server/rdma_svr.cpp:1272`). Field meanings as in the JAX package."""
+
+    kind: IndexKind = IndexKind.LINEAR
+    capacity: int = 1 << 16
+    cluster_slots: int = 32
+    segment_slots: int = 1024
+    probe_window: int = 32
+    split_headroom: int = 1
+    max_splits_per_round: int = 64
+    max_cuckoo_kicks: int = 8
+    decay_every_gets: int = 1 << 20
+    touch_sample_every: int = 1
+    hot_lanes: int = 8
+
+    def __post_init__(self) -> None:
+        if self.capacity <= 0:
+            raise ValueError("capacity must be positive")
+        if self.cluster_slots & (self.cluster_slots - 1):
+            raise ValueError("cluster_slots must be a power of two")
+        if self.segment_slots & (self.segment_slots - 1):
+            raise ValueError("segment_slots must be a power of two")
+        if self.hot_lanes < 1:
+            raise ValueError("hot_lanes must be >= 1 (the mirror cannot be "
+                             "empty; shrink it rather than disabling)")
+
+
+@dataclasses.dataclass(frozen=True)
+class BloomConfig:
+    """Counting bloom filter (ref `server/rdma_svr.h:36-38`)."""
+
+    num_bits: int = 1 << 20
+    num_hashes: int = 4
+
+    def __post_init__(self) -> None:
+        if self.num_bits % 32:
+            raise ValueError("num_bits must be a multiple of 32 (packed export)")
+
+
+@dataclasses.dataclass(frozen=True)
+class KVConfig:
+    """KV façade configuration (ref `server/KV.h` + `rdma_svr.cpp` getopt)."""
+
+    index: IndexConfig = dataclasses.field(default_factory=IndexConfig)
+    bloom: BloomConfig | None = dataclasses.field(default_factory=BloomConfig)
+    # 4 KB pages stored as rows of u32 words (4096 / 4 = 1024).
+    page_words: int = 1024
+    # Store pages in a device page pool tied 1:1 to index slots; when False
+    # the index stores caller-provided 64-bit values only.
+    paged: bool = True
+    # Extent ring size (extents are not ported yet: the ring is carried as
+    # zeros so the state maps one to one onto the JAX package's).
+    extent_capacity: int = 1024
+    extent_max_covers: int = 64
+    extent_max_height: int = 30
+    # Tiered page store: not ported yet, must stay None (flat pool).
+    tier: None = None
+    # Bits of the evicted-key sketch that splits GET misses into
+    # `miss_evicted` vs `miss_cold`.
+    evicted_sketch_bits: int = 1 << 16
+
+    def __post_init__(self) -> None:
+        if self.evicted_sketch_bits < 64:
+            raise ValueError("evicted_sketch_bits must be >= 64")
+        if self.tier is not None:
+            raise NotImplementedError(
+                "the tiered page store is not ported yet; use tier=None")

@@ -1,0 +1,430 @@
+"""KV façade — one index + bloom filter + page pool (twin of
+`pmdfc_tpu/kv.py`, this slice's part).
+
+Reference: `server/KV.{h,cpp}`: `Insert` updates the counting bloom filter
+and turns index evictions into bloom deletes (`KV.cpp:100-127`); `Get`,
+`Delete`, `Utilization`, `Capacity`, `PrintStats`.
+
+Batched ops take and return a `KVState`; the stats vector is an int32
+device tensor bumped inside the op (`misses == Σ miss_*` on every batch).
+
+In place. Unlike the JAX programs, which return new arrays, `insert` and
+`delete` update the state's tensors in place and return the same state:
+the full-size page pool is 8 GiB and must never be copied per batch. A
+GET (`get_core`, `get_compact`) writes nothing but `state.stats`.
+
+Not ported yet: extents (`KVState.extents` is carried as zeros so the
+state maps one to one onto the JAX package's), the tiered pool, the
+recovering serving state, and the host-side stats overlays.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import threading
+import time
+from typing import Any
+
+import numpy as np
+import torch
+
+from pmdfc_tpu_torch.config import KVConfig
+from pmdfc_tpu_torch.models.base import dedupe_last_wins, get_index_ops
+from pmdfc_tpu_torch.ops import bloom as bloom_ops
+from pmdfc_tpu_torch.ops import fused as fused_ops
+from pmdfc_tpu_torch.ops import pagepool
+from pmdfc_tpu_torch.utils import u32
+from pmdfc_tpu_torch.utils.hashing import hash_u64
+from pmdfc_tpu_torch.utils.keys import INVALID_I32, is_invalid
+
+# stats vector layout (same lanes as the JAX package); the trailing miss_*
+# lanes are the miss-cause taxonomy: every recorded miss carries exactly
+# one cause
+(PUTS, GETS, HITS, MISSES, EVICTIONS, DROPS, EXTENT_PUTS, DELETES,
+ CORRUPT_PAGES, MISS_COLD, MISS_EVICTED, MISS_PARKED, MISS_STALE,
+ MISS_DIGEST, MISS_ROUTED, MISS_RECOVERING, MISS_SHED,
+ MISS_QUARANTINED, MISS_DEADLINE) = range(19)
+STAT_NAMES = [
+    "puts", "gets", "hits", "misses", "evictions", "drops",
+    "extent_puts", "deletes", "corrupt_pages",
+    "miss_cold", "miss_evicted", "miss_parked", "miss_stale",
+    "miss_digest", "miss_routed", "miss_recovering", "miss_shed",
+    "miss_quarantined", "miss_deadline",
+]
+NSTATS = len(STAT_NAMES)
+MISS_CAUSE_NAMES = tuple(STAT_NAMES[MISS_COLD:MISS_DEADLINE + 1])
+
+EXTENT_REC_WORDS = 6  # khi, klo, vhi, vlo, len, valid
+_SKETCH_SEEDS = fused_ops.SKETCH_SEEDS
+
+
+@dataclasses.dataclass
+class ExtentState:
+    recs: torch.Tensor    # int32[N, 6] (zeros: extents are not ported yet)
+    cursor: torch.Tensor  # int32[]
+
+
+@dataclasses.dataclass
+class KVState:
+    index: Any
+    bloom: bloom_ops.BloomState | None
+    pool: pagepool.PoolState | None
+    extents: ExtentState
+    stats: torch.Tensor           # int32[NSTATS]
+    # evicted-key sketch: a plain bloom of keys the index capacity-evicted;
+    # a GET miss that hits it is `miss_evicted`, else `miss_cold`
+    evicted_filter: torch.Tensor  # bool[KVConfig.evicted_sketch_bits]
+
+
+def resolve_device(device) -> torch.device:
+    """The port's device rule: `cuda` unless the caller asks for the CPU;
+    asking for cuda without a GPU raises (there is no CPU fallback)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "pmdfc_tpu_torch: CUDA was asked for (the default) but no GPU "
+            "is available; pass device='cpu' to run on the CPU")
+    return dev
+
+
+def init(config: KVConfig, device="cuda") -> KVState:
+    dev = resolve_device(device)
+    ops = get_index_ops(config.index.kind)
+    pool = None
+    if config.paged:
+        pool = pagepool.init(ops.num_slots(config.index), config.page_words,
+                             device=dev)
+    return KVState(
+        index=ops.init(config.index, device=dev),
+        bloom=bloom_ops.init(config.bloom, device=dev) if config.bloom else None,
+        pool=pool,
+        extents=ExtentState(
+            recs=torch.zeros((config.extent_capacity, EXTENT_REC_WORDS),
+                             dtype=torch.int32, device=dev),
+            cursor=torch.zeros((), dtype=torch.int32, device=dev)),
+        stats=torch.zeros(NSTATS, dtype=torch.int32, device=dev),
+        evicted_filter=torch.zeros(config.evicted_sketch_bits,
+                                   dtype=torch.bool, device=dev),
+    )
+
+
+# ---------------------------------------------------------------------------
+# core batched ops
+# ---------------------------------------------------------------------------
+
+def _sketch_slots(config: KVConfig, keys: torch.Tensor) -> torch.Tensor:
+    """int64[len(_SKETCH_SEEDS), B] sketch bit positions per key."""
+    nb = config.evicted_sketch_bits
+    return torch.stack([hash_u64(keys[..., 0], keys[..., 1], seed=s) % nb
+                        for s in _SKETCH_SEEDS])
+
+
+def _sketch_mark(state: KVState, config: KVConfig, keys, mask) -> None:
+    idx = _sketch_slots(config, keys)
+    state.evicted_filter[idx[:, mask].reshape(-1)] = True
+
+
+def _index_miss_causes(bumps, state, config, keys, idx_miss):
+    """Split index-level misses into `miss_evicted` (sketch hit) vs
+    `miss_cold`."""
+    idx = _sketch_slots(config, keys)
+    ev = idx_miss & state.evicted_filter[idx].all(dim=0)
+    bumps[MISS_EVICTED] += ev.sum(dtype=torch.int32)
+    bumps[MISS_COLD] += (idx_miss & ~ev).sum(dtype=torch.int32)
+
+
+def _is_special(vals: torch.Tensor) -> torch.Tensor:
+    """Paged mode: a set top-2-bit hi word is NOT a page-row value."""
+    return (u32.widen(vals[..., 0]) >> 30) != 0
+
+
+def insert(state: KVState, config: KVConfig, keys: torch.Tensor,
+           values: torch.Tensor):
+    """Batched Insert (ref `KV::Insert` `server/KV.cpp:100-127`), in place.
+
+    `values` is pages[B, page_words] when paged else u64 values[B, 2]
+    (int32 bits). Index insert, bloom insert of landed keys, bloom delete
+    and sketch mark of evicted keys, pool-row recycle/alloc, page and
+    digest scatter. -> (state, InsertResult).
+
+    The JAX program skips some masked passes with `lax.cond` when their
+    mask is empty; here they always run (a masked pass over an empty mask
+    changes nothing), so no host sync is needed.
+    """
+    ops = get_index_ops(config.index.kind)
+    valid = ~is_invalid(keys)
+    paged = state.pool is not None
+
+    if paged:
+        # existing entries keep their row; fresh ones get a 0 placeholder
+        # patched after allocation
+        pre = ops.get_batch(state.index, keys)
+        keep = pre.found & ~_is_special(pre.values)
+        index_vals = torch.where(keep[:, None], pre.values, 0)
+    else:
+        index_vals = values
+
+    _, res = ops.insert_batch(state.index, keys, index_vals)
+
+    placed = valid & ~res.dropped
+    evicted_mask = ~is_invalid(res.evicted)
+    if state.bloom is not None:
+        nh = config.bloom.num_hashes
+        bloom_ops.insert_batch(state.bloom, keys, placed, num_hashes=nh)
+        bloom_ops.delete_batch(state.bloom, res.evicted, evicted_mask,
+                               num_hashes=nh)
+    # capacity evictions enter the evicted-key sketch here, so a later
+    # GET's miss can name its cause
+    _sketch_mark(state, config, res.evicted, evicted_mask)
+
+    if paged:
+        pool = state.pool
+        wrote = res.slots >= 0
+        # a plain put over an extent-cover entry converts it to a page entry
+        conv = wrote & ~res.fresh & pre.found & ~keep
+        want = res.fresh | conv
+        freed = evicted_mask & ~_is_special(res.evicted_vals)
+        freed_rows = torch.where(freed, res.evicted_vals[:, 1], -1)
+        _, new_rows = pagepool.recycle_and_alloc(pool, freed, freed_rows, want)
+        row_vals = torch.stack([torch.zeros_like(new_rows),
+                                new_rows.clamp(min=0)], dim=-1)
+        # an entry placed mid-batch can lose its slot to a later same-batch
+        # eviction; only an eviction can take a placement away
+        probe = torch.where(want[:, None], keys, INVALID_I32)
+        lost = want & ~ops.get_batch(state.index, probe).found \
+            & evicted_mask.any()
+        good = want & ~lost & (new_rows >= 0)
+        ops.set_values(state.index, torch.where(good, res.slots, -1), row_vals)
+        pagepool.recycle_and_alloc(pool, lost, new_rows, torch.zeros_like(lost))
+        # ordered page scatters: in-place updates first, new rows second;
+        # the digest sidecar rides the same two scatters
+        upd_rows = torch.where(wrote & ~want & keep, pre.values[:, 1], -1)
+        alloc_rows = torch.where(good, new_rows, -1)
+        digs = pagepool.page_digest(values)
+        for rows in (upd_rows, alloc_rows):
+            pagepool.write_batch(pool.pages, rows, values)
+            pagepool.write_sums(pool.sums, rows, digs)
+
+    bumps = torch.zeros(NSTATS, dtype=torch.int32, device=keys.device)
+    bumps[PUTS] = valid.sum(dtype=torch.int32)
+    bumps[EVICTIONS] = evicted_mask.sum(dtype=torch.int32)
+    bumps[DROPS] = (valid & res.dropped).sum(dtype=torch.int32)
+    state.stats += bumps
+    return state, res
+
+
+def _get_core(state: KVState, config: KVConfig, keys: torch.Tensor):
+    """Composed GET (ref `KV::Get` `KV.cpp:148`) -> (state, out, found).
+
+    Serves the configs the fused GET does not (`fused.supports`): the lean
+    probe for unpaged indexes, the composed page path for paged ones.
+    Writes nothing but `state.stats`.
+    """
+    ops = get_index_ops(config.index.kind)
+    valid = ~is_invalid(keys)
+    bumps = torch.zeros(NSTATS, dtype=torch.int32, device=keys.device)
+    corrupt = torch.zeros_like(valid)
+    if state.pool is None:
+        # lean probe: values pre-zeroed on miss
+        out, found = ops.get_values(state.index, keys)
+        found = found & valid
+        idx_miss = valid & ~found
+        ext_m = torch.zeros_like(valid)
+    else:
+        res = ops.get_batch(state.index, keys)
+        found = res.found & valid
+        idx_miss = valid & ~res.found
+        # extent-cover entries are not pages: misses for a page GET
+        ext_m = found & (res.values[:, 0] == fused_ops.EXTENT_TAG_I32)
+        found = found & ~ext_m
+        rows = torch.where(found, res.values[:, 1], -1)
+        out = pagepool.read_batch(state.pool.pages, rows)
+        # integrity gate: a page whose bytes fail their digest is never
+        # returned; it is a miss and bumps `corrupt_pages`
+        ok = pagepool.verify_batch(state.pool, rows, out)
+        corrupt = found & ~ok
+        found = found & ok
+        out = torch.where(found[:, None], out, 0)
+    bumps[GETS] = valid.sum(dtype=torch.int32)
+    bumps[HITS] = found.sum(dtype=torch.int32)
+    bumps[MISSES] = (valid & ~found).sum(dtype=torch.int32)
+    bumps[CORRUPT_PAGES] = corrupt.sum(dtype=torch.int32)
+    _index_miss_causes(bumps, state, config, keys, idx_miss)
+    bumps[MISS_COLD] += ext_m.sum(dtype=torch.int32)
+    bumps[MISS_DIGEST] = corrupt.sum(dtype=torch.int32)
+    state.stats += bumps
+    return state, out, found
+
+
+def get(state: KVState, config: KVConfig, keys: torch.Tensor):
+    """Batched Get -> (state, values_or_pages, found). Configs the fused
+    GET supports always run it (the CUDA kernel on the card)."""
+    if fused_ops.supports(config):
+        return fused_ops.get_core(state, config, keys)
+    return _get_core(state, config, keys)
+
+
+def get_compact(state: KVState, config: KVConfig, keys: torch.Tensor):
+    """Get with hit rows compacted to the front -> (state, out_sorted,
+    order, found, nfound): a stable sort on `~found` keeps request order
+    among hits, so the host fetches just `nfound` rows."""
+    state, out, found = get(state, config, keys)
+    order = torch.argsort((~found).to(torch.uint8), stable=True)
+    return (state, out[order], order.to(torch.int32), found,
+            found.sum(dtype=torch.int32))
+
+
+def delete(state: KVState, config: KVConfig, keys: torch.Tensor):
+    """Batched Delete, in place: removes from index and bloom, frees the
+    pool row (ref `KV::Delete`). -> (state, hit)."""
+    ops = get_index_ops(config.index.kind)
+    _, hit, old_vals = ops.delete_batch(state.index, keys)
+    if state.bloom is not None:
+        bloom_ops.delete_batch(state.bloom, keys, hit,
+                               num_hashes=config.bloom.num_hashes)
+    if state.pool is not None:
+        # the same key twice in one batch hits twice but frees its row once
+        freed = hit & ~_is_special(old_vals) & dedupe_last_wins(keys, hit)
+        rows = torch.where(freed, old_vals[:, 1], -1)
+        pagepool.recycle_and_alloc(state.pool, freed, rows,
+                                   torch.zeros_like(freed))
+    state.stats[DELETES] += hit.sum(dtype=torch.int32)
+    return state, hit
+
+
+def utilization(state: KVState, config: KVConfig) -> torch.Tensor:
+    """Fraction of occupied slots (ref `Utilization`, `server/IKV.h:19`)."""
+    flat_keys, _ = get_index_ops(config.index.kind).scan(state.index)
+    occ = (~is_invalid(flat_keys)).sum(dtype=torch.int32)
+    return occ.to(torch.float32) / flat_keys.shape[0]
+
+
+def _pad_pow2(n: int, lo: int = 16) -> int:
+    p = lo
+    while p < n:
+        p <<= 1
+    return p
+
+
+class KV:
+    """Host wrapper over one `KVState`: fixed-shape padded device batches.
+
+    Keys are `[B, 2]` u32 words, values `[B, page_words]` pages (paged)
+    or `[B, 2]` u64 words. Numpy in ⇒ numpy out (uint32 words, as the
+    JAX package's `KV`); an int32 tensor in (u32 bits, any device) ⇒
+    tensors out on the KV's device, with no host copy of pages.
+
+    `device` defaults to `cuda` and raises when no GPU is present; pass
+    `device="cpu"` to run on the CPU. Every method serializes on an
+    instance lock (ops update the state in place).
+    """
+
+    def __init__(self, config: KVConfig | None = None,
+                 state: KVState | None = None, device="cuda"):
+        self.config = config or KVConfig()
+        self.device = resolve_device(device)
+        self.state = state if state is not None else init(self.config,
+                                                          self.device)
+        self._ops = get_index_ops(self.config.index.kind)
+        self._t0 = time.monotonic()
+        self._lock = threading.RLock()
+
+    # -- helpers --
+    def _keys(self, keys, w: int) -> torch.Tensor:
+        """Keys padded with INVALID to width w, as int32 on the device."""
+        t = self._tensor(keys)
+        out = torch.full((w, 2), INVALID_I32, dtype=torch.int32,
+                         device=self.device)
+        out[:t.shape[0]] = t
+        return out
+
+    def _tensor(self, x) -> torch.Tensor:
+        if isinstance(x, torch.Tensor):
+            return x.to(self.device, torch.int32)
+        return u32.from_numpy(np.asarray(x), self.device)
+
+    @staticmethod
+    def _out(x: torch.Tensor, host: bool, words: bool = True):
+        """A result back to the caller: the tensor for tensor callers,
+        numpy for numpy callers (u32 `words` as uint32, others as is)."""
+        if not host:
+            return x
+        return u32.to_numpy(x) if words else x.cpu().numpy()
+
+    def insert(self, keys, values):
+        """keys[B, 2]; values = pages[B, page_words] or u64 vals[B, 2]
+        -> InsertResult of the B rows."""
+        host = not isinstance(keys, torch.Tensor)
+        with self._lock:
+            b = len(keys)
+            w = _pad_pow2(b)
+            v = self._tensor(values)
+            vpad = torch.zeros((w, v.shape[-1]), dtype=torch.int32,
+                               device=self.device)
+            vpad[:b] = v
+            self.state, res = insert(self.state, self.config,
+                                     self._keys(keys, w), vpad)
+            return type(res)(**{
+                f: self._out(x[:b], host, words=f.startswith("evicted"))
+                for f, x in res._asdict().items()})
+
+    def get(self, keys):
+        """-> (pages_or_values[B, ...], found[B])."""
+        host = not isinstance(keys, torch.Tensor)
+        with self._lock:
+            b = len(keys)
+            self.state, out, found = get(self.state, self.config,
+                                         self._keys(keys, _pad_pow2(b)))
+            return (self._out(out[:b], host),
+                    self._out(found[:b], host, words=False))
+
+    def get_compact_async(self, keys):
+        """Hit-compacted get -> (device out_sorted, order, found, nfound, b).
+
+        `out_sorted[:nfound]` are the hit rows in request order and
+        `order[:nfound]` their request indices (the found-compressed page
+        return, `server/rdma_svr.cpp:706-719`). Nothing is copied to the
+        host; CUDA work is asynchronous until a result is read.
+        """
+        with self._lock:
+            b = len(keys)
+            self.state, out, order, found, nfound = get_compact(
+                self.state, self.config, self._keys(keys, _pad_pow2(b)))
+            return out, order, found, nfound, b
+
+    def delete(self, keys):
+        """-> hit[B]."""
+        host = not isinstance(keys, torch.Tensor)
+        with self._lock:
+            b = len(keys)
+            self.state, hit = delete(self.state, self.config,
+                                     self._keys(keys, _pad_pow2(b)))
+            return self._out(hit[:b], host, words=False)
+
+    def capacity(self) -> int:
+        return self._ops.num_slots(self.config.index)
+
+    def utilization(self) -> float:
+        with self._lock:
+            return float(utilization(self.state, self.config))
+
+    def packed_bloom(self) -> np.ndarray | None:
+        """Packed MSB-first bit form for the client mirror (ref `send_bf`,
+        `server/rdma_svr.cpp:157-251`), numpy uint32."""
+        with self._lock:
+            if self.state.bloom is None:
+                return None
+            return u32.to_numpy(bloom_ops.to_packed_bits(self.state.bloom))
+
+    def stats(self) -> dict:
+        with self._lock:
+            vec = self.state.stats.cpu().numpy().astype(np.int64)
+        d = dict(zip(STAT_NAMES, (int(x) for x in vec)))
+        d["uptime_s"] = time.monotonic() - self._t0
+        return d
+
+    def print_stats(self) -> str:
+        """Human stats dump (ref `PrintStats`)."""
+        line = ", ".join(f"{k}={v}" for k, v in self.stats().items())
+        print(f"[kv] {line}")
+        return line

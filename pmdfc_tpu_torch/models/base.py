@@ -1,0 +1,136 @@
+"""Index-op result types, the index registry and the batched insert plan
+(twin of `pmdfc_tpu/models/base.py`).
+
+Reference interface: `IHash` (`server/IHash.h:10-24`) lifted to
+fixed-shape batches; INVALID (padding) keys are no-ops.
+
+Sort order. `jnp.lexsort` orders u32 words unsigned and is stable; the
+plan's ranks (and with them the FIFO lanes, slot ids and evictions) hang
+on both. Here a (hi, lo) pair sorts as ONE int64 key whose top word is
+`hi` with its sign bit flipped (so signed int64 order is unsigned (hi, lo)
+order), in stable `torch.sort` passes from the least to the most
+significant key.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, NamedTuple
+
+import torch
+
+from pmdfc_tpu_torch.config import IndexConfig, IndexKind
+from pmdfc_tpu_torch.utils.u32 import widen
+
+
+class GetResult(NamedTuple):
+    values: torch.Tensor  # int32[B, 2] u32 bits; zero where not found
+    found: torch.Tensor   # bool[B]
+    slots: torch.Tensor   # int32[B] global slot id; -1 if miss
+
+
+class InsertResult(NamedTuple):
+    slots: torch.Tensor         # int32[B] slot the key landed in; -1 if not placed
+    evicted: torch.Tensor       # int32[B, 2] keys evicted to make room (INVALID if none)
+    dropped: torch.Tensor       # bool[B] the key itself was dropped (legal)
+    fresh: torch.Tensor         # bool[B] the key landed in a NEW slot
+    evicted_vals: torch.Tensor  # int32[B, 2] values of evicted entries
+
+
+@dataclasses.dataclass(frozen=True)
+class IndexOps:
+    """Vtable for one index family (fields as in the JAX package)."""
+
+    init: Callable[..., Any]
+    get_batch: Callable[..., GetResult]
+    insert_batch: Callable[..., tuple]
+    delete_batch: Callable[..., tuple]
+    num_slots: Callable[[IndexConfig], int]
+    set_values: Callable[..., Any] | None = None
+    scan: Callable[[Any], tuple] | None = None
+    get_values: Callable[..., tuple] | None = None
+
+
+_REGISTRY: dict[IndexKind, IndexOps] = {}
+
+
+def register_index(kind: IndexKind, ops: IndexOps) -> None:
+    _REGISTRY[kind] = ops
+
+
+def get_index_ops(kind: IndexKind) -> IndexOps:
+    if kind not in _REGISTRY:
+        if kind != IndexKind.LINEAR:
+            raise NotImplementedError(
+                f"index kind {kind.value!r} is not ported yet")
+        import pmdfc_tpu_torch.models.linear  # noqa: F401  (registers)
+    return _REGISTRY[kind]
+
+
+class InsertPlan(NamedTuple):
+    """Products of ONE sort serving both dedupe and segment ranking
+    (see the JAX package's `InsertPlan`)."""
+
+    order: torch.Tensor      # int64[B]: sorted positions (original indices)
+    seg_start: torch.Tensor  # bool[B] in SORTED space: first row of a run
+    winner: torch.Tensor     # bool[B] in ORIGINAL space: last dup occurrence
+
+
+def _key64(keys: torch.Tensor) -> torch.Tensor:
+    """int64 whose signed order is the unsigned (hi, lo) order."""
+    hi = keys[..., 0].to(torch.int64) ^ (-(1 << 31))  # flip hi's sign bit
+    return (hi << 32) | widen(keys[..., 1])
+
+
+def _stable_lexsort(*cols: torch.Tensor) -> torch.Tensor:
+    """`jnp.lexsort` for int64 columns: the LAST column is the primary key."""
+    order = torch.argsort(cols[0], stable=True)
+    for col in cols[1:]:
+        order = order[torch.argsort(col[order], stable=True)]
+    return order
+
+
+def _scatter_back(order: torch.Tensor, sorted_vals: torch.Tensor) -> torch.Tensor:
+    out = torch.empty_like(sorted_vals)
+    out[order] = sorted_vals
+    return out
+
+
+def plan_insert(keys: torch.Tensor, seg: torch.Tensor, valid: torch.Tensor,
+                num_segments: int | None = None) -> InsertPlan:
+    # the invalid flag rides bit 31 of the segment word
+    if num_segments is not None and num_segments >= (1 << 31):
+        raise ValueError(
+            f"plan_insert: {num_segments} segments >= 2^31 would collide "
+            "with the packed invalid bit")
+    segp = seg.to(torch.int64) | ((~valid).to(torch.int64) << 31)
+    k64 = _key64(keys)
+    order = _stable_lexsort(k64, segp)
+    s_k, s_segp = k64[order], segp[order]
+    same_next = torch.zeros_like(valid)
+    same_next[:-1] = (s_k[:-1] == s_k[1:]) & (s_segp[:-1] == s_segp[1:])
+    winner = _scatter_back(order, ~same_next & ((s_segp >> 31) == 0))
+    seg_start = torch.ones_like(valid)
+    seg_start[1:] = s_segp[1:] != s_segp[:-1]
+    return InsertPlan(order=order, seg_start=seg_start, winner=winner)
+
+
+def plan_rank(plan: InsertPlan, mask: torch.Tensor) -> torch.Tensor:
+    """int32[B]: 0-based rank of each masked row among masked rows of its
+    segment (plan order); unmasked rows get 0x7FFFFFFF."""
+    m = mask[plan.order].to(torch.int64)
+    c = torch.cumsum(m, 0)
+    base = torch.cummax(torch.where(plan.seg_start, c - m, 0), 0).values
+    rank = _scatter_back(plan.order, c - m - base)
+    return torch.where(mask, rank, 0x7FFFFFFF).to(torch.int32)
+
+
+def dedupe_last_wins(keys: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Mask selecting, for each distinct valid key, its LAST occurrence."""
+    inv = (~valid).to(torch.int64)
+    k64 = _key64(keys)
+    order = _stable_lexsort(k64, inv)  # (inv, hi, lo), stable by position
+    s_k, s_inv = k64[order], inv[order]
+    same_next = torch.zeros_like(valid)
+    same_next[:-1] = (s_k[:-1] == s_k[1:]) & (s_inv[:-1] == s_inv[1:])
+    return _scatter_back(order, ~same_next) & valid

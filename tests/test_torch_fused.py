@@ -1,0 +1,224 @@
+"""PyTorch port: the fused GET against both of the JAX package's GET programs.
+
+One seeded JAX KV state (evictions, deletes, one corrupted page, one slot
+tagged as an extent) is carried across with `carry.state_from_numpy`.
+The same padded probe — present, deleted, capacity-evicted, never-inserted
+and padding keys — then goes through
+
+- `pmdfc_tpu.kv._get_core` (the composed XLA program),
+- `pmdfc_tpu.ops.fused.get_core` and its kernel `_pallas_get` (the Pallas
+  kernel, in interpret mode off the TPU),
+- `pmdfc_tpu_torch.ops.fused.get_core_reference` (the CUDA kernel's plain
+  version, which the wrapper runs for CPU tensors), `fused.get_core` and
+  the composed `kv._get_core` of the port.
+
+Pages, found masks, cause codes, rows, slots and the 19-lane stats vector
+must be identical (tolerance 0: integer arithmetic). The CUDA kernel
+itself is held against the plain version on the card by `chip_smoke.py`
+and by the one test here that needs a GPU.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pmdfc_tpu import kv as jkv
+from pmdfc_tpu.config import IndexConfig as JIndexConfig
+from pmdfc_tpu.config import KVConfig as JKVConfig
+from pmdfc_tpu.ops import fused as jfused
+from pmdfc_tpu_torch import carry
+from pmdfc_tpu_torch import kv as tkv
+from pmdfc_tpu_torch.config import IndexConfig as TIndexConfig
+from pmdfc_tpu_torch.config import KVConfig as TKVConfig
+from pmdfc_tpu_torch.ops import fused as tfused
+from pmdfc_tpu_torch.utils import u32
+
+pytestmark = pytest.mark.torch
+
+PW = 64  # page words: inside the fused support set
+
+
+def _configs(slots, sketch_bits=1 << 16):
+    kw = dict(page_words=PW, evicted_sketch_bits=sketch_bits)
+    return (JKVConfig(index=JIndexConfig(capacity=2048, cluster_slots=slots),
+                      **kw),
+            TKVConfig(index=TIndexConfig(capacity=2048, cluster_slots=slots),
+                      **kw))
+
+
+def jax_leaves(state) -> dict:
+    flat, _ = jax.tree_util.tree_flatten_with_path(state)
+    return {".".join(k.name for k in path): np.asarray(v)
+            for path, v in flat}
+
+
+def _seeded(slots, seed=7):
+    """A JAX KV state with capacity evictions and deletes, then one page
+    corrupted and one present slot's value tagged as an extent; returns
+    (config pair, damaged JAX state, padded probe keys)."""
+    jcfg, tcfg = _configs(slots)
+    rng = np.random.default_rng(seed)
+    kv = jkv.KV(jcfg)
+    n = 3072  # > 2048 slots: FIFO evictions feed the evicted-key sketch
+    keys = rng.integers(0, 1 << 32, (n, 2), dtype=np.uint32)
+    for i in range(0, n, 512):
+        kv.insert(keys[i:i + 512],
+                  rng.integers(0, 1 << 32, (512, PW), dtype=np.uint32))
+    kv.delete(keys[2800:2900])
+    st = kv.state
+    res = jax.tree.map(np.asarray, jkv.get_index_ops(jcfg.index.kind)
+                       .get_batch(st.index, jnp.asarray(keys)))
+    hit = np.flatnonzero(res.found)
+    assert len(hit) > 100 and (~res.found[:2800]).any()  # some were evicted
+    kd, ke = hit[-1], hit[-2]
+    row = int(res.values[kd, 1])
+    s = st.index.table.shape[1] // 4
+    c, lane = divmod(int(res.slots[ke]), s)
+    pool = dataclasses.replace(
+        st.pool, pages=st.pool.pages.at[row, 5].set(
+            st.pool.pages[row, 5] ^ jnp.uint32(1 << 9)))
+    index = dataclasses.replace(
+        st.index, table=st.index.table.at[c, 2 * s + lane].set(
+            jnp.uint32(jkv.EXTENT_TAG)))
+    st = dataclasses.replace(st, pool=pool, index=index)
+    probe = np.concatenate([
+        keys[[kd, ke]], keys[:40], keys[2800:2830], keys[2960:3040],
+        rng.integers(0, 1 << 32, (40, 2), dtype=np.uint32)])
+    pk = np.full((256, 2), 0xFFFFFFFF, np.uint32)
+    pk[:len(probe)] = probe
+    return jcfg, tcfg, st, pk
+
+
+@pytest.mark.parametrize("slots", [16, 32])
+def test_plain_version_matches_pallas_kernel_and_composed(slots):
+    jcfg, tcfg, jst, pk = _seeded(slots)
+    assert jfused.supports(jcfg) and tfused.supports(tcfg)
+    tst = carry.state_from_numpy(jax_leaves(jst), tcfg, device="cpu")
+    keys = u32.from_numpy(pk, "cpu")
+
+    # the Pallas kernel's own outputs (interpret mode off the TPU)
+    table = jst.index.table
+    jout, jcause, jrows, jslots = jfused._pallas_get(
+        jnp.asarray(pk), table, None, jst.pool.pages, jst.pool.sums,
+        jst.evicted_filter.astype(jnp.int32), None, None, family="linear",
+        tiered=False, CL=table.shape[0], S=slots, W=1, Gmax=0, msb=True,
+        H=0, CC=0, nb=jcfg.evicted_sketch_bits,
+        tile=jfused.tile_for(len(pk)))
+    tout, tcause, trows, tslots = tfused.get_core_reference(
+        keys, tst.index.table, tst.pool.pages, tst.pool.sums,
+        tst.evicted_filter)
+    assert np.array_equal(u32.to_numpy(tout), np.asarray(jout)), "pages"
+    assert np.array_equal(tcause.numpy(), np.asarray(jcause)), "causes"
+    assert np.array_equal(trows.numpy(), np.asarray(jrows)), "rows"
+    assert np.array_equal(tslots.numpy(), np.asarray(jslots)), "slots"
+    codes = set(tcause.tolist())
+    assert {tfused.CAUSE_HIT, tfused.CAUSE_PAD, tfused.CAUSE_COLD,
+            tfused.CAUSE_EVICTED, tfused.CAUSE_EXT,
+            tfused.CAUSE_DIGEST} <= codes, f"causes exercised: {codes}"
+
+    # the wrapper on CPU tensors is the plain version, and launches nothing
+    before = tfused.launches
+    wout = tfused.fused_get(keys, tst.index.table, tst.pool.pages,
+                            tst.pool.sums, tst.evicted_filter)
+    assert tfused.launches == before
+    for a, b in zip(wout, (tout, tcause, trows, tslots)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("slots", [16, 32])
+def test_get_core_stats_match_both_jax_programs(slots):
+    """Pages, found mask and the 19-lane stats vector of the port's fused
+    and composed GETs equal the JAX composed program and the JAX fused
+    program; `misses == Σ miss_*`, with the digest and extent lanes hit."""
+    jcfg, tcfg, jst, pk = _seeded(slots)
+    s1, o1, f1 = jkv._get_core(jst, jcfg, jnp.asarray(pk))
+    s2, o2, f2 = jfused.get_core(jst, jcfg, jnp.asarray(pk))
+    assert np.array_equal(np.asarray(s1.stats), np.asarray(s2.stats))
+    keys = u32.from_numpy(pk, "cpu")
+    for get in (tfused.get_core, tkv._get_core):
+        tst = carry.state_from_numpy(jax_leaves(jst), tcfg, device="cpu")
+        leaves0 = carry.state_to_numpy(tst)
+        tst, out, found = get(tst, tcfg, keys)
+        assert np.array_equal(u32.to_numpy(out), np.asarray(o1))
+        assert np.array_equal(found.numpy(), np.asarray(f1))
+        assert np.array_equal(tst.stats.numpy(), np.asarray(s1.stats))
+        # a GET writes nothing but the stats vector
+        after = carry.state_to_numpy(tst)
+        assert all(np.array_equal(leaves0[k], after[k])
+                   for k in leaves0 if k != "stats")
+    st = dict(zip(tkv.STAT_NAMES, tst.stats.tolist()))
+    assert st["misses"] == sum(st[c] for c in tkv.MISS_CAUSE_NAMES)
+    assert st["miss_digest"] == st["corrupt_pages"] == 1
+    assert st["hits"] > 0 and st["miss_evicted"] > 0 and st["miss_cold"] > 0
+
+
+def test_state_carries_across_leaf_for_leaf():
+    jcfg, tcfg, jst, _ = _seeded(32)
+    leaves = jax_leaves(jst)
+    back = carry.state_to_numpy(carry.state_from_numpy(leaves, tcfg, "cpu"))
+    assert sorted(back) == sorted(leaves)
+    for k, v in leaves.items():
+        assert back[k].dtype == v.dtype and np.array_equal(back[k], v), k
+
+
+def _small_args(w=16, pw=8):
+    keys = torch.full((w, 2), -1, dtype=torch.int32)
+    table = torch.zeros((4, 4 * 16), dtype=torch.int32)
+    pages = torch.zeros((64, pw), dtype=torch.int32)
+    sums = torch.zeros(64, dtype=torch.int32)
+    sketch = torch.zeros(64, dtype=torch.bool)
+    return [keys, table, pages, sums, sketch]
+
+
+@pytest.mark.parametrize("arg,bad,err", [
+    (0, lambda t: t.to(torch.int64), TypeError),
+    (2, lambda t: t.t().contiguous().t(), ValueError),   # not contiguous
+    (3, lambda t: t[:32], ValueError),                   # sums != pool rows
+    (4, lambda t: t.to(torch.uint8), TypeError),
+    (1, lambda t: torch.zeros((3, 64), dtype=torch.int32), ValueError),
+    (2, lambda t: torch.zeros((64, 6), dtype=torch.int32), ValueError),
+    (0, lambda t: t.to("meta"), ValueError),             # other device
+])
+def test_wrapper_checks_its_arguments(arg, bad, err):
+    args = _small_args()
+    args[arg] = bad(args[arg])
+    with pytest.raises(err):
+        tfused.fused_get(*args)
+
+
+def test_wrapper_refuses_a_device_it_has_no_kernel_for():
+    args = [t.to("meta") for t in _small_args()]
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        tfused.fused_get(*args)
+
+
+def test_supports_gates_the_kernel_geometry():
+    assert tfused.supports(TKVConfig())
+    assert not tfused.supports(TKVConfig(paged=False))
+    assert not tfused.supports(TKVConfig(page_words=48))   # not pow2
+    assert not tfused.supports(TKVConfig(page_words=2))    # not 16-byte rows
+    assert not tfused.supports(TKVConfig(evicted_sketch_bits=96))
+
+
+def test_kernel_matches_plain_version_on_card():
+    """Needs a GPU (and nvcc): builds the kernel and holds it against the
+    plain version on the carried state. Skips elsewhere."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; run on the GPU machine")
+    jcfg, tcfg, jst, pk = _seeded(32)
+    tst = carry.state_from_numpy(jax_leaves(jst), tcfg, device="cuda")
+    args = (u32.from_numpy(pk, "cuda"), tst.index.table, tst.pool.pages,
+            tst.pool.sums, tst.evicted_filter)
+    before = tfused.launches
+    got = tfused.fused_get(*args)
+    want = tfused.get_core_reference(*args)
+    torch.cuda.synchronize()
+    assert tfused.launches == before + 1
+    for g, r in zip(got, want):
+        assert torch.equal(g, r)
