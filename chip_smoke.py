@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (`pmdfc_tpu_torch`) on one GPU.
 
-    python3 chip_smoke.py [--capacity-log2 21] [--seed 0]
+    python3 chip_smoke.py [--seed 0]
 
 Phases, each reported on its own line; any failure exits nonzero:
 
@@ -24,9 +24,14 @@ Phases, each reported on its own line; any failure exits nonzero:
              launched. Then phase 3's comparison again on this full-size
              state, with one page corrupted (DIGEST) and one slot tagged as
              an extent (EXT).
-5. times   — CUDA-event times per 2^14-key batch of each kernel and of its
-             plain version, the kernel's bound (bytes this batch must move
-             over 3.35 TB/s), and whole-path insert/GET rates.
+5. times   — CUDA-event device times per 2^14-key batch of each kernel and
+             of its plain version (queued behind a busy stream, so the
+             host's launch time is not counted; the host-driven loop is
+             reported beside), rotated over 8 distinct batches whose pages
+             (about 8 x 42 MB) far exceed the 50 MB L2, with one batch
+             repeated as the warm time beside it; the kernel's bound (the
+             bytes these batches must move over 3.35 TB/s); and whole-path
+             insert/GET rates.
 
 The next-to-last line is one JSON object naming each kernel with its
 launches, error and times; the last is `{"ok": true, "device": ...}`.
@@ -41,6 +46,7 @@ import sys
 import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published memory rate
+SECTOR = 32  # bytes: the least the card reads from memory for a scattered word
 
 
 def log(phase: str, msg: str) -> None:
@@ -169,18 +175,43 @@ class Smoke:
             undo()
 
 
-def time_ms(torch, fn, iters: int, warmup: int = 3) -> float:
-    for _ in range(warmup):
-        fn()
+def time_ms(torch, fns, iters: int, warmup: int = 3,
+            device_only: bool = False) -> float:
+    """Mean ms per call over `iters` calls taken round-robin from `fns`.
+    With `device_only`, the stream is first held busy (about 50 ms) so the
+    host queues every call before the first runs: the events then see the
+    device's time alone, not the host's time to launch."""
+    for i in range(warmup):
+        fns[i % len(fns)]()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    if device_only:
+        torch.cuda._sleep(100_000_000)  # cycles
     start.record()
-    for _ in range(iters):
-        fn()
+    for i in range(iters):
+        fns[i % len(fns)]()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def fused_get_bytes(fused, causes, w: int, s: int, pw: int,
+                    sketch_bytes: int) -> int:
+    """Least bytes one fused GET must move for a batch with these cause
+    counts: the keys in, the outputs out, and for each key only what its
+    cause reads. Padding keys probe nothing; a scattered word costs one
+    sector."""
+    found = (causes[fused.CAUSE_HIT] + causes[fused.CAUSE_EXT]
+             + causes[fused.CAUSE_DIGEST])
+    index_miss = causes[fused.CAUSE_COLD] + causes[fused.CAUSE_EVICTED]
+    valid = w - causes[fused.CAUSE_PAD]
+    page = causes[fused.CAUSE_HIT] + causes[fused.CAUSE_DIGEST]
+    return (w * (8 + 4 * pw + 12)      # keys in; page, cause, row, slot out
+            + valid * 8 * s            # khi and klo halves of the bucket row
+            + found * 2 * SECTOR       # vhi and vlo of the matching lane
+            + page * (4 * pw + SECTOR)  # the page and its digest word
+            + min(sketch_bytes, index_miss * 2 * SECTOR))  # two sketch bytes
 
 
 def profile_breakdown(torch, fn, iters: int) -> str:
@@ -211,8 +242,6 @@ def profile_breakdown(torch, fn, iters: int) -> str:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--capacity-log2", type=int, default=21,
-                    help="index slots (= 4 KiB pool pages) as a power of two")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
@@ -255,7 +284,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 4. main path
-    n_slots = 1 << args.capacity_log2
+    n_slots = 1 << 21
     cfg = KVConfig(index=IndexConfig(capacity=n_slots),
                    bloom=BloomConfig(num_bits=1 << 24, num_hashes=4))
     pw = cfg.page_words
@@ -265,7 +294,7 @@ def main() -> int:
         f"{kv.state.pool.pages.numel() * 4 / 2**30:.2f} GiB, bloom "
         f"{cfg.bloom.num_bits} counters, sketch {cfg.evicted_sketch_bits} bits")
     hi = 0x80000001  # hi word >= 2^31: unsigned sort order matters
-    ins_b, get_b = min(1 << 16, n_slots // 16), 1 << 14
+    ins_b, get_b = 1 << 16, 1 << 14
     n_fill = (3 * n_slots // 4) // ins_b * ins_b
     # key index i <-> key (hi, i); status: 0 never inserted, 1 present,
     # 2 capacity-evicted, 3 deleted, 4 dropped
@@ -378,30 +407,48 @@ def main() -> int:
                     sm.keys_of(hi, present[:4096]), "full")
 
     # 5. times at the main path's batch width
-    keys = mixed(get_b, True)
+    # 8 distinct batches: their pages (about 8 x 42 MB) far exceed the
+    # 50 MB L2, so launches rotated over them read from memory, as a
+    # stream of fresh requests does; one batch repeated is the warm time.
     st = kv.state
-    args_ = (keys, st.index.table, st.pool.pages, st.pool.sums,
-             st.evicted_filter)
-    causes = sm.compare(keys, st, "timed batch")
-    ms = time_ms(torch, lambda: fused.fused_get(*args_), 50)
-    plain_ms = time_ms(torch, lambda: fused.get_core_reference(*args_), 5)
     s = st.index.table.shape[1] // 4
-    page_keys = causes[fused.CAUSE_HIT] + causes[fused.CAUSE_DIGEST]
-    nbytes = (get_b * (8 + 16 * s + 2 + 12 + 4 * pw)
-              + page_keys * (4 * pw + 4))
-    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    log("times", f"fused_get w={get_b}: kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes} bytes, "
-        f"{page_keys} page reads) = {bound_ms / ms:.1%} of the memory "
+    batches = [mixed(get_b, True) for _ in range(8)]
+    nbytes = [fused_get_bytes(fused, sm.compare(k, st, f"timed batch {i}"),
+                              get_b, s, pw, st.evicted_filter.numel())
+              for i, k in enumerate(batches)]
+    kern = [lambda k=k: fused.fused_get(k, st.index.table, st.pool.pages,
+                                        st.pool.sums, st.evicted_filter)
+            for k in batches]
+    plain = [lambda k=k: fused.get_core_reference(
+        k, st.index.table, st.pool.pages, st.pool.sums, st.evicted_filter)
+        for k in batches]
+    ms = time_ms(torch, kern, 48, device_only=True)
+    warm_ms = time_ms(torch, kern[:1], 48, device_only=True)
+    host_ms = time_ms(torch, kern, 48)
+    plain_ms = time_ms(torch, plain, 8, device_only=True)
+    mean_bytes = sum(nbytes) / len(nbytes)
+    bound_ms = mean_bytes / HBM_BYTES_PER_S * 1e3
+    warm_bound_ms = nbytes[0] / HBM_BYTES_PER_S * 1e3
+    log("times", f"fused_get w={get_b}, rotated over {len(batches)} "
+        f"batches: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({mean_bytes:.0f} bytes per batch, "
+        f"{min(nbytes)}..{max(nbytes)}) = {bound_ms / ms:.1%} of the memory "
         f"rate; no single PyTorch call computes this function, so there is "
         f"no library time ({smi})")
-    get_ms = time_ms(torch, lambda: kv.get(keys), 20)
-    log("times", f"whole-path KV.get: {get_ms:.3f} ms per {get_b} keys = "
-        f"{get_b / get_ms * 1e3:.0f} keys/s; fill {n_fill / t_ins:.0f} "
-        f"pages/s ({smi})")
+    log("times", f"fused_get w={get_b}, one batch repeated (warm L2): "
+        f"kernel {warm_ms:.4f} ms, bound {warm_bound_ms:.4f} ms "
+        f"({nbytes[0]} bytes) = {warm_bound_ms / warm_ms:.1%} ({smi})")
+    log("times", f"fused_get w={get_b}, rotated, launched back to back "
+        f"from the host with no queue ahead: {host_ms:.4f} ms per call "
+        f"(wrapper and launch on the host included) ({smi})")
+    kv_get = [lambda k=k: kv.get(k) for k in batches]
+    get_ms = time_ms(torch, kv_get, 24)
+    log("times", f"whole-path KV.get, rotated: {get_ms:.3f} ms per {get_b} "
+        f"keys = {get_b / get_ms * 1e3:.0f} keys/s; fill "
+        f"{n_fill / t_ins:.0f} pages/s ({smi})")
     try:
         log("times", "torch.profiler, KV.get of 2^14 keys: "
-            + profile_breakdown(torch, lambda: kv.get(keys), 5))
+            + profile_breakdown(torch, kv_get[0], 5))
     except Exception as e:  # a measurement, not a check: report, go on
         log("times", f"torch.profiler breakdown not measured: {e!r}")
 
