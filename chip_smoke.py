@@ -6,35 +6,51 @@
 Phases, each reported on its own line; any failure exits nonzero:
 
 1. env     — the card (nvidia-smi name and power limit), torch, CUDA, nvcc.
-2. build   — compiles every kernel of the path from `pmdfc_tpu_torch/ops/csrc`.
+2. build   — compiles every kernel of the paths from `pmdfc_tpu_torch/ops/csrc`
+             (one source, `fused_get.cu`, holding both fused-GET variants).
 3. kernel  — each kernel against its plain PyTorch version, bit for bit
-             (tolerance 0: all integer arithmetic), on small states with
-             S=16 and S=32 slots per cluster, at w in {16, 2^10, 2^14}, over
-             batches that hold every miss cause.
-4. main    — the main path through the `KV` host class on the default
-             device at the serving size: linear index with 2^21 slots, 4 KiB
-             pages in an 8 GiB flat pool, a 2^24-bit counting bloom, the
-             evicted-key sketch. Fill 75% of the slots in 2^16-key inserts;
-             serve mixed 2^14-key GET and get_compact batches (present,
-             never-inserted, capacity-evicted, padding); delete; serve
-             again with deleted keys mixed in. Every hit must return the
-             exact page inserted (pages are a function of key and word
-             index, made on the device), every present key must hit,
-             `misses == Σ miss_*`, and every kernel of the path must have
-             launched. Then phase 3's comparison again on this full-size
-             state, with one page corrupted (DIGEST) and one slot tagged as
-             an extent (EXT).
-5. times   — CUDA-event device times per 2^14-key batch of each kernel and
-             of its plain version (queued behind a busy stream, so the
-             host's launch time is not counted; the host-driven loop is
-             reported beside), rotated over 8 distinct batches whose pages
+             (tolerance 0: all integer arithmetic), on small states at w in
+             {16, 2^10, 2^14}, over batches that hold every miss cause (real
+             extent covers for EXT, one corrupted page for DIGEST):
+             linear·flat with S=16 and S=32 slots per cluster, cceh·flat with
+             S=16 and S=32 lanes per window, and cceh·flat on an extendible
+             (LSB directory) state, calling the wrapper with msb=False.
+4. main    — each family's main path through the `KV` host class on the
+             default device at the serving size, 2^21 slots and 4 KiB pages
+             in an 8 GiB flat pool, the evicted-key sketch:
+             - linear: 65,536 clusters of 32, a 2^24-bit counting bloom;
+             - CCEH: the JAX defaults (1024-slot segments, 32-slot probe
+               windows, split headroom 1, 64 splits per round) at capacity
+               2^20, so 1024 segments growing to 2048 (Gmax 11, an 8 KiB
+               directory, a 32 MiB table), the default bloom.
+             Fill 75% of the slots in 2^16-key inserts (CCEH: splits up to
+             the headroom, then in-window evictions; a third of the way in,
+             one replicated directory entry is damaged, the keys behind it
+             stop hitting, and `recovery()` repairs it); serve mixed 2^14-key
+             GET and get_compact batches (present, never-inserted,
+             capacity-evicted, padding); delete; serve again with deleted
+             keys mixed in. Every hit must return the exact page inserted
+             (pages are a function of key and word index, made on the
+             device), every present key must hit, every miss is zeroed,
+             `misses == Σ miss_*`, and the family's kernel must have
+             launched. CCEH then inserts a few hundred extents (bases and
+             values around 2^31 and 2^32) and checks `get_extent`'s
+             addresses, a page GET of a cover (a cold miss through EXT), a
+             page put over a cover (converted), and `find_anyway` on 16
+             keys. Then phase 3's comparison on the full-size state.
+5. times   — per family: CUDA-event device times per 2^14-key batch of the
+             kernel and of its plain version (queued behind a busy stream,
+             so the host's launch time is not counted; the host-driven loop
+             is reported beside), rotated over 8 distinct batches whose pages
              (about 8 x 42 MB) far exceed the 50 MB L2, with one batch
              repeated as the warm time beside it; the kernel's bound (the
-             bytes these batches must move over 3.35 TB/s); and whole-path
-             insert/GET rates.
+             bytes these batches must move over 3.35 TB/s); whole-path GET
+             and insert rates and a torch.profiler breakdown of `KV.get`.
 
-The next-to-last line is one JSON object naming each kernel with its
-launches, error and times; the last is `{"ok": true, "device": ...}`.
+The linear KV is freed before the CCEH fill, so the two 8 GiB pools never
+share the card. The next-to-last line is one JSON object naming each
+kernel with its launches, error and times; the last is
+`{"ok": true, "device": ...}`.
 """
 
 from __future__ import annotations
@@ -47,6 +63,15 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published memory rate
 SECTOR = 32  # bytes: the least the card reads from memory for a scattered word
+PAGE_HI = 0x80000001  # hi word of page keys (>= 2^31: unsigned order matters)
+EXT_HI = 0x80000002   # hi word of extent keys
+INS_B, GET_B = 1 << 16, 1 << 14
+# the serving size: 2^21 slots for each family (CCEH's capacity is its
+# initial segments' slots; one split of each gives the 2^21)
+DEVICE = "cuda"
+LINEAR_INDEX = dict(capacity=1 << 21)
+CCEH_INDEX = dict(capacity=1 << 20)
+CAUSE_NAMES = "(hit,pad,cold,evicted,ext,parked,stale,digest)"
 
 
 def log(phase: str, msg: str) -> None:
@@ -60,19 +85,29 @@ def nvidia_smi() -> str:
         capture_output=True, text=True, check=True).stdout.strip()
 
 
+def variant_of(state) -> str:
+    return ("fused_get_cceh_flat" if hasattr(state.index, "dirr")
+            else "fused_get_linear_flat")
+
+
 class Smoke:
     def __init__(self, seed: int):
+        import numpy as np
         import torch
 
         from pmdfc_tpu_torch import kv as kv_mod
         from pmdfc_tpu_torch.ops import fused
         from pmdfc_tpu_torch.utils import u32
+        from pmdfc_tpu_torch.utils.keys import is_invalid
 
-        self.torch, self.kv_mod, self.fused, self.u32 = torch, kv_mod, fused, u32
-        self.dev = torch.device("cuda")
+        self.np, self.torch, self.kv_mod, self.fused, self.u32 = (
+            np, torch, kv_mod, fused, u32)
+        self.is_invalid = is_invalid
+        self.dev = torch.device(DEVICE)
         self.gen = torch.Generator(device=self.dev)
         self.gen.manual_seed(seed)
-        self.max_err = 0
+        self.rng = np.random.default_rng(seed)
+        self.max_err: dict[str, int] = {}
 
     # -- data made on the device --------------------------------------------
     def keys_of(self, hi: int, lo):
@@ -92,87 +127,113 @@ class Smoke:
 
     def pick(self, idx, n: int):
         """n rows of idx drawn uniformly (with replacement)."""
-        torch = self.torch
-        r = torch.randint(0, idx.shape[0], (n,), device=self.dev,
-                          generator=self.gen)
+        r = self.torch.randint(0, idx.shape[0], (n,), device=self.dev,
+                               generator=self.gen)
         return idx[r]
 
     # -- kernel against plain -----------------------------------------------
+    @staticmethod
+    def kernel_args(state):
+        """fused_get's tensors and keywords for a state (with its directory
+        and `msb` flag for CCEH and extendible hashing)."""
+        ix = state.index
+        kw = dict(dirr=ix.dirr, msb=ix.msb) if hasattr(ix, "dirr") else {}
+        return (ix.table, state.pool.pages, state.pool.sums,
+                state.evicted_filter), kw
+
     def compare(self, keys, state, label: str):
-        """Kernel and plain version on the same inputs, bit for bit."""
+        """Kernel and plain version on the same inputs, bit for bit;
+        -> the batch's cause counts."""
         torch, fused = self.torch, self.fused
-        args = (keys, state.index.table, state.pool.pages, state.pool.sums,
-                state.evicted_filter)
-        got = fused.fused_get(*args)
-        want = fused.get_core_reference(*args)
+        args, kw = self.kernel_args(state)
+        got = fused.fused_get(keys, *args, **kw)
+        want = fused.get_core_reference(keys, *args, **kw)
         torch.cuda.synchronize()
         err = max(int((g.to(torch.int64) - r.to(torch.int64)).abs().max())
                   if g.numel() else 0 for g, r in zip(got, want))
-        self.max_err = max(self.max_err, err)
-        causes = torch.bincount(want[1], minlength=8).tolist()
+        v = variant_of(state)
+        self.max_err[v] = max(self.max_err.get(v, 0), err)
         if err:
             raise AssertionError(f"{label}: kernel differs from plain "
                                  f"version (max abs err {err})")
-        return causes
+        return torch.bincount(want[1], minlength=8).tolist()
 
-    def small_state(self, s: int):
-        """A small KV on the card with evictions, deletes and a sketch."""
+    def add_extents(self, kv, n: int):
+        """n extents of a few pages under EXT_HI -> their base keys."""
+        bases = [1000 * (j + 1) for j in range(n)]
+        for j, base in enumerate(bases):
+            kv.insert_extent(self.np.array([EXT_HI, base], self.np.uint32),
+                             self.np.array([j, 4096 * j], self.np.uint32),
+                             1 + 7 * j)
+        return self.keys_of(EXT_HI, self.torch.tensor(bases, device=self.dev))
+
+    def small_state(self, kind: str, s: int):
+        """A small KV on the card with evictions (CCEH: and splits),
+        deletes, real extent covers and a sketch."""
         torch, kv_mod = self.torch, self.kv_mod
-        from pmdfc_tpu_torch.config import IndexConfig, KVConfig
+        from pmdfc_tpu_torch.config import IndexConfig, IndexKind, KVConfig
 
-        cfg = KVConfig(index=IndexConfig(capacity=2048, cluster_slots=s),
-                       page_words=64, evicted_sketch_bits=1 << 10)
-        kv = kv_mod.KV(cfg)
-        lo = torch.randint(0, 1 << 32, (3072,), device=self.dev,
+        if kind == "linear":
+            ix, n = IndexConfig(capacity=2048, cluster_slots=s), 3072
+        else:  # 4 segments of 512 slots growing to 8, then evictions
+            ix = IndexConfig(kind=IndexKind(kind), capacity=2048,
+                             segment_slots=512, probe_window=s)
+            n = 6144
+        kv = kv_mod.KV(KVConfig(index=ix, page_words=64,
+                                evicted_sketch_bits=1 << 14), device=self.dev)
+        lo = torch.randint(0, 1 << 32, (n,), device=self.dev,
                            generator=self.gen)
         keys = self.keys_of(0x80000003, lo)
-        for i in range(0, 3072, 1024):
+        for i in range(0, n, 1024):
             kv.insert(keys[i:i + 1024], self.pages_of(keys[i:i + 1024], 64))
-        kv.delete(keys[2048:2200])
+        covers = self.add_extents(kv, 4)
+        kv.delete(keys[n - 1024:n - 872])
         absent = self.keys_of(7, torch.randint(0, 1 << 32, (512,),
                                                device=self.dev,
                                                generator=self.gen))
         pool = torch.cat([keys, absent,
                           torch.full((64, 2), -1, dtype=torch.int32,
                                      device=self.dev)])
-        return kv, pool, keys
+        return kv, pool, keys[:2048], covers
 
-    def poke(self, kv, keys):
-        """Corrupt one present key's page word and tag another present
-        key's slot as an extent; returns an undo function."""
-        from pmdfc_tpu_torch.models import linear
+    def poke(self, kv, keys, covers):
+        """Corrupt one present key's page word; keep up to 4 of the cover
+        keys that are live extent entries. -> (probe head: the corrupted
+        key and those covers, undo)."""
+        from pmdfc_tpu_torch.models.base import get_index_ops
 
+        get_batch = get_index_ops(kv.config.index.kind).get_batch
         st = kv.state
-        res = linear.get_batch(st.index, keys)
-        hit = res.found.nonzero().flatten()
-        kd, ke = int(hit[0]), int(hit[1])
+        res = get_batch(st.index, keys)
+        kd = int(res.found.nonzero().flatten()[0])
         row = int(res.values[kd, 1])
-        slot = int(res.slots[ke])
-        s = st.index.table.shape[1] // 4
-        c, lane = slot // s, slot % s
+        cres = get_batch(st.index, covers)
+        live = cres.found & (cres.values[:, 0] == self.fused.EXTENT_TAG_I32)
+        if not bool(live.any()):
+            raise AssertionError("no live extent cover to probe")
         old_word = st.pool.pages[row, 0].clone()
-        old_vhi = st.index.table[c, 2 * s + lane].clone()
         st.pool.pages[row, 0] ^= 1 << 7
-        st.index.table[c, 2 * s + lane] = self.fused.EXTENT_TAG_I32
 
         def undo():
             st.pool.pages[row, 0] = old_word
-            st.index.table[c, 2 * s + lane] = old_vhi
 
-        return keys[[kd, ke]], undo
+        return self.torch.cat([keys[kd:kd + 1], covers[live][:4]]), undo
 
-    def kernel_phase(self, kv, pool, present, label: str):
+    def kernel_phase(self, kv, pool, present, covers, label: str):
         torch = self.torch
-        poked, undo = self.poke(kv, present)
-        try:
-            for w in (16, 1 << 10, 1 << 14):
-                keys = torch.cat([poked, self.pick(pool, w - 2)])
-                causes = self.compare(keys, kv.state, f"{label} w={w}")
-                log("kernel", f"{label} w={w}: kernel == plain, causes "
-                    f"(hit,pad,cold,evicted,ext,parked,stale,digest)="
-                    f"{causes}")
-        finally:
-            undo()
+        head, undo = self.poke(kv, present, covers)
+        for w in (16, 1 << 10, 1 << 14):
+            npad = w // 64  # padding rides every batch but the smallest
+            keys = torch.cat([head, self.pick(pool, w - head.shape[0] - npad),
+                              torch.full((npad, 2), -1, dtype=torch.int32,
+                                         device=self.dev)])
+            causes = self.compare(keys, kv.state, f"{label} w={w}")
+            log("kernel", f"{label} w={w}: kernel == plain, causes "
+                f"{CAUSE_NAMES}={causes}")
+            if w >= 1 << 10 and not all(causes[c] for c in (0, 1, 2, 3, 4,
+                                                            7)):
+                raise AssertionError(f"{label} w={w}: a cause is missing")
+        undo()
 
 
 def time_ms(torch, fns, iters: int, warmup: int = 3,
@@ -197,18 +258,20 @@ def time_ms(torch, fns, iters: int, warmup: int = 3,
 
 
 def fused_get_bytes(fused, causes, w: int, s: int, pw: int,
-                    sketch_bytes: int) -> int:
+                    sketch_bytes: int, dir_bytes: int = 0) -> int:
     """Least bytes one fused GET must move for a batch with these cause
     counts: the keys in, the outputs out, and for each key only what its
     cause reads. Padding keys probe nothing; a scattered word costs one
-    sector."""
+    sector. CCEH reads a directory word per valid key first (at most the
+    whole directory)."""
     found = (causes[fused.CAUSE_HIT] + causes[fused.CAUSE_EXT]
              + causes[fused.CAUSE_DIGEST])
     index_miss = causes[fused.CAUSE_COLD] + causes[fused.CAUSE_EVICTED]
     valid = w - causes[fused.CAUSE_PAD]
     page = causes[fused.CAUSE_HIT] + causes[fused.CAUSE_DIGEST]
     return (w * (8 + 4 * pw + 12)      # keys in; page, cause, row, slot out
-            + valid * 8 * s            # khi and klo halves of the bucket row
+            + min(dir_bytes, valid * SECTOR)  # the directory words
+            + valid * 8 * s            # khi and klo halves of the table row
             + found * 2 * SECTOR       # vhi and vlo of the matching lane
             + page * (4 * pw + SECTOR)  # the page and its digest word
             + min(sketch_bytes, index_miss * 2 * SECTOR))  # two sketch bytes
@@ -240,6 +303,443 @@ def profile_breakdown(torch, fn, iters: int) -> str:
             f"top: {parts}")
 
 
+class MainPath:
+    """One index family's serving path through `KV` at the serving size.
+
+    Key index i <-> key (PAGE_HI, i); `status[i]`: 0 never inserted,
+    1 present, 2 capacity-evicted, 3 deleted, 4 dropped."""
+
+    def __init__(self, sm: Smoke, cfg, label: str):
+        torch = sm.torch
+        self.sm, self.label = sm, label
+        self.kv = sm.kv_mod.KV(cfg, device=sm.dev)
+        self.pw = cfg.page_words
+        self.n_slots = self.kv.capacity()
+        self.n_fill = (3 * self.n_slots // 4) // INS_B * INS_B
+        self.n_keys = self.n_fill + self.n_slots
+        self.status = torch.zeros(self.n_keys, dtype=torch.int8,
+                                  device=sm.dev)
+        self.evicted_covers: set[int] = set()  # lo words of EXT_HI keys
+        self.evictions = self.drops = 0
+        st = self.kv.state
+        log("main", f"{label}: KV on {self.kv.device}: {self.n_slots} slots, "
+            f"table {tuple(st.index.table.shape)}, pool "
+            f"{tuple(st.pool.pages.shape)} = "
+            f"{st.pool.pages.numel() * 4 / 2**30:.2f} GiB, bloom "
+            f"{cfg.bloom.num_bits} counters, sketch "
+            f"{cfg.evicted_sketch_bits} bits")
+
+    def track(self, res) -> None:
+        """Mark what an insert evicted: page keys turn status 2, extent
+        covers join `evicted_covers`."""
+        sm, u32 = self.sm, self.sm.u32
+        ev = res.evicted
+        if not isinstance(ev, sm.torch.Tensor):  # uint32 from a host call
+            ev = u32.from_numpy(ev, sm.dev)
+        ev = ev[~sm.is_invalid(ev)]
+        hi = u32.widen(ev[:, 0])
+        self.status[u32.widen(ev[hi == PAGE_HI, 1])] = 2
+        self.evicted_covers |= set(u32.widen(ev[hi == EXT_HI, 1]).tolist())
+        self.evictions += ev.shape[0]
+
+    def fill(self, start: int, stop: int) -> float:
+        """Insert key indices [start, stop) in INS_B batches -> seconds."""
+        sm, torch = self.sm, self.sm.torch
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for i in range(start, stop, INS_B):
+            lo = torch.arange(i, i + INS_B, device=sm.dev)
+            keys = sm.keys_of(PAGE_HI, lo)
+            res = self.kv.insert(keys, sm.pages_of(keys, self.pw))
+            self.status[lo] = torch.where(res.dropped, 4, 1).to(torch.int8)
+            self.drops += int(res.dropped.sum())
+            self.track(res)
+        torch.cuda.synchronize()
+        return time.monotonic() - t0
+
+    def counts(self):
+        return self.sm.torch.bincount(self.status.long(),
+                                      minlength=5).tolist()
+
+    def mixed(self, n: int, deleted: bool):
+        sm, torch, status = self.sm, self.sm.torch, self.status
+        present = (status == 1).nonzero().flatten()
+        evicted = (status == 2).nonzero().flatten()
+        never = torch.arange(self.n_fill, self.n_keys, device=sm.dev)
+        parts = [sm.pick(present, n * 5 // 8), sm.pick(never, n // 8)]
+        if evicted.numel():
+            parts.append(sm.pick(evicted, n // 8))
+        if deleted:
+            parts.append(sm.pick((status == 3).nonzero().flatten(), n // 16))
+        idx = torch.cat(parts)
+        keys = torch.cat([sm.keys_of(PAGE_HI, idx),
+                          torch.full((n - idx.numel(), 2), -1,
+                                     dtype=torch.int32, device=sm.dev)])
+        return keys[torch.randperm(n, device=sm.dev, generator=sm.gen)]
+
+    def check_get(self, keys, out, found, stats_before, label):
+        sm, kv = self.sm, self.kv
+        valid = ~sm.is_invalid(keys)
+        st = self.status[sm.u32.widen(keys[:, 1]).clamp(max=self.n_keys - 1)]
+        want = valid & (st == 1)
+        if not sm.torch.equal(found, want):
+            raise AssertionError(f"{label}: found mask != present keys "
+                                 f"({int((found != want).sum())} differ)")
+        if not sm.torch.equal(out[found], sm.pages_of(keys[found], self.pw)):
+            raise AssertionError(f"{label}: a hit returned wrong bytes")
+        if out[~found].any():
+            raise AssertionError(f"{label}: a miss returned nonzero bytes")
+        d = (kv.state.stats.long() - stats_before).tolist()
+        s = dict(zip(sm.kv_mod.STAT_NAMES, d))
+        causes = sum(s[c] for c in sm.kv_mod.MISS_CAUSE_NAMES)
+        counts = [int((valid & (st == k)).sum()) for k in range(5)]
+        if s["misses"] != causes:
+            raise AssertionError(f"{label}: misses {s['misses']} != "
+                                 f"sum of causes {causes}")
+        if s["misses"] > counts[0] + counts[2] + counts[3] + counts[4]:
+            raise AssertionError(f"{label}: more misses than lost keys")
+        if s["miss_evicted"] < counts[2]:
+            raise AssertionError(f"{label}: evicted keys not attributed")
+        return s, counts
+
+    def serve(self, rounds: int, deleted: bool, label: str):
+        sm, torch, kv = self.sm, self.sm.torch, self.kv
+        for _ in range(rounds):
+            keys = self.mixed(GET_B, deleted)
+            before = kv.state.stats.long()
+            out, found = kv.get(keys)
+            s, counts = self.check_get(keys, out, found, before,
+                                       f"{label} get")
+            before = kv.state.stats.long()
+            o2, order, f2, nfound, b = kv.get_compact_async(keys)
+            nf = int(nfound)
+            hits = found.nonzero().flatten()
+            if not (torch.equal(f2[:b], found) and nf == hits.numel()
+                    and torch.equal(order[:nf].long(), hits)
+                    and torch.equal(o2[:nf], out[hits])):
+                raise AssertionError(f"{label}: get_compact disagrees with get")
+            self.check_get(keys, out, found, before, f"{label} get_compact")
+        log("main", f"{self.label} {label}: {rounds} x (get + get_compact) of "
+            f"{GET_B} keys ok; last batch (never,present,evicted,deleted,"
+            f"dropped)={counts}, hits={s['hits']}, misses={s['misses']} "
+            f"(cold={s['miss_cold']}, evicted={s['miss_evicted']}, "
+            f"digest={s['miss_digest']})")
+
+    def delete(self):
+        sm = self.sm
+        gone = sm.pick((self.status == 1).nonzero().flatten(), GET_B).unique()
+        hit = self.kv.delete(sm.keys_of(PAGE_HI, gone))
+        if not bool(hit.all()):
+            raise AssertionError("delete missed present keys")
+        self.status[gone] = 3
+        log("main", f"{self.label} delete: {gone.numel()} keys, all hit")
+
+    def run(self, on_fill_step=None):
+        """Fill, serve, delete, serve -> fill seconds. `on_fill_step(i)`
+        runs after the fill batch that ends at key index i."""
+        t = 0.0
+        for i in range(0, self.n_fill, INS_B):
+            t += self.fill(i, i + INS_B)
+            if on_fill_step is not None:
+                on_fill_step(i + INS_B)
+        self.t_fill = t
+        log("main", f"{self.label} fill: {self.n_fill} pages in {t:.3f} s = "
+            f"{self.n_fill / t:.0f} pages/s; evictions {self.evictions}, "
+            f"drops {self.drops}; status counts (never,present,evicted,"
+            f"deleted,dropped)={self.counts()}")
+        self.serve(4, False, "serve")
+        self.delete()
+        self.serve(4, True, "serve after delete")
+
+
+def measure(sm: Smoke, path: MainPath, launches: int, dir_bytes: int = 0):
+    """Phase 5 for one family -> its `kernels` entry."""
+    torch, fused, kv = sm.torch, sm.fused, path.kv
+    st = kv.state
+    name = variant_of(st)
+    smi = nvidia_smi()
+    s = st.index.table.shape[1] // 4
+    args, kw = sm.kernel_args(st)
+    # 8 distinct batches: their pages (about 8 x 42 MB) far exceed the
+    # 50 MB L2, so launches rotated over them read from memory, as a
+    # stream of fresh requests does; one batch repeated is the warm time.
+    batches = [path.mixed(GET_B, True) for _ in range(8)]
+    nbytes = [fused_get_bytes(fused, sm.compare(k, st, f"timed batch {i}"),
+                              GET_B, s, path.pw, st.evicted_filter.numel(),
+                              dir_bytes)
+              for i, k in enumerate(batches)]
+    kern = [lambda k=k: fused.fused_get(k, *args, **kw) for k in batches]
+    plain = [lambda k=k: fused.get_core_reference(k, *args, **kw)
+             for k in batches]
+    ms = time_ms(torch, kern, 48, device_only=True)
+    warm_ms = time_ms(torch, kern[:1], 48, device_only=True)
+    host_ms = time_ms(torch, kern, 48)
+    plain_ms = time_ms(torch, plain, 8, device_only=True)
+    mean_bytes = sum(nbytes) / len(nbytes)
+    bound_ms = mean_bytes / HBM_BYTES_PER_S * 1e3
+    warm_bound_ms = nbytes[0] / HBM_BYTES_PER_S * 1e3
+    log("times", f"{name} w={GET_B}, rotated over {len(batches)} "
+        f"batches: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({mean_bytes:.0f} bytes per batch, "
+        f"{min(nbytes)}..{max(nbytes)}) = {bound_ms / ms:.1%} of the memory "
+        f"rate; no single PyTorch call computes this function, so there is "
+        f"no library time ({smi})")
+    log("times", f"{name} w={GET_B}, one batch repeated (warm L2): "
+        f"kernel {warm_ms:.4f} ms, bound {warm_bound_ms:.4f} ms "
+        f"({nbytes[0]} bytes) = {warm_bound_ms / warm_ms:.1%} ({smi})")
+    log("times", f"{name} w={GET_B}, rotated, launched back to back "
+        f"from the host with no queue ahead: {host_ms:.4f} ms per call "
+        f"(wrapper and launch on the host included) ({smi})")
+    kv_get = [lambda k=k: kv.get(k) for k in batches]
+    get_ms = time_ms(torch, kv_get, 24)
+    log("times", f"{path.label} whole-path KV.get, rotated: {get_ms:.3f} ms "
+        f"per {GET_B} keys = {GET_B / get_ms * 1e3:.0f} keys/s; fill "
+        f"{path.n_fill / path.t_fill:.0f} pages/s ({smi})")
+    try:
+        log("times", f"{path.label} torch.profiler, KV.get of 2^14 keys: "
+            + profile_breakdown(torch, kv_get[0], 5))
+    except Exception as e:  # a measurement, not a check: report, go on
+        log("times", f"{path.label} torch.profiler breakdown not measured: "
+            f"{e!r}")
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": "pmdfc_tpu_torch/ops/csrc/fused_get.cu",
+        "replaces": "pmdfc_tpu/ops/fused.py:414",
+        "launches": launches,
+        "max_abs_err": sm.max_err[name],
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "bytes",
+        "library_ms": None,
+    }
+
+
+def all_keys(sm: Smoke, path: MainPath):
+    """Every page key of the path plus padding: the full-size probe pool."""
+    torch = sm.torch
+    return torch.cat([sm.keys_of(PAGE_HI, torch.arange(path.n_keys,
+                                                        device=sm.dev)),
+                      torch.full((64, 2), -1, dtype=torch.int32,
+                                 device=sm.dev)])
+
+
+def run_linear(sm: Smoke):
+    from pmdfc_tpu_torch.config import BloomConfig, IndexConfig, KVConfig
+
+    cfg = KVConfig(index=IndexConfig(**LINEAR_INDEX),
+                   bloom=BloomConfig(num_bits=1 << 24, num_hashes=4))
+    path = MainPath(sm, cfg, "linear")
+    sm.fused.launches.clear()
+    sm.torch.cuda.synchronize()
+    path.run()
+    sm.torch.cuda.synchronize()
+    launches = sm.fused.launches["fused_get_linear_flat"]
+    if launches <= 0:
+        raise AssertionError("the linear main path never launched its kernel")
+    check_stats(sm, path)
+
+    # 3, continued: kernel against plain on the full-size state, with
+    # real extent covers for EXT
+    present = (path.status == 1).nonzero().flatten()[:4096]
+    covers = sm.add_extents(path.kv, 4)
+    sm.kernel_phase(path.kv, all_keys(sm, path),
+                    sm.keys_of(PAGE_HI, present), covers, "linear full")
+    return measure(sm, path, launches)
+
+
+def check_stats(sm: Smoke, path: MainPath) -> None:
+    stats = path.kv.stats()
+    if stats["misses"] != sum(stats[c] for c in sm.kv_mod.MISS_CAUSE_NAMES):
+        raise AssertionError("misses != sum of miss causes")
+    log("main", f"{path.label}: {dict(sm.fused.launches)} launches on the "
+        f"main path; utilization {path.kv.utilization():.4f}; stats "
+        f"{json.dumps(stats)}")
+
+
+def recovery_drill(sm: Smoke, path: MainPath) -> None:
+    """Damage one replicated directory entry: the present keys behind it
+    stop hitting; `recovery()` restores the directory and they hit
+    byte-exact again."""
+    torch, u32, kv = sm.torch, sm.u32, path.kv
+    from pmdfc_tpu_torch.utils.hashing import hash_u64
+
+    ix = kv.state.index
+    saved = ix.dirr.clone()
+    dirr, ld = saved.tolist(), ix.ld.tolist()
+    gmax = len(dirr).bit_length() - 1
+    i = next((i for i in range(len(dirr))
+              if i & ((1 << (gmax - ld[dirr[i]])) - 1)), None)
+    if i is None:
+        raise AssertionError("no replicated directory entry to damage")
+    present = (path.status == 1).nonzero().flatten()
+    keys = sm.keys_of(PAGE_HI, present)
+    bucket = hash_u64(keys[:, 0], keys[:, 1]) >> (32 - gmax)
+    behind = keys[bucket == i]
+    ix.dirr[i] = (dirr[i] + 1) % len(dirr)
+    _, found = kv.get(behind)
+    hidden = int((~found).sum())
+    if hidden != behind.shape[0] or hidden == 0:
+        raise AssertionError(f"damaged entry {i} hid {hidden} of "
+                             f"{behind.shape[0]} keys")
+    kv.recovery()
+    if not torch.equal(ix.dirr, saved):
+        raise AssertionError("recovery() did not restore the directory")
+    before = kv.state.stats.long()
+    out, found = kv.get(behind)
+    path.check_get(behind, out, found, before, "after recovery")
+    log("main", f"{path.label} recovery: directory entry {i} of "
+        f"{len(dirr)} damaged, {hidden} present keys behind it missed; "
+        f"recovery() restored the directory, all {hidden} hit byte-exact "
+        f"(nseg {int(ix.nseg)}, gdepth {u32.widen(ix.gdepth).item()})")
+
+
+def extent_phase(sm: Smoke, path: MainPath):
+    """A few hundred extents on the CCEH path -> live cover base keys."""
+    np, torch, kv, kv_mod = sm.np, sm.torch, path.kv, sm.kv_mod
+    cfg = kv.config
+    lengths = [1, 2, 3, 7, 64, 100, 255, 1000, 4096, 3000, 33, 517]
+    vlos = [0x7FFFF000, 0xFFFFF000, 0x7FF00000, 0xFFF80000, 0, 0x12345000]
+    exts = []  # (base, length, value words)
+    for j in range(298):
+        base = (j + 1) * (1 << 22) + int(sm.rng.integers(0, 4096))
+        vlo = (vlos[j % len(vlos)] - 4096 * (j % 5)) % (1 << 32)
+        exts.append((base, lengths[j % len(lengths)], (j, vlo)))
+    exts += [((1 << 31) - 1500, 3000, (7, 0x7FFFF800)),   # base across 2^31
+             ((1 << 32) - 5000, 4096, (8, 0xFFFFE000))]   # base near 2^32
+    covers, uncovered = [], 0
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for base, n, val in exts:
+        res, unc = kv.insert_extent(np.array([EXT_HI, base], np.uint32),
+                                    np.array(val, np.uint32), n)
+        path.track(res)
+        bases, _ = kv_mod._covers(base, n, cfg.extent_max_covers,
+                                  cfg.extent_max_height)
+        covers.append([b for b in bases if b != 0xFFFFFFFF])
+        uncovered += unc
+    torch.cuda.synchronize()
+    t_ext = time.monotonic() - t0
+
+    # probe: offsets inside each run and just past it. A key is found
+    # through any live cover of its own extent that one of GetExtent's
+    # height-masked probes names (extents are disjoint, so no other
+    # record spans it), and its address is value + 4096 * offset.
+    probe, expect = [], []
+    heights = range(cfg.extent_max_height)
+    for (base, n, val), cb in zip(exts, covers):
+        live = set(cb) - path.evicted_covers
+        for o in (0, n - 1, n // 2, int(sm.rng.integers(0, n)), n + 3):
+            lo = base + o
+            hit = o < n and any((lo >> h) << h in live for h in heights)
+            probe.append([EXT_HI, lo])
+            expect.append((hit, (((val[0] << 32) | val[1]) + 4096 * o)
+                           % (1 << 64)))
+    keys = sm.u32.from_numpy(np.array(probe, np.uint32), sm.dev)
+    before = kv.state.stats.long()
+    out, found = kv.get_extent(keys)
+    got = sm.u32.to_numpy(out).astype(np.uint64)
+    addr = (got[:, 0] << np.uint64(32)) | got[:, 1]
+    found = found.cpu().numpy()
+    want_found = np.array([e[0] for e in expect])
+    if not np.array_equal(found, want_found):
+        raise AssertionError(f"get_extent: found mask differs at "
+                             f"{int((found != want_found).sum())} keys")
+    want = np.array([e[1] for e in expect], np.uint64)
+    if not np.array_equal(addr[found], want[found]) or addr[~found].any():
+        raise AssertionError("get_extent: wrong address")
+    d = dict(zip(kv_mod.STAT_NAMES,
+                 (kv.state.stats.long() - before).tolist()))
+    if d["misses"] != sum(d[c] for c in kv_mod.MISS_CAUSE_NAMES):
+        raise AssertionError("get_extent: misses != sum of causes")
+
+    # a page GET of a live cover is a cold miss (cause EXT); a page put
+    # over a cover converts it into a page entry
+    live = [b for cb in covers for b in cb if b not in path.evicted_covers]
+    ck = sm.keys_of(EXT_HI, torch.tensor(live[:256], device=sm.dev))
+    before = kv.state.stats.long()
+    out, found = kv.get(ck)
+    d = dict(zip(kv_mod.STAT_NAMES,
+                 (kv.state.stats.long() - before).tolist()))
+    if found.any() or out.any() or d["miss_cold"] != ck.shape[0] \
+            or d["misses"] != ck.shape[0]:
+        raise AssertionError(f"page GET of covers: {d}")
+    conv = ck[:8]
+    res = kv.insert(conv, sm.pages_of(conv, path.pw))
+    path.track(res)
+    out, found = kv.get(conv)
+    if not (found.all() and torch.equal(out, sm.pages_of(conv, path.pw))):
+        raise AssertionError("a page put over a cover did not convert it")
+    log("main", f"{path.label} extents: {len(exts)} inserted in "
+        f"{t_ext:.3f} s ({sum(map(len, covers))} covers, {uncovered} pages "
+        f"uncovered, {len(path.evicted_covers)} covers evicted); get_extent "
+        f"of {len(probe)} keys: {int(want_found.sum())} addresses exact, the "
+        f"rest missed as expected; page GET of "
+        f"{ck.shape[0]} covers: all cold misses; 8 page puts over covers "
+        f"converted them")
+    return sm.keys_of(EXT_HI, torch.tensor(live[8:264], device=sm.dev))
+
+
+def find_anyway_check(sm: Smoke, path: MainPath) -> None:
+    torch, kv, status = sm.torch, path.kv, path.status
+    idx = torch.cat([sm.pick((status == 1).nonzero().flatten(), 8),
+                     sm.pick((status >= 2).nonzero().flatten(), 4),
+                     torch.arange(path.n_fill, path.n_fill + 4,
+                                  device=sm.dev)])
+    keys = sm.keys_of(PAGE_HI, idx)
+    vals, found, slot = kv.find_anyway(keys)
+    res = kv._ops.get_batch(kv.state.index, keys)
+    if not (torch.equal(found, status[idx] == 1)
+            and torch.equal(found, res.found)
+            and torch.equal(slot, res.slots)
+            and torch.equal(vals[found], res.values[found])):
+        raise AssertionError("find_anyway disagrees with the hashed probe")
+    log("main", f"{path.label} find_anyway: 16 keys scanned over "
+        f"{path.n_slots} slots, {int(found.sum())} found, slots and values "
+        f"equal to the hashed probe's")
+
+
+def run_cceh(sm: Smoke):
+    from pmdfc_tpu_torch.config import IndexConfig, IndexKind, KVConfig
+
+    cfg = KVConfig(index=IndexConfig(kind=IndexKind.CCEH, **CCEH_INDEX))
+    path = MainPath(sm, cfg, "cceh")
+    ix = path.kv.state.index
+    log("main", f"cceh: {int(ix.nseg)} segments of "
+        f"{cfg.index.segment_slots} slots, directory {ix.dirr.numel()} "
+        f"entries ({ix.dirr.numel() * 4} bytes), up to {ix.ld.numel()} "
+        f"segments, {ix.rounds} insert rounds, {ix.k_splits} splits a round")
+    third = path.n_fill // 3 // INS_B * INS_B
+
+    def step(i):
+        if i == third:
+            log("main", f"cceh after {i} pages: nseg {int(ix.nseg)}, gdepth "
+                f"{sm.u32.widen(ix.gdepth).item()}, evictions "
+                f"{path.evictions}")
+            recovery_drill(sm, path)
+
+    sm.fused.launches.clear()
+    sm.torch.cuda.synchronize()
+    path.run(step)
+    log("main", f"cceh after the fill: nseg {int(ix.nseg)}, gdepth "
+        f"{sm.u32.widen(ix.gdepth).item()}, evictions {path.evictions}, "
+        f"drops {path.drops}")
+    covers = extent_phase(sm, path)
+    find_anyway_check(sm, path)
+    sm.torch.cuda.synchronize()
+    launches = sm.fused.launches["fused_get_cceh_flat"]
+    if launches <= 0:
+        raise AssertionError("the CCEH main path never launched its kernel")
+    check_stats(sm, path)
+
+    # 3, continued: kernel against plain on the full-size state
+    present = (path.status == 1).nonzero().flatten()[:4096]
+    sm.kernel_phase(path.kv, all_keys(sm, path),
+                    sm.keys_of(PAGE_HI, present), covers, "cceh full")
+    return measure(sm, path, launches, dir_bytes=ix.dirr.numel() * 4)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -252,9 +752,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
 
-    from pmdfc_tpu_torch.config import BloomConfig, IndexConfig, KVConfig
     from pmdfc_tpu_torch.ops import _build
-    from pmdfc_tpu_torch.utils.keys import is_invalid
 
     # 1. env
     smi = nvidia_smi()
@@ -274,197 +772,28 @@ def main() -> int:
             log("build", f"{name}: {line.strip()}")
 
     sm = Smoke(args.seed)
-    fused = sm.fused
 
     # 3. kernel against plain, small states
-    for s in (16, 32):
-        kv, pool, keys = sm.small_state(s)
-        sm.kernel_phase(kv, pool, keys[:2048], f"small S={s}")
+    for kind, s in (("linear", 16), ("linear", 32), ("cceh", 16),
+                    ("cceh", 32)):
+        kv, pool, present, covers = sm.small_state(kind, s)
+        sm.kernel_phase(kv, pool, present, covers, f"small {kind} S={s}")
         del kv
+    # the LSB directory: extendible hashing serves through the composed
+    # GET, so its state is held here by calling the wrapper with msb=False
+    kv, pool, present, covers = sm.small_state("extendible", 32)
+    assert not kv.state.index.msb
+    sm.kernel_phase(kv, pool, present, covers, "small extendible (msb=False)")
+    del kv
     torch.cuda.empty_cache()
 
-    # 4. main path
-    n_slots = 1 << 21
-    cfg = KVConfig(index=IndexConfig(capacity=n_slots),
-                   bloom=BloomConfig(num_bits=1 << 24, num_hashes=4))
-    pw = cfg.page_words
-    kv = sm.kv_mod.KV(cfg)
-    log("main", f"KV on {kv.device}: {kv.capacity()} slots, pool "
-        f"{tuple(kv.state.pool.pages.shape)} = "
-        f"{kv.state.pool.pages.numel() * 4 / 2**30:.2f} GiB, bloom "
-        f"{cfg.bloom.num_bits} counters, sketch {cfg.evicted_sketch_bits} bits")
-    hi = 0x80000001  # hi word >= 2^31: unsigned sort order matters
-    ins_b, get_b = 1 << 16, 1 << 14
-    n_fill = (3 * n_slots // 4) // ins_b * ins_b
-    # key index i <-> key (hi, i); status: 0 never inserted, 1 present,
-    # 2 capacity-evicted, 3 deleted, 4 dropped
-    n_keys = n_fill + n_slots
-    status = torch.zeros(n_keys, dtype=torch.int8, device=sm.dev)
+    # 4 and 5, one family at a time: the linear KV is freed before the
+    # CCEH fill
+    kernels = [run_linear(sm)]
+    torch.cuda.empty_cache()
+    kernels.append(run_cceh(sm))
 
-    fused.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.monotonic()
-    for i in range(0, n_fill, ins_b):
-        lo = torch.arange(i, i + ins_b, device=sm.dev)
-        keys = sm.keys_of(hi, lo)
-        res = kv.insert(keys, sm.pages_of(keys, pw))
-        status[lo] = torch.where(res.dropped, 4, 1).to(torch.int8)
-        ev = res.evicted[~is_invalid(res.evicted)]
-        status[sm.u32.widen(ev[:, 1])] = 2
-    torch.cuda.synchronize()
-    t_ins = time.monotonic() - t0
-    log("main", f"fill: {n_fill} pages in {t_ins:.3f} s = "
-        f"{n_fill / t_ins:.0f} pages/s; status counts "
-        f"(never,present,evicted,deleted,dropped)="
-        f"{torch.bincount(status.long(), minlength=5).tolist()}")
-
-    def mixed(n: int, deleted: bool):
-        present = (status == 1).nonzero().flatten()
-        evicted = (status == 2).nonzero().flatten()
-        never = torch.arange(n_fill, n_keys, device=sm.dev)
-        parts = [sm.pick(present, n * 5 // 8), sm.pick(never, n // 8)]
-        if evicted.numel():
-            parts.append(sm.pick(evicted, n // 8))
-        if deleted:
-            parts.append(sm.pick((status == 3).nonzero().flatten(), n // 16))
-        idx = torch.cat(parts)
-        keys = torch.cat([sm.keys_of(hi, idx),
-                          torch.full((n - idx.numel(), 2), -1,
-                                     dtype=torch.int32, device=sm.dev)])
-        perm = torch.randperm(n, device=sm.dev, generator=sm.gen)
-        return keys[perm]
-
-    def check_get(keys, out, found, stats_before, label):
-        valid = ~is_invalid(keys)
-        st = status[sm.u32.widen(keys[:, 1]).clamp(max=n_keys - 1)]
-        want = valid & (st == 1)
-        if not torch.equal(found, want):
-            raise AssertionError(f"{label}: found mask != present keys "
-                                 f"({int((found != want).sum())} differ)")
-        if not torch.equal(out[found], sm.pages_of(keys[found], pw)):
-            raise AssertionError(f"{label}: a hit returned wrong bytes")
-        if out[~found].any():
-            raise AssertionError(f"{label}: a miss returned nonzero bytes")
-        d = (kv.state.stats.long() - stats_before).tolist()
-        names = sm.kv_mod.STAT_NAMES
-        s = dict(zip(names, d))
-        causes = sum(s[c] for c in sm.kv_mod.MISS_CAUSE_NAMES)
-        counts = [int((valid & (st == k)).sum()) for k in range(5)]
-        if s["misses"] != causes:
-            raise AssertionError(f"{label}: misses {s['misses']} != "
-                                 f"sum of causes {causes}")
-        if s["misses"] > counts[0] + counts[2] + counts[3] + counts[4]:
-            raise AssertionError(f"{label}: more misses than lost keys")
-        if s["miss_evicted"] < counts[2]:
-            raise AssertionError(f"{label}: evicted keys not attributed")
-        return s, counts
-
-    def serve(rounds: int, deleted: bool, label: str):
-        for r in range(rounds):
-            keys = mixed(get_b, deleted)
-            before = kv.state.stats.long()
-            out, found = kv.get(keys)
-            s, counts = check_get(keys, out, found, before, f"{label} get")
-            before = kv.state.stats.long()
-            o2, order, f2, nfound, b = kv.get_compact_async(keys)
-            nf = int(nfound)
-            hits = found.nonzero().flatten()
-            if not (torch.equal(f2[:b], found) and nf == hits.numel()
-                    and torch.equal(order[:nf].long(), hits)
-                    and torch.equal(o2[:nf], out[hits])):
-                raise AssertionError(f"{label}: get_compact disagrees with get")
-            check_get(keys, out, found, before, f"{label} get_compact")
-        log("main", f"{label}: {rounds} x (get + get_compact) of {get_b} "
-            f"keys ok; last batch (never,present,evicted,deleted,dropped)="
-            f"{counts}, hits={s['hits']}, misses={s['misses']} "
-            f"(cold={s['miss_cold']}, evicted={s['miss_evicted']}, "
-            f"digest={s['miss_digest']})")
-
-    serve(4, False, "serve")
-    present = (status == 1).nonzero().flatten()
-    gone = sm.pick(present, get_b).unique()
-    hit = kv.delete(sm.keys_of(hi, gone))
-    if not bool(hit.all()):
-        raise AssertionError("delete missed present keys")
-    status[gone] = 3
-    log("main", f"delete: {gone.numel()} keys, all hit")
-    serve(4, True, "serve after delete")
-    torch.cuda.synchronize()
-    launches = fused.launches
-    if launches <= 0:
-        raise AssertionError("the main path never launched fused_get")
-    stats = kv.stats()
-    if stats["misses"] != sum(stats[c] for c in sm.kv_mod.MISS_CAUSE_NAMES):
-        raise AssertionError("misses != sum of miss causes")
-    log("main", f"fused_get launches on the main path: {launches}; "
-        f"utilization {kv.utilization():.4f}; stats {json.dumps(stats)}")
-
-    # 3, continued: kernel against plain on the full-size state
-    every = torch.arange(n_keys, device=sm.dev)
-    sm.kernel_phase(kv, torch.cat([sm.keys_of(hi, every),
-                                   torch.full((64, 2), -1, dtype=torch.int32,
-                                              device=sm.dev)]),
-                    sm.keys_of(hi, present[:4096]), "full")
-
-    # 5. times at the main path's batch width
-    # 8 distinct batches: their pages (about 8 x 42 MB) far exceed the
-    # 50 MB L2, so launches rotated over them read from memory, as a
-    # stream of fresh requests does; one batch repeated is the warm time.
-    st = kv.state
-    s = st.index.table.shape[1] // 4
-    batches = [mixed(get_b, True) for _ in range(8)]
-    nbytes = [fused_get_bytes(fused, sm.compare(k, st, f"timed batch {i}"),
-                              get_b, s, pw, st.evicted_filter.numel())
-              for i, k in enumerate(batches)]
-    kern = [lambda k=k: fused.fused_get(k, st.index.table, st.pool.pages,
-                                        st.pool.sums, st.evicted_filter)
-            for k in batches]
-    plain = [lambda k=k: fused.get_core_reference(
-        k, st.index.table, st.pool.pages, st.pool.sums, st.evicted_filter)
-        for k in batches]
-    ms = time_ms(torch, kern, 48, device_only=True)
-    warm_ms = time_ms(torch, kern[:1], 48, device_only=True)
-    host_ms = time_ms(torch, kern, 48)
-    plain_ms = time_ms(torch, plain, 8, device_only=True)
-    mean_bytes = sum(nbytes) / len(nbytes)
-    bound_ms = mean_bytes / HBM_BYTES_PER_S * 1e3
-    warm_bound_ms = nbytes[0] / HBM_BYTES_PER_S * 1e3
-    log("times", f"fused_get w={get_b}, rotated over {len(batches)} "
-        f"batches: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-        f"{bound_ms:.4f} ms ({mean_bytes:.0f} bytes per batch, "
-        f"{min(nbytes)}..{max(nbytes)}) = {bound_ms / ms:.1%} of the memory "
-        f"rate; no single PyTorch call computes this function, so there is "
-        f"no library time ({smi})")
-    log("times", f"fused_get w={get_b}, one batch repeated (warm L2): "
-        f"kernel {warm_ms:.4f} ms, bound {warm_bound_ms:.4f} ms "
-        f"({nbytes[0]} bytes) = {warm_bound_ms / warm_ms:.1%} ({smi})")
-    log("times", f"fused_get w={get_b}, rotated, launched back to back "
-        f"from the host with no queue ahead: {host_ms:.4f} ms per call "
-        f"(wrapper and launch on the host included) ({smi})")
-    kv_get = [lambda k=k: kv.get(k) for k in batches]
-    get_ms = time_ms(torch, kv_get, 24)
-    log("times", f"whole-path KV.get, rotated: {get_ms:.3f} ms per {get_b} "
-        f"keys = {get_b / get_ms * 1e3:.0f} keys/s; fill "
-        f"{n_fill / t_ins:.0f} pages/s ({smi})")
-    try:
-        log("times", "torch.profiler, KV.get of 2^14 keys: "
-            + profile_breakdown(torch, kv_get[0], 5))
-    except Exception as e:  # a measurement, not a check: report, go on
-        log("times", f"torch.profiler breakdown not measured: {e!r}")
-
-    print(json.dumps({"kernels": [{
-        "name": "fused_get_linear_flat",
-        "route": "cuda",
-        "source": "pmdfc_tpu_torch/ops/csrc/fused_get.cu",
-        "replaces": "pmdfc_tpu/ops/fused.py:414",
-        "launches": launches,
-        "max_abs_err": sm.max_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": "bytes",
-        "library_ms": None,
-    }]}), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,19 +11,23 @@ two states compare leaf by leaf.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from pmdfc_tpu_torch import kv as kv_mod
 from pmdfc_tpu_torch.config import IndexKind, KVConfig
+from pmdfc_tpu_torch.models import cceh
 from pmdfc_tpu_torch.models.linear import LinearState
 from pmdfc_tpu_torch.ops.bloom import BloomState
 from pmdfc_tpu_torch.ops.pagepool import PoolState
 from pmdfc_tpu_torch.utils import u32
 
 # leaves holding u32 words (uint32 in JAX, int32 bits here)
-U32_LEAVES = frozenset({"index.table", "index.head", "pool.pages",
-                        "pool.sums", "extents.recs", "extents.cursor"})
+U32_LEAVES = frozenset({"index.table", "index.head", "index.ld",
+                        "index.gdepth", "pool.pages", "pool.sums",
+                        "extents.recs", "extents.cursor"})
 
 
 def _tensor(name: str, a: np.ndarray, device) -> torch.Tensor:
@@ -36,16 +40,26 @@ def _tensor(name: str, a: np.ndarray, device) -> torch.Tensor:
 def state_from_numpy(leaves: dict[str, np.ndarray], config: KVConfig,
                      device="cuda") -> kv_mod.KVState:
     """The JAX package's `KVState` leaves (numpy, by dotted path) -> this
-    package's `KVState` on `device`. Linear index, flat pool only."""
-    if config.index.kind != IndexKind.LINEAR:
-        raise NotImplementedError("only the linear index is ported")
+    package's `KVState` on `device`: the ported index families over the
+    flat pool. A CCEH state's static knobs come from the config."""
     dev = kv_mod.resolve_device(device)
 
     def t(name):
         return _tensor(name, leaves[name], dev)
 
+    kind = config.index.kind
+    if kind == IndexKind.LINEAR:
+        index = LinearState(table=t("index.table"), head=t("index.head"))
+    elif kind in (IndexKind.CCEH, IndexKind.EXTENDIBLE):
+        index = cceh.CCEHState(
+            **{f: t(f"index.{f}") for f in ("table", "ld", "dirr", "gdepth",
+                                             "nseg")},
+            msb=kind == IndexKind.CCEH, **cceh.static_fields(config.index))
+    else:
+        raise NotImplementedError(f"index kind {kind.value!r} is not ported")
+
     return kv_mod.KVState(
-        index=LinearState(table=t("index.table"), head=t("index.head")),
+        index=index,
         bloom=BloomState(counters=t("bloom.counters"))
         if config.bloom else None,
         pool=PoolState(pages=t("pool.pages"), sums=t("pool.sums"),
@@ -67,9 +81,11 @@ def state_to_numpy(state: kv_mod.KVState) -> dict[str, np.ndarray]:
         if isinstance(node, torch.Tensor):
             out[prefix] = (u32.to_numpy(node) if prefix in U32_LEAVES
                            else node.detach().cpu().numpy())
-        elif node is not None:
-            for f in node.__dataclass_fields__:
-                walk(f"{prefix}.{f}" if prefix else f, getattr(node, f))
+        elif dataclasses.is_dataclass(node):
+            for f in dataclasses.fields(node):
+                walk(f"{prefix}.{f.name}" if prefix else f.name,
+                     getattr(node, f.name))
+        # anything else (None, a static int or bool knob) is not a leaf
 
     walk("", state)
     return out

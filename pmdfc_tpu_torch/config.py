@@ -17,7 +17,8 @@ import enum
 
 class IndexKind(str, enum.Enum):
     """Pluggable index selection (ref `server/KV.cpp:63-79` -D matrix).
-    Only LINEAR is ported so far."""
+    Ported so far: LINEAR, CCEH and EXTENDIBLE; the others raise
+    `NotImplementedError` in `models.base.get_index_ops`."""
 
     LINEAR = "linear"          # linear probing w/ FIFO cluster eviction (default)
     CCEH = "cceh"              # cacheline-conscious extendible hashing
@@ -83,8 +84,8 @@ class KVConfig:
     # Store pages in a device page pool tied 1:1 to index slots; when False
     # the index stores caller-provided 64-bit values only.
     paged: bool = True
-    # Extent ring size (extents are not ported yet: the ring is carried as
-    # zeros so the state maps one to one onto the JAX package's).
+    # Extent-record ring size, the most covers one extent inserts, and the
+    # probe heights of GetExtent (covers are at most 2**(height-1) pages).
     extent_capacity: int = 1024
     extent_max_covers: int = 64
     extent_max_height: int = 30

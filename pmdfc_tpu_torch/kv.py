@@ -8,14 +8,21 @@ and turns index evictions into bloom deletes (`KV.cpp:100-127`); `Get`,
 Batched ops take and return a `KVState`; the stats vector is an int32
 device tensor bumped inside the op (`misses == Σ miss_*` on every batch).
 
-In place. Unlike the JAX programs, which return new arrays, `insert` and
-`delete` update the state's tensors in place and return the same state:
-the full-size page pool is 8 GiB and must never be copied per batch. A
-GET (`get_core`, `get_compact`) writes nothing but `state.stats`.
+In place. Unlike the JAX programs, which return new arrays, `insert`,
+`insert_extent` and `delete` update the state's tensors in place and
+return the same state: the full-size page pool is 8 GiB and must never be
+copied per batch. A GET (`get_core`, `get_compact`, `get_extent`) writes
+nothing but `state.stats`.
 
-Not ported yet: extents (`KVState.extents` is carried as zeros so the
-state maps one to one onto the JAX package's), the tiered pool, the
-recovering serving state, and the host-side stats overlays.
+Extents (ref `KV::InsertExtent`/`GetExtent`, `CCEH::Insert_extent`
+`CCEH_hybrid.cpp:90-105`): one record in a ring plus one tagged index
+entry per aligned power-of-two cover of the page run. The cover
+decomposition is a scalar recursion over one run, so it is computed on
+the host in Python integers (u32 arithmetic masked to 32 bits).
+
+Not ported yet: the tiered pool, the sharded extent insert, the
+recovering serving state, `fast_view`, the async verbs and the host-side
+stats overlays.
 """
 
 from __future__ import annotations
@@ -30,12 +37,13 @@ import torch
 
 from pmdfc_tpu_torch.config import KVConfig
 from pmdfc_tpu_torch.models.base import dedupe_last_wins, get_index_ops
+from pmdfc_tpu_torch.models.rowops import first_lane
 from pmdfc_tpu_torch.ops import bloom as bloom_ops
 from pmdfc_tpu_torch.ops import fused as fused_ops
 from pmdfc_tpu_torch.ops import pagepool
 from pmdfc_tpu_torch.utils import u32
 from pmdfc_tpu_torch.utils.hashing import hash_u64
-from pmdfc_tpu_torch.utils.keys import INVALID_I32, is_invalid
+from pmdfc_tpu_torch.utils.keys import INVALID_I32, INVALID_WORD, is_invalid
 
 # stats vector layout (same lanes as the JAX package); the trailing miss_*
 # lanes are the miss-cause taxonomy: every recorded miss carries exactly
@@ -60,8 +68,8 @@ _SKETCH_SEEDS = fused_ops.SKETCH_SEEDS
 
 @dataclasses.dataclass
 class ExtentState:
-    recs: torch.Tensor    # int32[N, 6] (zeros: extents are not ported yet)
-    cursor: torch.Tensor  # int32[]
+    recs: torch.Tensor    # int32[N, 6] u32 bits: the extent-record ring
+    cursor: torch.Tensor  # int32[] u32 bits: ring cursor
 
 
 @dataclasses.dataclass
@@ -119,23 +127,44 @@ def _sketch_slots(config: KVConfig, keys: torch.Tensor) -> torch.Tensor:
                         for s in _SKETCH_SEEDS])
 
 
-def _sketch_mark(state: KVState, config: KVConfig, keys, mask) -> None:
-    idx = _sketch_slots(config, keys)
-    state.evicted_filter[idx[:, mask].reshape(-1)] = True
+def _sketch_query(state: KVState, config: KVConfig, keys) -> torch.Tensor:
+    """bool[B]: every sketch bit of the key is set (it was evicted once)."""
+    return state.evicted_filter[_sketch_slots(config, keys)].all(dim=0)
 
 
 def _index_miss_causes(bumps, state, config, keys, idx_miss):
     """Split index-level misses into `miss_evicted` (sketch hit) vs
     `miss_cold`."""
-    idx = _sketch_slots(config, keys)
-    ev = idx_miss & state.evicted_filter[idx].all(dim=0)
+    ev = idx_miss & _sketch_query(state, config, keys)
     bumps[MISS_EVICTED] += ev.sum(dtype=torch.int32)
     bumps[MISS_COLD] += (idx_miss & ~ev).sum(dtype=torch.int32)
+
+
+def _track_index(state: KVState, config: KVConfig, keys, placed, res):
+    """After an index insert: bloom-insert the placed keys, bloom-delete
+    the keys it evicted and mark them in the evicted-key sketch (so a
+    later GET's miss can name its cause). -> the evicted mask."""
+    evicted_mask = ~is_invalid(res.evicted)
+    if state.bloom is not None:
+        nh = config.bloom.num_hashes
+        bloom_ops.insert_batch(state.bloom, keys, placed, num_hashes=nh)
+        bloom_ops.delete_batch(state.bloom, res.evicted, evicted_mask,
+                               num_hashes=nh)
+    idx = _sketch_slots(config, res.evicted)
+    state.evicted_filter[idx[:, evicted_mask].reshape(-1)] = True
+    return evicted_mask
 
 
 def _is_special(vals: torch.Tensor) -> torch.Tensor:
     """Paged mode: a set top-2-bit hi word is NOT a page-row value."""
     return (u32.widen(vals[..., 0]) >> 30) != 0
+
+
+def _reclaim_evicted(res):
+    """(freed mask, rows): pool rows released by index evictions (an
+    extent-cover entry carries no row and frees nothing)."""
+    freed = ~is_invalid(res.evicted) & ~_is_special(res.evicted_vals)
+    return freed, torch.where(freed, res.evicted_vals[:, 1], -1)
 
 
 def insert(state: KVState, config: KVConfig, keys: torch.Tensor,
@@ -166,16 +195,8 @@ def insert(state: KVState, config: KVConfig, keys: torch.Tensor,
 
     _, res = ops.insert_batch(state.index, keys, index_vals)
 
-    placed = valid & ~res.dropped
-    evicted_mask = ~is_invalid(res.evicted)
-    if state.bloom is not None:
-        nh = config.bloom.num_hashes
-        bloom_ops.insert_batch(state.bloom, keys, placed, num_hashes=nh)
-        bloom_ops.delete_batch(state.bloom, res.evicted, evicted_mask,
-                               num_hashes=nh)
-    # capacity evictions enter the evicted-key sketch here, so a later
-    # GET's miss can name its cause
-    _sketch_mark(state, config, res.evicted, evicted_mask)
+    evicted_mask = _track_index(state, config, keys, valid & ~res.dropped,
+                                res)
 
     if paged:
         pool = state.pool
@@ -183,8 +204,7 @@ def insert(state: KVState, config: KVConfig, keys: torch.Tensor,
         # a plain put over an extent-cover entry converts it to a page entry
         conv = wrote & ~res.fresh & pre.found & ~keep
         want = res.fresh | conv
-        freed = evicted_mask & ~_is_special(res.evicted_vals)
-        freed_rows = torch.where(freed, res.evicted_vals[:, 1], -1)
+        freed, freed_rows = _reclaim_evicted(res)
         _, new_rows = pagepool.recycle_and_alloc(pool, freed, freed_rows, want)
         row_vals = torch.stack([torch.zeros_like(new_rows),
                                 new_rows.clamp(min=0)], dim=-1)
@@ -290,6 +310,162 @@ def delete(state: KVState, config: KVConfig, keys: torch.Tensor):
                                    torch.zeros_like(freed))
     state.stats[DELETES] += hit.sum(dtype=torch.int32)
     return state, hit
+
+
+# ---------------------------------------------------------------------------
+# extents
+# ---------------------------------------------------------------------------
+
+def _covers(lo: int, length: int, max_covers: int, max_height: int):
+    """Aligned power-of-two cover decomposition of [lo, lo + length), the
+    recursion of `CCEH::Insert_extent` (`CCEH_hybrid.cpp:90-105`): each
+    cover starts at the current head, sized by the largest power of two
+    that divides the head, capped at 2**(max_height-1) and shrunk to fit
+    the remainder. u32 words in Python ints: the head wraps past 2**32 as
+    the JAX package's uint32 does.
+
+    -> (bases: `max_covers` u32 cover bases, INVALID-padded; remaining:
+    pages left uncovered when the run needs more than `max_covers`).
+    """
+    cap = (1 << (max_height - 1)) & u32.M32
+    head, remaining = lo & u32.M32, length & u32.M32
+    bases = []
+    for _ in range(max_covers):
+        low_bit = head & ((~head + 1) & u32.M32)  # 2**ffs; 0 for head 0
+        size = min(cap if head == 0 else low_bit, cap)
+        while size > remaining:
+            size >>= 1
+        bases.append(head if remaining else INVALID_WORD)
+        head = (head + size) & u32.M32
+        remaining -= size
+    return bases, remaining
+
+
+def _words(x) -> list[int]:
+    """u32 words of a key or value given as ints, numpy or int32 bits."""
+    return [int(v) & u32.M32 for v in x]
+
+
+def insert_extent(state: KVState, config: KVConfig, key, value, length: int):
+    """InsertExtent(key[2], value[2], len) (ref `KV::InsertExtent`), in
+    place: one record in the extent ring, and one index entry per cover,
+    valued `[EXTENT_TAG, record id]`. A cover over a page entry releases
+    its pool row. -> (state, InsertResult over the covers, uncovered)."""
+    dev = state.stats.device
+    (khi, klo), (vhi, vlo) = _words(key), _words(value)
+    length = int(length) & u32.M32
+    ext = state.extents
+    rid = u32.widen(ext.cursor) % ext.recs.shape[0]
+    ext.recs[rid] = u32.narrow(torch.tensor(
+        [khi, klo, vhi, vlo, length, 1], device=dev))
+    ext.cursor.copy_(u32.narrow(u32.widen(ext.cursor) + 1))
+
+    bases, uncovered = _covers(klo, length, config.extent_max_covers,
+                               config.extent_max_height)
+    cover_keys = u32.narrow(torch.tensor(
+        [[khi, b] if b != INVALID_WORD else [INVALID_WORD] * 2
+         for b in bases], dtype=torch.int64, device=dev))
+    tagged = torch.stack([torch.full_like(cover_keys[:, 0], fused_ops
+                                          .EXTENT_TAG_I32),
+                          u32.narrow(rid).expand(len(bases))], dim=-1)
+    ops = get_index_ops(config.index.kind)
+    if state.pool is not None:
+        # a cover overwriting a page entry releases its pool row
+        pre = ops.get_batch(state.index, cover_keys)
+        conv = pre.found & ~_is_special(pre.values)
+    _, res = ops.insert_batch(state.index, cover_keys, tagged)
+    _track_index(state, config, cover_keys,
+                 ~is_invalid(cover_keys) & ~res.dropped, res)
+    if state.pool is not None:
+        freed_e, rows_e = _reclaim_evicted(res)
+        freed_c = conv & (res.slots >= 0) & ~res.fresh
+        rows_c = torch.where(freed_c, pre.values[:, 1], -1)
+        # a converted cover can also be reported evicted (its slot taken
+        # by another cover of this batch, whose evicted values were read
+        # before the batch): free its row once, on the conversion side
+        dup = ((res.evicted[:, None, 0] == cover_keys[None, :, 0])
+               & (res.evicted[:, None, 1] == cover_keys[None, :, 1])
+               & freed_e[:, None] & freed_c[None, :])
+        freed_e = freed_e & ~dup.any(dim=1)
+        nothing = torch.zeros_like(freed_e)
+        pagepool.recycle_and_alloc(state.pool, freed_e, rows_e, nothing)
+        pagepool.recycle_and_alloc(state.pool, freed_c, rows_c, nothing)
+    state.stats[EXTENT_PUTS] += 1
+    return state, res, uncovered
+
+
+def _build_extent_probe(keys: torch.Tensor, hmax: int) -> torch.Tensor:
+    """[B*H, 2] height-masked cover probe keys (INVALID rows stay INVALID)."""
+    b = keys.shape[0]
+    hs = torch.arange(hmax, device=keys.device)
+    masks = u32.narrow(~((1 << hs) - 1))                       # [H]
+    lo_t = keys[:, None, 1] & masks[None, :]                   # [B, H]
+    hi_t = keys[:, None, 0].expand(b, hmax)
+    probe = torch.stack([hi_t, lo_t], dim=-1).reshape(b * hmax, 2)
+    inv = is_invalid(keys).repeat_interleave(hmax)
+    return torch.where(inv[:, None], INVALID_I32, probe)
+
+
+def _resolve_covers(recs: torch.Tensor, keys: torch.Tensor, vals: torch.Tensor,
+                    hit: torch.Tensor, hmax: int):
+    """Pick the winning cover per key from [B, H] probe results: the
+    lowest height whose entry is an extent ref whose record spans the
+    key. -> (out[B, 2] = record value + 4096 * (key - base) as a u64 on
+    u32 words, found[B], height[B] (H where none))."""
+    b = keys.shape[0]
+    w = u32.widen
+    is_ext = hit & (vals[..., 0] == fused_ops.EXTENT_TAG_I32)
+    rid = torch.where(is_ext, w(vals[..., 1]), 0).clamp(max=recs.shape[0] - 1)
+    recs_g = recs[rid]                                          # [B, H, 6]
+    klo = w(keys[:, None, 1])
+    spans = (is_ext & (recs_g[..., 5] != 0)
+             & (recs_g[..., 0] == keys[:, None, 0])
+             & (klo >= w(recs_g[..., 1]))
+             & (((klo - w(recs_g[..., 1])) & u32.M32) < w(recs_g[..., 4])))
+    first = first_lane(spans)
+    found = spans.any(dim=1)
+    rec = recs_g[torch.arange(b, device=keys.device), first]    # [B, 6]
+    diff = ((w(keys[:, 1]) - w(rec[:, 1])) * 4096) & u32.M32
+    lo = (w(rec[:, 3]) + diff) & u32.M32
+    carry = (lo < w(rec[:, 3])).to(torch.int64)  # unsigned compare
+    hi = w(rec[:, 2]) + carry
+    out = torch.where(found[:, None], u32.narrow(torch.stack([hi, lo], -1)), 0)
+    height = torch.where(found, first, hmax).to(torch.int32)
+    return out, found, height
+
+
+def get_extent(state: KVState, config: KVConfig, keys: torch.Tensor):
+    """Batched GetExtent (ref `KV::GetExtent`, address arithmetic
+    `KV.cpp:170-173`) -> (state, values[B, 2], found[B]). All B x H
+    height-masked probes go through one index get. Writes only stats."""
+    b, hmax = keys.shape[0], config.extent_max_height
+    res = get_index_ops(config.index.kind).get_batch(
+        state.index, _build_extent_probe(keys, hmax))
+    out, found, _ = _resolve_covers(state.extents.recs, keys,
+                                    res.values.reshape(b, hmax, 2),
+                                    res.found.reshape(b, hmax), hmax)
+    valid = ~is_invalid(keys)
+    bumps = torch.zeros(NSTATS, dtype=torch.int32, device=keys.device)
+    bumps[GETS] = valid.sum(dtype=torch.int32)
+    bumps[HITS] = found.sum(dtype=torch.int32)
+    bumps[MISSES] = (valid & ~found).sum(dtype=torch.int32)
+    _index_miss_causes(bumps, state, config, keys, valid & ~found)
+    state.stats += bumps
+    return state, out, found
+
+
+def find_anyway(state: KVState, config: KVConfig, keys: torch.Tensor):
+    """Full-table scan for keys the hashed probe lost (ref `FindAnyway`,
+    `server/IKV.h:18`) -> (values[B, 2], found[B], slot[B] or -1). Builds
+    a [B, slots] mask: keep B small at full size."""
+    flat_keys, flat_vals = get_index_ops(config.index.kind).scan(state.index)
+    eq = ((flat_keys[None, :, 0] == keys[:, None, 0])
+          & (flat_keys[None, :, 1] == keys[:, None, 1])
+          & ~is_invalid(keys)[:, None])
+    found = eq.any(dim=1)
+    slot = first_lane(eq)
+    return (flat_vals[slot], found,
+            torch.where(found, slot, -1).to(torch.int32))
 
 
 def utilization(state: KVState, config: KVConfig) -> torch.Tensor:
@@ -400,6 +576,48 @@ class KV:
             self.state, hit = delete(self.state, self.config,
                                      self._keys(keys, _pad_pow2(b)))
             return self._out(hit[:b], host, words=False)
+
+    def insert_extent(self, key, value, length: int):
+        """key[2], value[2] u32 words, length in pages -> (InsertResult
+        over the covers, uncovered tail pages). `uncovered > 0` means the
+        run needed more than `config.extent_max_covers` covers and its
+        tail was not indexed."""
+        host = not isinstance(key, torch.Tensor)
+        with self._lock:
+            self.state, res, uncovered = insert_extent(
+                self.state, self.config, key, value, length)
+            return type(res)(**{
+                f: self._out(x, host, words=f.startswith("evicted"))
+                for f, x in res._asdict().items()}), uncovered
+
+    def get_extent(self, keys):
+        """-> (values[B, 2] u64 words of each key's address, found[B])."""
+        host = not isinstance(keys, torch.Tensor)
+        with self._lock:
+            b = len(keys)
+            self.state, out, found = get_extent(
+                self.state, self.config, self._keys(keys, _pad_pow2(b)))
+            return (self._out(out[:b], host),
+                    self._out(found[:b], host, words=False))
+
+    def find_anyway(self, keys):
+        """-> (values[B, 2], found[B], slot[B] or -1), by a full scan."""
+        host = not isinstance(keys, torch.Tensor)
+        with self._lock:
+            b = len(keys)
+            vals, found, slot = find_anyway(
+                self.state, self.config, self._keys(keys, _pad_pow2(b)))
+            return (self._out(vals[:b], host),
+                    self._out(found[:b], host, words=False),
+                    self._out(slot[:b], host, words=False))
+
+    def recovery(self) -> bool:
+        """Post-restart repair hook (ref `KV::Recovery`): the index's
+        directory repair, in place, where it has one."""
+        with self._lock:
+            if self._ops.recovery is not None:
+                self._ops.recovery(self.state.index)
+            return True
 
     def capacity(self) -> int:
         return self._ops.num_slots(self.config.index)

@@ -15,6 +15,7 @@ significant key.
 from __future__ import annotations
 
 import dataclasses
+import importlib
 from typing import Any, Callable, NamedTuple
 
 import torch
@@ -48,6 +49,9 @@ class IndexOps:
     num_slots: Callable[[IndexConfig], int]
     set_values: Callable[..., Any] | None = None
     scan: Callable[[Any], tuple] | None = None
+    # post-restart directory repair (ref `CCEH::Recovery`); None where an
+    # index needs none
+    recovery: Callable[[Any], Any] | None = None
     get_values: Callable[..., tuple] | None = None
 
 
@@ -58,12 +62,21 @@ def register_index(kind: IndexKind, ops: IndexOps) -> None:
     _REGISTRY[kind] = ops
 
 
+_MODULES = {
+    IndexKind.LINEAR: "pmdfc_tpu_torch.models.linear",
+    IndexKind.CCEH: "pmdfc_tpu_torch.models.cceh",
+    IndexKind.EXTENDIBLE: "pmdfc_tpu_torch.models.extendible",
+}
+
+
 def get_index_ops(kind: IndexKind) -> IndexOps:
+    """The family's ops; its module is imported (and registers) on first
+    use."""
     if kind not in _REGISTRY:
-        if kind != IndexKind.LINEAR:
+        if kind not in _MODULES:
             raise NotImplementedError(
                 f"index kind {kind.value!r} is not ported yet")
-        import pmdfc_tpu_torch.models.linear  # noqa: F401  (registers)
+        importlib.import_module(_MODULES[kind])
     return _REGISTRY[kind]
 
 
@@ -94,6 +107,23 @@ def _scatter_back(order: torch.Tensor, sorted_vals: torch.Tensor) -> torch.Tenso
     out = torch.empty_like(sorted_vals)
     out[order] = sorted_vals
     return out
+
+
+def batch_rank_by_segment(segment_ids: torch.Tensor,
+                          mask: torch.Tensor) -> torch.Tensor:
+    """int32[B]: rank of each masked element among the masked elements
+    with the same segment id, in batch order (one stable sort; masked-off
+    elements sort last, as INVALID, and get arbitrary ranks). Ids are
+    taken as u32 and widened to int64, so INVALID sorts after every id."""
+    b = segment_ids.shape[0]
+    key = torch.where(mask, widen(segment_ids), 0xFFFFFFFF)
+    order = torch.argsort(key, stable=True)
+    s_key = key[order]
+    idx = torch.arange(b, device=segment_ids.device)
+    start = torch.ones_like(mask)
+    start[1:] = s_key[1:] != s_key[:-1]
+    first = torch.cummax(torch.where(start, idx, 0), 0).values
+    return _scatter_back(order, (idx - first).to(torch.int32))
 
 
 def plan_insert(keys: torch.Tensor, seg: torch.Tensor, valid: torch.Tensor,

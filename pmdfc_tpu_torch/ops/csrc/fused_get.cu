@@ -1,25 +1,35 @@
-// Fused serving GET for the linear index over the flat page pool, for
-// Hopper (sm_90a).
+// Fused serving GET over the flat page pool, for Hopper (sm_90a): the
+// linear index and CCEH (with its LSB twin, extendible hashing).
 //
 // Replaces: the Pallas TPU kernel `_get_kernel` launched by `_pallas_get`
 // (pmdfc_tpu/ops/fused.py:145-343, pallas_call at :414) in its
-// family="linear", tiered=False variant. Per key of a padded batch it does
-// the whole GET in one launch: murmur3 bucket and the two evicted-sketch
-// slots; probe of the [khi x S | klo x S | vhi x S | vlo x S] bucket row;
+// family="linear", tiered=False and family="cceh", tiered=False variants.
+// One kernel body, templated on the address fold (the only stage the two
+// families differ in): linear takes bucket row hash & (C - 1); CCEH takes
+// the directory entry of the hash's top Gmax bits (MSB) or low Gmax bits
+// (LSB), times the W windows of a segment, plus the window hash
+// (fused.py:179-185, 209-223). On the TPU the directory sits in SMEM and a
+// scalar loop walks it; here it is one dependent global load per key (at
+// the serving size the directory is 8 KiB and stays in L2).
+//
+// Per key of a padded batch it does the whole GET in one launch: address
+// fold and the two evicted-sketch slots; probe of the
+// [khi x S | klo x S | vhi x S | vlo x S] table row;
 // lane match; EXTENT tag split; gather of the page and its digest word;
 // digest recompute; one miss-cause code (later codes win, fused.py:329-338);
 // misses zeroed.
 //
-// Bound: bytes. Per key it reads one bucket row (16*S bytes), for a page
-// entry one page (4*PW bytes) plus its digest word, and writes one page
-// (4*PW bytes) plus three int32 results; the arithmetic is a few integer
+// Bound: bytes. Per key it reads one table row (16*S bytes; CCEH one
+// directory word before it), for a page entry one page (4*PW bytes) plus
+// its digest word, and writes one page (4*PW bytes) plus three int32
+// results; the arithmetic is a few integer
 // ops per word, far below what the card can issue per byte. So the design
 // moves each byte once and keeps every intermediate in registers:
 //  - one warp per key, kWarpsPerBlock keys per block. With S = 32, lane l
 //    owns slot l: the khi/klo groups arrive as two coalesced 128-byte reads;
 //    a value lane is read only by the lane that matched. Groups of 32 slots
-//    are looped, so any power-of-two S works (S = 16 leaves half the lanes
-//    idle in the probe).
+//    are looped, so any S works (S = 16 leaves half the lanes idle in the
+//    probe).
 //  - match by __ballot_sync / __ffs (first matching lane = the slot);
 //    values are the masked sums over matching lanes (__reduce_add_sync),
 //    the same lane_pick the plain version computes, so both agree even on a
@@ -33,7 +43,7 @@
 //
 // The plain PyTorch version is `get_core_reference` in ops/fused.py; the
 // wrapper `fused_get` there checks the arguments and launches this through
-// the C entry point at the bottom (built by ops/_build.py, loaded with
+// the C entry points at the bottom (built by ops/_build.py, loaded with
 // ctypes).
 
 #include <cstdint>
@@ -46,6 +56,7 @@ constexpr uint32_t kInvalid = 0xFFFFFFFFu;
 constexpr uint32_t kExtentTag = 0x80000000u;
 constexpr uint32_t kSketchSeed0 = 0x0E51C7EDu;
 constexpr uint32_t kSketchSeed1 = 0x0E51C7EDu ^ 0x9E3779B9u;
+constexpr uint32_t kWindowSeed = 0x77AA55EEu;  // models/cceh.py WINDOW_SEED
 constexpr uint32_t kLaneSalt = 0x9E3779B9u;
 constexpr uint32_t kFnvPrime = 0x01000193u;
 constexpr uint32_t kFinalMix = 0x85EBCA6Bu;
@@ -86,10 +97,32 @@ __device__ __forceinline__ uint32_t mix_word(uint32_t w, uint32_t lane) {
   return x ^ (x >> 15);
 }
 
+// address folds: key -> table row (ops/fused.py table_rows)
+struct LinearFold {
+  uint32_t n_clusters;  // a power of two
+  __device__ __forceinline__ int64_t row(uint32_t khi, uint32_t klo) const {
+    return hash_u64(khi, klo, 0u) & (n_clusters - 1);
+  }
+};
+
+struct CcehFold {
+  const int32_t* dirr;  // [2^gmax] replicated directory
+  uint32_t W;           // windows (rows) per segment
+  int gmax;             // 1..31
+  bool msb;             // MSB (CCEH) or LSB (extendible) bits
+  __device__ __forceinline__ int64_t row(uint32_t khi, uint32_t klo) const {
+    const uint32_t h = hash_u64(khi, klo, 0u);
+    const uint32_t bucket = msb ? h >> (32 - gmax) : h & ((1u << gmax) - 1);
+    const uint32_t win = hash_u64(khi, klo, kWindowSeed) & (W - 1);
+    return static_cast<int64_t>(dirr[bucket]) * W + win;
+  }
+};
+
+template <class Fold>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
-fused_get_linear_flat_kernel(
-    const uint32_t* __restrict__ keys, int w,
-    const uint32_t* __restrict__ table, uint32_t n_clusters, int S,
+fused_get_flat_kernel(
+    const Fold fold, const uint32_t* __restrict__ keys, int w,
+    const uint32_t* __restrict__ table, int S,
     const uint32_t* __restrict__ pages, int64_t n_rows, int pw,
     const uint32_t* __restrict__ sums, const uint8_t* __restrict__ sketch,
     uint32_t sketch_bits, uint32_t* __restrict__ out,
@@ -102,12 +135,12 @@ fused_get_linear_flat_kernel(
   // stage 1: address fold
   const uint32_t khi = keys[2 * k], klo = keys[2 * k + 1];
   const bool valid = !(khi == kInvalid && klo == kInvalid);
-  const uint32_t c = hash_u64(khi, klo, 0u) & (n_clusters - 1);
+  const int64_t c = fold.row(khi, klo);
   const uint32_t sk0 = hash_u64(khi, klo, kSketchSeed0) & (sketch_bits - 1);
   const uint32_t sk1 = hash_u64(khi, klo, kSketchSeed1) & (sketch_bits - 1);
 
-  // stages 2-3: probe the bucket row and match lanes
-  const uint32_t* row = table + static_cast<size_t>(c) * 4 * S;
+  // stages 2-3: probe the table row and match lanes
+  const uint32_t* row = table + c * 4 * S;
   int first = -1;
   uint32_t vhi = 0, vlo = 0;
   for (int g = 0; g < S; g += 32) {
@@ -173,28 +206,56 @@ fused_get_linear_flat_kernel(
   }
 }
 
-}  // namespace
-
-// C entry point (ctypes). Pointers are device pointers of contiguous
-// tensors: keys int32[w, 2], table int32[n_clusters, 4*S], pages
-// int32[n_rows, pw] (16-byte aligned, pw a multiple of 4), sums
-// int32[n_rows], sketch bool[sketch_bits]; outputs out int32[w, pw], cause,
-// rows, slots int32[w]. Launches on `stream`; returns cudaGetLastError().
-extern "C" int pmdfc_fused_get_linear_flat(
-    const void* keys, int w, const void* table, unsigned n_clusters, int S,
-    const void* pages, long long n_rows, int pw, const void* sums,
-    const void* sketch, unsigned sketch_bits, void* out, void* cause,
-    void* rows, void* slots, void* stream) {
+template <class Fold>
+int launch(const Fold& fold, const void* keys, int w, const void* table,
+           int S, const void* pages, long long n_rows, int pw,
+           const void* sums, const void* sketch, unsigned sketch_bits,
+           void* out, void* cause, void* rows, void* slots, void* stream) {
   if (w <= 0) return 0;
   const dim3 block(kWarpsPerBlock * 32);
   const dim3 grid((w + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  fused_get_linear_flat_kernel<<<grid, block, 0,
-                                 static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(keys), w,
-      static_cast<const uint32_t*>(table), n_clusters, S,
+  fused_get_flat_kernel<Fold><<<grid, block, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      fold, static_cast<const uint32_t*>(keys), w,
+      static_cast<const uint32_t*>(table), S,
       static_cast<const uint32_t*>(pages), n_rows, pw,
       static_cast<const uint32_t*>(sums), static_cast<const uint8_t*>(sketch),
       sketch_bits, static_cast<uint32_t*>(out), static_cast<int32_t*>(cause),
       static_cast<int32_t*>(rows), static_cast<int32_t*>(slots));
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// C entry points (ctypes). Pointers are device pointers of contiguous
+// tensors: keys int32[w, 2], table int32[rows, 4*S], pages int32[n_rows,
+// pw] (16-byte aligned, pw a multiple of 4), sums int32[n_rows], sketch
+// bool[sketch_bits]; outputs out int32[w, pw], cause, rows, slots int32[w].
+// Launch on `stream`; return cudaGetLastError().
+
+// linear·flat: table has n_clusters (a power of two) rows
+extern "C" int pmdfc_fused_get_linear_flat(
+    const void* keys, int w, const void* table, unsigned n_clusters, int S,
+    const void* pages, long long n_rows, int pw, const void* sums,
+    const void* sketch, unsigned sketch_bits, void* out, void* cause,
+    void* rows, void* slots, void* stream) {
+  return launch(LinearFold{n_clusters}, keys, w, table, S, pages, n_rows, pw,
+                sums, sketch, sketch_bits, out, cause, rows, slots, stream);
+}
+
+// cceh·flat: table has n_table_rows = smax * W rows; dirr int32[smax],
+// smax = 2^gmax with 1 <= gmax <= 31; msb != 0 for CCEH, 0 for the LSB
+// directory of extendible hashing
+extern "C" int pmdfc_fused_get_cceh_flat(
+    const void* keys, int w, const void* table, unsigned n_table_rows, int S,
+    const void* dirr, unsigned smax, int msb, const void* pages,
+    long long n_rows, int pw, const void* sums, const void* sketch,
+    unsigned sketch_bits, void* out, void* cause, void* rows, void* slots,
+    void* stream) {
+  int gmax = 0;
+  while ((1u << gmax) < smax) ++gmax;
+  const CcehFold fold{static_cast<const int32_t*>(dirr), n_table_rows / smax,
+                      gmax, msb != 0};
+  return launch(fold, keys, w, table, S, pages, n_rows, pw, sums, sketch,
+                sketch_bits, out, cause, rows, slots, stream);
 }

@@ -1,31 +1,38 @@
 """Fused serving GET: probe→gather→verify→classify in ONE launch
-(twin of `pmdfc_tpu/ops/fused.py`, linear index over the flat pool).
+(twin of `pmdfc_tpu/ops/fused.py`, the flat pool's variants: the linear
+index and CCEH).
 
 Three pieces:
 
 - `fused_get` — the wrapper. On CUDA tensors it launches the hand-written
   Hopper kernel `csrc/fused_get.cu` (and raises if the launch fails); on
   CPU tensors it runs `get_core_reference`. There is no fallback between
-  the two: the device of the tensors decides.
+  the two: the device of the tensors decides. Given a CCEH directory
+  (`dirr`) it runs the cceh·flat variant, else linear·flat.
 - `get_core_reference` — the plain PyTorch version, same inputs and
   outputs, the kernel's arithmetic written as tensor ops.
 - `get_core` — the drop-in twin of `kv._get_core` for configurations
   `supports()` accepts: the wrapper, then the stats fold in int32.
 
-Per key (stages as in the JAX module's docstring): murmur3 bucket and two
-evicted-sketch slots; bucket-row lane match with masked-sum values;
-EXTENT split; page + digest-word gather at the row clamped into the pool;
-digest recompute; one cause code, later codes winning; misses zeroed.
+Per key (stages as in the JAX module's docstring): murmur3 address fold
+(linear: bucket = hash & (C - 1); CCEH: directory entry of the hash's top
+`Gmax` bits (MSB) or low bits (LSB), times `W`, plus the window hash)
+and two evicted-sketch slots; bucket-row lane match with masked-sum
+values; EXTENT split; page + digest-word gather at the row clamped into
+the pool; digest recompute; one cause code, later codes winning; misses
+zeroed.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
 
 from pmdfc_tpu_torch.config import IndexKind, KVConfig
-from pmdfc_tpu_torch.models.rowops import lane_pick, match_mask
+from pmdfc_tpu_torch.models.cceh import WINDOW_SEED
+from pmdfc_tpu_torch.models.rowops import first_lane, lane_pick, match_mask
 from pmdfc_tpu_torch.ops.pagepool import page_digest
 from pmdfc_tpu_torch.utils.hashing import hash_u64
 from pmdfc_tpu_torch.utils.keys import is_invalid
@@ -40,35 +47,56 @@ EXTENT_TAG = 0x80000000  # bit 63 of the u64 value marks an extent-record ref
 EXTENT_TAG_I32 = EXTENT_TAG - (1 << 32)  # its bits as int32
 
 KERNEL_NAME = "fused_get"
-# kernel launches made by `fused_get`, for showing that a run went
-# through the kernel; callers reset it to 0 themselves
-launches = 0
+FAMILIES = (IndexKind.LINEAR, IndexKind.CCEH)
+# kernel launches made by `fused_get`, by variant ("fused_get_linear_flat",
+# "fused_get_cceh_flat"), for showing that a run went through the kernel;
+# callers reset it themselves (`launches.clear()`)
+launches: collections.Counter = collections.Counter()
 
 
 def supports(config: KVConfig) -> bool:
-    """Whether the fused GET serves this config: the linear index over a
-    paged flat pool, with power-of-two sketch bits and a power-of-two
-    page width that is a multiple of 4 (the kernel moves pages as 16-byte
-    vectors and XOR-folds lanes by halving). Everything else runs the
-    composed GET (`kv._get_core`)."""
-    if config.index.kind != IndexKind.LINEAR or not config.paged:
+    """Whether the fused GET serves this config: the linear index or CCEH
+    (the families the JAX package fuses; extendible hashing is not one)
+    over a paged flat pool, with power-of-two sketch bits and a
+    power-of-two page width that is a multiple of 4 (the kernel moves
+    pages as 16-byte vectors and XOR-folds lanes by halving). Everything
+    else runs the composed GET (`kv._get_core`)."""
+    if config.index.kind not in FAMILIES or not config.paged:
         return False
     pw, nb = config.page_words, config.evicted_sketch_bits
     return not (pw & (pw - 1) or pw % 4 or nb & (nb - 1))
 
 
-def get_core_reference(keys, table, pages, sums, sketch):
+def table_rows(keys, n_rows: int, dirr=None, msb: bool = True):
+    """int64[w] table row of each key: the linear bucket `hash & (C - 1)`,
+    or with a CCEH directory `dirr[Smax]` the segment of the hash's top
+    `Gmax` bits (MSB) or low bits (LSB) times `W = R / Smax`, plus the
+    window hash."""
+    khi, klo = keys[:, 0], keys[:, 1]
+    h = hash_u64(khi, klo)
+    if dirr is None:
+        return h & (n_rows - 1)
+    smax = dirr.shape[0]
+    w = n_rows // smax
+    bucket = (h >> (32 - (smax.bit_length() - 1))) if msb else h & (smax - 1)
+    win = hash_u64(khi, klo, seed=WINDOW_SEED) & (w - 1)
+    return dirr[bucket].to(torch.int64) * w + win
+
+
+def get_core_reference(keys, table, pages, sums, sketch, dirr=None,
+                       msb=True):
     """Plain PyTorch version of the kernel.
 
-    keys int32[w, 2], table int32[C, 4S], pages int32[NR, PW], sums
-    int32[NR] (all u32 bits), sketch bool[nb] -> (out int32[w, PW],
-    cause int32[w], rows int32[w], slots int32[w]).
+    keys int32[w, 2], table int32[R, 4S], pages int32[NR, PW], sums
+    int32[NR] (all u32 bits), sketch bool[nb], and for CCEH the directory
+    dirr int32[Smax] with its `msb` flag -> (out int32[w, PW], cause
+    int32[w], rows int32[w], slots int32[w]).
     """
     s = table.shape[1] // 4
     nr = pages.shape[0]
     nb = sketch.shape[0]
     khi, klo = keys[:, 0], keys[:, 1]
-    c = hash_u64(khi, klo) & (table.shape[0] - 1)
+    c = table_rows(keys, table.shape[0], dirr, msb)
     sk0 = hash_u64(khi, klo, seed=SKETCH_SEEDS[0]) & (nb - 1)
     sk1 = hash_u64(khi, klo, seed=SKETCH_SEEDS[1]) & (nb - 1)
 
@@ -77,8 +105,7 @@ def get_core_reference(keys, table, pages, sums, sketch):
     found0 = eq.any(dim=1)
     vhi = lane_pick(brows, eq, 2 * s, s)
     vlo = lane_pick(brows, eq, 3 * s, s)
-    lane = torch.argmax(eq.to(torch.uint8), dim=1)
-    slots = torch.where(found0, (c * s + lane).to(torch.int32), -1)
+    slots = torch.where(found0, (c * s + first_lane(eq)).to(torch.int32), -1)
     ext = found0 & (vhi == EXTENT_TAG_I32)
     f1 = found0 & ~ext
 
@@ -114,61 +141,86 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _entry():
+_ARGTYPES = {
+    # keys, w, table, n_clusters, S, pages, n_rows, pw, sums, sketch,
+    # sketch_bits, out, cause, rows, slots, stream
+    "fused_get_linear_flat": "pipIipqippIppppp",
+    # keys, w, table, n_table_rows, S, dirr, smax, msb, pages, n_rows, pw,
+    # sums, sketch, sketch_bits, out, cause, rows, slots, stream
+    "fused_get_cceh_flat": "pipIipIipqippIppppp",
+}
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "I": ctypes.c_uint,
+           "q": ctypes.c_longlong}
+
+
+def _entry(variant: str):
     from pmdfc_tpu_torch.ops import _build
 
-    fn = _build.load(KERNEL_NAME).pmdfc_fused_get_linear_flat
+    fn = getattr(_build.load(KERNEL_NAME), f"pmdfc_{variant}")
     if fn.argtypes is None:
-        p = ctypes.c_void_p
-        fn.argtypes = [p, ctypes.c_int, p, ctypes.c_uint, ctypes.c_int, p,
-                       ctypes.c_longlong, ctypes.c_int, p, p, ctypes.c_uint,
-                       p, p, p, p, p]
+        fn.argtypes = [_CTYPES[c] for c in _ARGTYPES[variant]]
         fn.restype = ctypes.c_int
     return fn
 
 
-def fused_get(keys, table, pages, sums, sketch):
+def _pow2(name, n):
+    if n < 1 or n & (n - 1):
+        raise ValueError(f"{name} must be a power of two, got {n}")
+
+
+def fused_get(keys, table, pages, sums, sketch, dirr=None, msb=True):
     """The fused GET over one padded batch; same contract as
-    `get_core_reference`. CPU tensors run the plain version; CUDA tensors
-    launch the kernel, or raise."""
+    `get_core_reference`. With a CCEH directory `dirr` it is the
+    cceh·flat variant (`msb` picks the directory bits), else linear·flat.
+    CPU tensors run the plain version; CUDA tensors launch the kernel, or
+    raise."""
     w = keys.shape[0]
-    c, lanes = table.shape
+    r, lanes = table.shape
     nr, pw = pages.shape
     nb = sketch.shape[0]
     s = lanes // 4
     dev = keys.device
     _check("keys", keys, torch.int32, (w, 2), dev)
-    _check("table", table, torch.int32, (c, lanes), dev)
+    _check("table", table, torch.int32, (r, lanes), dev)
     _check("pages", pages, torch.int32, (nr, pw), dev)
     _check("sums", sums, torch.int32, (nr,), dev)
     _check("sketch", sketch, torch.bool, (nb,), dev)
-    for name, n in (("clusters", c), ("slots per cluster", s),
-                    ("sketch bits", nb), ("page words", pw)):
-        if n < 1 or n & (n - 1):
-            raise ValueError(f"{name} must be a power of two, got {n}")
-    if lanes != 4 * s or pw % 4:
+    _pow2("sketch bits", nb)
+    _pow2("page words", pw)
+    if s < 1 or lanes != 4 * s or pw % 4:
         raise ValueError(f"bad geometry: row width {lanes}, page words {pw}")
+    if dirr is None:
+        variant = "fused_get_linear_flat"
+        _pow2("clusters", r)
+    else:
+        variant = "fused_get_cceh_flat"
+        smax = dirr.shape[0]
+        _check("dirr", dirr, torch.int32, (smax,), dev)
+        _pow2("directory entries", smax)
+        if smax < 2 or smax > 1 << 31 or r % smax:
+            raise ValueError(f"bad directory: {smax} entries over {r} rows")
     if dev.type == "cpu":
-        return get_core_reference(keys, table, pages, sums, sketch)
+        return get_core_reference(keys, table, pages, sums, sketch, dirr, msb)
     if dev.type != "cuda":
         raise ValueError(f"fused_get runs on cuda or cpu tensors, not {dev}")
     if pages.data_ptr() % 16:
         raise ValueError("pages must be 16-byte aligned")
 
-    global launches
     out = torch.empty((w, pw), dtype=torch.int32, device=dev)
     cause, rows, slots = (torch.empty(w, dtype=torch.int32, device=dev)
                           for _ in range(3))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _entry()(keys.data_ptr(), w, table.data_ptr(), c, s,
-                       pages.data_ptr(), nr, pw, sums.data_ptr(),
-                       sketch.data_ptr(), nb, out.data_ptr(),
-                       cause.data_ptr(), rows.data_ptr(), slots.data_ptr(),
-                       stream)
+        head = (keys.data_ptr(), w, table.data_ptr(), r, s)
+        if dirr is not None:
+            head += (dirr.data_ptr(), smax, int(msb))
+        err = _entry(variant)(*head, pages.data_ptr(), nr, pw,
+                              sums.data_ptr(), sketch.data_ptr(), nb,
+                              out.data_ptr(), cause.data_ptr(),
+                              rows.data_ptr(), slots.data_ptr(), stream)
     if err:
-        raise RuntimeError(f"fused_get kernel launch failed: CUDA error {err}")
-    launches += 1
+        raise RuntimeError(f"{variant} kernel launch failed: CUDA error {err}")
+    launches[variant] += 1
     return out, cause, rows, slots
 
 
@@ -178,9 +230,12 @@ def get_core(state, config: KVConfig, keys: torch.Tensor):
     but `state.stats` (in place)."""
     from pmdfc_tpu_torch import kv as kv_mod
 
-    pool = state.pool
-    out, cause, _, _ = fused_get(keys, state.index.table, pool.pages,
-                                 pool.sums, state.evicted_filter)
+    pool, index = state.pool, state.index
+    cceh = config.index.kind == IndexKind.CCEH
+    out, cause, _, _ = fused_get(keys, index.table, pool.pages, pool.sums,
+                                 state.evicted_filter,
+                                 dirr=index.dirr if cceh else None,
+                                 msb=index.msb if cceh else True)
     found = cause == CAUSE_HIT
     valid = ~is_invalid(keys)
 

@@ -1,7 +1,9 @@
 """PyTorch port: the fused GET against both of the JAX package's GET programs.
 
-One seeded JAX KV state (evictions, deletes, one corrupted page, one slot
-tagged as an extent) is carried across with `carry.state_from_numpy`.
+One seeded JAX KV state per family (linear: evictions, deletes, one
+corrupted page, one slot tagged as an extent; CCEH: splits, evictions,
+deletes, one corrupted page and real extent covers) is carried across
+with `carry.state_from_numpy`.
 The same padded probe — present, deleted, capacity-evicted, never-inserted
 and padding keys — then goes through
 
@@ -13,9 +15,11 @@ and padding keys — then goes through
   the composed `kv._get_core` of the port.
 
 Pages, found masks, cause codes, rows, slots and the 19-lane stats vector
-must be identical (tolerance 0: integer arithmetic). The CUDA kernel
-itself is held against the plain version on the card by `chip_smoke.py`
-and by the one test here that needs a GPU.
+must be identical (tolerance 0: integer arithmetic). Extendible hashing
+(CCEH's LSB twin) has no fused GET in the JAX package; the plain
+version's `msb=False` branch is held against its composed GET. The CUDA
+kernels themselves are held against the plain version on the card by
+`chip_smoke.py` and by the one test here that needs a GPU.
 """
 
 from __future__ import annotations
@@ -30,11 +34,13 @@ import torch
 
 from pmdfc_tpu import kv as jkv
 from pmdfc_tpu.config import IndexConfig as JIndexConfig
+from pmdfc_tpu.config import IndexKind as JKind
 from pmdfc_tpu.config import KVConfig as JKVConfig
 from pmdfc_tpu.ops import fused as jfused
 from pmdfc_tpu_torch import carry
 from pmdfc_tpu_torch import kv as tkv
 from pmdfc_tpu_torch.config import IndexConfig as TIndexConfig
+from pmdfc_tpu_torch.config import IndexKind as TKind
 from pmdfc_tpu_torch.config import KVConfig as TKVConfig
 from pmdfc_tpu_torch.ops import fused as tfused
 from pmdfc_tpu_torch.utils import u32
@@ -44,12 +50,15 @@ pytestmark = pytest.mark.torch
 PW = 64  # page words: inside the fused support set
 
 
-def _configs(slots, sketch_bits=1 << 16):
+def _configs(slots, sketch_bits=1 << 16, kind="linear"):
+    """(JAX config, port config): the linear index with `slots`-slot
+    clusters, or CCEH/extendible with a `slots`-lane probe window
+    (8 segments at most, 2048 slots)."""
     kw = dict(page_words=PW, evicted_sketch_bits=sketch_bits)
-    return (JKVConfig(index=JIndexConfig(capacity=2048, cluster_slots=slots),
-                      **kw),
-            TKVConfig(index=TIndexConfig(capacity=2048, cluster_slots=slots),
-                      **kw))
+    ix = dict(capacity=2048, cluster_slots=slots) if kind == "linear" else \
+        dict(capacity=1024, probe_window=slots, segment_slots=256)
+    return (JKVConfig(index=JIndexConfig(kind=JKind(kind), **ix), **kw),
+            TKVConfig(index=TIndexConfig(kind=TKind(kind), **ix), **kw))
 
 
 def jax_leaves(state) -> dict:
@@ -58,19 +67,28 @@ def jax_leaves(state) -> dict:
             for path, v in flat}
 
 
-def _seeded(slots, seed=7):
-    """A JAX KV state with capacity evictions and deletes, then one page
-    corrupted and one present slot's value tagged as an extent; returns
-    (config pair, damaged JAX state, padded probe keys)."""
-    jcfg, tcfg = _configs(slots)
+def _seeded(slots, seed=7, kind="linear"):
+    """A JAX KV state with capacity evictions (and for CCEH splits) and
+    deletes, then one page corrupted and an extent: for CCEH real covers
+    inserted by `insert_extent`, for the linear index one present slot's
+    value tagged. Returns (config pair, damaged JAX state, padded probe
+    keys)."""
+    jcfg, tcfg = _configs(slots, kind=kind)
     rng = np.random.default_rng(seed)
     kv = jkv.KV(jcfg)
-    n = 3072  # > 2048 slots: FIFO evictions feed the evicted-key sketch
+    n = 3072  # > 2048 slots: evictions feed the evicted-key sketch
     keys = rng.integers(0, 1 << 32, (n, 2), dtype=np.uint32)
     for i in range(0, n, 512):
         kv.insert(keys[i:i + 512],
                   rng.integers(0, 1 << 32, (512, PW), dtype=np.uint32))
     kv.delete(keys[2800:2900])
+    covers = np.zeros((0, 2), np.uint32)
+    if kind != "linear":
+        kv.insert_extent(np.array([5, 1000], np.uint32),
+                         np.array([1, 0xFFFFF000], np.uint32), 100)
+        bases, _ = jkv._covers(jnp.uint32(1000), jnp.uint32(100), 64, 30)
+        bases = np.asarray(bases)[np.asarray(bases) != 0xFFFFFFFF]
+        covers = np.stack([np.full_like(bases, 5), bases], -1)
     st = kv.state
     res = jax.tree.map(np.asarray, jkv.get_index_ops(jcfg.index.kind)
                        .get_batch(st.index, jnp.asarray(keys)))
@@ -78,41 +96,64 @@ def _seeded(slots, seed=7):
     assert len(hit) > 100 and (~res.found[:2800]).any()  # some were evicted
     kd, ke = hit[-1], hit[-2]
     row = int(res.values[kd, 1])
-    s = st.index.table.shape[1] // 4
-    c, lane = divmod(int(res.slots[ke]), s)
     pool = dataclasses.replace(
         st.pool, pages=st.pool.pages.at[row, 5].set(
             st.pool.pages[row, 5] ^ jnp.uint32(1 << 9)))
-    index = dataclasses.replace(
-        st.index, table=st.index.table.at[c, 2 * s + lane].set(
-            jnp.uint32(jkv.EXTENT_TAG)))
-    st = dataclasses.replace(st, pool=pool, index=index)
+    st = dataclasses.replace(st, pool=pool)
+    if kind == "linear":
+        s = st.index.table.shape[1] // 4
+        c, lane = divmod(int(res.slots[ke]), s)
+        index = dataclasses.replace(
+            st.index, table=st.index.table.at[c, 2 * s + lane].set(
+                jnp.uint32(jkv.EXTENT_TAG)))
+        st = dataclasses.replace(st, index=index)
     probe = np.concatenate([
-        keys[[kd, ke]], keys[:40], keys[2800:2830], keys[2960:3040],
-        rng.integers(0, 1 << 32, (40, 2), dtype=np.uint32)])
+        keys[[kd, ke]], covers[:4], keys[:40], keys[2800:2830],
+        keys[2960:3040], rng.integers(0, 1 << 32, (40, 2), dtype=np.uint32)])
     pk = np.full((256, 2), 0xFFFFFFFF, np.uint32)
     pk[:len(probe)] = probe
     return jcfg, tcfg, st, pk
 
 
-@pytest.mark.parametrize("slots", [16, 32])
-def test_plain_version_matches_pallas_kernel_and_composed(slots):
-    jcfg, tcfg, jst, pk = _seeded(slots)
+def _pallas(jst, jcfg, pk, slots):
+    """The Pallas kernel's own outputs (interpret mode off the TPU)."""
+    table = jst.index.table
+    if jcfg.index.kind == JKind.CCEH:
+        smax = jst.index.ld.shape[0]
+        geom = dict(family="cceh", W=table.shape[0] // smax,
+                    Gmax=smax.bit_length() - 1, msb=jst.index.msb)
+        dirr = jst.index.dirr
+    else:
+        geom, dirr = dict(family="linear", W=1, Gmax=0, msb=True), None
+    return jfused._pallas_get(
+        jnp.asarray(pk), table, dirr, jst.pool.pages, jst.pool.sums,
+        jst.evicted_filter.astype(jnp.int32), None, None, tiered=False,
+        CL=table.shape[0], S=slots, H=0, CC=0, nb=jcfg.evicted_sketch_bits,
+        tile=jfused.tile_for(len(pk)), **geom)
+
+
+def _wrapper_args(tst):
+    """fused_get's arguments for a port state (the directory for CCEH)."""
+    ix = tst.index
+    kw = dict(dirr=ix.dirr, msb=ix.msb) if hasattr(ix, "dirr") else {}
+    return (ix.table, tst.pool.pages, tst.pool.sums, tst.evicted_filter), kw
+
+
+FAMILIES = [(k, s) for k in ("linear", "cceh") for s in (16, 32)]
+FAMILY_IDS = [str(s) if k == "linear" else f"{k}-{s}" for k, s in FAMILIES]
+
+
+@pytest.mark.parametrize("kind,slots", FAMILIES, ids=FAMILY_IDS)
+def test_plain_version_matches_pallas_kernel_and_composed(kind, slots):
+    jcfg, tcfg, jst, pk = _seeded(slots, kind=kind)
     assert jfused.supports(jcfg) and tfused.supports(tcfg)
     tst = carry.state_from_numpy(jax_leaves(jst), tcfg, device="cpu")
     keys = u32.from_numpy(pk, "cpu")
 
-    # the Pallas kernel's own outputs (interpret mode off the TPU)
-    table = jst.index.table
-    jout, jcause, jrows, jslots = jfused._pallas_get(
-        jnp.asarray(pk), table, None, jst.pool.pages, jst.pool.sums,
-        jst.evicted_filter.astype(jnp.int32), None, None, family="linear",
-        tiered=False, CL=table.shape[0], S=slots, W=1, Gmax=0, msb=True,
-        H=0, CC=0, nb=jcfg.evicted_sketch_bits,
-        tile=jfused.tile_for(len(pk)))
-    tout, tcause, trows, tslots = tfused.get_core_reference(
-        keys, tst.index.table, tst.pool.pages, tst.pool.sums,
-        tst.evicted_filter)
+    jout, jcause, jrows, jslots = _pallas(jst, jcfg, pk, slots)
+    args, kw = _wrapper_args(tst)
+    tout, tcause, trows, tslots = tfused.get_core_reference(keys, *args,
+                                                            **kw)
     assert np.array_equal(u32.to_numpy(tout), np.asarray(jout)), "pages"
     assert np.array_equal(tcause.numpy(), np.asarray(jcause)), "causes"
     assert np.array_equal(trows.numpy(), np.asarray(jrows)), "rows"
@@ -123,20 +164,19 @@ def test_plain_version_matches_pallas_kernel_and_composed(slots):
             tfused.CAUSE_DIGEST} <= codes, f"causes exercised: {codes}"
 
     # the wrapper on CPU tensors is the plain version, and launches nothing
-    before = tfused.launches
-    wout = tfused.fused_get(keys, tst.index.table, tst.pool.pages,
-                            tst.pool.sums, tst.evicted_filter)
-    assert tfused.launches == before
+    before = dict(tfused.launches)
+    wout = tfused.fused_get(keys, *args, **kw)
+    assert dict(tfused.launches) == before
     for a, b in zip(wout, (tout, tcause, trows, tslots)):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("slots", [16, 32])
-def test_get_core_stats_match_both_jax_programs(slots):
+@pytest.mark.parametrize("kind,slots", FAMILIES, ids=FAMILY_IDS)
+def test_get_core_stats_match_both_jax_programs(kind, slots):
     """Pages, found mask and the 19-lane stats vector of the port's fused
     and composed GETs equal the JAX composed program and the JAX fused
     program; `misses == Σ miss_*`, with the digest and extent lanes hit."""
-    jcfg, tcfg, jst, pk = _seeded(slots)
+    jcfg, tcfg, jst, pk = _seeded(slots, kind=kind)
     s1, o1, f1 = jkv._get_core(jst, jcfg, jnp.asarray(pk))
     s2, o2, f2 = jfused.get_core(jst, jcfg, jnp.asarray(pk))
     assert np.array_equal(np.asarray(s1.stats), np.asarray(s2.stats))
@@ -182,6 +222,7 @@ def _small_args(w=16, pw=8):
     (3, lambda t: t[:32], ValueError),                   # sums != pool rows
     (4, lambda t: t.to(torch.uint8), TypeError),
     (1, lambda t: torch.zeros((3, 64), dtype=torch.int32), ValueError),
+    (1, lambda t: torch.zeros((4, 62), dtype=torch.int32), ValueError),
     (2, lambda t: torch.zeros((64, 6), dtype=torch.int32), ValueError),
     (0, lambda t: t.to("meta"), ValueError),             # other device
 ])
@@ -192,33 +233,72 @@ def test_wrapper_checks_its_arguments(arg, bad, err):
         tfused.fused_get(*args)
 
 
+@pytest.mark.parametrize("dirr,err", [
+    (torch.zeros(4, dtype=torch.int64), TypeError),
+    (torch.zeros(3, dtype=torch.int32), ValueError),    # not a power of two
+    (torch.zeros(1, dtype=torch.int32), ValueError),    # Gmax would be 0
+    (torch.zeros(8, dtype=torch.int32), ValueError),    # 4 rows over 8
+])
+def test_wrapper_checks_the_directory(dirr, err):
+    with pytest.raises(err):
+        tfused.fused_get(*_small_args(), dirr=dirr)
+
+
 def test_wrapper_refuses_a_device_it_has_no_kernel_for():
     args = [t.to("meta") for t in _small_args()]
     with pytest.raises(ValueError, match="cuda or cpu"):
         tfused.fused_get(*args)
 
 
+def test_lsb_plain_version_matches_jax_composed_get():
+    """Extendible hashing (the LSB directory) rides the composed GET in
+    both packages; the plain version's `msb=False` branch, which the
+    chip smoke holds the kernel against, agrees with it."""
+    jcfg, tcfg, jst, pk = _seeded(16, kind="extendible")
+    assert not jfused.supports(jcfg) and not tfused.supports(tcfg)
+    s1, o1, f1 = jkv._get_core(jst, jcfg, jnp.asarray(pk))
+    tst = carry.state_from_numpy(jax_leaves(jst), tcfg, device="cpu")
+    assert not tst.index.msb
+    args, kw = _wrapper_args(tst)
+    out, cause, _, _ = tfused.get_core_reference(u32.from_numpy(pk, "cpu"),
+                                                 *args, **kw)
+    assert np.array_equal(u32.to_numpy(out), np.asarray(o1))
+    assert np.array_equal((cause == tfused.CAUSE_HIT).numpy(), np.asarray(f1))
+    bumps = np.asarray(s1.stats) - np.asarray(jst.stats)
+    st = dict(zip(tkv.STAT_NAMES, bumps.tolist()))
+    n = torch.bincount(cause, minlength=8).tolist()
+    assert st["miss_digest"] == n[tfused.CAUSE_DIGEST] == 1
+    assert st["miss_evicted"] == n[tfused.CAUSE_EVICTED] > 0
+    assert st["miss_cold"] == n[tfused.CAUSE_COLD] + n[tfused.CAUSE_EXT]
+    assert n[tfused.CAUSE_EXT] > 0
+
+
 def test_supports_gates_the_kernel_geometry():
     assert tfused.supports(TKVConfig())
+    assert tfused.supports(TKVConfig(index=TIndexConfig(kind=TKind.CCEH)))
+    assert not tfused.supports(
+        TKVConfig(index=TIndexConfig(kind=TKind.EXTENDIBLE)))
     assert not tfused.supports(TKVConfig(paged=False))
     assert not tfused.supports(TKVConfig(page_words=48))   # not pow2
     assert not tfused.supports(TKVConfig(page_words=2))    # not 16-byte rows
     assert not tfused.supports(TKVConfig(evicted_sketch_bits=96))
 
 
-def test_kernel_matches_plain_version_on_card():
-    """Needs a GPU (and nvcc): builds the kernel and holds it against the
-    plain version on the carried state. Skips elsewhere."""
+@pytest.mark.parametrize("kind", ["linear", "cceh"])
+def test_kernel_matches_plain_version_on_card(kind):
+    """Needs a GPU (and nvcc): builds the kernel and holds each variant
+    against the plain version on the carried state. Skips elsewhere."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; run on the GPU machine")
-    jcfg, tcfg, jst, pk = _seeded(32)
+    jcfg, tcfg, jst, pk = _seeded(32, kind=kind)
     tst = carry.state_from_numpy(jax_leaves(jst), tcfg, device="cuda")
-    args = (u32.from_numpy(pk, "cuda"), tst.index.table, tst.pool.pages,
-            tst.pool.sums, tst.evicted_filter)
-    before = tfused.launches
-    got = tfused.fused_get(*args)
-    want = tfused.get_core_reference(*args)
+    args, kw = _wrapper_args(tst)
+    args = (u32.from_numpy(pk, "cuda"), *args)
+    variant = f"fused_get_{kind}_flat"
+    before = tfused.launches[variant]
+    got = tfused.fused_get(*args, **kw)
+    want = tfused.get_core_reference(*args, **kw)
     torch.cuda.synchronize()
-    assert tfused.launches == before + 1
+    assert tfused.launches[variant] == before + 1
     for g, r in zip(got, want):
         assert torch.equal(g, r)

@@ -1,15 +1,19 @@
 """PyTorch port: the slice end to end — `KV` verb by verb against the JAX `KV`.
 
 The same seeded mix of insert (updates, in-batch duplicates, padding,
-capacity evictions), get, get_compact, delete (with duplicates) and get
-again goes through `pmdfc_tpu.kv.KV` and `pmdfc_tpu_torch.kv.KV(device=
-"cpu")`. Every result, `stats()`, the packed bloom, capacity,
+capacity evictions, CCEH splits), get, get_compact, delete (with
+duplicates) and get again goes through `pmdfc_tpu.kv.KV` and
+`pmdfc_tpu_torch.kv.KV(device="cpu")`, for the linear index, CCEH and
+extendible hashing. Every result, `stats()`, the packed bloom, capacity,
 utilization and every state leaf at the end must be identical.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -17,11 +21,14 @@ import torch
 from pmdfc_tpu import kv as jkv
 from pmdfc_tpu.config import BloomConfig as JBloomConfig
 from pmdfc_tpu.config import IndexConfig as JIndexConfig
+from pmdfc_tpu.config import IndexKind as JKind
 from pmdfc_tpu.config import KVConfig as JKVConfig
+from pmdfc_tpu.ops import fused as jfused
 from pmdfc_tpu_torch import carry
 from pmdfc_tpu_torch import kv as tkv
 from pmdfc_tpu_torch.config import BloomConfig as TBloomConfig
 from pmdfc_tpu_torch.config import IndexConfig as TIndexConfig
+from pmdfc_tpu_torch.config import IndexKind as TKind
 from pmdfc_tpu_torch.config import KVConfig as TKVConfig
 from pmdfc_tpu_torch.ops import fused as tfused
 from pmdfc_tpu_torch.utils import u32
@@ -29,21 +36,32 @@ from pmdfc_tpu_torch.utils import u32
 pytestmark = pytest.mark.torch
 
 CASES = {
-    # name: (cluster_slots, page_words, paged, bloom bits or None)
-    "paged-s32": (32, 64, True, 1 << 12),
-    "paged-s16": (16, 64, True, 1 << 12),
-    "unpaged": (16, 1024, False, 1 << 12),
-    "paged-composed-nobloom": (32, 48, True, None),  # pw 48: no fused GET
+    # name: (cluster slots or probe window, page_words, paged, bloom bits
+    # or None, index kind)
+    "paged-s32": (32, 64, True, 1 << 12, "linear"),
+    "paged-s16": (16, 64, True, 1 << 12, "linear"),
+    "unpaged": (16, 1024, False, 1 << 12, "linear"),
+    "paged-composed-nobloom": (32, 48, True, None, "linear"),  # no fused GET
+    "cceh-paged-s32": (32, 64, True, 1 << 12, "cceh"),
+    "cceh-paged-s16": (16, 64, True, None, "cceh"),
+    "cceh-unpaged": (32, 1024, False, 1 << 12, "cceh"),
+    "extendible-paged": (32, 64, True, 1 << 12, "extendible"),  # composed
 }
+FUSED = {"paged-s32", "paged-s16", "cceh-paged-s32", "cceh-paged-s16"}
 
 
-def _configs(slots, pw, paged, bits):
-    def make(K, I, B):
-        return K(index=I(capacity=2048, cluster_slots=slots), page_words=pw,
+def _configs(slots, pw, paged, bits, kind="linear"):
+    """2048 slots either way: 64 linear clusters, or CCEH/extendible with
+    4 segments of 256 slots growing to 8."""
+    ix = dict(capacity=2048, cluster_slots=slots) if kind == "linear" else \
+        dict(capacity=1024, probe_window=slots, segment_slots=256)
+
+    def make(K, I, B, Kind):
+        return K(index=I(kind=Kind(kind), **ix), page_words=pw,
                  paged=paged, bloom=B(num_bits=bits) if bits else None,
                  evicted_sketch_bits=1 << 10)
-    return (make(JKVConfig, JIndexConfig, JBloomConfig),
-            make(TKVConfig, TIndexConfig, TBloomConfig))
+    return (make(JKVConfig, JIndexConfig, JBloomConfig, JKind),
+            make(TKVConfig, TIndexConfig, TBloomConfig, TKind))
 
 
 def _same(a, b, what):
@@ -60,9 +78,9 @@ def jax_leaves(state) -> dict:
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_kv_verb_sequence_matches_jax(case):
-    slots, pw, paged, bits = CASES[case]
-    jcfg, tcfg = _configs(slots, pw, paged, bits)
-    assert tfused.supports(tcfg) == (case.startswith("paged-s"))
+    slots, pw, paged, bits, kind = CASES[case]
+    jcfg, tcfg = _configs(slots, pw, paged, bits, kind)
+    assert tfused.supports(tcfg) == (case in FUSED) == jfused.supports(jcfg)
     a, b = jkv.KV(jcfg), tkv.KV(tcfg, device="cpu")
     assert a.capacity() == b.capacity()
     rng = np.random.default_rng(len(case))
@@ -114,6 +132,56 @@ def test_kv_verb_sequence_matches_jax(case):
     for k in la:
         _same(la[k], lb[k], f"leaf {k}")
     assert "uptime_s" in sb and b.print_stats().startswith("puts=")
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["unpaged", "paged"])
+def test_kv_facade_end_to_end_with_cceh(paged):
+    """Mirrors the JAX package's CCEH facade test through both `KV`s, then
+    damages one replicated directory entry in both states: GETs lose
+    keys, `recovery()` restores the directory, and everything agrees
+    again — results, `find_anyway`, stats and leaves."""
+    kw = dict(bloom=None, paged=paged, page_words=64)
+    ix = dict(capacity=1 << 9, segment_slots=128, split_headroom=2)
+    a = jkv.KV(JKVConfig(index=JIndexConfig(kind=JKind.CCEH, **ix), **kw))
+    b = tkv.KV(TKVConfig(index=TIndexConfig(kind=TKind.CCEH, **ix), **kw),
+               device="cpu")
+    lo = np.arange(400, dtype=np.uint32)
+    ks = np.stack([np.ones(400, np.uint32), lo], -1)
+    vals = np.stack([np.zeros(400, np.uint32), lo * 5], -1) if not paged \
+        else np.random.default_rng(1).integers(0, 1 << 32, (400, 64),
+                                               dtype=np.uint32)
+    ra, rb = a.insert(ks, vals), b.insert(ks, vals)
+    _same(ra.slots, rb.slots, "insert slots")
+    (oa, fa), (ob, fb) = a.get(ks), b.get(ks)
+    assert fb.all() and np.array_equal(ob, vals)
+    _same(oa, ob, "get")
+    for x, y in zip(a.find_anyway(ks[:4]), b.find_anyway(ks[:4])):
+        _same(x, y, "find_anyway")
+    assert b.find_anyway(ks[:4])[1].all()
+
+    dirr, ld = u32.to_numpy(b.state.index.dirr), b.state.index.ld.numpy()
+    gmax = len(dirr).bit_length() - 1
+    i = next(i for i in range(len(dirr))
+             if i & ((1 << (gmax - ld[dirr[i]])) - 1))  # not a block start
+    bad = dirr.view(np.int32).copy()
+    bad[i] = (bad[i] + 1) % len(bad)
+    a.state = dataclasses.replace(
+        a.state, index=dataclasses.replace(a.state.index,
+                                           dirr=jnp.asarray(bad)))
+    b.state.index.dirr.copy_(torch.from_numpy(bad))
+    (oa, fa), (ob, fb) = a.get(ks), b.get(ks)
+    _same(oa, ob, "damaged get")
+    assert not fb.all(), "the damaged entry should hide keys"
+    assert a.recovery() and b.recovery()
+    assert np.array_equal(u32.to_numpy(b.state.index.dirr), dirr)
+    (oa, fa), (ob, fb) = a.get(ks), b.get(ks)
+    assert fb.all() and np.array_equal(ob, vals)
+    _same(oa, ob, "recovered get")
+    sa, sb = a.stats(), b.stats()
+    assert all(sa[k] == sb[k] for k in tkv.STAT_NAMES)
+    la, lb = jax_leaves(a.state), carry.state_to_numpy(b.state)
+    for k in la:
+        _same(la[k], lb[k], f"leaf {k}")
 
 
 def test_kv_tensor_calls_return_tensors():
