@@ -7,50 +7,66 @@ Phases, each reported on its own line; any failure exits nonzero:
 
 1. env     — the card (nvidia-smi name and power limit), torch, CUDA, nvcc.
 2. build   — compiles every kernel of the paths from `pmdfc_tpu_torch/ops/csrc`
-             (one source, `fused_get.cu`, holding both fused-GET variants).
+             (one source, `fused_get.cu`, holding all four fused-GET variants).
 3. kernel  — each kernel against its plain PyTorch version, bit for bit
              (tolerance 0: all integer arithmetic), on small states at w in
              {16, 2^10, 2^14}, over batches that hold every miss cause (real
-             extent covers for EXT, one corrupted page for DIGEST):
-             linear·flat with S=16 and S=32 slots per cluster, cceh·flat with
-             S=16 and S=32 lanes per window, and cceh·flat on an extendible
-             (LSB directory) state, calling the wrapper with msb=False.
-4. main    — each family's main path through the `KV` host class on the
-             default device at the serving size, 2^21 slots and 4 KiB pages
-             in an 8 GiB flat pool, the evicted-key sketch:
-             - linear: 65,536 clusters of 32, a 2^24-bit counting bloom;
-             - CCEH: the JAX defaults (1024-slot segments, 32-slot probe
-               windows, split headroom 1, 64 splits per round) at capacity
-               2^20, so 1024 segments growing to 2048 (Gmax 11, an 8 KiB
-               directory, a 32 MiB table), the default bloom.
+             extent covers for EXT, corrupted pages for DIGEST; tiered: a
+             NOPAGE entry and a cleared live bit for PARKED, entries left
+             stale by a forced shrink, a grow and fresh puts for STALE):
+             linear and cceh with S=16 and S=32, and cceh on an extendible
+             (LSB directory) state through the wrapper with msb=False, each
+             over the flat pool and then over a tiered pool whose 1/16 hot
+             tier went through promotions, demotions and ghost readmits.
+4. main    — four main paths through the `KV` host class on the default
+             device at the serving size, 2^21 slots and 4 KiB pages, the
+             evicted-key sketch, one path at a time:
+             - linear·flat: 65,536 clusters of 32, a 2^24-bit counting
+               bloom, an 8 GiB pool;
+             - cceh·flat: the JAX defaults (1024-slot segments, 32-slot
+               probe windows, split headroom 1, 64 splits per round) at
+               capacity 2^20, so 1024 segments growing to 2048 (Gmax 11,
+               an 8 KiB directory, a 32 MiB table), the default bloom;
+             - linear·tiered and cceh·tiered: the same indexes over the
+               tiered pool with `TierConfig()`'s defaults, 262,144 hot +
+               2,097,152 cold rows = 9 GiB; cceh·tiered with the admission
+               gate (`AdmitConfig()`), linear·tiered without.
              Fill 75% of the slots in 2^16-key inserts (CCEH: splits up to
-             the headroom, then in-window evictions; a third of the way in,
-             one replicated directory entry is damaged, the keys behind it
-             stop hitting, and `recovery()` repairs it); serve mixed 2^14-key
-             GET and get_compact batches (present, never-inserted,
-             capacity-evicted, padding); delete; serve again with deleted
-             keys mixed in. Every hit must return the exact page inserted
-             (pages are a function of key and word index, made on the
-             device), every present key must hit, every miss is zeroed,
-             `misses == Σ miss_*`, and the family's kernel must have
-             launched. CCEH then inserts a few hundred extents (bases and
-             values around 2^31 and 2^32) and checks `get_extent`'s
-             addresses, a page GET of a cover (a cold miss through EXT), a
-             page put over a cover (converted), and `find_anyway` on 16
-             keys. Then phase 3's comparison on the full-size state.
-5. times   — per family: CUDA-event device times per 2^14-key batch of the
+             the headroom, then in-window evictions; on the flat path, a
+             third of the way in, one replicated directory entry is
+             damaged, the keys behind it stop hitting, and `recovery()`
+             repairs it); serve mixed 2^14-key GET and get_compact batches
+             (present, never-inserted, capacity-evicted, padding; tiered: a
+             quarter from a fixed hot set of 2^12 present keys, which
+             promote and are then served byte-exact from hot rows); delete;
+             serve again with deleted keys mixed in. Every hit must return
+             the exact page inserted (pages are a function of key and word
+             index, made on the device), every present key must hit, every
+             miss is zeroed, `misses == Σ miss_*`, and the path's kernel
+             must have launched. cceh·flat then inserts a few hundred
+             extents (bases and values around 2^31 and 2^32) and checks
+             `get_extent`'s addresses, a page GET of a cover (a cold miss
+             through EXT), a page put over a cover (converted), and
+             `find_anyway` on 16 keys. The tiered paths update hot-resident
+             keys in place, delete hot-resident keys (`hot_occupied` drops
+             by as many), shrink the balloon by its free rows plus 2 x 1024
+             (every key whose row it evicted misses as `miss_stale`), grow
+             it back and insert fresh keys into the evicted rows (the old
+             keys still miss, the new ones hit byte-exact). Then phase 3's
+             comparison on each full-size state.
+5. times   — per path: CUDA-event device times per 2^14-key batch of the
              kernel and of its plain version (queued behind a busy stream,
              so the host's launch time is not counted; the host-driven loop
              is reported beside), rotated over 8 distinct batches whose pages
              (about 8 x 42 MB) far exceed the 50 MB L2, with one batch
              repeated as the warm time beside it; the kernel's bound (the
              bytes these batches must move over 3.35 TB/s); whole-path GET
-             and insert rates and a torch.profiler breakdown of `KV.get`.
+             (tiered: with its `tier.on_get` epilogue) and insert rates and
+             a torch.profiler breakdown of `KV.get`.
 
-The linear KV is freed before the CCEH fill, so the two 8 GiB pools never
-share the card. The next-to-last line is one JSON object naming each
-kernel with its launches, error and times; the last is
-`{"ok": true, "device": ...}`.
+Each KV is freed before the next path's fill, so no two pools share the
+card. The next-to-last line is one JSON object naming each kernel with its
+launches, error and times; the last is `{"ok": true, "device": ...}`.
 """
 
 from __future__ import annotations
@@ -66,6 +82,8 @@ SECTOR = 32  # bytes: the least the card reads from memory for a scattered word
 PAGE_HI = 0x80000001  # hi word of page keys (>= 2^31: unsigned order matters)
 EXT_HI = 0x80000002   # hi word of extent keys
 INS_B, GET_B = 1 << 16, 1 << 14
+HOT_SET = 1 << 12      # tiered paths: a quarter of each GET comes from it
+BALLOON_EVICT = 2 * 1024  # tiered paths: live rows a forced shrink evicts
 # the serving size: 2^21 slots for each family (CCEH's capacity is its
 # initial segments' slots; one split of each gives the 2^21)
 DEVICE = "cuda"
@@ -86,8 +104,9 @@ def nvidia_smi() -> str:
 
 
 def variant_of(state) -> str:
-    return ("fused_get_cceh_flat" if hasattr(state.index, "dirr")
-            else "fused_get_linear_flat")
+    family = "cceh" if hasattr(state.index, "dirr") else "linear"
+    pool = "tiered" if hasattr(state.pool, "cgen") else "flat"
+    return f"fused_get_{family}_{pool}"
 
 
 class Smoke:
@@ -135,15 +154,20 @@ class Smoke:
     @staticmethod
     def kernel_args(state):
         """fused_get's tensors and keywords for a state (with its directory
-        and `msb` flag for CCEH and extendible hashing)."""
-        ix = state.index
+        and `msb` flag for CCEH and extendible hashing, and the cold rows'
+        sidecars for a tiered pool)."""
+        ix, pool = state.index, state.pool
         kw = dict(dirr=ix.dirr, msb=ix.msb) if hasattr(ix, "dirr") else {}
-        return (ix.table, state.pool.pages, state.pool.sums,
-                state.evicted_filter), kw
+        if hasattr(pool, "cgen"):
+            kw.update(cgen=pool.cgen, live=pool.live,
+                      hot_rows=pool.hfree.shape[0])
+        return (ix.table, pool.pages, pool.sums, state.evicted_filter), kw
 
     def compare(self, keys, state, label: str):
         """Kernel and plain version on the same inputs, bit for bit;
-        -> the batch's cause counts."""
+        -> (the batch's cause counts, keys whose page entry sits on a cold
+        row past the generation gate: they read its generation and live
+        byte; 0 over the flat pool)."""
         torch, fused = self.torch, self.fused
         args, kw = self.kernel_args(state)
         got = fused.fused_get(keys, *args, **kw)
@@ -156,7 +180,9 @@ class Smoke:
         if err:
             raise AssertionError(f"{label}: kernel differs from plain "
                                  f"version (max abs err {err})")
-        return torch.bincount(want[1], minlength=8).tolist()
+        cause, rows = want[1], want[2]
+        cold = int((rows >= kw["hot_rows"]).sum()) if "hot_rows" in kw else 0
+        return torch.bincount(cause, minlength=8).tolist(), cold
 
     def add_extents(self, kv, n: int):
         """n extents of a few pages under EXT_HI -> their base keys."""
@@ -167,11 +193,15 @@ class Smoke:
                              1 + 7 * j)
         return self.keys_of(EXT_HI, self.torch.tensor(bases, device=self.dev))
 
-    def small_state(self, kind: str, s: int):
+    def small_state(self, kind: str, s: int, tiered: bool = False):
         """A small KV on the card with evictions (CCEH: and splits),
-        deletes, real extent covers and a sketch."""
+        deletes, real extent covers and a sketch; tiered: a 1/16 hot tier
+        through promotions, demotions and ghost readmits, then a forced
+        shrink, a grow and fresh puts into the evicted rows (stale
+        entries)."""
         torch, kv_mod = self.torch, self.kv_mod
-        from pmdfc_tpu_torch.config import IndexConfig, IndexKind, KVConfig
+        from pmdfc_tpu_torch.config import (IndexConfig, IndexKind, KVConfig,
+                                            TierConfig)
 
         if kind == "linear":
             ix, n = IndexConfig(capacity=2048, cluster_slots=s), 3072
@@ -179,7 +209,9 @@ class Smoke:
             ix = IndexConfig(kind=IndexKind(kind), capacity=2048,
                              segment_slots=512, probe_window=s)
             n = 6144
-        kv = kv_mod.KV(KVConfig(index=ix, page_words=64,
+        tier = TierConfig(hot_fraction=16, ghost_rows=64, balloon_step=64) \
+            if tiered else None
+        kv = kv_mod.KV(KVConfig(index=ix, page_words=64, tier=tier,
                                 evicted_sketch_bits=1 << 14), device=self.dev)
         lo = torch.randint(0, 1 << 32, (n,), device=self.dev,
                            generator=self.gen)
@@ -188,6 +220,21 @@ class Smoke:
             kv.insert(keys[i:i + 1024], self.pages_of(keys[i:i + 1024], 64))
         covers = self.add_extents(kv, 4)
         kv.delete(keys[n - 1024:n - 872])
+        if tiered:
+            for r in range(12):  # rotate over 3 windows of present keys
+                kv.get(keys[(r % 3) * 400:(r % 3) * 400 + 600])
+            kv.balloon_shrink(kv.balloon_state()["free"] + 256)
+            kv.balloon_grow(256)
+            fresh = self.keys_of(0x80000004, torch.arange(256, device=self.dev))
+            kv.insert(fresh, self.pages_of(fresh, 64))
+            t = kv.tier_stats()
+            log("kernel", f"small {kind} S={s} tiered: promotions "
+                f"{t['promotions']}, demotions {t['demotions']}, ghost "
+                f"readmits {t['ghost_readmits']}, shrink evictions "
+                f"{t['shrink_evictions']}")
+            if not (t["demotions"] and t["ghost_readmits"]
+                    and t["shrink_evictions"]):
+                raise AssertionError("the small tiered state lacks a tier event")
         absent = self.keys_of(7, torch.randint(0, 1 << 32, (512,),
                                                device=self.dev,
                                                generator=self.gen))
@@ -197,41 +244,82 @@ class Smoke:
         return kv, pool, keys[:2048], covers
 
     def poke(self, kv, keys, covers):
-        """Corrupt one present key's page word; keep up to 4 of the cover
-        keys that are live extent entries. -> (probe head: the corrupted
-        key and those covers, undo)."""
+        """Corrupt one present key's page word (tiered: one on a hot row
+        and one on a cold row, then poke one entry to NOPAGE and clear one
+        current cold row's live bit, and take up to 8 stale keys); keep up
+        to 4 of the cover keys that are live extent entries. -> (probe
+        head: those keys and covers, undo)."""
+        from pmdfc_tpu_torch import tier
         from pmdfc_tpu_torch.models.base import get_index_ops
 
-        get_batch = get_index_ops(kv.config.index.kind).get_batch
+        torch, u32 = self.torch, self.u32
+        ops = get_index_ops(kv.config.index.kind)
         st = kv.state
-        res = get_batch(st.index, keys)
-        kd = int(res.found.nonzero().flatten()[0])
-        row = int(res.values[kd, 1])
-        cres = get_batch(st.index, covers)
+        pool = st.pool
+        res = ops.get_batch(st.index, keys)
+        cres = ops.get_batch(st.index, covers)
         live = cres.found & (cres.values[:, 0] == self.fused.EXTENT_TAG_I32)
         if not bool(live.any()):
             raise AssertionError("no live extent cover to probe")
-        old_word = st.pool.pages[row, 0].clone()
-        st.pool.pages[row, 0] ^= 1 << 7
+        rows = res.values[:, 1]
+        if not hasattr(pool, "cgen"):
+            picks = [int(res.found.nonzero().flatten()[0])]
+            corrupt, extra = picks, []
+        else:
+            h = pool.hfree.shape[0]
+            entry = res.found & ((u32.widen(res.values[:, 0]) >> 30) == 0)
+            cur = tier.entry_current(pool, res.values)
+            page = entry & cur & tier.row_live(pool, rows)
+            hot = (page & (rows < h)).nonzero().flatten().tolist()
+            cold = (page & (rows >= h)).nonzero().flatten().tolist()
+            if not hot or len(cold) < 3:
+                raise AssertionError("no hot or too few cold keys to poke")
+            picks = [hot[0], cold[0], cold[1], cold[2]]
+            corrupt = picks[:2]
+            extra = (entry & ~cur).nonzero().flatten()[:8].tolist()
+        saved = [(int(rows[k]), st.pool.pages[int(rows[k]), 0].clone())
+                 for k in corrupt]
+        for r, _ in saved:
+            st.pool.pages[r, 0] ^= 1 << 7
+        if hasattr(pool, "cgen"):
+            knp, kd = picks[2], picks[3]
+            slot = res.slots[knp:knp + 1]
+            ops.set_values(st.index, slot, u32.narrow(torch.tensor(
+                [[0xC0000000, 0]], device=keys.device)))
+            drow = int(rows[kd]) - pool.hfree.shape[0]
+            pool.live[drow] = False
 
         def undo():
-            st.pool.pages[row, 0] = old_word
+            for r, word in saved:
+                st.pool.pages[r, 0] = word
+            if hasattr(pool, "cgen"):
+                ops.set_values(st.index, slot, res.values[knp:knp + 1])
+                pool.live[drow] = True
 
-        return self.torch.cat([keys[kd:kd + 1], covers[live][:4]]), undo
+        return torch.cat([keys[picks + extra], covers[live][:4]]), undo
 
-    def kernel_phase(self, kv, pool, present, covers, label: str):
+    def kernel_phase(self, kv, pool, present, covers, label: str,
+                     extra=None):
+        """Kernel against plain at w in {16, 2^10, 2^14}: each batch holds
+        the poked keys (and `extra` keys) ahead of keys drawn from `pool`;
+        at w >= 2^10 every cause must occur (the tiered pool's PARKED and
+        STALE too)."""
         torch = self.torch
         head, undo = self.poke(kv, present, covers)
+        if extra is not None:
+            head = torch.cat([head, extra])
+        tiered = hasattr(kv.state.pool, "cgen")
+        need = range(8) if tiered else (0, 1, 2, 3, 4, 7)
         for w in (16, 1 << 10, 1 << 14):
             npad = w // 64  # padding rides every batch but the smallest
-            keys = torch.cat([head, self.pick(pool, w - head.shape[0] - npad),
+            keys = torch.cat([head, self.pick(pool, max(
+                w - head.shape[0] - npad, 0)),
                               torch.full((npad, 2), -1, dtype=torch.int32,
-                                         device=self.dev)])
-            causes = self.compare(keys, kv.state, f"{label} w={w}")
+                                         device=self.dev)])[:w]
+            causes, _ = self.compare(keys, kv.state, f"{label} w={w}")
             log("kernel", f"{label} w={w}: kernel == plain, causes "
                 f"{CAUSE_NAMES}={causes}")
-            if w >= 1 << 10 and not all(causes[c] for c in (0, 1, 2, 3, 4,
-                                                            7)):
+            if w >= 1 << 10 and not all(causes[c] for c in need):
                 raise AssertionError(f"{label} w={w}: a cause is missing")
         undo()
 
@@ -258,14 +346,19 @@ def time_ms(torch, fns, iters: int, warmup: int = 3,
 
 
 def fused_get_bytes(fused, causes, w: int, s: int, pw: int,
-                    sketch_bytes: int, dir_bytes: int = 0) -> int:
+                    sketch_bytes: int, dir_bytes: int = 0,
+                    cold_rows: int = 0) -> int:
     """Least bytes one fused GET must move for a batch with these cause
     counts: the keys in, the outputs out, and for each key only what its
     cause reads. Padding keys probe nothing; a scattered word costs one
     sector. CCEH reads a directory word per valid key first (at most the
-    whole directory)."""
+    whole directory). Over the tiered pool a STALE key reads its cold
+    row's generation, and each of the `cold_rows` keys past that gate
+    reads the row's generation and live byte; PARKED and STALE keys read
+    no page."""
     found = (causes[fused.CAUSE_HIT] + causes[fused.CAUSE_EXT]
-             + causes[fused.CAUSE_DIGEST])
+             + causes[fused.CAUSE_DIGEST] + causes[fused.CAUSE_PARKED]
+             + causes[fused.CAUSE_STALE])
     index_miss = causes[fused.CAUSE_COLD] + causes[fused.CAUSE_EVICTED]
     valid = w - causes[fused.CAUSE_PAD]
     page = causes[fused.CAUSE_HIT] + causes[fused.CAUSE_DIGEST]
@@ -274,7 +367,8 @@ def fused_get_bytes(fused, causes, w: int, s: int, pw: int,
             + valid * 8 * s            # khi and klo halves of the table row
             + found * 2 * SECTOR       # vhi and vlo of the matching lane
             + page * (4 * pw + SECTOR)  # the page and its digest word
-            + min(sketch_bytes, index_miss * 2 * SECTOR))  # two sketch bytes
+            + min(sketch_bytes, index_miss * 2 * SECTOR)  # two sketch bytes
+            + (2 * cold_rows + causes[fused.CAUSE_STALE]) * SECTOR)
 
 
 def profile_breakdown(torch, fn, iters: int) -> str:
@@ -307,7 +401,9 @@ class MainPath:
     """One index family's serving path through `KV` at the serving size.
 
     Key index i <-> key (PAGE_HI, i); `status[i]`: 0 never inserted,
-    1 present, 2 capacity-evicted, 3 deleted, 4 dropped."""
+    1 present, 2 capacity-evicted, 3 deleted, 4 dropped, 5 its row evicted
+    by a forced balloon shrink (tiered: the entry is stale). With a `hot`
+    set of key indices, a quarter of every mixed batch is drawn from it."""
 
     def __init__(self, sm: Smoke, cfg, label: str):
         torch = sm.torch
@@ -321,6 +417,7 @@ class MainPath:
                                   device=sm.dev)
         self.evicted_covers: set[int] = set()  # lo words of EXT_HI keys
         self.evictions = self.drops = 0
+        self.hot = None
         st = self.kv.state
         log("main", f"{label}: KV on {self.kv.device}: {self.n_slots} slots, "
             f"table {tuple(st.index.table.shape)}, pool "
@@ -359,14 +456,19 @@ class MainPath:
 
     def counts(self):
         return self.sm.torch.bincount(self.status.long(),
-                                      minlength=5).tolist()
+                                      minlength=6).tolist()
 
     def mixed(self, n: int, deleted: bool):
         sm, torch, status = self.sm, self.sm.torch, self.status
         present = (status == 1).nonzero().flatten()
         evicted = (status == 2).nonzero().flatten()
-        never = torch.arange(self.n_fill, self.n_keys, device=sm.dev)
-        parts = [sm.pick(present, n * 5 // 8), sm.pick(never, n // 8)]
+        never = (status == 0).nonzero().flatten()
+        if self.hot is None:
+            parts = [sm.pick(present, n * 5 // 8)]
+        else:
+            parts = [sm.pick(self.hot, n // 4),
+                     sm.pick(present, n * 5 // 8 - n // 4)]
+        parts.append(sm.pick(never, n // 8))
         if evicted.numel():
             parts.append(sm.pick(evicted, n // 8))
         if deleted:
@@ -392,11 +494,11 @@ class MainPath:
         d = (kv.state.stats.long() - stats_before).tolist()
         s = dict(zip(sm.kv_mod.STAT_NAMES, d))
         causes = sum(s[c] for c in sm.kv_mod.MISS_CAUSE_NAMES)
-        counts = [int((valid & (st == k)).sum()) for k in range(5)]
+        counts = [int((valid & (st == k)).sum()) for k in range(6)]
         if s["misses"] != causes:
             raise AssertionError(f"{label}: misses {s['misses']} != "
                                  f"sum of causes {causes}")
-        if s["misses"] > counts[0] + counts[2] + counts[3] + counts[4]:
+        if s["misses"] > sum(counts) - counts[1]:
             raise AssertionError(f"{label}: more misses than lost keys")
         if s["miss_evicted"] < counts[2]:
             raise AssertionError(f"{label}: evicted keys not attributed")
@@ -421,9 +523,10 @@ class MainPath:
             self.check_get(keys, out, found, before, f"{label} get_compact")
         log("main", f"{self.label} {label}: {rounds} x (get + get_compact) of "
             f"{GET_B} keys ok; last batch (never,present,evicted,deleted,"
-            f"dropped)={counts}, hits={s['hits']}, misses={s['misses']} "
-            f"(cold={s['miss_cold']}, evicted={s['miss_evicted']}, "
-            f"digest={s['miss_digest']})")
+            f"dropped,stale)={counts}, hits={s['hits']}, misses="
+            f"{s['misses']} (cold={s['miss_cold']}, evicted="
+            f"{s['miss_evicted']}, stale={s['miss_stale']}, digest="
+            f"{s['miss_digest']})")
 
     def delete(self):
         sm = self.sm
@@ -434,9 +537,9 @@ class MainPath:
         self.status[gone] = 3
         log("main", f"{self.label} delete: {gone.numel()} keys, all hit")
 
-    def run(self, on_fill_step=None):
-        """Fill, serve, delete, serve -> fill seconds. `on_fill_step(i)`
-        runs after the fill batch that ends at key index i."""
+    def run_fill(self, on_fill_step=None):
+        """Fill 75% of the slots -> seconds. `on_fill_step(i)` runs after
+        the fill batch that ends at key index i."""
         t = 0.0
         for i in range(0, self.n_fill, INS_B):
             t += self.fill(i, i + INS_B)
@@ -446,14 +549,18 @@ class MainPath:
         log("main", f"{self.label} fill: {self.n_fill} pages in {t:.3f} s = "
             f"{self.n_fill / t:.0f} pages/s; evictions {self.evictions}, "
             f"drops {self.drops}; status counts (never,present,evicted,"
-            f"deleted,dropped)={self.counts()}")
+            f"deleted,dropped,stale)={self.counts()}")
+
+    def run(self, on_fill_step=None):
+        """Fill, serve, delete, serve."""
+        self.run_fill(on_fill_step)
         self.serve(4, False, "serve")
         self.delete()
         self.serve(4, True, "serve after delete")
 
 
 def measure(sm: Smoke, path: MainPath, launches: int, dir_bytes: int = 0):
-    """Phase 5 for one family -> its `kernels` entry."""
+    """Phase 5 for one path -> its kernel's `kernels` entry."""
     torch, fused, kv = sm.torch, sm.fused, path.kv
     st = kv.state
     name = variant_of(st)
@@ -464,10 +571,12 @@ def measure(sm: Smoke, path: MainPath, launches: int, dir_bytes: int = 0):
     # 50 MB L2, so launches rotated over them read from memory, as a
     # stream of fresh requests does; one batch repeated is the warm time.
     batches = [path.mixed(GET_B, True) for _ in range(8)]
-    nbytes = [fused_get_bytes(fused, sm.compare(k, st, f"timed batch {i}"),
-                              GET_B, s, path.pw, st.evicted_filter.numel(),
-                              dir_bytes)
-              for i, k in enumerate(batches)]
+    nbytes = []
+    for i, k in enumerate(batches):
+        causes, cold = sm.compare(k, st, f"timed batch {i}")
+        nbytes.append(fused_get_bytes(fused, causes, GET_B, s, path.pw,
+                                      st.evicted_filter.numel(), dir_bytes,
+                                      cold))
     kern = [lambda k=k: fused.fused_get(k, *args, **kw) for k in batches]
     plain = [lambda k=k: fused.get_core_reference(k, *args, **kw)
              for k in batches]
@@ -493,7 +602,8 @@ def measure(sm: Smoke, path: MainPath, launches: int, dir_bytes: int = 0):
     kv_get = [lambda k=k: kv.get(k) for k in batches]
     get_ms = time_ms(torch, kv_get, 24)
     log("times", f"{path.label} whole-path KV.get, rotated: {get_ms:.3f} ms "
-        f"per {GET_B} keys = {GET_B / get_ms * 1e3:.0f} keys/s; fill "
+        f"per {GET_B} keys = {GET_B / get_ms * 1e3:.0f} keys/s (a tiered "
+        f"KV.get includes its tier.on_get epilogue); fill "
         f"{path.n_fill / path.t_fill:.0f} pages/s ({smi})")
     try:
         log("times", f"{path.label} torch.profiler, KV.get of 2^14 keys: "
@@ -740,6 +850,169 @@ def run_cceh(sm: Smoke):
     return measure(sm, path, launches, dir_bytes=ix.dirr.numel() * 4)
 
 
+def hot_resident(sm: Smoke, kv, idx):
+    """Of key indices `idx` (present keys), those whose entry points at a
+    hot row."""
+    res = kv._ops.get_batch(kv.state.index, sm.keys_of(PAGE_HI, idx))
+    return idx[res.found & (res.values[:, 1] < kv.state.pool.hfree.shape[0])]
+
+
+def tier_line(kv) -> str:
+    t = kv.tier_stats()
+    return ", ".join(f"{k} {t[k]}" for k in (
+        "promotions", "demotions", "hot_hits", "cold_hits", "hot_occupied",
+        "migrated_bytes", "balloon_grows", "balloon_shrinks",
+        "shrink_evictions", "cold_free"))
+
+
+def run_tiered(sm: Smoke, kind: str):
+    """One family's 9 GiB tiered path: fill, serve with a hot set (its keys
+    promote and then hit byte-exact from hot rows), update hot-resident
+    keys in place, delete (hot-resident keys among them), a forced balloon
+    shrink whose evicted keys all miss as stale, a grow and fresh puts
+    into the evicted rows (the old keys still miss, the new hit), then
+    kernel against plain on the full-size state."""
+    torch, u32, kv_mod = sm.torch, sm.u32, sm.kv_mod
+    from pmdfc_tpu_torch.config import (AdmitConfig, BloomConfig, IndexConfig,
+                                        IndexKind, KVConfig, TierConfig)
+
+    if kind == "linear":
+        cfg = KVConfig(index=IndexConfig(**LINEAR_INDEX),
+                       bloom=BloomConfig(num_bits=1 << 24), tier=TierConfig())
+    else:
+        cfg = KVConfig(index=IndexConfig(kind=IndexKind.CCEH, **CCEH_INDEX),
+                       tier=TierConfig(admit=AdmitConfig()))
+    path = MainPath(sm, cfg, f"{kind}·tiered")
+    kv = path.kv
+    pool = kv.state.pool
+    h = pool.hfree.shape[0]
+    log("main", f"{path.label}: {h} hot + {pool.live.numel()} cold rows, "
+        f"{cfg.tier}")
+    variant = variant_of(kv.state)
+    sm.fused.launches.clear()
+    torch.cuda.synchronize()
+    path.run_fill()
+
+    # serve with a hot set: its keys reach 2 touches and promote
+    present = (path.status == 1).nonzero().flatten()
+    path.hot = present[torch.randperm(present.numel(), device=sm.dev,
+                                      generator=sm.gen)[:HOT_SET]]
+    path.serve(4, False, "serve")
+    res_hot = hot_resident(sm, kv, path.hot)
+    if res_hot.numel() == 0 or kv.tier_stats()["promotions"] <= 0:
+        raise AssertionError(f"{path.label}: nothing promoted")
+    before = kv.state.stats.long()
+    hits0 = kv.tier_stats()["hot_hits"]
+    keys = sm.keys_of(PAGE_HI, res_hot)
+    out, found = kv.get(keys)
+    path.check_get(keys, out, found, before, "hot-resident get")
+    if kv.tier_stats()["hot_hits"] - hits0 != res_hot.numel():
+        raise AssertionError(f"{path.label}: hot-resident keys not served "
+                             "from hot rows")
+    log("main", f"{path.label} hot set: {res_hot.numel()} of {HOT_SET} keys "
+        f"on rows < {h}, all hit byte-exact from hot rows; {tier_line(kv)}")
+    if kind != "linear":
+        log("main", f"{path.label} admit_state {json.dumps(kv.admit_state())}")
+
+    # update in place: new bytes on hot rows, read back, then restored
+    upd = sm.keys_of(PAGE_HI, res_hot[:64])
+    new_pages = sm.pages_of(upd, path.pw) ^ 0x5A5A5A5A
+    kv.insert(upd, new_pages)
+    out, found = kv.get(upd)
+    if not (found.all() and torch.equal(out, new_pages)):
+        raise AssertionError(f"{path.label}: in-place update not served")
+    if hot_resident(sm, kv, res_hot[:64]).numel() != 64:
+        raise AssertionError(f"{path.label}: an update moved a hot key")
+    kv.insert(upd, sm.pages_of(upd, path.pw))
+    log("main", f"{path.label} update: 64 hot-resident keys rewritten in "
+        f"place and read back byte-exact, then restored")
+
+    # delete, hot-resident keys among them: their hot rows free
+    occ0 = kv.tier_stats()["hot_occupied"]
+    gone_hot = res_hot[64:320]
+    hit = kv.delete(sm.keys_of(PAGE_HI, gone_hot))
+    if not bool(hit.all()):
+        raise AssertionError("delete missed hot-resident keys")
+    path.status[gone_hot] = 3
+    occ1 = kv.tier_stats()["hot_occupied"]
+    if occ1 != occ0 - gone_hot.numel():
+        raise AssertionError(f"hot_occupied {occ0} -> {occ1} after deleting "
+                             f"{gone_hot.numel()} hot-resident keys")
+    path.delete()
+    path.serve(2, True, "serve after delete")
+    log("main", f"{path.label} delete: hot_occupied {occ0} -> {occ1} for "
+        f"{gone_hot.numel()} hot-resident keys deleted")
+
+    # forced balloon shrink: free rows park, then the coldest live rows
+    # are evicted; every key on an evicted row misses as stale
+    live0 = pool.live.clone()
+    free = kv.balloon_state()["free"]
+    kv.balloon_shrink(free + BALLOON_EVICT)
+    evicted_rows = live0 & ~pool.live
+    present = (path.status == 1).nonzero().flatten()
+    res = kv._ops.get_batch(kv.state.index, sm.keys_of(PAGE_HI, present))
+    crow = (res.values[:, 1].long() - h).clamp(min=0)
+    on_evicted = (res.values[:, 1] >= h) & evicted_rows[crow]
+    stale_idx = present[on_evicted]
+    if stale_idx.numel() != int(evicted_rows.sum()) or not stale_idx.numel():
+        raise AssertionError(f"{path.label}: {stale_idx.numel()} keys on "
+                             f"{int(evicted_rows.sum())} evicted rows")
+    path.status[stale_idx] = 5
+    before = kv.state.stats.long()
+    for i in range(0, stale_idx.numel(), GET_B):
+        k = sm.keys_of(PAGE_HI, stale_idx[i:i + GET_B])
+        out, found = kv.get(k)
+        if found.any() or out.any():
+            raise AssertionError("a key on an evicted row was served")
+    d = dict(zip(kv_mod.STAT_NAMES, (kv.state.stats.long() - before).tolist()))
+    if d["miss_stale"] != stale_idx.numel() or d["misses"] != d["miss_stale"]:
+        raise AssertionError(f"{path.label}: evicted keys missed as {d}")
+    log("main", f"{path.label} balloon shrink by {free} free + "
+        f"{BALLOON_EVICT}: {stale_idx.numel()} live rows evicted, every key "
+        f"on them missed as miss_stale; {kv.balloon_state()}")
+
+    # grow, then fresh keys reuse the evicted rows: old keys still miss,
+    # the new keys hit byte-exact
+    kv.balloon_grow(stale_idx.numel())
+    nfree = kv.balloon_state()["free"]
+    new_idx = (path.status == 0).nonzero().flatten()[:nfree]
+    new_keys = sm.keys_of(PAGE_HI, new_idx)
+    res = kv.insert(new_keys, sm.pages_of(new_keys, path.pw))
+    path.status[new_idx] = torch.where(res.dropped, 4, 1).to(torch.int8)
+    path.track(res)
+    rows = kv._ops.get_batch(kv.state.index, new_keys).values[:, 1].long()
+    reused = int(evicted_rows[(rows - h).clamp(min=0)].sum())
+    if reused == 0:
+        raise AssertionError("no fresh key landed on an evicted row")
+    for label, idx in (("stale keys", stale_idx), ("fresh keys", new_idx)):
+        for i in range(0, idx.numel(), GET_B):
+            k = sm.keys_of(PAGE_HI, idx[i:i + GET_B])
+            before = kv.state.stats.long()
+            out, found = kv.get(k)
+            path.check_get(k, out, found, before, f"{label} after regrow")
+    log("main", f"{path.label} balloon grow: {nfree} rows back, {new_idx.numel()}"
+        f" fresh keys inserted, {reused} on rows the shrink evicted; the "
+        f"{stale_idx.numel()} stale keys still miss, the fresh keys hit "
+        f"byte-exact; {tier_line(kv)}")
+    torch.cuda.synchronize()
+    launches = sm.fused.launches[variant]
+    if launches <= 0:
+        raise AssertionError(f"the {path.label} main path never launched "
+                             "its kernel")
+    check_stats(sm, path)
+
+    # 3, continued: kernel against plain on the full-size state, with
+    # real extent covers, stale keys and capacity-evicted keys in the head
+    covers = sm.add_extents(kv, 4)
+    cand = torch.cat([path.hot, (path.status == 1).nonzero().flatten()[:4096],
+                      stale_idx[:64]])
+    evicted = (path.status == 2).nonzero().flatten()[:4]
+    sm.kernel_phase(kv, all_keys(sm, path), sm.keys_of(PAGE_HI, cand), covers,
+                    f"{path.label} full", extra=sm.keys_of(PAGE_HI, evicted))
+    dir_bytes = kv.state.index.dirr.numel() * 4 if kind != "linear" else 0
+    return measure(sm, path, launches, dir_bytes=dir_bytes)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -773,25 +1046,31 @@ def main() -> int:
 
     sm = Smoke(args.seed)
 
-    # 3. kernel against plain, small states
-    for kind, s in (("linear", 16), ("linear", 32), ("cceh", 16),
-                    ("cceh", 32)):
-        kv, pool, present, covers = sm.small_state(kind, s)
-        sm.kernel_phase(kv, pool, present, covers, f"small {kind} S={s}")
+    # 3. kernel against plain, small states, flat then tiered
+    for tiered in (False, True):
+        pool_name = "tiered" if tiered else "flat"
+        for kind, s in (("linear", 16), ("linear", 32), ("cceh", 16),
+                        ("cceh", 32)):
+            kv, pool, present, covers = sm.small_state(kind, s, tiered)
+            sm.kernel_phase(kv, pool, present, covers,
+                            f"small {kind}·{pool_name} S={s}")
+            del kv
+        # the LSB directory: extendible hashing serves through the
+        # composed GET, so its state is held here by calling the wrapper
+        # with msb=False
+        kv, pool, present, covers = sm.small_state("extendible", 32, tiered)
+        assert not kv.state.index.msb
+        sm.kernel_phase(kv, pool, present, covers,
+                        f"small extendible·{pool_name} (msb=False)")
         del kv
-    # the LSB directory: extendible hashing serves through the composed
-    # GET, so its state is held here by calling the wrapper with msb=False
-    kv, pool, present, covers = sm.small_state("extendible", 32)
-    assert not kv.state.index.msb
-    sm.kernel_phase(kv, pool, present, covers, "small extendible (msb=False)")
-    del kv
     torch.cuda.empty_cache()
 
-    # 4 and 5, one family at a time: the linear KV is freed before the
-    # CCEH fill
-    kernels = [run_linear(sm)]
-    torch.cuda.empty_cache()
-    kernels.append(run_cceh(sm))
+    # 4 and 5, one path at a time: each KV is freed before the next fill
+    kernels = []
+    for run in (run_linear, run_cceh, lambda sm: run_tiered(sm, "linear"),
+                lambda sm: run_tiered(sm, "cceh")):
+        kernels.append(run(sm))
+        torch.cuda.empty_cache()
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from pmdfc_tpu_torch import kv as kv_mod
+from pmdfc_tpu_torch import tier as tier_mod
 from pmdfc_tpu_torch.config import IndexKind, KVConfig
 from pmdfc_tpu_torch.models import cceh
 from pmdfc_tpu_torch.models.linear import LinearState
@@ -27,7 +28,12 @@ from pmdfc_tpu_torch.utils import u32
 # leaves holding u32 words (uint32 in JAX, int32 bits here)
 U32_LEAVES = frozenset({"index.table", "index.head", "index.ld",
                         "index.gdepth", "pool.pages", "pool.sums",
-                        "extents.recs", "extents.cursor"})
+                        "extents.recs", "extents.cursor",
+                        # the tiered pool's
+                        "pool.hot_keys", "pool.metric", "pool.tick",
+                        "pool.touch", "pool.ghost", "pool.gcur", "pool.cgen",
+                        "pool.admit_cm", "pool.admit_ops",
+                        "pool.admit_thresh"})
 
 
 def _tensor(name: str, a: np.ndarray, device) -> torch.Tensor:
@@ -41,7 +47,9 @@ def state_from_numpy(leaves: dict[str, np.ndarray], config: KVConfig,
                      device="cuda") -> kv_mod.KVState:
     """The JAX package's `KVState` leaves (numpy, by dotted path) -> this
     package's `KVState` on `device`: the ported index families over the
-    flat pool. A CCEH state's static knobs come from the config."""
+    flat pool, or the tiered one when `config.tier` is set (its admission
+    leaves iff the leaves hold them). A CCEH state's static knobs come
+    from the config."""
     dev = kv_mod.resolve_device(device)
 
     def t(name):
@@ -58,13 +66,21 @@ def state_from_numpy(leaves: dict[str, np.ndarray], config: KVConfig,
     else:
         raise NotImplementedError(f"index kind {kind.value!r} is not ported")
 
+    pool = None
+    if config.paged and config.tier is not None:
+        pool = tier_mod.TierState(**{
+            f.name: t(f"pool.{f.name}")
+            for f in dataclasses.fields(tier_mod.TierState)
+            if f"pool.{f.name}" in leaves or not f.name.startswith("admit_")})
+    elif config.paged:
+        pool = PoolState(pages=t("pool.pages"), sums=t("pool.sums"),
+                         free=t("pool.free"), top=t("pool.top"))
+
     return kv_mod.KVState(
         index=index,
         bloom=BloomState(counters=t("bloom.counters"))
         if config.bloom else None,
-        pool=PoolState(pages=t("pool.pages"), sums=t("pool.sums"),
-                       free=t("pool.free"), top=t("pool.top"))
-        if config.paged else None,
+        pool=pool,
         extents=kv_mod.ExtentState(recs=t("extents.recs"),
                                    cursor=t("extents.cursor")),
         stats=t("stats"),

@@ -3,7 +3,9 @@
 The same frozen dataclasses with the same fields and defaults, so one
 configuration reads the same in both packages. Two differences:
 
-- `KVConfig.tier` exists but only `None` (the flat pool) is served yet;
+- no environment switch: the JAX package lets `PMDFC_TIER` and
+  `PMDFC_ADMIT` add or strip the tiered store and its admission gate at
+  init; here they come from `KVConfig.tier` (and its `admit`) alone;
 - there is no `fused_get` switch: on CUDA a configuration that
   `ops.fused.supports` accepts always runs the fused GET kernel, and one
   it rejects runs the composed GET, as the JAX package composes it.
@@ -74,6 +76,80 @@ class BloomConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class AdmitConfig:
+    """TinyLFU-style admission gate on the tiered store's hot boundary
+    (`tier.py`): a count-min frequency sketch with periodic halving plus
+    a doorkeeper bloom, consulted by the promotion path. Attach via
+    `TierConfig(admit=AdmitConfig(...))`."""
+
+    # count-min width: counters per hash row (2 rows; estimate = min over
+    # rows + the doorkeeper bit)
+    sketch_width: int = 1 << 14
+    # doorkeeper bloom bits: a key's first touch of an epoch sets them,
+    # only already-doorkept touches count into the CM rows
+    door_bits: int = 1 << 15
+    # observed touches per aging epoch: then every CM counter halves and
+    # the doorkeeper clears
+    reset_ops: int = 1 << 14
+    # least sketch estimate for a non-ghost candidate to get a hot slot
+    # (live-settable: `KV.set_admit_threshold`)
+    threshold: int = 2
+
+    def __post_init__(self) -> None:
+        if self.sketch_width < 64:
+            raise ValueError("sketch_width must be >= 64")
+        if self.door_bits < 64:
+            raise ValueError("door_bits must be >= 64")
+        if self.reset_ops < 1:
+            raise ValueError("reset_ops must be >= 1")
+        if self.threshold < 0:
+            raise ValueError("threshold must be >= 0")
+
+
+@dataclasses.dataclass(frozen=True)
+class TierConfig:
+    """Tiered page store (`tier.py`): hot/cold pools with LRFU-driven
+    migration and dynamic cold-capacity ballooning. Attach via
+    `KVConfig(tier=TierConfig(...))`."""
+
+    # hot rows = index slots // hot_fraction (at least 16)
+    hot_fraction: int = 8
+    # cold GETs (counted on the row) before promotion; a ghost-ring hit
+    # readmits on the first touch
+    promote_touches: int = 2
+    ghost_rows: int = 256
+    # bound on migrations per GET batch
+    max_promotes_per_batch: int = 64
+    # hot-tier victim policy (lru | lfu | fifo); victims are min-metric rows
+    hot_policy: str = "lru"
+    # ballooning moves cold circulation in steps of this many rows
+    balloon_step: int = 1024
+    # initial circulating cold rows (None = fully materialized)
+    cold_init_rows: int | None = None
+    # grow when free cold rows would drop below this after a batch
+    grow_free_rows: int = 64
+    # auto-park a step when free cold rows exceed this (0 = disabled)
+    shrink_free_rows: int = 0
+    # TinyLFU admission gate on the hot boundary (None = no gate)
+    admit: AdmitConfig | None = None
+
+    def __post_init__(self) -> None:
+        if self.hot_fraction < 2:
+            raise ValueError("hot_fraction must be >= 2 (the hot tier "
+                             "must be a strict minority of capacity)")
+        if self.promote_touches < 1:
+            raise ValueError("promote_touches must be >= 1")
+        if self.ghost_rows < 1:
+            raise ValueError("ghost_rows must be >= 1")
+        if self.max_promotes_per_batch < 1:
+            raise ValueError("max_promotes_per_batch must be >= 1")
+        if self.balloon_step < 1:
+            raise ValueError("balloon_step must be >= 1")
+        if self.hot_policy not in ("lru", "lfu", "fifo"):
+            raise ValueError(f"unknown hot_policy {self.hot_policy!r}")
+
+
+@dataclasses.dataclass(frozen=True)
 class KVConfig:
     """KV façade configuration (ref `server/KV.h` + `rdma_svr.cpp` getopt)."""
 
@@ -89,8 +165,9 @@ class KVConfig:
     extent_capacity: int = 1024
     extent_max_covers: int = 64
     extent_max_height: int = 30
-    # Tiered page store: not ported yet, must stay None (flat pool).
-    tier: None = None
+    # Tiered page store (hot/cold pools over one backing array); None =
+    # the flat pool.
+    tier: TierConfig | None = None
     # Bits of the evicted-key sketch that splits GET misses into
     # `miss_evicted` vs `miss_cold`.
     evicted_sketch_bits: int = 1 << 16
@@ -98,6 +175,3 @@ class KVConfig:
     def __post_init__(self) -> None:
         if self.evicted_sketch_bits < 64:
             raise ValueError("evicted_sketch_bits must be >= 64")
-        if self.tier is not None:
-            raise NotImplementedError(
-                "the tiered page store is not ported yet; use tier=None")

@@ -20,9 +20,16 @@ entry per aligned power-of-two cover of the page run. The cover
 decomposition is a scalar recursion over one run, so it is computed on
 the host in Python integers (u32 arithmetic masked to 32 bits).
 
-Not ported yet: the tiered pool, the sharded extent insert, the
-recovering serving state, `fast_view`, the async verbs and the host-side
-stats overlays.
+Tiered pool (`config.tier`, `tier.py`): page entries are [generation,
+row] values over one hot/cold backing array; `entry_current` guards every
+site that keeps, frees or overwrites a row, a placement the balloon cannot
+serve is stamped NOPAGE (a legal miss, counted as a drop), and a counting
+GET runs the migration epilogue `tier.on_get` after the lookup. A `lean`
+GET (`IndexConfig.touch_sample_every`) skips the epilogue and writes
+nothing but `state.stats`.
+
+Not ported yet: the sharded extent insert, the recovering serving state,
+`fast_view`, the async verbs and the host-side stats overlays.
 """
 
 from __future__ import annotations
@@ -35,7 +42,8 @@ from typing import Any
 import numpy as np
 import torch
 
-from pmdfc_tpu_torch.config import KVConfig
+from pmdfc_tpu_torch import tier as tier_mod
+from pmdfc_tpu_torch.config import KVConfig, TierConfig
 from pmdfc_tpu_torch.models.base import dedupe_last_wins, get_index_ops
 from pmdfc_tpu_torch.models.rowops import first_lane
 from pmdfc_tpu_torch.ops import bloom as bloom_ops
@@ -63,6 +71,9 @@ NSTATS = len(STAT_NAMES)
 MISS_CAUSE_NAMES = tuple(STAT_NAMES[MISS_COLD:MISS_DEADLINE + 1])
 
 EXTENT_REC_WORDS = 6  # khi, klo, vhi, vlo, len, valid
+# tiered pool: hi word of an entry placed with no row allocated (balloon
+# exhaustion; the entry [NOPAGE_TAG, 0] is a legal miss)
+NOPAGE_TAG = 0xC0000000
 _SKETCH_SEEDS = fused_ops.SKETCH_SEEDS
 
 
@@ -76,7 +87,8 @@ class ExtentState:
 class KVState:
     index: Any
     bloom: bloom_ops.BloomState | None
-    pool: pagepool.PoolState | None
+    # flat PoolState, or TierState when `config.tier` is set
+    pool: pagepool.PoolState | tier_mod.TierState | None
     extents: ExtentState
     stats: torch.Tensor           # int32[NSTATS]
     # evicted-key sketch: a plain bloom of keys the index capacity-evicted;
@@ -95,13 +107,25 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def _tcfg(config: KVConfig) -> TierConfig:
+    """Tier knobs of a tiered state: `config.tier` (the defaults where a
+    tiered state meets a config without one)."""
+    return config.tier if config.tier is not None else TierConfig()
+
+
+def _tiered(state: KVState) -> bool:
+    return isinstance(state.pool, tier_mod.TierState)
+
+
 def init(config: KVConfig, device="cuda") -> KVState:
     dev = resolve_device(device)
     ops = get_index_ops(config.index.kind)
+    n = ops.num_slots(config.index)
     pool = None
-    if config.paged:
-        pool = pagepool.init(ops.num_slots(config.index), config.page_words,
-                             device=dev)
+    if config.paged and config.tier is not None:
+        pool = tier_mod.init(n, config.page_words, config.tier, device=dev)
+    elif config.paged:
+        pool = pagepool.init(n, config.page_words, device=dev)
     return KVState(
         index=ops.init(config.index, device=dev),
         bloom=bloom_ops.init(config.bloom, device=dev) if config.bloom else None,
@@ -179,16 +203,26 @@ def insert(state: KVState, config: KVConfig, keys: torch.Tensor,
     The JAX program skips some masked passes with `lax.cond` when their
     mask is empty; here they always run (a masked pass over an empty mask
     changes nothing), so no host sync is needed.
+
+    On a tiered pool a stale entry does not keep "its" row (the row may
+    belong to another key now), freed rows are generation-guarded, fresh
+    rows come from the cold tier (growing the balloon under pressure), a
+    placement that got no row is stamped NOPAGE and counted as a drop, and
+    a put is a touch for the admission gate.
     """
     ops = get_index_ops(config.index.kind)
     valid = ~is_invalid(keys)
     paged = state.pool is not None
+    tiered = _tiered(state)
+    shortfall = None
 
     if paged:
         # existing entries keep their row; fresh ones get a 0 placeholder
         # patched after allocation
         pre = ops.get_batch(state.index, keys)
         keep = pre.found & ~_is_special(pre.values)
+        if tiered:
+            keep = keep & tier_mod.entry_current(state.pool, pre.values)
         index_vals = torch.where(keep[:, None], pre.values, 0)
     else:
         index_vals = values
@@ -201,55 +235,121 @@ def insert(state: KVState, config: KVConfig, keys: torch.Tensor,
     if paged:
         pool = state.pool
         wrote = res.slots >= 0
-        # a plain put over an extent-cover entry converts it to a page entry
+        # a plain put over an extent-cover, NOPAGE or stale entry converts
+        # it to a page entry with a fresh row
         conv = wrote & ~res.fresh & pre.found & ~keep
         want = res.fresh | conv
         freed, freed_rows = _reclaim_evicted(res)
-        _, new_rows = pagepool.recycle_and_alloc(pool, freed, freed_rows, want)
-        row_vals = torch.stack([torch.zeros_like(new_rows),
-                                new_rows.clamp(min=0)], dim=-1)
+        if tiered:
+            # never free a row off a stale evicted value
+            freed = freed & tier_mod.entry_current(pool, res.evicted_vals)
+            _, new_rows = tier_mod.recycle_and_alloc(
+                pool, _tcfg(config), freed, freed_rows, want)
+            row_vals = tier_mod.row_values(pool, new_rows)
+        else:
+            _, new_rows = pagepool.recycle_and_alloc(pool, freed, freed_rows,
+                                                     want)
+            row_vals = torch.stack([torch.zeros_like(new_rows),
+                                    new_rows.clamp(min=0)], dim=-1)
         # an entry placed mid-batch can lose its slot to a later same-batch
         # eviction; only an eviction can take a placement away
         probe = torch.where(want[:, None], keys, INVALID_I32)
         lost = want & ~ops.get_batch(state.index, probe).found \
             & evicted_mask.any()
+        # a ballooned-down cold pool can run out of rows
         good = want & ~lost & (new_rows >= 0)
-        ops.set_values(state.index, torch.where(good, res.slots, -1), row_vals)
-        pagepool.recycle_and_alloc(pool, lost, new_rows, torch.zeros_like(lost))
+        if tiered:
+            # a placed entry that got no row is stamped NOPAGE: it must not
+            # keep its placeholder (that would alias global row 0)
+            shortfall = want & ~lost & (new_rows < 0)
+            nopage = u32.narrow(torch.tensor([NOPAGE_TAG, 0],
+                                             device=keys.device))
+            ops.set_values(state.index,
+                           torch.where(good | shortfall, res.slots, -1),
+                           torch.where(good[:, None], row_vals, nopage))
+            tier_mod.recycle_and_alloc(pool, _tcfg(config), lost, new_rows,
+                                       torch.zeros_like(lost), balloon=False)
+        else:
+            ops.set_values(state.index, torch.where(good, res.slots, -1),
+                           row_vals)
+            pagepool.recycle_and_alloc(pool, lost, new_rows,
+                                       torch.zeros_like(lost))
         # ordered page scatters: in-place updates first, new rows second;
         # the digest sidecar rides the same two scatters
         upd_rows = torch.where(wrote & ~want & keep, pre.values[:, 1], -1)
         alloc_rows = torch.where(good, new_rows, -1)
         digs = pagepool.page_digest(values)
         for rows in (upd_rows, alloc_rows):
-            pagepool.write_batch(pool.pages, rows, values)
-            pagepool.write_sums(pool.sums, rows, digs)
+            if tiered:
+                tier_mod.write_rows(pool, rows, values, digs)
+            else:
+                pagepool.write_batch(pool.pages, rows, values)
+                pagepool.write_sums(pool.sums, rows, digs)
+        acfg = tier_mod.admit_cfg(pool, _tcfg(config)) if tiered else None
+        if acfg is not None:
+            # a put is a touch: re-written keys accrue admission evidence
+            tier_mod.admit_observe(pool, acfg, keys,
+                                   dedupe_last_wins(keys, valid))
 
     bumps = torch.zeros(NSTATS, dtype=torch.int32, device=keys.device)
     bumps[PUTS] = valid.sum(dtype=torch.int32)
     bumps[EVICTIONS] = evicted_mask.sum(dtype=torch.int32)
     bumps[DROPS] = (valid & res.dropped).sum(dtype=torch.int32)
+    if shortfall is not None:
+        bumps[DROPS] += shortfall.sum(dtype=torch.int32)
     state.stats += bumps
     return state, res
 
 
-def _get_core(state: KVState, config: KVConfig, keys: torch.Tensor):
+def _get_core(state: KVState, config: KVConfig, keys: torch.Tensor,
+              lean: bool = False):
     """Composed GET (ref `KV::Get` `KV.cpp:148`) -> (state, out, found).
 
     Serves the configs the fused GET does not (`fused.supports`): the lean
-    probe for unpaged indexes, the composed page path for paged ones.
-    Writes nothing but `state.stats`.
+    probe for unpaged indexes, the composed page path for paged ones (on a
+    tiered pool: extendible hashing). Writes nothing but `state.stats`,
+    except that a counting (`lean=False`) GET on a tiered pool then runs
+    the migration epilogue `tier.on_get`.
     """
     ops = get_index_ops(config.index.kind)
     valid = ~is_invalid(keys)
     bumps = torch.zeros(NSTATS, dtype=torch.int32, device=keys.device)
     corrupt = torch.zeros_like(valid)
+    parked = stale = torch.zeros_like(valid)
     if state.pool is None:
         # lean probe: values pre-zeroed on miss
         out, found = ops.get_values(state.index, keys)
         found = found & valid
         idx_miss = valid & ~found
         ext_m = torch.zeros_like(valid)
+    elif _tiered(state):
+        pool = state.pool
+        res = ops.get_batch(state.index, keys)
+        found = res.found & valid
+        idx_miss = valid & ~res.found
+        # tag 0 = page entry, 2 = extent, 3 = NOPAGE; every special tag but
+        # NOPAGE is "not a page", so cold for a page GET
+        tag = u32.widen(res.values[:, 0]) >> 30
+        nopage = found & (tag == 3)
+        ext_m = found & (tag != 0) & ~nopage
+        found = found & (tag == 0)
+        # a stale entry (generation mismatch) is a legal miss, never a
+        # read of the row's new owner
+        cur = tier_mod.entry_current(pool, res.values)
+        stale = found & ~cur
+        found = found & cur
+        rows = torch.where(found, res.values[:, 1], -1)
+        out = tier_mod.read_batch(pool, rows)
+        live = tier_mod.row_live(pool, rows)
+        sums_ok = pagepool.page_digest(out) == tier_mod.stored_sums(pool, rows)
+        # a ballooned-out row is a legal miss, not corruption
+        parked = nopage | (found & ~live)
+        corrupt = found & live & ~sums_ok
+        found = found & live & sums_ok
+        out = torch.where(found[:, None], out, 0)
+        if not lean:
+            tier_mod.on_get(ops, state.index, pool, _tcfg(config), keys,
+                            res.slots, rows, out, found)
     else:
         res = ops.get_batch(state.index, keys)
         found = res.found & valid
@@ -271,24 +371,30 @@ def _get_core(state: KVState, config: KVConfig, keys: torch.Tensor):
     bumps[CORRUPT_PAGES] = corrupt.sum(dtype=torch.int32)
     _index_miss_causes(bumps, state, config, keys, idx_miss)
     bumps[MISS_COLD] += ext_m.sum(dtype=torch.int32)
+    bumps[MISS_PARKED] = parked.sum(dtype=torch.int32)
+    bumps[MISS_STALE] = stale.sum(dtype=torch.int32)
     bumps[MISS_DIGEST] = corrupt.sum(dtype=torch.int32)
     state.stats += bumps
     return state, out, found
 
 
-def get(state: KVState, config: KVConfig, keys: torch.Tensor):
+def get(state: KVState, config: KVConfig, keys: torch.Tensor,
+        lean: bool = False):
     """Batched Get -> (state, values_or_pages, found). Configs the fused
-    GET supports always run it (the CUDA kernel on the card)."""
+    GET supports always run it (the CUDA kernel on the card). `lean` skips
+    the tiered pool's hotness bookkeeping and migration (the sampled
+    path); it changes nothing on a flat pool."""
     if fused_ops.supports(config):
-        return fused_ops.get_core(state, config, keys)
-    return _get_core(state, config, keys)
+        return fused_ops.get_core(state, config, keys, lean=lean)
+    return _get_core(state, config, keys, lean=lean)
 
 
-def get_compact(state: KVState, config: KVConfig, keys: torch.Tensor):
+def get_compact(state: KVState, config: KVConfig, keys: torch.Tensor,
+                lean: bool = False):
     """Get with hit rows compacted to the front -> (state, out_sorted,
     order, found, nfound): a stable sort on `~found` keeps request order
     among hits, so the host fetches just `nfound` rows."""
-    state, out, found = get(state, config, keys)
+    state, out, found = get(state, config, keys, lean=lean)
     order = torch.argsort((~found).to(torch.uint8), stable=True)
     return (state, out[order], order.to(torch.int32), found,
             found.sum(dtype=torch.int32))
@@ -305,9 +411,16 @@ def delete(state: KVState, config: KVConfig, keys: torch.Tensor):
     if state.pool is not None:
         # the same key twice in one batch hits twice but frees its row once
         freed = hit & ~_is_special(old_vals) & dedupe_last_wins(keys, hit)
-        rows = torch.where(freed, old_vals[:, 1], -1)
-        pagepool.recycle_and_alloc(state.pool, freed, rows,
-                                   torch.zeros_like(freed))
+        if _tiered(state):
+            # a stale entry's delete must not free the recirculated row
+            freed = freed & tier_mod.entry_current(state.pool, old_vals)
+            rows = torch.where(freed, old_vals[:, 1], -1)
+            tier_mod.recycle_and_alloc(state.pool, _tcfg(config), freed, rows,
+                                       torch.zeros_like(freed), balloon=False)
+        else:
+            rows = torch.where(freed, old_vals[:, 1], -1)
+            pagepool.recycle_and_alloc(state.pool, freed, rows,
+                                       torch.zeros_like(freed))
     state.stats[DELETES] += hit.sum(dtype=torch.int32)
     return state, hit
 
@@ -373,6 +486,8 @@ def insert_extent(state: KVState, config: KVConfig, key, value, length: int):
         # a cover overwriting a page entry releases its pool row
         pre = ops.get_batch(state.index, cover_keys)
         conv = pre.found & ~_is_special(pre.values)
+        if _tiered(state):
+            conv = conv & tier_mod.entry_current(state.pool, pre.values)
     _, res = ops.insert_batch(state.index, cover_keys, tagged)
     _track_index(state, config, cover_keys,
                  ~is_invalid(cover_keys) & ~res.dropped, res)
@@ -388,8 +503,15 @@ def insert_extent(state: KVState, config: KVConfig, key, value, length: int):
                & freed_e[:, None] & freed_c[None, :])
         freed_e = freed_e & ~dup.any(dim=1)
         nothing = torch.zeros_like(freed_e)
-        pagepool.recycle_and_alloc(state.pool, freed_e, rows_e, nothing)
-        pagepool.recycle_and_alloc(state.pool, freed_c, rows_c, nothing)
+        if _tiered(state):
+            freed_e = freed_e & tier_mod.entry_current(state.pool,
+                                                       res.evicted_vals)
+            for f, r in ((freed_e, rows_e), (freed_c, rows_c)):
+                tier_mod.recycle_and_alloc(state.pool, _tcfg(config), f, r,
+                                           nothing, balloon=False)
+        else:
+            pagepool.recycle_and_alloc(state.pool, freed_e, rows_e, nothing)
+            pagepool.recycle_and_alloc(state.pool, freed_c, rows_c, nothing)
     state.stats[EXTENT_PUTS] += 1
     return state, res, uncovered
 
@@ -504,6 +626,7 @@ class KV:
         self._ops = get_index_ops(self.config.index.kind)
         self._t0 = time.monotonic()
         self._lock = threading.RLock()
+        self._batches_since_touch = 0
 
     # -- helpers --
     def _keys(self, keys, w: int) -> torch.Tensor:
@@ -544,13 +667,31 @@ class KV:
                 f: self._out(x[:b], host, words=f.startswith("evicted"))
                 for f, x in res._asdict().items()})
 
+    def _touch_due(self) -> bool:
+        """Sampled hotness accounting: one GET batch in
+        `touch_sample_every` pays the counting path (a tiered pool's
+        migration epilogue); the rest are lean pure reads. Only a tiered
+        pool tracks touches here (no ported index family keeps counters).
+        Callers hold the lock."""
+        every = self.config.index.touch_sample_every
+        if not _tiered(self.state):
+            return False  # lean changes nothing on a flat pool
+        if every <= 1:
+            return True
+        self._batches_since_touch += 1
+        if self._batches_since_touch >= every:
+            self._batches_since_touch = 0
+            return True
+        return False
+
     def get(self, keys):
         """-> (pages_or_values[B, ...], found[B])."""
         host = not isinstance(keys, torch.Tensor)
         with self._lock:
             b = len(keys)
             self.state, out, found = get(self.state, self.config,
-                                         self._keys(keys, _pad_pow2(b)))
+                                         self._keys(keys, _pad_pow2(b)),
+                                         lean=not self._touch_due())
             return (self._out(out[:b], host),
                     self._out(found[:b], host, words=False))
 
@@ -565,7 +706,8 @@ class KV:
         with self._lock:
             b = len(keys)
             self.state, out, order, found, nfound = get_compact(
-                self.state, self.config, self._keys(keys, _pad_pow2(b)))
+                self.state, self.config, self._keys(keys, _pad_pow2(b)),
+                lean=not self._touch_due())
             return out, order, found, nfound, b
 
     def delete(self, keys):
@@ -634,10 +776,82 @@ class KV:
                 return None
             return u32.to_numpy(bloom_ops.to_packed_bits(self.state.bloom))
 
+    # -- tier surface (no-ops on a flat pool) --
+
+    def tier_stats(self) -> dict | None:
+        """Per-tier counters (`hot_hits`, `promotions`, `demotions`,
+        `balloon_*`, `migrated_bytes`, occupancy, the admission lanes) —
+        None when flat."""
+        with self._lock:
+            if not _tiered(self.state):
+                return None
+            return tier_mod.stats_dict(self.state.pool,
+                                       self.config.page_words * 4)
+
+    def _balloon_rows(self, rows: int) -> int:
+        """A balloon request rounded UP to whole extents and clamped to the
+        cold pool."""
+        step = _tcfg(self.config).balloon_step
+        c = self.state.pool.cfree.shape[0]
+        return min(-(-int(rows) // step) * step, c)
+
+    def balloon_state(self) -> dict | None:
+        """Cold-pool circulation snapshot (circulating, parked and free
+        rows, the extent step); None on a flat pool."""
+        with self._lock:
+            if not _tiered(self.state):
+                return None
+            return tier_mod.balloon_state(self.state.pool,
+                                          _tcfg(self.config).balloon_step)
+
+    def balloon_grow(self, rows: int) -> bool:
+        """Ensure at least `rows` free cold rows circulate (parked capacity
+        returns first; rounded up to whole extents). False on a flat
+        pool."""
+        with self._lock:
+            if not _tiered(self.state):
+                return False
+            tier_mod.grow(self.state.pool, self._balloon_rows(rows))
+            return True
+
+    def balloon_shrink(self, rows: int) -> bool:
+        """Balloon the cold pool down by up to `rows` rows now (rounded up
+        to whole extents). Free rows park first; then the coldest live
+        rows are evicted, their pages degrading to legal misses. False on
+        a flat pool."""
+        with self._lock:
+            if not _tiered(self.state):
+                return False
+            tier_mod.shrink(self.state.pool, self._balloon_rows(rows))
+            return True
+
+    def admit_state(self) -> dict | None:
+        """The admission gate's snapshot (threshold, epoch progress,
+        counter lanes); None when the pool is flat or has no gate."""
+        with self._lock:
+            pool = self.state.pool
+            if not _tiered(self.state) or pool.admit_cm is None:
+                return None
+            return tier_mod.admit_state(
+                pool, tier_mod.admit_cfg(pool, _tcfg(self.config)))
+
+    def set_admit_threshold(self, value: int) -> bool:
+        """Live admission-threshold write (clamped to >= 0). False when no
+        gate is installed."""
+        with self._lock:
+            pool = self.state.pool
+            if not _tiered(self.state) or pool.admit_cm is None:
+                return False
+            tier_mod.set_admit_threshold(pool, value)
+            return True
+
     def stats(self) -> dict:
         with self._lock:
             vec = self.state.stats.cpu().numpy().astype(np.int64)
-        d = dict(zip(STAT_NAMES, (int(x) for x in vec)))
+            d = dict(zip(STAT_NAMES, (int(x) for x in vec)))
+            t = self.tier_stats()
+        if t is not None:
+            d.update(t)
         d["uptime_s"] = time.monotonic() - self._t0
         return d
 

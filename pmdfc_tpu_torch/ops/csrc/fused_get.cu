@@ -1,16 +1,25 @@
-// Fused serving GET over the flat page pool, for Hopper (sm_90a): the
-// linear index and CCEH (with its LSB twin, extendible hashing).
+// Fused serving GET over the flat or the tiered page pool, for Hopper
+// (sm_90a): the linear index and CCEH (with its LSB twin, extendible
+// hashing).
 //
 // Replaces: the Pallas TPU kernel `_get_kernel` launched by `_pallas_get`
-// (pmdfc_tpu/ops/fused.py:145-343, pallas_call at :414) in its
-// family="linear", tiered=False and family="cceh", tiered=False variants.
-// One kernel body, templated on the address fold (the only stage the two
-// families differ in): linear takes bucket row hash & (C - 1); CCEH takes
-// the directory entry of the hash's top Gmax bits (MSB) or low Gmax bits
-// (LSB), times the W windows of a segment, plus the window hash
-// (fused.py:179-185, 209-223). On the TPU the directory sits in SMEM and a
-// scalar loop walks it; here it is one dependent global load per key (at
-// the serving size the directory is 8 KiB and stays in L2).
+// (pmdfc_tpu/ops/fused.py:145-343, pallas_call at :414) in all four of its
+// variants: family in {linear, cceh} x tiered in {False, True}.
+// One kernel body, templated on the address fold and on the pool:
+//  - the fold: linear takes bucket row hash & (C - 1); CCEH takes the
+//    directory entry of the hash's top Gmax bits (MSB) or low Gmax bits
+//    (LSB), times the W windows of a segment, plus the window hash
+//    (fused.py:179-185, 209-223). On the TPU the directory sits in SMEM and
+//    a scalar loop walks it; here it is one dependent global load per key
+//    (at the serving size the directory is 8 KiB and stays in L2).
+//  - the pool (fused.py:253-338): the flat pool's entries tag EXTENT by
+//    vhi == 0x80000000; the tiered pool's hi word is a generation, so its
+//    tag is vhi >> 30 (0 page, 3 NOPAGE, any other EXTENT), and a page
+//    entry passes two gates before its page is read: the generation gate
+//    (a cold row [H, H+CC) must carry cgen[row - H], any other row gen 0;
+//    else STALE) and the liveness gate (hot rows always, cold rows per
+//    live[row - H]; else PARKED, as is a negative row). A stale, dead or
+//    NOPAGE key reads no page: its output is zeros.
 //
 // Per key of a padded batch it does the whole GET in one launch: address
 // fold and the two evicted-sketch slots; probe of the
@@ -21,8 +30,9 @@
 //
 // Bound: bytes. Per key it reads one table row (16*S bytes; CCEH one
 // directory word before it), for a page entry one page (4*PW bytes) plus
-// its digest word, and writes one page (4*PW bytes) plus three int32
-// results; the arithmetic is a few integer
+// its digest word (tiered: a cold row's generation word and live byte
+// first), and writes one page (4*PW bytes) plus three int32 results; the
+// arithmetic is a few integer
 // ops per word, far below what the card can issue per byte. So the design
 // moves each byte once and keeps every intermediate in registers:
 //  - one warp per key, kWarpsPerBlock keys per block. With S = 32, lane l
@@ -63,10 +73,10 @@ constexpr uint32_t kFinalMix = 0x85EBCA6Bu;
 constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr int kWarpsPerBlock = 8;
 
-// cause codes, as ops/fused.py (CAUSE_PARKED and CAUSE_STALE belong to the
-// tiered variant and never occur here)
+// cause codes, as ops/fused.py (PARKED and STALE occur only over the tiered
+// pool)
 constexpr int32_t kHit = 0, kPad = 1, kCold = 2, kEvicted = 3, kExt = 4,
-                  kDigest = 7;
+                  kParked = 5, kStale = 6, kDigest = 7;
 
 __device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
   return (x << r) | (x >> (32 - r));
@@ -118,10 +128,19 @@ struct CcehFold {
   }
 };
 
-template <class Fold>
+// the tiered pool's sidecars: per-cold-row generation and live byte over the
+// H hot + CC cold rows of the backing array (unused by flat instances)
+struct TierSide {
+  const uint32_t* cgen;  // [CC]
+  const uint8_t* live;   // [CC] (torch bool)
+  int64_t H, CC;
+};
+
+template <class Fold, bool Tiered>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
-fused_get_flat_kernel(
-    const Fold fold, const uint32_t* __restrict__ keys, int w,
+fused_get_kernel(
+    const Fold fold, const TierSide tier, const uint32_t* __restrict__ keys,
+    int w,
     const uint32_t* __restrict__ table, int S,
     const uint32_t* __restrict__ pages, int64_t n_rows, int pw,
     const uint32_t* __restrict__ sums, const uint8_t* __restrict__ sketch,
@@ -160,14 +179,41 @@ fused_get_flat_kernel(
     if (first < 0 && hits) first = g + __ffs(hits) - 1;
   }
   const bool found0 = first >= 0;
-  const bool ext = found0 && vhi == kExtentTag;
-  const bool f1 = found0 && !ext;
   const int32_t rowv = static_cast<int32_t>(vlo);
+  bool ext, f1, nopage = false;
+  if constexpr (Tiered) {
+    const uint32_t tag = vhi >> 30;
+    nopage = found0 && tag == 3;
+    ext = found0 && tag != 0 && !nopage;
+    f1 = found0 && tag == 0;
+  } else {
+    ext = found0 && vhi == kExtentTag;
+    f1 = found0 && !ext;
+  }
 
-  // stage 4: page gather + digest (page entries only)
+  // tiered: generation and liveness gates on the cold row's sidecars
+  bool f2 = f1, stale = false, dead = false;
+  if constexpr (Tiered) {
+    if (f1) {
+      const int64_t r = rowv;
+      const int64_t crow = r - tier.H < 0 ? 0
+                           : (r - tier.H >= tier.CC ? tier.CC - 1 : r - tier.H);
+      const bool ec_cold = r >= tier.H && r < tier.H + tier.CC;
+      const bool gen_ok = ec_cold ? vhi == tier.cgen[crow] : vhi == 0;
+      stale = !gen_ok;
+      f2 = gen_ok;
+      if (f2) {
+        const bool live_ok = (r >= 0 && r < tier.H) ||
+                             (r >= tier.H && tier.live[crow] != 0);
+        dead = !live_ok;
+      }
+    }
+  }
+
+  // stage 4: page gather + digest (page entries that passed the gates)
   uint32_t* dst = out + static_cast<size_t>(k) * pw;
   bool hit = false, corrupt = false;
-  if (f1) {
+  if (f2 && !dead) {
     const int64_t safe_row = rowv < 0 ? 0 : (rowv >= n_rows ? n_rows - 1 : rowv);
     const uint32_t* src = pages + safe_row * pw;
     uint32_t acc = 0;
@@ -199,24 +245,26 @@ fused_get_flat_kernel(
     if (idx_miss && !ev) code = kCold;
     if (ev) code = kEvicted;
     if (ext) code = kExt;
+    if (nopage || dead) code = kParked;
+    if (stale) code = kStale;
     if (corrupt) code = kDigest;
     cause[k] = code;
-    rows[k] = f1 ? rowv : -1;
+    rows[k] = f2 ? rowv : -1;
     slots[k] = found0 ? static_cast<int32_t>(c * S + first) : -1;
   }
 }
 
-template <class Fold>
-int launch(const Fold& fold, const void* keys, int w, const void* table,
-           int S, const void* pages, long long n_rows, int pw,
-           const void* sums, const void* sketch, unsigned sketch_bits,
+template <bool Tiered, class Fold>
+int launch(const Fold& fold, const TierSide& tier, const void* keys, int w,
+           const void* table, int S, const void* pages, long long n_rows,
+           int pw, const void* sums, const void* sketch, unsigned sketch_bits,
            void* out, void* cause, void* rows, void* slots, void* stream) {
   if (w <= 0) return 0;
   const dim3 block(kWarpsPerBlock * 32);
   const dim3 grid((w + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  fused_get_flat_kernel<Fold><<<grid, block, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
-      fold, static_cast<const uint32_t*>(keys), w,
+  fused_get_kernel<Fold, Tiered><<<grid, block, 0,
+                                   static_cast<cudaStream_t>(stream)>>>(
+      fold, tier, static_cast<const uint32_t*>(keys), w,
       static_cast<const uint32_t*>(table), S,
       static_cast<const uint32_t*>(pages), n_rows, pw,
       static_cast<const uint32_t*>(sums), static_cast<const uint8_t*>(sketch),
@@ -225,13 +273,32 @@ int launch(const Fold& fold, const void* keys, int w, const void* table,
   return static_cast<int>(cudaGetLastError());
 }
 
+CcehFold cceh_fold(const void* dirr, unsigned n_table_rows, unsigned smax,
+                   int msb) {
+  int gmax = 0;
+  while ((1u << gmax) < smax) ++gmax;
+  return CcehFold{static_cast<const int32_t*>(dirr), n_table_rows / smax, gmax,
+                  msb != 0};
+}
+
+constexpr TierSide kFlat{nullptr, nullptr, 0, 0};
+
+TierSide tier_side(const void* cgen, const void* live, long long hot_rows,
+                   long long n_rows) {
+  return TierSide{static_cast<const uint32_t*>(cgen),
+                  static_cast<const uint8_t*>(live), hot_rows,
+                  n_rows - hot_rows};
+}
+
 }  // namespace
 
 // C entry points (ctypes). Pointers are device pointers of contiguous
 // tensors: keys int32[w, 2], table int32[rows, 4*S], pages int32[n_rows,
 // pw] (16-byte aligned, pw a multiple of 4), sums int32[n_rows], sketch
 // bool[sketch_bits]; outputs out int32[w, pw], cause, rows, slots int32[w].
-// Launch on `stream`; return cudaGetLastError().
+// The tiered entries add cgen int32[n_rows - hot_rows] and live
+// bool[n_rows - hot_rows], the cold rows' sidecars. Launch on `stream`;
+// return cudaGetLastError().
 
 // linear·flat: table has n_clusters (a power of two) rows
 extern "C" int pmdfc_fused_get_linear_flat(
@@ -239,8 +306,9 @@ extern "C" int pmdfc_fused_get_linear_flat(
     const void* pages, long long n_rows, int pw, const void* sums,
     const void* sketch, unsigned sketch_bits, void* out, void* cause,
     void* rows, void* slots, void* stream) {
-  return launch(LinearFold{n_clusters}, keys, w, table, S, pages, n_rows, pw,
-                sums, sketch, sketch_bits, out, cause, rows, slots, stream);
+  return launch<false>(LinearFold{n_clusters}, kFlat, keys, w, table, S,
+                       pages, n_rows, pw, sums, sketch, sketch_bits, out,
+                       cause, rows, slots, stream);
 }
 
 // cceh·flat: table has n_table_rows = smax * W rows; dirr int32[smax],
@@ -252,10 +320,35 @@ extern "C" int pmdfc_fused_get_cceh_flat(
     long long n_rows, int pw, const void* sums, const void* sketch,
     unsigned sketch_bits, void* out, void* cause, void* rows, void* slots,
     void* stream) {
-  int gmax = 0;
-  while ((1u << gmax) < smax) ++gmax;
-  const CcehFold fold{static_cast<const int32_t*>(dirr), n_table_rows / smax,
-                      gmax, msb != 0};
-  return launch(fold, keys, w, table, S, pages, n_rows, pw, sums, sketch,
-                sketch_bits, out, cause, rows, slots, stream);
+  return launch<false>(cceh_fold(dirr, n_table_rows, smax, msb), kFlat, keys,
+                       w, table, S, pages, n_rows, pw, sums, sketch,
+                       sketch_bits, out, cause, rows, slots, stream);
+}
+
+// linear·tiered: linear·flat's arguments plus the tiered pool's hot row
+// count and cold sidecars (pages has hot_rows + CC rows)
+extern "C" int pmdfc_fused_get_linear_tiered(
+    const void* keys, int w, const void* table, unsigned n_clusters, int S,
+    const void* pages, long long n_rows, int pw, const void* sums,
+    const void* sketch, unsigned sketch_bits, const void* cgen,
+    const void* live, long long hot_rows, void* out, void* cause, void* rows,
+    void* slots, void* stream) {
+  return launch<true>(LinearFold{n_clusters},
+                      tier_side(cgen, live, hot_rows, n_rows), keys, w, table,
+                      S, pages, n_rows, pw, sums, sketch, sketch_bits, out,
+                      cause, rows, slots, stream);
+}
+
+// cceh·tiered: cceh·flat's arguments plus the tiered pool's sidecars
+extern "C" int pmdfc_fused_get_cceh_tiered(
+    const void* keys, int w, const void* table, unsigned n_table_rows, int S,
+    const void* dirr, unsigned smax, int msb, const void* pages,
+    long long n_rows, int pw, const void* sums, const void* sketch,
+    unsigned sketch_bits, const void* cgen, const void* live,
+    long long hot_rows, void* out, void* cause, void* rows, void* slots,
+    void* stream) {
+  return launch<true>(cceh_fold(dirr, n_table_rows, smax, msb),
+                      tier_side(cgen, live, hot_rows, n_rows), keys, w, table,
+                      S, pages, n_rows, pw, sums, sketch, sketch_bits, out,
+                      cause, rows, slots, stream);
 }

@@ -1,6 +1,6 @@
 """Fused serving GET: probe→gather→verify→classify in ONE launch
-(twin of `pmdfc_tpu/ops/fused.py`, the flat pool's variants: the linear
-index and CCEH).
+(twin of `pmdfc_tpu/ops/fused.py`: the linear index and CCEH, over the
+flat or the tiered pool).
 
 Three pieces:
 
@@ -8,19 +8,25 @@ Three pieces:
   Hopper kernel `csrc/fused_get.cu` (and raises if the launch fails); on
   CPU tensors it runs `get_core_reference`. There is no fallback between
   the two: the device of the tensors decides. Given a CCEH directory
-  (`dirr`) it runs the cceh·flat variant, else linear·flat.
+  (`dirr`) it runs a cceh variant, else a linear one; given the tiered
+  pool's sidecars (`cgen`, `live`, `hot_rows`) a tiered one, else flat.
 - `get_core_reference` — the plain PyTorch version, same inputs and
   outputs, the kernel's arithmetic written as tensor ops.
 - `get_core` — the drop-in twin of `kv._get_core` for configurations
-  `supports()` accepts: the wrapper, then the stats fold in int32.
+  `supports()` accepts: the wrapper, the tiered pool's migration
+  epilogue `tier.on_get` (composed torch after the kernel, as it stays
+  composed XLA after the Pallas kernel), then the stats fold in int32.
 
 Per key (stages as in the JAX module's docstring): murmur3 address fold
 (linear: bucket = hash & (C - 1); CCEH: directory entry of the hash's top
 `Gmax` bits (MSB) or low bits (LSB), times `W`, plus the window hash)
 and two evicted-sketch slots; bucket-row lane match with masked-sum
-values; EXTENT split; page + digest-word gather at the row clamped into
-the pool; digest recompute; one cause code, later codes winning; misses
-zeroed.
+values; tag split (flat: EXTENT by the exact tag word; tiered: `vhi >>
+30`, 3 = NOPAGE, any other nonzero = EXTENT, since the hi word of a page
+entry is its generation); tiered: the generation gate (STALE) and the
+liveness gate (PARKED, also for a row word >= 2^31); page + digest-word
+gather at the row clamped into the pool; digest recompute; one cause
+code, later codes winning; misses zeroed.
 """
 
 from __future__ import annotations
@@ -30,7 +36,9 @@ import ctypes
 
 import torch
 
+from pmdfc_tpu_torch import tier as tier_mod
 from pmdfc_tpu_torch.config import IndexKind, KVConfig
+from pmdfc_tpu_torch.models.base import get_index_ops
 from pmdfc_tpu_torch.models.cceh import WINDOW_SEED
 from pmdfc_tpu_torch.models.rowops import first_lane, lane_pick, match_mask
 from pmdfc_tpu_torch.ops.pagepool import page_digest
@@ -38,7 +46,7 @@ from pmdfc_tpu_torch.utils.hashing import hash_u64
 from pmdfc_tpu_torch.utils.keys import is_invalid
 
 # per-lane outcome codes (disjoint by construction; HIT ⟺ final found).
-# PARKED and STALE belong to the tiered pool, which is not ported yet.
+# PARKED and STALE occur only over the tiered pool.
 (CAUSE_HIT, CAUSE_PAD, CAUSE_COLD, CAUSE_EVICTED, CAUSE_EXT,
  CAUSE_PARKED, CAUSE_STALE, CAUSE_DIGEST) = range(8)
 
@@ -49,15 +57,16 @@ EXTENT_TAG_I32 = EXTENT_TAG - (1 << 32)  # its bits as int32
 KERNEL_NAME = "fused_get"
 FAMILIES = (IndexKind.LINEAR, IndexKind.CCEH)
 # kernel launches made by `fused_get`, by variant ("fused_get_linear_flat",
-# "fused_get_cceh_flat"), for showing that a run went through the kernel;
-# callers reset it themselves (`launches.clear()`)
+# "fused_get_cceh_flat", "fused_get_linear_tiered", "fused_get_cceh_tiered"),
+# for showing that a run went through the kernel; callers reset it
+# themselves (`launches.clear()`)
 launches: collections.Counter = collections.Counter()
 
 
 def supports(config: KVConfig) -> bool:
     """Whether the fused GET serves this config: the linear index or CCEH
     (the families the JAX package fuses; extendible hashing is not one)
-    over a paged flat pool, with power-of-two sketch bits and a
+    over a paged flat or tiered pool, with power-of-two sketch bits and a
     power-of-two page width that is a multiple of 4 (the kernel moves
     pages as 16-byte vectors and XOR-folds lanes by halving). Everything
     else runs the composed GET (`kv._get_core`)."""
@@ -84,13 +93,15 @@ def table_rows(keys, n_rows: int, dirr=None, msb: bool = True):
 
 
 def get_core_reference(keys, table, pages, sums, sketch, dirr=None,
-                       msb=True):
+                       msb=True, cgen=None, live=None, hot_rows=0):
     """Plain PyTorch version of the kernel.
 
     keys int32[w, 2], table int32[R, 4S], pages int32[NR, PW], sums
-    int32[NR] (all u32 bits), sketch bool[nb], and for CCEH the directory
-    dirr int32[Smax] with its `msb` flag -> (out int32[w, PW], cause
-    int32[w], rows int32[w], slots int32[w]).
+    int32[NR] (all u32 bits), sketch bool[nb], for CCEH the directory
+    dirr int32[Smax] with its `msb` flag, and for the tiered pool the
+    cold rows' sidecars cgen int32[CC] (u32 bits) and live bool[CC] with
+    NR = hot_rows + CC -> (out int32[w, PW], cause int32[w], rows int32[w],
+    slots int32[w]).
     """
     s = table.shape[1] // 4
     nr = pages.shape[0]
@@ -106,15 +117,36 @@ def get_core_reference(keys, table, pages, sums, sketch, dirr=None,
     vhi = lane_pick(brows, eq, 2 * s, s)
     vlo = lane_pick(brows, eq, 3 * s, s)
     slots = torch.where(found0, (c * s + first_lane(eq)).to(torch.int32), -1)
-    ext = found0 & (vhi == EXTENT_TAG_I32)
-    f1 = found0 & ~ext
+    nopage = stale = dead = torch.zeros_like(found0)
+    if cgen is None:
+        ext = found0 & (vhi == EXTENT_TAG_I32)
+        f2 = found0 & ~ext
+    else:
+        tag = (vhi >> 30) & 3
+        nopage = found0 & (tag == 3)
+        ext = found0 & (tag != 0) & ~nopage
+        f1 = found0 & (tag == 0)
+        # generation gate: a cold row carries its generation, any other
+        # row gen 0 (`tier.entry_current`)
+        h, cc = hot_rows, cgen.shape[0]
+        r = vlo.to(torch.int64)
+        crow = (r - h).clamp(0, cc - 1)
+        ec_cold = (r >= h) & (r < h + cc)
+        gen_ok = torch.where(ec_cold, vhi == cgen[crow], vhi == 0)
+        stale = f1 & ~gen_ok
+        f2 = f1 & gen_ok
+        # liveness gate: hot rows always, cold rows per the live bitmap
+        # (`tier.row_live`); a row word >= 2^31 is neither, so dead
+        live_ok = ((r >= 0) & (r < h)) | ((r >= h) & live[crow])
+        dead = f2 & ~live_ok
 
-    safe_row = torch.where(f1, vlo, 0).to(torch.int64).clamp(0, nr - 1)
+    readable = f2 & ~dead
+    safe_row = torch.where(readable, vlo, 0).to(torch.int64).clamp(0, nr - 1)
     out = pages[safe_row]
-    rows = torch.where(f1, vlo, -1)
-    ok = (rows >= 0) & (page_digest(out) == sums[safe_row])
-    corrupt = f1 & ~ok
-    found = f1 & ok
+    ok = (vlo >= 0) & (page_digest(out) == sums[safe_row])
+    corrupt = readable & ~ok
+    found = readable & ok
+    rows = torch.where(f2, vlo, -1)
 
     valid = ~is_invalid(keys)
     idx_miss = valid & ~found0
@@ -124,6 +156,8 @@ def get_core_reference(keys, table, pages, sums, sketch, dirr=None,
     cause = torch.where(idx_miss & ~ev, CAUSE_COLD, cause)
     cause = torch.where(ev, CAUSE_EVICTED, cause)
     cause = torch.where(ext, CAUSE_EXT, cause)
+    cause = torch.where(nopage | dead, CAUSE_PARKED, cause)
+    cause = torch.where(stale, CAUSE_STALE, cause)
     cause = torch.where(corrupt, CAUSE_DIGEST, cause)
     out = torch.where(found[:, None], out, 0)
     return out, cause.to(torch.int32), rows, slots
@@ -148,6 +182,9 @@ _ARGTYPES = {
     # keys, w, table, n_table_rows, S, dirr, smax, msb, pages, n_rows, pw,
     # sums, sketch, sketch_bits, out, cause, rows, slots, stream
     "fused_get_cceh_flat": "pipIipIipqippIppppp",
+    # the flat lists with cgen, live, hot_rows after sketch_bits
+    "fused_get_linear_tiered": "pipIipqippIppqppppp",
+    "fused_get_cceh_tiered": "pipIipIipqippIppqppppp",
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "I": ctypes.c_uint,
            "q": ctypes.c_longlong}
@@ -168,12 +205,14 @@ def _pow2(name, n):
         raise ValueError(f"{name} must be a power of two, got {n}")
 
 
-def fused_get(keys, table, pages, sums, sketch, dirr=None, msb=True):
+def fused_get(keys, table, pages, sums, sketch, dirr=None, msb=True,
+              cgen=None, live=None, hot_rows=None):
     """The fused GET over one padded batch; same contract as
-    `get_core_reference`. With a CCEH directory `dirr` it is the
-    cceh·flat variant (`msb` picks the directory bits), else linear·flat.
-    CPU tensors run the plain version; CUDA tensors launch the kernel, or
-    raise."""
+    `get_core_reference`. With a CCEH directory `dirr` it is a cceh
+    variant (`msb` picks the directory bits), else a linear one; with the
+    tiered pool's `cgen`, `live` and `hot_rows` (all three or none) a
+    tiered one, else flat. CPU tensors run the plain version; CUDA tensors
+    launch the kernel, or raise."""
     w = keys.shape[0]
     r, lanes = table.shape
     nr, pw = pages.shape
@@ -189,18 +228,31 @@ def fused_get(keys, table, pages, sums, sketch, dirr=None, msb=True):
     _pow2("page words", pw)
     if s < 1 or lanes != 4 * s or pw % 4:
         raise ValueError(f"bad geometry: row width {lanes}, page words {pw}")
+    tiered = cgen is not None
+    if tiered != (live is not None) or tiered != (hot_rows is not None):
+        raise ValueError("the tiered pool needs cgen, live and hot_rows")
+    if tiered:
+        hot_rows = int(hot_rows)
+        cc = nr - hot_rows
+        if hot_rows < 1 or cc < 1:
+            raise ValueError(f"bad tiered pool: {hot_rows} hot rows of {nr}")
+        _check("cgen", cgen, torch.int32, (cc,), dev)
+        _check("live", live, torch.bool, (cc,), dev)
+    pool = "tiered" if tiered else "flat"
     if dirr is None:
-        variant = "fused_get_linear_flat"
+        variant = f"fused_get_linear_{pool}"
         _pow2("clusters", r)
     else:
-        variant = "fused_get_cceh_flat"
+        variant = f"fused_get_cceh_{pool}"
         smax = dirr.shape[0]
         _check("dirr", dirr, torch.int32, (smax,), dev)
         _pow2("directory entries", smax)
         if smax < 2 or smax > 1 << 31 or r % smax:
             raise ValueError(f"bad directory: {smax} entries over {r} rows")
+    tier_args = dict(cgen=cgen, live=live, hot_rows=hot_rows) if tiered else {}
     if dev.type == "cpu":
-        return get_core_reference(keys, table, pages, sums, sketch, dirr, msb)
+        return get_core_reference(keys, table, pages, sums, sketch, dirr, msb,
+                                  **tier_args)
     if dev.type != "cuda":
         raise ValueError(f"fused_get runs on cuda or cpu tensors, not {dev}")
     if pages.data_ptr() % 16:
@@ -211,12 +263,14 @@ def fused_get(keys, table, pages, sums, sketch, dirr=None, msb=True):
                           for _ in range(3))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        head = (keys.data_ptr(), w, table.data_ptr(), r, s)
+        args = (keys.data_ptr(), w, table.data_ptr(), r, s)
         if dirr is not None:
-            head += (dirr.data_ptr(), smax, int(msb))
-        err = _entry(variant)(*head, pages.data_ptr(), nr, pw,
-                              sums.data_ptr(), sketch.data_ptr(), nb,
-                              out.data_ptr(), cause.data_ptr(),
+            args += (dirr.data_ptr(), smax, int(msb))
+        args += (pages.data_ptr(), nr, pw, sums.data_ptr(), sketch.data_ptr(),
+                 nb)
+        if tiered:
+            args += (cgen.data_ptr(), live.data_ptr(), hot_rows)
+        err = _entry(variant)(*args, out.data_ptr(), cause.data_ptr(),
                               rows.data_ptr(), slots.data_ptr(), stream)
     if err:
         raise RuntimeError(f"{variant} kernel launch failed: CUDA error {err}")
@@ -224,20 +278,29 @@ def fused_get(keys, table, pages, sums, sketch, dirr=None, msb=True):
     return out, cause, rows, slots
 
 
-def get_core(state, config: KVConfig, keys: torch.Tensor):
+def get_core(state, config: KVConfig, keys: torch.Tensor,
+             lean: bool = False):
     """Fused twin of `kv._get_core` for configs `supports()` accepts:
     (state, out, found), bit-identical outputs and stats. Writes nothing
-    but `state.stats` (in place)."""
+    but `state.stats` (in place), except that a counting (`lean=False`)
+    GET over the tiered pool then runs `tier.on_get`."""
     from pmdfc_tpu_torch import kv as kv_mod
 
     pool, index = state.pool, state.index
     cceh = config.index.kind == IndexKind.CCEH
-    out, cause, _, _ = fused_get(keys, index.table, pool.pages, pool.sums,
-                                 state.evicted_filter,
-                                 dirr=index.dirr if cceh else None,
-                                 msb=index.msb if cceh else True)
+    tiered = isinstance(pool, tier_mod.TierState)
+    tier_args = dict(cgen=pool.cgen, live=pool.live,
+                     hot_rows=pool.hfree.shape[0]) if tiered else {}
+    out, cause, rows, slots = fused_get(
+        keys, index.table, pool.pages, pool.sums, state.evicted_filter,
+        dirr=index.dirr if cceh else None, msb=index.msb if cceh else True,
+        **tier_args)
     found = cause == CAUSE_HIT
     valid = ~is_invalid(keys)
+    if tiered and not lean:
+        # hotness/migration epilogue: composed torch after the kernel
+        tier_mod.on_get(get_index_ops(config.index.kind), index, pool,
+                        kv_mod._tcfg(config), keys, slots, rows, out, found)
 
     def cnt(m):
         return m.sum(dtype=torch.int32)
@@ -250,6 +313,8 @@ def get_core(state, config: KVConfig, keys: torch.Tensor):
     bumps[kv_mod.CORRUPT_PAGES] = cnt(corrupt)
     bumps[kv_mod.MISS_EVICTED] = cnt(cause == CAUSE_EVICTED)
     bumps[kv_mod.MISS_COLD] = cnt((cause == CAUSE_COLD) | (cause == CAUSE_EXT))
+    bumps[kv_mod.MISS_PARKED] = cnt(cause == CAUSE_PARKED)
+    bumps[kv_mod.MISS_STALE] = cnt(cause == CAUSE_STALE)
     bumps[kv_mod.MISS_DIGEST] = cnt(corrupt)
     state.stats += bumps
     return state, out, found

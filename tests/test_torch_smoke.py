@@ -6,9 +6,11 @@ the card-only calls stood in for: CUDA events by the host clock, the
 stream sleep and synchronize by no-ops, and the kernel's launch count by
 a count of the wrapper's calls (on CPU tensors it runs the plain
 version). That holds every check the smoke makes on the card — kernel
-against plain on every small state, both main paths byte-exact, the
-recovery drill, the extents, find_anyway — to the code as it stands,
-before a chip call. Times printed here are CPU times and mean nothing.
+against plain on every small state (flat and tiered, all eight causes on
+the tiered ones), all four main paths byte-exact, the recovery drill, the
+extents, find_anyway, the tiered paths' promotions, in-place updates,
+deletes and balloon shrink/grow — to the code as it stands, before a chip
+call. Times printed here are CPU times and mean nothing.
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ def smoke(monkeypatch):
     monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
     monkeypatch.setattr(chip_smoke, "INS_B", 1 << 10)
     monkeypatch.setattr(chip_smoke, "GET_B", 1 << 8)
+    monkeypatch.setattr(chip_smoke, "HOT_SET", 1 << 7)
     monkeypatch.setattr(chip_smoke, "LINEAR_INDEX", dict(capacity=1 << 13))
     monkeypatch.setattr(chip_smoke, "CCEH_INDEX",
                         dict(capacity=1 << 12, segment_slots=256))
@@ -54,21 +57,25 @@ def smoke(monkeypatch):
 
     def counted(keys, *args, **kw):
         out = plain(keys, *args, **kw)
-        cceh = kw.get("dirr") is not None
-        fused.launches[f"fused_get_{'cceh' if cceh else 'linear'}_flat"] += 1
+        family = "cceh" if kw.get("dirr") is not None else "linear"
+        pool = "tiered" if kw.get("cgen") is not None else "flat"
+        fused.launches[f"fused_get_{family}_{pool}"] += 1
         return out
 
     monkeypatch.setattr(fused, "fused_get", counted)
     return chip_smoke.Smoke(0)
 
 
-@pytest.mark.parametrize("kind,s", [("linear", 16), ("cceh", 32),
-                                    ("extendible", 32)])
-def test_kernel_phase_on_a_small_state(smoke, kind, s):
-    kv, pool, present, covers = smoke.small_state(kind, s)
+@pytest.mark.parametrize("kind,s,tiered", [
+    ("linear", 16, False), ("cceh", 32, False), ("extendible", 32, False),
+    ("linear", 32, True), ("cceh", 16, True), ("extendible", 32, True)])
+def test_kernel_phase_on_a_small_state(smoke, kind, s, tiered, capsys):
+    kv, pool, present, covers = smoke.small_state(kind, s, tiered)
     assert kv.state.index.table.device.type == "cpu"
     smoke.kernel_phase(kv, pool, present, covers, f"small {kind} S={s}")
     assert max(smoke.max_err.values()) == 0
+    if tiered:  # all eight causes at w >= 2^10, checked by kernel_phase
+        assert "ghost readmits" in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("run", ["run_linear", "run_cceh"])
@@ -82,6 +89,19 @@ def test_main_path_and_its_kernels_line(smoke, run, capsys):
     if run == "run_cceh":
         assert "recovery()" in out and "find_anyway" in out
         assert "addresses exact" in out
+
+
+@pytest.mark.parametrize("kind", ["linear", "cceh"])
+def test_tiered_main_path_and_its_kernels_line(smoke, kind, capsys):
+    entry = chip_smoke.run_tiered(smoke, kind)
+    assert set(entry) == KEYS
+    assert entry["name"] == f"fused_get_{kind}_tiered"
+    assert entry["launches"] > 0 and entry["max_abs_err"] == 0
+    assert entry["bound_by"] == "bytes" and entry["library_ms"] is None
+    out = capsys.readouterr().out
+    assert "all hit byte-exact from hot rows" in out
+    assert "missed as miss_stale" in out and "fresh keys hit" in out
+    assert ("admit_state" in out) == (kind == "cceh")
 
 
 def test_smoke_refuses_without_a_card(monkeypatch, capsys):
