@@ -7,7 +7,9 @@ Phases, each reported on its own line; any failure exits nonzero:
 
 1. env     — the card (nvidia-smi name and power limit), torch, CUDA, nvcc.
 2. build   — compiles every kernel of the paths from `pmdfc_tpu_torch/ops/csrc`
-             (one source, `fused_get.cu`, holding all four fused-GET variants).
+             (one source, `fused_get.cu`, holding all four fused-GET variants)
+             with nvcc, and beside it the coalescing engine
+             (`pmdfc_tpu_torch/native/runtime.cpp`) with g++.
 3. kernel  — each kernel against its plain PyTorch version, bit for bit
              (tolerance 0: all integer arithmetic), on small states at w in
              {16, 2^10, 2^14}, over batches that hold every miss cause (real
@@ -63,10 +65,36 @@ Phases, each reported on its own line; any failure exits nonzero:
              bytes these batches must move over 3.35 TB/s); whole-path GET
              (tiered: with its `tier.on_get` epilogue) and insert rates and
              a torch.profiler breakdown of `KV.get`.
+6. serve   — the serving path, after the four: linear·flat's configuration
+             (8 GiB) in a `KVServer` behind the native engine (32 queues,
+             2^14-request flushes, a 256 MiB arena), driven by 4 clients x 8
+             threads of `CleanCacheClient` over `EngineBackend`, each with
+             its own queue and a 2^11-page arena slice, the server pushing
+             its bloom filter every 0.05 s. `warmup()` first, on the main
+             thread (a kernel that fails to build or launch raises there,
+             not as -2 statuses inside the driver). Fill 75% of the slots
+             through the engine in 2^11-page put_pages verbs; push; every
+             acknowledged key a mirror denies must miss at the server;
+             invalidate; then 8 get_pages verbs per thread (5/8 present,
+             1/8 never inserted, 1/8 invalidated, 1/16 oldest, 1/16
+             padding): hits byte-exact, misses zeroed with their arena
+             slots untouched by the server, never-inserted and
+             invalidated keys miss, misses of acknowledged keys <=
+             evictions + drops, >= 90% of never-inserted GETs
+             short-circuited by the mirrors, no -2 status, no serve error,
+             submitted == completed, one fused-GET launch per GET flush;
+             then 256 extents through OP_INS_EXT, read back through
+             OP_GET_EXT. Reports fill and GET rates, verb latency, flush
+             widths, the driver's phase times and the push counters. With
+             the driver stopped: quiet PUT flushes (2^14 and 11,826 pages)
+             that must serve their pages back and a quiet GET flush that
+             must agree with `KV.get`, timed, and a profile of the GET
+             flush; then phase 3's comparison and phase 5's times on the
+             server's full-size state.
 
 Each KV is freed before the next path's fill, so no two pools share the
 card. The next-to-last line is one JSON object naming each kernel with its
-launches, error and times; the last is `{"ok": true, "device": ...}`.
+path, launches, error and times; the last is `{"ok": true, "device": ...}`.
 """
 
 from __future__ import annotations
@@ -90,6 +118,24 @@ DEVICE = "cuda"
 LINEAR_INDEX = dict(capacity=1 << 21)
 CCEH_INDEX = dict(capacity=1 << 20)
 CAUSE_NAMES = "(hit,pad,cold,evicted,ext,parked,stale,digest)"
+# the serving path: linear·flat's configuration behind the engine and the
+# KVServer driver; 4 clients x 8 threads (the reference's 4 clients x 8
+# QPs), each thread with its own engine queue and a VERB-page arena slice
+SERVE_INDEX = dict(capacity=1 << 21)
+SERVE_BLOOM_BITS = 1 << 24
+SERVE_ENGINE = dict(num_queues=32, queue_cap=1 << 14, batch=1 << 14,
+                    arena_pages=1 << 16, page_bytes=4096)
+CLIENT_GROUPS, GROUP_THREADS = 4, 8
+VERB = 1 << 11         # pages per client verb
+GET_VERBS = 8          # get_pages verbs per thread in the storm
+SERVE_EXTENTS = 256    # extents one thread registers through the engine
+PUT_ODD = 11_826       # a quiet PUT flush off the ladder: the mean width of
+                       # the fill's PUT flushes on an H100
+MISS_FILL = 0xA5A5A5A5  # a GET verb's arena slots hold this until served
+BF_PUSH_S = 0.05       # the server's bloom push period
+SERVE_HI = 0x90000000  # thread t's page keys are (SERVE_HI + t, i)
+NEVER_LO = 1 << 24     # lo words at or above this were never inserted
+CLIENT_TIMEOUT_US = 120_000_000
 
 
 def log(phase: str, msg: str) -> None:
@@ -125,6 +171,7 @@ class Smoke:
         self.dev = torch.device(DEVICE)
         self.gen = torch.Generator(device=self.dev)
         self.gen.manual_seed(seed)
+        self.seed = seed
         self.rng = np.random.default_rng(seed)
         self.max_err: dict[str, int] = {}
 
@@ -383,18 +430,24 @@ def profile_breakdown(torch, fn, iters: int) -> str:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    dev = [e for e in prof.key_averages()
+    events = prof.key_averages()
+    dev = [e for e in events
            if e.device_type == torch.autograd.DeviceType.CUDA]
     if not dev:
         return "not measured: the profiler saw no device activity"
     busy = sum(e.self_device_time_total for e in dev) / iters / 1e3
     ops = sum(e.count for e in dev) / iters
+    d2h = sum(e.count for e in dev if "DtoH" in e.key) / iters
+    syncs = sum(e.count for e in events
+                if e.key in ("cudaStreamSynchronize",
+                             "cudaDeviceSynchronize")) / iters
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:6]
     parts = "; ".join(
         f"{e.key[:60]} {e.self_device_time_total / iters / 1e3:.4f} ms "
         f"x{e.count // iters}" for e in top)
-    return (f"{ops:.0f} device ops, device busy {busy:.4f} ms per call; "
-            f"top: {parts}")
+    return (f"{ops:.0f} device ops, device busy {busy:.4f} ms per call, "
+            f"{d2h:.1f} device-to-host copies and {syncs:.1f} stream "
+            f"synchronizes per call; top: {parts}")
 
 
 class MainPath:
@@ -623,6 +676,7 @@ def measure(sm: Smoke, path: MainPath, launches: int, dir_bytes: int = 0):
         "bound_ms": bound_ms,
         "bound_by": "bytes",
         "library_ms": None,
+        "path": path.label,
     }
 
 
@@ -1013,6 +1067,487 @@ def run_tiered(sm: Smoke, kind: str):
     return measure(sm, path, launches, dir_bytes=dir_bytes)
 
 
+def pages_np(hi, lo, pw: int):
+    """`Smoke.pages_of` on the host: the pages of keys (hi, lo), uint32
+    (hi a word or one per key)."""
+    import numpy as np
+
+    with np.errstate(over="ignore"):
+        base = (np.asarray(lo, np.uint32) * np.uint32(0x9E3779B1)) \
+            ^ (np.asarray(hi, np.uint32) * np.uint32(0x85EBCA77))
+        cols = np.arange(pw, dtype=np.uint32) * np.uint32(0x01000193)
+        return base[:, None] + cols[None, :] + np.uint32(0x165667B1)
+
+
+def percentiles_ms(xs) -> str:
+    import numpy as np
+
+    p50, p99 = np.percentile(np.asarray(xs) * 1e3, [50, 99])
+    return f"p50 {p50:.3f} ms, p99 {p99:.3f} ms over {len(xs)} verbs"
+
+
+def run_threads(targets, label: str) -> float:
+    """Run one thread per callable, join them all -> wall seconds; any
+    thread's exception fails the phase."""
+    import threading
+
+    errors: list[BaseException] = []
+
+    def wrap(fn):
+        def run():
+            try:
+                fn()
+            except BaseException as e:  # noqa: BLE001 — reported below
+                errors.append(e)
+        return run
+
+    threads = [threading.Thread(target=wrap(fn), name=f"client-{i}")
+               for i, fn in enumerate(targets)]
+    t0 = time.monotonic()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=CLIENT_TIMEOUT_US / 1e6)
+    wall = time.monotonic() - t0
+    if any(th.is_alive() for th in threads):
+        raise AssertionError(f"{label}: a client thread did not finish")
+    if errors:
+        raise AssertionError(f"{label}: {len(errors)} client thread(s) "
+                             f"failed; first: {errors[0]!r}") from errors[0]
+    return wall
+
+
+class ServeClient:
+    """One client thread of the serving path: its own engine queue, a
+    `VERB`-page arena slice (`EngineBackend`) and a `CleanCacheClient`
+    registered for bloom pushes. Its page keys are (SERVE_HI + tid, i)."""
+
+    def __init__(self, srv, tid: int, n_fill: int, seed: int):
+        import numpy as np
+
+        from pmdfc_tpu_torch.client import CleanCacheClient, EngineBackend
+
+        self.np, self.tid, self.n_fill = np, tid, n_fill
+        self.hi = SERVE_HI + tid
+        self.pw = srv.config.page_words
+        self.rng = np.random.default_rng([seed, tid])
+        self.be = EngineBackend(srv, queue=tid, slice_pages=VERB,
+                                timeout_us=CLIENT_TIMEOUT_US)
+        self.never_asked = 0  # never-inserted keys that reached the server
+        real_get = self.be.get
+
+        def get(keys):
+            """Counts never-inserted keys asked; checks that the server
+            wrote nothing into a miss's arena slot (one verb: len(keys)
+            <= VERB, the slice)."""
+            self.never_asked += int(((keys[:, 0] == self.hi)
+                                     & (keys[:, 1] >= NEVER_LO)).sum())
+            slots = self.be.engine.arena[self.be.arena_lo:][:len(keys)]
+            slots[:] = MISS_FILL
+            out, found = real_get(keys)
+            if (slots[~found] != MISS_FILL).any():
+                raise AssertionError(f"client {tid}: the server wrote into "
+                                     "a miss's arena slot")
+            return out, found
+
+        self.be.get = get
+        self.cc = CleanCacheClient(self.be)
+        srv.register_bf_client(self.cc)
+        self.put_lat: list[float] = []
+        self.get_lat: list[float] = []
+        self.inval = np.zeros(0, np.uint32)
+        self.acked_misses = self.negatives = self.never = 0
+
+    def oids(self, n: int):
+        return self.np.full(n, self.hi, self.np.uint32)
+
+    def fill(self) -> None:
+        """put_pages of [0, n_fill) in VERB-page verbs."""
+        np = self.np
+        for v in range(self.n_fill // VERB):
+            lo = np.arange(v * VERB, (v + 1) * VERB, dtype=np.uint32)
+            pages = pages_np(self.hi, lo, self.pw)
+            t0 = time.perf_counter()
+            self.cc.put_pages(self.oids(VERB), lo, pages)
+            self.put_lat.append(time.perf_counter() - t0)
+
+    def check_mirror(self) -> None:
+        """After a push: every acknowledged key the mirror denies must be
+        one the server lost. Asked without the mirror, each must miss."""
+        from pmdfc_tpu_torch.utils.hashing_np import query_packed_np
+
+        np = self.np
+        acked = np.arange(self.n_fill, dtype=np.uint32)
+        keys = np.stack([self.oids(self.n_fill), acked], -1)
+        neg = keys[~query_packed_np(self.cc._bloom, keys, self.cc.num_hashes)]
+        for i in range(0, len(neg), VERB):
+            _, found = self.be.get(neg[i:i + VERB])
+            if found.any():
+                raise AssertionError(f"client {self.tid}: a key its mirror "
+                                     "denies still hits (false negative)")
+        self.negatives = len(neg)
+
+    def prepare(self) -> None:
+        """The mirror check, then invalidate 1/8 of the GET volume through
+        the engine."""
+        np = self.np
+        self.check_mirror()
+        n_inv = GET_VERBS * VERB // 8
+        perm = self.rng.permutation(self.n_fill).astype(np.uint32)
+        self.inval = np.sort(perm[:n_inv])
+        self.cc.invalidate_pages(self.oids(n_inv), self.inval)
+        self.present = perm[n_inv:]
+
+    def storm(self) -> None:
+        """GET_VERBS get_pages verbs: 5/8 present, 1/8 never inserted, 1/8
+        invalidated, 1/16 from the first fill verb (the likeliest evicted),
+        1/16 padding. Checks every verb: hits byte-exact, misses zeroed
+        (their arena slots untouched by the server: `get` above),
+        never-inserted, invalidated and padding keys miss."""
+        np = self.np
+        present = self.present
+        oldest = np.setdiff1d(np.arange(VERB, dtype=np.uint32), self.inval)
+        k8, k16 = VERB // 8, VERB // 16
+        for _ in range(GET_VERBS):
+            kinds = [(present, VERB - 2 * k8 - 2 * k16, 0),
+                     (None, k8, 1), (self.inval, k8, 2), (oldest, k16, 3)]
+            his, los, tags = [], [], []
+            for pool, n, tag in kinds:
+                if pool is None:
+                    lo = self.rng.integers(NEVER_LO, 1 << 32, n,
+                                           dtype=np.uint64).astype(np.uint32)
+                else:
+                    lo = pool[self.rng.integers(0, len(pool), n)]
+                his.append(self.oids(n))
+                los.append(lo)
+                tags.append(np.full(n, tag, np.int8))
+            his.append(np.full(k16, 0xFFFFFFFF, np.uint32))  # padding
+            los.append(np.full(k16, 0xFFFFFFFF, np.uint32))
+            tags.append(np.full(k16, 4, np.int8))
+            order = self.rng.permutation(VERB)
+            hi, lo, tag = (np.concatenate(x)[order] for x in (his, los, tags))
+            t0 = time.perf_counter()
+            out, found = self.cc.get_pages(hi, lo)
+            self.get_lat.append(time.perf_counter() - t0)
+            if found[(tag == 1) | (tag == 2) | (tag == 4)].any():
+                raise AssertionError(f"client {self.tid}: a never-inserted, "
+                                     "invalidated or padding key hit")
+            if not np.array_equal(out[found],
+                                  pages_np(self.hi, lo[found], self.pw)):
+                raise AssertionError(f"client {self.tid}: a hit returned "
+                                     "wrong bytes")
+            if out[~found].any():
+                raise AssertionError(f"client {self.tid}: a miss returned "
+                                     "nonzero bytes")
+            self.acked_misses += int((~found & ((tag == 0) | (tag == 3))).sum())
+            self.never += k8
+
+    def extents(self, n: int, stats) -> tuple[int, int]:
+        """n extents through OP_INS_EXT, read back through OP_GET_EXT: every
+        address found is value + 4096 * (key - base), keys past a run's end
+        miss, and in-run keys missed are at most the evictions the phase
+        made. -> (in-run probes found, of)."""
+        np = self.np
+        ev0 = stats()["evictions"]
+        exts = []
+        for j in range(n):
+            base, length = (j + 1) * 4096, 1 + (7 * j) % 61
+            value = (j, (0xFFFF0000 - 4096 * 64 * j) % (1 << 32))
+            unc = self.be.insert_extent(np.array([EXT_HI, base], np.uint32),
+                                        np.array(value, np.uint32), length)
+            if unc:
+                raise AssertionError(f"extent {j}: {unc} pages uncovered")
+            exts.append((base, length, value))
+        probe, want, inrun = [], [], []
+        for base, length, (vhi, vlo) in exts:
+            for o in (0, length - 1, length // 2, length):
+                probe.append([EXT_HI, base + o])
+                want.append((((vhi << 32) | vlo) + 4096 * o) % (1 << 64))
+                inrun.append(o < length)
+        probe, want, inrun = (np.array(probe, np.uint32),
+                              np.array(want, np.uint64), np.array(inrun))
+        vals, found = np.zeros((0, 2), np.uint32), np.zeros(0, bool)
+        for i in range(0, len(probe), VERB):
+            v, f = self.be.get_extent(probe[i:i + VERB])
+            vals, found = np.concatenate([vals, v]), np.concatenate([found, f])
+        addr = (vals[:, 0].astype(np.uint64) << np.uint64(32)) | vals[:, 1]
+        if found[~inrun].any():
+            raise AssertionError("get_extent found a key past a run's end")
+        if not np.array_equal(addr[found], want[found]) or addr[~found].any():
+            raise AssertionError("get_extent returned a wrong address")
+        lost = int((inrun & ~found).sum())
+        if lost > stats()["evictions"] - ev0:
+            raise AssertionError(f"get_extent lost {lost} in-run keys beyond "
+                                 "the phase's evictions")
+        return int(found.sum()), int(inrun.sum())
+
+
+class ServePath:
+    """The serving path's key sets on the device for phase 5 (`measure`):
+    status[tid, i] of key (SERVE_HI + tid, i): 1 present, 3 invalidated."""
+
+    def __init__(self, sm: Smoke, kv, clients, t_fill: float):
+        torch = sm.torch
+        self.sm, self.kv, self.label = sm, kv, "serving"
+        self.pw = kv.config.page_words
+        n = clients[0].n_fill
+        self.n_fill, self.t_fill = n * len(clients), t_fill
+        status = torch.ones((len(clients), n), dtype=torch.int8,
+                            device=sm.dev)
+        for c in clients:
+            status[c.tid, torch.from_numpy(c.inval.astype("int64")).to(
+                sm.dev)] = 3
+        self.status = status
+
+    def keys(self, want: int):
+        """Keys of status `want` as [n, 2] int32 on the device."""
+        sm = self.sm
+        tid, lo = (self.status == want).nonzero(as_tuple=True)
+        return sm.torch.stack([sm.u32.narrow(tid + SERVE_HI),
+                               sm.u32.narrow(lo)], dim=-1)
+
+    def mixed(self, n: int, deleted: bool = True):
+        """5/8 present, 1/8 never inserted, 1/16 invalidated, padding."""
+        sm, torch = self.sm, self.sm.torch
+        never = torch.stack([
+            sm.u32.narrow(torch.randint(0, self.status.shape[0], (n // 8,),
+                                        device=sm.dev, generator=sm.gen)
+                          + SERVE_HI),
+            sm.u32.narrow(torch.randint(NEVER_LO, 1 << 32, (n // 8,),
+                                        device=sm.dev, generator=sm.gen))],
+            dim=-1)
+        parts = [sm.pick(self.keys(1), n * 5 // 8), never]
+        if deleted:
+            parts.append(sm.pick(self.keys(3), n // 16))
+        keys = torch.cat(parts)
+        keys = torch.cat([keys, torch.full((n - keys.shape[0], 2), -1,
+                                           dtype=torch.int32, device=sm.dev)])
+        return keys[torch.randperm(n, device=sm.dev, generator=sm.gen)]
+
+
+def quiet_flushes(sm: Smoke, srv, path: ServePath) -> None:
+    """With the driver stopped and no client running, through a probe
+    engine that shares the server's KV: `serve_batch` of a PUT flush of
+    present keys re-put with their own pages, at GET_B and at PUT_ODD
+    pages (a width the pad ladder rounds up), and of one GET flush of GET_B
+    mixed keys. Checks (they raise): every re-put page is served back, and
+    the GET flush's statuses agree with `KV.get`. Measured: each flush's
+    host-clock time (mean of 3); a PUT_ODD flush's padding step both ways
+    (padded on the host with GET_B rows across, or `KV._padded`: PUT_ODD
+    rows across, padded on the device); torch.profiler over the GET flush
+    (device ops, device busy time, host syncs)."""
+    np, torch, smi = sm.np, sm.torch, nvidia_smi()
+    from pmdfc_tpu_torch.runtime import OP_GET, OP_PUT, Engine, KVServer
+
+    eng = Engine(num_queues=1, queue_cap=GET_B, batch=GET_B,
+                 arena_pages=GET_B, page_bytes=path.pw * 4)
+    probe = KVServer(srv.config, engine=eng, kv=srv.kv)
+
+    def flush(op, keys):
+        n = len(keys)
+        base = eng.submit_batch(0, op, keys, np.arange(n, dtype=np.uint32))
+        reqs = eng.pop_batch(n, timeout_us=0)
+        if len(reqs) != n:
+            raise AssertionError(f"probe flush popped {len(reqs)} of {n}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            probe.serve_batch(reqs)
+        torch.cuda.synchronize()
+        return reqs, eng.wait_many(base, n), (
+            time.perf_counter() - t0) / 3 * 1e3
+
+    try:
+        put_ms = {}
+        for n in (GET_B, PUT_ODD):
+            keys = sm.u32.to_numpy(sm.pick(path.keys(1), n))
+            pages = pages_np(keys[:, 0], keys[:, 1], path.pw)
+            eng.arena[:n] = pages
+            _, st, put_ms[n] = flush(OP_PUT, keys)
+            out, found = srv.kv.get(keys)
+            if (st != 0).any() or not (found.all()
+                                       and np.array_equal(out, pages)):
+                raise AssertionError(f"a re-put flush of {n} pages did not "
+                                     "serve its pages")
+        rows = eng.arena[np.arange(PUT_ODD)]  # the flush's gather
+        w = sm.kv_mod._pad_pow2(PUT_ODD)
+
+        def host_pad():
+            h = np.zeros((w, rows.shape[1]), np.int32)
+            h[:PUT_ODD] = rows.view(np.int32)
+            return torch.from_numpy(h).to(srv.kv.device)
+
+        host_ms = time_ms(torch, [host_pad], 5, warmup=1)
+        dev_ms = time_ms(torch, [lambda: srv.kv._padded(rows, w, 0)], 5,
+                         warmup=1)
+        keys = sm.u32.to_numpy(path.mixed(GET_B))
+        reqs, st, get_ms = flush(OP_GET, keys)
+        _, found = srv.kv.get(keys)
+        if not np.array_equal(st == 0, found):
+            raise AssertionError("a served GET flush disagrees with KV.get")
+        log("serve", f"quiet flushes (driver stopped, no client running), "
+            f"serve_batch, host clock, mean of 3: PUT flush of {GET_B} pages "
+            f"{put_ms[GET_B]:.3f} ms, of {PUT_ODD} pages (padded to {w}) "
+            f"{put_ms[PUT_ODD]:.3f} ms, GET flush of {GET_B} keys "
+            f"{get_ms:.3f} ms; the {PUT_ODD}-page flush's padding, mean of "
+            f"5: padded on the host, {w} rows across {host_ms:.3f} ms; "
+            f"KV._padded, {PUT_ODD} rows across and padded on the device "
+            f"{dev_ms:.3f} ms ({smi})")
+        try:
+            prof = profile_breakdown(torch, lambda: probe.serve_batch(reqs), 5)
+        except Exception as e:  # a measurement, not a check: report, go on
+            prof = f"not measured: {e!r}"
+        log("serve", f"torch.profiler of the quiet GET flush: {prof} ({smi})")
+    finally:
+        eng.close()
+
+
+def run_serving(sm: Smoke):
+    """The serving path: linear·flat at the serving size behind the native
+    engine and the `KVServer` driver, CLIENT_GROUPS x GROUP_THREADS clean-
+    cache client threads (one engine queue each), a bloom push every
+    BF_PUSH_S. Fill 75% of the slots through the engine, push, then the GET
+    storm and the extent verbs; then kernel against plain on the server's
+    full-size state and phase 5's times."""
+    np, torch, fused = sm.np, sm.torch, sm.fused
+    from pmdfc_tpu_torch.config import BloomConfig, IndexConfig, KVConfig
+    from pmdfc_tpu_torch.runtime import Engine, KVServer
+
+    smi = nvidia_smi()
+    cfg = KVConfig(index=IndexConfig(**SERVE_INDEX),
+                   bloom=BloomConfig(num_bits=SERVE_BLOOM_BITS))
+    srv = KVServer(cfg, engine=Engine(**SERVE_ENGINE), device=DEVICE,
+                   bf_push_s=BF_PUSH_S)
+    kv, eng = srv.kv, srv.engine
+    minus_two: list[int] = []
+    real_wait = eng.wait_many
+
+    def wait_many(base, n, timeout_us=10_000_000):
+        st = real_wait(base, n, timeout_us=timeout_us)
+        if (st == -2).any():
+            minus_two.append(int((st == -2).sum()))
+        return st
+
+    eng.wait_many = wait_many  # every client verb's statuses pass here
+    nthreads = CLIENT_GROUPS * GROUP_THREADS
+    unit = nthreads * VERB
+    n_fill = (3 * kv.capacity() // 4) // unit * unit
+    st = kv.state
+    log("serve", f"KVServer on {kv.device}: {kv.capacity()} slots, table "
+        f"{tuple(st.index.table.shape)}, pool {tuple(st.pool.pages.shape)} = "
+        f"{st.pool.pages.numel() * 4 / 2**30:.2f} GiB, bloom "
+        f"{cfg.bloom.num_bits} counters; engine {SERVE_ENGINE} (arena "
+        f"{eng.arena.nbytes / 2**20:.0f} MiB); {CLIENT_GROUPS} clients x "
+        f"{GROUP_THREADS} threads, {VERB}-page verbs, bloom push every "
+        f"{BF_PUSH_S} s")
+    t0 = time.monotonic()
+    n_warm = srv.warmup()  # on this thread: a kernel failure raises here
+    torch.cuda.synchronize()
+    log("serve", f"warmup: {n_warm} (kind, width) ops in "
+        f"{time.monotonic() - t0:.3f} s, pad floor {srv.pad_floor}")
+
+    fused.launches.clear()
+    torch.cuda.synchronize()
+    srv.start()
+    clients: list[ServeClient] = []
+    try:
+        clients = [ServeClient(srv, t, n_fill // nthreads, sm.seed)
+                   for t in range(nthreads)]
+        t_fill = run_threads([c.fill for c in clients], "fill")
+        e_fill = eng.stats()
+        fill_phases = srv.timers.report()
+        fill_totals = srv.timers.totals_s()
+        push = srv.push_bloom_now()
+        run_threads([c.prepare for c in clients], "mirror check, invalidate")
+        e_prep = eng.stats()
+        srv.timers.reset()
+        t_storm = run_threads([c.storm for c in clients], "storm")
+        e_storm = eng.stats()
+        storm_phases = srv.timers.report()
+        storm_totals = srv.timers.totals_s()
+        n_found, n_inrun = clients[0].extents(SERVE_EXTENTS, kv.stats)
+        torch.cuda.synchronize()
+        launches = fused.launches["fused_get_linear_flat"]
+        health = srv.health()
+    finally:
+        srv.stop()
+        for c in clients:
+            c.cc.close()
+            c.be.close()
+
+    s, e = health["kv"], health["engine"]
+    get_flushes = health["op_batches"].get("get", 0)
+    n_gets = nthreads * GET_VERBS * VERB
+    acked_misses = sum(c.acked_misses for c in clients)
+    negatives = sum(c.negatives for c in clients)
+    never = sum(c.never for c in clients)
+    asked = sum(c.never_asked for c in clients)
+    short = 1 - asked / never
+    lost = s["evictions"] + s["drops"]
+    checks = [
+        (health["serve_errors"] == 0, f"serve_errors {health['serve_errors']}"),
+        (not minus_two, f"{sum(minus_two)} requests completed with -2"),
+        (e["submitted"] == e["completed"], f"engine {e}"),
+        (s["misses"] == sum(s[c] for c in sm.kv_mod.MISS_CAUSE_NAMES),
+         "misses != sum of miss causes"),
+        (acked_misses <= lost, f"{acked_misses} acknowledged keys missed, "
+         f"more than evictions + drops {lost}"),
+        (negatives <= lost, f"{negatives} mirror negatives among "
+         f"acknowledged keys, more than evictions + drops {lost}"),
+        (short >= 0.9, f"only {short:.1%} of never-inserted GETs were "
+         "short-circuited by the mirror"),
+        (get_flushes > 0 and launches >= get_flushes,
+         f"{launches} fused-GET launches for {get_flushes} GET flushes"),
+        (push["clients"] == nthreads, f"push reached {push}"),
+    ]
+    for ok, msg in checks:
+        if not ok:
+            raise AssertionError(f"serving: {msg}")
+
+    def widths(a, b=None):
+        d = {k: a[k] - (b[k] if b else 0) for k in a}
+        return (f"{d['batches']} batches ({d['flushes']} flushed partial), "
+                f"mean width {d['submitted'] / max(d['batches'], 1):.1f}")
+
+    put_lat = [x for c in clients for x in c.put_lat]
+    get_lat = [x for c in clients for x in c.get_lat]
+    log("serve", f"fill: {n_fill} pages through the engine by {nthreads} "
+        f"threads in {t_fill:.3f} s = {n_fill / t_fill:.0f} pages/s; "
+        f"put_pages verb of {VERB} pages: {percentiles_ms(put_lat)}; engine "
+        f"{widths(e_fill)} ({smi})")
+    log("serve", f"fill driver phases: {fill_phases}; totals {fill_totals} "
+        f"of a {t_fill:.3f} s wall ({smi})")
+    log("serve", f"storm: {n_gets} GET keys in {t_storm:.3f} s = "
+        f"{n_gets / t_storm:.0f} keys/s; get_pages verb of {VERB} keys: "
+        f"{percentiles_ms(get_lat)}; engine {widths(e_storm, e_prep)} ({smi})")
+    log("serve", f"storm driver phases: {storm_phases}; totals "
+        f"{storm_totals} of a {t_storm:.3f} s wall ({smi})")
+    log("serve", f"bloom push: {srv.bf_push_stats}; after the fill push: "
+        f"{negatives} mirror negatives among {n_fill} acknowledged keys, "
+        f"each a server miss; never-inserted GETs short-circuited "
+        f"{never - asked} of {never} = {short:.2%} ({smi})")
+    log("serve", f"checks passed: {acked_misses} acknowledged keys missed "
+        f"<= evictions {s['evictions']} + drops {s['drops']}; hits "
+        f"{s['hits']}, misses {s['misses']} (cold {s['miss_cold']}, "
+        f"evicted {s['miss_evicted']}); serve_errors 0, no -2 status, "
+        f"submitted == completed == {e['submitted']}; extents: "
+        f"{SERVE_EXTENTS} through OP_INS_EXT, {n_found} of {n_inrun} in-run "
+        f"probes found through OP_GET_EXT, every address exact")
+    log("serve", f"fused_get_linear_flat launches {launches} for {get_flushes} "
+        f"GET flushes (op batches {health['op_batches']}) ({smi})")
+
+    path = ServePath(sm, kv, clients, t_fill)
+    quiet_flushes(sm, srv, path)
+
+    # 3, continued: kernel against plain on the server's full-size state
+    present = path.keys(1)[:4096]
+    pool = torch.cat([path.keys(1), path.keys(3), path.mixed(1 << 16)])
+    covers = sm.keys_of(EXT_HI, torch.tensor(
+        [(j + 1) * 4096 for j in range(SERVE_EXTENTS)], device=sm.dev))
+    sm.kernel_phase(kv, pool, present, covers, "serving full")
+    return measure(sm, path, launches)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1036,10 +1571,18 @@ def main() -> int:
         f"cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)} x "
         f"{torch.cuda.device_count()}; nvcc: {nvcc_v.splitlines()[-1]}")
 
-    # 2. build
+    # 2. build: nvcc and g++ side by side, then load
+    from concurrent.futures import ThreadPoolExecutor
+
     t0 = time.monotonic()
+    with ThreadPoolExecutor(2) as ex:
+        for f in [ex.submit(_build.build, "fused_get"),
+                  ex.submit(_build.build_host, "runtime")]:
+            f.result()
     _build.load("fused_get")
-    log("build", f"fused_get built and loaded in {time.monotonic() - t0:.2f} s")
+    _build.load_host("runtime")
+    log("build", f"fused_get (nvcc) and the engine (g++) built and loaded "
+        f"in {time.monotonic() - t0:.2f} s")
     for name, (secs, out) in _build.BUILD_LOG.items():
         for line in out.strip().splitlines():
             log("build", f"{name}: {line.strip()}")
@@ -1068,7 +1611,7 @@ def main() -> int:
     # 4 and 5, one path at a time: each KV is freed before the next fill
     kernels = []
     for run in (run_linear, run_cceh, lambda sm: run_tiered(sm, "linear"),
-                lambda sm: run_tiered(sm, "cceh")):
+                lambda sm: run_tiered(sm, "cceh"), run_serving):
         kernels.append(run(sm))
         torch.cuda.empty_cache()
 

@@ -6,13 +6,19 @@ names, so each module here has its counterpart at the same path under
 inputs both produce the same pages, found masks, slots, stats vector and
 state leaves, bit for bit (`tests/test_torch_*.py`).
 
-Layer map (this slice):
+Layer map (the slices so far):
 
-  L2     kv.py              — KV façade + the `KV` host class: insert / get /
-                              get_compact / delete / stats over the linear
-                              index, counting bloom, evicted-key sketch and
-                              the flat page pool
-  L1     models/            — linear-probing FIFO index (fused-row layout)
+  L4     client/            — clean-cache / swap clients over backends:
+                              local dict, direct `KV`, and the engine
+  L3     runtime/           — the native coalescing engine (`native/
+                              runtime.cpp`, built by g++) and the
+                              `KVServer` driver loop over the async verbs
+  L2     kv.py, tier.py     — KV façade + the `KV` host class: insert / get /
+                              get_compact / delete / extents / stats over
+                              an index, counting bloom, evicted-key sketch
+                              and the flat page pool or the tiered store
+  L1     models/            — linear-probing FIFO index (fused-row layout),
+                              CCEH and extendible hashing
   L0     ops/               — bloom, page pool, and the fused GET: a CUDA
                               kernel for Hopper (`ops/csrc/fused_get.cu`)
                               beside its plain PyTorch version

@@ -3,9 +3,11 @@
 The same frozen dataclasses with the same fields and defaults, so one
 configuration reads the same in both packages. Two differences:
 
-- no environment switch: the JAX package lets `PMDFC_TIER` and
+- no environment switch on the KV: the JAX package lets `PMDFC_TIER` and
   `PMDFC_ADMIT` add or strip the tiered store and its admission gate at
-  init; here they come from `KVConfig.tier` (and its `admit`) alone;
+  init; here they come from `KVConfig.tier` (and its `admit`) alone. The
+  one switch kept is `PMDFC_QOS` (`qos_enabled`), read by the clean-cache
+  client's tenant tagging;
 - there is no `fused_get` switch: on CUDA a configuration that
   `ops.fused.supports` accepts always runs the fused GET kernel, and one
   it rejects runs the composed GET, as the JAX package composes it.
@@ -15,6 +17,15 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+import os
+
+
+def qos_enabled() -> bool:
+    """Resolve the `PMDFC_QOS` kill switch (default on): `off` makes a
+    clean-cache client send every key untagged (tenant 0), the pre-QoS
+    transcript. Resolved at construction time, like every switch."""
+    v = os.environ.get("PMDFC_QOS", "").strip().lower()
+    return v not in ("off", "0", "false", "no")
 
 
 class IndexKind(str, enum.Enum):

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from pmdfc_tpu_torch.config import BloomConfig
@@ -73,3 +74,17 @@ def to_packed_bits(state: BloomState) -> torch.Tensor:
     bits = (state.counters > 0).reshape(-1, 32).to(torch.int64)
     weights = 1 << (31 - torch.arange(32, device=bits.device))
     return narrow((bits * weights[None, :]).sum(dim=1))
+
+
+def dirty_blocks(old_packed: np.ndarray, new_packed: np.ndarray,
+                 *, block_bytes: int = 8192) -> np.ndarray:
+    """bool[num_blocks]: which fixed-size blocks of the packed form changed.
+
+    Mirrors `GetUpdatedBlocks` (`counting_bloom_filter.h:101-107`, 8 KB
+    blocks) — the delta-sync unit for pushing filter updates to clients.
+    Host numpy in and out: the server diffs two `KV.packed_bloom()`
+    snapshots, which are already on the host.
+    """
+    words_per_block = block_bytes // 4
+    diff = (old_packed ^ new_packed).reshape(-1, words_per_block)
+    return (diff != 0).any(axis=1)

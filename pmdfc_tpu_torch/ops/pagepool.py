@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from pmdfc_tpu_torch.utils.u32 import M32, mul, narrow, widen
@@ -52,6 +53,20 @@ def page_digest(pages: torch.Tensor) -> torch.Tensor:
     mixed = mixed ^ (mixed >> 15)
     h = mul(xor_fold(mixed), _FINAL_MIX)
     return narrow(h ^ (h >> 13))
+
+
+def page_digest_np(pages: np.ndarray) -> np.ndarray:
+    """Host (numpy) mirror of `page_digest` — bit-identical, so a client
+    can digest at put time and verify server-returned pages end to end
+    (`client.backends.IntegrityBackend`). uint32 pages -> uint32 digests."""
+    pages = np.ascontiguousarray(pages, np.uint32)
+    lanes = np.arange(pages.shape[-1], dtype=np.uint32)
+    with np.errstate(over="ignore"):
+        mixed = (pages ^ (lanes * np.uint32(_LANE_SALT))) \
+            * np.uint32(_FNV_PRIME)
+        mixed ^= mixed >> np.uint32(15)
+        h = np.bitwise_xor.reduce(mixed, axis=-1) * np.uint32(_FINAL_MIX)
+    return h ^ (h >> np.uint32(13))
 
 
 @dataclasses.dataclass

@@ -1,0 +1,434 @@
+"""KVServer — the driver loop turning coalesced batches into device work
+(twin of `pmdfc_tpu/runtime/server.py`, without the mesh plane).
+
+This is the role of `server/rdma_svr.cpp`'s per-queue poller threads
+(`server_recv_poll_cq` :755 → `process_write_twosided` :319 /
+`process_read_odp` :659) redesigned for a GPU: instead of 32 pinned threads
+each handling one 4-page verb, ONE driver thread drains every submission
+queue into a deep batch and runs one batched KV op per op kind on the card.
+Within a batch, puts land before deletes before gets, so a client that
+pipelines put→get against the same key sees its own write (the reference
+client gets the same guarantee from its synchronous per-queue verbs).
+
+Batch shapes are padded up a power-of-two ladder from `pad_floor`, as the
+JAX package pads them, so a flush has the same padded width in both.
+Results fan back out through the engine's completion slots and, for gets,
+the page lands in the request's arena destination slot — the analog of the
+server RDMA-writing the page straight into the faulting page's DMA address
+(`server/rdma_svr.cpp:706-719`). Page returns are hit-compacted on the
+card (`kv.get_compact`, whose GET is the fused GET kernel where the config
+supports it) so only found rows cross to the host.
+
+The driver is double-buffered: flush N+1 is launched before flush N's
+results are fetched. CUDA work is asynchronous, so the host's copy of
+flush N's results overlaps flush N+1's device work — as far as the
+launch itself does not wait on the card: the KV ops sync the host where
+they write through a boolean mask (the tiered GET and the insert do), and
+such a launch runs to its last sync before it returns. Results are read
+with `u32.to_numpy` / `.cpu()`, which copy: nothing of a flush's result
+aliases the KV's state, which the next launch updates in place.
+
+All of the KV's device work runs on the `pmdfc-driver` thread, on the
+KV's device (set for the thread, never taken from the main thread's).
+
+Not ported yet: `mesh=` and the plane branches, `checkpoint()`, the
+device-time profiler's fetch seams (`_finalize` fetches directly), the
+time-series collector and the telemetry rungs.
+"""
+
+from __future__ import annotations
+
+import collections
+import contextlib
+import threading
+import time
+import traceback
+
+import numpy as np
+import torch
+
+from pmdfc_tpu_torch.config import KVConfig
+from pmdfc_tpu_torch.kv import KV
+from pmdfc_tpu_torch.ops.bloom import dirty_blocks
+from pmdfc_tpu_torch.runtime.engine import (
+    Engine, OP_DEL, OP_GET, OP_GET_EXT, OP_INS_EXT, OP_PUT)
+from pmdfc_tpu_torch.utils import u32
+from pmdfc_tpu_torch.utils.keys import INVALID_WORD
+from pmdfc_tpu_torch.utils.timers import Reporter, Timers
+
+
+class KVServer:
+    def __init__(self, config: KVConfig | None = None,
+                 engine: Engine | None = None, kv: KV | None = None,
+                 report_every_s: float = 0.0, pad_floor: int = 16,
+                 bf_push_s: float = 0.0, bf_block_bytes: int = 8192,
+                 fault_injector=None, device="cuda"):
+        """`device` places a KV built here (`cuda` unless the caller asks
+        for the CPU; without a GPU, `cuda` raises, as `KV` does). A `kv`
+        passed in keeps its own device."""
+        self.config = config or KVConfig()
+        self.kv = kv or KV(self.config, device=device)
+        self.engine = engine or Engine(
+            page_bytes=self.config.page_words * 4
+        )
+        # ladder lower bound: batches pad to max(pad_floor, next_pow2(n))
+        self.pad_floor = pad_floor
+        # optional fault injector (duck-typed `.on_batch(reqs)`; "drop"
+        # makes a batch's completions vanish)
+        self.fault = fault_injector
+        self.errors = 0  # flushes failed by `_fail_batch`
+        # launched flushes that carried each op kind ("put", "get", ...):
+        # with one fused GET per paged GET flush, `op_batches["get"]` is
+        # the launch count a serving run must show
+        self.op_batches: collections.Counter = collections.Counter()
+        self._stop = threading.Event()
+        self._thread: threading.Thread | None = None
+        self.timers = Timers()
+        self._reporter: Reporter | None = None
+        if report_every_s > 0:
+            # the rdpma_indicator analog (`server/rdma_svr.cpp:145-150`)
+            self._reporter = Reporter(
+                report_every_s,
+                sinks=[
+                    lambda: f"kv {self.kv.stats()}",
+                    lambda: f"engine {self.engine.stats()}",
+                    lambda: f"phases {self.timers.report()}",
+                ],
+            )
+        # -- server→client bloom push (the rdpma_bf_sender analog,
+        # `server/rdma_svr.cpp:157-251,1361-1363`, with the 8 KB dirty-block
+        # deltas of `counting_bloom_filter.h:101-107`: after the first full
+        # push, only changed blocks travel).
+        self.bf_push_s = bf_push_s
+        self.bf_block_bytes = bf_block_bytes
+        self._bf_clients: list = []
+        self._bf_last_sent: list[np.ndarray | None] = []
+        # guarded-by: _bf_clients, _bf_last_sent
+        self._bf_lock = threading.Lock()
+        # one push cycle at a time (the sender thread and push_bloom_now
+        # callers): guards bf_push_stats and the delta baselines
+        self._bf_push_lock = threading.Lock()
+        self._bf_thread: threading.Thread | None = None
+        self.bf_push_stats = {"cycles": 0, "full_pushes": 0,
+                              "delta_pushes": 0, "blocks_pushed": 0,
+                              "errors": 0}
+
+    # -- lifecycle --
+    def start(self) -> "KVServer":
+        # Start-once: `with KVServer(...).start()` would otherwise spawn a
+        # SECOND driver loop via __enter__, and two loops race the KV
+        # (restart after stop is not supported: _stop is never cleared).
+        if self._thread is not None:
+            return self
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name="pmdfc-driver")
+        self._thread.start()
+        if self._reporter:
+            self._reporter.start()
+        if self.bf_push_s > 0:
+            self._bf_thread = threading.Thread(
+                target=self._bf_push_loop, daemon=True, name="bf-sender"
+            )
+            self._bf_thread.start()
+        return self
+
+    def warmup(self) -> int:
+        """Run a put, a delete and a get at every ladder width up to the
+        engine's flush cap once, with all-INVALID key batches: they run
+        the real ops (the fused GET kernel among them) but match nothing,
+        place nothing and touch no pool row. Call it on the caller's
+        thread before `start()`: the kernel is built at its first launch,
+        and a build or launch failure then raises here instead of failing
+        flushes inside the driver thread. -> the number of (kind, width)
+        ops run."""
+        vw = self.config.page_words if self.config.paged else 2
+        w, n = self.pad_floor, 0
+        while w <= self.engine.batch:
+            keys = np.full((w, 2), INVALID_WORD, np.uint32)
+            self.kv.insert_async(keys, np.zeros((w, vw), np.uint32),
+                                 pad_floor=self.pad_floor)
+            self.kv.delete_async(keys, pad_floor=self.pad_floor)
+            if self.config.paged:
+                int(self.kv.get_compact_async(keys,
+                                              pad_floor=self.pad_floor)[3])
+            else:
+                self.kv.get_async(keys, pad_floor=self.pad_floor)[1].cpu()
+            w, n = w << 1, n + 3
+        return n
+
+    def health(self) -> dict:
+        """One integrity/degradation surface for monitors and drills: KV
+        stats (incl. `corrupt_pages` and the tier counters when tiered),
+        engine stats, driver-level serve errors, and the launched flushes
+        by op kind."""
+        return {
+            "kv": self.kv.stats(),
+            "engine": self.engine.stats(),
+            "serve_errors": self.errors,
+            "op_batches": dict(self.op_batches),
+        }
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._reporter:
+            self._reporter.stop()
+        if self._bf_thread:
+            self._bf_thread.join(timeout=10)
+        if self._thread:
+            self._thread.join(timeout=30)
+            if self._thread.is_alive():
+                # Driver thread wedged (device hang?): freeing the native
+                # queues under it would be a use-after-free. Leak instead.
+                raise RuntimeError(
+                    "driver thread did not exit; leaking engine")
+        self.engine.close()
+
+    def __enter__(self) -> "KVServer":
+        return self.start()
+
+    def __exit__(self, *exc) -> None:
+        self.stop()
+
+    # -- bloom push --
+
+    def register_bf_client(self, client) -> None:
+        """Attach a client mirror (anything with `receive_bloom_full` /
+        `receive_bloom_blocks`) — the MR-exchange analog for the filter."""
+        with self._bf_lock:
+            self._bf_clients.append(client)
+            self._bf_last_sent.append(None)
+
+    def push_bloom_now(self) -> dict:
+        """One push cycle: full filter to new clients, dirty blocks to the
+        rest. Returns this cycle's counters.
+
+        `t_snap` is sampled BEFORE the filter is read: every put whose
+        completion a client observed before `t_snap` is provably contained
+        in this snapshot, so the client may retire its overlay entry — the
+        stamp that closes the push-races-put false-negative window.
+        """
+        with self._bf_push_lock:
+            t_snap = time.monotonic()
+            packed = self.kv.packed_bloom()
+            if packed is None:
+                return {"blocks": 0}
+            wpb = self.bf_block_bytes // 4
+            can_delta = len(packed) % wpb == 0
+            pushed_blocks = 0
+            with self._bf_lock:
+                clients = list(zip(range(len(self._bf_clients)),
+                                   self._bf_clients, self._bf_last_sent))
+            sent: list[int] = []
+            # clients that were sent the same snapshot share one diff
+            deltas: dict[int, tuple[np.ndarray, np.ndarray]] = {}
+            for i, client, last in clients:
+                try:
+                    if last is None or not can_delta:
+                        client.receive_bloom_full(packed, t_snap=t_snap)
+                        self.bf_push_stats["full_pushes"] += 1
+                    else:
+                        if id(last) not in deltas:
+                            idx = np.nonzero(dirty_blocks(
+                                last, packed,
+                                block_bytes=self.bf_block_bytes))[0]
+                            deltas[id(last)] = (
+                                idx, packed.reshape(-1, wpb)[idx])
+                        idx, blocks = deltas[id(last)]
+                        if len(idx):
+                            client.receive_bloom_blocks(idx, blocks, wpb,
+                                                        t_snap=t_snap)
+                            pushed_blocks += len(idx)
+                        self.bf_push_stats["delta_pushes"] += 1
+                    sent.append(i)
+                except Exception as e:  # noqa: BLE001 — one bad sink must
+                    # not kill the sender thread for every other client
+                    self.bf_push_stats["errors"] += 1
+                    print(f"[kv-server] bf push to client {i} failed: {e!r}")
+            with self._bf_lock:
+                for i in sent:
+                    # `packed` is freshly allocated each cycle and never
+                    # mutated after this point; sinks copy what they keep
+                    self._bf_last_sent[i] = packed
+            self.bf_push_stats["cycles"] += 1
+            self.bf_push_stats["blocks_pushed"] += pushed_blocks
+            return {"blocks": pushed_blocks, "clients": len(clients)}
+
+    def _bf_push_loop(self) -> None:
+        while not self._stop.wait(self.bf_push_s):
+            self.push_bloom_now()
+
+    # -- driver --
+    def _loop(self) -> None:
+        dev = self.kv.device
+        with (torch.cuda.device(dev) if dev.type == "cuda"
+              else contextlib.nullcontext()):
+            self._drive()
+
+    def _drive(self) -> None:
+        pending: tuple | None = None  # (reqs, launch handles) in flight
+        while not self._stop.is_set():
+            # With a flush in flight, don't dwell in the coalescer spin:
+            # grab whatever is queued (timeout 0) and launch it, THEN go
+            # block on the in-flight results — that is the overlap.
+            with self.timers.phase("pop"):
+                reqs = self.engine.pop_batch(
+                    timeout_us=0 if pending is not None else None
+                )
+            nxt = None
+            if len(reqs):
+                try:
+                    with self.timers.phase("launch"):
+                        nxt = (reqs, self._launch(reqs))
+                except Exception as e:  # noqa: BLE001
+                    self._fail_batch(reqs, e)
+            if pending is not None:
+                self._finalize_or_fail(*pending)
+            pending = nxt
+        if pending is not None:
+            self._finalize_or_fail(*pending)
+
+    def _finalize_or_fail(self, reqs: np.ndarray, handles) -> None:
+        try:
+            self._finalize(reqs, handles)
+        except Exception as e:  # noqa: BLE001
+            self._fail_batch(reqs, e)
+
+    def _fail_batch(self, reqs: np.ndarray, e: Exception) -> None:
+        # A batch must never kill the driver silently: fail ITS requests
+        # (clients see -2, not a hang), count it, and keep serving.
+        traceback.print_exc()
+        print(f"[kv-server] serve failed: {e!r}; "
+              f"failing {len(reqs)} requests")
+        self.errors += 1
+        self.engine.complete(
+            reqs["req_id"], np.full(len(reqs), -2, np.int32)
+        )
+
+    def serve_batch(self, reqs: np.ndarray) -> None:
+        """Run one coalesced batch synchronously (launch + finalize)."""
+        handles = self._launch(reqs)
+        self._finalize(reqs, handles)
+
+    def _launch(self, reqs: np.ndarray):
+        """Dispatch one coalesced batch: puts, extent inserts, deletes,
+        extent gets, then gets.
+
+        Returns opaque handles holding device tensors; nothing here reads
+        a result back (the insert and the extent insert may still sync
+        the host inside the KV)."""
+        if self.fault is not None and self.fault.on_batch(reqs) == "drop":
+            return None  # completions vanish; clients must time out, not hang
+
+        keys = np.stack([reqs["khi"], reqs["klo"]], axis=-1)
+        handles: dict = {}
+        floor = self.pad_floor
+
+        puts = reqs["op"] == OP_PUT
+        if puts.any():
+            self.op_batches["put"] += 1
+            if self.config.paged:
+                # a gather, so a copy: the clients reuse their arena slots
+                # once their requests complete
+                vals = self.engine.arena[reqs["page_off"][puts]]
+            else:
+                nk = int(puts.sum())
+                vals = np.stack(
+                    [np.zeros(nk, np.uint32), reqs["page_off"][puts]],
+                    axis=-1,
+                )
+            res, nb = self.kv.insert_async(keys[puts], vals, pad_floor=floor)
+            handles["puts"] = (puts, res, nb)
+
+        # Extent inserts land after puts, before deletes/gets, so a client
+        # pipelining ins_ext -> get_ext within one flush sees its covers.
+        # One KV call per record (the façade op is single-extent, ref
+        # `KV.cpp:129-185`); extents are orders rarer than page ops.
+        iext = reqs["op"] == OP_INS_EXT
+        if iext.any():
+            self.op_batches["ins_ext"] += 1
+            st = np.empty(int(iext.sum()), np.int32)
+            for j, r in enumerate(reqs[iext]):
+                staged = self.engine.arena[r["page_off"]]
+                try:
+                    _, uncovered = self.kv.insert_extent(
+                        np.array([r["khi"], r["klo"]], np.uint32),
+                        np.array(staged[:2], np.uint32),
+                        int(staged[2]),
+                    )
+                    # status >= 0 reports the uncovered tail (0 = fully
+                    # indexed), the façade's partial-coverage surface
+                    st[j] = uncovered
+                except Exception:  # noqa: BLE001 — fail THIS record only
+                    traceback.print_exc()
+                    st[j] = -2
+            handles["ins_ext"] = (iext, st)
+
+        dels = reqs["op"] == OP_DEL
+        if dels.any():
+            self.op_batches["del"] += 1
+            hit, nb = self.kv.delete_async(keys[dels], pad_floor=floor)
+            handles["dels"] = (dels, hit, nb)
+
+        gext = reqs["op"] == OP_GET_EXT
+        if gext.any():
+            self.op_batches["get_ext"] += 1
+            out, found, nb = self.kv.get_extent_async(keys[gext],
+                                                      pad_floor=floor)
+            handles["get_ext"] = (gext, out, found, nb)
+
+        gets = reqs["op"] == OP_GET
+        if gets.any():
+            self.op_batches["get"] += 1
+            if self.config.paged:
+                out, order, found, nfound, nb = \
+                    self.kv.get_compact_async(keys[gets], pad_floor=floor)
+                handles["gets"] = (gets, (out, order, found, nfound), nb)
+            else:
+                out, found, nb = self.kv.get_async(keys[gets],
+                                                   pad_floor=floor)
+                handles["gets"] = (gets, (out, None, found, None), nb)
+        return handles
+
+    def _finalize(self, reqs: np.ndarray, handles) -> None:
+        """Copy one launched batch's results to the host (this is where
+        the device work is waited for) and publish completions. Timer
+        phases as the reference's TIME_CHECK accumulators
+        (`server/rdma_svr.cpp:64-76`)."""
+        if handles is None:
+            return  # fault-injected drop
+        status = np.zeros(len(reqs), np.int32)
+        if "puts" in handles:
+            with self.timers.phase("write"):
+                puts, res, nb = handles["puts"]
+                dropped = res.dropped[:nb].cpu().numpy()
+                status[puts] = np.where(dropped, -1, 0)
+        if "ins_ext" in handles:
+            iext, st = handles["ins_ext"]
+            status[iext] = st
+        if "get_ext" in handles:
+            with self.timers.phase("read"):
+                gext, out, found, nb = handles["get_ext"]
+                out_h = u32.to_numpy(out[:nb])
+                found_h = found[:nb].cpu().numpy()
+                self.engine.arena[reqs["page_off"][gext], :2] = out_h
+                status[gext] = np.where(found_h, 0, -1)
+        if "dels" in handles:
+            with self.timers.phase("delete"):
+                dels, hit, nb = handles["dels"]
+                status[dels] = np.where(hit[:nb].cpu().numpy(), 0, -1)
+        if "gets" in handles:
+            with self.timers.phase("read"):
+                gets, (out, order, found, nfound), nb = handles["gets"]
+                found_h = found[:nb].cpu().numpy()
+                if self.config.paged:
+                    # only the hit rows cross (device-compacted)
+                    nf = int(nfound)
+                    if nf:
+                        pages = u32.to_numpy(out[:nf])
+                        src = order[:nf].cpu().numpy()
+                        self.engine.arena[reqs["page_off"][gets][src]] = pages
+                # (unpaged mode returns hit/miss status only, like the
+                # reference's TX_READ_COMMITTED/ABORTED imm)
+                status[gets] = np.where(found_h, 0, -1)
+        with self.timers.phase("poll"):
+            self.engine.complete(reqs["req_id"], status)

@@ -3,7 +3,9 @@
 The port (`pmdfc_tpu_torch/`) and `chip_smoke.py` import neither JAX nor
 anything of the JAX package `pmdfc_tpu` (they keep their own copies of
 what they need), and importing the port builds and loads nothing: the
-CUDA kernel is compiled at its first launch.
+CUDA kernel is compiled at its first launch, the engine at the first
+`Engine()`, from the port's own copy of its source — nothing under the
+top-level `native/` is opened, built or loaded.
 """
 
 from __future__ import annotations
@@ -73,5 +75,47 @@ print("ok", len({mods!r}))
 """
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok")
+
+
+def test_port_never_touches_the_jax_packages_native_directory():
+    """Build and drive the port's engine and serving stack in a fresh
+    interpreter that records every path it stats or opens, every library
+    it loads and every command it runs: nothing lies under the top-level
+    `native/` (the JAX package's engine source and library), and the
+    engine comes from the port's own copy, `pmdfc_tpu_torch/native/`."""
+    code = f"""
+import builtins, ctypes, os, subprocess
+seen = []
+def spy(mod, name):
+    real = getattr(mod, name)
+    def f(*a, **k):
+        seen.append(str(a[0]) if a else "")
+        return real(*a, **k)
+    setattr(mod, name, f)
+for mod, name in ((os, "stat"), (builtins, "open"), (subprocess, "run"),
+                  (subprocess, "Popen"), (ctypes, "CDLL")):
+    spy(mod, name)
+import numpy as np
+from pmdfc_tpu_torch.client import CleanCacheClient, EngineBackend
+from pmdfc_tpu_torch.config import IndexConfig, KVConfig
+from pmdfc_tpu_torch.runtime import Engine, KVServer
+eng = Engine(num_queues=1, queue_cap=1 << 6, batch=64, arena_pages=64,
+             page_bytes=64)
+with KVServer(KVConfig(index=IndexConfig(capacity=1 << 10), page_words=16),
+              engine=eng, device="cpu") as srv:
+    cc = CleanCacheClient(EngineBackend(srv, slice_pages=8))
+    cc.put_pages(np.array([1]), np.array([2]), np.ones((1, 16), np.uint32))
+    assert cc.get_pages(np.array([1]), np.array([2]))[1].all()
+jax_native = {str(ROOT / "native")!r}
+bad = [p for p in seen if p == jax_native or p.startswith(jax_native + os.sep)]
+assert not bad, bad
+own = {str(ROOT / "pmdfc_tpu_torch" / "native" / "runtime.cpp")!r}
+assert own in seen, "the port's own engine source was not consulted"
+print("ok")
+"""
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("ok")

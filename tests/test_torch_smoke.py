@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import time
 
+import numpy as np
 import pytest
 import torch
 
@@ -26,7 +27,7 @@ from pmdfc_tpu_torch.ops import fused
 pytestmark = pytest.mark.torch
 
 KEYS = {"name", "route", "source", "replaces", "launches", "max_abs_err",
-        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "path"}
 
 
 class _HostEvent:
@@ -102,6 +103,74 @@ def test_tiered_main_path_and_its_kernels_line(smoke, kind, capsys):
     assert "all hit byte-exact from hot rows" in out
     assert "missed as miss_stale" in out and "fresh keys hit" in out
     assert ("admit_state" in out) == (kind == "cceh")
+
+
+def test_serving_path_and_its_kernels_line(smoke, monkeypatch, capsys):
+    """The serving path at 2 clients x 2 threads over 2^12 slots: the fill
+    through the engine, the push, the mirror check, the GET storm, the
+    extents, and kernel against plain on the server's state."""
+    for name, value in (("SERVE_INDEX", dict(capacity=1 << 12)),
+                        ("SERVE_BLOOM_BITS", 1 << 18),
+                        ("SERVE_ENGINE", dict(num_queues=4, queue_cap=1 << 10,
+                                              batch=1 << 10, arena_pages=256,
+                                              page_bytes=4096)),
+                        ("CLIENT_GROUPS", 2), ("GROUP_THREADS", 2),
+                        ("VERB", 1 << 6), ("GET_VERBS", 4),
+                        ("SERVE_EXTENTS", 16), ("BF_PUSH_S", 0.01),
+                        ("PUT_ODD", 185)):
+        monkeypatch.setattr(chip_smoke, name, value)
+    entry = chip_smoke.run_serving(smoke)
+    assert set(entry) == KEYS and entry["path"] == "serving"
+    assert entry["name"] == "fused_get_linear_flat"
+    assert entry["launches"] > 0 and entry["max_abs_err"] == 0
+    assert entry["bound_by"] == "bytes" and entry["library_ms"] is None
+    out = capsys.readouterr().out
+    assert "[serve] checks passed" in out and "every address exact" in out
+    assert "kernel == plain" in out
+    assert "of 185 pages (padded to 256)" in out  # the quiet flushes' line
+
+
+@pytest.mark.parametrize("lie", [False, True])
+def test_quiet_flushes_check_what_they_serve(smoke, monkeypatch, capsys,
+                                             lie):
+    """The quiet flushes on a small served state: they log their times, and
+    a GET flush whose statuses disagree with `KV.get` (every status forced
+    to 0 here) fails the path instead of being left out as a
+    measurement."""
+    from types import SimpleNamespace
+
+    from pmdfc_tpu_torch.config import IndexConfig, KVConfig
+    from pmdfc_tpu_torch.runtime import KVServer
+
+    monkeypatch.setattr(chip_smoke, "PUT_ODD", 185)
+    n = 1 << 10
+    srv = KVServer(KVConfig(index=IndexConfig(capacity=1 << 12)),
+                   device="cpu")
+    lo = np.arange(n, dtype=np.uint32)
+    hi = np.full(n, chip_smoke.SERVE_HI, np.uint32)
+    keys = np.stack([hi, lo], -1)
+    srv.kv.insert(keys, chip_smoke.pages_np(hi, lo, srv.config.page_words))
+    srv.kv.delete(keys[-64:])
+    client = SimpleNamespace(n_fill=n, tid=0, inval=lo[-64:])
+    path = chip_smoke.ServePath(smoke, srv.kv, [client], 1.0)
+    if lie:
+        real = KVServer._finalize
+
+        def lying(self, reqs, handles):
+            if self.engine.num_queues == 1:  # the probe's engine
+                complete = self.engine.complete
+                self.engine.complete = lambda ids, st: complete(
+                    ids, np.zeros_like(st))
+            real(self, reqs, handles)
+
+        monkeypatch.setattr(KVServer, "_finalize", lying)
+        with pytest.raises(AssertionError, match="disagrees with KV.get"):
+            chip_smoke.quiet_flushes(smoke, srv, path)
+    else:
+        chip_smoke.quiet_flushes(smoke, srv, path)
+        out = capsys.readouterr().out
+        assert "of 185 pages (padded to 256)" in out
+        assert "torch.profiler of the quiet GET flush" in out
 
 
 def test_smoke_refuses_without_a_card(monkeypatch, capsys):
