@@ -65,7 +65,27 @@ Phases, each reported on its own line; any failure exits nonzero:
              bytes these batches must move over 3.35 TB/s); whole-path GET
              (tiered: with its `tier.on_get` epilogue) and insert rates and
              a torch.profiler breakdown of `KV.get`.
-6. serve   — the serving path, after the four: linear·flat's configuration
+6. families — the six index families that take the composed GET (cuckoo,
+             cuckoo-probing, level, path, static, HotRing), one at a time,
+             each through `KV` at linear·flat's serving configuration with
+             only the kind changed (requested capacity 2^21, the 2^24-bit
+             bloom, 4 KiB pages, the sketch); the pool follows each
+             family's slot count (level 3 x 2^20 slots = 12 GiB, path's
+             base-15 slots 2,088,960). Fill 75% of the slots; serve mixed
+             get and get_compact batches (present, never-inserted,
+             evicted or dropped, padding) and, after a delete, with the
+             deleted keys mixed in: every key an insert reported placed
+             and no later insert reported evicted hits byte-exact, every
+             miss is zeroed, `misses == Σ miss_*`, static never evicts,
+             and a `scan()` of the table holds exactly the present keys.
+             HotRing serves 2^20 GET keys, a quarter from a 2^12-key hot
+             set, so the default decay fires through `KV`; then every hot
+             key resolves from the mirror, and hot keys updated in place
+             serve their new bytes from the table. No family launches the
+             fused GET. Times per family: fill pages/s, `KV.get` wall per
+             2^14 keys (CUDA events), and torch.profiler's device ops,
+             device busy and device-to-host copies per insert and get.
+7. serve   — the serving path, after the families: linear·flat's configuration
              (8 GiB) in a `KVServer` behind the native engine (32 queues,
              2^14-request flushes, a 256 MiB arena), driven by 4 clients x 8
              threads of `CleanCacheClient` over `EngineBackend`, each with
@@ -100,6 +120,7 @@ path, launches, error and times; the last is `{"ok": true, "device": ...}`.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -118,6 +139,13 @@ DEVICE = "cuda"
 LINEAR_INDEX = dict(capacity=1 << 21)
 CCEH_INDEX = dict(capacity=1 << 20)
 CAUSE_NAMES = "(hit,pad,cold,evicted,ext,parked,stale,digest)"
+# the families phase: linear·flat's serving configuration with only the
+# index kind changed, for each family that takes the composed GET
+FAMILY_INDEX = dict(capacity=1 << 21)
+FAMILIES = ("cuckoo", "ccp", "level", "path", "static", "hotring")
+# hotring: GET keys served before the mirror drill, and the decay period
+# (`IndexConfig`'s default, so the decay fires once through `KV`)
+HOT_GETS = 1 << 20
 # the serving path: linear·flat's configuration behind the engine and the
 # KVServer driver; 4 clients x 8 threads (the reference's 4 clients x 8
 # QPs), each thread with its own engine queue and a VERB-page arena slice
@@ -136,6 +164,9 @@ BF_PUSH_S = 0.05       # the server's bloom push period
 SERVE_HI = 0x90000000  # thread t's page keys are (SERVE_HI + t, i)
 NEVER_LO = 1 << 24     # lo words at or above this were never inserted
 CLIENT_TIMEOUT_US = 120_000_000
+# one deadline for all the client threads of a serving phase (the fill
+# through the engine took 93-176 s on the H100)
+PHASE_TIMEOUT_S = 600.0
 
 
 def log(phase: str, msg: str) -> None:
@@ -1067,6 +1098,150 @@ def run_tiered(sm: Smoke, kind: str):
     return measure(sm, path, launches, dir_bytes=dir_bytes)
 
 
+def scan_agrees(sm: Smoke, path: MainPath) -> int:
+    """The page keys a scan of the whole table finds are exactly the
+    present ones (every reported drop, eviction and delete gone, every
+    placement there) -> the count of occupied slots."""
+    torch, u32 = sm.torch, sm.u32
+    flat_keys, _ = path.kv._ops.scan(path.kv.state.index)
+    occ = flat_keys[~sm.is_invalid(flat_keys)]
+    if not bool((u32.widen(occ[:, 0]) == PAGE_HI).all()):
+        raise AssertionError(f"{path.label}: a foreign key in the table")
+    held = u32.widen(occ[:, 1]).sort().values
+    present = (path.status == 1).nonzero().flatten()
+    if not torch.equal(held, present):
+        raise AssertionError(
+            f"{path.label}: the table holds {held.numel()} page keys, the "
+            f"inserts reported {present.numel()} present")
+    return occ.shape[0]
+
+
+def hot_mirror_drill(sm: Smoke, path: MainPath, decays: int,
+                     gets: int) -> None:
+    """HotRing after at least 2^20 GET keys: the default decay fired through
+    `KV`, and its shift put every hot key in its bucket's mirror (a hot
+    key is touched about 64 times; the shift caps its heat key at
+    0xFFFFFFFE, so a count of 1 after the halving would tie an untouched
+    occupant). Then 64 hot keys are updated in place: their mirror rows
+    are invalidated, and GETs serve the new bytes from the table; the old
+    pages go back."""
+    torch, kv = sm.torch, path.kv
+    from pmdfc_tpu_torch.models import hotring
+
+    if not decays:
+        raise AssertionError(f"{path.label}: the decay never fired")
+    hot = sm.keys_of(PAGE_HI, path.hot.unique())
+    in_mirror = hotring.probe_hot(kv.state.index, hot)
+    if not bool(in_mirror.all()):
+        raise AssertionError(f"hotring: {int((~in_mirror).sum())} of "
+                             f"{hot.shape[0]} hot keys not in the mirror")
+    upd = hot[:64]
+    new_pages = sm.pages_of(upd, path.pw) ^ 0x5A5A5A5A
+    kv.insert(upd, new_pages)
+    if bool(hotring.probe_hot(kv.state.index, upd).any()):
+        raise AssertionError("hotring: an update left its mirror row")
+    out, found = kv.get(upd)
+    if not (bool(found.all()) and torch.equal(out, new_pages)):
+        raise AssertionError("hotring: an updated hot key served stale bytes")
+    kv.insert(upd, sm.pages_of(upd, path.pw))
+    log("families", f"hotring mirror: {decays} decay(s) through KV "
+        f"after {gets} GET keys; all {hot.shape[0]} hot keys resolve "
+        f"from the mirror; 64 hot keys updated in place served their new "
+        f"bytes from the table (mirror rows invalidated), then restored")
+
+
+def run_family(sm: Smoke, kind: str) -> None:
+    """One index family through `KV` at linear·flat's serving configuration
+    with only `kind` changed: fill 75% of its slots, serve mixed GETs and
+    get_compact (HotRing: a quarter from a hot set, at least 2^20 GET keys,
+    then the mirror drill), delete, serve again; the table's scan must
+    hold exactly the present keys. Times: fill, `KV.get` wall (CUDA
+    events) and device busy, device ops and copies per insert and get."""
+    torch = sm.torch
+    from pmdfc_tpu_torch.config import BloomConfig, IndexConfig, IndexKind, \
+        KVConfig
+
+    smi = nvidia_smi()
+    cfg = KVConfig(index=IndexConfig(kind=IndexKind(kind),
+                                     decay_every_gets=HOT_GETS,
+                                     **FAMILY_INDEX),
+                   bloom=BloomConfig(num_bits=1 << 24))
+    path = MainPath(sm, cfg, kind)
+    kv = path.kv
+    decays = [0]
+    if kv._ops.decay is not None:
+        real_decay = kv._ops.decay
+
+        def decay(index):
+            decays[0] += 1
+            return real_decay(index)
+        kv._ops = dataclasses.replace(kv._ops, decay=decay)
+    log("families", f"{kind}: num_slots {path.n_slots}, pool "
+        f"{kv.state.pool.pages.numel() * 4 / 2**30:.2f} GiB")
+    sm.fused.launches.clear()
+    torch.cuda.synchronize()
+    path.run_fill()
+    if kind == "hotring":
+        present = (path.status == 1).nonzero().flatten()
+        path.hot = present[torch.randperm(present.numel(), device=sm.dev,
+                                          generator=sm.gen)[:HOT_SET]]
+        rounds = -(-HOT_GETS // (2 * GET_B))
+    else:
+        rounds = 4
+    path.serve(rounds, False, "serve")
+    if kind == "hotring":
+        hot_mirror_drill(sm, path, decays[0], rounds * 2 * GET_B)
+    path.delete()
+    path.serve(2, True, "serve after delete")
+    if kind == "static" and path.evictions:
+        raise AssertionError("static evicted")
+    occupied = scan_agrees(sm, path)
+    check_stats(sm, path)
+
+    # times: KV.get over 8 mixed batches, and one insert of fresh keys
+    batches = [path.mixed(GET_B, True) for _ in range(8)]
+    get_ms = time_ms(torch, [lambda k=k: kv.get(k) for k in batches], 24)
+    starts = iter(range(path.n_fill, path.n_keys - INS_B, INS_B))
+    results = []
+
+    def insert_fresh():
+        i = next(starts)
+        lo = torch.arange(i, i + INS_B, device=sm.dev)
+        keys = sm.keys_of(PAGE_HI, lo)
+        results.append((lo, kv.insert(keys, sm.pages_of(keys, path.pw))))
+
+    try:
+        ins_prof = profile_breakdown(torch, insert_fresh, 3)
+        get_prof = profile_breakdown(torch, lambda: kv.get(batches[0]), 5)
+    except Exception as e:  # a measurement, not a check: report, go on
+        ins_prof = get_prof = f"not measured: {e!r}"
+    for lo, res in results:
+        path.status[lo] = torch.where(res.dropped, 4, 1).to(torch.int8)
+        path.track(res)
+    path.serve(1, True, "serve after the timed inserts")
+    torch.cuda.synchronize()
+    if sum(sm.fused.launches.values()):
+        raise AssertionError(f"{kind} took the fused GET: "
+                             f"{dict(sm.fused.launches)}")
+    log("families", f"{kind}: fill {path.n_fill / path.t_fill:.0f} pages/s "
+        f"({path.n_fill} pages in {path.t_fill:.3f} s); KV.get "
+        f"{get_ms:.3f} ms per {GET_B} keys (CUDA events, rotated over 8 "
+        f"batches); evictions {path.evictions}, drops {path.drops}; "
+        f"occupied {occupied} of {path.n_slots} slots ({smi})")
+    log("families", f"{kind} torch.profiler, KV.insert of {INS_B} fresh "
+        f"pages: {ins_prof} ({smi})")
+    log("families", f"{kind} torch.profiler, KV.get of {GET_B} keys: "
+        f"{get_prof} ({smi})")
+
+
+def run_families(sm: Smoke) -> None:
+    """The families phase: each of FAMILIES in turn, each KV freed before
+    the next family's fill."""
+    for kind in FAMILIES:
+        run_family(sm, kind)
+        sm.torch.cuda.empty_cache()
+
+
 def pages_np(hi, lo, pw: int):
     """`Smoke.pages_of` on the host: the pages of keys (hi, lo), uint32
     (hi a word or one per key)."""
@@ -1087,8 +1262,9 @@ def percentiles_ms(xs) -> str:
 
 
 def run_threads(targets, label: str) -> float:
-    """Run one thread per callable, join them all -> wall seconds; any
-    thread's exception fails the phase."""
+    """Run one thread per callable, join them all by one deadline,
+    PHASE_TIMEOUT_S after the start -> wall seconds; a thread still running
+    at the deadline or any thread's exception fails the phase."""
     import threading
 
     errors: list[BaseException] = []
@@ -1106,11 +1282,13 @@ def run_threads(targets, label: str) -> float:
     t0 = time.monotonic()
     for th in threads:
         th.start()
+    deadline = t0 + PHASE_TIMEOUT_S
     for th in threads:
-        th.join(timeout=CLIENT_TIMEOUT_US / 1e6)
+        th.join(timeout=max(0.0, deadline - time.monotonic()))
     wall = time.monotonic() - t0
     if any(th.is_alive() for th in threads):
-        raise AssertionError(f"{label}: a client thread did not finish")
+        raise AssertionError(f"{label}: a client thread did not finish "
+                             f"within {PHASE_TIMEOUT_S} s")
     if errors:
         raise AssertionError(f"{label}: {len(errors)} client thread(s) "
                              f"failed; first: {errors[0]!r}") from errors[0]
@@ -1611,8 +1789,10 @@ def main() -> int:
     # 4 and 5, one path at a time: each KV is freed before the next fill
     kernels = []
     for run in (run_linear, run_cceh, lambda sm: run_tiered(sm, "linear"),
-                lambda sm: run_tiered(sm, "cceh"), run_serving):
-        kernels.append(run(sm))
+                lambda sm: run_tiered(sm, "cceh"), run_families, run_serving):
+        entry = run(sm)
+        if entry is not None:  # the families launch no kernel of their own
+            kernels.append(entry)
         torch.cuda.empty_cache()
 
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -19,15 +19,19 @@ import torch
 from pmdfc_tpu_torch import kv as kv_mod
 from pmdfc_tpu_torch import tier as tier_mod
 from pmdfc_tpu_torch.config import IndexKind, KVConfig
-from pmdfc_tpu_torch.models import cceh
+from pmdfc_tpu_torch.models import cceh, cuckoo, level, path
+from pmdfc_tpu_torch.models.cuckoo_probing import CCPState
+from pmdfc_tpu_torch.models.hotring import HotRingState
 from pmdfc_tpu_torch.models.linear import LinearState
+from pmdfc_tpu_torch.models.static import StaticState
 from pmdfc_tpu_torch.ops.bloom import BloomState
 from pmdfc_tpu_torch.ops.pagepool import PoolState
 from pmdfc_tpu_torch.utils import u32
 
 # leaves holding u32 words (uint32 in JAX, int32 bits here)
 U32_LEAVES = frozenset({"index.table", "index.head", "index.ld",
-                        "index.gdepth", "pool.pages", "pool.sums",
+                        "index.gdepth", "index.cuckooed", "index.counters",
+                        "index.hot", "pool.pages", "pool.sums",
                         "extents.recs", "extents.cursor",
                         # the tiered pool's
                         "pool.hot_keys", "pool.metric", "pool.tick",
@@ -46,25 +50,37 @@ def _tensor(name: str, a: np.ndarray, device) -> torch.Tensor:
 def state_from_numpy(leaves: dict[str, np.ndarray], config: KVConfig,
                      device="cuda") -> kv_mod.KVState:
     """The JAX package's `KVState` leaves (numpy, by dotted path) -> this
-    package's `KVState` on `device`: the ported index families over the
-    flat pool, or the tiered one when `config.tier` is set (its admission
-    leaves iff the leaves hold them). A CCEH state's static knobs come
-    from the config."""
+    package's `KVState` on `device`: any index family over the flat pool,
+    or the tiered one when `config.tier` is set (its admission leaves iff
+    the leaves hold them). An index state's static knobs (CCEH's, cuckoo's
+    `max_kicks`, level's `top_rows`, path's `top`) come from the config."""
     dev = kv_mod.resolve_device(device)
 
     def t(name):
         return _tensor(name, leaves[name], dev)
 
-    kind = config.index.kind
-    if kind == IndexKind.LINEAR:
-        index = LinearState(table=t("index.table"), head=t("index.head"))
-    elif kind in (IndexKind.CCEH, IndexKind.EXTENDIBLE):
-        index = cceh.CCEHState(
-            **{f: t(f"index.{f}") for f in ("table", "ld", "dirr", "gdepth",
-                                             "nseg")},
-            msb=kind == IndexKind.CCEH, **cceh.static_fields(config.index))
+    def leaves_of(cls, **static):
+        return cls(**{f.name: t(f"index.{f.name}")
+                      for f in dataclasses.fields(cls)
+                      if f.name not in static}, **static)
+
+    ix = config.index
+    kind = ix.kind
+    if kind in (IndexKind.CCEH, IndexKind.EXTENDIBLE):
+        index = leaves_of(cceh.CCEHState, msb=kind == IndexKind.CCEH,
+                          **cceh.static_fields(ix))
+    elif kind == IndexKind.CUCKOO:
+        index = leaves_of(cuckoo.CuckooState,
+                          max_kicks=ix.max_cuckoo_kicks)
+    elif kind == IndexKind.LEVEL:
+        index = leaves_of(level.LevelState, top_rows=level._top_rows(ix))
+    elif kind == IndexKind.PATH:
+        index = leaves_of(path.PathState, top=path._top_cells(ix))
     else:
-        raise NotImplementedError(f"index kind {kind.value!r} is not ported")
+        index = leaves_of({IndexKind.LINEAR: LinearState,
+                           IndexKind.CUCKOO_PROBING: CCPState,
+                           IndexKind.STATIC: StaticState,
+                           IndexKind.HOTRING: HotRingState}[kind])
 
     pool = None
     if config.paged and config.tier is not None:

@@ -309,27 +309,36 @@ def _get_core(state: KVState, config: KVConfig, keys: torch.Tensor,
     """Composed GET (ref `KV::Get` `KV.cpp:148`) -> (state, out, found).
 
     Serves the configs the fused GET does not (`fused.supports`): the lean
-    probe for unpaged indexes, the composed page path for paged ones (on a
-    tiered pool: extendible hashing). Writes nothing but `state.stats`,
-    except that a counting (`lean=False`) GET on a tiered pool then runs
-    the migration epilogue `tier.on_get`.
+    probe for unpaged indexes, the composed page path for paged ones (the
+    families other than linear and CCEH). Writes nothing but `state.stats`,
+    except that a counting (`lean=False`) GET bumps an index's access
+    counters (`ops.touch`: hotring) and, on a tiered pool, then runs the
+    migration epilogue `tier.on_get`.
     """
     ops = get_index_ops(config.index.kind)
     valid = ~is_invalid(keys)
     bumps = torch.zeros(NSTATS, dtype=torch.int32, device=keys.device)
     corrupt = torch.zeros_like(valid)
-    parked = stale = torch.zeros_like(valid)
-    if state.pool is None:
+    parked = stale = ext_m = torch.zeros_like(valid)
+    # an index that counts accesses takes the slot-tracking probe on a
+    # counting GET even without a pool
+    lean_probe = state.pool is None and (ops.touch is None or lean)
+    if not lean_probe:
+        res = ops.get_batch(state.index, keys)
+        found = res.found & valid
+        idx_miss = valid & ~res.found
+        if ops.touch is not None and not lean:
+            # hotness bookkeeping (hotring's access counters)
+            ops.touch(state.index, res.slots)
+    if lean_probe:
         # lean probe: values pre-zeroed on miss
         out, found = ops.get_values(state.index, keys)
         found = found & valid
         idx_miss = valid & ~found
-        ext_m = torch.zeros_like(valid)
+    elif state.pool is None:
+        out = torch.where(found[:, None], res.values, 0)
     elif _tiered(state):
         pool = state.pool
-        res = ops.get_batch(state.index, keys)
-        found = res.found & valid
-        idx_miss = valid & ~res.found
         # tag 0 = page entry, 2 = extent, 3 = NOPAGE; every special tag but
         # NOPAGE is "not a page", so cold for a page GET
         tag = u32.widen(res.values[:, 0]) >> 30
@@ -354,9 +363,6 @@ def _get_core(state: KVState, config: KVConfig, keys: torch.Tensor,
             tier_mod.on_get(ops, state.index, pool, _tcfg(config), keys,
                             res.slots, rows, out, found)
     else:
-        res = ops.get_batch(state.index, keys)
-        found = res.found & valid
-        idx_miss = valid & ~res.found
         # extent-cover entries are not pages: misses for a page GET
         ext_m = found & (res.values[:, 0] == fused_ops.EXTENT_TAG_I32)
         found = found & ~ext_m
@@ -596,8 +602,12 @@ def find_anyway(state: KVState, config: KVConfig, keys: torch.Tensor):
 def utilization(state: KVState, config: KVConfig) -> torch.Tensor:
     """Fraction of occupied slots (ref `Utilization`, `server/IKV.h:19`)."""
     flat_keys, _ = get_index_ops(config.index.kind).scan(state.index)
-    occ = (~is_invalid(flat_keys)).sum(dtype=torch.int32)
-    return occ.to(torch.float32) / flat_keys.shape[0]
+    occ = (~is_invalid(flat_keys)).sum(dtype=torch.float32)
+    # XLA divides by the constant slot count as a product with its float32
+    # reciprocal, one ulp off a true division when the count is not a
+    # power of two (level's 3 x 2^k slots, path's base-15 ones)
+    one = torch.ones((), dtype=torch.float32, device=occ.device)
+    return occ * (one / flat_keys.shape[0])
 
 
 def _pad_pow2(n: int, lo: int = 16) -> int:
@@ -630,6 +640,7 @@ class KV:
         self._t0 = time.monotonic()
         self._lock = threading.RLock()
         self._batches_since_touch = 0
+        self._gets_since_decay = 0
 
     # -- helpers --
     def _padded(self, x, w: int, fill: int) -> torch.Tensor:
@@ -674,13 +685,12 @@ class KV:
 
     def _touch_due(self) -> bool:
         """Sampled hotness accounting: one GET batch in
-        `touch_sample_every` pays the counting path (a tiered pool's
-        migration epilogue); the rest are lean pure reads. Only a tiered
-        pool tracks touches here (no ported index family keeps counters).
-        Callers hold the lock."""
+        `touch_sample_every` pays the counting path (an index's access
+        counters, a tiered pool's migration epilogue); the rest are lean
+        pure reads. Callers hold the lock."""
         every = self.config.index.touch_sample_every
-        if not _tiered(self.state):
-            return False  # lean changes nothing on a flat pool
+        if self._ops.touch is None and not _tiered(self.state):
+            return False  # lean changes nothing then
         if every <= 1:
             return True
         self._batches_since_touch += 1
@@ -688,6 +698,18 @@ class KV:
             self._batches_since_touch = 0
             return True
         return False
+
+    def _maybe_decay(self, gets: int) -> None:
+        """Periodic heat drain of an index that counts accesses (hotring):
+        `ops.decay` once every `decay_every_gets` keys asked for (each
+        GET batch's length before padding, as the JAX `KV` counts them).
+        Callers hold the lock."""
+        every = self.config.index.decay_every_gets
+        if self._ops.decay is not None and every:
+            self._gets_since_decay += gets
+            if self._gets_since_decay >= every:
+                self._gets_since_decay = 0
+                self._ops.decay(self.state.index)
 
     def get(self, keys):
         """-> (pages_or_values[B, ...], found[B])."""
@@ -731,6 +753,7 @@ class KV:
                 self.state, self.config,
                 self._keys(keys, _pad_pow2(b, lo=pad_floor)),
                 lean=not self._touch_due())
+            self._maybe_decay(b)
             return out, found, b
 
     def get_compact_async(self, keys, pad_floor: int = 16):
@@ -746,6 +769,7 @@ class KV:
                 self.state, self.config,
                 self._keys(keys, _pad_pow2(b, lo=pad_floor)),
                 lean=not self._touch_due())
+            self._maybe_decay(b)
             return out, order, found, nfound, b
 
     def get_extent_async(self, keys, pad_floor: int = 16):

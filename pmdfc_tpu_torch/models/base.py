@@ -52,6 +52,12 @@ class IndexOps:
     # post-restart directory repair (ref `CCEH::Recovery`); None where an
     # index needs none
     recovery: Callable[[Any], Any] | None = None
+    # (state, hit_slots[B]) -> state: access-heat bookkeeping on a counting
+    # GET (hotring's counter bump); the KV calls it when set
+    touch: Callable[..., Any] | None = None
+    # state -> state: periodic heat drain (hotring's counter halving and
+    # hot-point shift), every `IndexConfig.decay_every_gets` GET keys
+    decay: Callable[[Any], Any] | None = None
     get_values: Callable[..., tuple] | None = None
 
 
@@ -65,7 +71,13 @@ def register_index(kind: IndexKind, ops: IndexOps) -> None:
 _MODULES = {
     IndexKind.LINEAR: "pmdfc_tpu_torch.models.linear",
     IndexKind.CCEH: "pmdfc_tpu_torch.models.cceh",
+    IndexKind.CUCKOO: "pmdfc_tpu_torch.models.cuckoo",
+    IndexKind.CUCKOO_PROBING: "pmdfc_tpu_torch.models.cuckoo_probing",
+    IndexKind.LEVEL: "pmdfc_tpu_torch.models.level",
+    IndexKind.PATH: "pmdfc_tpu_torch.models.path",
     IndexKind.EXTENDIBLE: "pmdfc_tpu_torch.models.extendible",
+    IndexKind.STATIC: "pmdfc_tpu_torch.models.static",
+    IndexKind.HOTRING: "pmdfc_tpu_torch.models.hotring",
 }
 
 
@@ -73,11 +85,32 @@ def get_index_ops(kind: IndexKind) -> IndexOps:
     """The family's ops; its module is imported (and registers) on first
     use."""
     if kind not in _REGISTRY:
-        if kind not in _MODULES:
-            raise NotImplementedError(
-                f"index kind {kind.value!r} is not ported yet")
         importlib.import_module(_MODULES[kind])
     return _REGISTRY[kind]
+
+
+def compact_mask(mask: torch.Tensor, width: int):
+    """Gather plan for compacting the True lanes of `mask[B]` into a
+    width-W buffer (the straggler-round idiom of cuckoo's kick loop and
+    path's claim stages) -> `(idx, in_w, safe, overflow)`:
+
+    - `idx[W]` int64: original positions of the first W True lanes (B pads);
+    - `in_w[W]`: which buffer lanes are real;
+    - `safe[W]`: `idx` clamped for gathering (`x[safe]`, then mask);
+    - `overflow[B]`: True lanes that did not fit.
+
+    `jnp.nonzero(size=W)` would sync the host and give a dynamic shape
+    here, so each True lane scatters its position to its running count
+    (a cumsum) in a W + 1 buffer whose last lane takes the rest."""
+    b = mask.shape[0]
+    pos = torch.cumsum(mask.to(torch.int64), 0) - 1
+    fits = mask & (pos < width)
+    idx = torch.full((width + 1,), b, dtype=torch.int64, device=mask.device)
+    idx.scatter_(0, torch.where(fits, pos, width),
+                 torch.arange(b, device=mask.device))
+    idx = idx[:width]
+    in_w = idx < b
+    return idx, in_w, idx.clamp(max=b - 1), mask & ~fits
 
 
 class InsertPlan(NamedTuple):

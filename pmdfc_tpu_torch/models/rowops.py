@@ -74,6 +74,30 @@ def scatter_entry(table: torch.Tensor, rows: torch.Tensor, lanes: torch.Tensor,
     table[r, 3 * s + lane] = values[mask, 1]
 
 
+def empty_table(c: int, s: int, device) -> torch.Tensor:
+    """int32[c, 4*s] of empty fused rows: keys INVALID, values 0."""
+    table = torch.zeros((c, 4 * s), dtype=torch.int32, device=device)
+    table[:, :2 * s] = INVALID_I32
+    return table
+
+
+def write_values(table: torch.Tensor, rows: torch.Tensor, lanes: torch.Tensor,
+                 values: torch.Tensor, s: int, mask: torch.Tensor) -> None:
+    """Overwrite the value lanes at (row, lane) where mask, in place."""
+    r, ln = rows[mask], lanes[mask]
+    table[r, 2 * s + ln] = values[mask, 0]
+    table[r, 3 * s + ln] = values[mask, 1]
+
+
+def clear_keys(table: torch.Tensor, rows: torch.Tensor, lanes: torch.Tensor,
+               s: int, mask: torch.Tensor) -> None:
+    """Empty the key lanes at (row, lane) where mask, in place (the values
+    stay, as the JAX deletes leave them)."""
+    r, ln = rows[mask], lanes[mask]
+    table[r, ln] = INVALID_I32
+    table[r, s + ln] = INVALID_I32
+
+
 def no_evict_stub(b: int, device):
     """The no-eviction payload of an insert tail: (evicted keys, evicted
     values) all INVALID, nothing dropped, lane 0 — what a tail with
@@ -81,3 +105,101 @@ def no_evict_stub(b: int, device):
     inv2 = torch.full((b, 2), INVALID_I32, dtype=torch.int32, device=device)
     return (inv2, inv2.clone(), torch.zeros(b, dtype=torch.bool, device=device),
             torch.zeros(b, dtype=torch.int32, device=device))
+
+
+def place_free_phase(table: torch.Tensor, prot: torch.Tensor, r: torch.Tensor,
+                     keys: torch.Tensor, vals: torch.Tensor,
+                     active: torch.Tensor, s: int,
+                     rank: torch.Tensor | None = None):
+    """Place active keys into free lanes of row r, rank-deconflicted, in
+    place -> (placed[B], slot[B] int32 or -1).
+
+    `prot` is an int64 per-row lane bitmask of same-batch placements (so
+    later displacement phases never touch them): the placed lanes' bits
+    are added to it, and since they were free, adding is OR-ing (int64, so
+    lane 31's bit is no sign bit). `rank` lets a caller that has an insert
+    plan pass per-row ranks of `active` instead of paying this helper's
+    sort."""
+    from pmdfc_tpu_torch.models.base import batch_rank_by_segment
+
+    rows = table[r]
+    if rank is None:
+        rank = batch_rank_by_segment(r, active)
+    free = free_lanes(rows, s)
+    can = active & (rank < free.sum(dim=1))
+    lane = first_lane(nth_lane(free, rank))
+    scatter_entry(table, r, lane, keys, vals, s, can)
+    add_lane_bits(prot, r, lane, can)
+    return can, torch.where(can, r * s + lane, -1).to(torch.int32)
+
+
+def add_lane_bits(bits: torch.Tensor, rows: torch.Tensor, lanes: torch.Tensor,
+                  mask: torch.Tensor) -> None:
+    """bits[row] += 1 << lane where mask, accumulating repeated rows, in
+    place (int64 bits; the masked (row, lane) pairs must be unique and
+    their bits clear, so the sum is an OR)."""
+    bits.index_add_(0, torch.where(mask, rows, 0),
+                    torch.where(mask, 1 << lanes.to(torch.int64), 0))
+
+
+def lane_bit(bits: torch.Tensor, lanes) -> torch.Tensor:
+    """bool: bit `lanes` of each int64 lane mask (broadcasting)."""
+    return ((bits >> lanes) & 1).bool()
+
+
+def lean_miss_tail(keys: torch.Tensor, missed: torch.Tensor,
+                   base_values: torch.Tensor, base_found: torch.Tensor,
+                   probe, width: int | None = None):
+    """Lean-GET miss tail shared by level's bottom tier and path's bank 1:
+    probe ONLY the `missed` lanes at a compacted narrow width, or the whole
+    batch when the miss set overflows the buffer -> merged
+    `(values[B, 2], found[B])`. `probe(ks) -> (values, found)` treats
+    INVALID keys as misses.
+
+    The JAX program picks the branch with `lax.cond` on the miss count;
+    here one host read of that count picks it. Both branches give the same
+    merge (a probe is per key), and zero misses skip the probe."""
+    b = keys.shape[0]
+    w = width if width is not None else min(b, max(1024, b // 8))
+
+    def full():
+        v, f = probe(keys)
+        m = missed & f
+        return torch.where(m[:, None], v, base_values), base_found | m
+
+    if w >= b:
+        return full()
+    ms = int(missed.sum())
+    if ms == 0:
+        return base_values, base_found
+    if ms > w:
+        return full()
+    from pmdfc_tpu_torch.models.base import compact_mask
+
+    idx, in_w, safe, _ = compact_mask(missed, w)
+    ks = torch.where(in_w[:, None], keys[safe], INVALID_I32)
+    v, f = probe(ks)
+    pos = torch.where(f, idx, b)
+    fb = torch.zeros(b + 1, dtype=torch.bool, device=keys.device)
+    fb[pos] = True
+    out = torch.zeros((b + 1, 2), dtype=keys.dtype, device=keys.device)
+    out[pos] = v
+    fb = fb[:b]
+    return torch.where(fb[:, None], out[:b], base_values), base_found | fb
+
+
+def lean_two_window(table: torch.Tensor, r1: torch.Tensor, r2: torch.Tensor,
+                    keys: torch.Tensor, s: int):
+    """Lean GET over two hashed windows -> (values[B, 2] zero on miss,
+    found[B]). A key occupies one lane across both windows; when the two
+    hashes name the same row, window 2 is masked out (a raw sum would
+    double the value)."""
+    rows1, rows2 = table[r1], table[r2]
+    eq1 = match_mask(rows1, keys, s)
+    eq2 = match_mask(rows2, keys, s) & (r1 != r2)[:, None]
+    values = torch.stack([
+        narrow(widen(lane_pick(rows1, eq1, 2 * s, s))
+               + widen(lane_pick(rows2, eq2, 2 * s, s))),
+        narrow(widen(lane_pick(rows1, eq1, 3 * s, s))
+               + widen(lane_pick(rows2, eq2, 3 * s, s)))], dim=-1)
+    return values, eq1.any(dim=1) | eq2.any(dim=1)

@@ -91,7 +91,12 @@ seen = []
 def spy(mod, name):
     real = getattr(mod, name)
     def f(*a, **k):
-        seen.append(str(a[0]) if a else "")
+        # a command is an argv list: record each of its elements (the
+        # source path of a compile is one of them), else the path itself
+        if a and isinstance(a[0], (list, tuple)):
+            seen.extend(str(x) for x in a[0])
+        elif a:
+            seen.append(str(a[0]))
         return real(*a, **k)
     setattr(mod, name, f)
 for mod, name in ((os, "stat"), (builtins, "open"), (subprocess, "run"),

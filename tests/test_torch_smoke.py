@@ -105,6 +105,24 @@ def test_tiered_main_path_and_its_kernels_line(smoke, kind, capsys):
     assert ("admit_state" in out) == (kind == "cceh")
 
 
+def test_families_phase(smoke, monkeypatch, capsys):
+    """The families phase over 2^13 requested slots per family: each fills,
+    serves byte-exact (every present key hits), deletes, and its table's
+    scan holds exactly the present keys; HotRing's decay fires through
+    `KV` and its mirror drill passes; no family takes the fused GET."""
+    monkeypatch.setattr(chip_smoke, "FAMILY_INDEX", dict(capacity=1 << 13))
+    monkeypatch.setattr(chip_smoke, "HOT_GETS", 1 << 14)
+    assert chip_smoke.run_families(smoke) is None
+    out = capsys.readouterr().out
+    for kind in chip_smoke.FAMILIES:
+        assert f"[families] {kind}: num_slots" in out
+        assert f"[families] {kind}: fill" in out
+        assert f"[families] {kind} torch.profiler, KV.get" in out
+    assert "[families] level: num_slots 12288" in out
+    assert "hotring mirror: 1 decay(s) through KV after 16384 GET keys" in out
+    assert "served their new bytes from the table" in out
+
+
 def test_serving_path_and_its_kernels_line(smoke, monkeypatch, capsys):
     """The serving path at 2 clients x 2 threads over 2^12 slots: the fill
     through the engine, the push, the mirror check, the GET storm, the
@@ -171,6 +189,18 @@ def test_quiet_flushes_check_what_they_serve(smoke, monkeypatch, capsys,
         out = capsys.readouterr().out
         assert "of 185 pages (padded to 256)" in out
         assert "torch.profiler of the quiet GET flush" in out
+
+
+def test_client_threads_share_one_phase_deadline(monkeypatch):
+    """A serving phase's client threads are joined by one deadline: a phase
+    whose threads all outrun it fails whichever thread ends last (a
+    timeout per join let a late thread pass when a later one outlasted
+    it); threads inside it pass."""
+    monkeypatch.setattr(chip_smoke, "PHASE_TIMEOUT_S", 0.3)
+    assert chip_smoke.run_threads([lambda: time.sleep(0.05)] * 2, "ok") < 0.3
+    with pytest.raises(AssertionError, match="did not finish within 0.3 s"):
+        chip_smoke.run_threads([lambda: time.sleep(0.5),
+                                lambda: time.sleep(0.55)], "late")
 
 
 def test_smoke_refuses_without_a_card(monkeypatch, capsys):
