@@ -84,7 +84,12 @@ Phases, each reported on its own line; any failure exits nonzero:
              serve their new bytes from the table. No family launches the
              fused GET. Times per family: fill pages/s, `KV.get` wall per
              2^14 keys (CUDA events), and torch.profiler's device ops,
-             device busy and device-to-host copies per insert and get.
+             device busy and device-to-host copies per insert and get
+             (its profiled inserts of fresh keys take the table to about
+             87% full, and their results are held to the same checks).
+             Then the standalone policy cache (`ops/policy_cache.py`):
+             LRU, LFU and FIFO on the card, each call held equal to the
+             same call on the CPU (gets, evictions, table, metric, tick).
 7. serve   — the serving path, after the families: linear·flat's configuration
              (8 GiB) in a `KVServer` behind the native engine (32 queues,
              2^14-request flushes, a 256 MiB arena), driven by 4 clients x 8
@@ -146,6 +151,8 @@ FAMILIES = ("cuckoo", "ccp", "level", "path", "static", "hotring")
 # hotring: GET keys served before the mirror drill, and the decay period
 # (`IndexConfig`'s default, so the decay fires once through `KV`)
 HOT_GETS = 1 << 20
+# the policy cache's check: its capacity and the keys per call
+POLICY_CAPACITY, POLICY_B = 1 << 16, 1 << 12
 # the serving path: linear·flat's configuration behind the engine and the
 # KVServer driver; 4 clients x 8 threads (the reference's 4 clients x 8
 # QPs), each thread with its own engine queue and a VERB-page arena slice
@@ -451,17 +458,34 @@ def fused_get_bytes(fused, causes, w: int, s: int, pw: int,
 
 def profile_breakdown(torch, fn, iters: int) -> str:
     """Device-side breakdown of `fn` from torch.profiler: device ops per
-    call, device busy time per call, and the ops taking the most of it."""
-    from torch.profiler import ProfilerActivity, profile
-
+    call, device busy time per call, and the ops taking the most of it.
+    `fn` runs 1 + `iters` times whatever the profiler does, and an
+    exception from `fn` propagates: only the profiler's own failure is
+    caught, and then the line says "not measured"."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    prof = failed = None
+    try:
+        from torch.profiler import ProfilerActivity, profile
+
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+        prof.start()
+    except Exception as e:  # the profiler's own failure: report, go on
+        prof, failed = None, e
+    try:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    events = prof.key_averages()
+    finally:
+        if prof is not None:
+            try:
+                prof.stop()
+                events = prof.key_averages()
+            except Exception as e:  # the profiler's own failure
+                failed = e
+    if failed is not None:
+        return f"not measured: {failed!r}"
     dev = [e for e in events
            if e.device_type == torch.autograd.DeviceType.CUDA]
     if not dev:
@@ -689,12 +713,8 @@ def measure(sm: Smoke, path: MainPath, launches: int, dir_bytes: int = 0):
         f"per {GET_B} keys = {GET_B / get_ms * 1e3:.0f} keys/s (a tiered "
         f"KV.get includes its tier.on_get epilogue); fill "
         f"{path.n_fill / path.t_fill:.0f} pages/s ({smi})")
-    try:
-        log("times", f"{path.label} torch.profiler, KV.get of 2^14 keys: "
-            + profile_breakdown(torch, kv_get[0], 5))
-    except Exception as e:  # a measurement, not a check: report, go on
-        log("times", f"{path.label} torch.profiler breakdown not measured: "
-            f"{e!r}")
+    log("times", f"{path.label} torch.profiler, KV.get of 2^14 keys: "
+        + profile_breakdown(torch, kv_get[0], 5))
     return {
         "name": name,
         "route": "cuda",
@@ -1193,32 +1213,32 @@ def run_family(sm: Smoke, kind: str) -> None:
         hot_mirror_drill(sm, path, decays[0], rounds * 2 * GET_B)
     path.delete()
     path.serve(2, True, "serve after delete")
-    if kind == "static" and path.evictions:
-        raise AssertionError("static evicted")
-    occupied = scan_agrees(sm, path)
+    scan_agrees(sm, path)
     check_stats(sm, path)
 
-    # times: KV.get over 8 mixed batches, and one insert of fresh keys
+    # times: KV.get over 8 mixed batches, and inserts of fresh keys (they
+    # take the table from 75% to about 87% of its slots); the profiled
+    # calls are real verbs whose results the checks below hold
     batches = [path.mixed(GET_B, True) for _ in range(8)]
     get_ms = time_ms(torch, [lambda k=k: kv.get(k) for k in batches], 24)
     starts = iter(range(path.n_fill, path.n_keys - INS_B, INS_B))
-    results = []
 
     def insert_fresh():
         i = next(starts)
         lo = torch.arange(i, i + INS_B, device=sm.dev)
         keys = sm.keys_of(PAGE_HI, lo)
-        results.append((lo, kv.insert(keys, sm.pages_of(keys, path.pw))))
-
-    try:
-        ins_prof = profile_breakdown(torch, insert_fresh, 3)
-        get_prof = profile_breakdown(torch, lambda: kv.get(batches[0]), 5)
-    except Exception as e:  # a measurement, not a check: report, go on
-        ins_prof = get_prof = f"not measured: {e!r}"
-    for lo, res in results:
+        res = kv.insert(keys, sm.pages_of(keys, path.pw))
         path.status[lo] = torch.where(res.dropped, 4, 1).to(torch.int8)
+        path.drops += int(res.dropped.sum())
         path.track(res)
-    path.serve(1, True, "serve after the timed inserts")
+
+    ins_prof = profile_breakdown(torch, insert_fresh, 3)
+    get_prof = profile_breakdown(torch, lambda: kv.get(batches[0]), 5)
+    path.serve(2, True, "serve after the timed inserts")
+    if kind == "static" and path.evictions:
+        raise AssertionError("static evicted")
+    occupied = scan_agrees(sm, path)
+    check_stats(sm, path)
     torch.cuda.synchronize()
     if sum(sm.fused.launches.values()):
         raise AssertionError(f"{kind} took the fused GET: "
@@ -1226,20 +1246,92 @@ def run_family(sm: Smoke, kind: str) -> None:
     log("families", f"{kind}: fill {path.n_fill / path.t_fill:.0f} pages/s "
         f"({path.n_fill} pages in {path.t_fill:.3f} s); KV.get "
         f"{get_ms:.3f} ms per {GET_B} keys (CUDA events, rotated over 8 "
-        f"batches); evictions {path.evictions}, drops {path.drops}; "
-        f"occupied {occupied} of {path.n_slots} slots ({smi})")
+        f"batches); evictions {path.evictions}, drops {path.drops} (fill "
+        f"and timed inserts); occupied {occupied} of {path.n_slots} slots "
+        f"({smi})")
     log("families", f"{kind} torch.profiler, KV.insert of {INS_B} fresh "
         f"pages: {ins_prof} ({smi})")
     log("families", f"{kind} torch.profiler, KV.get of {GET_B} keys: "
         f"{get_prof} ({smi})")
 
 
+def policy_cache_check(sm: Smoke) -> None:
+    """The standalone policy cache on `sm.dev` against the same calls on
+    the CPU, for LRU, LFU and FIFO: fill 3/4 of POLICY_CAPACITY, get live
+    keys with repeats (LRU ticks, LFU counts) beside never-inserted and
+    padding keys, put a batch of new keys past capacity with duplicates
+    and padding (evictions over tied metrics), update live keys, get
+    again. Every get, every eviction and the table, metric and tick after
+    each call must be identical."""
+    torch, u32 = sm.torch, sm.u32
+    from pmdfc_tpu_torch.ops import policy_cache as pc
+
+    cap, b = POLICY_CAPACITY, POLICY_B
+    gen = torch.Generator().manual_seed(11)
+
+    def rand(n):
+        return torch.randint(0, 1 << 31, (n, 2), dtype=torch.int32,
+                             generator=gen)
+
+    for policy in ("lru", "lfu", "fifo"):
+        card = pc.init(cap, policy, device=sm.dev)
+        host = pc.init(cap, policy, device="cpu")
+        live, evictions = rand(0), 0
+
+        def same(label, *pairs):
+            for x, y in pairs:
+                if not torch.equal(x.cpu(), y):
+                    raise AssertionError(f"policy cache {policy} {label}: "
+                                         "card != CPU")
+            for f in ("table", "metric", "tick"):
+                if not torch.equal(getattr(card, f).cpu(),
+                                   getattr(host, f)):
+                    raise AssertionError(f"policy cache {policy} {label}: "
+                                         f"{f} differs, card != CPU")
+
+        def put(keys, label):
+            nonlocal evictions
+            vals = rand(keys.shape[0])
+            _, ek, ev = pc.put_batch(card, keys.to(sm.dev), vals.to(sm.dev))
+            _, hk, hv = pc.put_batch(host, keys, vals)
+            same(label, (ek, hk), (ev, hv))
+            evictions += int((~sm.is_invalid(hk)).sum())
+
+        def get(keys, label):
+            _, cv, cf = pc.get_batch(card, keys.to(sm.dev))
+            _, hv, hf = pc.get_batch(host, keys)
+            same(label, (cv, hv), (cf, hf))
+            return hf
+
+        for _ in range(3 * cap // 4 // b):
+            keys = rand(b)
+            put(keys, "fill")
+            live = torch.cat([live, keys])
+        pad = torch.full((16, 2), -1, dtype=torch.int32)
+        for _ in range(3):
+            hot = live[torch.randint(0, live.shape[0], (b // 2,),
+                                     generator=gen)]
+            get(torch.cat([hot, hot[:b // 4], rand(b // 4 - 16), pad]),
+                "get with repeats")
+        new = rand(2 * b)
+        put(torch.cat([new, new[:b // 8], pad]), "put past capacity")
+        put(live[:b], "update")
+        found = get(torch.cat([live[:b], new[:b]]), "get after evictions")
+        if not evictions:
+            raise AssertionError(f"policy cache {policy}: nothing evicted")
+        log("families", f"policy cache {policy} on {sm.dev}: every get, "
+            f"eviction and state leaf == the CPU's over capacity {cap} in "
+            f"{b}-key calls; {evictions} evictions, {int(found.sum())} of "
+            f"{2 * b} keys found after them")
+
+
 def run_families(sm: Smoke) -> None:
     """The families phase: each of FAMILIES in turn, each KV freed before
-    the next family's fill."""
+    the next family's fill; then the policy cache's check."""
     for kind in FAMILIES:
         run_family(sm, kind)
         sm.torch.cuda.empty_cache()
+    policy_cache_check(sm)
 
 
 def pages_np(hi, lo, pw: int):
@@ -1571,10 +1663,7 @@ def quiet_flushes(sm: Smoke, srv, path: ServePath) -> None:
             f"5: padded on the host, {w} rows across {host_ms:.3f} ms; "
             f"KV._padded, {PUT_ODD} rows across and padded on the device "
             f"{dev_ms:.3f} ms ({smi})")
-        try:
-            prof = profile_breakdown(torch, lambda: probe.serve_batch(reqs), 5)
-        except Exception as e:  # a measurement, not a check: report, go on
-            prof = f"not measured: {e!r}"
+        prof = profile_breakdown(torch, lambda: probe.serve_batch(reqs), 5)
         log("serve", f"torch.profiler of the quiet GET flush: {prof} ({smi})")
     finally:
         eng.close()

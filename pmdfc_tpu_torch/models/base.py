@@ -91,8 +91,8 @@ def get_index_ops(kind: IndexKind) -> IndexOps:
 
 def compact_mask(mask: torch.Tensor, width: int):
     """Gather plan for compacting the True lanes of `mask[B]` into a
-    width-W buffer (the straggler-round idiom of cuckoo's kick loop and
-    path's claim stages) -> `(idx, in_w, safe, overflow)`:
+    width-W buffer (the straggler-round idiom of cuckoo's kick loop) ->
+    `(idx, in_w, safe, overflow)`:
 
     - `idx[W]` int64: original positions of the first W True lanes (B pads);
     - `in_w[W]`: which buffer lanes are real;

@@ -13,7 +13,10 @@ Round 1 runs at full width; its survivors compact to a W-lane buffer
 (W = max(1024, B/8)) for the kick rounds, or stay at full width when
 they overflow it. The JAX program decides that and each further round
 under `lax.cond`/`lax.while_loop`; here one host read per decision
-decides it the same way. In place: the table is written where it lies.
+decides it the same way. Both widths give the same results, but kick
+rounds at the full width of a 2^16-key insert cost an H100 about 15 ms
+more device time (PERF.md §6), so the narrow width stays. In place: the
+table is written where it lies.
 """
 
 from __future__ import annotations

@@ -9,8 +9,8 @@ bottom[h1>>1], bottom[h2>>1], an insert runs four rank-deconflicted
 free-lane phases in that order, and when all four are full it evicts an
 unprotected occupant of bottom[h1>>1] (clean-cache, no resize).
 
-The lean GET probes the two top windows, then only the top misses probe
-the bottom windows, compacted narrow (`rowops.lean_miss_tail`). In place.
+The lean GET probes the two top windows; a top miss takes what the
+bottom windows hold (`rowops.lean_miss_tail`). In place.
 """
 
 from __future__ import annotations
@@ -115,19 +115,15 @@ def get_batch(state: LevelState, keys: torch.Tensor) -> GetResult:
 
 
 def get_values(state: LevelState, keys: torch.Tensor):
-    """Lean GET: the two top windows, then the bottom windows for the top
-    misses only (candidate windows can collide: `lean_two_window` masks
+    """Lean GET: the two top windows; a top miss takes what the bottom
+    windows hold (candidate windows can collide: `lean_two_window` masks
     the second when they do)."""
     s = state.table.shape[1] // 4
-    t1, t2, _, _ = _candidates(state, keys)
+    t1, t2, b1, b2 = _candidates(state, keys)
     values, found = lean_two_window(state.table, t1, t2, keys, s)
 
-    def probe_bottom(ks):
-        _, _, nb1, nb2 = _candidates(state, ks)
-        return lean_two_window(state.table, nb1, nb2, ks, s)
-
-    return lean_miss_tail(keys, ~found & ~is_invalid(keys), values, found,
-                          probe_bottom)
+    tail = lean_two_window(state.table, b1, b2, keys, s)
+    return lean_miss_tail(~found & ~is_invalid(keys), values, found, *tail)
 
 
 def insert_batch(state: LevelState, keys: torch.Tensor, values: torch.Tensor):

@@ -11,11 +11,13 @@ the level-4 positions. Slot ids are dense base-15 (`row * 15 + lane`), so
 `num_slots` — and the page pool it sizes — carries no pad lane.
 
 Inserts claim cells in reference probe order (level-major, seed A before
-B), the rank-0 claimant of a free cell winning. The two level-0 rounds run
-at full width; the survivors compact to B/4 for the level-1 rounds, then
-to B/16 for the rest; an overflowing stage runs at the width before it.
-The JAX program picks each width under `lax.cond`; here one host read per
-decision picks it. Exhausting both paths drops the key. In place.
+B), the rank-0 claimant of a free cell winning. The JAX program runs the
+two level-0 rounds at full width, compacts the survivors to B/4 for the
+level-1 rounds and to B/16 for the rest, an overflowing stage running at
+the width before it, each width picked under `lax.cond`. Every width
+gives the same table and results (a round ranks and claims per key, in
+batch order), so here all sixteen rounds run at the batch's width and no
+host read picks one. Exhausting both paths drops the key. In place.
 """
 
 from __future__ import annotations
@@ -30,7 +32,6 @@ from pmdfc_tpu_torch.models.base import (
     IndexOps,
     InsertResult,
     batch_rank_by_segment,
-    compact_mask,
     dedupe_last_wins,
     register_index,
 )
@@ -144,18 +145,13 @@ def get_batch(state: PathState, keys: torch.Tensor) -> GetResult:
 
 
 def get_values(state: PathState, keys: torch.Tensor):
-    """Lean GET: the bank-0 rows of both seeds, then the bank-1 rows for
-    the bank-0 misses only (compacted narrow)."""
-    (a0, _), (b0, _) = _paths(state.top, keys)
+    """Lean GET: the bank-0 rows of both seeds; a bank-0 miss takes what
+    the bank-1 rows hold (`rowops.lean_miss_tail`)."""
+    (a0, a1), (b0, b1) = _paths(state.top, keys)
     found, _, v0, v1 = _probe(state.table, keys, (a0, b0))
-
-    def probe_bank1(ks):
-        (_, na1), (_, nb1) = _paths(state.top, ks)
-        f, _, w0, w1 = _probe(state.table, ks, (na1, nb1))
-        return narrow(torch.stack([w0, w1], -1)), f
-
-    return lean_miss_tail(keys, ~found & ~is_invalid(keys),
-                          _values(found, v0, v1), found, probe_bank1)
+    f1, _, w0, w1 = _probe(state.table, keys, (a1, b1))
+    return lean_miss_tail(~found & ~is_invalid(keys), _values(found, v0, v1),
+                          found, narrow(torch.stack([w0, w1], -1)), f1)
 
 
 def _cand(top: int, keys: torch.Tensor):
@@ -174,12 +170,11 @@ def _write_cells(table, rows, lanes, keys, values, mask) -> None:
     table[r, 3 * ROW + ln] = values[mask, 1]
 
 
-def _claim_rounds(top, table, keys, values, active, slots, j0, j1):
-    """Claim rounds [j0, j1) at the width of `keys`, in place -> (active,
-    slots). The rank-0 claimant of each free cell wins; the losers fall to
-    their next candidate. Occupancy is read from the live table, so a
-    claim of this batch is seen by the next round."""
-    cands = _cand(top, keys)
+def _claim_rounds(table, cands, keys, values, active, slots, j0, j1):
+    """Claim rounds [j0, j1) of the candidates `cands`, in place ->
+    (active, slots). The rank-0 claimant of each free cell wins; the losers
+    fall to their next candidate. Occupancy is read from the live table,
+    so a claim of this batch is seen by the next round."""
     for j in range(j0, j1):
         row, lane = cands[j]
         cell = row * CELLS + lane
@@ -192,19 +187,10 @@ def _claim_rounds(top, table, keys, values, active, slots, j0, j1):
     return active, slots
 
 
-def _set_at(buf, idx, mask, vals, fill_width):
-    """buf with vals[i] written at idx[i] where mask (the JAX
-    `.at[where(mask, idx, n)].set(vals, mode="drop")`)."""
-    out = torch.cat([buf, buf[:1]])  # one dump lane past the end
-    out[torch.where(mask, idx, fill_width)] = vals
-    return out[:fill_width]
-
-
 def insert_batch(state: PathState, keys: torch.Tensor, values: torch.Tensor):
     """In place -> (state, InsertResult); path hashing never evicts."""
     b = keys.shape[0]
     top, table = state.top, state.table
-    dev = keys.device
     winner = dedupe_last_wins(keys, ~is_invalid(keys))
 
     # update in place (the 4 chain rows, gathered once)
@@ -215,46 +201,15 @@ def insert_batch(state: PathState, keys: torch.Tensor, values: torch.Tensor):
 
     active = winner & ~u_hit
     slots = u_cell.to(torch.int32)  # -1 where no update
+    # the JAX program's stages (level 0; level 1; levels 2-7), all at the
+    # batch's width
+    cands = _cand(top, keys)
+    for j0, j1 in ((0, 2), (2, 4), (4, 16)):
+        active, slots = _claim_rounds(table, cands, keys, values, active,
+                                      slots, j0, j1)
 
-    # the level-0 rounds (seed A, then B) at full width
-    active, slots = _claim_rounds(top, table, keys, values, active, slots,
-                                  0, 2)
-
-    # survivors compact to W1 = B/4 for the level-1 rounds, then to
-    # W2 = B/16 for the rest; a first-stage overflow runs at full width,
-    # a second-stage overflow at W1 (a key drops only after all 16 cells)
-    w1 = min(b, max(1024, b // 4))
-    idx, in_w, safe, overflow = compact_mask(active, w1)
-    if w1 == b or bool(overflow.any()):
-        active, slots = _claim_rounds(top, table, keys, values, active,
-                                      slots, 2, 16)
-    else:
-        ck = torch.where(in_w[:, None], keys[safe], INVALID_I32)
-        cv = torch.where(in_w[:, None], values[safe], 0)
-        sl_w = torch.full((w1,), -1, dtype=torch.int32, device=dev)
-        act_w, sl_w = _claim_rounds(top, table, ck, cv, in_w, sl_w, 2, 4)
-        w2 = min(w1, max(1024, b // 16))
-        idx2, in2, safe2, over2 = (compact_mask(act_w, w2) if w2 < w1
-                                   else (None,) * 4)
-        if w2 == w1 or bool(over2.any()):
-            act_w, sl_w = _claim_rounds(top, table, ck, cv, act_w, sl_w,
-                                        4, 16)
-        else:
-            ck2 = torch.where(in2[:, None], ck[safe2], INVALID_I32)
-            cv2 = torch.where(in2[:, None], cv[safe2], 0)
-            sl2 = torch.full((w2,), -1, dtype=torch.int32, device=dev)
-            act2, sl2 = _claim_rounds(top, table, ck2, cv2, in2, sl2, 4, 16)
-            placed2 = in2 & ~act2
-            sl_w = _set_at(sl_w, idx2, placed2, sl2, w1)
-            act_w = act_w & ~_set_at(torch.zeros_like(act_w), idx2, placed2,
-                                     placed2, w1)
-        # scatter the narrow results back to batch positions
-        placed_w = in_w & (sl_w >= 0)
-        slots = _set_at(slots, idx, placed_w, sl_w, b)
-        plc = _set_at(torch.zeros_like(active), idx, placed_w, placed_w, b)
-        active = active & ~plc
-
-    inv2 = torch.full((b, 2), INVALID_I32, dtype=torch.int32, device=dev)
+    inv2 = torch.full((b, 2), INVALID_I32, dtype=torch.int32,
+                      device=keys.device)
     return state, InsertResult(slots=slots, evicted=inv2, dropped=active,
                                fresh=(slots >= 0) & ~u_hit,
                                evicted_vals=inv2.clone())

@@ -147,45 +147,19 @@ def lane_bit(bits: torch.Tensor, lanes) -> torch.Tensor:
     return ((bits >> lanes) & 1).bool()
 
 
-def lean_miss_tail(keys: torch.Tensor, missed: torch.Tensor,
-                   base_values: torch.Tensor, base_found: torch.Tensor,
-                   probe, width: int | None = None):
-    """Lean-GET miss tail shared by level's bottom tier and path's bank 1:
-    probe ONLY the `missed` lanes at a compacted narrow width, or the whole
-    batch when the miss set overflows the buffer -> merged
-    `(values[B, 2], found[B])`. `probe(ks) -> (values, found)` treats
-    INVALID keys as misses.
+def lean_miss_tail(missed: torch.Tensor, base_values: torch.Tensor,
+                   base_found: torch.Tensor, tail_values: torch.Tensor,
+                   tail_found: torch.Tensor):
+    """Lean-GET miss tail shared by level's bottom tier and path's bank 1
+    -> merged `(values[B, 2], found[B])`: the `missed` lanes take what the
+    tail probe of the whole batch found for them.
 
-    The JAX program picks the branch with `lax.cond` on the miss count;
-    here one host read of that count picks it. Both branches give the same
-    merge (a probe is per key), and zero misses skip the probe."""
-    b = keys.shape[0]
-    w = width if width is not None else min(b, max(1024, b // 8))
-
-    def full():
-        v, f = probe(keys)
-        m = missed & f
-        return torch.where(m[:, None], v, base_values), base_found | m
-
-    if w >= b:
-        return full()
-    ms = int(missed.sum())
-    if ms == 0:
-        return base_values, base_found
-    if ms > w:
-        return full()
-    from pmdfc_tpu_torch.models.base import compact_mask
-
-    idx, in_w, safe, _ = compact_mask(missed, w)
-    ks = torch.where(in_w[:, None], keys[safe], INVALID_I32)
-    v, f = probe(ks)
-    pos = torch.where(f, idx, b)
-    fb = torch.zeros(b + 1, dtype=torch.bool, device=keys.device)
-    fb[pos] = True
-    out = torch.zeros((b + 1, 2), dtype=keys.dtype, device=keys.device)
-    out[pos] = v
-    fb = fb[:b]
-    return torch.where(fb[:, None], out[:b], base_values), base_found | fb
+    The JAX program probes only the missed lanes, compacted to a narrow
+    width, unless they overflow it (`lax.cond` on the miss count). A probe
+    is per key, so both give this merge: here the whole batch is probed
+    and no host read of the count picks a width."""
+    m = missed & tail_found
+    return torch.where(m[:, None], tail_values, base_values), base_found | m
 
 
 def lean_two_window(table: torch.Tensor, r1: torch.Tensor, r2: torch.Tensor,

@@ -10,11 +10,14 @@ identical (tolerance 0: integer arithmetic only).
 
 The JAX programs choose between a narrow and a full-width run under
 `lax.cond` (cuckoo's kick rounds, path's claim stages, the lean GET's
-miss tail) and skip eviction blocks when nothing is left to place; the
-port makes the same choices with host reads. Spies on the port's branch
-points record which ran, and each test asserts that every branch it is
-there for did run — the same data takes the same branch in JAX, since
-every output agrees.
+miss tail) and skip eviction blocks when nothing is left to place. The
+port makes cuckoo's choice the same way, with a host read, and runs
+path's claim rounds and the miss tail at the batch's width. Spies on the
+port's stage points record the width the JAX program runs on the same
+data (cuckoo's: the width the port ran; path's and the tail's: computed
+by the JAX program's rule from the live lanes there), and each test
+asserts that every branch it is there for was taken — so the JAX side
+ran its narrow and its full-width code, and the port matched both.
 """
 
 from __future__ import annotations
@@ -90,14 +93,21 @@ def _batch(rng, b, live=None):
     return k
 
 
+def _jax_width(b, live, w):
+    """The width the JAX program runs a stage of `live` lanes of a b-wide
+    batch at, given its narrow width w: w when they fit, else b."""
+    return w if w < b and int(live.sum()) <= w else b
+
+
 class Branches:
-    """Records the port's branch points: path's claim stages (width, first
-    and last round), cuckoo's round runs (width) and kicks, and level's
-    lean-GET window probes (width: the batch's for the top windows and a
-    full tail, W for a narrow tail)."""
+    """Records the branches the JAX program takes on the data the port
+    sees: path's claim stages (width, first and last round), cuckoo's
+    round runs (width) and kicks, and level's lean-GET miss tail (W
+    narrow, the batch's width full)."""
 
     def __init__(self, monkeypatch):
         self.seen = set()
+        self.path_w1 = None  # the width of path's level-1 stage in JAX
 
         def spy(mod, name, tag):
             real = getattr(mod, name)
@@ -107,14 +117,25 @@ class Branches:
                 return real(*a, **k)
             monkeypatch.setattr(mod, name, wrapper)
 
-        spy(path, "_claim_rounds",
-            lambda top, t, keys, v, act, sl, j0, j1: ("claim", keys.shape[0],
-                                                      j0, j1))
+        def claim(t, cands, keys, v, act, sl, j0, j1):
+            b = keys.shape[0]
+            if j0 == 2:  # level-0 survivors: W1 = B/4, else all 14 rounds
+                w1 = _jax_width(b, act, min(b, max(1024, b // 4)))
+                self.path_w1 = w1
+                return ("claim", w1, 2, 4 if w1 < b else 16)
+            w1 = self.path_w1
+            if j0 == 4 and w1 < b:  # level-1 survivors: W2 = B/16
+                w2 = min(w1, max(1024, b // 16))
+                return ("claim", _jax_width(w1, act, w2), 4, 16)
+            return ("claim", b, 0, 2) if j0 == 0 else ("claim", b, 2, 16)
+
+        spy(path, "_claim_rounds", claim)
         spy(cuckoo, "_run_rounds",
             lambda t, p, ck, *a: ("rounds", ck.shape[0]))
         spy(cuckoo, "_kick", lambda *a: ("kick",))
-        spy(level, "lean_two_window",
-            lambda t, r1, r2, keys, s: ("window", keys.shape[0]))
+        spy(level, "lean_miss_tail",
+            lambda missed, *a: ("tail", _jax_width(
+                missed.shape[0], missed, max(1024, missed.shape[0] // 8))))
 
 
 def _drive(kind, cap, widths, rng, probe=None, **ix):
@@ -197,9 +218,9 @@ def test_family_verbs_match_jax(kind, monkeypatch):
         # overflowing W at B = 8192 on the full table (rounds at 8192)
         assert {("rounds", 1024), ("kick",), ("rounds", 8192)} <= seen, seen
     if kind == "level":
-        # the lean tail: the top windows at B, then the bottom windows at
-        # W = 1024 of 2048 (narrow) or at 8192 (full)
-        assert {("window", 1024), ("window", 8192)} <= seen, seen
+        # the lean tail: the bottom windows at W = 1024 of 2048 (narrow)
+        # or at 8192 (full)
+        assert {("tail", 1024), ("tail", 8192)} <= seen, seen
 
 
 def _path_rows(keys, top):

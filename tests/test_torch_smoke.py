@@ -112,15 +112,65 @@ def test_families_phase(smoke, monkeypatch, capsys):
     `KV` and its mirror drill passes; no family takes the fused GET."""
     monkeypatch.setattr(chip_smoke, "FAMILY_INDEX", dict(capacity=1 << 13))
     monkeypatch.setattr(chip_smoke, "HOT_GETS", 1 << 14)
+    monkeypatch.setattr(chip_smoke, "POLICY_CAPACITY", 1 << 11)
+    monkeypatch.setattr(chip_smoke, "POLICY_B", 1 << 7)
     assert chip_smoke.run_families(smoke) is None
     out = capsys.readouterr().out
     for kind in chip_smoke.FAMILIES:
         assert f"[families] {kind}: num_slots" in out
         assert f"[families] {kind}: fill" in out
         assert f"[families] {kind} torch.profiler, KV.get" in out
+        assert f"[main] {kind} serve after the timed inserts" in out
     assert "[families] level: num_slots 12288" in out
     assert "hotring mirror: 1 decay(s) through KV after 16384 GET keys" in out
     assert "served their new bytes from the table" in out
+    for policy in ("lru", "lfu", "fifo"):
+        assert f"[families] policy cache {policy} on cpu: every get" in out
+
+
+def test_profiled_inserts_are_checked(smoke, monkeypatch):
+    """The families phase's profiled inserts of fresh keys (past the 75%
+    fill) are real verbs: one that raises fails the phase instead of being
+    reported as an unmeasured profile."""
+    monkeypatch.setattr(chip_smoke, "FAMILY_INDEX", dict(capacity=1 << 13))
+    n_fill = (3 * 8192 // 4) // chip_smoke.INS_B * chip_smoke.INS_B
+    kv_cls = smoke.kv_mod.KV
+    real = kv_cls.insert
+
+    def insert(self, keys, *a, **k):
+        if int(keys[:, 1].min()) >= n_fill:
+            raise RuntimeError("an insert past the fill failed")
+        return real(self, keys, *a, **k)
+
+    monkeypatch.setattr(kv_cls, "insert", insert)
+    with pytest.raises(RuntimeError, match="past the fill failed"):
+        chip_smoke.run_family(smoke, "static")
+
+
+def test_profile_breakdown_reports_only_its_own_failure(smoke, monkeypatch):
+    """An exception from the profiled function propagates; a profiler that
+    cannot start is reported as "not measured", and the function still
+    runs 1 + iters times."""
+    import torch.profiler
+
+    def boom():
+        raise RuntimeError("the verb failed")
+
+    with pytest.raises(RuntimeError, match="the verb failed"):
+        chip_smoke.profile_breakdown(torch, boom, 2)
+
+    class Broken:
+        def __init__(self, **_):
+            pass
+
+        def start(self):
+            raise RuntimeError("no tracer")
+
+    monkeypatch.setattr(torch.profiler, "profile", Broken)
+    calls = []
+    line = chip_smoke.profile_breakdown(torch, lambda: calls.append(1), 2)
+    assert line.startswith("not measured") and "no tracer" in line
+    assert len(calls) == 3
 
 
 def test_serving_path_and_its_kernels_line(smoke, monkeypatch, capsys):
