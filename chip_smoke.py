@@ -117,6 +117,40 @@ Phases, each reported on its own line; any failure exits nonzero:
              flush; then phase 3's comparison and phase 5's times on the
              server's full-size state.
 
+8. wire   — the wire path, last: linear·flat's configuration (8 GiB) behind
+             the port's `NetServer(NetConfig())` on loopback TCP, driven by
+             4 clients x 8 connections, each a pipelined `TcpBackend`
+             (window 32, keepalives on) built by a `ReconnectingClient`
+             under a `CleanCacheClient` whose mirror the server's bloom
+             pushes (every 0.05 s) feed. Pre-fill 1,310,720 pages straight
+             through `KV.insert`, then 262,144 pages over the wire in
+             2^11-page put_pages verbs (75% of the slots in all); a scan
+             names the pre-fill keys the fills evicted; every acknowledged
+             key a mirror denies must miss; invalidate; a GET storm of
+             2^19 keys (5/8 present, 1/8 never inserted, 1/8 invalidated,
+             1/8 evicted); 128 extents over the wire. The fast lane: 4
+             connections opened with `directory=True` pull the directory
+             and read 2^16 pre-fill keys each by MSG_FASTREAD; another
+             connection rewrites 2^12 of them and the second pass must
+             serve the new pages (their lanes stale, answered by the verb
+             path); it invalidates 2^12 more and the third pass must miss
+             them. A recovering window (`begin_recovering`, one GET verb of
+             never-inserted keys past the mirror, MSG_RECOVERY's
+             `mark_recovered`): its cold misses count as miss_recovering.
+             Checks: hits byte-exact, misses zeroed, misses of acknowledged
+             keys <= evictions + drops, `misses == Σ miss_*`,
+             fastpath_hits + fastpath_stale == the fast lanes read, no
+             serve error, no disconnect, no bloom false negative, >= 90%
+             of never-inserted GETs short-circuited, one fused-GET launch
+             per GET phase. Reports rates, verb latency, flush widths, the
+             fast passes, `directory_snapshot` and `fast_view` costs; the
+             kernel against plain at the smallest and largest GET-phase
+             widths and its times at the largest. Then, with the KV freed,
+             the one-sided sub-phase: a `PassivePool` of 2^21 rows (8 GiB)
+             on the card behind `PoolServer`, 4 `OneSidedBackend`s over
+             `RemotePool`s, each writing 2^16 pages and reading them back
+             byte-exact; rows/s both ways.
+
 Each KV is freed before the next path's fill, so no two pools share the
 card. The next-to-last line is one JSON object naming each kernel with its
 path, launches, error and times; the last is `{"ok": true, "device": ...}`.
@@ -174,6 +208,28 @@ CLIENT_TIMEOUT_US = 120_000_000
 # one deadline for all the client threads of a serving phase (the fill
 # through the engine took 93-176 s on the H100)
 PHASE_TIMEOUT_S = 600.0
+# the wire: linear·flat's configuration behind the port's NetServer on
+# loopback TCP, 4 clients x 8 connections (the reference's 4 clients x 8
+# QPs), each a pipelined TcpBackend in a ReconnectingClient under a
+# CleanCacheClient fed by the server's bloom pushes
+WIRE_INDEX = dict(capacity=1 << 21)
+WIRE_BLOOM_BITS = 1 << 24
+WIRE_CLIENTS, WIRE_CONNS = 4, 8
+WIRE_WINDOW = 32
+WIRE_DIRECT = 1_310_720  # pages the pre-fill puts straight through KV.insert
+WIRE_FILL = 1 << 18      # pages the connections then put over the wire
+WIRE_GETS = 1 << 19      # keys of the GET storm
+WIRE_EXTENTS = 128
+WIRE_FAST_CONNS = 4      # connections that open with a directory
+WIRE_FAST_KEYS = 1 << 16  # present keys each of them reads on the fast lane
+WIRE_REWRITE = 1 << 12   # of those, keys rewritten, and keys invalidated
+WIRE_HI = 0xA0000000     # connection c's wire keys are (WIRE_HI + c, i)
+DIRECT_HI = 0xB0000000   # the pre-fill's keys are (DIRECT_HI, i)
+# the one-sided sub-phase: a PassivePool of POOL_ROWS rows (8 GiB) behind
+# PoolServer, POOL_CLIENTS OneSidedBackends each writing POOL_PAGES pages
+POOL_ROWS = 1 << 21
+POOL_CLIENTS = 4
+POOL_PAGES = 1 << 16
 
 
 def log(phase: str, msg: str) -> None:
@@ -1513,43 +1569,50 @@ class ServeClient:
             self.never += k8
 
     def extents(self, n: int, stats) -> tuple[int, int]:
-        """n extents through OP_INS_EXT, read back through OP_GET_EXT: every
-        address found is value + 4096 * (key - base), keys past a run's end
-        miss, and in-run keys missed are at most the evictions the phase
-        made. -> (in-run probes found, of)."""
-        np = self.np
-        ev0 = stats()["evictions"]
-        exts = []
-        for j in range(n):
-            base, length = (j + 1) * 4096, 1 + (7 * j) % 61
-            value = (j, (0xFFFF0000 - 4096 * 64 * j) % (1 << 32))
-            unc = self.be.insert_extent(np.array([EXT_HI, base], np.uint32),
-                                        np.array(value, np.uint32), length)
-            if unc:
-                raise AssertionError(f"extent {j}: {unc} pages uncovered")
-            exts.append((base, length, value))
-        probe, want, inrun = [], [], []
-        for base, length, (vhi, vlo) in exts:
-            for o in (0, length - 1, length // 2, length):
-                probe.append([EXT_HI, base + o])
-                want.append((((vhi << 32) | vlo) + 4096 * o) % (1 << 64))
-                inrun.append(o < length)
-        probe, want, inrun = (np.array(probe, np.uint32),
-                              np.array(want, np.uint64), np.array(inrun))
-        vals, found = np.zeros((0, 2), np.uint32), np.zeros(0, bool)
-        for i in range(0, len(probe), VERB):
-            v, f = self.be.get_extent(probe[i:i + VERB])
-            vals, found = np.concatenate([vals, v]), np.concatenate([found, f])
-        addr = (vals[:, 0].astype(np.uint64) << np.uint64(32)) | vals[:, 1]
-        if found[~inrun].any():
-            raise AssertionError("get_extent found a key past a run's end")
-        if not np.array_equal(addr[found], want[found]) or addr[~found].any():
-            raise AssertionError("get_extent returned a wrong address")
-        lost = int((inrun & ~found).sum())
-        if lost > stats()["evictions"] - ev0:
-            raise AssertionError(f"get_extent lost {lost} in-run keys beyond "
-                                 "the phase's evictions")
-        return int(found.sum()), int(inrun.sum())
+        """n extents through OP_INS_EXT, read back through OP_GET_EXT
+        (`extent_roundtrip`)."""
+        return extent_roundtrip(self.be, n, stats)
+
+
+def extent_roundtrip(be, n: int, stats) -> tuple[int, int]:
+    """n extents registered through a client backend, read back in
+    VERB-key verbs: every address found is value + 4096 * (key -
+    base), keys past a run's end miss, and in-run keys missed are at
+    most the evictions the phase made. -> (in-run probes found, of)."""
+    import numpy as np
+
+    ev0 = stats()["evictions"]
+    exts = []
+    for j in range(n):
+        base, length = (j + 1) * 4096, 1 + (7 * j) % 61
+        value = (j, (0xFFFF0000 - 4096 * 64 * j) % (1 << 32))
+        unc = be.insert_extent(np.array([EXT_HI, base], np.uint32),
+                               np.array(value, np.uint32), length)
+        if unc:
+            raise AssertionError(f"extent {j}: {unc} pages uncovered")
+        exts.append((base, length, value))
+    probe, want, inrun = [], [], []
+    for base, length, (vhi, vlo) in exts:
+        for o in (0, length - 1, length // 2, length):
+            probe.append([EXT_HI, base + o])
+            want.append((((vhi << 32) | vlo) + 4096 * o) % (1 << 64))
+            inrun.append(o < length)
+    probe, want, inrun = (np.array(probe, np.uint32),
+                          np.array(want, np.uint64), np.array(inrun))
+    vals, found = np.zeros((0, 2), np.uint32), np.zeros(0, bool)
+    for i in range(0, len(probe), VERB):
+        v, f = be.get_extent(probe[i:i + VERB])
+        vals, found = np.concatenate([vals, v]), np.concatenate([found, f])
+    addr = (vals[:, 0].astype(np.uint64) << np.uint64(32)) | vals[:, 1]
+    if found[~inrun].any():
+        raise AssertionError("get_extent found a key past a run's end")
+    if not np.array_equal(addr[found], want[found]) or addr[~found].any():
+        raise AssertionError("get_extent returned a wrong address")
+    lost = int((inrun & ~found).sum())
+    if lost > stats()["evictions"] - ev0:
+        raise AssertionError(f"get_extent lost {lost} in-run keys beyond "
+                             "the phase's evictions")
+    return int(found.sum()), int(inrun.sum())
 
 
 class ServePath:
@@ -1815,6 +1878,570 @@ def run_serving(sm: Smoke):
     return measure(sm, path, launches)
 
 
+class WireClient:
+    """One connection of the wire phase: a pipelined `TcpBackend` (window
+    WIRE_WINDOW; `directory=True` for the fast-lane connections) built by
+    a `ReconnectingClient`, under a `CleanCacheClient` that the TcpBackend
+    feeds with the server's bloom pushes. Its wire keys are (WIRE_HI +
+    cid, i); `storm` draws evicted keys from the pre-fill's."""
+
+    def __init__(self, port: int, cid: int, n_fill: int, pw: int,
+                 seed: int, directory: bool = False):
+        import threading
+
+        import numpy as np
+
+        from pmdfc_tpu_torch.client import CleanCacheClient
+        from pmdfc_tpu_torch.runtime.failure import ReconnectingClient
+        from pmdfc_tpu_torch.runtime.net import TcpBackend
+
+        self.np, self.cid, self.n_fill, self.pw = np, cid, n_fill, pw
+        self.hi = WIRE_HI + cid
+        self.rng = np.random.default_rng([seed, 1000 + cid])
+        self.tcp: list = []  # every TcpBackend the factory made
+        # the push channel's sink: the CleanCacheClient below, which pulls
+        # the filter (and so connects) inside its own constructor; a push
+        # that arrives first waits for it
+        self._cc_ready = threading.Event()
+
+        def factory():
+            # keepalives (the default period) hold a connection that
+            # sits out a pass past the server's idle timeout
+            be = TcpBackend("127.0.0.1", port, page_words=pw,
+                            bloom_sink=self,
+                            client_id=(0xC11E << 32) | cid,
+                            window=WIRE_WINDOW, op_timeout_s=120.0,
+                            directory=directory,
+                            dir_max_entries=4 * WIRE_INDEX["capacity"])
+            self.tcp.append(be)
+            return be
+
+        self.rc = ReconnectingClient(factory, page_words=pw)
+        self.never_asked = 0
+        real_get = self.rc.get
+
+        def get(keys):
+            self.never_asked += int(((keys[:, 0] == self.hi)
+                                     & (keys[:, 1] >= NEVER_LO)).sum())
+            return real_get(keys)
+
+        self.rc.get = get
+        self.cc = CleanCacheClient(self.rc)
+        self._cc_ready.set()
+        self.put_lat: list[float] = []
+        self.get_lat: list[float] = []
+        self.inval = np.zeros(0, np.uint32)
+        self.acked_misses = self.negatives = self.never = 0
+
+    @property
+    def be(self):
+        """The live TcpBackend."""
+        return self.tcp[-1]
+
+    def receive_bloom_full(self, *args, **kw):
+        self._cc_ready.wait(60)
+        self.cc.receive_bloom_full(*args, **kw)
+
+    def receive_bloom_blocks(self, *args, **kw):
+        self._cc_ready.wait(60)
+        self.cc.receive_bloom_blocks(*args, **kw)
+
+    def oids(self, n: int, hi: int | None = None):
+        return self.np.full(n, self.hi if hi is None else hi, self.np.uint32)
+
+    def fill(self) -> None:
+        """put_pages of [0, n_fill) in VERB-page verbs."""
+        np = self.np
+        for v in range(self.n_fill // VERB):
+            lo = np.arange(v * VERB, (v + 1) * VERB, dtype=np.uint32)
+            t0 = time.perf_counter()
+            self.cc.put_pages(self.oids(VERB), lo,
+                              pages_np(self.hi, lo, self.pw))
+            self.put_lat.append(time.perf_counter() - t0)
+
+    def check_mirror(self) -> None:
+        """Every acknowledged key the pushed mirror denies must miss at the
+        server (asked without the mirror)."""
+        from pmdfc_tpu_torch.utils.hashing_np import query_packed_np
+
+        np = self.np
+        keys = np.stack([self.oids(self.n_fill),
+                         np.arange(self.n_fill, dtype=np.uint32)], -1)
+        neg = keys[~query_packed_np(self.cc._bloom, keys, self.cc.num_hashes)]
+        for i in range(0, len(neg), VERB):
+            if self.rc.get(neg[i:i + VERB])[1].any():
+                raise AssertionError(f"connection {self.cid}: a key its "
+                                     "mirror denies still hits")
+        self.negatives = len(neg)
+
+    def prepare(self, n_inv: int) -> None:
+        """The mirror check, then invalidate n_inv of the connection's
+        keys over the wire."""
+        np = self.np
+        self.check_mirror()
+        perm = self.rng.permutation(self.n_fill).astype(np.uint32)
+        self.inval = np.sort(perm[:n_inv])
+        self.cc.invalidate_pages(self.oids(n_inv), self.inval)
+        self.present = perm[n_inv:]
+
+    def storm(self, verbs: int, evicted) -> None:
+        """`verbs` get_pages verbs: 5/8 present, 1/8 never inserted, 1/8
+        invalidated, 1/8 evicted (pre-fill keys the index evicted; never
+        inserted ones if it evicted none). Hits
+        byte-exact, misses zeroed, never-inserted, invalidated and evicted
+        keys miss."""
+        np = self.np
+        k8 = VERB // 8
+        for _ in range(verbs):
+            his, los, tags = [], [], []
+            for pool, n, tag, hi in (
+                    (self.present, VERB - 3 * k8, 0, self.hi),
+                    (None, k8, 1, self.hi), (self.inval, k8, 2, self.hi),
+                    (evicted if len(evicted) else None, k8, 3, DIRECT_HI)):
+                if pool is None:
+                    lo = self.rng.integers(NEVER_LO, 1 << 32, n,
+                                           dtype=np.uint64).astype(np.uint32)
+                else:
+                    lo = pool[self.rng.integers(0, len(pool), n)]
+                his.append(self.oids(n, hi))
+                los.append(lo)
+                tags.append(np.full(n, tag, np.int8))
+            order = self.rng.permutation(VERB)
+            hi, lo, tag = (np.concatenate(x)[order] for x in (his, los, tags))
+            t0 = time.perf_counter()
+            out, found = self.cc.get_pages(hi, lo)
+            self.get_lat.append(time.perf_counter() - t0)
+            if found[tag != 0].any():
+                raise AssertionError(f"connection {self.cid}: a never-"
+                                     "inserted, invalidated or evicted key "
+                                     "hit")
+            if not np.array_equal(out[found], pages_np(hi[found], lo[found],
+                                                       self.pw)):
+                raise AssertionError(f"connection {self.cid}: a hit "
+                                     "returned wrong bytes")
+            if out[~found].any():
+                raise AssertionError(f"connection {self.cid}: a miss "
+                                     "returned nonzero bytes")
+            self.acked_misses += int((~found & (tag == 0)).sum())
+            self.never += k8
+
+    def close(self) -> None:
+        self.cc.close()
+        self.rc.close()
+
+
+def fast_pass(clients, sets, want: dict, label: str):
+    """Each fast connection reads its key set (pre-fill keys) through
+    get_pages in VERB-key verbs, in parallel: every hit must equal
+    `want[lo]`, the page the key holds now (never an older one); keys in
+    `want["gone"]` must miss. -> (wall s, keys, hits, fast lanes asked,
+    acknowledged keys missed)."""
+    import numpy as np
+
+    res = [None] * len(clients)
+    lanes0 = [c.be.directory.counters["fastpath_gets"] for c in clients]
+
+    def run(i):
+        c, los = clients[i], sets[i]
+        hits = missed = 0
+        for j in range(0, len(los), VERB):
+            lo = los[j:j + VERB]
+            hi = np.full(len(lo), DIRECT_HI, np.uint32)
+            out, found = c.cc.get_pages(hi, lo)
+            gone = np.isin(lo, want["gone"])
+            if found[gone].any():
+                raise AssertionError(f"{label}: an invalidated key hit")
+            exp = pages_np(hi, lo, c.pw)
+            rw = np.isin(lo, want["rewritten"])
+            exp[rw] ^= np.uint32(want["xor"])
+            bad = found & (out != exp).any(axis=1)
+            if bad.any():
+                old = pages_np(hi, lo, c.pw)
+                raise AssertionError(
+                    f"{label}: {int(bad.sum())} hits returned bytes other "
+                    f"than the key's current page ({int((bad & rw).sum())} "
+                    f"of them rewritten keys, "
+                    f"{int((bad & (out == old).all(axis=1)).sum())} equal "
+                    f"to the key's first page); client {c.rc.stats()}")
+            if out[~found].any():
+                raise AssertionError(f"{label}: a miss returned nonzero "
+                                     "bytes")
+            hits += int(found.sum())
+            missed += int((~found & ~gone).sum())
+        res[i] = (hits, missed)
+
+    wall = run_threads([lambda i=i: run(i) for i in range(len(clients))],
+                       label)
+    lanes = sum(c.be.directory.counters["fastpath_gets"] - l0
+                for c, l0 in zip(clients, lanes0))
+    return (wall, sum(len(x) for x in sets), sum(r[0] for r in res), lanes,
+            sum(r[1] for r in res))
+
+
+def run_wire(sm: Smoke):
+    """The wire path (phase 8): linear·flat's configuration behind the
+    port's `NetServer` on loopback TCP, WIRE_CLIENTS x WIRE_CONNS
+    connections, then the one-sided sub-phase. -> the wire path's kernel
+    entry."""
+    np, torch, fused = sm.np, sm.torch, sm.fused
+    from pmdfc_tpu_torch.client import DirectBackend
+    from pmdfc_tpu_torch.config import (BloomConfig, IndexConfig, KVConfig,
+                                        NetConfig)
+    from pmdfc_tpu_torch.runtime.net import NetServer
+
+    smi = nvidia_smi()
+    cfg = KVConfig(index=IndexConfig(**WIRE_INDEX),
+                   bloom=BloomConfig(num_bits=WIRE_BLOOM_BITS))
+    kv = sm.kv_mod.KV(cfg, device=DEVICE)
+    pw = cfg.page_words
+    nconn = WIRE_CLIENTS * WIRE_CONNS
+    st = kv.state
+    log("wire", f"KV on {kv.device}: {kv.capacity()} slots, pool "
+        f"{tuple(st.pool.pages.shape)} = {st.pool.pages.numel() * 4 / 2**30:.2f}"
+        f" GiB, bloom {cfg.bloom.num_bits} counters; NetServer(NetConfig()) "
+        f"on 127.0.0.1, {WIRE_CLIENTS} clients x {WIRE_CONNS} connections, "
+        f"window {WIRE_WINDOW}, {VERB}-page verbs, bloom push every "
+        f"{BF_PUSH_S} s")
+
+    # pre-fill straight through KV.insert
+    t0 = time.monotonic()
+    for i in range(0, WIRE_DIRECT, INS_B):
+        lo = torch.arange(i, min(i + INS_B, WIRE_DIRECT), device=sm.dev)
+        keys = sm.keys_of(DIRECT_HI, lo)
+        kv.insert(keys, sm.pages_of(keys, pw))
+    torch.cuda.synchronize()
+    t_direct = time.monotonic() - t0
+    log("wire", f"pre-fill: {WIRE_DIRECT} pages through KV.insert in "
+        f"{INS_B}-page batches in {t_direct:.3f} s = "
+        f"{WIRE_DIRECT / t_direct:.0f} pages/s")
+
+    shared = DirectBackend(kv)
+    phases: list[int] = []  # the padded width of every GET phase served
+    real_get = shared.get
+
+    def get(keys):
+        phases.append(len(keys))
+        return real_get(keys)
+
+    shared.get = get
+    srv = NetServer(lambda: shared, net=NetConfig(), bf_push_s=BF_PUSH_S)
+    srv.start()
+    clients: list[WireClient] = []
+    fused.launches.clear()
+    torch.cuda.synchronize()
+    try:
+        clients = [WireClient(srv.port, c, WIRE_FILL // nconn, pw, sm.seed,
+                              directory=c < WIRE_FAST_CONNS)
+                   for c in range(nconn)]
+        t_fill = run_threads([c.fill for c in clients], "wire fill")
+        s_fill = dict(srv.stats)
+        # which pre-fill keys the table still holds (a scan on the card):
+        # the rest were evicted by the fills
+        with kv._lock:
+            flat, _ = kv._ops.scan(kv.state.index)
+            held = flat[flat[:, 0] == sm.u32.narrow(torch.tensor(DIRECT_HI))]
+            direct_present = np.sort(sm.u32.to_numpy(held[:, 1]))
+        evicted = np.setdiff1d(np.arange(WIRE_DIRECT, dtype=np.uint32),
+                               direct_present)
+        log("wire", f"after the fills: {len(direct_present)} pre-fill keys "
+            f"held, {len(evicted)} evicted")
+        # every mirror must have taken a push (the push channel works);
+        # between pushes each client's put overlay keeps it free of false
+        # negatives
+        srv.push_bloom_now()
+        deadline = time.monotonic() + 60
+        while any(c.cc.counters["bf_pushes"] < 1 or c.cc._bloom is None
+                  for c in clients):
+            if time.monotonic() > deadline:
+                raise AssertionError("wire: a client never received the "
+                                     "bloom push")
+            time.sleep(0.01)
+        verbs = max(1, WIRE_GETS // (nconn * VERB))
+        run_threads([lambda c=c: c.prepare(verbs * VERB // 8)
+                     for c in clients], "wire mirror check, invalidate")
+        s0 = dict(srv.stats)
+        t_storm = run_threads([lambda c=c: c.storm(verbs, evicted)
+                               for c in clients], "wire storm")
+        s_storm = dict(srv.stats)
+        n_found, n_inrun = extent_roundtrip(clients[-1].rc, WIRE_EXTENTS,
+                                            kv.stats)
+
+        # the fast lane: the directory connections pull the directory and
+        # read pre-fill keys; the driver rewrites and invalidates some of
+        # them over the wire between passes
+        fast = clients[:WIRE_FAST_CONNS]
+        t0 = time.monotonic()
+        if not all(c.rc.dir_refresh() for c in fast):
+            raise AssertionError("wire: a directory pull failed")
+        t_pull = time.monotonic() - t0
+        n_dir = len(fast[0].be.directory)
+        perm = np.random.default_rng(sm.seed).permutation(direct_present)
+        k = min(WIRE_FAST_KEYS, len(perm) // WIRE_FAST_CONNS)
+        sets = [np.sort(perm[i * k:(i + 1) * k])
+                for i in range(WIRE_FAST_CONNS)]
+        want = {"gone": np.zeros(0, np.uint32),
+                "rewritten": np.zeros(0, np.uint32), "xor": 0x5A5A5A5A}
+        fp0 = (int(srv.stats["fastpath_hits"]), int(srv.stats["fastpath_stale"]))
+        p1 = fast_pass(fast, sets, want, "fast read 1")
+        r = WIRE_REWRITE // WIRE_FAST_CONNS
+        rw = np.sort(np.concatenate([x[:r] for x in sets]))
+        gone = np.sort(np.concatenate([x[r:2 * r] for x in sets]))
+        driver = clients[WIRE_FAST_CONNS]
+        for j in range(0, len(rw), VERB):
+            lo = rw[j:j + VERB]
+            hi = np.full(len(lo), DIRECT_HI, np.uint32)
+            driver.cc.put_pages(hi, lo, pages_np(hi, lo, pw)
+                                ^ np.uint32(want["xor"]))
+        # a put the ReconnectingClient dropped is legal, but then the
+        # rewrite did not happen and the passes below test nothing
+        rs = driver.rc.stats()
+        if rs["dropped_puts"] or rs["disconnects"]:
+            raise AssertionError(f"wire: the driver's rewrites were not all "
+                                 f"applied: {rs}")
+        want["rewritten"] = rw
+        p2 = fast_pass(fast, sets, want, "fast read 2 (after rewrites)")
+        driver.cc.invalidate_pages(np.full(len(gone), DIRECT_HI, np.uint32),
+                                   gone)
+        want["gone"] = gone
+        p3 = fast_pass(fast, sets, want, "fast read 3 (after invalidates)")
+        fp = (int(srv.stats["fastpath_hits"]) - fp0[0],
+              int(srv.stats["fastpath_stale"]) - fp0[1])
+
+        # a recovering window: one storm batch of never-inserted keys asked
+        # past the mirror; its cold misses count as miss_recovering
+        s_rec0 = kv.stats()
+        kv.begin_recovering()
+        lo = np.random.default_rng(sm.seed).integers(
+            NEVER_LO, 1 << 32, VERB, dtype=np.uint64).astype(np.uint32)
+        rec_found = driver.be.get(np.stack([driver.oids(VERB), lo], -1))[1]
+        info = driver.be.recovery_info()
+        was = driver.be.mark_recovered()
+        s_rec1 = kv.stats()
+        torch.cuda.synchronize()
+        launches = fused.launches["fused_get_linear_flat"]
+        n_phases = len(phases)
+        health = dict(srv.stats)
+        disconnects = sum(c.rc.stats()["disconnects"] for c in clients)
+    finally:
+        srv.stop()
+        for c in clients:
+            c.close()
+
+    s = kv.stats()
+    d_rec = {c: s_rec1[c] - s_rec0[c] for c in sm.kv_mod.MISS_CAUSE_NAMES}
+    never = sum(c.never for c in clients)
+    asked = sum(c.never_asked for c in clients)
+    short = 1 - asked / never
+    lost = s["evictions"] + s["drops"]
+    acked = (sum(c.acked_misses for c in clients) + p1[4] + p2[4] + p3[4])
+    negatives = sum(c.negatives for c in clients)
+    lanes = p1[3] + p2[3] + p3[3]
+    checks = [
+        (int(health["serve_errors"]) == 0,
+         f"serve_errors {health['serve_errors']}"),
+        (disconnects == 0, f"{disconnects} client disconnects"),
+        (s["misses"] == sum(s[c] for c in sm.kv_mod.MISS_CAUSE_NAMES),
+         "misses != sum of miss causes"),
+        (acked <= lost, f"{acked} acknowledged keys missed, more than "
+         f"evictions + drops {lost}"),
+        (negatives <= lost, f"{negatives} mirror negatives among "
+         f"acknowledged keys, more than evictions + drops {lost}"),
+        (short >= 0.9, f"only {short:.1%} of never-inserted GETs were "
+         "short-circuited by the mirrors"),
+        (fp[0] + fp[1] == lanes, f"fastpath_hits {fp[0]} + fastpath_stale "
+         f"{fp[1]} != {lanes} fast lanes read"),
+        (p1[2] > 0 and p2[3] > 0, "the fast lane served nothing"),
+        (info.get("recovering") is True and was,
+         f"recovering window not seen over the wire ({info}, {was})"),
+        # a never-inserted key the evicted-key sketch flags is
+        # miss_evicted; every other one would be miss_cold
+        (not rec_found.any() and d_rec["miss_cold"] == 0
+         and d_rec["miss_recovering"] > 0
+         and d_rec["miss_recovering"] + d_rec["miss_evicted"] == VERB,
+         f"recovering batch: causes {d_rec}"),
+        (n_phases > 0 and launches == n_phases,
+         f"{launches} fused-GET launches for {n_phases} GET phases"),
+    ]
+    for ok, msg in checks:
+        if not ok:
+            raise AssertionError(f"wire: {msg}")
+
+    def flushes(a, b):
+        f = int(b["flushes"]) - int(a["flushes"])
+        ops = int(b["coalesced_ops"]) - int(a["coalesced_ops"])
+        return f"{f} flushes, mean {ops / max(f, 1):.1f} verbs per flush"
+
+    put_lat = [x for c in clients for x in c.put_lat]
+    get_lat = [x for c in clients for x in c.get_lat]
+    n_gets = nconn * verbs * VERB
+    log("wire", f"fill: {WIRE_FILL} pages over the wire by {nconn} "
+        f"connections in {t_fill:.3f} s = {WIRE_FILL / t_fill:.0f} pages/s; "
+        f"put_pages verb of {VERB} pages: {percentiles_ms(put_lat)}; "
+        f"{flushes({'flushes': 0, 'coalesced_ops': 0}, s_fill)} ({smi})")
+    log("wire", f"storm: {n_gets} GET keys in {t_storm:.3f} s = "
+        f"{n_gets / t_storm:.0f} keys/s; get_pages verb of {VERB} keys: "
+        f"{percentiles_ms(get_lat)}; {flushes(s0, s_storm)} ({smi})")
+    log("wire", f"GET phases {n_phases}, padded widths "
+        f"{min(phases)}..{max(phases)}, mean {sum(phases) / n_phases:.0f}; "
+        f"fused_get_linear_flat launches {launches} ({smi})")
+    log("wire", f"fast lane: directory pull by {WIRE_FAST_CONNS} "
+        f"connections in {t_pull:.3f} s ({n_dir} entries each); read 1: "
+        f"{p1[1]} keys in {p1[0]:.3f} s = {p1[1] / p1[0]:.0f} keys/s, "
+        f"{p1[2]} hits; read 2 after {len(rw)} rewrites: {p2[1] / p2[0]:.0f}"
+        f" keys/s; read 3 after {len(gone)} invalidates: "
+        f"{p3[1] / p3[0]:.0f} keys/s; server fastpath_hits {fp[0]}, "
+        f"fastpath_stale {fp[1]} of {lanes} fast lanes ({smi})")
+    log("wire", f"checks passed: {acked} acknowledged keys missed <= "
+        f"evictions {s['evictions']} + drops {s['drops']}; hits {s['hits']},"
+        f" misses {s['misses']} == sum of causes; {negatives} mirror "
+        f"negatives; never-inserted GETs short-circuited {never - asked} of "
+        f"{never} = {short:.2%}; no serve error, no disconnect; recovering "
+        f"batch of {VERB}: {d_rec['miss_recovering']} miss_recovering, "
+        f"{d_rec['miss_evicted']} miss_evicted (sketch), 0 miss_cold; "
+        f"extents: {WIRE_EXTENTS} over the wire, {n_found} of {n_inrun} "
+        f"in-run probes found, every address exact; fast reads served no "
+        f"old byte")
+
+    # directory and fast-view costs at the phase's end state
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    snap = kv.directory_snapshot(max_entries=4 * WIRE_INDEX["capacity"])
+    t_snap = (time.perf_counter() - t0) * 1e3
+    kv.bump_dir_epoch()
+    t0 = time.perf_counter()
+    fv = kv.fast_view()
+    t_fv = (time.perf_counter() - t0) * 1e3
+    m = min(VERB, len(snap["rows"]))
+    t0 = time.perf_counter()
+    ok, hit, _ = fv.read(fv.epoch, snap["shards"][:m], snap["rows"][:m],
+                         snap["digs"][:m])
+    t_read = (time.perf_counter() - t0) * 1e3
+    from pmdfc_tpu_torch.ops.pagepool import page_digest_np
+
+    if not ok.all() or not np.array_equal(page_digest_np(hit),
+                                          snap["digs"][:m]):
+        raise AssertionError("wire: FastView.read of a fresh directory "
+                             "refused a lane or served other bytes")
+    log("wire", f"directory_snapshot: {len(snap['keys'])} entries in "
+        f"{t_snap:.3f} ms; fast_view() after a mutation {t_fv:.4f} ms; "
+        f"FastView.read of {m} lanes {t_read:.3f} ms ({smi})")
+
+    # kernel against plain at the smallest and largest widths the phase
+    # launched, and the kernel's times at the largest
+    present = torch.from_numpy(direct_present.astype(np.int64)).to(sm.dev)
+
+    def batch(w):
+        n_never = w // 8
+        keys = torch.cat([
+            sm.keys_of(DIRECT_HI, sm.pick(present, w - 2 * n_never)),
+            sm.keys_of(DIRECT_HI, torch.randint(
+                NEVER_LO, 1 << 32, (n_never,), device=sm.dev,
+                generator=sm.gen)),
+            sm.keys_of(DIRECT_HI, torch.from_numpy(evicted[:n_never].astype(
+                np.int64)).to(sm.dev)) if len(evicted) >= n_never else
+            torch.full((n_never, 2), -1, dtype=torch.int32, device=sm.dev)])
+        return keys[torch.randperm(w, device=sm.dev, generator=sm.gen)]
+
+    wmax = max(phases)
+    for w in sorted({min(phases), wmax}):
+        causes, _ = sm.compare(batch(w), kv.state, f"wire w={w}")
+        log("kernel", f"wire full w={w}: kernel == plain, causes "
+            f"{CAUSE_NAMES}={causes}")
+    args, kw = sm.kernel_args(kv.state)
+    batches = [batch(wmax) for _ in range(4)]
+    s_ = kv.state.index.table.shape[1] // 4
+    nbytes = [fused_get_bytes(fused, sm.compare(k, kv.state, "wire timed")[0],
+                              wmax, s_, pw, kv.state.evicted_filter.numel())
+              for k in batches]
+    ms = time_ms(torch, [lambda k=k: fused.fused_get(k, *args, **kw)
+                         for k in batches], 24, device_only=True)
+    plain_ms = time_ms(torch, [lambda k=k: fused.get_core_reference(
+        k, *args, **kw) for k in batches], 4, device_only=True)
+    bound_ms = sum(nbytes) / len(nbytes) / HBM_BYTES_PER_S * 1e3
+    log("times", f"fused_get_linear_flat w={wmax} (the wire's widest GET "
+        f"phase), rotated over {len(batches)} batches: kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms = "
+        f"{bound_ms / ms:.1%} of the memory rate ({smi})")
+    entry = {
+        "name": "fused_get_linear_flat",
+        "route": "cuda",
+        "source": "pmdfc_tpu_torch/ops/csrc/fused_get.cu",
+        "replaces": "pmdfc_tpu/ops/fused.py:414",
+        "launches": launches,
+        "max_abs_err": sm.max_err["fused_get_linear_flat"],
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "bytes",
+        "library_ms": None,
+        "path": "wire",
+    }
+    del kv, shared, srv, st, snap, fv
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_onesided(sm)
+    return entry
+
+
+def run_onesided(sm: Smoke) -> None:
+    """The one-sided sub-phase: a PassivePool of POOL_ROWS rows on the card
+    behind `PoolServer`; POOL_CLIENTS `OneSidedBackend`s, each over its own
+    `RemotePool` and grant, write POOL_PAGES pages in VERB-page verbs in
+    parallel and read them back byte-exact."""
+    np, torch = sm.np, sm.torch
+    from pmdfc_tpu_torch.onesided import OneSidedBackend, PassivePool
+    from pmdfc_tpu_torch.runtime.net import PoolServer, RemotePool
+
+    smi = nvidia_smi()
+    pool = PassivePool(num_rows=POOL_ROWS, device=DEVICE)
+    pw = pool.page_words
+    log("onesided", f"PassivePool on {pool.device}: {POOL_ROWS} rows = "
+        f"{POOL_ROWS * pw * 4 / 2**30:.2f} GiB behind PoolServer; "
+        f"{POOL_CLIENTS} OneSidedBackends over RemotePool, {POOL_PAGES} "
+        f"pages each in {VERB}-page verbs")
+    with PoolServer(pool).start() as srv:
+        remotes = [RemotePool("127.0.0.1", srv.port, page_words=pw,
+                              keepalive_s=None, op_timeout_s=120.0)
+                   for _ in range(POOL_CLIENTS)]
+        bes = [OneSidedBackend(r, grant=r.grant(POOL_PAGES))
+               for r in remotes]
+        keys = [np.stack([np.full(POOL_PAGES, i, np.uint32),
+                          np.arange(POOL_PAGES, dtype=np.uint32)], -1)
+                for i in range(POOL_CLIENTS)]
+
+        def write(i):
+            for j in range(0, POOL_PAGES, VERB):
+                k = keys[i][j:j + VERB]
+                bes[i].put(k, pages_np(k[:, 0], k[:, 1], pw))
+
+        def read(i):
+            for j in range(0, POOL_PAGES, VERB):
+                k = keys[i][j:j + VERB]
+                out, found = bes[i].get(k)
+                if not found.all() or not np.array_equal(
+                        out, pages_np(k[:, 0], k[:, 1], pw)):
+                    raise AssertionError(f"one-sided client {i}: a row read "
+                                         "back wrong bytes")
+
+        n = POOL_CLIENTS * POOL_PAGES
+        t_w = run_threads([lambda i=i: write(i)
+                           for i in range(POOL_CLIENTS)], "one-sided write")
+        t_r = run_threads([lambda i=i: read(i)
+                           for i in range(POOL_CLIENTS)], "one-sided read")
+        for r in remotes:
+            r.close()
+        ps = pool.stats()
+    if ps["writes"] != n or ps["reads"] != n:
+        raise AssertionError(f"one-sided: pool counted {ps}")
+    log("onesided", f"write {n} rows in {t_w:.3f} s = {n / t_w:.0f} rows/s; "
+        f"read back byte-exact in {t_r:.3f} s = {n / t_r:.0f} rows/s; pool "
+        f"{ps} ({smi})")
+    del pool
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1878,7 +2505,8 @@ def main() -> int:
     # 4 and 5, one path at a time: each KV is freed before the next fill
     kernels = []
     for run in (run_linear, run_cceh, lambda sm: run_tiered(sm, "linear"),
-                lambda sm: run_tiered(sm, "cceh"), run_families, run_serving):
+                lambda sm: run_tiered(sm, "cceh"), run_families, run_serving,
+                run_wire):
         entry = run(sm)
         if entry is not None:  # the families launch no kernel of their own
             kernels.append(entry)

@@ -9,14 +9,22 @@ state leaves, bit for bit (`tests/test_torch_*.py`).
 Layer map (the slices so far):
 
   L4     client/            — clean-cache / swap clients over backends:
-                              local dict, direct `KV`, and the engine
+                              local dict, direct `KV`, the engine, and
+                              the directory mirror of the fast path
   L3     runtime/           — the native coalescing engine (`native/
                               runtime.cpp`, built by g++) and the
-                              `KVServer` driver loop over the async verbs
+                              `KVServer` driver loop over the async verbs;
+                              the wire (`net.py`: `NetServer`,
+                              `TcpBackend`, `PoolServer`, `RemotePool`),
+                              the failure layer, telemetry, QoS, SLOs
+         onesided.py        — the passive page pool and its one-sided
+                              client
   L2     kv.py, tier.py     — KV façade + the `KV` host class: insert / get /
                               get_compact / delete / extents / stats over
                               an index, counting bloom, evicted-key sketch
-                              and the flat page pool or the tiered store
+                              and the flat page pool or the tiered store;
+                              the host stats overlay, the recovering
+                              state and the fast path's `FastView`
   L1     models/            — linear-probing FIFO index (fused-row layout),
                               CCEH and extendible hashing
   L0     ops/               — bloom, page pool, and the fused GET: a CUDA

@@ -1,5 +1,5 @@
-"""Clients of the KV (twin of `pmdfc_tpu/client/`, its backends and the
-clean-cache client)."""
+"""Clients of the KV (twin of `pmdfc_tpu/client/`: its backends, the
+clean-cache client and the fast path's directory mirror)."""
 
 from pmdfc_tpu_torch.client.backends import (  # noqa: F401
     DirectBackend,

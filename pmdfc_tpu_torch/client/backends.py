@@ -16,20 +16,17 @@ small Backend protocol:
 
 All backends speak batched numpy: `put(keys[B,2], pages[B,W])`,
 `get(keys[B,2]) -> (pages[B,W], found[B])`, `invalidate(keys[B,2])`.
-
-Not ported yet: the one-sided fast-path forwards (`fast_view`,
-`directory_snapshot`, `bump_dir_epoch`), the shed/deadline accounting
-forwards, the recovery forwards and the telemetry counters.
 """
 
 from __future__ import annotations
 
 import collections
-import threading
 
 import numpy as np
 
 from pmdfc_tpu_torch.ops.pagepool import page_digest_np
+from pmdfc_tpu_torch.runtime import sanitizer as san
+from pmdfc_tpu_torch.runtime import telemetry as tele
 from pmdfc_tpu_torch.runtime.engine import (
     OP_DEL, OP_GET, OP_GET_EXT, OP_INS_EXT, OP_PUT)
 
@@ -47,7 +44,7 @@ class LocalBackend:
         # concurrent clients share one backend; the FIFO drop is a
         # read-modify-write
         # guarded-by: _store, _extents
-        self._lock = threading.Lock()
+        self._lock = san.lock("LocalBackend._lock")
 
     _INVALID = (0xFFFFFFFF, 0xFFFFFFFF)
 
@@ -143,8 +140,11 @@ class IntegrityBackend:
         self.digest_cap = digest_cap
         self._digests: collections.OrderedDict = collections.OrderedDict()
         # guarded-by: _digests, counters
-        self._lock = threading.Lock()
-        self.counters = {"corrupt_pages": 0, "verified_gets": 0}
+        self._lock = san.lock("IntegrityBackend._lock")
+        # registry-backed; `counters` keeps the direct mapping reads
+        # (`be.counters["corrupt_pages"]`) the drills assert on
+        self.counters = tele.scope("integrity", {
+            "corrupt_pages": 0, "verified_gets": 0})
 
     def put(self, keys: np.ndarray, pages: np.ndarray) -> None:
         digs = page_digest_np(pages)
@@ -163,6 +163,7 @@ class IntegrityBackend:
             return out, found
         digs = page_digest_np(out)
         found = np.array(found, bool, copy=True)
+        corrupt = []
         with self._lock:
             for i, k in enumerate(np.asarray(keys, np.uint32)):
                 if not found[i]:
@@ -170,13 +171,19 @@ class IntegrityBackend:
                 want = self._digests.get((int(k[0]), int(k[1])))
                 if want is None:
                     continue  # not our put: pass through unverified
-                self.counters["verified_gets"] += 1
+                self.counters.inc("verified_gets")
                 if int(digs[i]) != want:
-                    self.counters["corrupt_pages"] += 1
+                    self.counters.inc("corrupt_pages")
+                    corrupt.append([int(k[0]), int(k[1])])
                     found[i] = False
                     if not out.flags.writeable:
                         out = out.copy()
                     out[i] = 0
+        # rungs fire OUTSIDE the lock: a flight dump is file IO, and
+        # concurrent ops must not stall behind it
+        for kk in corrupt:
+            tele.rung("digest_mismatch", source="integrity_backend",
+                      key=kk)
         return out, found
 
     def invalidate(self, keys: np.ndarray) -> np.ndarray:
@@ -201,9 +208,7 @@ class IntegrityBackend:
         shadow the server's)."""
         fn = getattr(self._be, "stats", None)
         out = dict(fn()) if fn is not None else {}
-        with self._lock:
-            mine = dict(self.counters)
-        for k, v in mine.items():
+        for k, v in self.counters.items():
             nk = f"integrity.{k}"
             if nk in out:
                 raise ValueError(
@@ -217,7 +222,7 @@ class IntegrityBackend:
             self._be.close()
 
     def __getattr__(self, name):
-        # forward the rest (abandon, the balloon surface, ...)
+        # forward the rest (abandon, bloom_pull_t_snap, client_id, ...)
         return getattr(self._be, name)
 
 
@@ -227,6 +232,9 @@ class DirectBackend:
     def __init__(self, kv):
         self.kv = kv
         self.page_words = kv.config.page_words
+        # the KV's device: a serving thread that drives this backend
+        # enters it (`runtime/net.py`)
+        self.device = kv.device
 
     def put(self, keys: np.ndarray, pages: np.ndarray) -> None:
         self.kv.insert(keys, pages)
@@ -252,6 +260,17 @@ class DirectBackend:
         `capacity`, the serving surface's working-set yardstick."""
         return dict(self.kv.stats(), capacity=self.kv.capacity())
 
+    # -- one-sided fast-path surface (NetServer's reader-side lane) --
+
+    def fast_view(self):
+        return self.kv.fast_view()
+
+    def directory_snapshot(self, max_entries: int = 1 << 20):
+        return self.kv.directory_snapshot(max_entries=max_entries)
+
+    def bump_dir_epoch(self) -> int:
+        return self.kv.bump_dir_epoch()
+
     # balloon surface (no-ops/None on a flat pool)
     def balloon_state(self) -> dict | None:
         return self.kv.balloon_state()
@@ -268,6 +287,23 @@ class DirectBackend:
 
     def set_admit_threshold(self, value: int) -> bool:
         return self.kv.set_admit_threshold(value)
+
+    # QoS shed and deadline-shed attribution: shed page counts land in
+    # the KV's host stats overlay so `misses == Σ causes` stays exact
+    def account_shed(self, gets: int, puts: int = 0) -> None:
+        self.kv.account_shed(gets, puts)
+
+    def account_deadline(self, gets: int, puts: int = 0) -> None:
+        self.kv.account_deadline(gets, puts)
+
+    # warm-restart surface (MSG_RECOVERY on the wire)
+    def recovery_info(self) -> dict:
+        fn = getattr(self.kv, "recovery_info", None)
+        return fn() if fn is not None else {"recovering": False}
+
+    def mark_recovered(self) -> bool:
+        fn = getattr(self.kv, "mark_recovered", None)
+        return bool(fn()) if fn is not None else False
 
 
 class EngineBackend:
@@ -291,6 +327,7 @@ class EngineBackend:
         self.arena_lo, self.arena_hi = self.engine.alloc_arena_slice(want)
         self._owns_slice = True
         self.page_words = self.engine.page_words
+        self.device = server.kv.device
 
     def close(self) -> None:
         if self._owns_slice:
@@ -422,6 +459,26 @@ class EngineBackend:
         convention, see `DirectBackend.stats`)."""
         return dict(self.server.kv.stats(),
                     capacity=self.server.kv.capacity())
+
+    # -- one-sided fast-path surface (NetServer's reader-side lane): the
+    # engine stages VERB batches, but a fast read bypasses staging, so it
+    # goes straight at the server's KV --
+
+    def fast_view(self):
+        return self.server.kv.fast_view()
+
+    def directory_snapshot(self, max_entries: int = 1 << 20):
+        return self.server.kv.directory_snapshot(max_entries=max_entries)
+
+    def bump_dir_epoch(self) -> int:
+        return self.server.kv.bump_dir_epoch()
+
+    # QoS shed and deadline-shed attribution (the DirectBackend contract)
+    def account_shed(self, gets: int, puts: int = 0) -> None:
+        self.server.kv.account_shed(gets, puts)
+
+    def account_deadline(self, gets: int, puts: int = 0) -> None:
+        self.server.kv.account_deadline(gets, puts)
 
     # balloon and admission surfaces, forwarded to the server's KV
     def balloon_state(self) -> dict | None:

@@ -16,10 +16,6 @@ Reference behavior being mirrored:
   (`client/julee.c:314-322`) are the `counters` dict.
 
 The module is numpy-only: the client never touches the device.
-
-Not ported yet: the refresher's ride-along ticks for the directory mirror
-and replica groups, and the remote backends' pull stamp
-(`bloom_pull_t_snap`), which wait for those backends.
 """
 
 from __future__ import annotations
@@ -42,6 +38,10 @@ class CleanCacheClient:
     def __init__(self, backend, num_hashes: int = 4,
                  bloom_refresh_s: float | None = None,
                  tenant: int = 0, tenant_bits: int = 4):
+        # function-local import: the sanitizer lives in the runtime
+        # package, whose __init__ imports the server and the KV
+        from pmdfc_tpu_torch.runtime import sanitizer as san
+
         self.backend = backend
         self.num_hashes = num_hashes
         # QoS namespace tagging at the client edge: a nonzero tenant id is
@@ -58,7 +58,7 @@ class CleanCacheClient:
         self._tenant_bits = int(tenant_bits)
         self._bloom: np.ndarray | None = None
         # guarded-by: _bloom, _overlay, _last_t_snap
-        self._bloom_lock = threading.Lock()
+        self._bloom_lock = san.lock("CleanCacheClient._bloom_lock")
         # Put overlay with completion stamps — the no-false-negative
         # protocol. A filter snapshot only reliably contains puts whose
         # server-side insert COMPLETED before the snapshot was taken, and
@@ -72,7 +72,7 @@ class CleanCacheClient:
         self._overlay_cap = 1 << 16
         # counters are bumped from concurrent client threads
         # guarded-by: counters
-        self._ctr_lock = threading.Lock()
+        self._ctr_lock = san.lock("CleanCacheClient._ctr_lock")
         self._last_t_snap = float("-inf")  # newest snapshot stamp applied
         self.counters = {
             "total_gets": 0, "actual_gets": 0, "hit_gets": 0,
@@ -134,15 +134,39 @@ class CleanCacheClient:
     def _refresh_loop(self, interval: float) -> None:
         while not self._stop.wait(interval):
             self.refresh_bloom()
+            # the directory mirror (one-sided fast path) rides the same
+            # lifecycle: one thread, one stop event, one join in close()
+            fn = getattr(self.backend, "dir_refresh", None)
+            if fn is not None:
+                try:
+                    fn()
+                except (ConnectionError, OSError):
+                    pass  # backend down: the verb/degrade path handles it
+            # a replica-group backend without its own repair thread gets
+            # its repair and migration ticks on this refresh cadence
+            fn = getattr(self.backend, "repair_tick", None)
+            if fn is not None:
+                try:
+                    fn()
+                except Exception:  # noqa: BLE001 — ticks are best-effort
+                    pass
 
     def refresh_bloom(self) -> None:
         """Pull the server's packed filter (client-initiated fallback; the
         server-push path is `receive_bloom_full/blocks` below)."""
         t_snap = time.monotonic()  # every put completed by now is included
         packed = self.backend.packed_bloom()
-        if packed is None:
-            # no filter came back (bloom disabled): nothing to retire
-            # against
+        if hasattr(self.backend, "bloom_pull_t_snap"):
+            # remote backend: the server echoed OUR applied-put stamp for
+            # this snapshot. Stamps stay in ONE domain: local 'now' (always
+            # ahead of any put SEND stamp) would mark every later push
+            # frame stale and freeze the push path. None (no put applied
+            # yet) = unstamped: applies, retires nothing.
+            t_snap = self.backend.bloom_pull_t_snap
+        elif packed is None:
+            # no filter came back (backend down, or bloom disabled):
+            # nothing to retire against, and advancing the local stamp
+            # would stale-freeze later push frames
             t_snap = None
         with self._bloom_lock:
             if self._snap_is_stale_locked(t_snap):

@@ -6,8 +6,10 @@ configuration reads the same in both packages. Two differences:
 - no environment switch on the KV: the JAX package lets `PMDFC_TIER` and
   `PMDFC_ADMIT` add or strip the tiered store and its admission gate at
   init; here they come from `KVConfig.tier` (and its `admit`) alone. The
-  one switch kept is `PMDFC_QOS` (`qos_enabled`), read by the clean-cache
-  client's tenant tagging;
+  serving plane's switches are the JAX package's, with the same env
+  names and defaults: `PMDFC_QOS`, `PMDFC_NET_PIPE`, `PMDFC_FASTPATH`,
+  `PMDFC_RING`, `PMDFC_MESH2D`, `PMDFC_PROF`, `PMDFC_TELEMETRY`,
+  `PMDFC_SAN` and `PMDFC_CONTAINMENT`;
 - there is no `fused_get` switch: on CUDA a configuration that
   `ops.fused.supports` accepts always runs the fused GET kernel, and one
   it rejects runs the composed GET, as the JAX package composes it.
@@ -18,14 +20,6 @@ from __future__ import annotations
 import dataclasses
 import enum
 import os
-
-
-def qos_enabled() -> bool:
-    """Resolve the `PMDFC_QOS` kill switch (default on): `off` makes a
-    clean-cache client send every key untagged (tenant 0), the pre-QoS
-    transcript. Resolved at construction time, like every switch."""
-    v = os.environ.get("PMDFC_QOS", "").strip().lower()
-    return v not in ("off", "0", "false", "no")
 
 
 class IndexKind(str, enum.Enum):
@@ -185,3 +179,401 @@ class KVConfig:
     def __post_init__(self) -> None:
         if self.evicted_sketch_bits < 64:
             raise ValueError("evicted_sketch_bits must be >= 64")
+
+
+# ---------------------------------------------------------------------------
+# the serving plane's switches and configs (`runtime/`)
+# ---------------------------------------------------------------------------
+
+def ring_enabled(default: bool = True) -> bool:
+    """Resolve the `PMDFC_RING` kill switch for the consistent-hash
+    placement ring (`cluster/ring.py`): `off` forces `ReplicaGroup` back
+    to the static murmur key→replica-set map — verb-for-verb identical
+    to the pre-ring tree (the conformance escape hatch; membership is
+    then immutable and the elastic wire capability is never requested
+    or acked). Resolved at construction time, like `PMDFC_NET_PIPE` — a
+    group never changes placement discipline mid-life."""
+    v = os.environ.get("PMDFC_RING", "").strip().lower()
+    if v in ("off", "0", "false", "no"):
+        return False
+    if v in ("on", "1", "true", "yes"):
+        return True
+    return default
+
+
+@dataclasses.dataclass(frozen=True)
+class TelemetryConfig:
+    """Unified telemetry layer (`runtime/telemetry.py`): process-wide
+    metrics registry + per-op trace spans + degradation flight recorder.
+
+    `enabled=False` (or `PMDFC_TELEMETRY=off`, which wins over code) turns
+    the TRACING tier — span records, latency histograms, the event ring,
+    and flight-recorder dumps — into no-ops. Plain counters/gauges keep
+    counting either way: the `stats()` surfaces across the repo are
+    registry-backed and must stay correct even with tracing killed.
+    """
+
+    enabled: bool = True
+    # bounded ring of recent span/event records (the flight recorder's
+    # working set; a dump captures its tail)
+    ring_capacity: int = 4096
+    # directory for rung-triggered JSON dumps. None (the default) keeps
+    # the recorder ring-only — library code must not write files unless
+    # asked. `PMDFC_TELEMETRY_DIR` supplies it from the environment.
+    dump_dir: str | None = None
+    # per-rung dump cooldown: a rung firing in a tight loop (every GET
+    # against a downed replica set) must not write a dump per op
+    dump_min_interval_s: float = 1.0
+    # span/event records included in each dump (the ring tail)
+    dump_records: int = 512
+    # retained `flight_*.json` cap in dump_dir (oldest-first deletion;
+    # 0 = unlimited). The cooldown limits write RATE; this bounds file
+    # COUNT so a rung firing across a long soak can't fill the disk.
+    dump_max_files: int = 64
+
+    def __post_init__(self) -> None:
+        if self.ring_capacity < 1:
+            raise ValueError("ring_capacity must be >= 1")
+        if self.dump_min_interval_s < 0:
+            raise ValueError("dump_min_interval_s must be >= 0")
+        if self.dump_records < 1:
+            raise ValueError("dump_records must be >= 1")
+        if self.dump_max_files < 0:
+            raise ValueError("dump_max_files must be >= 0 (0 = unlimited)")
+
+
+def profiler_enabled(default: bool = False) -> bool:
+    """Resolve the `PMDFC_PROF` opt-in: `on` attaches the device-time
+    profiler to the telemetry registry at the first instrumented fetch,
+    `off` keeps every seam a plain passthrough (and snapshots
+    byte-identical v2), and an unset/unknown value falls through to
+    `default` (off — the X-ray is an opt-in diagnostic tier)."""
+    v = os.environ.get("PMDFC_PROF", "").strip().lower()
+    if v in ("off", "0", "false", "no"):
+        return False
+    if v in ("on", "1", "true", "yes"):
+        return True
+    return default
+
+
+def telemetry_enabled(default: bool = True) -> bool:
+    """Resolve the `PMDFC_TELEMETRY` kill switch: `off` disables the
+    tracing tier (spans, histograms, ring, dumps), `on` forces it, and an
+    unset/unknown value falls through to `default`."""
+    v = os.environ.get("PMDFC_TELEMETRY", "").strip().lower()
+    if v in ("off", "0", "false", "no"):
+        return False
+    if v in ("on", "1", "true", "yes"):
+        return True
+    return default
+
+
+def sanitizer_enabled(default: bool = False) -> bool:
+    """Resolve the `PMDFC_SAN` opt-in: `on`/`strict` swap the serving
+    plane's locks for the instrumented wrappers
+    (`runtime/sanitizer.py`), anything else falls through to `default`
+    (plain `threading` primitives, zero overhead). Resolved at lock
+    CONSTRUCTION time — flipping the env mid-process only affects
+    instances built afterwards."""
+    v = os.environ.get("PMDFC_SAN", "").strip().lower()
+    if v in ("on", "1", "true", "yes", "strict"):
+        return True
+    if v in ("off", "0", "false", "no"):
+        return False
+    return default
+
+
+def sanitizer_strict(default: bool = False) -> bool:
+    """`PMDFC_SAN=strict`: on top of `on`, an atexit check fails the
+    process (exit 70) if any violation was recorded — the form the
+    agenda's sanitizer-enabled soak steps run under."""
+    return os.environ.get("PMDFC_SAN", "").strip().lower() == "strict" \
+        or default
+
+
+def mesh2d_enabled(default: bool = True) -> bool:
+    """Resolve the `PMDFC_MESH2D` kill switch for the 2-D serving mesh
+    (replica lanes fused into the plane, `parallel/shard.py`): `off`
+    forces `MeshConfig.replica_axis` back to 1 — a 1-D mesh, the host
+    `ReplicaGroup` replication path, zero 2-D programs launched (the
+    conformance escape hatch `tests/test_mesh2d.py` pins) — and the
+    wire tier neither requests nor acks the replica capability. `on`
+    forces nothing by itself (`replica_axis` still picks the lane
+    count). Resolved at construction time, like `PMDFC_MESH`."""
+    v = os.environ.get("PMDFC_MESH2D", "").strip().lower()
+    if v in ("off", "0", "false", "no"):
+        return False
+    if v in ("on", "1", "true", "yes"):
+        return True
+    return default
+
+
+def net_pipe_enabled(default: bool = True) -> bool:
+    """Resolve the `PMDFC_NET_PIPE` escape hatch: `off` forces the legacy
+    lockstep wire protocol + serialized server (the compatibility mode the
+    conformance test pins), `on` forces the pipelined/coalesced tier, and
+    an unset/unknown value falls through to `default`. Resolved at
+    construction time (a server/backend never changes mode mid-life)."""
+    v = os.environ.get("PMDFC_NET_PIPE", "").strip().lower()
+    if v in ("off", "0", "false", "no"):
+        return False
+    if v in ("on", "1", "true", "yes"):
+        return True
+    return default
+
+
+def fastpath_enabled(default: bool = True) -> bool:
+    """Resolve the `PMDFC_FASTPATH` kill switch for the one-sided client
+    fast path (client-mirrored directory + direct validated row reads,
+    `runtime/net.py` MSG_DIRPULL/MSG_DIRDELTA/MSG_FASTREAD): `off` forces
+    the plain verb path on both sides — the server withholds the HOLA
+    capability ack and the client never builds a directory cache, so the
+    wire transcript is verb-for-verb identical to a tree without the fast
+    path (the PR 4/PR 7 conformance pattern). Resolved at construction
+    time, like `PMDFC_NET_PIPE`."""
+    v = os.environ.get("PMDFC_FASTPATH", "").strip().lower()
+    if v in ("off", "0", "false", "no"):
+        return False
+    if v in ("on", "1", "true", "yes"):
+        return True
+    return default
+
+
+@dataclasses.dataclass(frozen=True)
+class NetConfig:
+    """TCP-tier coalescer/window knobs (`runtime/net.py`) — the wire analog
+    of `RuntimeConfig`'s engine coalescer, reproducing the reference's
+    multi-queue batched serving (8 QPs/client + per-queue pollers,
+    `server/rdma_svr.h:16-19`) on the messenger tier.
+
+    Server side (`NetServer(net=...)`): per-connection reader threads stage
+    decoded verbs into one shared queue; a flush loop drains ALL live
+    connections into one fused device batch per op phase. `flush_ops` is
+    the cap (RuntimeConfig.batch_size analog), `flush_timeout_us` the
+    adaptive dwell from the first staged op (batch_timeout_us analog), and
+    `settle_us` the early cutoff — flush as soon as the staging queue goes
+    quiet for this long, so a lone client pays microseconds, not the full
+    dwell. Fused widths pad up the pow2 ladder from `pad_floor` with
+    INVALID-key rows (match nothing, place nothing) so the compiled-shape
+    set stays bounded exactly like the engine driver's.
+
+    Client side (`TcpBackend(pipeline=..., window=...)`): sequence-tagged
+    frames with up to `window` verbs outstanding per connection and
+    per-verb deadlines (`op_timeout_s`) replacing the lockstep timeout.
+
+    `PMDFC_NET_PIPE=off` overrides everything back to lockstep."""
+
+    pipeline: bool = True
+    window: int = 32
+    coalesce: bool = True
+    flush_ops: int = 8192
+    flush_timeout_us: int = 2000
+    settle_us: int = 200
+    pad_pow2: bool = True
+    pad_floor: int = 16
+
+    def __post_init__(self) -> None:
+        if self.window < 1:
+            raise ValueError("window must be >= 1")
+        if self.flush_ops < 1:
+            raise ValueError("flush_ops must be >= 1")
+        if self.flush_timeout_us < 0 or self.settle_us < 0:
+            raise ValueError("flush timings must be >= 0")
+        if self.pad_floor < 1 or (self.pad_floor & (self.pad_floor - 1)):
+            raise ValueError("pad_floor must be a positive power of two")
+
+
+def qos_enabled(default: bool = True) -> bool:
+    """Resolve the `PMDFC_QOS` kill switch for the multi-tenant QoS
+    control plane (`runtime/qos.py`): `off` collapses a constructed
+    `NetServer(qos=...)` back to the single-tenant FIFO staging queue —
+    no tenant lanes, no token buckets, no shed ladder, no per-tenant
+    telemetry scopes, and ZERO new wire bytes (tenancy is carved out of
+    the key space, not the frame format, so the off transcript is
+    verb-for-verb identical to a tree without QoS — the PMDFC_RING=off
+    conformance precedent). Resolved at construction time, like every
+    other switch — a server never changes scheduling discipline
+    mid-life; env wins over code."""
+    v = os.environ.get("PMDFC_QOS", "").strip().lower()
+    if v in ("off", "0", "false", "no"):
+        return False
+    if v in ("on", "1", "true", "yes"):
+        return True
+    return default
+
+
+@dataclasses.dataclass(frozen=True)
+class TenantConfig:
+    """One tenant's declared contract inside the QoS plane
+    (`runtime/qos.py`).
+
+    A tenant OWNS a prefix of the longkey space: every key whose top
+    `QosConfig.tenant_bits` bits of the hi (oid) word equal `tid`
+    belongs to it. Tenant 0 is the DEFAULT tenant — untagged traffic
+    and unregistered prefixes land there bit-preserved, so every
+    pre-QoS transcript keeps resolving (to one tenant) without a byte
+    of rewriting.
+
+    `weight` is the tenant's deficit-round-robin share of each fused
+    flush batch (quantum = weight * QosConfig.quantum_ops per round).
+    `priority` orders the shed ladder — LOWER priority is shed FIRST
+    when staging depth crosses the threshold. `rate_ops_per_s` bounds
+    edge admission with a token bucket (0 = unlimited, the Migrator
+    rate precedent) refilled continuously with burst cap `burst_ops`.
+    `rate_lo`/`rate_hi` declare the per-tenant autotune envelope for
+    the rate knob (0 = derive both from the declared rate via
+    `AutotuneConfig.qos_rate_lo_frac`/`qos_rate_hi_frac`)."""
+
+    tid: int
+    weight: int = 1
+    priority: int = 1
+    rate_ops_per_s: float = 0.0
+    burst_ops: int = 256
+    rate_lo: float = 0.0
+    rate_hi: float = 0.0
+
+    def __post_init__(self) -> None:
+        if self.tid < 0:
+            raise ValueError("tid must be >= 0")
+        if self.weight < 1:
+            raise ValueError("weight must be >= 1")
+        if self.priority < 0:
+            raise ValueError("priority must be >= 0")
+        if self.rate_ops_per_s < 0:
+            raise ValueError("rate_ops_per_s must be >= 0")
+        if self.burst_ops < 1:
+            raise ValueError("burst_ops must be >= 1")
+        if self.rate_lo < 0 or self.rate_hi < 0:
+            raise ValueError("rate envelope bounds must be >= 0")
+        if self.rate_hi and self.rate_hi < self.rate_lo:
+            raise ValueError("rate_hi must be >= rate_lo (or 0 = derive)")
+
+
+@dataclasses.dataclass(frozen=True)
+class QosConfig:
+    """Multi-tenant QoS control plane (`runtime/qos.py` +
+    `NetServer(qos=...)`): tenant namespaces carved from the longkey
+    space, weighted-fair (deficit-round-robin) composition of the fused
+    flush batch, and edge admission + overload shedding counted into
+    the `miss_shed` cause lane.
+
+    `tenant_bits` is the width of the namespace prefix: a key's tenant
+    id is the top `tenant_bits` bits of its hi (oid) word, so at most
+    `2**tenant_bits` tenants share a server. Clients tag at the edge
+    (`qos.tag_keys`); the server resolves ONCE per staged op at decode
+    time. `tenants` registers the declared contracts (tenant 0 is
+    auto-registered as the default when absent).
+
+    Overload story: when staging depth crosses `shed_threshold`, the
+    shed ladder drops up to `shed_batch` staged GET/PUT ops from the
+    lowest-priority non-empty lane BEFORE the flush loop drowns — shed
+    GETs answer all-miss, shed PUTs ack-and-drop, both attributed to
+    the `miss_shed` cause so `misses == Σ causes` stays bit-exact on
+    every stats surface. Token buckets (per `TenantConfig`) shed at
+    admission instead, before ops ever stage.
+
+    `PMDFC_QOS=off` (env wins) makes the whole plane inert — see
+    `qos_enabled`."""
+
+    enabled: bool = True
+    tenant_bits: int = 4
+    tenants: "tuple[TenantConfig, ...]" = ()
+    # DRR quantum credited per unit weight per scheduling round; small
+    # keeps interleave fine-grained, the fused batch stays one launch
+    quantum_ops: int = 32
+    # staging depth at/above which the shed ladder engages, and the max
+    # ops dropped per ladder pass (bounds reply burst per staging call)
+    shed_threshold: int = 4096
+    shed_batch: int = 1024
+
+    def __post_init__(self) -> None:
+        if not (1 <= self.tenant_bits <= 16):
+            raise ValueError("tenant_bits must be in [1, 16] (the "
+                             "prefix rides the 32-bit oid word)")
+        if self.quantum_ops < 1:
+            raise ValueError("quantum_ops must be >= 1")
+        if self.shed_threshold < 1:
+            raise ValueError("shed_threshold must be >= 1")
+        if self.shed_batch < 1:
+            raise ValueError("shed_batch must be >= 1")
+        seen = set()
+        for tc in self.tenants:
+            if not isinstance(tc, TenantConfig):
+                raise ValueError("tenants must be TenantConfig instances")
+            if tc.tid >= (1 << self.tenant_bits):
+                raise ValueError(
+                    f"tid {tc.tid} does not fit in {self.tenant_bits} "
+                    f"tenant bits")
+            if tc.tid in seen:
+                raise ValueError(f"duplicate tenant id {tc.tid}")
+            seen.add(tc.tid)
+
+
+def containment_enabled(default: bool = True) -> bool:
+    """Resolve the `PMDFC_CONTAINMENT` kill switch for the
+    blast-radius-containment layer (PR 18): MSG_NACK negotiation +
+    poison-op bisection in the coalesced flush loop, the staging-time
+    poison-fingerprint gate, end-to-end deadline shedding, and shard
+    quarantine in the mesh plane. `off` restores the pre-containment
+    transcript exactly — the server never advertises the capability
+    (old rung-3 conn-drop semantics on phase failure), never sheds on
+    deadlines, and the plane never quarantines. Resolved at
+    construction time like every other switch; env wins over code."""
+    v = os.environ.get("PMDFC_CONTAINMENT", "").strip().lower()
+    if v in ("off", "0", "false", "no"):
+        return False
+    if v in ("on", "1", "true", "yes"):
+        return True
+    return default
+
+
+@dataclasses.dataclass(frozen=True)
+class ContainmentConfig:
+    """Blast-radius containment knobs (`runtime/net.py` +
+    `runtime/failure.py` + `parallel/plane.py`).
+
+    **Bisection** (`bisect`): on a fused-phase failure the flush loop
+    retries the batch in halves to isolate the culpable op(s) — at most
+    ⌈log₂ b⌉ FAILING relaunches per culprit — instead of dropping every
+    involved connection. Culprits are answered `MSG_NACK` (negotiated
+    peers) or rung-3 conn-dropped (legacy peers), and their key digests
+    enter a bounded fingerprint ring (`fingerprint_slots`) consulted at
+    staging: a resubmitted poison op is refused before it ever reaches
+    the device. `fingerprint_ttl_s` ages entries out so a key whose
+    failure was environmental (since fixed) regains service without a
+    restart.
+
+    **Quarantine**: per-shard `CircuitBreaker`s in the mesh plane —
+    `quarantine_failures` consecutive shard-attributed failures open a
+    shard's breaker (cooldown `quarantine_cooldown_s`, widened by
+    `quarantine_backoff` up to `quarantine_max_cooldown_s`); while open
+    the shard's routed GETs degrade to `miss_quarantined` misses
+    host-side and its invalidations journal for replay at half-open
+    re-admission.
+
+    `PMDFC_CONTAINMENT=off` makes all of it inert — see
+    `containment_enabled`."""
+
+    enabled: bool = True
+    bisect: bool = True
+    fingerprint_slots: int = 256
+    fingerprint_ttl_s: float = 30.0
+    quarantine_failures: int = 3
+    quarantine_cooldown_s: float = 0.5
+    quarantine_max_cooldown_s: float = 10.0
+    quarantine_backoff: float = 2.0
+
+    def __post_init__(self) -> None:
+        if self.fingerprint_slots < 1:
+            raise ValueError("fingerprint_slots must be >= 1")
+        if self.fingerprint_ttl_s <= 0:
+            raise ValueError("fingerprint_ttl_s must be > 0")
+        if self.quarantine_failures < 1:
+            raise ValueError("quarantine_failures must be >= 1")
+        if self.quarantine_cooldown_s <= 0:
+            raise ValueError("quarantine_cooldown_s must be > 0")
+        if self.quarantine_max_cooldown_s < self.quarantine_cooldown_s:
+            raise ValueError(
+                "quarantine_max_cooldown_s must be >= quarantine_cooldown_s")
+        if self.quarantine_backoff < 1.0:
+            raise ValueError("quarantine_backoff must be >= 1.0")

@@ -31,14 +31,27 @@ nothing but `state.stats`.
 The async verbs (`KV.insert_async`, `get_async`, `get_compact_async`,
 `get_extent_async`, `delete_async`) return device tensors for the serving
 driver (`runtime/server.py`); the blocking verbs are them plus a host
-copy. Not ported yet: the sharded extent insert, the recovering serving
-state, `fast_view` and the host-side stats overlays.
+copy.
+
+The one-sided fast path (`FastView`, `directory_entries`). The JAX
+package mirrors the pool on the host per mutation sequence and its
+server validates and then gathers from that immutable mirror. Here the
+pool is updated in place and lives on the card, so a view is a handle on
+the live state and serves one locked call, `FastView.read`, that checks
+the epoch, compares each lane's stored digest (and, tiered, the row's
+liveness) on the device, gathers only the validated rows and copies them
+to the host, all under `KV._lock`: no put can land between the check and
+the gather. The directory scan likewise digests the live pages on the
+device; only keys, rows and digests cross to the host.
+
+Not ported yet: the sharded extent insert and durability (`snapshot`,
+`attach_journal`, `resume_chain`).
 """
 
 from __future__ import annotations
 
 import dataclasses
-import threading
+import os
 import time
 from typing import Any
 
@@ -304,8 +317,18 @@ def insert(state: KVState, config: KVConfig, keys: torch.Tensor,
     return state, res
 
 
+def _reattribute_recovering(bumps: torch.Tensor) -> None:
+    """Recovering serving state, in place on one batch's bumps: a would-be
+    `miss_cold` cannot be told from a key that has not caught up yet, so
+    the batch's whole cold lane moves to `miss_recovering`. Every other
+    cause keeps its label, and `misses == Σ causes` stays exact."""
+    cold = bumps[MISS_COLD].clone()
+    bumps[MISS_RECOVERING] += cold
+    bumps[MISS_COLD] -= cold
+
+
 def _get_core(state: KVState, config: KVConfig, keys: torch.Tensor,
-              lean: bool = False):
+              lean: bool = False, recovering: bool = False):
     """Composed GET (ref `KV::Get` `KV.cpp:148`) -> (state, out, found).
 
     Serves the configs the fused GET does not (`fused.supports`): the lean
@@ -383,27 +406,32 @@ def _get_core(state: KVState, config: KVConfig, keys: torch.Tensor,
     bumps[MISS_PARKED] = parked.sum(dtype=torch.int32)
     bumps[MISS_STALE] = stale.sum(dtype=torch.int32)
     bumps[MISS_DIGEST] = corrupt.sum(dtype=torch.int32)
+    if recovering:
+        _reattribute_recovering(bumps)
     state.stats += bumps
     return state, out, found
 
 
 def get(state: KVState, config: KVConfig, keys: torch.Tensor,
-        lean: bool = False):
+        lean: bool = False, recovering: bool = False):
     """Batched Get -> (state, values_or_pages, found). Configs the fused
     GET supports always run it (the CUDA kernel on the card). `lean` skips
     the tiered pool's hotness bookkeeping and migration (the sampled
-    path); it changes nothing on a flat pool."""
+    path); it changes nothing on a flat pool. `recovering` is the
+    warm-restart serving state: cold misses count as `miss_recovering`."""
     if fused_ops.supports(config):
-        return fused_ops.get_core(state, config, keys, lean=lean)
-    return _get_core(state, config, keys, lean=lean)
+        return fused_ops.get_core(state, config, keys, lean=lean,
+                                  recovering=recovering)
+    return _get_core(state, config, keys, lean=lean, recovering=recovering)
 
 
 def get_compact(state: KVState, config: KVConfig, keys: torch.Tensor,
-                lean: bool = False):
+                lean: bool = False, recovering: bool = False):
     """Get with hit rows compacted to the front -> (state, out_sorted,
     order, found, nfound): a stable sort on `~found` keeps request order
     among hits, so the host fetches just `nfound` rows."""
-    state, out, found = get(state, config, keys, lean=lean)
+    state, out, found = get(state, config, keys, lean=lean,
+                            recovering=recovering)
     order = torch.argsort((~found).to(torch.uint8), stable=True)
     return (state, out[order], order.to(torch.int32), found,
             found.sum(dtype=torch.int32))
@@ -610,6 +638,172 @@ def utilization(state: KVState, config: KVConfig) -> torch.Tensor:
     return occ * (one / flat_keys.shape[0])
 
 
+# ---------------------------------------------------------------------------
+# directory scans and the one-sided fast path
+# ---------------------------------------------------------------------------
+
+# live rows digested per device step of a directory scan (bounds the
+# gather to 2^16 pages, 256 MiB at 4 KiB pages)
+_SCAN_CHUNK = 1 << 16
+
+
+def _scan_live(state: KVState, config: KVConfig):
+    """(flat_keys, flat_vals, live) over every slot, on the device; None
+    when the index kind has no scan."""
+    ops = get_index_ops(config.index.kind)
+    if ops.scan is None:
+        return None
+    flat_keys, flat_vals = ops.scan(state.index)
+    return flat_keys, flat_vals, ~is_invalid(flat_keys)
+
+
+def _live_rows(state: KVState, flat_vals, live):
+    """Paged-mode live filter on the device -> (mask, rows int64): the
+    entries whose bytes currently verify. Extent-cover and NOPAGE entries
+    drop out by their tag, stale-generation and parked tiered entries by
+    the tier's rules, and a page that fails its at-rest digest drops out
+    too (replaying or directing a client to it would serve corrupt bytes
+    as good). The digest runs over the live rows only, `_SCAN_CHUNK` at a
+    time."""
+    pool = state.pool
+    live = live & (u32.widen(flat_vals[:, 0]) >> 30 == 0)
+    tiered = _tiered(state)
+    if tiered:
+        live = live & tier_mod.entry_current(pool, flat_vals)
+    rows = torch.where(live, flat_vals[:, 1].to(torch.int64), -1)
+    if tiered:
+        # ballooned-out (parked) rows are legal misses, not servable rows
+        live = live & tier_mod.row_live(pool, rows)
+    idx = torch.nonzero(live).squeeze(1)
+    ok = torch.zeros_like(live)
+    for i in range(0, idx.numel(), _SCAN_CHUNK):
+        j = idx[i:i + _SCAN_CHUNK]
+        r = rows[j]
+        ok[j] = pagepool.page_digest(pool.pages[r]) == pool.sums[r]
+    return ok, rows
+
+
+def _live_paged(state: KVState, scanned):
+    """Shared paged-mode tail of `live_entries` and `directory_entries`:
+    (keys[L, 2], rows[L]) device tensors, in scan order, of the entries
+    whose bytes currently verify. The callers gather what they need from
+    the rows (the pages, or only their digests)."""
+    flat_keys, flat_vals, live = scanned
+    ok, rows = _live_rows(state, flat_vals, live)
+    idx = torch.nonzero(ok).squeeze(1)
+    return flat_keys[idx], rows[idx]
+
+
+def live_entries(state: KVState, config: KVConfig):
+    """Host-side scan of one state: the live (key, payload) set a
+    reshard/migration replay must re-insert -> numpy `(keys[L, 2],
+    payload)`, payload the page rows `[L, page_words]` in paged mode, else
+    the stored u64 value words `[L, 2]`. Extent-cover refs re-register
+    from the extent ring and ride out; NOPAGE, stale, parked and
+    digest-failing entries are legal misses and ride out too."""
+    scanned = _scan_live(state, config)
+    if scanned is None:
+        raise ValueError(
+            f"index kind {config.index.kind} has no scan op; "
+            "reshard replay needs one")
+    flat_keys, flat_vals, live = scanned
+    if not config.paged:
+        # extent-cover refs are tagged by the EXACT hi-word sentinel in
+        # unpaged mode (arbitrary user hi-words are legal)
+        live = live & (flat_vals[:, 0] != fused_ops.EXTENT_TAG_I32)
+        return u32.to_numpy(flat_keys[live]), u32.to_numpy(flat_vals[live])
+    keys, rows = _live_paged(state, scanned)
+    return u32.to_numpy(keys), u32.to_numpy(state.pool.pages[rows])
+
+
+def directory_entries(state: KVState, config: KVConfig):
+    """Scan for the fast-path directory: the live, currently verifying
+    (key -> row) set with each row's at-rest digest, numpy `(keys[L, 2],
+    rows[L], digs[L])` (uint32). The digest is the validation token of a
+    one-sided read: the server serves the row only while its stored
+    digest still equals the client's. The scan, the masks and the digest
+    check run on the device; no page crosses to the host. None for
+    unpaged configs or an index kind without a scan."""
+    scanned = _scan_live(state, config) if config.paged else None
+    if scanned is None:
+        return None
+    keys, rows = _live_paged(state, scanned)
+    return (u32.to_numpy(keys), rows.to(torch.int32).cpu().numpy()
+            .astype(np.uint32), u32.to_numpy(state.pool.sums[rows]))
+
+
+class FastView:
+    """The server half of the one-sided fast path: a handle on one `KV`'s
+    live pool, taken at directory epoch `epoch` and mutation sequence
+    `seq` (the keys of `NetServer`'s packed-directory cache).
+
+    The pool is updated in place, so the view holds no copy of it. A read
+    is one call under `KV._lock` (`read`): check the epoch, compare each
+    lane's stored digest with the client's (tiered: and the row's
+    liveness; a free-row promotion vacates a cold row without scrubbing
+    its bytes), gather only the validated rows, copy them to the host.
+    Checking and gathering in two unlocked steps would let a put land
+    between them and hand out new bytes under an old digest.
+
+    `validate` and `gather` are the two halves, each locked on its own,
+    kept for callers that compare with the JAX package's view; a server
+    must call `read`."""
+
+    __slots__ = ("epoch", "seq", "_kv")
+
+    def __init__(self, kv: "KV", epoch: int, seq: int):
+        self._kv = kv
+        self.epoch = epoch
+        self.seq = seq
+
+    def _lanes(self, epoch: int, shards, rows, digs):
+        """Caller holds the KV lock -> device (ok mask, rows int64)."""
+        kv = self._kv
+        pool = kv.state.pool
+        dev = kv.device
+        rows = np.asarray(rows, np.uint32)
+        n = len(rows)
+        if epoch != kv.dir_epoch:
+            return torch.zeros(n, dtype=torch.bool, device=dev), None
+        nr = pool.pages.shape[0]
+        ok_h = (np.asarray(shards, np.uint32) == 0) & (rows < nr)
+        r = torch.from_numpy(np.where(ok_h, rows, 0).astype(np.int64)).to(dev)
+        d = torch.from_numpy(np.array(digs, np.uint32).view(np.int32)
+                             ).to(dev)
+        ok = torch.from_numpy(ok_h).to(dev) & (pool.sums[r] == d)
+        if _tiered(kv.state):
+            ok = ok & tier_mod.row_live(pool, r)
+        return ok, r
+
+    def read(self, epoch: int, shards, rows, digs):
+        """One validated read -> (ok[N] bool, pages[nok, W] uint32 of the
+        ok lanes in lane order, the KV's current epoch), atomic against
+        every mutating verb."""
+        kv = self._kv
+        with kv._lock:
+            ok, r = self._lanes(epoch, shards, rows, digs)
+            cur = kv.dir_epoch
+            if r is None:
+                return (ok.cpu().numpy(),
+                        np.zeros((0, kv.config.page_words), np.uint32), cur)
+            hit = kv.state.pool.pages[r[ok]]
+            return ok.cpu().numpy(), u32.to_numpy(hit), cur
+
+    def validate(self, epoch: int, shards, rows, digs) -> np.ndarray:
+        """ok[N]: the row is in range, live, and its stored digest still
+        equals the client's; a stale epoch fails every lane."""
+        with self._kv._lock:
+            return self._lanes(epoch, shards, rows, digs)[0].cpu().numpy()
+
+    def gather(self, shards, rows) -> np.ndarray:
+        """The pages of the given rows (single shard), numpy uint32."""
+        kv = self._kv
+        with kv._lock:
+            r = torch.from_numpy(np.asarray(rows, np.uint32)
+                                 .astype(np.int64)).to(kv.device)
+            return u32.to_numpy(kv.state.pool.pages[r])
+
+
 def _pad_pow2(n: int, lo: int = 16) -> int:
     p = lo
     while p < n:
@@ -628,6 +822,13 @@ class KV:
     `device` defaults to `cuda` and raises when no GPU is present; pass
     `device="cpu"` to run on the CPU. Every method serializes on an
     instance lock (ops update the state in place).
+
+    Besides the device stats vector, the KV keeps a host overlay
+    (`account_shed`, `account_quarantined`, `account_deadline`: ops
+    answered without a device op) folded into every `stats()`, the
+    recovering serving state (`begin_recovering` .. `mark_recovered`),
+    and the fast path's `dir_epoch` (structural generation, random odd
+    start) and `_mut_seq` (one per mutating verb).
     """
 
     def __init__(self, config: KVConfig | None = None,
@@ -638,9 +839,31 @@ class KV:
                                                           self.device)
         self._ops = get_index_ops(self.config.index.kind)
         self._t0 = time.monotonic()
-        self._lock = threading.RLock()
+        # function-local import: runtime/__init__ imports server -> kv
+        from pmdfc_tpu_torch.runtime import sanitizer as san
+
+        # guarded-by: state, _gets_since_decay, _batches_since_touch,
+        # guarded-by: dir_epoch, _mut_seq, _fastview, _host_stats,
+        # guarded-by: _recovering, _recover_t0
+        self._lock = san.rlock("KV._lock")
         self._batches_since_touch = 0
         self._gets_since_decay = 0
+        # warm-restart serving state: GET misses that would read
+        # `miss_cold` land in `miss_recovering` until `mark_recovered()`
+        self._recovering = False
+        self._recover_t0 = 0.0
+        # host-side stats overlay: lanes the device never bumps (shed,
+        # quarantined and deadline-expired ops), folded into every stats()
+        self._host_stats = np.zeros(NSTATS, np.int64)
+        # `dir_epoch` names a structural generation of the key -> row
+        # mapping (delete, balloon, recovery, ring notes bump it); a
+        # random odd start keeps a swapped instance from matching a
+        # client's cached epoch. `_mut_seq` counts every mutating verb.
+        self.dir_epoch = int.from_bytes(os.urandom(4), "little") | 1
+        self._mut_seq = 0
+        self._fastview: FastView | None = None
+        # per-instance telemetry scope stats() publishes into (lazy)
+        self._tele_scope = None
 
     # -- helpers --
     def _padded(self, x, w: int, fill: int) -> torch.Tensor:
@@ -743,6 +966,7 @@ class KV:
             self.state, res = insert(self.state, self.config,
                                      self._keys(keys, w),
                                      self._padded(values, w, 0))
+            self._mut_seq += 1
             return res, b
 
     def get_async(self, keys, pad_floor: int = 16):
@@ -752,7 +976,7 @@ class KV:
             self.state, out, found = get(
                 self.state, self.config,
                 self._keys(keys, _pad_pow2(b, lo=pad_floor)),
-                lean=not self._touch_due())
+                lean=not self._touch_due(), recovering=self._recovering)
             self._maybe_decay(b)
             return out, found, b
 
@@ -768,7 +992,7 @@ class KV:
             self.state, out, order, found, nfound = get_compact(
                 self.state, self.config,
                 self._keys(keys, _pad_pow2(b, lo=pad_floor)),
-                lean=not self._touch_due())
+                lean=not self._touch_due(), recovering=self._recovering)
             self._maybe_decay(b)
             return out, order, found, nfound, b
 
@@ -788,6 +1012,8 @@ class KV:
             self.state, hit = delete(
                 self.state, self.config,
                 self._keys(keys, _pad_pow2(b, lo=pad_floor)))
+            self._mut_seq += 1
+            self.dir_epoch += 1
             return hit, b
 
     def insert_extent(self, key, value, length: int):
@@ -799,6 +1025,7 @@ class KV:
         with self._lock:
             self.state, res, uncovered = insert_extent(
                 self.state, self.config, key, value, length)
+            self._mut_seq += 1
             return type(res)(**{
                 f: self._out(x, host, words=f.startswith("evicted"))
                 for f, x in res._asdict().items()}), uncovered
@@ -827,7 +1054,50 @@ class KV:
         with self._lock:
             if self._ops.recovery is not None:
                 self._ops.recovery(self.state.index)
+                self._mut_seq += 1
+                self.dir_epoch += 1
             return True
+
+    def begin_recovering(self) -> None:
+        """Enter the warm-restart serving state: GETs answer from the rows
+        held; misses that would read `miss_cold` count as
+        `miss_recovering` until `mark_recovered()`."""
+        from pmdfc_tpu_torch.runtime import telemetry as tele
+
+        with self._lock:
+            if not self._recovering:
+                self._recovering = True
+                self._recover_t0 = time.monotonic()
+                sc = tele.scope("recovery", {"warm_restarts": 0,
+                                             "completed": 0}, unique=False)
+                sc.inc("warm_restarts")
+                sc.set("recovering", 1)
+
+    def mark_recovered(self) -> bool:
+        """Leave the recovering state (idempotent). -> whether it was
+        set."""
+        from pmdfc_tpu_torch.runtime import telemetry as tele
+
+        with self._lock:
+            was = self._recovering
+            self._recovering = False
+            if was:
+                sc = tele.scope("recovery", unique=False)
+                sc.inc("completed")
+                sc.set("recovering", 0)
+                sc.set("last_recovery_s",
+                       round(time.monotonic() - self._recover_t0, 3))
+            return was
+
+    def recovery_info(self) -> dict:
+        """Warm-restart status for health surfaces and the MSG_RECOVERY
+        wire verb."""
+        with self._lock:
+            info: dict = {"recovering": self._recovering}
+            if self._recovering:
+                info["recovering_s"] = round(
+                    time.monotonic() - self._recover_t0, 3)
+            return info
 
     def capacity(self) -> int:
         return self._ops.num_slots(self.config.index)
@@ -843,6 +1113,47 @@ class KV:
             if self.state.bloom is None:
                 return None
             return u32.to_numpy(bloom_ops.to_packed_bits(self.state.bloom))
+
+    # -- one-sided fast-path surface (`runtime/net.py` MSG_DIRPULL /
+    # MSG_FASTREAD) --
+
+    def fast_view(self) -> FastView | None:
+        """The fast lane's handle on the live pool at the current (epoch,
+        seq), cached per mutation sequence. None for unpaged configs (no
+        rows to read)."""
+        if not self.config.paged:
+            return None
+        with self._lock:
+            fv = self._fastview
+            if fv is None or fv.seq != self._mut_seq \
+                    or fv.epoch != self.dir_epoch:
+                fv = self._fastview = FastView(self, self.dir_epoch,
+                                               self._mut_seq)
+            return fv
+
+    def directory_snapshot(self, max_entries: int = 1 << 20) -> dict | None:
+        """Compact key -> (shard, row, digest) directory for the client
+        mirror: `{"epoch", "keys"[L, 2], "shards"[L], "rows"[L],
+        "digs"[L]}` (shard column all zero on one device), the first
+        `max_entries` in scan order. None when the config is unpaged or
+        the index kind has no scan."""
+        with self._lock:
+            ents = directory_entries(self.state, self.config)
+            if ents is None:
+                return None
+            keys, rows, digs = (x[:max_entries] for x in ents)
+            return {"epoch": self.dir_epoch, "keys": keys,
+                    "shards": np.zeros(len(rows), np.uint32),
+                    "rows": rows, "digs": digs}
+
+    def bump_dir_epoch(self) -> int:
+        """Structural invalidation from above the KV (a membership
+        change): every outstanding directory entry stops validating at
+        once. -> the new epoch."""
+        with self._lock:
+            self._mut_seq += 1
+            self.dir_epoch += 1
+            return self.dir_epoch
 
     # -- tier surface (no-ops on a flat pool) --
 
@@ -880,6 +1191,8 @@ class KV:
             if not _tiered(self.state):
                 return False
             tier_mod.grow(self.state.pool, self._balloon_rows(rows))
+            self._mut_seq += 1
+            self.dir_epoch += 1
             return True
 
     def balloon_shrink(self, rows: int) -> bool:
@@ -891,6 +1204,8 @@ class KV:
             if not _tiered(self.state):
                 return False
             tier_mod.shrink(self.state.pool, self._balloon_rows(rows))
+            self._mut_seq += 1
+            self.dir_epoch += 1
             return True
 
     def admit_state(self) -> dict | None:
@@ -913,14 +1228,52 @@ class KV:
             tier_mod.set_admit_threshold(pool, value)
             return True
 
-    def stats(self) -> dict:
+    def _account(self, cause: int, gets: int, puts: int) -> None:
+        """Host overlay: `gets` served all-miss with `cause`, `puts`
+        acked and dropped, with no device op."""
         with self._lock:
-            vec = self.state.stats.cpu().numpy().astype(np.int64)
+            if gets:
+                self._host_stats[GETS] += int(gets)
+                self._host_stats[MISSES] += int(gets)
+                self._host_stats[cause] += int(gets)
+            if puts:
+                self._host_stats[PUTS] += int(puts)
+                self._host_stats[DROPS] += int(puts)
+
+    def account_shed(self, gets: int, puts: int = 0) -> None:
+        """QoS-shed ops (`runtime/qos.py`): a shed GET is a served all-miss
+        with cause `miss_shed`, a shed PUT an acked drop."""
+        self._account(MISS_SHED, gets, puts)
+
+    def account_quarantined(self, gets: int, puts: int = 0) -> None:
+        """Shard-quarantine degradations (`failure.ShardQuarantine`):
+        cause `miss_quarantined`."""
+        self._account(MISS_QUARANTINED, gets, puts)
+
+    def account_deadline(self, gets: int, puts: int = 0) -> None:
+        """Deadline-expired staged ops (`runtime/net.py` flush shed):
+        cause `miss_deadline`."""
+        self._account(MISS_DEADLINE, gets, puts)
+
+    def stats(self) -> dict:
+        from pmdfc_tpu_torch.runtime import telemetry as tele
+
+        with self._lock:
+            vec = self.state.stats.cpu().numpy().astype(np.int64) \
+                + self._host_stats
             d = dict(zip(STAT_NAMES, (int(x) for x in vec)))
             t = self.tier_stats()
         if t is not None:
             d.update(t)
         d["uptime_s"] = time.monotonic() - self._t0
+        if tele.enabled():
+            # the device vector stays the source of truth; each snapshot
+            # is published into a per-instance registry scope
+            if self._tele_scope is None:
+                self._tele_scope = tele.scope("kv")
+            for k, v in d.items():
+                if isinstance(v, (int, float)):
+                    self._tele_scope.set(k, v)
         return d
 
     def print_stats(self) -> str:

@@ -279,11 +279,13 @@ def fused_get(keys, table, pages, sums, sketch, dirr=None, msb=True,
 
 
 def get_core(state, config: KVConfig, keys: torch.Tensor,
-             lean: bool = False):
+             lean: bool = False, recovering: bool = False):
     """Fused twin of `kv._get_core` for configs `supports()` accepts:
     (state, out, found), bit-identical outputs and stats. Writes nothing
     but `state.stats` (in place), except that a counting (`lean=False`)
-    GET over the tiered pool then runs `tier.on_get`."""
+    GET over the tiered pool then runs `tier.on_get`. `recovering` moves
+    the batch's cold misses to `miss_recovering` on the bumps vector,
+    after the kernel (which does not change)."""
     from pmdfc_tpu_torch import kv as kv_mod
 
     pool, index = state.pool, state.index
@@ -316,5 +318,7 @@ def get_core(state, config: KVConfig, keys: torch.Tensor,
     bumps[kv_mod.MISS_PARKED] = cnt(cause == CAUSE_PARKED)
     bumps[kv_mod.MISS_STALE] = cnt(cause == CAUSE_STALE)
     bumps[kv_mod.MISS_DIGEST] = cnt(corrupt)
+    if recovering:
+        kv_mod._reattribute_recovering(bumps)
     state.stats += bumps
     return state, out, found

@@ -1,5 +1,7 @@
-"""The serving runtime: the native coalescing engine and the KVServer
-driver loop (twin of `pmdfc_tpu/runtime/`, its engine and server)."""
+"""The serving runtime (twin of `pmdfc_tpu/runtime/`): the native
+coalescing engine and the KVServer driver loop, the wire (`net`), the
+failure layer (`failure`), telemetry, time series, workload sketches,
+QoS, the SLO watchdog and the lock sanitizer."""
 
 from pmdfc_tpu_torch.runtime.engine import (  # noqa: F401
     OP_DEL,

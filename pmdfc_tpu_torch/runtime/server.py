@@ -31,9 +31,8 @@ aliases the KV's state, which the next launch updates in place.
 All of the KV's device work runs on the `pmdfc-driver` thread, on the
 KV's device (set for the thread, never taken from the main thread's).
 
-Not ported yet: `mesh=` and the plane branches, `checkpoint()`, the
-device-time profiler's fetch seams (`_finalize` fetches directly), the
-time-series collector and the telemetry rungs.
+Not ported yet: `mesh=` and the plane branches, `checkpoint()` and the
+device-time profiler's fetch seams (`_finalize` fetches directly).
 """
 
 from __future__ import annotations
@@ -50,6 +49,9 @@ import torch
 from pmdfc_tpu_torch.config import KVConfig
 from pmdfc_tpu_torch.kv import KV
 from pmdfc_tpu_torch.ops.bloom import dirty_blocks
+from pmdfc_tpu_torch.runtime import sanitizer as san
+from pmdfc_tpu_torch.runtime import telemetry as tele
+from pmdfc_tpu_torch.runtime import timeseries
 from pmdfc_tpu_torch.runtime.engine import (
     Engine, OP_DEL, OP_GET, OP_GET_EXT, OP_INS_EXT, OP_PUT)
 from pmdfc_tpu_torch.utils import u32
@@ -104,7 +106,7 @@ class KVServer:
         self._bf_clients: list = []
         self._bf_last_sent: list[np.ndarray | None] = []
         # guarded-by: _bf_clients, _bf_last_sent
-        self._bf_lock = threading.Lock()
+        self._bf_lock = san.lock("KVServer._bf_lock")
         # one push cycle at a time (the sender thread and push_bloom_now
         # callers): guards bf_push_stats and the delta baselines
         self._bf_push_lock = threading.Lock()
@@ -120,6 +122,9 @@ class KVServer:
         # (restart after stop is not supported: _stop is never cleared).
         if self._thread is not None:
             return self
+        # the windowed time-series sampler, as the NetServer starts it
+        # (idempotent; tick() honours the telemetry kill switch)
+        timeseries.ensure_collector()
         self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name="pmdfc-driver")
         self._thread.start()
@@ -161,12 +166,16 @@ class KVServer:
         stats (incl. `corrupt_pages` and the tier counters when tiered),
         engine stats, driver-level serve errors, and the launched flushes
         by op kind."""
-        return {
+        out = {
             "kv": self.kv.stats(),
             "engine": self.engine.stats(),
             "serve_errors": self.errors,
             "op_batches": dict(self.op_batches),
         }
+        info = getattr(self.kv, "recovery_info", None)
+        if info is not None:
+            out["recovery"] = info()
+        return out
 
     def stop(self) -> None:
         self._stop.set()
@@ -300,6 +309,8 @@ class KVServer:
         print(f"[kv-server] serve failed: {e!r}; "
               f"failing {len(reqs)} requests")
         self.errors += 1
+        tele.rung("phase_failure", tier="engine", requests=len(reqs),
+                  error=repr(e))
         self.engine.complete(
             reqs["req_id"], np.full(len(reqs), -2, np.int32)
         )

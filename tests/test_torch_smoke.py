@@ -198,6 +198,35 @@ def test_serving_path_and_its_kernels_line(smoke, monkeypatch, capsys):
     assert "of 185 pages (padded to 256)" in out  # the quiet flushes' line
 
 
+WIRE_TINY = (("WIRE_INDEX", dict(capacity=1 << 12)),
+             ("WIRE_BLOOM_BITS", 1 << 18), ("WIRE_CLIENTS", 2),
+             ("WIRE_CONNS", 2), ("VERB", 1 << 6), ("WIRE_DIRECT", 3584),
+             ("WIRE_FILL", 512), ("WIRE_GETS", 512), ("WIRE_EXTENTS", 8),
+             ("WIRE_FAST_CONNS", 2), ("WIRE_FAST_KEYS", 256),
+             ("WIRE_REWRITE", 64), ("POOL_ROWS", 1 << 10),
+             ("POOL_CLIENTS", 2), ("POOL_PAGES", 128), ("BF_PUSH_S", 0.01))
+
+
+def test_wire_path_and_its_kernels_line(smoke, monkeypatch, capsys):
+    """The wire phase at 2 clients x 2 connections over 2^12 slots: the
+    pre-fill, the fill over TCP, the push and mirror check, the storm, the
+    extents, the fast-lane passes around rewrites and invalidates, the
+    recovering batch, kernel against plain at the widths the phase
+    launched, and the one-sided sub-phase."""
+    for name, value in WIRE_TINY:
+        monkeypatch.setattr(chip_smoke, name, value)
+    entry = chip_smoke.run_wire(smoke)
+    assert set(entry) == KEYS and entry["path"] == "wire"
+    assert entry["name"] == "fused_get_linear_flat"
+    assert entry["launches"] > 0 and entry["max_abs_err"] == 0
+    assert entry["bound_by"] == "bytes" and entry["library_ms"] is None
+    out = capsys.readouterr().out
+    assert "[wire] checks passed" in out and "served no old byte" in out
+    assert "[kernel] wire full w=" in out
+    assert "directory_snapshot:" in out
+    assert "[onesided] write" in out and "read back byte-exact" in out
+
+
 @pytest.mark.parametrize("lie", [False, True])
 def test_quiet_flushes_check_what_they_serve(smoke, monkeypatch, capsys,
                                              lie):
