@@ -2239,6 +2239,13 @@ def run_wire(sm: Smoke):
     checks = [
         (int(health["serve_errors"]) == 0,
          f"serve_errors {health['serve_errors']}"),
+        # a failing phase is bisected and its ops answered MSG_NACK (a
+        # legal miss): none may have happened
+        (all(int(health[k]) == 0 for k in ("nacks_sent", "bisect_failures",
+                                           "poison_ops", "deadline_shed")),
+         "a phase failed: " + str({k: health[k] for k in (
+             "nacks_sent", "bisect_failures", "poison_ops",
+             "deadline_shed")})),
         (disconnects == 0, f"{disconnects} client disconnects"),
         (s["misses"] == sum(s[c] for c in sm.kv_mod.MISS_CAUSE_NAMES),
          "misses != sum of miss causes"),
@@ -2295,8 +2302,9 @@ def run_wire(sm: Smoke):
         f"evictions {s['evictions']} + drops {s['drops']}; hits {s['hits']},"
         f" misses {s['misses']} == sum of causes; {negatives} mirror "
         f"negatives; never-inserted GETs short-circuited {never - asked} of "
-        f"{never} = {short:.2%}; no serve error, no disconnect; recovering "
-        f"batch of {VERB}: {d_rec['miss_recovering']} miss_recovering, "
+        f"{never} = {short:.2%}; no serve error, NACK or disconnect; "
+        f"recovering batch of {VERB}: {d_rec['miss_recovering']} "
+        f"miss_recovering, "
         f"{d_rec['miss_evicted']} miss_evicted (sketch), 0 miss_cold; "
         f"extents: {WIRE_EXTENTS} over the wire, {n_found} of {n_inrun} "
         f"in-run probes found, every address exact; fast reads served no "

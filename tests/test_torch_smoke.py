@@ -227,6 +227,28 @@ def test_wire_path_and_its_kernels_line(smoke, monkeypatch, capsys):
     assert "[onesided] write" in out and "read back byte-exact" in out
 
 
+def test_wire_phase_fails_when_a_get_phase_fails(smoke, monkeypatch):
+    """A fused GET that raises inside a wire flush is contained by the
+    server (bisected, culprits answered MSG_NACK, a legal miss for the
+    client): the wire phase must still fail."""
+    for name, value in WIRE_TINY:
+        monkeypatch.setattr(chip_smoke, name, value)
+    counted = fused.fused_get
+    calls = [0]
+
+    def failing(keys, *args, **kw):
+        calls[0] += 1
+        if calls[0] == 5:
+            raise RuntimeError("injected kernel failure")
+        return counted(keys, *args, **kw)
+
+    monkeypatch.setattr(fused, "fused_get", failing)
+    # the server retries the failed phase in halves, so the clients may
+    # even get every page: only the phase check can see the failure
+    with pytest.raises(AssertionError, match="wire: a phase failed"):
+        chip_smoke.run_wire(smoke)
+
+
 @pytest.mark.parametrize("lie", [False, True])
 def test_quiet_flushes_check_what_they_serve(smoke, monkeypatch, capsys,
                                              lie):
