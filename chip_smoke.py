@@ -150,9 +150,57 @@ Phases, each reported on its own line; any failure exits nonzero:
              on the card behind `PoolServer`, 4 `OneSidedBackend`s over
              `RemotePool`s, each writing 2^16 pages and reading them back
              byte-exact; rows/s both ways.
+9. fleet  — durability and the replicated fleet, after the wire: three
+             nodes, each a `pmdfc_tpu_torch.tools.crashbox` child process
+             (spawn) on the card serving linear·flat's configuration (an
+             8 GiB pool) from a `KV` with its own write-ahead `Journal`
+             (`JournalConfig()`) behind `NetServer(NetConfig())` on
+             loopback: three 8 GiB pools on the one H100, the one phase
+             where pools share the card, because a fleet needs them to.
+             Snapshots and journals go to `build/fleet` (git-ignored; its
+             filesystem and free bytes are printed, tmpfs or less than
+             11 GiB free fails), removed at the end. One `ReplicaGroup`
+             (rf 2, hedge 50 ms, the ring; repair by manual ticks) over a
+             `ReconnectingClient(TcpBackend)` per node, whose factory
+             follows the node's port, shared by 8 client threads with
+             2^11-key verbs; keys (0xC0000000, i). Put 2^18 keys; node 2
+             cuts a full snapshot; put 2^15; node 2 cuts a delta; put 2^14
+             and invalidate 2^12 earlier keys (node 2's journal tail); a
+             GET storm of 2^17 keys. With the traffic paused, SIGKILL node
+             2; while it is down put 2^13, invalidate 2^11 and storm 2^17:
+             every acknowledged, non-invalidated key hits byte-exact by
+             failover, every invalidated key misses, node 2's breaker
+             opens. Warm restart node 2 from [full, delta] and its journal
+             (time from spawn to serving, with the child's split: chain
+             read and verify, fold, to the device, `recovery()`, replay);
+             over its own `TcpBackend`: every key the ring gives it that
+             was acknowledged before the kill hits byte-exact (losses
+             within `(rpo_ops + 1) x 2^11`, 0 expected), keys invalidated
+             before the kill miss, it is `recovering` and the misses of
+             the outage's keys count as `miss_recovering` with `misses ==
+             Σ miss_*`. Rejoin: the breaker closes, repair ticks drain
+             the backlog (pages/s), the drain's `mark_recovered` makes
+             `recoveries_completed` 1 and node 2 leaves `recovering`;
+             then node 2 serves every key it owns byte-exact, those put
+             while it was down included (a bloom false positive of the
+             repair scan is the one legal miss, counted), and no
+             invalidated key is served by it or by the group (its client
+             replays the invalidations it journaled). Node 2 cuts one
+             more delta; the nodes stop; this process restores the
+             three-member chain with `checkpoint.load_chain(...,
+             device="cuda")` into a `KV`, where every such key hits
+             byte-exact, and phase 3's comparison runs on that 8 GiB
+             state. Throughout: one fused-GET launch per GET phase on
+             every node (read over each child's control pipe), no serve
+             error, no contained phase failure, no corrupt page, no wrong
+             byte, no shed put. Reports snapshot seconds and GB/s, dirty
+             rows, journal appends, syncs and fsync lag per node, put and
+             GET rates and verb p50/p99 before and during the outage,
+             time to recover and its split, repair pages/s, the
+             in-process restore's seconds and peak RSS.
 
 Each KV is freed before the next path's fill, so no two pools share the
-card. The next-to-last line is one JSON object naming each kernel with its
+card but the fleet's. The next-to-last line is one JSON object naming each kernel with its
 path, launches, error and times; the last is `{"ok": true, "device": ...}`.
 """
 
@@ -230,6 +278,26 @@ DIRECT_HI = 0xB0000000   # the pre-fill's keys are (DIRECT_HI, i)
 POOL_ROWS = 1 << 21
 POOL_CLIENTS = 4
 POOL_PAGES = 1 << 16
+# the fleet: three crashbox nodes at linear·flat's configuration behind a
+# ReplicaGroup (rf 2); node FLEET_CRASH is snapshotted, killed, warm
+# restarted and rejoined. Keys are (FLEET_HI, i).
+FLEET_INDEX = dict(capacity=1 << 21)
+FLEET_BLOOM_BITS = 1 << 24
+FLEET_NODES = 3
+FLEET_CRASH = 2
+FLEET_THREADS = 8         # client threads sharing the group
+FLEET_FILL = 1 << 18      # keys put before the full snapshot
+FLEET_DELTA = 1 << 15     # keys put before the delta
+FLEET_TAIL = 1 << 14      # keys put after the delta (the journal tail)
+FLEET_INVAL = 1 << 12     # earlier keys invalidated in the tail
+FLEET_STORM = 1 << 17     # GET keys of each storm
+FLEET_DOWN_PUT = 1 << 13  # keys put while the node is down
+FLEET_DOWN_INVAL = 1 << 11  # keys invalidated while it is down
+FLEET_HI = 0xC0000000
+FLEET_JOURNAL: dict = {}  # JournalConfig's defaults (rpo_ops 256, 50 ms)
+FLEET_DISK_BYTES = 11 << 30  # a full, deltas and the journals
+FLEET_START_S = 300.0     # a node's start timeout (spawn to serving)
+FLEET_REPAIR_S = 600.0    # the repair drain's deadline
 
 
 def log(phase: str, msg: str) -> None:
@@ -440,17 +508,18 @@ class Smoke:
         return torch.cat([keys[picks + extra], covers[live][:4]]), undo
 
     def kernel_phase(self, kv, pool, present, covers, label: str,
-                     extra=None):
+                     extra=None, need=None):
         """Kernel against plain at w in {16, 2^10, 2^14}: each batch holds
         the poked keys (and `extra` keys) ahead of keys drawn from `pool`;
-        at w >= 2^10 every cause must occur (the tiered pool's PARKED and
-        STALE too)."""
+        at w >= 2^10 every cause in `need` must occur (by default every
+        cause of the pool: the tiered pool's PARKED and STALE too)."""
         torch = self.torch
         head, undo = self.poke(kv, present, covers)
         if extra is not None:
             head = torch.cat([head, extra])
         tiered = hasattr(kv.state.pool, "cgen")
-        need = range(8) if tiered else (0, 1, 2, 3, 4, 7)
+        if need is None:
+            need = range(8) if tiered else (0, 1, 2, 3, 4, 7)
         for w in (16, 1 << 10, 1 << 14):
             npad = w // 64  # padding rides every batch but the smallest
             keys = torch.cat([head, self.pick(pool, max(
@@ -2450,6 +2519,649 @@ def run_onesided(sm: Smoke) -> None:
     torch.cuda.empty_cache()
 
 
+def fleet_dir():
+    """Where the fleet's snapshots and journals go: `build/fleet` under the
+    checkout (git-ignored, on the checkout's disk)."""
+    from pathlib import Path
+
+    return Path(__file__).resolve().parent / "build" / "fleet"
+
+
+def disk_of(path) -> tuple[str, int]:
+    """(filesystem type, free bytes) of the mount holding `path`."""
+    import os
+
+    path = os.path.realpath(path)
+    fs, best = "unknown", ""
+    with open("/proc/mounts") as f:
+        for line in f:
+            _, mnt, kind = line.split()[:3]
+            if (path == mnt or path.startswith(mnt.rstrip("/") + "/")) \
+                    and len(mnt) > len(best):
+                fs, best = kind, mnt
+    st = os.statvfs(path)
+    return fs, st.f_bavail * st.f_frsize
+
+
+class RssPeak:
+    """Peak resident set of this process while the block runs, sampled
+    every 5 ms from /proc/self/statm (`ru_maxrss` is the whole life's)."""
+
+    def __enter__(self):
+        import os
+        import threading
+
+        self._page = os.sysconf("SC_PAGE_SIZE")
+        self.peak = self._rss()
+        self._stop = threading.Event()
+        self._th = threading.Thread(target=self._run, daemon=True)
+        self._th.start()
+        return self
+
+    def _rss(self) -> int:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * self._page
+
+    def _run(self):
+        while not self._stop.wait(0.005):
+            self.peak = max(self.peak, self._rss())
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._th.join()
+        self.peak = max(self.peak, self._rss())
+
+
+class Fleet:
+    """The fleet phase's cluster: FLEET_NODES crashbox children, each a
+    journal-attached `KV` behind `NetServer(NetConfig())` on loopback, and
+    one `ReplicaGroup` over a `ReconnectingClient(TcpBackend)` per node
+    whose factory follows the node's current port.
+
+    Key index i is the key (FLEET_HI, i); `status[i]`: 0 never put, 1
+    acknowledged, 2 invalidated; `stage[i]`: which put stage wrote it (1
+    fill, 2 before the delta, 3 the journal tail, 4 while the node was
+    down)."""
+
+    def __init__(self, sm: Smoke, cfg, root):
+        from pmdfc_tpu_torch.config import JournalConfig
+        from pmdfc_tpu_torch.models.base import get_index_ops
+
+        np = sm.np
+        self.sm, self.np, self.cfg, self.root = sm, np, cfg, root
+        self.pw = cfg.page_words
+        self.n_slots = get_index_ops(cfg.index.kind).num_slots(cfg.index)
+        self.jcfg = JournalConfig(**FLEET_JOURNAL)
+        self.n_keys = (FLEET_FILL + FLEET_DELTA + FLEET_TAIL
+                       + FLEET_DOWN_PUT)
+        self.status = np.zeros(self.n_keys, np.int8)
+        self.stage = np.zeros(self.n_keys, np.int8)
+        self.next_key = 0
+        self.rng = np.random.default_rng([sm.seed, 9])
+        self.boxes: list = [None] * FLEET_NODES
+        self.ports = [0] * FLEET_NODES
+        self.hello: list = [None] * FLEET_NODES
+        self.past: list = [[] for _ in range(FLEET_NODES)]  # dead nodes'
+        self.group = None
+        self.eps: list = []
+        self.lat: dict[str, list[float]] = {}
+
+    # -- nodes --------------------------------------------------------------
+    def wal(self, i: int) -> str:
+        return str(self.root / f"wal{i}")
+
+    def start_node(self, i: int, chain=()) -> float:
+        """Spawn node i (a warm restart from `chain` if given) -> seconds
+        from spawn to serving."""
+        from pmdfc_tpu_torch.tools.crashbox import Crashbox
+
+        box = Crashbox(self.cfg, self.wal(i), self.jcfg, chain_paths=chain,
+                       start_timeout_s=FLEET_START_S, device=DEVICE)
+        t0 = time.monotonic()
+        self.hello[i] = box.start()
+        dt = time.monotonic() - t0
+        if not self.hello[i]["device"].startswith(DEVICE):
+            raise AssertionError(f"fleet: node {i} serves on "
+                                 f"{self.hello[i]['device']}, not {DEVICE}")
+        self.boxes[i], self.ports[i] = box, box.port
+        return dt
+
+    def start(self) -> float:
+        """All nodes in parallel, then the group -> seconds."""
+        from pmdfc_tpu_torch.client.replica import ReplicaGroup
+        from pmdfc_tpu_torch.config import ReplicaConfig
+        from pmdfc_tpu_torch.runtime.failure import ReconnectingClient
+        from pmdfc_tpu_torch.runtime.net import TcpBackend
+
+        t = run_threads([lambda i=i: self.start_node(i)
+                         for i in range(FLEET_NODES)], "fleet start")
+
+        def factory(i):
+            # keepalives (the default period) hold a connection idle
+            # through a snapshot past the server's idle timeout
+            return lambda: TcpBackend("127.0.0.1", self.ports[i],
+                                      page_words=self.pw, op_timeout_s=120.0)
+
+        self.eps = [ReconnectingClient(factory(i), page_words=self.pw,
+                                       seed=self.sm.seed * 31 + i)
+                    for i in range(FLEET_NODES)]
+        # connect each endpoint before the threads share it: a client
+        # still connecting drops the ops that arrive meanwhile (legal, but
+        # then a put reaches fewer replicas than the group counted)
+        for i, ep in enumerate(self.eps):
+            ep.recovery_info()
+            if not ep.connected:
+                raise AssertionError(f"fleet: node {i} refused the client")
+        self.group = ReplicaGroup(
+            self.eps, page_words=self.pw,
+            cfg=ReplicaConfig(n_replicas=FLEET_NODES, repair_interval_s=0),
+            seed=self.sm.seed)
+        return t
+
+    def close(self) -> None:
+        if self.group is not None:
+            self.group.close()
+        for box in self.boxes:
+            if box is not None and box.alive():
+                box.kill()
+
+    # -- keys ---------------------------------------------------------------
+    def keys(self, idx):
+        np = self.np
+        idx = np.asarray(idx, np.uint32)
+        return np.stack([np.full(len(idx), FLEET_HI, np.uint32), idx], -1)
+
+    def pages(self, idx):
+        return pages_np(FLEET_HI, idx, self.pw)
+
+    def owned(self, i: int):
+        """Bool mask over every key index: the ring gives it to node i."""
+        own = self.group.ring.owners_np(
+            self.keys(self.np.arange(self.n_keys)), self.group.cfg.rf)
+        return (own == i).any(axis=1)
+
+    # -- traffic through the group -------------------------------------------
+    def _verbs(self, idx):
+        return [idx[j:j + VERB] for j in range(0, len(idx), VERB)]
+
+    def put(self, n: int, stage: int, label: str) -> float:
+        """Put the next n keys in VERB-key verbs over FLEET_THREADS threads
+        -> wall seconds."""
+        np = self.np
+        idx = np.arange(self.next_key, self.next_key + n, dtype=np.uint32)
+        self.next_key += n
+        verbs = self._verbs(idx)
+        lat = self.lat.setdefault(label, [])
+
+        def worker(t):
+            for v in verbs[t::FLEET_THREADS]:
+                t0 = time.perf_counter()
+                self.group.put(self.keys(v), self.pages(v))
+                lat.append(time.perf_counter() - t0)
+
+        wall = run_threads([lambda t=t: worker(t)
+                            for t in range(min(FLEET_THREADS, len(verbs)))],
+                           f"fleet {label}")
+        self.status[idx] = 1
+        self.stage[idx] = stage
+        return wall
+
+    def no_drops(self, nodes, label: str) -> None:
+        """No client of a live node dropped a put or an invalidate."""
+        for i in nodes:
+            st = self.eps[i].stats()
+            if st["dropped_puts"] or st.get("failed_invalidates", 0):
+                raise AssertionError(
+                    f"fleet {label}: node {i}'s client dropped "
+                    f"{st['dropped_puts']} puts, "
+                    f"{st.get('failed_invalidates', 0)} invalidates")
+
+    def invalidate(self, n: int, among) -> "object":
+        """Invalidate n acknowledged keys drawn from the index mask `among`
+        -> their indices."""
+        np = self.np
+        pool = np.flatnonzero(among & (self.status == 1))
+        idx = np.sort(self.rng.choice(pool, n, replace=False)).astype(
+            np.uint32)
+        for v in self._verbs(idx):
+            self.group.invalidate(self.keys(v))
+        self.status[idx] = 2
+        return idx
+
+    def storm(self, n: int, label: str) -> float:
+        """n GET keys through the group over FLEET_THREADS threads, each
+        VERB-key verb 3/4 acknowledged, 1/8 invalidated and 1/8 never-put
+        keys: every acknowledged key hits byte-exact (failover serves a
+        dead node's share), every other key misses with a zeroed page.
+        -> wall seconds."""
+        np = self.np
+        present = np.flatnonzero(self.status == 1)
+        gone = np.flatnonzero(self.status == 2)
+        k8 = VERB // 8
+        verbs = []
+        for _ in range(max(1, n // VERB)):
+            lo = np.concatenate([
+                self.rng.choice(present, VERB - 2 * k8),
+                self.rng.choice(gone, k8),
+                self.rng.integers(NEVER_LO, 1 << 32, k8,
+                                  dtype=np.uint64)]).astype(np.uint32)
+            verbs.append(self.rng.permutation(lo))
+        lat = self.lat.setdefault(label, [])
+        bad: list[str] = []
+
+        def worker(t):
+            for lo in verbs[t::FLEET_THREADS]:
+                t0 = time.perf_counter()
+                out, found = self.group.get(self.keys(lo))
+                lat.append(time.perf_counter() - t0)
+                want = np.zeros(len(lo), bool)
+                inside = lo < self.n_keys
+                want[inside] = self.status[lo[inside]] == 1
+                if not np.array_equal(found, want):
+                    bad.append(f"{int((found & ~want).sum())} keys hit that "
+                               f"must miss, {int((want & ~found).sum())} "
+                               "acknowledged keys missed: "
+                               + self.explain(lo[found != want]))
+                elif not np.array_equal(out[found], self.pages(lo[found])):
+                    bad.append("a hit returned wrong bytes")
+                elif out[~found].any():
+                    bad.append("a miss returned nonzero bytes")
+
+        wall = run_threads([lambda t=t: worker(t)
+                            for t in range(min(FLEET_THREADS, len(verbs)))],
+                           f"fleet {label}")
+        if bad:
+            raise AssertionError(f"fleet {label}: {bad[0]}")
+        return wall
+
+    def explain(self, idx) -> str:
+        """Where up to 4 keys live: their status, stage and owners, and
+        which live owner holds them."""
+        idx = idx[:4]
+        own = self.group.ring.owners_np(self.keys(idx), self.group.cfg.rf)
+        held = {i: self.node_get(i, idx)[1] for i in range(FLEET_NODES)
+                if self.boxes[i] is not None and self.boxes[i].alive()}
+        return "; ".join(
+            f"key {k}: status {self.status[k]}, stage {self.stage[k]}, "
+            f"owners {own[j].tolist()}, held by "
+            f"{[i for i, f in held.items() if f[j]]}"
+            for j, k in enumerate(idx.tolist()))
+
+    # -- one node, directly ---------------------------------------------------
+    def node_get(self, i: int, idx):
+        """GET key indices from node i over its own TcpBackend -> (pages,
+        found); every hit byte-exact."""
+        from pmdfc_tpu_torch.runtime.net import TcpBackend
+
+        np = self.np
+        out = np.zeros((len(idx), self.pw), np.uint32)
+        found = np.zeros(len(idx), bool)
+        with TcpBackend("127.0.0.1", self.ports[i], page_words=self.pw,
+                        op_timeout_s=120.0) as be:
+            for j in range(0, len(idx), VERB):
+                o, f = be.get(self.keys(idx[j:j + VERB]))
+                out[j:j + VERB], found[j:j + VERB] = o, f
+        if not np.array_equal(out[found], self.pages(idx[found])):
+            raise AssertionError(f"fleet: node {i} served wrong bytes")
+        return out, found
+
+    def serving(self, i: int) -> dict:
+        """Node i's serving counters; holds its checks: no serve error, no
+        contained phase failure, one fused-GET launch per GET phase (the
+        plain version runs on the CPU: none there)."""
+        sv = self.boxes[i].serving()
+        srv = sv["server"]
+        if int(srv["serve_errors"]):
+            raise AssertionError(f"fleet: node {i} serve_errors "
+                                 f"{srv['serve_errors']}")
+        contained = {k: srv[k] for k in ("nacks_sent", "bisect_failures",
+                                         "poison_ops", "deadline_shed")}
+        if any(int(v) for v in contained.values()):
+            raise AssertionError(f"fleet: node {i}: a phase failed: "
+                                 f"{contained}")
+        launches = int(sv["launches"].get("fused_get_linear_flat", 0))
+        want = len(sv["get_phases"]) if DEVICE != "cpu" else 0
+        if launches != want or not sv["get_phases"]:
+            raise AssertionError(
+                f"fleet: node {i}: {launches} fused-GET launches for "
+                f"{len(sv['get_phases'])} GET phases")
+        return sv
+
+
+def fleet_check_restart(fleet: Fleet, i: int, killed_stage: int,
+                        gone_before) -> tuple[int, int]:
+    """Node i right after its warm restart, before the group reaches it:
+    every key the ring gives it that was acknowledged before the kill and
+    not invalidated hits byte-exact, losses within the journal's RPO bound
+    (`(rpo_ops + 1) x VERB`); keys invalidated before the kill miss; it is
+    `recovering` and the misses of keys put while it was down count as
+    `miss_recovering`, with `misses == Σ miss_*`. -> (lost, asked)."""
+    np, sm = fleet.np, fleet.sm
+    own = fleet.owned(i)
+    before = np.flatnonzero(own & (fleet.status == 1)
+                            & (fleet.stage <= killed_stage)
+                            & (fleet.stage > 0))
+    _, found = fleet.node_get(i, before)
+    lost = int((~found).sum())
+    bound = (fleet.jcfg.rpo_ops + 1) * VERB
+    if lost > bound:
+        raise AssertionError(f"fleet: node {i} lost {lost} acknowledged keys "
+                             f"in the crash, more than the RPO bound {bound}")
+    inv = gone_before[own[gone_before]]
+    if fleet.node_get(i, inv)[1].any():
+        raise AssertionError(f"fleet: node {i} serves a key invalidated "
+                             "before the kill")
+    info = fleet.boxes[i].recovery_info()
+    if info.get("recovering") is not True:
+        raise AssertionError(f"fleet: node {i} is not recovering: {info}")
+    down = np.flatnonzero(own & (fleet.stage == killed_stage + 1))
+    s0 = fleet.boxes[i].stats()
+    got = fleet.node_get(i, down)[1]
+    s1 = fleet.boxes[i].stats()
+    d = {k: s1[k] - s0[k] for k in sm.kv_mod.STAT_NAMES}
+    if got.any() or d["miss_recovering"] != len(down) or d["miss_cold"]:
+        raise AssertionError(f"fleet: node {i}: keys put while it was down: "
+                             f"{int(got.sum())} hit, causes {d}")
+    if s1["misses"] != sum(s1[c] for c in sm.kv_mod.MISS_CAUSE_NAMES):
+        raise AssertionError(f"fleet: node {i}: misses != sum of causes")
+    return lost, len(before)
+
+
+def fleet_check_rejoined(fleet: Fleet, i: int, gone, fp_keys) -> int:
+    """Node i after the rejoin: every key the ring gives it, acknowledged
+    and not invalidated, hits byte-exact (those put while it was down
+    came by repair; a key its bloom claimed falsely, `fp_keys`, is the
+    one legal miss), and no invalidated key is served by it or by the
+    group. -> keys checked."""
+    np = fleet.np
+    own = fleet.owned(i)
+    live = np.flatnonzero(own & (fleet.status == 1))
+    _, found = fleet.node_get(i, live)
+    missed = live[~found]
+    if len(np.setdiff1d(missed, fp_keys)):
+        raise AssertionError(
+            f"fleet: node {i} misses {len(missed)} acknowledged keys after "
+            f"the rejoin ({len(np.setdiff1d(missed, fp_keys))} not bloom "
+            "false positives)")
+    if fleet.node_get(i, gone[own[gone]])[1].any():
+        raise AssertionError(f"fleet: node {i} served an invalidated key "
+                             "after the rejoin")
+    for v in fleet._verbs(gone):
+        if fleet.group.get(fleet.keys(v))[1].any():
+            raise AssertionError("fleet: the group served an invalidated "
+                                 "key after the rejoin")
+    return len(live)
+
+
+def run_fleet(sm: Smoke):
+    """The fleet phase (9): three crashbox nodes at linear·flat's serving
+    configuration (8 GiB pools, all three on the one card) behind a
+    `ReplicaGroup`; node FLEET_CRASH is snapshotted (a full, a delta),
+    killed with SIGKILL, warm restarted from its chain and journal, and
+    rejoined; its final chain is restored in this process. -> the fleet's
+    kernel entry."""
+    import shutil
+
+    from pmdfc_tpu_torch.config import BloomConfig, IndexConfig, KVConfig
+
+    cfg = KVConfig(index=IndexConfig(**FLEET_INDEX),
+                   bloom=BloomConfig(num_bits=FLEET_BLOOM_BITS))
+    root = fleet_dir()
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    fs, free = disk_of(root)
+    log("env", f"fleet directory {root}: filesystem {fs}, {free} bytes free")
+    if fs == "tmpfs" or free < FLEET_DISK_BYTES:
+        raise AssertionError(f"fleet: {root} is {fs} with {free} bytes free; "
+                             f"the phase needs a disk with {FLEET_DISK_BYTES}")
+    try:
+        return fleet_run(sm, cfg, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def fleet_run(sm: Smoke, cfg, root):
+    """`run_fleet`'s steps, in the fleet directory `root`."""
+    import os
+    import resource
+
+    np, torch, fused = sm.np, sm.torch, sm.fused
+    from pmdfc_tpu_torch import checkpoint
+    from pmdfc_tpu_torch.utils.hashing_np import query_packed_np
+
+    smi = nvidia_smi()
+    c = FLEET_CRASH
+    fleet = Fleet(sm, cfg, root)
+    full, d1, d2 = (str(root / f) for f in ("full.npz", "d1.npz", "d2.npz"))
+    try:
+        t_start = fleet.start()
+        g = fleet.group
+        log("fleet", f"{FLEET_NODES} nodes on {DEVICE} started in "
+            f"{t_start:.3f} s: each KV(IndexConfig(**{FLEET_INDEX}), "
+            f"BloomConfig(num_bits={FLEET_BLOOM_BITS})), a pool of "
+            f"{fleet.n_slots} pages = {fleet.n_slots * fleet.pw * 4 / 2**30:.2f}"
+            f" GiB, {fleet.jcfg}, NetServer(NetConfig()); ReplicaGroup "
+            f"rf {g.cfg.rf}, hedge_ms {g.cfg.hedge_ms}, ring on, repair by "
+            f"manual ticks; {FLEET_THREADS} client threads, {VERB}-key verbs")
+
+        # 3. fill and chain
+        t = fleet.put(FLEET_FILL, 1, "fill")
+        log("fleet", f"fill: {FLEET_FILL} keys through the group in {t:.3f} s"
+            f" = {FLEET_FILL / t:.0f} keys/s ({g.cfg.rf * FLEET_FILL / t:.0f} "
+            f"pages/s written); put verb {percentiles_ms(fleet.lat['fill'])}"
+            f" ({smi})")
+        snaps = {}
+        for name, path, delta, n, stage in (("full", full, False, FLEET_DELTA,
+                                             2),
+                                            ("delta", d1, True, FLEET_TAIL, 3)):
+            r = fleet.boxes[c].snapshot(path, delta=delta)
+            if r["kind"] != name:
+                raise AssertionError(f"fleet: the {name} snapshot came out "
+                                     f"a {r['kind']}")
+            size = os.path.getsize(path)
+            snaps[name] = r
+            log("fleet", f"node {c} {name} snapshot: {size} bytes in "
+                f"{r['seconds']:.3f} s = {size / r['seconds'] / 1e9:.3f} GB/s"
+                f", dirty rows {r['dirty_rows']} of {r['total_rows']}, seq "
+                f"{r['seq']}; the child's peak RSS {r['peak_rss_bytes']} "
+                f"bytes ({smi})")
+            t = fleet.put(n, stage, f"put {name}")
+        gone_before = fleet.invalidate(FLEET_INVAL,
+                                       fleet.stage == 1)
+        t = fleet.storm(FLEET_STORM, "storm")
+        log("fleet", f"after {FLEET_DELTA} + {FLEET_TAIL} more puts and "
+            f"{FLEET_INVAL} invalidates: storm of {FLEET_STORM} GET keys in "
+            f"{t:.3f} s = {FLEET_STORM / t:.0f} keys/s; get verb "
+            f"{percentiles_ms(fleet.lat['storm'])}; every hit byte-exact "
+            f"({smi})")
+
+        # 4. crash, with traffic paused between acknowledged verbs
+        sv = [fleet.serving(i) for i in range(FLEET_NODES)]
+        fleet.no_drops(range(FLEET_NODES), "before the kill")
+        time.sleep(max(0.2, 2 * fleet.jcfg.rpo_ms / 1e3))
+        fleet.past[c].append(sv[c])
+        fleet.boxes[c].kill()
+        if fleet.boxes[c].alive():
+            raise AssertionError(f"fleet: node {c} survived SIGKILL")
+        t = fleet.put(FLEET_DOWN_PUT, 4, "put down")
+        gone_during = fleet.invalidate(FLEET_DOWN_INVAL, fleet.stage <= 3)
+        t_storm = fleet.storm(FLEET_STORM, "storm down")
+        fleet.no_drops([i for i in range(FLEET_NODES) if i != c],
+                       "while a node is down")
+        # open, or half-open once its cooldown has run out (reading
+        # `state` moves it there): never closed while the node is down
+        br = g.breakers[c]
+        if br.stats["opens"] < 1 or br.state == "closed":
+            raise AssertionError(f"fleet: node {c}'s breaker never opened "
+                                 f"while it was down ({br.state}, "
+                                 f"{dict(br.stats)})")
+        log("fleet", f"node {c} killed (SIGKILL); while down: "
+            f"{FLEET_DOWN_PUT} puts in {t:.3f} s = {FLEET_DOWN_PUT / t:.0f} "
+            f"keys/s, put verb {percentiles_ms(fleet.lat['put down'])}; "
+            f"{FLEET_DOWN_INVAL} invalidates; storm of {FLEET_STORM} keys in "
+            f"{t_storm:.3f} s = {FLEET_STORM / t_storm:.0f} keys/s, get verb "
+            f"{percentiles_ms(fleet.lat['storm down'])}; every acknowledged "
+            f"key served byte-exact by failover; breaker {c} opened "
+            f"({dict(br.stats)}) ({smi})")
+
+        # 5. warm restart
+        t_rec = fleet.start_node(c, chain=[full, d1])
+        h = fleet.hello[c]
+        rep = h["replay"]
+        tm = rep["timings_s"]
+        lost, asked = fleet_check_restart(fleet, c, 3, gone_before)
+        log("fleet", f"node {c} warm restart: spawn to serving {t_rec:.3f} s;"
+            f" in the child {h['restore_s']:.3f} s = chain read and verify "
+            f"{tm['read']:.3f} + fold {tm['fold']:.3f} + to the device "
+            f"{tm['to_device']:.3f} + recovery() {tm['recovery']:.3f} + "
+            f"replay {tm['replay']:.3f} s (+ KV and journal set-up); replay: "
+            f"{rep['records']} records, {rep['puts']} puts, {rep['deletes']} "
+            f"deletes, {rep['pages']} pages, {rep['truncated_bytes']} bytes "
+            f"truncated; peak RSS {h['peak_rss_bytes']} bytes; {lost} of "
+            f"{asked} acknowledged keys it owns lost; recovering, cold "
+            f"misses counted as miss_recovering ({smi})")
+
+        # 6. rejoin: the breaker closes, repair drains, mark_recovered
+        probe = fleet.keys(np.flatnonzero(fleet.status == 1)[:VERB])
+        deadline = time.monotonic() + 120.0
+        while g.breakers[c].state != "closed":
+            if time.monotonic() > deadline:
+                raise AssertionError(f"fleet: node {c}'s breaker never "
+                                     "closed after the restart")
+            g.get(probe)
+            time.sleep(0.05)
+        bloom = fleet.eps[c].packed_bloom()
+        down = np.flatnonzero(fleet.owned(c) & (fleet.stage == 4)
+                              & (fleet.status == 1))
+        fp = down[query_packed_np(bloom, fleet.keys(down),
+                                  cfg.bloom.num_hashes)]
+        p0, t0 = g.counters["repair_pages"], time.monotonic()
+        while True:
+            g.repair_tick()
+            if not g._repair_pending:
+                break
+            if time.monotonic() - t0 > FLEET_REPAIR_S:
+                raise AssertionError("fleet: the repair backlog never "
+                                     "drained")
+        t_rep = time.monotonic() - t0
+        repaired = g.counters["repair_pages"] - p0
+        info = fleet.boxes[c].recovery_info()
+        if g.counters["recoveries_completed"] != 1 or info["recovering"]:
+            raise AssertionError(
+                f"fleet: recoveries_completed "
+                f"{g.counters['recoveries_completed']}, node {c} {info}")
+        gone = np.concatenate([gone_before, gone_during])
+        n_live = fleet_check_rejoined(fleet, c, gone, fp)
+        log("fleet", f"rejoin: breaker closed; repair drained {repaired} "
+            f"pages in {t_rep:.3f} s = {repaired / max(t_rep, 1e-9):.0f} "
+            f"pages/s ({g.counters['repair_rounds']} rounds); "
+            f"recoveries_completed 1, node {c} left recovering; it serves "
+            f"all {n_live} acknowledged keys it owns byte-exact ({len(fp)} "
+            f"bloom false positives among the keys put while it was down) "
+            f"and none of the {len(gone)} invalidated ({smi})")
+
+        # 7. one more delta, stop, restore the chain in this process
+        r = fleet.boxes[c].snapshot(d2, delta=True)
+        if r["kind"] != "delta" or r["seq"] != 2:
+            raise AssertionError(f"fleet: the last delta is {r}")
+        sv = [fleet.serving(i) for i in range(FLEET_NODES)]
+        grp = dict(g.counters)
+        for k in ("corrupt_pages", "load_shed_puts", "load_shed_gets",
+                  "miss_digest"):
+            if grp[k]:
+                raise AssertionError(f"fleet: group {k} {grp[k]}")
+        for i in range(FLEET_NODES):
+            for when, x in [("before the kill", p) for p in fleet.past[i]] \
+                    + [("", sv[i])]:
+                j = x["journal"]
+                log("fleet", f"node {i}{' ' + when if when else ''}: journal "
+                    f"appends {j['appends']}, syncs {j['syncs']}, "
+                    f"fsync_lag_ms {j['fsync_lag_ms']:.3f}, rotations "
+                    f"{j['rotations']}; GET phases {len(x['get_phases'])}, "
+                    f"fused launches "
+                    f"{x['launches'].get('fused_get_linear_flat', 0)}; peak "
+                    f"RSS {x['peak_rss_bytes']} bytes ({smi})")
+        launches = sum(int(x["launches"].get("fused_get_linear_flat", 0))
+                       for x in sv + fleet.past[c])
+        log("fleet", f"group counters {json.dumps(grp)}")
+        for box in fleet.boxes:
+            box.stop()
+    finally:
+        fleet.close()
+
+    with RssPeak() as rss:
+        t0 = time.monotonic()
+        state = checkpoint.load_chain([full, d1, d2], cfg, device=DEVICE)
+        torch.cuda.synchronize()
+        t_load = time.monotonic() - t0
+    kv = sm.kv_mod.KV(cfg, state=state, device=DEVICE)
+    own = fleet.owned(c)
+    live = np.flatnonzero(own & (fleet.status == 1))
+    gone_own = np.flatnonzero(own & (fleet.status == 2))
+    for idx, hit in ((live, True), (gone_own, False)):
+        for j in range(0, len(idx), GET_B):
+            keys = sm.u32.from_numpy(fleet.keys(idx[j:j + GET_B]), sm.dev)
+            out, found = kv.get(keys)
+            if hit:
+                ok = found | torch.from_numpy(np.isin(
+                    idx[j:j + GET_B], fp)).to(sm.dev)
+                if not bool(ok.all()) or not torch.equal(
+                        out[found], sm.pages_of(keys[found], fleet.pw)):
+                    raise AssertionError("fleet: the restored chain lost or "
+                                         "changed a page")
+            elif bool(found.any()):
+                raise AssertionError("fleet: the restored chain serves an "
+                                     "invalidated key")
+    log("fleet", f"in-process restore of node {c}'s chain (full + 2 deltas) "
+        f"onto {kv.device}: {t_load:.3f} s, peak RSS of this process during "
+        f"it {rss.peak} bytes (lifetime peak "
+        f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024}); all "
+        f"{len(live)} acknowledged keys it owns hit byte-exact, its "
+        f"{len(gone_own)} invalidated keys miss ({smi})")
+
+    # kernel against plain on the restored 8 GiB state, and its times
+    present = sm.u32.from_numpy(fleet.keys(live[:4096]), sm.dev)
+    never = sm.keys_of(FLEET_HI, torch.randint(
+        NEVER_LO, 1 << 32, (1024,), device=sm.dev, generator=sm.gen))
+    pool = torch.cat([sm.u32.from_numpy(fleet.keys(live), sm.dev), never,
+                      torch.full((64, 2), -1, dtype=torch.int32,
+                                 device=sm.dev)])
+    covers = sm.add_extents(kv, 4)
+    # no key was ever evicted in the fleet: every other cause occurs
+    sm.kernel_phase(kv, pool, present, covers, "fleet restored",
+                    need=(0, 1, 2, 4, 7))
+    st = kv.state
+    args, kw = sm.kernel_args(st)
+    batches = [sm.pick(pool, GET_B) for _ in range(8)]
+    s_ = st.index.table.shape[1] // 4
+    nbytes = [fused_get_bytes(fused, sm.compare(k, st, "fleet timed")[0],
+                              GET_B, s_, fleet.pw, st.evicted_filter.numel())
+              for k in batches]
+    ms = time_ms(torch, [lambda k=k: fused.fused_get(k, *args, **kw)
+                         for k in batches], 48, device_only=True)
+    plain_ms = time_ms(torch, [lambda k=k: fused.get_core_reference(
+        k, *args, **kw) for k in batches], 8, device_only=True)
+    bound_ms = sum(nbytes) / len(nbytes) / HBM_BYTES_PER_S * 1e3
+    log("times", f"fused_get_linear_flat w={GET_B} on the restored fleet "
+        f"node, rotated over {len(batches)} batches: kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms = "
+        f"{bound_ms / ms:.1%} of the memory rate ({smi})")
+    return {
+        "name": "fused_get_linear_flat",
+        "route": "cuda",
+        "source": "pmdfc_tpu_torch/ops/csrc/fused_get.cu",
+        "replaces": "pmdfc_tpu/ops/fused.py:414",
+        "launches": launches,
+        "max_abs_err": sm.max_err["fused_get_linear_flat"],
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "bytes",
+        "library_ms": None,
+        "path": "fleet",
+    }
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2514,7 +3226,7 @@ def main() -> int:
     kernels = []
     for run in (run_linear, run_cceh, lambda sm: run_tiered(sm, "linear"),
                 lambda sm: run_tiered(sm, "cceh"), run_families, run_serving,
-                run_wire):
+                run_wire, run_fleet):
         entry = run(sm)
         if entry is not None:  # the families launch no kernel of their own
             kernels.append(entry)

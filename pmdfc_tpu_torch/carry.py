@@ -40,24 +40,35 @@ U32_LEAVES = frozenset({"index.table", "index.head", "index.ld",
                         "pool.admit_thresh"})
 
 
-def _tensor(name: str, a: np.ndarray, device) -> torch.Tensor:
+def _tensor(name: str, a: np.ndarray, device, consume: bool) -> torch.Tensor:
     a = np.asarray(a)
+    if consume and a.flags.c_contiguous and a.flags.writeable:
+        # the caller's own buffer: a view crosses, with no host copy
+        if name in U32_LEAVES and a.dtype in (np.uint32, np.int32):
+            return torch.from_numpy(a.view(np.int32)).to(device)
+        if name not in U32_LEAVES and a.dtype in (np.int32, np.bool_):
+            return torch.from_numpy(a).to(device)
     if name in U32_LEAVES:
         return u32.from_numpy(a.astype(np.uint32, copy=False), device)
     return torch.from_numpy(np.array(a)).to(device)
 
 
 def state_from_numpy(leaves: dict[str, np.ndarray], config: KVConfig,
-                     device="cuda") -> kv_mod.KVState:
+                     device="cuda", consume: bool = False) -> kv_mod.KVState:
     """The JAX package's `KVState` leaves (numpy, by dotted path) -> this
     package's `KVState` on `device`: any index family over the flat pool,
     or the tiered one when `config.tier` is set (its admission leaves iff
     the leaves hold them). An index state's static knobs (CCEH's, cuckoo's
-    `max_kicks`, level's `top_rows`, path's `top`) come from the config."""
+    `max_kicks`, level's `top_rows`, path's `top`) come from the config.
+
+    `consume=True` hands the arrays over (a restore's freshly read
+    leaves): a contiguous, writeable u32/int32/bool leaf crosses to the
+    device as a view, without the host copy an 8 GiB page leaf would
+    otherwise cost; on the CPU the state then shares its buffer."""
     dev = kv_mod.resolve_device(device)
 
     def t(name):
-        return _tensor(name, leaves[name], dev)
+        return _tensor(name, leaves[name], dev, consume)
 
     def leaves_of(cls, **static):
         return cls(**{f.name: t(f"index.{f.name}")
@@ -104,15 +115,15 @@ def state_from_numpy(leaves: dict[str, np.ndarray], config: KVConfig,
     )
 
 
-def state_to_numpy(state: kv_mod.KVState) -> dict[str, np.ndarray]:
-    """This package's `KVState` -> {dotted leaf path: numpy array}, with
-    the JAX package's leaf names and dtypes."""
-    out = {}
+def leaves(state: kv_mod.KVState) -> list[tuple[str, torch.Tensor]]:
+    """`(dotted path, tensor)` per leaf, in the JAX package's
+    `jax.tree.leaves` order: dataclass fields in declaration order, `None`
+    subtrees and static knobs skipped."""
+    out = []
 
     def walk(prefix, node):
         if isinstance(node, torch.Tensor):
-            out[prefix] = (u32.to_numpy(node) if prefix in U32_LEAVES
-                           else node.detach().cpu().numpy())
+            out.append((prefix, node))
         elif dataclasses.is_dataclass(node):
             for f in dataclasses.fields(node):
                 walk(f"{prefix}.{f.name}" if prefix else f.name,
@@ -121,3 +132,15 @@ def state_to_numpy(state: kv_mod.KVState) -> dict[str, np.ndarray]:
 
     walk("", state)
     return out
+
+
+def leaf_to_numpy(name: str, t: torch.Tensor) -> np.ndarray:
+    """One leaf on the host with the JAX package's dtype (u32 words as
+    numpy uint32, viewed, not converted)."""
+    return u32.to_numpy(t) if name in U32_LEAVES else t.detach().cpu().numpy()
+
+
+def state_to_numpy(state: kv_mod.KVState) -> dict[str, np.ndarray]:
+    """This package's `KVState` -> {dotted leaf path: numpy array}, with
+    the JAX package's leaf names and dtypes."""
+    return {n: leaf_to_numpy(n, t) for n, t in leaves(state)}

@@ -1,5 +1,6 @@
 """Clients of the KV (twin of `pmdfc_tpu/client/`: its backends, the
-clean-cache client and the fast path's directory mirror)."""
+clean-cache client, the fast path's directory mirror and the replica
+group)."""
 
 from pmdfc_tpu_torch.client.backends import (  # noqa: F401
     DirectBackend,
@@ -12,3 +13,4 @@ from pmdfc_tpu_torch.client.cleancache import (  # noqa: F401
     SwapClient,
     get_longkey,
 )
+from pmdfc_tpu_torch.client.replica import ReplicaGroup  # noqa: F401

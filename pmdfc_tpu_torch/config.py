@@ -202,6 +202,180 @@ def ring_enabled(default: bool = True) -> bool:
 
 
 @dataclasses.dataclass(frozen=True)
+class RingConfig:
+    """Consistent-hash placement ring + live migration
+    (`cluster/ring.py` / `cluster/migrate.py`).
+
+    Each member owns `vnodes` virtual points on a u64 ring; a key's
+    replica set is the first `rf` DISTINCT members clockwise from its
+    hashed position, so a single join/leave moves only ~1/N of the key
+    space (± vnode variance). Migration streams the moved key ranges to
+    their new owners through the digest-verified repair path, bounded
+    by a token bucket (`migrate_pages_per_s`, burst `migrate_burst`) in
+    batches of `migrate_batch` pages per owner per tick.
+    """
+
+    enabled: bool = True
+    vnodes: int = 64
+    # ring placement seed — salted away from the bloom/index/replica-map
+    # seeds so ring positions stay independent of every other hash
+    seed: int = 0x51C0_C0DE
+    # live migration: pages per rate-bucket second (0 = unbounded), the
+    # bucket's burst allowance, pages per owner per tick, and how many
+    # all-sources-failed retries a key gets before it is dropped to a
+    # legal miss (the next put re-places it)
+    migrate_pages_per_s: float = 16384.0
+    migrate_burst: int = 1024
+    migrate_batch: int = 128
+    migrate_retries: int = 3
+
+    def __post_init__(self) -> None:
+        if self.vnodes < 1:
+            raise ValueError("vnodes must be >= 1")
+        if self.migrate_pages_per_s < 0:
+            raise ValueError("migrate_pages_per_s must be >= 0 "
+                             "(0 = unbounded)")
+        if self.migrate_burst < 1:
+            raise ValueError("migrate_burst must be >= 1")
+        if self.migrate_batch < 1:
+            raise ValueError("migrate_batch must be >= 1")
+        if self.migrate_retries < 0:
+            raise ValueError("migrate_retries must be >= 0")
+
+
+@dataclasses.dataclass(frozen=True)
+class ReplicaConfig:
+    """Replicated remote-memory group (`client/replica.py` `ReplicaGroup`).
+
+    Fronts `n_replicas` independent servers; every key maps to a stable
+    `rf`-member replica set. GETs are primary-first with a hedged second
+    request after `hedge_ms`; every endpoint sits behind a circuit
+    breaker (`runtime/failure.py` `CircuitBreaker`) so a sick server is
+    routed around without per-op penalty; a rejoined replica is refilled
+    by bloom-guided anti-entropy repair at a bounded rate.
+    """
+
+    n_replicas: int = 3
+    # replication factor: PUT fan-out width / GET failover depth
+    rf: int = 2
+    # hedged GET: fire a second request at the next live replica when the
+    # primary hasn't answered within this deadline (0 disables hedging)
+    hedge_ms: float = 50.0
+    # breaker: consecutive op failures (timeouts, bad frames, digest
+    # mismatches) before the endpoint opens
+    breaker_failures: int = 3
+    # breaker cooldown before a half-open probe, widened by
+    # `breaker_backoff` (capped) on every failed probe, jittered so
+    # same-instant openings desynchronize
+    breaker_cooldown_s: float = 0.5
+    breaker_max_cooldown_s: float = 10.0
+    breaker_backoff: float = 2.0
+    breaker_jitter: float = 0.25
+    half_open_probes: int = 1
+    # anti-entropy repair: tick cadence (0 disables the background
+    # thread; `ReplicaGroup.repair_tick()` still drives it manually) and
+    # max pages re-replicated per endpoint per tick (the rate bound)
+    repair_interval_s: float = 0.2
+    repair_batch: int = 64
+    # bounded FIFO of recently-put keys — the repair candidate universe
+    put_journal_cap: int = 1 << 16
+    # hash count of the SERVERS' bloom filters — MUST equal the servers'
+    # BloomConfig.num_hashes (both default 4): repair queries pulled
+    # packed mirrors host-side, and a mismatched hash count makes absent
+    # keys read "present", silently skipping their repair. When unsure
+    # (heterogeneous servers, tuned filters), set None to disable bloom
+    # guiding — repair then re-replicates every candidate, which is
+    # idempotent and safe, just more traffic.
+    bloom_hashes: int | None = 4
+    # bounded group-wide digest map (end-to-end verification, FIFO)
+    digest_cap: int = 1 << 20
+    # consistent-hash placement ring + live migration (None = defaults).
+    # `PMDFC_RING=off` (env wins) or `RingConfig(enabled=False)` falls
+    # back to the static murmur map — membership is then immutable.
+    ring: "RingConfig | None" = None
+    # breaker-driven auto-replacement (needs the ring AND a
+    # `spare_factory` passed to ReplicaGroup): a member whose breaker
+    # has been latched out of CLOSED for this long is replaced with a
+    # freshly built spare on the repair cadence — the ring's replace()
+    # path under REAL failure, not just drills. 0 disables.
+    auto_replace_after_s: float = 0.0
+    # device-side replica plane delegation: when an endpoint advertises
+    # `replica_lanes >= rf` (a 2-D serving mesh behind it, negotiated
+    # via the wire REPLICA_FLAG), a key's host fan-out collapses to its
+    # primary member — replication then happens in ONE device launch
+    # server-side instead of rf TCP round trips. False keeps the host
+    # loops even against fused servers.
+    fused_plane: bool = True
+    # fused endpoints get a device-side anti-entropy pass (MSG_RREPAIR,
+    # the compare-and-copy collective) every this-many repair ticks on
+    # the shared repair cadence (0 disables)
+    device_repair_ticks: int = 50
+    # end-to-end GET budget: once this many milliseconds have elapsed
+    # inside one group GET, no further failover round fires — the
+    # remaining keys take the legal miss instead of retrying dead work
+    # past the point where the caller has stopped waiting. Stamped into
+    # the wire frame too (containment-negotiated endpoints shed
+    # already-expired staged ops server-side). 0 disables.
+    deadline_ms: float = 0.0
+
+    def __post_init__(self) -> None:
+        if self.n_replicas < 1:
+            raise ValueError("n_replicas must be >= 1")
+        if self.auto_replace_after_s < 0:
+            raise ValueError("auto_replace_after_s must be >= 0 "
+                             "(0 = disabled)")
+        if self.device_repair_ticks < 0:
+            raise ValueError("device_repair_ticks must be >= 0 "
+                             "(0 = disabled)")
+        if not (1 <= self.rf <= self.n_replicas):
+            raise ValueError("rf must be in [1, n_replicas]")
+        if self.hedge_ms < 0:
+            raise ValueError("hedge_ms must be >= 0")
+        if self.deadline_ms < 0:
+            raise ValueError("deadline_ms must be >= 0 (0 = disabled)")
+        if self.breaker_failures < 1:
+            raise ValueError("breaker_failures must be >= 1")
+        if self.half_open_probes < 1:
+            raise ValueError("half_open_probes must be >= 1")
+        if self.repair_batch < 1:
+            raise ValueError("repair_batch must be >= 1")
+        if self.bloom_hashes is not None and self.bloom_hashes < 1:
+            raise ValueError("bloom_hashes must be >= 1 or None "
+                             "(None disables bloom-guided repair)")
+
+
+@dataclasses.dataclass(frozen=True)
+class JournalConfig:
+    """Write-ahead journal (`runtime/journal.py`): bounded-RPO durability.
+
+    Every mutation appends a CRC-framed record BEFORE the device flush
+    acknowledges; fsync is batched so at most `rpo_ops` acknowledged
+    operations or `rpo_ms` milliseconds of them can be lost to a
+    `kill -9` (the RPO bound the recovery drills assert against).
+    Segments rotate at `segment_bytes`; replay is idempotent under the
+    cold-tier generation tags, so replaying a tail twice equals once.
+    """
+
+    # fsync after this many appended records ... (ops bound of the RPO)
+    rpo_ops: int = 256
+    # ... or once the oldest unsynced record is this old (time bound).
+    rpo_ms: float = 50.0
+    # rotate to a fresh segment file past this many bytes
+    segment_bytes: int = 64 << 20
+    # sync opportunistically on every append's bound check; False =
+    # caller drives `Journal.sync()` (tests, single-threaded drills)
+    auto_sync: bool = True
+
+    def __post_init__(self) -> None:
+        if self.rpo_ops < 1:
+            raise ValueError("rpo_ops must be >= 1")
+        if self.rpo_ms < 0:
+            raise ValueError("rpo_ms must be >= 0")
+        if self.segment_bytes < 4096:
+            raise ValueError("segment_bytes must be >= 4096")
+
+
+@dataclasses.dataclass(frozen=True)
 class TelemetryConfig:
     """Unified telemetry layer (`runtime/telemetry.py`): process-wide
     metrics registry + per-op trace spans + degradation flight recorder.

@@ -44,12 +44,22 @@ to the host, all under `KV._lock`: no put can land between the check and
 the gather. The directory scan likewise digests the live pages on the
 device; only keys, rows and digests cross to the host.
 
-Not ported yet: the sharded extent insert and durability (`snapshot`,
-`attach_journal`, `resume_chain`).
+Durability (`snapshot`, `attach_journal`, `resume_chain`; the file
+format and the chain live in `checkpoint.py`, the write-ahead journal in
+`runtime/journal.py`). With a journal attached, `insert_async` (and so
+`insert`), `delete_async` (and so `delete`) and `insert_extent` append
+their record under the lock BEFORE the device dispatch, so the journal
+covers everything the device acknowledges: a numpy caller's rows as they
+are, a tensor caller's with one device-to-host copy. `snapshot` runs
+under the lock on the KV's device after a synchronize, so every leaf it
+copies holds every update queued before it.
+
+Not ported yet: the sharded extent insert.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import time
@@ -804,6 +814,16 @@ class FastView:
             return u32.to_numpy(kv.state.pool.pages[r])
 
 
+def _host_words(x) -> np.ndarray:
+    """A caller's rows as numpy uint32 words, for the journal: a uint32
+    array as it is, another numpy or python input converted (its low 32
+    bits), a tensor of int32 bits with one device-to-host copy."""
+    if isinstance(x, torch.Tensor):
+        return u32.to_numpy(x)
+    a = np.asarray(x)
+    return a if a.dtype == np.uint32 else a.astype(np.uint64).astype(np.uint32)
+
+
 def _pad_pow2(n: int, lo: int = 16) -> int:
     p = lo
     while p < n:
@@ -832,7 +852,7 @@ class KV:
     """
 
     def __init__(self, config: KVConfig | None = None,
-                 state: KVState | None = None, device="cuda"):
+                 state: KVState | None = None, device="cuda", journal=None):
         self.config = config or KVConfig()
         self.device = resolve_device(device)
         self.state = state if state is not None else init(self.config,
@@ -846,6 +866,13 @@ class KV:
         # guarded-by: dir_epoch, _mut_seq, _fastview, _host_stats,
         # guarded-by: _recovering, _recover_t0
         self._lock = san.rlock("KV._lock")
+        # bounded-RPO durability (`runtime/journal.py`, duck-typed): when
+        # attached, every mutation appends its record before the device
+        # dispatch. `_chain` is the snapshot-chain cursor (id/seq/prev_crc
+        # and the host digest basis the next delta diffs against).
+        # guarded-by: _journal, _chain
+        self._journal = journal
+        self._chain: dict | None = None
         self._batches_since_touch = 0
         self._gets_since_decay = 0
         # warm-restart serving state: GET misses that would read
@@ -888,6 +915,12 @@ class KV:
     def _keys(self, keys, w: int) -> torch.Tensor:
         """Keys padded with INVALID to width w, as int32 on the device."""
         return self._padded(keys, w, INVALID_I32)
+
+    def _on_device(self):
+        """Enter the KV's device for this thread (a CUDA context is per
+        thread: a server or control thread must not use the main one's)."""
+        return (torch.cuda.device(self.device) if self.device.type == "cuda"
+                else contextlib.nullcontext())
 
     @staticmethod
     def _out(x: torch.Tensor, host: bool, words: bool = True):
@@ -961,6 +994,11 @@ class KV:
     def insert_async(self, keys, values, pad_floor: int = 16):
         """Like `insert` -> (InsertResult of device tensors, b)."""
         with self._lock:
+            if self._journal is not None:
+                # WAL before dispatch: the record must be durable-bound
+                # before the device can acknowledge these pages
+                self._journal.append_put(_host_words(keys),
+                                         _host_words(values))
             b = len(keys)
             w = _pad_pow2(b, lo=pad_floor)
             self.state, res = insert(self.state, self.config,
@@ -1008,6 +1046,8 @@ class KV:
     def delete_async(self, keys, pad_floor: int = 16):
         """Like `delete` -> (device hit mask, b)."""
         with self._lock:
+            if self._journal is not None:
+                self._journal.append_delete(_host_words(keys))
             b = len(keys)
             self.state, hit = delete(
                 self.state, self.config,
@@ -1023,6 +1063,9 @@ class KV:
         tail was not indexed."""
         host = not isinstance(key, torch.Tensor)
         with self._lock:
+            if self._journal is not None:
+                self._journal.append_extent(_host_words(key),
+                                            _host_words(value), length)
             self.state, res, uncovered = insert_extent(
                 self.state, self.config, key, value, length)
             self._mut_seq += 1
@@ -1057,6 +1100,71 @@ class KV:
                 self._mut_seq += 1
                 self.dir_epoch += 1
             return True
+
+    def snapshot(self, path: str, delta: bool = False) -> dict:
+        """Crash-safe checkpoint of the live state (temp + fsync + atomic
+        rename + integrity digest, see `checkpoint.save`).
+
+        `delta=True` writes an INCREMENTAL chain member: only the pool
+        rows whose digest sidecar (or tier liveness) changed since the
+        previous member of this instance's chain (`checkpoint.save_delta`)
+        — restore goes through `checkpoint.load_chain`. Falls back to a
+        FULL (which starts a new chain) when there is no chain yet, the
+        config is unpaged, or the row space drifted. When a journal is
+        attached the save also appends a durable MARK record, so
+        `journal.replay(after_mark=True)` replays exactly the tail past
+        this snapshot.
+
+        A consistent cut: under the instance lock, on the KV's device,
+        after a synchronize of it. Returns a report (`kind`, `chain_id`,
+        `seq`, `crc`, `dirty_rows`, ...)."""
+        from pmdfc_tpu_torch import checkpoint as _ckpt  # imports kv
+
+        with self._lock, self._on_device():
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            sums, live = self._dirty_basis()
+            report, self._chain = _ckpt.chain_step(
+                self.state, path, self._chain, sums, live, delta)
+            if self._journal is not None:
+                self._journal.mark({"chain_id": report["chain_id"],
+                                    "seq": report["seq"],
+                                    "crc": report["crc"], "path": path,
+                                    "kind": report["kind"]})
+            return report
+
+    # caller-holds: _lock
+    def _dirty_basis(self):
+        """Host copies of `(sums, live)` — the delta-dirty basis. The
+        digest sidecar is maintained by exactly the mutation paths
+        (insert / delete-recycle / balloon rewrite), so a sidecar diff
+        IS the dirty-row set; tier liveness rides along to catch rows
+        vacated WITHOUT a rewrite. None for unpaged configs."""
+        pool = self.state.pool
+        if pool is None:
+            return None, None
+        # a copy: on the CPU `to_numpy` would be a view of the live leaf
+        sums = np.array(u32.to_numpy(pool.sums)).reshape(-1)
+        live = tier_mod.live_mask(pool) if _tiered(self.state) else None
+        return sums, live
+
+    def attach_journal(self, journal) -> None:
+        """Arm the write-ahead journal (`runtime/journal.py`): from now on
+        every mutation appends its record before the device dispatch
+        (None disarms it)."""
+        with self._lock:
+            self._journal = journal
+
+    def resume_chain(self, chain: dict) -> None:
+        """Re-arm the snapshot-chain cursor after a restore (`chain` is
+        `materialize_chain`'s resume card): the next `snapshot(delta=
+        True)` extends the restored chain, with the dirty basis
+        re-anchored at the restored state."""
+        with self._lock:
+            sums, live = self._dirty_basis()
+            self._chain = {"id": chain["id"], "seq": int(chain["seq"]),
+                           "prev_crc": int(chain["crc"]),
+                           "base_sums": sums, "base_live": live}
 
     def begin_recovering(self) -> None:
         """Enter the warm-restart serving state: GETs answer from the rows
@@ -1097,6 +1205,9 @@ class KV:
             if self._recovering:
                 info["recovering_s"] = round(
                     time.monotonic() - self._recover_t0, 3)
+            if self._chain is not None:
+                info["chain"] = {"id": self._chain["id"],
+                                 "seq": self._chain["seq"]}
             return info
 
     def capacity(self) -> int:

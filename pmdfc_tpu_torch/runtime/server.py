@@ -31,20 +31,21 @@ aliases the KV's state, which the next launch updates in place.
 All of the KV's device work runs on the `pmdfc-driver` thread, on the
 KV's device (set for the thread, never taken from the main thread's).
 
-Not ported yet: `mesh=` and the plane branches, `checkpoint()` and the
-device-time profiler's fetch seams (`_finalize` fetches directly).
+`checkpoint()` snapshots through `KV.snapshot`, which takes the KV's lock
+and device, so a caller's thread may cut one while the driver serves.
+
+Not ported yet: `mesh=` and the plane branches, and the device-time
+profiler's fetch seams (`_finalize` fetches directly).
 """
 
 from __future__ import annotations
 
 import collections
-import contextlib
 import threading
 import time
 import traceback
 
 import numpy as np
-import torch
 
 from pmdfc_tpu_torch.config import KVConfig
 from pmdfc_tpu_torch.kv import KV
@@ -161,6 +162,14 @@ class KVServer:
             w, n = w << 1, n + 3
         return n
 
+    def checkpoint(self, path: str, delta: bool = False) -> dict:
+        """Crash-safe snapshot of the live KV under ITS lock
+        (`KV.snapshot`): serialized against the driver's launches, so the
+        saved state is always a consistent op boundary. With
+        ``delta=True`` only rows dirtied since the previous link of the
+        chain are written (full fallback when no chain is armed)."""
+        return self.kv.snapshot(path, delta=delta)
+
     def health(self) -> dict:
         """One integrity/degradation surface for monitors and drills: KV
         stats (incl. `corrupt_pages` and the tier counters when tiered),
@@ -268,9 +277,7 @@ class KVServer:
 
     # -- driver --
     def _loop(self) -> None:
-        dev = self.kv.device
-        with (torch.cuda.device(dev) if dev.type == "cuda"
-              else contextlib.nullcontext()):
+        with self.kv._on_device():
             self._drive()
 
     def _drive(self) -> None:

@@ -309,3 +309,88 @@ def test_smoke_refuses_without_a_card(monkeypatch, capsys):
     monkeypatch.setattr("sys.argv", ["chip_smoke.py"])
     assert chip_smoke.main() == 1
     assert '"ok"' not in capsys.readouterr().out
+
+
+FLEET_TINY = (("FLEET_INDEX", dict(capacity=1 << 12)),
+              ("FLEET_BLOOM_BITS", 1 << 18), ("VERB", 1 << 6),
+              ("FLEET_THREADS", 2), ("FLEET_FILL", 1024),
+              ("FLEET_DELTA", 256), ("FLEET_TAIL", 512), ("FLEET_INVAL", 64),
+              ("FLEET_STORM", 512), ("FLEET_DOWN_PUT", 128),
+              ("FLEET_DOWN_INVAL", 32), ("FLEET_DISK_BYTES", 1 << 20),
+              ("FLEET_START_S", 120.0), ("FLEET_REPAIR_S", 60.0),
+              # the RPO bound (rpo_ops + 1) x VERB below the tail's size,
+              # so a lost tail shows as a loss
+              ("FLEET_JOURNAL", dict(rpo_ops=1)))
+
+
+@pytest.fixture
+def fleet_smoke(smoke, monkeypatch, tmp_path):
+    for name, value in FLEET_TINY:
+        monkeypatch.setattr(chip_smoke, name, value)
+    monkeypatch.setattr(chip_smoke, "fleet_dir", lambda: tmp_path / "fleet")
+    return smoke
+
+
+def test_fleet_phase_and_its_kernels_line(fleet_smoke, tmp_path, capsys):
+    """The fleet phase with three crashbox children on the CPU over 2^12
+    slots each: fill, full and delta of node 2, tail, storm, SIGKILL,
+    puts, invalidates and a storm while it is down, the warm restart's
+    checks, the rejoin (breaker, repair drain, `mark_recovered`), the
+    last delta and the in-process restore of the three-member chain with
+    kernel against plain on it. The plain version runs in the children,
+    so each node must count 0 kernel launches."""
+    entry = chip_smoke.run_fleet(fleet_smoke)
+    assert set(entry) == KEYS and entry["path"] == "fleet"
+    assert entry["name"] == "fused_get_linear_flat"
+    assert entry["launches"] == 0 and entry["max_abs_err"] == 0
+    out = capsys.readouterr().out
+    for line in ("node 2 full snapshot", "node 2 delta snapshot",
+                 "node 2 killed (SIGKILL)", "node 2 warm restart",
+                 "recoveries_completed 1", "in-process restore",
+                 "[kernel] fleet restored w=16384: kernel == plain"):
+        assert line in out, line
+    assert " 0 of " in out.split("node 2 warm restart")[1]  # none lost
+    assert not (tmp_path / "fleet").exists()
+
+
+def test_fleet_phase_fails_on_a_journal_cut_past_the_rpo(fleet_smoke,
+                                                         monkeypatch):
+    """Node 2's journal cut to half after the kill (the tail past the
+    delta and its invalidates gone): the warm restart's check fails."""
+    from pmdfc_tpu_torch.runtime import journal
+    from pmdfc_tpu_torch.tools.crashbox import Crashbox
+
+    kill = Crashbox.kill
+
+    def kill_and_cut(self):
+        kill(self)  # the phase kills only the crashing node
+        wal = str(chip_smoke.fleet_dir() / f"wal{chip_smoke.FLEET_CRASH}")
+        with open(journal.segment_paths(wal)[-1], "r+b") as f:
+            f.truncate(f.seek(0, 2) // 2)
+
+    monkeypatch.setattr(Crashbox, "kill", kill_and_cut)
+    with pytest.raises(AssertionError,
+                       match="lost .* acknowledged keys|invalidated before"):
+        chip_smoke.run_fleet(fleet_smoke)
+
+
+def test_fleet_phase_fails_when_an_invalidated_page_comes_back(
+        fleet_smoke, monkeypatch):
+    """A client that forgets the invalidations it could not deliver while
+    its node was down: the rejoined node serves those pages again, and
+    the phase fails."""
+    from pmdfc_tpu_torch.runtime.failure import ReconnectingClient
+
+    def forgetful(self, keys):
+        keys = np.asarray(keys, np.uint32)
+        be = self._ensure(force=self._probe_forced())
+        if be is None:
+            self._op_failed()
+            return np.zeros(len(keys), bool)
+        out = be.invalidate(keys)
+        self._op_ok()
+        return out
+
+    monkeypatch.setattr(ReconnectingClient, "invalidate", forgetful)
+    with pytest.raises(AssertionError, match="served an invalidated key"):
+        chip_smoke.run_fleet(fleet_smoke)
