@@ -198,9 +198,59 @@ Phases, each reported on its own line; any failure exits nonzero:
              GET rates and verb p50/p99 before and during the outage,
              time to recover and its split, repair pages/s, the
              in-process restore's seconds and peak RSS.
+10. plane — the sharded plane, last: `ShardedKV` over a grid that names the
+             card four times (`make_mesh(["cuda"] * 4)`), each shard
+             linear·flat at 2^19 slots, `BloomConfig(num_bits=1 << 22)`
+             (8 bits per slot, as linear·flat) and 4 KiB pages: four 2 GiB
+             pools, 8 GiB in all — the reference server's 10 GB buffer
+             split over four shards as `NuMA_KV` splits one server over its
+             NUMA nodes; four shards on one card stand in for four devices
+             (no width is cut). Fill 1,310,720 pages through
+             `ShardedKV.insert` (a2a, 2^16-key batches; the a2a pair
+             overflow is counted, 0 expected); put `PlaneBackend(skv)`
+             behind `NetServer(NetConfig())` with the wire phase's 4 x 8
+             pipelined connections: 262,144 pages over the wire (75% of the
+             slots), the mirror check and invalidates, a GET storm of 2^19
+             keys (present, never inserted, invalidated, evicted), 64
+             extents, and the fast lane's three passes over 2^14 pre-fill
+             keys per directory connection (per-(shard, row) validated
+             reads around rewrites and invalidates). Checks: the
+             wire phase's (hits byte-exact, misses zeroed, acknowledged
+             misses <= evictions + drops, no serve error, NACK or
+             disconnect; the mirrors, the OR of the per-shard filters,
+             short-circuit what their bit density allows),
+             `misses == Σ miss_*` on `stats()` and on every
+             shard's row of `shard_report()`, the `shard{i}_ops` counters
+             sum to the routed ops, every GET key routed is counted once,
+             and one fused-GET launch per shard per GET phase; then the
+             kernel against plain on shard 0's full state at w = 8 (the
+             router's pad floor) and at the widest per-shard width served,
+             timed at both. Snapshots to `build/plane` (git-ignored, on the
+             checkout's disk): a full, 2^14 puts and 2^12 deletes, a delta;
+             `restore_chain` onto a fresh 4-shard plane, where every key the
+             delta held hits byte-exact and the deleted ones miss; the
+             engine pass on that plane (`KVServer(kv=skv)`, 8 clean-cache
+             threads putting and getting 2^16 pages through the engine:
+             every hit byte-exact, no -2, no serve error, one launch per
+             shard per GET flush); then, with both planes freed, the full
+             reshard-restored onto 8 shards (16 GiB): no live page lost,
+             invalidated keys stay missing, the replay drops nothing,
+             counters carried. Last the 2 x 2 plane (`make_mesh2d(2, 2,
+             ["cuda"] * 4)`, 2^20 slots per lane: 4 GiB pools, 16 GiB on
+             the card, 8 GiB of distinct pages) behind `NetServer`: every
+             connection negotiates `replica_lanes == 2`; 1,310,720 pages
+             through `plane_insert` (one call writes both lanes) and 262,144
+             over the wire; lane 1 corrupted: a storm serves every hit
+             byte-exact from lane 0 and lane 1's `digest_refused` counts
+             exactly lane 0's serves; `TcpBackend.replica_repair()`
+             (`MSG_RREPAIR`) repairs at least every live row; lane 0
+             corrupted: lane 1 serves, with the same checks, one launch per
+             shard per lane per GET phase. Reports rates, verb p50/p99,
+             snapshot and restore seconds, GB/s and peak RSS, the kernel at
+             w = 8 and at the widest width.
 
 Each KV is freed before the next path's fill, so no two pools share the
-card but the fleet's. The next-to-last line is one JSON object naming each kernel with its
+card but the fleet's and the plane's own shards. The next-to-last line is one JSON object naming each kernel with its
 path, launches, error and times; the last is `{"ok": true, "device": ...}`.
 """
 
@@ -298,6 +348,30 @@ FLEET_JOURNAL: dict = {}  # JournalConfig's defaults (rpo_ops 256, 50 ms)
 FLEET_DISK_BYTES = 11 << 30  # a full, deltas and the journals
 FLEET_START_S = 300.0     # a node's start timeout (spawn to serving)
 FLEET_REPAIR_S = 600.0    # the repair drain's deadline
+
+# the sharded plane (phase 10): per shard linear·flat at 2^19 slots and 8
+# bloom bits per slot (a 2 GiB pool); four shards on the one card hold
+# 8 GiB, the reference's 10 GB buffer split as NuMA_KV splits one server
+PLANE_SHARDS = 4
+PLANE_INDEX = dict(capacity=1 << 19)
+PLANE_BLOOM_BITS = 1 << 22
+PLANE_DIRECT = 1_310_720  # pages through ShardedKV.insert (a2a)
+PLANE_INS_B = 1 << 16     # keys per a2a fill batch
+PLANE_FILL = 1 << 18      # pages then put over the wire (75% of the slots)
+PLANE_GETS = 1 << 19      # keys of the GET storm
+PLANE_EXTENTS = 64
+PLANE_FAST_KEYS = 1 << 14  # pre-fill keys each fast connection reads
+PLANE_MUTATE = 1 << 14    # keys put between the full and the delta
+PLANE_MUT_HI = 0xD0000000
+PLANE_RESHARD = 8         # shards the full is reshard-restored onto (16 GiB)
+PLANE_ENGINE_THREADS = 8
+PLANE_ENGINE_PAGES = 1 << 16
+PLANE_DISK_BYTES = 10 << 30  # the full and the delta
+# the 2 x 2 replica plane: 2^20 slots per lane (a 4 GiB pool), 16 GiB on
+# the card, 8 GiB of distinct pages
+PLANE2D = (2, 2)
+PLANE2D_INDEX = dict(capacity=1 << 20)
+PLANE2D_BLOOM_BITS = 1 << 23
 
 
 def log(phase: str, msg: str) -> None:
@@ -3162,6 +3236,720 @@ def fleet_run(sm: Smoke, cfg, root):
     }
 
 
+def plane_dir():
+    """Where the plane's snapshots go: `build/plane` under the checkout
+    (git-ignored, on the checkout's disk)."""
+    from pathlib import Path
+
+    return Path(__file__).resolve().parent / "build" / "plane"
+
+
+class PlaneCounts:
+    """What a `ShardedKV`'s plane verbs were asked in a window: routed ops
+    (extent phases count one per shard, as the plane's `shard{i}_ops`
+    counters do), GET phases with keys, their keys, and the widest
+    per-shard width a GET phase ran. Wraps the instance's verbs."""
+
+    def __init__(self, skv):
+        import numpy as np
+
+        self.ops = self.get_phases = self.get_keys = self.wl_max = 0
+        n = skv.n_shards
+        for name in ("plane_insert", "plane_get", "plane_delete",
+                     "plane_get_extent", "insert_extent"):
+            real = getattr(skv, name)
+
+            def wrapped(*args, _real=real, _name=name):
+                out = _real(*args)
+                if _name == "insert_extent" or out.counts is None:
+                    self.ops += n
+                    if _name == "plane_get_extent":
+                        # a GetExtent counts its keys as GETs (shard 0)
+                        self.get_keys += out.b
+                else:
+                    c = np.asarray(out.counts)
+                    self.ops += int(c.sum())
+                    if _name == "plane_get" and out.b:
+                        self.get_phases += 1
+                        self.get_keys += out.b
+                        self.wl_max = max(self.wl_max,
+                                          skv._router.width(int(c.max())))
+                return out
+
+            setattr(skv, name, wrapped)
+
+
+def shard_ops(be) -> int:
+    return sum(int(c.value) for c in be._c_shard)
+
+
+def plane_fill(skv, n: int, hi: int, plane: bool):
+    """Pages (hi, i < n) put in PLANE_INS_B-key batches through
+    `ShardedKV.insert` (a2a) or `plane_insert`. -> (seconds, drops reported
+    by the inserts, rows past an a2a pair's capacity)."""
+    import numpy as np
+
+    from pmdfc_tpu_torch.parallel.partitioning import shard_of_np
+    from pmdfc_tpu_torch.parallel.shard import pair_capacity
+
+    pw = skv.config.page_words
+    drops = overflow = 0
+    t0 = time.monotonic()
+    for i in range(0, n, PLANE_INS_B):
+        lo = np.arange(i, min(i + PLANE_INS_B, n), dtype=np.uint32)
+        his = np.full(len(lo), hi, np.uint32)
+        keys = np.stack([his, lo], -1)
+        if plane:
+            res = skv.plane_insert(keys, pages_np(his, lo, pw)).fetch()
+        else:
+            res = skv.insert(keys, pages_np(his, lo, pw))
+            # the rows no a2a bucket could take: each source's count per
+            # destination past the pair capacity
+            w = 16
+            while w < len(lo):
+                w <<= 1
+            w += -w % skv.n_shards
+            bl = w // skv.n_shards
+            c = pair_capacity(bl, skv.n_shards)
+            own = shard_of_np(keys, skv.n_shards)
+            for s in range(skv.n_shards):
+                per = np.bincount(own[s * bl:(s + 1) * bl],
+                                  minlength=skv.n_shards)
+                overflow += int(np.maximum(per - c, 0).sum())
+        drops += int(np.asarray(res.dropped).sum())
+    skv._sync()
+    return time.monotonic() - t0, drops, overflow
+
+
+def plane_held(skv, hi: int):
+    """Sorted lo words of the keys (hi, .) every shard's index holds now
+    (lane 0; a scan on each shard's device)."""
+    import numpy as np
+
+    from pmdfc_tpu_torch.models.base import get_index_ops
+    from pmdfc_tpu_torch.utils import u32
+
+    ops = get_index_ops(skv.config.index.kind)
+    out = []
+    with skv._lock:
+        for st in skv.states:
+            flat, _ = ops.scan(st.index)
+            hit = flat[:, 0] == int(np.uint32(hi).view(np.int32))
+            out.append(u32.to_numpy(flat[hit][:, 1]))
+    return np.sort(np.concatenate(out))
+
+
+def plane_checks(sm, skv, be, srv, clients, counts, launches_per_phase,
+                 shard_ops0, stats0, label):
+    """The plane's serving checks over one window, as the wire phase's:
+    no serve error, no contained phase failure, no disconnect, `misses ==
+    Σ miss_*` on stats() and on every shard's row of shard_report(), the
+    shard{i}_ops counters sum to the routed ops, every GET key routed was
+    counted once (a read-only GET's stats land once), and one fused-GET
+    launch per shard (per lane) per GET phase."""
+    fused = sm.fused
+    health = dict(srv.stats)
+    s = skv.stats()
+    rep = skv.shard_report()["stats"]
+    causes = sm.kv_mod.MISS_CAUSE_NAMES
+    launches = fused.launches["fused_get_linear_flat"]
+    disconnects = sum(c.rc.stats()["disconnects"] for c in clients)
+    checks = [
+        (int(health["serve_errors"]) == 0,
+         f"serve_errors {health['serve_errors']}"),
+        (all(int(health[k]) == 0 for k in ("nacks_sent", "bisect_failures",
+                                           "poison_ops", "deadline_shed")),
+         "a phase failed: " + str({k: health[k] for k in (
+             "nacks_sent", "bisect_failures", "poison_ops",
+             "deadline_shed")})),
+        (disconnects == 0, f"{disconnects} client disconnects"),
+        (s["misses"] == sum(s[c] for c in causes),
+         "misses != sum of miss causes"),
+        (all(rep["misses"][i] == sum(rep[c][i] for c in causes)
+             for i in range(skv.n_shards)),
+         "a shard's misses != the sum of its miss causes"),
+        (shard_ops(be) - shard_ops0 == counts.ops,
+         f"shard ops {shard_ops(be) - shard_ops0} != {counts.ops} routed"),
+        (s["gets"] - stats0["gets"] == counts.get_keys,
+         f"{s['gets'] - stats0['gets']} GETs counted for {counts.get_keys} "
+         "GET keys routed"),
+        (counts.get_phases > 0
+         and launches == launches_per_phase * counts.get_phases,
+         f"{launches} fused-GET launches for {counts.get_phases} GET phases "
+         f"x {launches_per_phase}"),
+    ]
+    for ok, msg in checks:
+        if not ok:
+            raise AssertionError(f"{label}: {msg}")
+    return launches
+
+
+def plane_kernel(sm, state, present, pw: int, widths, label: str, smi):
+    """Kernel against plain on one shard's full state at each width, and
+    the kernel's times at each -> {w: (ms, plain_ms, bound_ms)}."""
+    np, torch, fused = sm.np, sm.torch, sm.fused
+    present = torch.from_numpy(present.astype(np.int64)).to(sm.dev)
+
+    def batch(w):
+        n_never = max(1, w // 8)
+        keys = torch.cat([
+            sm.keys_of(DIRECT_HI, sm.pick(present, w - n_never)),
+            sm.keys_of(DIRECT_HI, torch.randint(
+                NEVER_LO, 1 << 32, (n_never,), device=sm.dev,
+                generator=sm.gen))])
+        return keys[torch.randperm(w, device=sm.dev, generator=sm.gen)]
+
+    args, kw = sm.kernel_args(state)
+    s_ = state.index.table.shape[1] // 4
+    out = {}
+    for w in widths:
+        causes, _ = sm.compare(batch(w), state, f"{label} w={w}")
+        log("kernel", f"{label} shard 0 full w={w}: kernel == plain, "
+            f"causes {CAUSE_NAMES}={causes}")
+        batches = [batch(w) for _ in range(8)]
+        nbytes = [fused_get_bytes(fused, sm.compare(k, state,
+                                                    f"{label} timed")[0],
+                                  w, s_, pw, state.evicted_filter.numel())
+                  for k in batches]
+        ms = time_ms(torch, [lambda k=k: fused.fused_get(k, *args, **kw)
+                             for k in batches], 48, device_only=True)
+        plain_ms = time_ms(torch, [lambda k=k: fused.get_core_reference(
+            k, *args, **kw) for k in batches], 8, device_only=True)
+        bound_ms = sum(nbytes) / len(nbytes) / HBM_BYTES_PER_S * 1e3
+        log("times", f"fused_get_linear_flat w={w} on {label} shard 0, "
+            f"rotated over {len(batches)} batches: kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms = "
+            f"{bound_ms / ms:.1%} of the memory rate ({smi})")
+        out[w] = (ms, plain_ms, bound_ms)
+    return out
+
+
+def plane_entry(sm, path: str, launches: int, t) -> dict:
+    ms, plain_ms, bound_ms = t
+    return {
+        "name": "fused_get_linear_flat",
+        "route": "cuda",
+        "source": "pmdfc_tpu_torch/ops/csrc/fused_get.cu",
+        "replaces": "pmdfc_tpu/ops/fused.py:414",
+        "launches": launches,
+        "max_abs_err": sm.max_err["fused_get_linear_flat"],
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "bytes",
+        "library_ms": None,
+        "path": path,
+    }
+
+
+def free_card(torch) -> None:
+    import gc
+
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+
+def run_plane(sm: Smoke):
+    """The sharded plane (phase 10): a 4-shard 8 GiB plane behind
+    `NetServer`, its snapshots, chain restore and reshard restore, the
+    engine pass, and the 2 x 2 replica plane. -> the plane's kernel
+    entries (1-D and 2-D)."""
+    import shutil
+
+    root = plane_dir()
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    fs, free = disk_of(root)
+    log("env", f"plane directory {root}: filesystem {fs}, {free} bytes free")
+    if fs == "tmpfs" or free < PLANE_DISK_BYTES:
+        raise AssertionError(f"plane: {root} is {fs} with {free} bytes free; "
+                             f"the phase needs a disk with {PLANE_DISK_BYTES}")
+    try:
+        entry, snap = plane_1d(sm, root)
+        free_card(sm.torch)
+        plane_restore(sm, snap)
+        free_card(sm.torch)
+        return [entry, plane_2d(sm)]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def plane_1d(sm: Smoke, root):
+    """The 1-D plane: a2a fill, the wire, the storm, extents, the fast
+    lane, kernel against plain; then its full and delta snapshots.
+    -> (the kernel entry, what the restores check)."""
+    import os
+
+    np, torch, fused = sm.np, sm.torch, sm.fused
+    from pmdfc_tpu_torch.config import (BloomConfig, IndexConfig, KVConfig,
+                                        NetConfig)
+    from pmdfc_tpu_torch.parallel.plane import PlaneBackend
+    from pmdfc_tpu_torch.parallel.shard import ShardedKV, make_mesh
+    from pmdfc_tpu_torch.runtime.net import NetServer
+
+    smi = nvidia_smi()
+    cfg = KVConfig(index=IndexConfig(**PLANE_INDEX),
+                   bloom=BloomConfig(num_bits=PLANE_BLOOM_BITS))
+    pw = cfg.page_words
+    n = PLANE_SHARDS
+    skv = ShardedKV(cfg, mesh=make_mesh([DEVICE] * n))
+    nconn = WIRE_CLIENTS * WIRE_CONNS
+    pool_b = sum(st.pool.pages.numel() * 4 for st in skv.states)
+    log("plane", f"ShardedKV over {n} shards on {skv.mesh}: "
+        f"{skv.capacity()} slots, pools {pool_b / 2**30:.2f} GiB, bloom "
+        f"{PLANE_BLOOM_BITS} counters per shard; NetServer(NetConfig()) on "
+        f"127.0.0.1, {WIRE_CLIENTS} clients x {WIRE_CONNS} connections")
+
+    t_fill, drops, overflow = plane_fill(skv, PLANE_DIRECT, DIRECT_HI,
+                                         plane=False)
+    log("plane", f"fill: {PLANE_DIRECT} pages through ShardedKV.insert "
+        f"(a2a, {PLANE_INS_B}-key batches) in {t_fill:.3f} s = "
+        f"{PLANE_DIRECT / t_fill:.0f} pages/s; a2a pair overflow "
+        f"{overflow} rows, drops reported {drops} ({smi})")
+
+    be = PlaneBackend(skv)
+    counts = PlaneCounts(skv)
+    srv = NetServer(lambda: be, net=NetConfig(), bf_push_s=BF_PUSH_S)
+    srv.start()
+    clients: list[WireClient] = []
+    fused.launches.clear()
+    ops0, stats0 = shard_ops(be), skv.stats()
+    try:
+        clients = [WireClient(srv.port, c, PLANE_FILL // nconn, pw, sm.seed,
+                              directory=c < WIRE_FAST_CONNS)
+                   for c in range(nconn)]
+        t_wfill = run_threads([c.fill for c in clients], "plane fill")
+        direct_present = plane_held(skv, DIRECT_HI)
+        evicted = np.setdiff1d(np.arange(PLANE_DIRECT, dtype=np.uint32),
+                               direct_present)
+        log("plane", f"after the fills: {len(direct_present)} pre-fill keys "
+            f"held, {len(evicted)} evicted")
+        srv.push_bloom_now()
+        deadline = time.monotonic() + 60
+        while any(c.cc.counters["bf_pushes"] < 1 or c.cc._bloom is None
+                  for c in clients):
+            if time.monotonic() > deadline:
+                raise AssertionError("plane: a client never received the "
+                                     "bloom push")
+            time.sleep(0.01)
+        verbs = max(1, PLANE_GETS // (nconn * VERB))
+        run_threads([lambda c=c: c.prepare(verbs * VERB // 8)
+                     for c in clients], "plane mirror check, invalidate")
+        t_storm = run_threads([lambda c=c: c.storm(verbs, evicted)
+                               for c in clients], "plane storm")
+        n_found, n_inrun = extent_roundtrip(clients[-1].rc, PLANE_EXTENTS,
+                                            skv.stats)
+        # the fast lane: per-(shard, row) validated reads of the directory
+        fast = clients[:WIRE_FAST_CONNS]
+        t0 = time.monotonic()
+        if not all(c.rc.dir_refresh() for c in fast):
+            raise AssertionError("plane: a directory pull failed")
+        t_pull = time.monotonic() - t0
+        perm = np.random.default_rng(sm.seed).permutation(direct_present)
+        k = min(PLANE_FAST_KEYS, len(perm) // WIRE_FAST_CONNS)
+        sets = [np.sort(perm[i * k:(i + 1) * k])
+                for i in range(WIRE_FAST_CONNS)]
+        want = {"gone": np.zeros(0, np.uint32),
+                "rewritten": np.zeros(0, np.uint32), "xor": 0x5A5A5A5A}
+        fp0 = (int(srv.stats["fastpath_hits"]),
+               int(srv.stats["fastpath_stale"]))
+        p1 = fast_pass(fast, sets, want, "plane fast read 1")
+        r = WIRE_REWRITE // WIRE_FAST_CONNS
+        rw = np.sort(np.concatenate([x[:r] for x in sets]))
+        gone = np.sort(np.concatenate([x[r:2 * r] for x in sets]))
+        driver = clients[WIRE_FAST_CONNS]
+        for j in range(0, len(rw), VERB):
+            lo = rw[j:j + VERB]
+            hi = np.full(len(lo), DIRECT_HI, np.uint32)
+            driver.cc.put_pages(hi, lo, pages_np(hi, lo, pw)
+                                ^ np.uint32(want["xor"]))
+        rs = driver.rc.stats()
+        if rs["dropped_puts"] or rs["disconnects"]:
+            raise AssertionError(f"plane: the driver's rewrites were not all "
+                                 f"applied: {rs}")
+        want["rewritten"] = rw
+        p2 = fast_pass(fast, sets, want, "plane fast read 2 (rewrites)")
+        driver.cc.invalidate_pages(np.full(len(gone), DIRECT_HI, np.uint32),
+                                   gone)
+        want["gone"] = gone
+        p3 = fast_pass(fast, sets, want, "plane fast read 3 (invalidates)")
+        fp = (int(srv.stats["fastpath_hits"]) - fp0[0],
+              int(srv.stats["fastpath_stale"]) - fp0[1])
+        torch.cuda.synchronize()
+        launches = plane_checks(sm, skv, be, srv, clients, counts, n, ops0,
+                                stats0, "plane")
+        widths = sorted({8, counts.wl_max})
+    finally:
+        srv.stop()
+        for c in clients:
+            c.close()
+
+    s = skv.stats()
+    never = sum(c.never for c in clients)
+    asked = sum(c.never_asked for c in clients)
+    short = 1 - asked / never
+    mirror = clients[0].cc._bloom
+    density = float(np.unpackbits(mirror.view(np.uint8)).mean())
+    expect_short = 1 - density ** clients[0].cc.num_hashes
+    lost = s["evictions"] + s["drops"]
+    acked = sum(c.acked_misses for c in clients) + p1[4] + p2[4] + p3[4]
+    negatives = sum(c.negatives for c in clients)
+    lanes = p1[3] + p2[3] + p3[3]
+    for ok, msg in [
+            (acked <= lost, f"{acked} acknowledged keys missed, more than "
+             f"evictions + drops {lost}"),
+            (negatives <= lost, f"{negatives} mirror negatives among "
+             f"acknowledged keys, more than evictions + drops {lost}"),
+            # the mirror is the OR of the per-shard filters (PLANE_SHARDS
+            # x the keys in one shard's bits): it short-circuits what its
+            # bit density lets it, 1 - density^k of never-inserted keys
+            (short >= expect_short - 0.05, f"only {short:.1%} of never-"
+             f"inserted GETs were short-circuited by the mirrors, "
+             f"{expect_short:.1%} expected from their density"),
+            (fp[0] + fp[1] == lanes, f"fastpath_hits {fp[0]} + "
+             f"fastpath_stale {fp[1]} != {lanes} fast lanes read"),
+            (p1[2] > 0 and p2[3] > 0, "the fast lane served nothing")]:
+        if not ok:
+            raise AssertionError(f"plane: {msg}")
+    put_lat = [x for c in clients for x in c.put_lat]
+    get_lat = [x for c in clients for x in c.get_lat]
+    n_gets = nconn * verbs * VERB
+    log("plane", f"fill: {PLANE_FILL} pages over the wire by {nconn} "
+        f"connections in {t_wfill:.3f} s = {PLANE_FILL / t_wfill:.0f} "
+        f"pages/s; put_pages verb of {VERB} pages: {percentiles_ms(put_lat)}"
+        f" ({smi})")
+    log("plane", f"storm: {n_gets} GET keys in {t_storm:.3f} s = "
+        f"{n_gets / t_storm:.0f} keys/s; get_pages verb of {VERB} keys: "
+        f"{percentiles_ms(get_lat)} ({smi})")
+    log("plane", f"GET phases {counts.get_phases} ({counts.get_keys} keys), "
+        f"widest per-shard width {counts.wl_max}; fused_get_linear_flat "
+        f"launches {launches} = {n} per phase; shard ops "
+        f"{skv.shard_report()['stats']['gets']} GETs per shard ({smi})")
+    log("plane", f"fast lane: directory pull by {WIRE_FAST_CONNS} "
+        f"connections in {t_pull:.3f} s; read 1: {p1[1]} keys in "
+        f"{p1[0]:.3f} s = {p1[1] / p1[0]:.0f} keys/s; read 2 after "
+        f"{len(rw)} rewrites: {p2[1] / p2[0]:.0f} keys/s; read 3 after "
+        f"{len(gone)} invalidates: {p3[1] / p3[0]:.0f} keys/s; "
+        f"fastpath_hits {fp[0]}, fastpath_stale {fp[1]} ({smi})")
+    log("plane", f"checks passed: {acked} acknowledged keys missed <= "
+        f"evictions {s['evictions']} + drops {s['drops']}; hits {s['hits']},"
+        f" misses {s['misses']} == sum of causes on stats() and every "
+        f"shard; routed ops == shard{{i}}_ops; GETs counted once; mirrors "
+        f"short-circuited {short:.2%} (bit density {density:.3f}: "
+        f"{expect_short:.2%} expected); extents {n_found} of {n_inrun} "
+        f"in-run probes found, every address exact; no serve error, NACK "
+        f"or disconnect")
+    kt = plane_kernel(sm, skv.states[0], direct_present[
+        skv.node_of(np.stack([np.full(len(direct_present), DIRECT_HI,
+                                      np.uint32), direct_present], -1)) == 0],
+        pw, widths, "plane", smi)
+
+    # snapshots: a full, then PLANE_MUTATE puts and invalidates, a delta
+    deleted = np.concatenate(
+        [np.stack([c.oids(len(c.inval)), c.inval], -1) for c in clients]
+        + [np.stack([np.full(len(gone), DIRECT_HI, np.uint32), gone], -1)])
+    d_full = skv.directory_snapshot(max_entries=1 << 30)
+    s_full = skv.stats()
+    full, delta = str(root / "full.npz"), str(root / "delta.npz")
+    with RssPeak() as rss:
+        t0 = time.monotonic()
+        rep_f = skv.save(full)
+        t_full = time.monotonic() - t0
+    size_f = os.path.getsize(full)
+    log("plane", f"full snapshot: {size_f} bytes in {t_full:.3f} s = "
+        f"{size_f / t_full / 1e9:.3f} GB/s, peak RSS {rss.peak} bytes "
+        f"({rep_f['kind']}, {rep_f['total_rows']} rows)")
+    lo = np.arange(PLANE_MUTATE, dtype=np.uint32)
+    his = np.full(PLANE_MUTATE, PLANE_MUT_HI, np.uint32)
+    skv.plane_insert(np.stack([his, lo], -1), pages_np(his, lo, pw)).fetch()
+    drop = d_full["keys"][np.random.default_rng(sm.seed).choice(
+        len(d_full["keys"]), PLANE_MUTATE // 4, replace=False)]
+    skv.plane_delete(drop).fetch()
+    with RssPeak() as rss_d:
+        t0 = time.monotonic()
+        rep_d = skv.save(delta, delta=True)
+        t_delta = time.monotonic() - t0
+    if rep_d["kind"] != "delta":
+        raise AssertionError(f"plane: the second snapshot is a {rep_d}")
+    d_delta = skv.directory_snapshot(max_entries=1 << 30)
+    size_d = os.path.getsize(delta)
+    log("plane", f"delta snapshot: {rep_d['dirty_rows']} dirty rows, "
+        f"{size_d} bytes in {t_delta:.3f} s = "
+        f"{size_d / t_delta / 1e9:.3f} GB/s, peak RSS {rss_d.peak} bytes")
+    snap = {"cfg": cfg, "full": full, "delta": delta, "d_full": d_full,
+            "d_delta": d_delta, "deleted": deleted, "s_full": s_full,
+            "rewritten": rw, "dropped": drop, "size_full": size_f}
+    entry = plane_entry(sm, "plane", launches, kt[counts.wl_max])
+    log("plane", f"kernel at w=8 per shard: {kt[8][0]:.4f} ms, bound "
+        f"{kt[8][2]:.4f} ms ({smi})")
+    del skv, be, srv, clients
+    return entry, snap
+
+
+def plane_expect(snap, keys):
+    """The page each key should hold: its own page, XOR-ed where the fast
+    lane's driver rewrote it."""
+    import numpy as np
+
+    pages = pages_np(keys[:, 0], keys[:, 1], snap["cfg"].page_words)
+    rw = (keys[:, 0] == DIRECT_HI) & np.isin(keys[:, 1], snap["rewritten"])
+    pages[rw] ^= np.uint32(0x5A5A5A5A)
+    return pages
+
+
+def plane_serves(skv, snap, keys, label: str) -> None:
+    """Every key hits byte-exact (in 2^16-key plane GETs)."""
+    import numpy as np
+
+    for i in range(0, len(keys), 1 << 16):
+        k = keys[i:i + (1 << 16)]
+        g = skv.plane_get(k).fetch()
+        if not g.found.all():
+            raise AssertionError(f"{label}: {int((~g.found).sum())} of "
+                                 f"{len(k)} live keys missed")
+        if not np.array_equal(g.dense(), plane_expect(snap, k)):
+            raise AssertionError(f"{label}: a page came back changed")
+
+
+def plane_restore(sm: Smoke, snap) -> None:
+    """The chain restore onto a fresh 4-shard plane (every key the delta
+    held hits byte-exact), the engine pass on it, then the reshard restore
+    of the full onto PLANE_RESHARD shards (no live page lost, deleted keys
+    stay deleted, the replay drops nothing)."""
+    import os
+
+    np, torch, fused = sm.np, sm.torch, sm.fused
+    from pmdfc_tpu_torch.parallel.shard import ShardedKV, make_mesh
+    from pmdfc_tpu_torch.runtime import Engine, KVServer
+
+    smi = nvidia_smi()
+    cfg = snap["cfg"]
+    skv = ShardedKV(cfg, mesh=make_mesh([DEVICE] * PLANE_SHARDS))
+    size = snap["size_full"] + os.path.getsize(snap["delta"])
+    with RssPeak() as rss:
+        t0 = time.monotonic()
+        skv.restore_chain([snap["full"], snap["delta"]])
+        skv._sync()
+        t_chain = time.monotonic() - t0
+    plane_serves(skv, snap, snap["d_delta"]["keys"], "chain restore")
+    gone = skv.plane_get(snap["dropped"]).fetch()
+    if gone.found.any():
+        raise AssertionError("chain restore: a key the delta dropped hit")
+    log("plane", f"restore_chain([full, delta]) onto {PLANE_SHARDS} shards: "
+        f"{size} bytes in {t_chain:.3f} s = {size / t_chain / 1e9:.3f} GB/s,"
+        f" peak RSS {rss.peak} bytes; all {len(snap['d_delta']['keys'])} "
+        f"live keys hit byte-exact ({smi})")
+
+    # the engine pass: KVServer(kv=the restored plane), clean-cache
+    # threads through the native engine
+    srv = KVServer(cfg, engine=Engine(**SERVE_ENGINE), kv=skv)
+    eng = srv.engine
+    minus_two: list[int] = []
+    real_wait = eng.wait_many
+
+    def wait_many(base, nw, timeout_us=10_000_000):
+        st = real_wait(base, nw, timeout_us=timeout_us)
+        if (st == -2).any():
+            minus_two.append(int((st == -2).sum()))
+        return st
+
+    eng.wait_many = wait_many
+    srv.warmup()
+    fused.launches.clear()
+    s0 = skv.stats()
+    srv.start()
+    try:
+        per = PLANE_ENGINE_PAGES // PLANE_ENGINE_THREADS
+        clients = [ServeClient(srv, t, per, sm.seed)
+                   for t in range(PLANE_ENGINE_THREADS)]
+        t_fill = run_threads([c.fill for c in clients], "plane engine fill")
+        srv.push_bloom_now()
+        run_threads([c.prepare for c in clients], "plane engine prepare")
+        t_get = run_threads([c.storm for c in clients], "plane engine gets")
+    finally:
+        srv.stop()
+    s1 = skv.stats()
+    launches = fused.launches["fused_get_linear_flat"]
+    lost = (s1["evictions"] - s0["evictions"]) + (s1["drops"] - s0["drops"])
+    acked = sum(c.acked_misses for c in clients)
+    for ok, msg in [
+            (not minus_two, f"{sum(minus_two)} requests failed with -2"),
+            (srv.errors == 0, f"{srv.errors} serve errors"),
+            (acked <= lost, f"{acked} acknowledged pages missed, more than "
+             f"the pass's evictions + drops {lost}"),
+            (srv.op_batches["get"] > 0
+             and launches == PLANE_SHARDS * srv.op_batches["get"],
+             f"{launches} launches for {srv.op_batches['get']} GET flushes"),
+            (s1["misses"] == sum(s1[c] for c in sm.kv_mod.MISS_CAUSE_NAMES),
+             "misses != sum of miss causes")]:
+        if not ok:
+            raise AssertionError(f"plane engine pass: {msg}")
+    n_get = PLANE_ENGINE_THREADS * GET_VERBS * VERB
+    log("plane", f"engine pass: KVServer(kv=ShardedKV) with "
+        f"{PLANE_ENGINE_THREADS} clean-cache threads: {PLANE_ENGINE_PAGES} "
+        f"pages put in {t_fill:.3f} s = {PLANE_ENGINE_PAGES / t_fill:.0f} "
+        f"pages/s, {n_get} GET keys in {t_get:.3f} s = {n_get / t_get:.0f} "
+        f"keys/s; every hit byte-exact, no -2, {srv.op_batches['get']} GET "
+        f"flushes = {launches} launches / {PLANE_SHARDS} ({smi})")
+    del srv, skv, clients
+    free_card(torch)
+
+    # reshard the full onto PLANE_RESHARD shards
+    skv = ShardedKV(cfg, mesh=make_mesh([DEVICE] * PLANE_RESHARD))
+    with RssPeak() as rss:
+        t0 = time.monotonic()
+        skv.restore(snap["full"])
+        skv._sync()
+        t_rs = time.monotonic() - t0
+    s = skv.stats()
+    plane_serves(skv, snap, snap["d_full"]["keys"], "reshard restore")
+    dele = snap["deleted"]
+    for i in range(0, len(dele), 1 << 16):
+        if skv.plane_get(dele[i:i + (1 << 16)]).fetch().found.any():
+            raise AssertionError("reshard restore: a deleted key hit")
+    if s["drops"] != snap["s_full"]["drops"]:
+        raise AssertionError(f"reshard restore: the replay dropped "
+                             f"{s['drops'] - snap['s_full']['drops']} pages")
+    for k in ("puts", "deletes", "extent_puts"):
+        if s[k] != snap["s_full"][k]:
+            raise AssertionError(f"reshard restore: {k} {s[k]} != "
+                                 f"{snap['s_full'][k]}")
+    log("plane", f"reshard restore of the full onto {PLANE_RESHARD} shards "
+        f"({skv.capacity()} slots): {snap['size_full']} bytes in "
+        f"{t_rs:.3f} s = {snap['size_full'] / t_rs / 1e9:.3f} GB/s, "
+        f"{len(snap['d_full']['keys'])} live pages replayed "
+        f"= {len(snap['d_full']['keys']) / t_rs:.0f} pages/s, peak RSS "
+        f"{rss.peak} bytes; none lost, {len(dele)} deleted keys miss, the "
+        f"replay dropped 0 ({smi})")
+    del skv
+
+
+def plane_2d(sm: Smoke) -> dict:
+    """The 2 x 2 replica plane behind NetServer: the replica capability,
+    the fill, a corrupted lane routed around, MSG_RREPAIR, the other lane
+    corrupted. -> its kernel entry."""
+    np, torch, fused = sm.np, sm.torch, sm.fused
+    from pmdfc_tpu_torch.config import (BloomConfig, IndexConfig, KVConfig,
+                                        NetConfig)
+    from pmdfc_tpu_torch.parallel.plane import PlaneBackend
+    from pmdfc_tpu_torch.parallel.shard import ShardedKV, make_mesh2d
+    from pmdfc_tpu_torch.runtime.net import NetServer
+
+    smi = nvidia_smi()
+    ns, nr = PLANE2D
+    cfg = KVConfig(index=IndexConfig(**PLANE2D_INDEX),
+                   bloom=BloomConfig(num_bits=PLANE2D_BLOOM_BITS))
+    pw = cfg.page_words
+    skv = ShardedKV(cfg, mesh=make_mesh2d(ns, nr, [DEVICE] * (ns * nr)))
+    nconn = WIRE_CLIENTS * WIRE_CONNS
+    pool_b = sum(st.pool.pages.numel() * 4 for row in skv._st for st in row)
+    log("plane2d", f"ShardedKV over {ns} shards x {nr} replica lanes on "
+        f"{skv.mesh}: {skv.capacity()} distinct slots, pools "
+        f"{pool_b / 2**30:.2f} GiB on the card")
+    t_fill, drops, _ = plane_fill(skv, PLANE_DIRECT, DIRECT_HI, plane=True)
+    log("plane2d", f"fill: {PLANE_DIRECT} pages through plane_insert (every "
+        f"lane in one call) in {t_fill:.3f} s = {PLANE_DIRECT / t_fill:.0f} "
+        f"pages/s, drops {drops} ({smi})")
+    be = PlaneBackend(skv)
+    counts = PlaneCounts(skv)
+    srv = NetServer(lambda: be, net=NetConfig(), bf_push_s=BF_PUSH_S)
+    srv.start()
+    clients: list[WireClient] = []
+    fused.launches.clear()
+    ops0, stats0 = shard_ops(be), skv.stats()
+    try:
+        clients = [WireClient(srv.port, c, PLANE_FILL // nconn, pw, sm.seed)
+                   for c in range(nconn)]
+        lanes = {c.be.replica_lanes for c in clients}
+        if lanes != {nr}:
+            raise AssertionError(f"plane2d: connections negotiated replica "
+                                 f"lanes {lanes}, not {nr}")
+        t_wfill = run_threads([c.fill for c in clients], "plane2d fill")
+        direct_present = plane_held(skv, DIRECT_HI)
+        evicted = np.setdiff1d(np.arange(PLANE_DIRECT, dtype=np.uint32),
+                               direct_present)
+        srv.push_bloom_now()
+        deadline = time.monotonic() + 60
+        while any(c.cc.counters["bf_pushes"] < 1 or c.cc._bloom is None
+                  for c in clients):
+            if time.monotonic() > deadline:
+                raise AssertionError("plane2d: a client never received the "
+                                     "bloom push")
+            time.sleep(0.01)
+        verbs = max(1, PLANE_GETS // (2 * nconn * VERB))
+        run_threads([lambda c=c: c.prepare(2 * verbs * VERB // 8)
+                     for c in clients], "plane2d mirror check, invalidate")
+
+        def storm(label):
+            r0 = skv.replica_report()
+            t = run_threads([lambda c=c: c.storm(verbs, evicted)
+                             for c in clients], label)
+            r1 = skv.replica_report()
+            return t, {k: [b - a for a, b in zip(r0[k], r1[k])]
+                       for k in ("served", "digest_refused", "repaired")}
+
+        skv.corrupt_replica_lane(1)
+        t_s1, d1 = storm("plane2d storm, lane 1 corrupt")
+        if not (d1["served"][0] > 0 and d1["served"][1] == 0
+                and d1["digest_refused"][1] == d1["served"][0]
+                and d1["digest_refused"][0] == 0):
+            raise AssertionError(f"plane2d: lane 1 corrupt: {d1}")
+        live = int(sum(skv.shard_report()["occupancy"]))
+        t0 = time.monotonic()
+        repaired = clients[0].be.replica_repair()
+        t_rep = time.monotonic() - t0
+        if repaired < live:
+            raise AssertionError(f"plane2d: MSG_RREPAIR repaired {repaired} "
+                                 f"rows, fewer than the {live} live pages")
+        skv.corrupt_replica_lane(0)
+        t_s2, d2 = storm("plane2d storm, lane 0 corrupt")
+        if not (d2["served"][1] > 0 and d2["served"][0] == 0
+                and d2["digest_refused"][0] == d2["served"][1]
+                and d2["digest_refused"][1] == 0):
+            raise AssertionError(f"plane2d: lane 0 corrupt: {d2}")
+        torch.cuda.synchronize()
+        launches = plane_checks(sm, skv, be, srv, clients, counts, ns * nr, ops0,
+                                stats0, "plane2d")
+        widths = sorted({8, counts.wl_max})
+    finally:
+        srv.stop()
+        for c in clients:
+            c.close()
+    s = skv.stats()
+    lost = s["evictions"] + s["drops"]
+    acked = sum(c.acked_misses for c in clients)
+    if acked > lost:
+        raise AssertionError(f"plane2d: {acked} acknowledged keys missed, "
+                             f"more than evictions + drops {lost}")
+    put_lat = [x for c in clients for x in c.put_lat]
+    get_lat = [x for c in clients for x in c.get_lat]
+    n_gets = nconn * verbs * VERB
+    log("plane2d", f"fill: {PLANE_FILL} pages over the wire in "
+        f"{t_wfill:.3f} s = {PLANE_FILL / t_wfill:.0f} pages/s; put_pages "
+        f"verb: {percentiles_ms(put_lat)} ({smi})")
+    log("plane2d", f"storms of {n_gets} GET keys: lane 1 corrupt "
+        f"{n_gets / t_s1:.0f} keys/s (lane 0 served {d1['served'][0]}, lane "
+        f"1 refused {d1['digest_refused'][1]}); lane 0 corrupt "
+        f"{n_gets / t_s2:.0f} keys/s (lane 1 served {d2['served'][1]}, lane "
+        f"0 refused {d2['digest_refused'][0]}); get_pages verb: "
+        f"{percentiles_ms(get_lat)} ({smi})")
+    log("plane2d", f"MSG_RREPAIR: {repaired} rows repaired (>= {live} live "
+        f"pages) in {t_rep:.3f} s; GET phases {counts.get_phases}, widest "
+        f"per-shard width {counts.wl_max}, fused_get_linear_flat launches "
+        f"{launches} = {ns * nr} per phase; checks passed: no wrong byte, "
+        f"{acked} acknowledged keys missed <= {lost}, misses == sum of "
+        f"causes on stats() and every shard ({smi})")
+    own0 = skv.node_of(np.stack([np.full(len(direct_present), DIRECT_HI,
+                                         np.uint32), direct_present], -1)) == 0
+    skv.replica_repair()
+    kt = plane_kernel(sm, skv.states[0], direct_present[own0], pw, widths,
+                      "plane2d", smi)
+    del skv, be, srv, clients
+    return plane_entry(sm, "plane2d", launches, kt[8])
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3226,9 +4014,11 @@ def main() -> int:
     kernels = []
     for run in (run_linear, run_cceh, lambda sm: run_tiered(sm, "linear"),
                 lambda sm: run_tiered(sm, "cceh"), run_families, run_serving,
-                run_wire, run_fleet):
+                run_wire, run_fleet, run_plane):
         entry = run(sm)
-        if entry is not None:  # the families launch no kernel of their own
+        if isinstance(entry, list):  # the plane: its 1-D and 2-D entries
+            kernels.extend(entry)
+        elif entry is not None:  # the families launch no kernel of their own
             kernels.append(entry)
         torch.cuda.empty_cache()
 

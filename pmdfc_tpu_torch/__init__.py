@@ -19,6 +19,10 @@ Layer map (the slices so far):
                               the failure layer, telemetry, QoS, SLOs
          onesided.py        — the passive page pool and its one-sided
                               client
+  L2.5   parallel/          — the sharded plane: `ShardedKV` over a grid
+                              of devices (one `KVState` per shard, per
+                              replica lane on a 2-D grid), the host
+                              router, `PlaneBackend` for the NetServer
   L2     kv.py, tier.py     — KV façade + the `KV` host class: insert / get /
                               get_compact / delete / extents / stats over
                               an index, counting bloom, evicted-key sketch

@@ -7,6 +7,13 @@ and named by their attribute paths (`"index.table"`, `"pool.pages"`,
 of carrying weights across. `state_to_numpy` goes the other way, with the
 same names and the JAX package's dtypes (u32 words as numpy uint32), so
 two states compare leaf by leaf.
+
+A sharded state crosses the same way. The JAX plane stacks every leaf
+`[n_shards, ...]` (on a 2-D grid each replica lane holds a copy; taken
+lane by lane, `[n_shards, n_replicas, ...]`); `sharded_from_numpy` turns
+such leaves into the port's per-shard (per-lane) `KVState`s on the
+grid's devices, each lane its own allocation, and `sharded_to_numpy`
+stacks them back.
 """
 
 from __future__ import annotations
@@ -144,3 +151,51 @@ def state_to_numpy(state: kv_mod.KVState) -> dict[str, np.ndarray]:
     """This package's `KVState` -> {dotted leaf path: numpy array}, with
     the JAX package's leaf names and dtypes."""
     return {n: leaf_to_numpy(n, t) for n, t in leaves(state)}
+
+
+def sharded_from_numpy(leaves: dict[str, np.ndarray], config: KVConfig,
+                       mesh) -> list[list[kv_mod.KVState]]:
+    """Stacked leaves -> `states[s][r]` on `mesh.devices` (shape `(n,)` or
+    `(n, R)`): a leaf `[n, ...]` is copied onto every lane of its shard, a
+    leaf `[n, R, ...]` gives each lane its own slice."""
+    grid = np.asarray(mesh.devices, dtype=object)
+    n = grid.shape[0]
+    nrep = grid.shape[1] if grid.ndim == 2 else 1
+    grid = grid.reshape(n, nrep)
+    single = {name: t.dim() for name, t in leaves_of_config(config)}
+    out = []
+    for s in range(n):
+        lanes = []
+        for r in range(nrep):
+            one = {}
+            for name, a in leaves.items():
+                a = np.asarray(a)
+                if a.shape[0] != n:
+                    raise ValueError(f"leaf {name} stacks {a.shape[0]} "
+                                     f"shards, the grid has {n}")
+                lane_axis = a.ndim == single.get(name, a.ndim - 1) + 2
+                one[name] = a[s, r] if lane_axis else a[s]
+            lanes.append(state_from_numpy(one, config, grid[s, r]))
+        out.append(lanes)
+    return out
+
+
+def sharded_to_numpy(states: list[list[kv_mod.KVState]],
+                     lanes: bool = False) -> dict[str, np.ndarray]:
+    """`states[s][r]` -> {dotted leaf path: stacked numpy array}: `[n,
+    ...]` from lane 0 (the layout of the JAX plane's leaves and of a
+    sharded snapshot), or with `lanes=True` `[n, R, ...]`."""
+    per = [[state_to_numpy(st) for st in (row if lanes else row[:1])]
+           for row in states]
+    out = {}
+    for name in per[0][0]:
+        a = np.stack([np.stack([lane[name] for lane in row])
+                      for row in per])
+        out[name] = a if lanes else a[:, 0]
+    return out
+
+
+def leaves_of_config(config: KVConfig) -> list[tuple[str, torch.Tensor]]:
+    """`leaves` of a fresh state of `config` on the `meta` device (names
+    and shapes, nothing allocated)."""
+    return leaves(kv_mod.init(config, "meta"))

@@ -31,7 +31,10 @@ an 8 GiB tensor on the card:
 
 - a leaf crosses to the host once, with one device-to-host copy per leaf
   (`carry.leaf_to_numpy`, a u32 view, never a conversion), and every CRC
-  runs over a view of the array, not over a `.tobytes()` copy;
+  runs over a view of the array, not over a `.tobytes()` copy; the
+  writers read leaves through a source (`StateLeaves` for one state; the
+  sharded plane passes its own, whose leaves stack the shards'
+  `[n_shards, ...]`);
 - a delta gathers its dirty rows on the device, and only those rows cross;
 - `materialize_chain` folds each delta in place into the page leaf it
   read, without a copy of the leaf;
@@ -187,6 +190,35 @@ def _meta_blob(kind: str, names: list, arrays: dict, chain: dict | None,
                          np.uint8)
 
 
+class StateLeaves:
+    """The serialized leaves of one `KVState` (admission stripped), as
+    the writers read them: `names`, `shape(i)`, `host(i)` (the leaf on the
+    host, one device-to-host copy, a u32 view) and `gather_rows(i, rows)`
+    (rows of the leaf viewed as `[-1, W]`, gathered on its device and
+    then copied). The sharded plane hands the writers its own source of
+    the same shape, whose leaves are stacked over the shards."""
+
+    def __init__(self, state):
+        named = carry.leaves(strip_admission(state))
+        self.names = [n for n, _ in named]
+        self._t = [t for _, t in named]
+
+    def shape(self, i: int) -> tuple:
+        return tuple(self._t[i].shape)
+
+    def host(self, i: int) -> np.ndarray:
+        return carry.leaf_to_numpy(self.names[i], self._t[i])
+
+    def gather_rows(self, i: int, rows: np.ndarray) -> np.ndarray:
+        t = self._t[i]
+        flat = t.reshape(-1, t.shape[-1])
+        return u32.to_numpy(flat[torch.from_numpy(rows).to(flat.device)])
+
+
+def _source(state):
+    return state if hasattr(state, "gather_rows") else StateLeaves(state)
+
+
 def save(state: kv_mod.KVState, path: str, chain: dict | None = None) -> int:
     """Crash-safe full snapshot: temp file in the same dir + fsync +
     atomic rename + directory fsync, with a per-leaf CRC32 manifest
@@ -199,15 +231,14 @@ def save(state: kv_mod.KVState, path: str, chain: dict | None = None) -> int:
     The TinyLFU admission sketch is NOT serialized (`strip_admission`).
     Callers that share the state with other threads hold its lock and
     have synchronized its device (`KV.snapshot`)."""
-    named = carry.leaves(strip_admission(state))
-    arrays = {f"leaf_{i}": carry.leaf_to_numpy(n, t)
-              for i, (n, t) in enumerate(named)}
+    src = _source(state)
+    arrays = {f"leaf_{i}": src.host(i) for i in range(len(src.names))}
     manifest = np.array(
-        [_leaf_crc(arrays[f"leaf_{i}"]) for i in range(len(named))],
+        [_leaf_crc(arrays[f"leaf_{i}"]) for i in range(len(src.names))],
         np.uint32,
     )
     arrays[_MANIFEST] = manifest
-    arrays[_META] = _meta_blob("full", [n for n, _ in named], arrays, chain)
+    arrays[_META] = _meta_blob("full", src.names, arrays, chain)
     _write_npz(path, arrays)
     return zlib.crc32(manifest.tobytes())
 
@@ -223,27 +254,26 @@ def save_delta(state: kv_mod.KVState, path: str, chain: dict,
     integrity check exactly like a torn full. Returns the manifest CRC
     (the next member's `prev_crc`). `chain` must carry the linkage
     (`{"id", "seq", "prev_crc"}`) of the member this delta follows."""
-    named = carry.leaves(strip_admission(state))
-    names = [n for n, _ in named]
+    src = _source(state)
+    names = src.names
     if _DELTA_LEAF not in names:
         raise ValueError(
             f"state has no {_DELTA_LEAF!r} leaf (unpaged config) — "
             "delta snapshots need a page store; save a full instead")
     di = names.index(_DELTA_LEAF)
-    full = named[di][1]
-    flat = full.reshape(-1, full.shape[-1])
+    full_shape = [int(x) for x in src.shape(di)]
+    n_rows = int(np.prod(full_shape[:-1]))
     dirty = np.asarray(dirty, bool).reshape(-1)
-    if len(dirty) != flat.shape[0]:
+    if len(dirty) != n_rows:
         raise ValueError(
             f"dirty bitmap covers {len(dirty)} rows but {_DELTA_LEAF} "
-            f"has {flat.shape[0]} — base/state shape drift; save a full")
+            f"has {n_rows} — base/state shape drift; save a full")
     rows = np.flatnonzero(dirty).astype(np.int64)
-    drows = u32.to_numpy(flat[torch.from_numpy(rows).to(flat.device)])
-    full_shape = [int(x) for x in full.shape]
+    drows = src.gather_rows(di, rows)
     dtype = drows.dtype.str
     arrays = {}
     crcs = []
-    for i, (n, t) in enumerate(named):
+    for i, n in enumerate(names):
         if i == di:
             # the delta pair's manifest entry: dtype/shape header of the
             # FULL leaf, then indices, then the dirty rows' bytes
@@ -251,7 +281,7 @@ def save_delta(state: kv_mod.KVState, path: str, chain: dict,
             c = zlib.crc32(_view(rows), c)
             crcs.append(zlib.crc32(_view(drows), c))
             continue
-        a = carry.leaf_to_numpy(n, t)
+        a = src.host(i)
         arrays[f"leaf_{i}"] = a
         crcs.append(_leaf_crc(a))
     arrays[_DELTA_ROWS] = rows

@@ -81,12 +81,13 @@ out of CLOSED past the threshold is swapped for a fresh spare through
 the normal replace_endpoint transition on the repair cadence — the
 ring's replace() path under REAL failure.
 
-In this package the fused-plane delegation is unreachable until the
-sharded plane is ported: no server of this package negotiates
-`replica_lanes > 1` (a `TcpBackend` keeps `replica_lanes = 1` unless its
-server advertises more), so every key takes the host fan-out, hedging
-and failover paths. The code is kept so the plane slice turns it on
-unchanged.
+In this package the delegation is reached through a `NetServer` that
+fronts a 2-D plane (`parallel.plane.PlaneBackend` over a `ShardedKV` on
+a `make_mesh2d` grid): the server advertises the plane's lane count in
+HOLA, the `TcpBackend` negotiates `replica_lanes > 1`, and keys whose
+primary is that endpoint take the fused path above. Endpoints over a
+single `KV` or a 1-D plane keep `replica_lanes = 1` and the host fan-out,
+hedging and failover paths (`tests/test_torch_mesh2d.py` drives both).
 """
 
 from __future__ import annotations

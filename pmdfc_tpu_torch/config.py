@@ -465,6 +465,20 @@ def sanitizer_strict(default: bool = False) -> bool:
         or default
 
 
+def mesh_enabled(default: bool = True) -> bool:
+    """Resolve the `PMDFC_MESH` kill switch: `off` forces the serving
+    plane back to the single-device path (`DirectBackend` over `kv.KV`,
+    the conformance escape hatch), `on` forces the sharded plane, and an
+    unset/unknown value falls through to `default`. Resolved at
+    construction time: a serving plane never changes topology mid-life."""
+    v = os.environ.get("PMDFC_MESH", "").strip().lower()
+    if v in ("off", "0", "false", "no"):
+        return False
+    if v in ("on", "1", "true", "yes"):
+        return True
+    return default
+
+
 def mesh2d_enabled(default: bool = True) -> bool:
     """Resolve the `PMDFC_MESH2D` kill switch for the 2-D serving mesh
     (replica lanes fused into the plane, `parallel/shard.py`): `off`
@@ -480,6 +494,49 @@ def mesh2d_enabled(default: bool = True) -> bool:
     if v in ("on", "1", "true", "yes"):
         return True
     return default
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Sharded serving plane (`parallel/plane.py`): the partitioned KV
+    behind the coalesced NetServer.
+
+    `n_shards` picks how many devices the plane spans along the `kv`
+    axis (None = every local device); per-shard table capacity is
+    `KVConfig.index.capacity` (total capacity scales with the shard
+    count, the `ShardedKV` convention). Request batches are routed on the
+    host by `partitioning.ShardRouter` and each phase pads PER SHARD up
+    the pow2 ladder from `pad_floor`, so a skewed flush pays only its own
+    shard's pad waste.
+
+    `replica_axis` > 1 makes the grid 2-D (`kv` x `replica`): every
+    shard's state is replicated across that many lanes, PUT/DELETE/INSEXT
+    write every lane in one call, GETs are hedged replica reads (the
+    first digest-validated lane wins), and anti-entropy repair is a
+    compare-and-copy over the lanes. Needs `n_shards * replica_axis`
+    devices. `PMDFC_MESH2D=off` forces the lane count back to 1 (see
+    `mesh2d_enabled`).
+
+    `PMDFC_MESH=off` overrides everything back to the single-device
+    serving path (see `mesh_enabled`)."""
+
+    n_shards: int | None = None
+    pad_floor: int = 8
+    # dispatch mode of the non-plane host verbs (insert/get/delete):
+    # a2a|broadcast
+    dispatch: str = "a2a"
+    # replica lanes along the second grid axis (1 = a 1-D grid)
+    replica_axis: int = 1
+
+    def __post_init__(self) -> None:
+        if self.n_shards is not None and self.n_shards < 1:
+            raise ValueError("n_shards must be >= 1 (or None = all)")
+        if self.pad_floor < 1 or (self.pad_floor & (self.pad_floor - 1)):
+            raise ValueError("pad_floor must be a positive power of two")
+        if self.dispatch not in ("a2a", "broadcast"):
+            raise ValueError(f"unknown dispatch {self.dispatch!r}")
+        if self.replica_axis < 1:
+            raise ValueError("replica_axis must be >= 1")
 
 
 def net_pipe_enabled(default: bool = True) -> bool:

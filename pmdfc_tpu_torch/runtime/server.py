@@ -34,8 +34,11 @@ KV's device (set for the thread, never taken from the main thread's).
 `checkpoint()` snapshots through `KV.snapshot`, which takes the KV's lock
 and device, so a caller's thread may cut one while the driver serves.
 
-Not ported yet: `mesh=` and the plane branches, and the device-time
-profiler's fetch seams (`_finalize` fetches directly).
+Mesh mode (`mesh=`, or a `ShardedKV` passed as `kv=`): the phases become
+the sharded plane's routed verbs (`ShardedKV.plane_*`), each launched as a
+`PlaneHandle` and fetched in `_finalize`; see `parallel/plane.py`. The
+device-time profiler is not ported yet, so the handles are fetched
+directly.
 """
 
 from __future__ import annotations
@@ -65,12 +68,23 @@ class KVServer:
                  engine: Engine | None = None, kv: KV | None = None,
                  report_every_s: float = 0.0, pad_floor: int = 16,
                  bf_push_s: float = 0.0, bf_block_bytes: int = 8192,
-                 fault_injector=None, device="cuda"):
+                 fault_injector=None, device="cuda", mesh=None):
         """`device` places a KV built here (`cuda` unless the caller asks
         for the CPU; without a GPU, `cuda` raises, as `KV` does). A `kv`
-        passed in keeps its own device."""
+        passed in keeps its own device.
+
+        `mesh=` serves a sharded plane instead: a grid (`parallel.shard.
+        make_mesh`), an int shard count (that many distinct local GPUs),
+        True (every local GPU) or a `MeshConfig`. `PMDFC_MESH=off`
+        ignores it and serves one device; an explicit `kv=` always
+        wins."""
         self.config = config or KVConfig()
+        if mesh is not None and kv is None:
+            kv = self._build_mesh_kv(mesh, pad_floor)
         self.kv = kv or KV(self.config, device=device)
+        # the plane surface (ShardedKV's routed verbs): phases launch
+        # PlaneHandles instead of the KV's async verbs
+        self._plane = self.kv if hasattr(self.kv, "plane_insert") else None
         self.engine = engine or Engine(
             page_bytes=self.config.page_words * 4
         )
@@ -116,6 +130,21 @@ class KVServer:
                               "delta_pushes": 0, "blocks_pushed": 0,
                               "errors": 0}
 
+    def _build_mesh_kv(self, mesh, pad_floor: int):
+        """Resolve a mesh= request into a ShardedKV, or None (one device)
+        when `PMDFC_MESH=off` — the rule the NetServer path shares
+        (`plane.build_plane_kv`). The driver's pad floor carries onto the
+        plane router's ladder unless an explicit MeshConfig says
+        otherwise."""
+        from pmdfc_tpu_torch.config import MeshConfig
+        from pmdfc_tpu_torch.parallel.plane import build_plane_kv
+
+        knobs = None
+        if not isinstance(mesh, MeshConfig):
+            f = min(pad_floor, 1024)
+            knobs = MeshConfig(pad_floor=1 << (f.bit_length() - 1))
+        return build_plane_kv(self.config, mesh, knobs=knobs)
+
     # -- lifecycle --
     def start(self) -> "KVServer":
         # Start-once: `with KVServer(...).start()` would otherwise spawn a
@@ -138,18 +167,26 @@ class KVServer:
             self._bf_thread.start()
         return self
 
-    def warmup(self) -> int:
+    def warmup(self, max_width: int | None = None) -> int:
         """Run a put, a delete and a get at every ladder width up to the
         engine's flush cap once, with all-INVALID key batches: they run
         the real ops (the fused GET kernel among them) but match nothing,
         place nothing and touch no pool row. Call it on the caller's
         thread before `start()`: the kernel is built at its first launch,
         and a build or launch failure then raises here instead of failing
-        flushes inside the driver thread. -> the number of (kind, width)
+        flushes inside the driver thread. `max_width` caps the ladder
+        (default: the engine's flush cap). -> the number of (kind, width)
         ops run."""
+        cap = max_width or self.engine.batch
+        if self._plane is not None:
+            # the plane: one shared warm loop over the router's own
+            # per-shard ladder (`plane.warm_plane`)
+            from pmdfc_tpu_torch.parallel.plane import warm_plane
+
+            return warm_plane(self._plane, cap)
         vw = self.config.page_words if self.config.paged else 2
         w, n = self.pad_floor, 0
-        while w <= self.engine.batch:
+        while w <= cap:
             keys = np.full((w, 2), INVALID_WORD, np.uint32)
             self.kv.insert_async(keys, np.zeros((w, vw), np.uint32),
                                  pad_floor=self.pad_floor)
@@ -354,8 +391,15 @@ class KVServer:
                     [np.zeros(nk, np.uint32), reqs["page_off"][puts]],
                     axis=-1,
                 )
-            res, nb = self.kv.insert_async(keys[puts], vals, pad_floor=floor)
-            handles["puts"] = (puts, res, nb)
+            if self._plane is not None:
+                # the plane: host-routed per-shard programs; the handle's
+                # fetch reorders results to request order
+                handles["puts"] = (puts, self._plane.plane_insert(
+                    keys[puts], vals), None)
+            else:
+                res, nb = self.kv.insert_async(keys[puts], vals,
+                                               pad_floor=floor)
+                handles["puts"] = (puts, res, nb)
 
         # Extent inserts land after puts, before deletes/gets, so a client
         # pipelining ins_ext -> get_ext within one flush sees its covers.
@@ -384,20 +428,31 @@ class KVServer:
         dels = reqs["op"] == OP_DEL
         if dels.any():
             self.op_batches["del"] += 1
-            hit, nb = self.kv.delete_async(keys[dels], pad_floor=floor)
-            handles["dels"] = (dels, hit, nb)
+            if self._plane is not None:
+                handles["dels"] = (dels, self._plane.plane_delete(
+                    keys[dels]), None)
+            else:
+                hit, nb = self.kv.delete_async(keys[dels], pad_floor=floor)
+                handles["dels"] = (dels, hit, nb)
 
         gext = reqs["op"] == OP_GET_EXT
         if gext.any():
             self.op_batches["get_ext"] += 1
-            out, found, nb = self.kv.get_extent_async(keys[gext],
-                                                      pad_floor=floor)
-            handles["get_ext"] = (gext, out, found, nb)
+            if self._plane is not None:
+                handles["get_ext"] = (gext, self._plane.plane_get_extent(
+                    keys[gext]), None, None)
+            else:
+                out, found, nb = self.kv.get_extent_async(keys[gext],
+                                                          pad_floor=floor)
+                handles["get_ext"] = (gext, out, found, nb)
 
         gets = reqs["op"] == OP_GET
         if gets.any():
             self.op_batches["get"] += 1
-            if self.config.paged:
+            if self._plane is not None:
+                handles["gets"] = (gets, self._plane.plane_get(keys[gets]),
+                                   None)
+            elif self.config.paged:
                 out, order, found, nfound, nb = \
                     self.kv.get_compact_async(keys[gets], pad_floor=floor)
                 handles["gets"] = (gets, (out, order, found, nfound), nb)
@@ -418,7 +473,10 @@ class KVServer:
         if "puts" in handles:
             with self.timers.phase("write"):
                 puts, res, nb = handles["puts"]
-                dropped = res.dropped[:nb].cpu().numpy()
+                if nb is None:  # plane handle, request order
+                    dropped = np.asarray(res.fetch().dropped)
+                else:
+                    dropped = res.dropped[:nb].cpu().numpy()
                 status[puts] = np.where(dropped, -1, 0)
         if "ins_ext" in handles:
             iext, st = handles["ins_ext"]
@@ -426,25 +484,40 @@ class KVServer:
         if "get_ext" in handles:
             with self.timers.phase("read"):
                 gext, out, found, nb = handles["get_ext"]
-                out_h = u32.to_numpy(out[:nb])
-                found_h = found[:nb].cpu().numpy()
+                if nb is None:  # plane handle
+                    out_h, found_h = out.fetch()
+                else:
+                    out_h = u32.to_numpy(out[:nb])
+                    found_h = found[:nb].cpu().numpy()
                 self.engine.arena[reqs["page_off"][gext], :2] = out_h
                 status[gext] = np.where(found_h, 0, -1)
         if "dels" in handles:
             with self.timers.phase("delete"):
                 dels, hit, nb = handles["dels"]
-                status[dels] = np.where(hit[:nb].cpu().numpy(), 0, -1)
+                hit_h = (hit.fetch() if nb is None
+                         else hit[:nb].cpu().numpy())
+                status[dels] = np.where(hit_h, 0, -1)
         if "gets" in handles:
             with self.timers.phase("read"):
-                gets, (out, order, found, nfound), nb = handles["gets"]
-                found_h = found[:nb].cpu().numpy()
-                if self.config.paged:
-                    # only the hit rows cross (device-compacted)
-                    nf = int(nfound)
-                    if nf:
-                        pages = u32.to_numpy(out[:nf])
-                        src = order[:nf].cpu().numpy()
-                        self.engine.arena[reqs["page_off"][gets][src]] = pages
+                gets, got, nb = handles["gets"]
+                if nb is None:  # plane: request-ordered PlaneGets
+                    pg = got.fetch()
+                    found_h = np.asarray(pg.found, bool)
+                    if self.config.paged and found_h.any():
+                        # hit rows straight out of the routed buffer
+                        self.engine.arena[reqs["page_off"][gets][found_h]] \
+                            = pg.hit_rows()
+                else:
+                    out, order, found, nfound = got
+                    found_h = found[:nb].cpu().numpy()
+                    if self.config.paged:
+                        # only the hit rows cross (device-compacted)
+                        nf = int(nfound)
+                        if nf:
+                            pages = u32.to_numpy(out[:nf])
+                            src = order[:nf].cpu().numpy()
+                            self.engine.arena[
+                                reqs["page_off"][gets][src]] = pages
                 # (unpaged mode returns hit/miss status only, like the
                 # reference's TX_READ_COMMITTED/ABORTED imm)
                 status[gets] = np.where(found_h, 0, -1)

@@ -42,3 +42,16 @@ def hash_u64_multi(hi: torch.Tensor, lo: torch.Tensor, num_hashes: int,
         hash_u64(hi, lo, seed=(seed_base + 0x9E3779B9 * (i + 1)) & M32)
         for i in range(num_hashes)
     ])
+
+
+SHARD_SEED = 0x5EED5EED
+
+
+def shard_of(keys: torch.Tensor, n_shards: int) -> torch.Tensor:
+    """Key -> owning shard, the `GetNodeID(key)` analog
+    (`server/NuMA_KV.cpp:141`): int64 in [0, n_shards) per [..., 2] key
+    (u32 bits as int32). One murmur3 family member is reserved for
+    routing, so the shard choice is independent of every index's bucket
+    choice."""
+    h = hash_u64(keys[..., 0], keys[..., 1], seed=SHARD_SEED)
+    return h % n_shards

@@ -394,3 +394,110 @@ def test_fleet_phase_fails_when_an_invalidated_page_comes_back(
     monkeypatch.setattr(ReconnectingClient, "invalidate", forgetful)
     with pytest.raises(AssertionError, match="served an invalidated key"):
         chip_smoke.run_fleet(fleet_smoke)
+
+
+PLANE_TINY = (("PLANE_INDEX", dict(capacity=1 << 10)),
+              ("PLANE_BLOOM_BITS", 1 << 15), ("PLANE_DIRECT", 2560),
+              ("PLANE_INS_B", 1 << 10), ("PLANE_FILL", 512),
+              ("PLANE_GETS", 512), ("PLANE_EXTENTS", 8),
+              ("PLANE_MUTATE", 256), ("PLANE_ENGINE_THREADS", 2),
+              ("PLANE_ENGINE_PAGES", 256), ("PLANE_DISK_BYTES", 1 << 20),
+              ("PLANE2D_INDEX", dict(capacity=1 << 11)),
+              ("PLANE2D_BLOOM_BITS", 1 << 16),
+              ("SERVE_ENGINE", dict(num_queues=4, queue_cap=1 << 10,
+                                    batch=1 << 10, arena_pages=256,
+                                    page_bytes=4096)),
+              ("GET_VERBS", 4), ("WIRE_CLIENTS", 2), ("WIRE_CONNS", 2),
+              ("VERB", 1 << 6), ("WIRE_FAST_CONNS", 2),
+              ("PLANE_FAST_KEYS", 256), ("WIRE_REWRITE", 64),
+              ("BF_PUSH_S", 0.01))
+
+
+@pytest.fixture
+def plane_smoke(smoke, monkeypatch, tmp_path):
+    for name, value in PLANE_TINY:
+        monkeypatch.setattr(chip_smoke, name, value)
+    monkeypatch.setattr(chip_smoke, "plane_dir", lambda: tmp_path / "plane")
+    return smoke
+
+
+def test_plane_phase_and_its_kernels_lines(plane_smoke, tmp_path, capsys):
+    """The plane phase over a grid naming the CPU four times (2^10 slots a
+    shard): the a2a fill, the wire (fill, storm, extents, the fast lane),
+    its checks, kernel against plain at w = 8 and the widest per-shard
+    width; the full and delta snapshots, the chain restore, the engine
+    pass, the 4 -> 8 reshard restore; the 2 x 2 plane with a corrupted
+    lane routed around, MSG_RREPAIR, and the other lane corrupted."""
+    entries = chip_smoke.run_plane(plane_smoke)
+    assert [e["path"] for e in entries] == ["plane", "plane2d"]
+    for e in entries:
+        assert set(e) == KEYS and e["name"] == "fused_get_linear_flat"
+        assert e["launches"] > 0 and e["max_abs_err"] == 0
+        assert e["bound_by"] == "bytes" and e["library_ms"] is None
+    out = capsys.readouterr().out
+    for line in ("[plane] checks passed", "a2a pair overflow 0 rows",
+                 "[kernel] plane shard 0 full w=8: kernel == plain",
+                 "restore_chain([full, delta]) onto 4 shards",
+                 "[plane] engine pass", "reshard restore of the full onto 8",
+                 "the replay dropped 0", "[plane2d] MSG_RREPAIR",
+                 "[kernel] plane2d shard 0 full w=8: kernel == plain"):
+        assert line in out, line
+    assert not (tmp_path / "plane").exists()
+
+
+def test_plane_phase_fails_when_read_only_gets_count_twice(plane_smoke,
+                                                           monkeypatch):
+    """A read-only plane GET whose stats delta lands twice: the plane
+    phase's count check fails."""
+    from pmdfc_tpu_torch.parallel.shard import ShardedKV
+
+    real = ShardedKV._plane_note_get
+
+    def twice(self, delta):
+        real(self, delta)
+        real(self, delta)
+
+    monkeypatch.setattr(ShardedKV, "_plane_note_get", twice)
+    with pytest.raises(AssertionError, match="GETs counted for"):
+        chip_smoke.run_plane(plane_smoke)
+
+
+def test_plane_phase_fails_when_a_corrupt_lane_serves(plane_smoke,
+                                                      monkeypatch):
+    """Lane 0 damaged in a way its digest cannot see (the sidecar
+    rewritten over the damaged bytes): its pages come back over the wire,
+    and the 2-D storm fails."""
+    from pmdfc_tpu_torch.ops.pagepool import page_digest
+    from pmdfc_tpu_torch.parallel.shard import ShardedKV
+
+    real = ShardedKV.corrupt_replica_lane
+
+    def unseen(self, lane):
+        real(self, lane)
+        if lane == 0:
+            for row in self._st:
+                pool = row[0].pool
+                pool.sums.copy_(page_digest(pool.pages))
+
+    monkeypatch.setattr(ShardedKV, "corrupt_replica_lane", unseen)
+    with pytest.raises(AssertionError, match="wrong bytes"):
+        chip_smoke.run_plane(plane_smoke)
+
+
+def test_plane_phase_fails_when_a_shard_launch_fails(plane_smoke,
+                                                     monkeypatch):
+    """A fused GET that raises inside one shard's program of a wire GET
+    phase is contained by the server (bisected, culprits answered
+    MSG_NACK): the plane phase must still fail."""
+    counted = fused.fused_get
+    calls = [0]
+
+    def failing(keys, *args, **kw):
+        calls[0] += 1
+        if calls[0] == 5:
+            raise RuntimeError("injected kernel failure")
+        return counted(keys, *args, **kw)
+
+    monkeypatch.setattr(fused, "fused_get", failing)
+    with pytest.raises(AssertionError, match="plane: a phase failed"):
+        chip_smoke.run_plane(plane_smoke)
