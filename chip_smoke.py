@@ -248,6 +248,44 @@ Phases, each reported on its own line; any failure exits nonzero:
              shard per lane per GET phase. Reports rates, verb p50/p99,
              snapshot and restore seconds, GB/s and peak RSS, the kernel at
              w = 8 and at the widest width.
+11. control — the device-time profiler, the row-rebuild insert and the
+             closed-loop controller, after the plane, its KV freed first.
+             The row insert: two linear indexes of 2^21 slots (32 MiB
+             each) filled to 75% in 2^16-key batches of fresh keys,
+             updates, in-batch duplicates and padding (same-cluster
+             collisions come with the fill), one through
+             `insert_batch_element` and one through `insert_batch_row`:
+             tables, heads and every InsertResult equal after every batch,
+             every insert timed with CUDA events. Then a child process of
+             this script (`--row-kv`) started with PMDFC_INSERT_PATH=row:
+             linear·flat at 8 GiB filled to 75% through `KV.insert` on the
+             row path, GET storms through the fused kernel (every hit
+             byte-exact, every present key hits, `misses == Σ miss_*`),
+             kernel against plain on that state, and its times. Then
+             linear·tiered at 9 GiB (`TierConfig()`) pre-filled through
+             `KV.insert`, behind `NetServer(NetConfig())` with PMDFC_PROF
+             on, telemetry dumping under `build/control` (git-ignored,
+             removed at the end), a series collector every 0.25 s and
+             `autotune.attach(server=..., client=...)` with the KV's
+             balloon bound: 32 pipelined `TcpBackend` connections, a light
+             phase (one connection, 64-key verbs, 4 s) then a fan-in phase
+             (all 32, 2^11-key verbs) during which a monitor connection
+             sends MSG_PROFILE. Checks: every hit byte-exact, never-inserted
+             keys miss, present keys miss only by a legal cause, `misses ==
+             Σ miss_*`, no serve error or failed phase, no reconnect, one
+             fused-GET launch per GET phase, the profiler's `kv.get`
+             launches equal to the GET phases, each `kv.get` `device_us`
+             (its CUDA event window) at least 0.9x the kernel alone at that
+             width and at most the phase's wall, the capture's `trace.json`
+             holding `fused_get_kernel` kernel events, a second capture
+             inside the cooldown refused, the controller having consumed
+             series windows with every knob inside its `AutotuneConfig`
+             envelope, and `tools/proftool.py` breaking down the pulled
+             MSG_STATS snapshot. Prints the knob moves (their direction
+             depends on the host's timing and is not checked). Last, the
+             harnesses `bench/insert_rowscatter.py` and
+             `bench/telemetry_overhead.py --smoke` on the card, each its
+             own process (the ON/OFF ratio is reported, not gated).
 
 Each KV is freed before the next path's fill, so no two pools share the
 card but the fleet's and the plane's own shards. The next-to-last line is one JSON object naming each kernel with its
@@ -264,7 +302,6 @@ import sys
 import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published memory rate
-SECTOR = 32  # bytes: the least the card reads from memory for a scattered word
 PAGE_HI = 0x80000001  # hi word of page keys (>= 2^31: unsigned order matters)
 EXT_HI = 0x80000002   # hi word of extent keys
 INS_B, GET_B = 1 << 16, 1 << 14
@@ -372,6 +409,26 @@ PLANE_DISK_BYTES = 10 << 30  # the full and the delta
 PLANE2D = (2, 2)
 PLANE2D_INDEX = dict(capacity=1 << 20)
 PLANE2D_BLOOM_BITS = 1 << 23
+
+# phase 11, control: the row insert, the profiler and the controller
+ROW_INDEX = dict(capacity=1 << 21)  # each of the two A/B indexes (32 MiB)
+ROW_KV_TIMEOUT_S = 600.0  # the row-path KV's child process
+CONTROL_INDEX = dict(capacity=1 << 21)
+CONTROL_BLOOM_BITS = 1 << 24
+CONTROL_CONNS = 32        # pipelined TcpBackend connections
+CONTROL_LIGHT_S = 4.0     # the light phase: one connection, small verbs
+CONTROL_LIGHT_VERB = 64
+CONTROL_FANIN_VERBS = 8   # GET verbs of VERB keys per connection, fan-in
+# the MSG_PROFILE capture sent mid-storm: the profiler's longest window,
+# since a recorded session slows each tiered GET to a good part of a
+# second (300 ms windows caught 0-1 of the fan-in's GET kernels)
+CONTROL_CAPTURE_MS = 2000
+CONTROL_HI = 0xE0000000   # the control path's pre-fill keys
+# what a capture's trace must hold: a CUDA kernel event of the fused GET
+TRACE_CAT, TRACE_NAME = "kernel", "fused_get_kernel"
+# the harnesses run on the card, each as its own process
+HARNESSES = (("insert_rowscatter", ()),
+             ("telemetry_overhead", ("--smoke", "--gate", "1e9")))
 
 
 def log(phase: str, msg: str) -> None:
@@ -629,32 +686,6 @@ def time_ms(torch, fns, iters: int, warmup: int = 3,
     return start.elapsed_time(end) / iters
 
 
-def fused_get_bytes(fused, causes, w: int, s: int, pw: int,
-                    sketch_bytes: int, dir_bytes: int = 0,
-                    cold_rows: int = 0) -> int:
-    """Least bytes one fused GET must move for a batch with these cause
-    counts: the keys in, the outputs out, and for each key only what its
-    cause reads. Padding keys probe nothing; a scattered word costs one
-    sector. CCEH reads a directory word per valid key first (at most the
-    whole directory). Over the tiered pool a STALE key reads its cold
-    row's generation, and each of the `cold_rows` keys past that gate
-    reads the row's generation and live byte; PARKED and STALE keys read
-    no page."""
-    found = (causes[fused.CAUSE_HIT] + causes[fused.CAUSE_EXT]
-             + causes[fused.CAUSE_DIGEST] + causes[fused.CAUSE_PARKED]
-             + causes[fused.CAUSE_STALE])
-    index_miss = causes[fused.CAUSE_COLD] + causes[fused.CAUSE_EVICTED]
-    valid = w - causes[fused.CAUSE_PAD]
-    page = causes[fused.CAUSE_HIT] + causes[fused.CAUSE_DIGEST]
-    return (w * (8 + 4 * pw + 12)      # keys in; page, cause, row, slot out
-            + min(dir_bytes, valid * SECTOR)  # the directory words
-            + valid * 8 * s            # khi and klo halves of the table row
-            + found * 2 * SECTOR       # vhi and vlo of the matching lane
-            + page * (4 * pw + SECTOR)  # the page and its digest word
-            + min(sketch_bytes, index_miss * 2 * SECTOR)  # two sketch bytes
-            + (2 * cold_rows + causes[fused.CAUSE_STALE]) * SECTOR)
-
-
 def profile_breakdown(torch, fn, iters: int) -> str:
     """Device-side breakdown of `fn` from torch.profiler: device ops per
     call, device busy time per call, and the ops taking the most of it.
@@ -881,9 +912,9 @@ def measure(sm: Smoke, path: MainPath, launches: int, dir_bytes: int = 0):
     nbytes = []
     for i, k in enumerate(batches):
         causes, cold = sm.compare(k, st, f"timed batch {i}")
-        nbytes.append(fused_get_bytes(fused, causes, GET_B, s, path.pw,
-                                      st.evicted_filter.numel(), dir_bytes,
-                                      cold))
+        nbytes.append(fused.fused_get_bytes(causes, GET_B, s, path.pw,
+                                            st.evicted_filter.numel(),
+                                            dir_bytes, cold))
     kern = [lambda k=k: fused.fused_get(k, *args, **kw) for k in batches]
     plain = [lambda k=k: fused.get_core_reference(k, *args, **kw)
              for k in batches]
@@ -2501,9 +2532,9 @@ def run_wire(sm: Smoke):
     args, kw = sm.kernel_args(kv.state)
     batches = [batch(wmax) for _ in range(4)]
     s_ = kv.state.index.table.shape[1] // 4
-    nbytes = [fused_get_bytes(fused, sm.compare(k, kv.state, "wire timed")[0],
-                              wmax, s_, pw, kv.state.evicted_filter.numel())
-              for k in batches]
+    nbytes = [fused.fused_get_bytes(
+        sm.compare(k, kv.state, "wire timed")[0], wmax, s_, pw,
+        kv.state.evicted_filter.numel()) for k in batches]
     ms = time_ms(torch, [lambda k=k: fused.fused_get(k, *args, **kw)
                          for k in batches], 24, device_only=True)
     plain_ms = time_ms(torch, [lambda k=k: fused.get_core_reference(
@@ -3208,8 +3239,9 @@ def fleet_run(sm: Smoke, cfg, root):
     args, kw = sm.kernel_args(st)
     batches = [sm.pick(pool, GET_B) for _ in range(8)]
     s_ = st.index.table.shape[1] // 4
-    nbytes = [fused_get_bytes(fused, sm.compare(k, st, "fleet timed")[0],
-                              GET_B, s_, fleet.pw, st.evicted_filter.numel())
+    nbytes = [fused.fused_get_bytes(sm.compare(k, st, "fleet timed")[0],
+                                    GET_B, s_, fleet.pw,
+                                    st.evicted_filter.numel())
               for k in batches]
     ms = time_ms(torch, [lambda k=k: fused.fused_get(k, *args, **kw)
                          for k in batches], 48, device_only=True)
@@ -3407,10 +3439,9 @@ def plane_kernel(sm, state, present, pw: int, widths, label: str, smi):
         log("kernel", f"{label} shard 0 full w={w}: kernel == plain, "
             f"causes {CAUSE_NAMES}={causes}")
         batches = [batch(w) for _ in range(8)]
-        nbytes = [fused_get_bytes(fused, sm.compare(k, state,
-                                                    f"{label} timed")[0],
-                                  w, s_, pw, state.evicted_filter.numel())
-                  for k in batches]
+        nbytes = [fused.fused_get_bytes(
+            sm.compare(k, state, f"{label} timed")[0], w, s_, pw,
+            state.evicted_filter.numel()) for k in batches]
         ms = time_ms(torch, [lambda k=k: fused.fused_get(k, *args, **kw)
                              for k in batches], 48, device_only=True)
         plain_ms = time_ms(torch, [lambda k=k: fused.get_core_reference(
@@ -3950,9 +3981,541 @@ def plane_2d(sm: Smoke) -> dict:
     return plane_entry(sm, "plane2d", launches, kt[8])
 
 
+def control_dir():
+    """Where phase 11 writes its telemetry dumps and captures (git-ignored,
+    on the checkout's disk); removed at the end of the phase."""
+    from pathlib import Path
+
+    return Path(__file__).resolve().parent / "build" / "control"
+
+
+def run_row_kv(sm: Smoke):
+    """The whole KV on the row-rebuild insert (the child process, started
+    with PMDFC_INSERT_PATH=row): linear·flat at 8 GiB filled to 75%
+    through `KV.insert`, GET storms through the fused kernel with every
+    hit byte-exact and `misses == Σ miss_*`, the kernel against its plain
+    version on the full state, and its times. -> its `kernels` entry."""
+    from pmdfc_tpu_torch.config import (BloomConfig, IndexConfig, IndexKind,
+                                        KVConfig)
+    from pmdfc_tpu_torch.models import linear
+    from pmdfc_tpu_torch.models.base import get_index_ops
+
+    if get_index_ops(IndexKind.LINEAR).insert_batch \
+            is not linear.insert_batch_row:
+        raise AssertionError("row-kv: PMDFC_INSERT_PATH=row did not select "
+                             "the row-rebuild insert")
+    cfg = KVConfig(index=IndexConfig(**LINEAR_INDEX),
+                   bloom=BloomConfig(num_bits=1 << 24, num_hashes=4))
+    # this process starts cold: one untimed insert and get of the fill's
+    # batch width on a small KV first, so the timed fill does not pay the
+    # caching allocator's first allocations (the element path's fill in
+    # phase 4 runs after phase 3 has warmed them)
+    warm = sm.kv_mod.KV(dataclasses.replace(
+        cfg, index=IndexConfig(capacity=INS_B * 2)), device=sm.dev)
+    keys = sm.keys_of(PAGE_HI, sm.torch.arange(INS_B, device=sm.dev))
+    warm.insert(keys, sm.pages_of(keys, cfg.page_words))
+    warm.get(keys[:GET_B])
+    del warm, keys
+    path = MainPath(sm, cfg, "linear·row")
+    sm.fused.launches.clear()
+    sm.torch.cuda.synchronize()
+    path.run()
+    sm.torch.cuda.synchronize()
+    launches = sm.fused.launches["fused_get_linear_flat"]
+    if launches <= 0:
+        raise AssertionError("row-kv: the fused GET never launched")
+    check_stats(sm, path)
+    present = (path.status == 1).nonzero().flatten()[:4096]
+    covers = sm.add_extents(path.kv, 4)
+    sm.kernel_phase(path.kv, all_keys(sm, path),
+                    sm.keys_of(PAGE_HI, present), covers, "linear·row full")
+    entry = measure(sm, path, launches)
+    entry["fill_pages_per_s"] = path.n_fill / path.t_fill
+    return entry
+
+
+def row_kv_subprocess(sm: Smoke) -> dict:
+    """`run_row_kv` in a child process of this script with
+    PMDFC_INSERT_PATH=row (the switch is read at import); its log lines
+    are echoed, its entry read from its `ROWKV` line. A child that fails
+    fails the phase."""
+    import os
+
+    env = dict(os.environ, PMDFC_INSERT_PATH="row")
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--row-kv", "--seed",
+         str(sm.seed)], env=env, capture_output=True, text=True,
+        timeout=ROW_KV_TIMEOUT_S)
+    entry = None
+    for line in proc.stdout.splitlines():
+        if line.startswith("ROWKV "):
+            entry = json.loads(line[len("ROWKV "):])
+        else:
+            print(line, flush=True)
+    if proc.returncode != 0 or entry is None:
+        raise AssertionError(f"row-kv child exited {proc.returncode}: "
+                             f"{proc.stderr[-3000:]}")
+    return entry
+
+
+def run_harness(name: str, args) -> dict:
+    """One harness of `pmdfc_tpu_torch/bench` as its own process on
+    DEVICE -> its last JSON line. A nonzero exit fails the phase."""
+    proc = subprocess.run(
+        [sys.executable, "-m", f"pmdfc_tpu_torch.bench.{name}", "--device",
+         DEVICE, *args], capture_output=True, text=True, timeout=600)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"harness {name} exited {proc.returncode}: "
+                             f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    return json.loads(lines[-1])
+
+
+def trace_kernels(path) -> int:
+    """Events of the fused GET kernel (`TRACE_CAT`, `TRACE_NAME`) in the
+    capture's `trace.json`."""
+    import os
+
+    with open(os.path.join(path, "trace.json")) as f:
+        doc = json.load(f)
+    return sum(1 for e in doc.get("traceEvents", [])
+               if e.get("cat") == TRACE_CAT
+               and TRACE_NAME in str(e.get("name", "")))
+
+
+def knob_envelope(cfg) -> dict:
+    """Each controller knob's [lo, hi] from its `AutotuneConfig`."""
+    m = cfg.balloon_max_extents
+    return {"dwell_us": (cfg.dwell_us_lo, cfg.dwell_us_hi),
+            "settle_us": (cfg.settle_us_lo, cfg.settle_us_hi),
+            "window": (cfg.window_lo, cfg.window_hi),
+            "hedge_ms": (cfg.hedge_ms_lo, cfg.hedge_ms_hi),
+            "migrate_pps": (cfg.migrate_pps_lo, cfg.migrate_pps_hi),
+            "balloon_x": (-m, m),
+            "admit_thresh": (cfg.admit_lo, cfg.admit_hi)}
+
+
+class ControlConn:
+    """One pipelined `TcpBackend` of the control path: GET verbs over the
+    pre-fill keys (7/8 present, 1/8 never inserted); every hit must be the
+    key's page, every never-inserted key must miss."""
+
+    def __init__(self, port: int, cid: int, pw: int, present, seed: int):
+        import numpy as np
+
+        from pmdfc_tpu_torch.runtime.net import TcpBackend
+
+        self.np, self.pw, self.present = np, pw, present
+        self.rng = np.random.default_rng([seed, 2000 + cid])
+        self.be = TcpBackend("127.0.0.1", port, page_words=pw,
+                             window=WIRE_WINDOW, op_timeout_s=120.0)
+        self.present_misses = self.keys = 0
+
+    def gets(self, n: int, verb: int, until=None) -> None:
+        """`n` GET verbs of `verb` keys, and more until the event `until`
+        (when given) is set."""
+        np = self.np
+        i = 0
+        while i < n or (until is not None and not until.is_set()):
+            i += 1
+            n_never = max(1, verb // 8)
+            lo = np.concatenate([
+                self.rng.choice(self.present, verb - n_never),
+                self.rng.integers(NEVER_LO, 1 << 32, n_never,
+                                  dtype=np.uint64).astype(np.uint32)])
+            keys = np.stack([np.full(verb, CONTROL_HI, np.uint32), lo], -1)
+            out, found = self.be.get(keys)
+            found = np.asarray(found, bool)
+            if found[verb - n_never:].any():
+                raise AssertionError("control: a never-inserted key hit")
+            if not np.array_equal(np.asarray(out, np.uint32)[found],
+                                  pages_np(CONTROL_HI, lo[found], self.pw)):
+                raise AssertionError("control: a hit returned wrong bytes")
+            if np.asarray(out)[~found].any():
+                raise AssertionError("control: a miss returned nonzero bytes")
+            self.present_misses += int((~found[:verb - n_never]).sum())
+            self.keys += verb
+
+    def close(self) -> None:
+        self.be.close()
+
+
+def control_row_ab(sm: Smoke) -> None:
+    """The index alone: two linear indexes of 2^21 slots filled to 75% in
+    INS_B-key batches, one through each insert path, equal bit for bit
+    after every batch, every insert timed."""
+    from pmdfc_tpu_torch.bench import insert_rowscatter
+
+    smi = nvidia_smi()
+    r = insert_rowscatter.ab_fill(ROW_INDEX["capacity"], INS_B, 0.75, DEVICE,
+                                  sm.seed)
+    speedup = r["element_ms_per_batch"] / r["row_ms_per_batch"]
+    log("control", f"row vs element, the index alone: {r['batches']} "
+        f"batches of {r['batch']} keys (3/4 fresh, 1/8 updates, 1/16 "
+        f"in-batch duplicates, 1/16 padding) into two linear indexes of "
+        f"{r['slots']} slots, {r['occupied']} occupied at the end; "
+        f"{r['collided']} same-cluster collisions, {r['updates']} updates, "
+        f"{r['evicted']} evictions, {r['dropped']} drops; tables, heads and "
+        f"every InsertResult equal after every batch; element "
+        f"{r['element_ms_per_batch']:.4f} ms, row "
+        f"{r['row_ms_per_batch']:.4f} ms per {r['batch']}-key insert "
+        f"(CUDA events): row speedup {speedup:.3f}x ({smi})")
+
+
+def run_control(sm: Smoke):
+    """Phase 11: the row insert at full width (the index alone, then the
+    whole KV on the row path in a child process), the profiler and the
+    controller behind the wire on linear·tiered, and the harnesses.
+    -> the phase's kernel entries."""
+    import os
+    import shutil
+    import threading
+
+    np, torch, fused = sm.np, sm.torch, sm.fused
+    from pmdfc_tpu_torch.client import DirectBackend
+    from pmdfc_tpu_torch.config import (AutotuneConfig, BloomConfig,
+                                        IndexConfig, KVConfig, NetConfig,
+                                        ProfilerConfig, TelemetryConfig,
+                                        TierConfig)
+    from pmdfc_tpu_torch.runtime import autotune
+    from pmdfc_tpu_torch.runtime import profiler as prof_mod
+    from pmdfc_tpu_torch.runtime import telemetry as tele
+    from pmdfc_tpu_torch.runtime import timeseries
+    from pmdfc_tpu_torch.runtime.net import NetServer, TcpBackend
+
+    t_phase = time.monotonic()
+    control_row_ab(sm)
+    row_entry = row_kv_subprocess(sm)
+    log("control", f"row path, whole KV: linear·flat filled at "
+        f"{row_entry['fill_pages_per_s']:.0f} pages/s through KV.insert on "
+        f"the row-rebuild insert; GETs byte-exact; fused_get_linear_flat "
+        f"{row_entry['launches']} launches, kernel == plain ({nvidia_smi()})")
+    row_entry.pop("fill_pages_per_s")
+    row_entry["path"] = "row-path"
+
+    smi = nvidia_smi()
+    root = control_dir()
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    env0 = os.environ.get("PMDFC_PROF")
+    os.environ["PMDFC_PROF"] = "on"
+    reg = tele.configure(TelemetryConfig(dump_dir=str(root / "tele")))
+    collector = None
+    try:
+        prof = prof_mod.install(ProfilerConfig(trace_min_interval_s=60.0))
+        collector = timeseries.ensure_collector(interval_s=0.25)
+        cfg = KVConfig(index=IndexConfig(**CONTROL_INDEX),
+                       bloom=BloomConfig(num_bits=CONTROL_BLOOM_BITS),
+                       tier=TierConfig())
+        kv = sm.kv_mod.KV(cfg, device=DEVICE)
+        pw = cfg.page_words
+        n_fill = 3 * kv.capacity() // 4 // INS_B * INS_B
+        t0 = time.monotonic()
+        for i in range(0, n_fill, INS_B):
+            lo = torch.arange(i, i + INS_B, device=sm.dev)
+            keys = sm.keys_of(CONTROL_HI, lo)
+            kv.insert(keys, sm.pages_of(keys, pw))
+        torch.cuda.synchronize()
+        t_fill = time.monotonic() - t0
+        with kv._lock:
+            flat, _ = kv._ops.scan(kv.state.index)
+            held = flat[flat[:, 0] == sm.u32.narrow(torch.tensor(CONTROL_HI))]
+            present = np.sort(sm.u32.to_numpy(held[:, 1]))
+        log("control", f"linear·tiered {kv.state.pool.pages.numel() * 4 / 2**30:.2f}"
+            f" GiB ({cfg.tier}) pre-filled with {n_fill} pages through "
+            f"KV.insert in {t_fill:.3f} s = {n_fill / t_fill:.0f} pages/s; "
+            f"{len(present)} held; NetServer(NetConfig()), PMDFC_PROF=on, "
+            f"a series collector every 0.25 s, the controller attached")
+
+        shared = DirectBackend(kv)
+        # (padded width, wall us, [kv.get device_us], end on the host clock)
+        phases: list = []
+        dev_us: list = []
+        real_note = prof.note_launch
+
+        def note(program, phase, device_us, *a, **kw):
+            if program == "kv.get":
+                dev_us.append(device_us)
+            return real_note(program, phase, device_us, *a, **kw)
+
+        prof.note_launch = note
+        real_get = shared.get
+
+        def get(keys):
+            n0 = len(dev_us)
+            t0 = time.perf_counter()
+            out = real_get(keys)
+            phases.append((len(keys), (time.perf_counter() - t0) * 1e6,
+                           dev_us[n0:], time.monotonic()))
+            return out
+
+        shared.get = get
+        srv = NetServer(lambda: shared, net=NetConfig()).start()
+        conns: list[ControlConn] = []
+        mon = ctl = None
+        try:
+            conns = [ControlConn(srv.port, c, pw, present, sm.seed)
+                     for c in range(CONTROL_CONNS)]
+            mon = TcpBackend("127.0.0.1", srv.port, page_words=pw,
+                             op_timeout_s=120.0)
+            if not (mon.prof and all(c.be.prof for c in conns)):
+                raise AssertionError("control: MSG_PROFILE not negotiated")
+            ctl = autotune.attach(server=srv, client=conns[0].be,
+                                  cfg=AutotuneConfig(interval_s=0.1),
+                                  start=True)
+            ctl.bind_balloon(kv)
+            knobs0 = ctl.knob_values()
+            s0 = kv.stats()
+            fused.launches.clear()
+            get0 = reg.snapshot()["histograms"].get(
+                "prof.kv.get.device_us", {}).get("count", 0)
+            del phases[:]
+            # the light phase: one connection, small verbs, until the
+            # deadline
+            t_light = time.monotonic()
+            while time.monotonic() - t_light < CONTROL_LIGHT_S:
+                conns[0].gets(1, CONTROL_LIGHT_VERB)
+            knobs_light = ctl.knob_values()
+            n_light = len(phases)
+            # the fan-in phase, a capture sent mid-storm: every connection
+            # serves on until the capture's window has passed
+            cap: dict = {}
+            done = threading.Event()
+
+            def capture():
+                try:
+                    time.sleep(0.2)
+                    cap["res"] = mon.server_profile(CONTROL_CAPTURE_MS)
+                    cap["t"] = time.monotonic()
+                    time.sleep(CONTROL_CAPTURE_MS / 1e3)
+                finally:
+                    done.set()
+
+            th = threading.Thread(target=capture, name="capture")
+            th.start()
+            t_fan = run_threads([lambda c=c: c.gets(CONTROL_FANIN_VERBS, VERB,
+                                                    done)
+                                 for c in conns], "control fan-in")
+            th.join()
+            res = cap.get("res")
+            if not res or not res.get("path"):
+                raise AssertionError(f"control: the capture was refused "
+                                     f"({res})")
+            deadline = time.monotonic() + 120
+            trace = os.path.join(res["path"], "trace.json")
+            while not os.path.exists(trace):
+                if time.monotonic() > deadline:
+                    raise AssertionError("control: the capture wrote no "
+                                         "trace.json")
+                time.sleep(0.05)
+            t_trace = time.monotonic() - cap["t"]
+            second = mon.server_profile(CONTROL_CAPTURE_MS)
+            torch.cuda.synchronize()
+            launches = fused.launches["fused_get_linear_tiered"]
+            snap = reg.snapshot()
+            get1 = snap["histograms"]["prof.kv.get.device_us"]["count"]
+            health = dict(srv.stats)
+            stats_doc = mon.server_stats()
+            ctl.stop()
+            knobs = ctl.knob_values()
+            live = {"dwell_us": srv.flush_knobs()[0],
+                    "settle_us": srv.flush_knobs()[1],
+                    "window": float(conns[0].be.window)}
+            cstats = dict(ctl.stats)
+            moves = [r for r in tele.get().ring_tail()
+                     if r.get("kind") == "ctl"]
+        finally:
+            if ctl is not None:
+                ctl.stop()
+            srv.stop()
+            for c in conns:
+                c.close()
+            if mon is not None:
+                mon.close()
+            prof.note_launch = real_note
+        s1 = kv.stats()
+        n_kernel = trace_kernels(res["path"])
+        d = {k: s1[k] - s0[k] for k in ("gets", "hits", "misses",
+                                        *sm.kv_mod.MISS_CAUSE_NAMES)}
+        present_misses = sum(c.present_misses for c in conns)
+        n_phases = len(phases)
+        widths = sorted({ph[0] for ph in phases})
+        t_cap = cap["t"] + res["duration_ms"] / 1e3
+        in_capture = sum(1 for ph in phases if cap["t"] <= ph[3] <= t_cap)
+
+        # the kernel alone at each width the phases ran, on this state
+        def batch(w):
+            idx = torch.from_numpy(present.astype(np.int64)).to(sm.dev)
+            n_never = max(1, w // 8)
+            keys = torch.cat([
+                sm.keys_of(CONTROL_HI, sm.pick(idx, w - n_never)),
+                sm.keys_of(CONTROL_HI, torch.randint(
+                    NEVER_LO, 1 << 32, (n_never,), device=sm.dev,
+                    generator=sm.gen))])
+            return keys[torch.randperm(w, device=sm.dev, generator=sm.gen)]
+
+        args, kw = sm.kernel_args(kv.state)
+        kern_ms = {}
+        for w in widths:
+            bs = [batch(w) for _ in range(8)]
+            sm.compare(bs[0], kv.state, f"control w={w}")
+            kern_ms[w] = time_ms(torch, [lambda k=k: fused.fused_get(
+                k, *args, **kw) for k in bs], 24, device_only=True)
+        # on the CPU `device_us` is the fetch's host time, which does not
+        # hold the plain version's run: the lower bound is the card's
+        under = [ph[:3] for ph in phases
+                 if len(ph[2]) == 1 and DEVICE != "cpu"
+                 and ph[2][0] < 0.9 * kern_ms[ph[0]] * 1e3]
+        over = [ph[:3] for ph in phases
+                if len(ph[2]) == 1 and ph[2][0] > ph[1]]
+        env = knob_envelope(ctl.cfg)
+        outside = {k: v for k, v in {**knobs, **live}.items()
+                   if not env[k][0] <= v <= env[k][1]}
+        checks = [
+            (int(health["serve_errors"]) == 0,
+             f"serve_errors {health['serve_errors']}"),
+            (all(int(health[k]) == 0 for k in (
+                "nacks_sent", "bisect_failures", "poison_ops",
+                "deadline_shed")), "a phase failed"),
+            # a TcpBackend never reconnects (a dropped connection raises
+            # in its verb): the connections the server saw are ours alone
+            (int(health["connects"]) == CONTROL_CONNS + 1,
+             f"{health['connects']} connections for {CONTROL_CONNS + 1}"),
+            (n_phases > 0 and launches == n_phases,
+             f"{launches} fused-GET launches for {n_phases} GET phases"),
+            (get1 - get0 == n_phases
+             and all(len(ph[2]) == 1 for ph in phases),
+             f"the profiler noted {get1 - get0} kv.get launches for "
+             f"{n_phases} GET phases"),
+            (not under, f"kv.get device_us under 0.9x the kernel alone: "
+             f"{under[:3]}"),
+            (not over, f"kv.get device_us over its phase's wall: "
+             f"{over[:3]}"),
+            (n_kernel > 0, f"the capture's trace holds no {TRACE_NAME} "
+             f"kernel event"),
+            (second is None, f"a second capture inside the cooldown was "
+             f"not refused ({second})"),
+            (cstats.get("windows_seen", 0) > 0,
+             "the controller consumed no series window"),
+            (not outside, f"knobs outside their envelope: {outside}"),
+            (d["misses"] == sum(d[c] for c in sm.kv_mod.MISS_CAUSE_NAMES),
+             f"misses != sum of miss causes ({d})"),
+            (d["miss_digest"] == 0, "a digest miss"),
+            (present_misses <= d["miss_evicted"] + d["miss_stale"]
+             + d["miss_parked"], f"{present_misses} present keys missed, "
+             f"more than their legal causes ({d})"),
+        ]
+        for ok, msg in checks:
+            if not ok:
+                raise AssertionError(f"control: {msg}")
+
+        # tools/proftool.py over the pulled MSG_STATS snapshot
+        import tools.proftool as proftool
+
+        stats_path = root / "stats.json"
+        stats_path.write_text(json.dumps(stats_doc))
+        table = proftool.breakdown(proftool._merge(
+            proftool.load_docs([str(stats_path)])))
+        progs = {r["program"] for r in table["rows"]}
+        if "kv.get" not in progs or not table["launches"]:
+            raise AssertionError(f"control: proftool saw {progs}")
+
+        n_keys = sum(c.keys for c in conns)
+        dus = [ph[2][0] for ph in phases]
+        walls = [ph[1] for ph in phases]
+        by_w = {}
+        for ph in phases:
+            by_w.setdefault(ph[0], []).append(ph[2][0])
+        log("control", f"light phase: {n_light} GET phases in "
+            f"{CONTROL_LIGHT_S} s; fan-in: {CONTROL_CONNS} connections x "
+            f">= {CONTROL_FANIN_VERBS} verbs of {VERB} keys in {t_fan:.3f} s; "
+            f"{n_keys} keys in all, every hit byte-exact, {present_misses} "
+            f"present keys missed (legal), serve_errors 0 ({smi})")
+        log("control", f"GET phases {n_phases}, widths {widths}; "
+            f"fused_get_linear_tiered launches {launches}; profiler kv.get "
+            f"launches {get1 - get0}; kv.get device_us (CUDA events on a "
+            f"card) per width: " + "; ".join(
+                f"w={w}: median {np.median(v):.1f} us (kernel alone "
+                f"{kern_ms[w] * 1e3:.1f} us)" for w, v in sorted(by_w.items()))
+            + f"; device_us / phase wall median "
+            f"{np.median(np.asarray(dus) / np.asarray(walls)):.3f} ({smi})")
+        log("control", f"MSG_PROFILE capture mid-storm: {res['path']} "
+            f"({res['duration_ms']} ms), trace.json written "
+            f"{t_trace:.2f} s after the reply, {n_kernel} {TRACE_NAME} "
+            f"kernel events for {in_capture} GET phases that ended inside "
+            f"the window; a second request inside the cooldown refused")
+        log("control", f"controller: {cstats.get('ticks', 0)} ticks, "
+            f"{cstats.get('windows_seen', 0)} series windows, "
+            f"{cstats.get('decisions', 0)} decisions, "
+            f"{cstats.get('reverts', 0)} reverts; knobs at start {knobs0}, "
+            f"after the light phase {knobs_light}, at the end {knobs}; "
+            f"every knob inside its envelope; series windows collected "
+            f"{len(collector.ring)}")
+        for r in moves:
+            log("control", f"knob move: {r['knob']} {r['from']} -> "
+                f"{r['to']} ({r['why']})")
+        log("control", "proftool over the MSG_STATS snapshot:\n"
+            + proftool.render_report(table))
+
+        # the kernel's entry at the widest width, on this state
+        wmax = widths[-1]
+        bs = [batch(wmax) for _ in range(8)]
+        s_ = kv.state.index.table.shape[1] // 4
+        nbytes = []
+        for k in bs:
+            causes, cold = sm.compare(k, kv.state, "control timed")
+            nbytes.append(fused.fused_get_bytes(
+                causes, wmax, s_, pw, kv.state.evicted_filter.numel(),
+                cold_rows=cold))
+        plain_ms = time_ms(torch, [lambda k=k: fused.get_core_reference(
+            k, *args, **kw) for k in bs], 8, device_only=True)
+        bound_ms = sum(nbytes) / len(nbytes) / HBM_BYTES_PER_S * 1e3
+        log("times", f"fused_get_linear_tiered w={wmax} on the control "
+            f"state, rotated over 8 batches: kernel {kern_ms[wmax]:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms = "
+            f"{bound_ms / kern_ms[wmax]:.1%} of the memory rate ({smi})")
+        control_entry = {
+            "name": "fused_get_linear_tiered",
+            "route": "cuda",
+            "source": "pmdfc_tpu_torch/ops/csrc/fused_get.cu",
+            "replaces": "pmdfc_tpu/ops/fused.py:414",
+            "launches": launches,
+            "max_abs_err": sm.max_err["fused_get_linear_tiered"],
+            "ms": kern_ms[wmax],
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": "bytes",
+            "library_ms": None,
+            "path": "control",
+        }
+        del kv, shared, conns
+    finally:
+        if env0 is None:
+            os.environ.pop("PMDFC_PROF", None)
+        else:
+            os.environ["PMDFC_PROF"] = env0
+        if collector is not None:
+            collector.stop()
+        tele.configure()
+        shutil.rmtree(root, ignore_errors=True)
+    free_card(torch)
+
+    # the harnesses on the card
+    for name, args in HARNESSES:
+        out = run_harness(name, args)
+        log("control", f"harness {name}: " + json.dumps(
+            {k: v for k, v in out.items() if not isinstance(v, (list, dict))})
+            + f" ({nvidia_smi()})")
+    log("control", f"phase 11 took {time.monotonic() - t_phase:.1f} s")
+    return [row_entry, control_entry]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--row-kv", action="store_true",
+                    help="run only the row-path KV of phase 11 (the child "
+                         "process phase 11 starts with PMDFC_INSERT_PATH=row)")
     args = ap.parse_args()
 
     import torch
@@ -3963,6 +4526,12 @@ def main() -> int:
         return 1
 
     from pmdfc_tpu_torch.ops import _build
+
+    if args.row_kv:
+        _build.load("fused_get")
+        print("ROWKV " + json.dumps(run_row_kv(Smoke(args.seed))),
+              flush=True)
+        return 0
 
     # 1. env
     smi = nvidia_smi()
@@ -4014,9 +4583,9 @@ def main() -> int:
     kernels = []
     for run in (run_linear, run_cceh, lambda sm: run_tiered(sm, "linear"),
                 lambda sm: run_tiered(sm, "cceh"), run_families, run_serving,
-                run_wire, run_fleet, run_plane):
+                run_wire, run_fleet, run_plane, run_control):
         entry = run(sm)
-        if isinstance(entry, list):  # the plane: its 1-D and 2-D entries
+        if isinstance(entry, list):  # the plane's and control's entries
             kernels.extend(entry)
         elif entry is not None:  # the families launch no kernel of their own
             kernels.append(entry)

@@ -9,7 +9,7 @@ configuration reads the same in both packages. Two differences:
   serving plane's switches are the JAX package's, with the same env
   names and defaults: `PMDFC_QOS`, `PMDFC_NET_PIPE`, `PMDFC_FASTPATH`,
   `PMDFC_RING`, `PMDFC_MESH2D`, `PMDFC_PROF`, `PMDFC_TELEMETRY`,
-  `PMDFC_SAN` and `PMDFC_CONTAINMENT`;
+  `PMDFC_SAN`, `PMDFC_CONTAINMENT` and `PMDFC_AUTOTUNE`;
 - there is no `fused_get` switch: on CUDA a configuration that
   `ops.fused.supports` accepts always runs the fused GET kernel, and one
   it rejects runs the composed GET, as the JAX package composes it.
@@ -376,6 +376,17 @@ class JournalConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class RuntimeConfig:
+    """Request coalescer (ref batching: BATCH_SIZE 4 pages/verb, 8 queues,
+    4 clients, `server/rdma_svr.h:16-19`). device batches are much deeper."""
+
+    batch_size: int = 1024
+    num_queues: int = 8
+    # Adaptive flush: ship a partial batch after this many microseconds.
+    batch_timeout_us: int = 200
+
+
+@dataclasses.dataclass(frozen=True)
 class TelemetryConfig:
     """Unified telemetry layer (`runtime/telemetry.py`): process-wide
     metrics registry + per-op trace spans + degradation flight recorder.
@@ -414,6 +425,52 @@ class TelemetryConfig:
             raise ValueError("dump_records must be >= 1")
         if self.dump_max_files < 0:
             raise ValueError("dump_max_files must be >= 0 (0 = unlimited)")
+
+
+@dataclasses.dataclass(frozen=True)
+class ProfilerConfig:
+    """Device-time X-ray (`runtime/profiler.py`): per-program on-chip
+    cost attribution threaded through the async-fetch seams.
+
+    The profiler is OPT-IN (`PMDFC_PROF=on` or an explicit
+    `profiler.install()`): with it off nothing attaches to the registry
+    and telemetry snapshots stay byte-identical to the v2 schema. When
+    attached it rides the TRACING tier — `PMDFC_TELEMETRY=off` silences
+    the device lanes too, so the overhead story has exactly two states.
+    """
+
+    enabled: bool = True
+    # launches accumulated per `shard_imbalance` gauge window (max/mean
+    # device time across shards, recomputed every `imbalance_window`
+    # attributed launches)
+    imbalance_window: int = 8
+    # set `cost.<program>.{flops,bytes}` at the first call of each
+    # (program, padded width): the fused GET's own byte count at that
+    # width (`ops.fused.fused_get_bytes`), FLOPs 0 (integer work);
+    # programs without a byte count set no gauge
+    cost_capture: bool = True
+    # MSG_PROFILE bounded-trace discipline: duration cap, cooldown
+    # between captures, and retained `prof_*` capture-dir count under
+    # the flight recorder's dump dir (oldest-first deletion, like
+    # `dump_max_files`)
+    trace_max_ms: int = 2000
+    trace_min_interval_s: float = 5.0
+    trace_max_files: int = 8
+    # phase x program x shard attribution rows retained (new keys past
+    # the cap are dropped and counted, never grown unbounded)
+    table_max_rows: int = 512
+
+    def __post_init__(self) -> None:
+        if self.imbalance_window < 1:
+            raise ValueError("imbalance_window must be >= 1")
+        if self.trace_max_ms < 1:
+            raise ValueError("trace_max_ms must be >= 1")
+        if self.trace_min_interval_s < 0:
+            raise ValueError("trace_min_interval_s must be >= 0")
+        if self.trace_max_files < 0:
+            raise ValueError("trace_max_files must be >= 0 (0 = unlimited)")
+        if self.table_max_rows < 1:
+            raise ValueError("table_max_rows must be >= 1")
 
 
 def profiler_enabled(default: bool = False) -> bool:
@@ -537,6 +594,171 @@ class MeshConfig:
             raise ValueError(f"unknown dispatch {self.dispatch!r}")
         if self.replica_axis < 1:
             raise ValueError("replica_axis must be >= 1")
+
+
+def autotune_enabled(default: bool = True) -> bool:
+    """Resolve the `PMDFC_AUTOTUNE` kill switch for the closed-loop
+    serving controller (`runtime/autotune.py`): `off` makes a
+    constructed `AutotuneController` inert — no `ctl` telemetry scope,
+    no decisions, every knob stays at its hand-tuned config value (the
+    conformance contract `tests/test_autotune.py` pins, including the
+    Migrator's static `migrate_pages_per_s` rate bound). Resolved at
+    construction time, like every other switch — a controller never
+    changes discipline mid-life; env wins over code."""
+    v = os.environ.get("PMDFC_AUTOTUNE", "").strip().lower()
+    if v in ("off", "0", "false", "no"):
+        return False
+    if v in ("on", "1", "true", "yes"):
+        return True
+    return default
+
+
+@dataclasses.dataclass(frozen=True)
+class AutotuneConfig:
+    """Closed-loop serving controller (`runtime/autotune.py`): online
+    AIMD-style adaptation of the live serving knobs — NetServer flush
+    dwell + settle cutoff, TcpBackend pipeline window, ReplicaGroup
+    hedge deadline, KV balloon stepping, Migrator rate bound — from the
+    windowed series, with the SLO watchdog as safety governor.
+
+    Every knob walk is clamped to the per-knob hard bounds declared
+    here (the ENVELOPE): the controller can only move inside it, so the
+    worst case is the hand-tuned default it started from. A governor
+    event (SLO breach, sensor starvation) freezes the controller for
+    `freeze_windows` evaluated rounds and reverts every knob to the
+    last-known-good point. `PMDFC_AUTOTUNE=off` (env wins) makes a
+    constructed controller fully inert.
+
+    UNIT NOTE: every `*_windows` count here (hysteresis, starvation,
+    freeze) is measured in EVALUATED ROUNDS — one `tick()` that
+    consumed at least one new series window. A daemon ticking slower
+    than the collector aggregates several series windows into one
+    round; counting some thresholds in ticks and others in raw windows
+    would make operator-tuned durations depend on the
+    `interval_s`-to-collector-cadence ratio."""
+
+    enabled: bool = True
+    # daemon tick cadence (deterministic `tick()` ignores it)
+    interval_s: float = 0.5
+    # AIMD step discipline: additive-ish increase (step = max(unit,
+    # cur * up_frac)), multiplicative decrease (cur * down_frac), a
+    # deadband for target-tracking knobs (hedge), and hysteresis — a
+    # knob moves only after this many CONSECUTIVE evaluated rounds
+    # proposing the same direction (see the unit note above)
+    up_frac: float = 0.25
+    down_frac: float = 0.5
+    deadband: float = 0.15
+    hysteresis_windows: int = 2
+    # governor: evaluated rounds held frozen after a revert; consecutive
+    # zero-traffic rounds before the controller retreats to
+    # last-known-good (no evidence = no authority to hold a tuned point)
+    freeze_windows: int = 10
+    starve_windows: int = 5
+    # -- per-knob hard bounds (the walk envelope) --
+    dwell_us_lo: float = 100.0
+    dwell_us_hi: float = 20000.0
+    # floor matches the flush loop's own settle clamp (`_flush_loop`
+    # holds settle_s at >= 1e-4 s): a lower bound would let the
+    # controller record decisions/gauges in a dead zone the loop
+    # never acts on
+    settle_us_lo: float = 100.0
+    settle_us_hi: float = 2000.0
+    window_lo: int = 4
+    window_hi: int = 256
+    hedge_ms_lo: float = 1.0
+    hedge_ms_hi: float = 500.0
+    migrate_pps_lo: float = 256.0
+    migrate_pps_hi: float = 1048576.0
+    # balloon stepping: net extents the controller may move from its
+    # starting circulation (each step is one TierConfig.balloon_step of
+    # rows), and the tick cadence of balloon decisions (each decision
+    # polls backend stats = a device sync; never per controller tick)
+    balloon_max_extents: int = 8
+    balloon_every: int = 4
+    # admission-threshold walk envelope (`AdmitConfig.threshold`, bound
+    # when the serving backend exposes an admission gate); walked on the
+    # balloon cadence — its sensors ride the same backend stats poll
+    admit_lo: float = 1.0
+    admit_hi: float = 64.0
+    # -- sensor thresholds --
+    # mean coalesced batch at/below this = dwell is pure latency tax
+    light_batch: float = 2.0
+    # staging-queue depth at/above this = fan-in pressure (fuse harder)
+    deep_staging: int = 64
+    # pipeline-window occupancy fractions: p95 above hi = widen, below
+    # lo (with a calm staging queue) = narrow
+    occ_hi_frac: float = 0.75
+    occ_lo_frac: float = 0.25
+    # hedge deadline tracks this multiple of the windowed wire GET p99
+    hedge_p99_mult: float = 3.0
+    # queue-wait p99 at/below this = serving is healthy enough to let
+    # migration move faster; above = migration yields
+    qwait_healthy_us: float = 5000.0
+    # windowed (miss_evicted + miss_parked) / gets above this = capacity
+    # pressure, balloon grows; window working-set below wset_shrink_frac
+    # of capacity with zero pressure = balloon parks a step
+    miss_pressure: float = 0.02
+    wset_shrink_frac: float = 0.25
+    # admission sensors (hot-tier hit-rate vs ghost-readmit rate, off
+    # the same stats-delta series the balloon rule reads):
+    # ghost_readmits/gets at/above this = the gate is TOO STRICT — the
+    # ghost ring is doing the admissions the sketch refused — threshold
+    # walks DOWN; demotions/gets at/above admit_churn_hi while the
+    # ghost rate stays below half the strict mark = scan churn is
+    # leaking through the gate — threshold walks UP
+    admit_ghost_hi: float = 0.01
+    admit_churn_hi: float = 0.02
+    # per-tenant QoS rate knobs (`bind_qos`): fallback walk envelope for
+    # a tenant that declares a rate but no explicit bounds —
+    # [rate * qos_rate_lo_frac, rate * qos_rate_hi_frac] around the
+    # declared `TenantConfig.rate_ops_per_s` (rate-0 tenants are never
+    # bound: unlimited is operator intent, the Migrator precedent)
+    qos_rate_lo_frac: float = 0.25
+    qos_rate_hi_frac: float = 4.0
+    # qos sensor: windowed per-tenant shed fraction (sheds/ops) at/above
+    # this while the staging queue stays calm (< deep_staging) = the
+    # bucket is stricter than the server needs — rate walks UP; staging
+    # at/above deep_staging with the tenant still shedding = the fleet
+    # is the bottleneck, not the bucket — rate walks DOWN
+    qos_shed_hi: float = 0.05
+
+    def __post_init__(self) -> None:
+        if self.interval_s <= 0:
+            raise ValueError("interval_s must be > 0")
+        if not (0 < self.up_frac <= 1):
+            raise ValueError("up_frac must be in (0, 1]")
+        if not (0 < self.down_frac < 1):
+            raise ValueError("down_frac must be in (0, 1)")
+        if self.hysteresis_windows < 1:
+            raise ValueError("hysteresis_windows must be >= 1")
+        if self.freeze_windows < 1:
+            raise ValueError("freeze_windows must be >= 1")
+        if self.starve_windows < 1:
+            raise ValueError("starve_windows must be >= 1")
+        if self.balloon_max_extents < 0:
+            raise ValueError("balloon_max_extents must be >= 0")
+        if self.balloon_every < 1:
+            raise ValueError("balloon_every must be >= 1")
+        if self.admit_ghost_hi < 0 or self.admit_churn_hi < 0:
+            raise ValueError("admission sensor thresholds must be >= 0")
+        if not (0 < self.qos_rate_lo_frac <= 1):
+            raise ValueError("qos_rate_lo_frac must be in (0, 1]")
+        if self.qos_rate_hi_frac < 1:
+            raise ValueError("qos_rate_hi_frac must be >= 1")
+        if self.qos_shed_hi < 0:
+            raise ValueError("qos_shed_hi must be >= 0")
+        for lo, hi, name in (
+                (self.dwell_us_lo, self.dwell_us_hi, "dwell_us"),
+                (self.settle_us_lo, self.settle_us_hi, "settle_us"),
+                (self.window_lo, self.window_hi, "window"),
+                (self.hedge_ms_lo, self.hedge_ms_hi, "hedge_ms"),
+                (self.migrate_pps_lo, self.migrate_pps_hi,
+                 "migrate_pps"),
+                (self.admit_lo, self.admit_hi, "admit")):
+            if lo < 0 or hi < lo:
+                raise ValueError(
+                    f"{name} bounds invalid: need 0 <= lo <= hi, got "
+                    f"[{lo}, {hi}]")
 
 
 def net_pipe_enabled(default: bool = True) -> bool:

@@ -64,6 +64,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import os
+import threading
 import time
 from typing import Any
 
@@ -891,7 +892,14 @@ class KV:
         self._ops = get_index_ops(self.config.index.kind)
         self._t0 = time.monotonic()
         # function-local import: runtime/__init__ imports server -> kv
+        from pmdfc_tpu_torch.runtime import profiler
         from pmdfc_tpu_torch.runtime import sanitizer as san
+
+        self._prof = profiler
+        # the CUDA event pair of this thread's last async verb, for the
+        # caller that fetches it (`take_launch`); per thread, so two
+        # threads launching on one KV never swap pairs
+        self._launch_tl = threading.local()
 
         # guarded-by: state, _gets_since_decay, _batches_since_touch,
         # guarded-by: dir_epoch, _mut_seq, _fastview, _host_stats,
@@ -961,14 +969,35 @@ class KV:
             return x
         return u32.to_numpy(x) if words else x.cpu().numpy()
 
+    def _launch_begin(self):
+        """Start event of one async verb (caller holds the lock): None
+        unless a profiler is attached and the KV is on CUDA."""
+        self._launch_tl.events = None
+        return self._prof.launch_begin(self.device)
+
+    def _launch_end(self, ev) -> None:
+        self._launch_tl.events = self._prof.launch_end(ev, self.device)
+
+    def take_launch(self):
+        """The CUDA event pair (`profiler.LaunchEvents`) this thread's
+        last async verb recorded, or None; cleared by the read. The
+        caller that fetches the verb's results hands it to
+        `profiler.fetch(..., events=)`."""
+        ev = getattr(self._launch_tl, "events", None)
+        self._launch_tl.events = None
+        return ev
+
     def insert(self, keys, values):
         """keys[B, 2]; values = pages[B, page_words] or u64 vals[B, 2]
-        -> InsertResult of the B rows."""
+        -> InsertResult of the B rows. The host copy is the profiler's
+        timed fetch (`runtime/profiler.py`)."""
         host = not isinstance(keys, torch.Tensor)
         res, b = self.insert_async(keys, values)
-        return type(res)(**{
-            f: self._out(x[:b], host, words=f.startswith("evicted"))
-            for f, x in res._asdict().items()})
+        return self._prof.fetch(
+            "kv.insert", "put", lambda: type(res)(**{
+                f: self._out(x[:b], host, words=f.startswith("evicted"))
+                for f, x in res._asdict().items()}),
+            n_ops=b, ring=True, events=self.take_launch())
 
     def _touch_due(self) -> bool:
         """Sampled hotness accounting: one GET batch in
@@ -1002,14 +1031,29 @@ class KV:
         """-> (pages_or_values[B, ...], found[B])."""
         host = not isinstance(keys, torch.Tensor)
         out, found, b = self.get_async(keys)
-        return (self._out(out[:b], host),
-                self._out(found[:b], host, words=False))
+        return self._prof.fetch(
+            "kv.get", "get", lambda: (self._out(out[:b], host),
+                                      self._out(found[:b], host,
+                                                words=False)),
+            n_ops=b, ring=True, events=self.take_launch())
 
     def delete(self, keys):
         """-> hit[B]."""
         host = not isinstance(keys, torch.Tensor)
         hit, b = self.delete_async(keys)
-        return self._out(hit[:b], host, words=False)
+        return self._prof.fetch(
+            "kv.delete", "del",
+            lambda: self._out(hit[:b], host, words=False),
+            n_ops=b, ring=True, events=self.take_launch())
+
+    # caller-holds: _lock
+    def _cost_get(self, program: str, w: int) -> None:
+        """The profiler's cost gauges at the first (GET program, width):
+        the fused kernel's bytes with every key a hit; the composed GET
+        has no byte count and sets none."""
+        if fused_ops.supports(self.config):
+            self._prof.cost_probe(
+                program, w, lambda: fused_ops.hit_bytes(self.state, w))
 
     # -- async verbs (the serving path, `runtime/server.py`) --
     # Each pads its batch to `_pad_pow2(b, lo=pad_floor)` rows, as the JAX
@@ -1032,9 +1076,11 @@ class KV:
                                          _host_words(values))
             b = len(keys)
             w = _pad_pow2(b, lo=pad_floor)
+            ev = self._launch_begin()
             self.state, res = insert(self.state, self.config,
                                      self._keys(keys, w),
                                      self._padded(values, w, 0))
+            self._launch_end(ev)
             self._mut_seq += 1
             return res, b
 
@@ -1042,11 +1088,14 @@ class KV:
         """Like `get` -> (device out, device found, b)."""
         with self._lock:
             b = len(keys)
+            w = _pad_pow2(b, lo=pad_floor)
+            self._cost_get("kv.get", w)
+            ev = self._launch_begin()
             self.state, out, found = get(
-                self.state, self.config,
-                self._keys(keys, _pad_pow2(b, lo=pad_floor)),
+                self.state, self.config, self._keys(keys, w),
                 lean=not self._touch_due(), recovering=self._recovering)
             self._maybe_decay(b)
+            self._launch_end(ev)
             return out, found, b
 
     def get_compact_async(self, keys, pad_floor: int = 16):
@@ -1058,20 +1107,25 @@ class KV:
         """
         with self._lock:
             b = len(keys)
+            w = _pad_pow2(b, lo=pad_floor)
+            self._cost_get("kv.get_compact", w)
+            ev = self._launch_begin()
             self.state, out, order, found, nfound = get_compact(
-                self.state, self.config,
-                self._keys(keys, _pad_pow2(b, lo=pad_floor)),
+                self.state, self.config, self._keys(keys, w),
                 lean=not self._touch_due(), recovering=self._recovering)
             self._maybe_decay(b)
+            self._launch_end(ev)
             return out, order, found, nfound, b
 
     def get_extent_async(self, keys, pad_floor: int = 16):
         """Like `get_extent` -> (device vals, device found, b)."""
         with self._lock:
             b = len(keys)
+            ev = self._launch_begin()
             self.state, out, found = get_extent(
                 self.state, self.config,
                 self._keys(keys, _pad_pow2(b, lo=pad_floor)))
+            self._launch_end(ev)
             return out, found, b
 
     def delete_async(self, keys, pad_floor: int = 16):
@@ -1080,9 +1134,11 @@ class KV:
             if self._journal is not None:
                 self._journal.append_delete(_host_words(keys))
             b = len(keys)
+            ev = self._launch_begin()
             self.state, hit = delete(
                 self.state, self.config,
                 self._keys(keys, _pad_pow2(b, lo=pad_floor)))
+            self._launch_end(ev)
             self._mut_seq += 1
             self.dir_epoch += 1
             return hit, b
@@ -1108,8 +1164,11 @@ class KV:
         """-> (values[B, 2] u64 words of each key's address, found[B])."""
         host = not isinstance(keys, torch.Tensor)
         out, found, b = self.get_extent_async(keys)
-        return (self._out(out[:b], host),
-                self._out(found[:b], host, words=False))
+        return self._prof.fetch(
+            "kv.get_extent", "get_ext",
+            lambda: (self._out(out[:b], host),
+                     self._out(found[:b], host, words=False)),
+            n_ops=b, ring=True, events=self.take_launch())
 
     def find_anyway(self, keys):
         """-> (values[B, 2], found[B], slot[B] or -1), by a full scan."""
@@ -1298,12 +1357,15 @@ class KV:
             return self.dir_epoch
 
     # -- tier surface (no-ops on a flat pool) --
+    # Each verb runs under the lock AND on the KV's device: the
+    # controller (`runtime/autotune.py`) calls them from its own thread,
+    # whose current CUDA device is not the KV's.
 
     def tier_stats(self) -> dict | None:
         """Per-tier counters (`hot_hits`, `promotions`, `demotions`,
         `balloon_*`, `migrated_bytes`, occupancy, the admission lanes) —
         None when flat."""
-        with self._lock:
+        with self._lock, self._on_device():
             if not _tiered(self.state):
                 return None
             return tier_mod.stats_dict(self.state.pool,
@@ -1319,7 +1381,7 @@ class KV:
     def balloon_state(self) -> dict | None:
         """Cold-pool circulation snapshot (circulating, parked and free
         rows, the extent step); None on a flat pool."""
-        with self._lock:
+        with self._lock, self._on_device():
             if not _tiered(self.state):
                 return None
             return tier_mod.balloon_state(self.state.pool,
@@ -1329,7 +1391,7 @@ class KV:
         """Ensure at least `rows` free cold rows circulate (parked capacity
         returns first; rounded up to whole extents). False on a flat
         pool."""
-        with self._lock:
+        with self._lock, self._on_device():
             if not _tiered(self.state):
                 return False
             tier_mod.grow(self.state.pool, self._balloon_rows(rows))
@@ -1342,7 +1404,7 @@ class KV:
         to whole extents). Free rows park first; then the coldest live
         rows are evicted, their pages degrading to legal misses. False on
         a flat pool."""
-        with self._lock:
+        with self._lock, self._on_device():
             if not _tiered(self.state):
                 return False
             tier_mod.shrink(self.state.pool, self._balloon_rows(rows))
@@ -1353,7 +1415,7 @@ class KV:
     def admit_state(self) -> dict | None:
         """The admission gate's snapshot (threshold, epoch progress,
         counter lanes); None when the pool is flat or has no gate."""
-        with self._lock:
+        with self._lock, self._on_device():
             pool = self.state.pool
             if not _tiered(self.state) or pool.admit_cm is None:
                 return None
@@ -1363,7 +1425,7 @@ class KV:
     def set_admit_threshold(self, value: int) -> bool:
         """Live admission-threshold write (clamped to >= 0). False when no
         gate is installed."""
-        with self._lock:
+        with self._lock, self._on_device():
             pool = self.state.pool
             if not _tiered(self.state) or pool.admit_cm is None:
                 return False
@@ -1400,7 +1462,7 @@ class KV:
     def stats(self) -> dict:
         from pmdfc_tpu_torch.runtime import telemetry as tele
 
-        with self._lock:
+        with self._lock, self._on_device():
             vec = self.state.stats.cpu().numpy().astype(np.int64) \
                 + self._host_stats
             d = dict(zip(STAT_NAMES, (int(x) for x in vec)))

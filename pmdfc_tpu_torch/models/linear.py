@@ -9,17 +9,24 @@ bits `[khi | klo | vhi | vlo]`; a per-cluster monotone cursor `head[C]`
 places fresh inserts at `(head + rank) % S`, with same-cluster conflicts
 inside a batch ranked by one sort (`plan_insert`/`plan_rank`).
 
-In place. `insert_batch_element`, `delete_batch` and `set_values` write
-`state.table`/`state.head` in place and return the same state object
-(a full-size table is 32 MiB and is never copied per batch). The JAX
-versions' `mode="drop"` scatters (an out-of-range index meaning "no
-write") become writes masked to the rows that do write; `head.at[].add`
+In place. `insert_batch_element`, `insert_batch_row`, `delete_batch` and
+`set_values` write `state.table`/`state.head` in place and return the same
+state object (a full-size table is 32 MiB and is never copied per batch).
+The JAX versions' `mode="drop"` scatters (an out-of-range index meaning
+"no write") become writes masked to the rows that do write; `head.at[].add`
 with repeated clusters becomes `index_put_(accumulate=True)`.
+
+Two insert paths, as in the JAX package: the element path (lane scatters,
+the default) and the row-rebuild path (`insert_batch_row`: every touched
+row gathered once, the batch's writes merged per cluster, one full-row
+scatter). `PMDFC_INSERT_PATH=row` at import time registers the row path
+as `insert_batch`, which `KV` then runs.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import torch
 
@@ -94,7 +101,8 @@ def _insert_plan(state: LinearState, keys: torch.Tensor):
     """Insert prologue: batch plan, update-vs-fresh split, FIFO target
     lanes, drops, and the evicted pair read from the ORIGINAL row.
 
-    Returns (c, s, plan, upd, ins, drop, mslot, pos, evicted, evicted_vals).
+    Returns (c, s, plan, upd, ins, drop, mslot, pos, evicted, evicted_vals,
+    rows), `rows` the gathered bucket rows before any write.
     """
     c_count = state.table.shape[0]
     s = state.table.shape[1] // 4
@@ -119,7 +127,24 @@ def _insert_plan(state: LinearState, keys: torch.Tensor):
     evicted_mask = (ins & ~is_invalid(old))[:, None]
     evicted = torch.where(evicted_mask, old, INVALID_I32)
     evicted_vals = torch.where(evicted_mask, old_v, INVALID_I32)
-    return c, s, plan, upd, ins, drop, mslot, pos, evicted, evicted_vals
+    return c, s, plan, upd, ins, drop, mslot, pos, evicted, evicted_vals, rows
+
+
+def _insert_result(c, s, upd, ins, drop, mslot, pos, evicted, evicted_vals):
+    """Insert epilogue shared by both paths: global slot ids and the
+    InsertResult."""
+    su = mslot.clamp(min=0).to(torch.int64)
+    gslot = torch.where(upd, c * s + su,
+                        torch.where(ins, c * s + pos, -1)).to(torch.int32)
+    return InsertResult(slots=gslot, evicted=evicted, dropped=drop,
+                        fresh=ins, evicted_vals=evicted_vals)
+
+
+def _bump_heads(state: LinearState, ci: torch.Tensor) -> None:
+    """head[c] += 1 for each fresh insert into cluster c (repeats add)."""
+    head = widen(state.head)
+    head.index_put_((ci,), torch.ones_like(ci), accumulate=True)
+    state.head.copy_(narrow(head))
 
 
 def insert_batch_element(state: LinearState, keys: torch.Tensor,
@@ -128,7 +153,7 @@ def insert_batch_element(state: LinearState, keys: torch.Tensor,
     Updates land first so a same-slot (update, evicting-insert) pair
     resolves in the insert's favor."""
     (c, s, plan, upd, ins, drop, mslot, pos, evicted,
-     evicted_vals) = _insert_plan(state, keys)
+     evicted_vals, _) = _insert_plan(state, keys)
     table = state.table
     su = mslot.clamp(min=0).to(torch.int64)
     vhi, vlo = values[:, 0], values[:, 1]
@@ -141,17 +166,78 @@ def insert_batch_element(state: LinearState, keys: torch.Tensor,
     table[ci, s + li] = keys[ins, 1]
     table[ci, 2 * s + li] = vhi[ins]
     table[ci, 3 * s + li] = vlo[ins]
-    head = widen(state.head)
-    head.index_put_((ci,), torch.ones_like(ci), accumulate=True)
-    state.head.copy_(narrow(head))
-
-    gslot = torch.where(upd, c * s + su,
-                        torch.where(ins, c * s + pos, -1)).to(torch.int32)
-    return state, InsertResult(slots=gslot, evicted=evicted, dropped=drop,
-                               fresh=ins, evicted_vals=evicted_vals)
+    _bump_heads(state, ci)
+    return state, _insert_result(c, s, upd, ins, drop, mslot, pos, evicted,
+                                 evicted_vals)
 
 
-insert_batch = insert_batch_element
+def _segment_sum(x: torch.Tensor, seg_id: torch.Tensor, n: int):
+    """`jax.ops.segment_sum` of u32 words (int32 bits, or bools as 0/1)
+    over `n` segments: `index_add_` on int64 (`narrow` takes a word sum
+    back to u32 bits, mod 2^32)."""
+    out = torch.zeros((n, x.shape[1]), dtype=torch.int64, device=x.device)
+    return out.index_add_(0, seg_id, widen(x) if x.dtype == torch.int32
+                          else x.to(torch.int64))
+
+
+def insert_batch_row(state: LinearState, keys: torch.Tensor,
+                     values: torch.Tensor):
+    """Whole-row-rebuild insert, in place; -> (state, InsertResult), equal
+    bit for bit to `insert_batch_element` (the same `_insert_plan`): each
+    touched cluster row is gathered once (before anything is written),
+    every write of the batch is merged into it as lane-masked overlays
+    combined per cluster (segment sums in plan order), then ONE full-row
+    scatter writes each touched cluster once.
+
+    Two write planes: a fresh insert may evict the very lane another key
+    of the batch updates; the element path writes updates first, so the
+    insert wins, and here the insert plane takes priority over the update
+    plane. Within a plane the (cluster, lane) targets are unique, so a
+    per-cluster sum is an exact merge."""
+    b = keys.shape[0]
+    valid = ~is_invalid(keys)
+    (c, s, plan, upd, ins, drop, mslot, pos, evicted, evicted_vals,
+     rows) = _insert_plan(state, keys)
+    lane = torch.arange(s, device=keys.device)[None, :]
+    ins_hot = (lane == pos[:, None]) & ins[:, None]
+    upd_hot = (lane == mslot.clamp(min=0).to(torch.int64)[:, None]) \
+        & upd[:, None]
+    khi, klo = keys[:, 0:1], keys[:, 1:2]
+    vhi, vlo = values[:, 0:1], values[:, 1:2]
+    ins4 = torch.cat([torch.where(ins_hot, khi, 0),
+                      torch.where(ins_hot, klo, 0),
+                      torch.where(ins_hot, vhi, 0),
+                      torch.where(ins_hot, vlo, 0)], dim=1)
+    ins_m4 = ins_hot.repeat(1, 4)
+    no = torch.zeros_like(upd_hot)
+    upd4 = torch.cat([torch.zeros_like(ins4[:, :2 * s]),
+                      torch.where(upd_hot, vhi, 0),
+                      torch.where(upd_hot, vlo, 0)], dim=1)
+    upd_m4 = torch.cat([no, no, upd_hot, upd_hot], dim=1)
+
+    order = plan.order
+    seg_id = torch.cumsum(plan.seg_start.to(torch.int64), 0) - 1
+    ci_m = _segment_sum(ins_m4[order], seg_id, b)[seg_id]
+    ci_v = narrow(_segment_sum(ins4[order], seg_id, b)[seg_id])
+    cu_m = _segment_sum(upd_m4[order], seg_id, b)[seg_id]
+    cu_v = narrow(_segment_sum(upd4[order], seg_id, b)[seg_id])
+    merged = torch.where(ci_m > 0, ci_v,
+                         torch.where(cu_m > 0, cu_v, rows[order]))
+    # one write per touched cluster: the first row of each valid run
+    # (a masked write where the JAX path scatters out of range)
+    first = plan.seg_start & valid[order]
+    state.table[c[order][first]] = merged[first]
+    _bump_heads(state, c[ins])
+    return state, _insert_result(c, s, upd, ins, drop, mslot, pos, evicted,
+                                 evicted_vals)
+
+
+# Insert-path selection, read once at import as in the JAX package: the
+# element path is the default; PMDFC_INSERT_PATH=row runs the whole stack
+# (KV, the serving drivers, the benches) through the row-rebuild path.
+insert_batch = (insert_batch_row
+                if os.environ.get("PMDFC_INSERT_PATH") == "row"
+                else insert_batch_element)
 
 
 def delete_batch(state: LinearState, keys: torch.Tensor):

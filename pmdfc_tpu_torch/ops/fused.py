@@ -54,6 +54,8 @@ SKETCH_SEEDS = (0x0E51C7ED, 0x0E51C7ED ^ 0x9E3779B9)
 EXTENT_TAG = 0x80000000  # bit 63 of the u64 value marks an extent-record ref
 EXTENT_TAG_I32 = EXTENT_TAG - (1 << 32)  # its bits as int32
 
+SECTOR = 32  # bytes: the least the card reads from memory for a scattered word
+
 KERNEL_NAME = "fused_get"
 FAMILIES = (IndexKind.LINEAR, IndexKind.CCEH)
 # kernel launches made by `fused_get`, by variant ("fused_get_linear_flat",
@@ -74,6 +76,43 @@ def supports(config: KVConfig) -> bool:
         return False
     pw, nb = config.page_words, config.evicted_sketch_bits
     return not (pw & (pw - 1) or pw % 4 or nb & (nb - 1))
+
+
+def fused_get_bytes(causes, w: int, s: int, pw: int, sketch_bytes: int,
+                    dir_bytes: int = 0, cold_rows: int = 0) -> int:
+    """Least bytes one fused GET must move for a batch of `w` keys with
+    these cause counts (indexed by the `CAUSE_*` codes): the keys in, the
+    outputs out, and for each key only what its cause reads. Padding keys
+    probe nothing; a scattered word costs one sector. CCEH reads a
+    directory word per valid key first (at most the whole directory).
+    Over the tiered pool a STALE key reads its cold row's generation,
+    and each of the `cold_rows` keys past that gate reads the row's
+    generation and live byte; PARKED and STALE keys read no page."""
+    found = (causes[CAUSE_HIT] + causes[CAUSE_EXT] + causes[CAUSE_DIGEST]
+             + causes[CAUSE_PARKED] + causes[CAUSE_STALE])
+    index_miss = causes[CAUSE_COLD] + causes[CAUSE_EVICTED]
+    valid = w - causes[CAUSE_PAD]
+    page = causes[CAUSE_HIT] + causes[CAUSE_DIGEST]
+    return (w * (8 + 4 * pw + 12)      # keys in; page, cause, row, slot out
+            + min(dir_bytes, valid * SECTOR)  # the directory words
+            + valid * 8 * s            # khi and klo halves of the table row
+            + found * 2 * SECTOR       # vhi and vlo of the matching lane
+            + page * (4 * pw + SECTOR)  # the page and its digest word
+            + min(sketch_bytes, index_miss * 2 * SECTOR)  # two sketch bytes
+            + (2 * cold_rows + causes[CAUSE_STALE]) * SECTOR)
+
+
+def hit_bytes(state, w: int) -> int:
+    """`fused_get_bytes` of a `w`-key batch over this KV state with every
+    key a hit on a hot (or flat) row: the profiler's `cost.*` bytes."""
+    index = state.index
+    causes = [0] * 8
+    causes[CAUSE_HIT] = w
+    dirr = getattr(index, "dirr", None)
+    return fused_get_bytes(
+        causes, w, index.table.shape[1] // 4, state.pool.pages.shape[1],
+        state.evicted_filter.numel(),
+        dir_bytes=0 if dirr is None else 4 * dirr.numel())
 
 
 def table_rows(keys, n_rows: int, dirr=None, msb: bool = True):

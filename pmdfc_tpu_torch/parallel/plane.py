@@ -33,6 +33,13 @@ with per-lane `mesh.replica{r}_served/digest_refused/repaired`
 attribution, and `replica_repair()` is what the wire exposes as
 `MSG_RREPAIR`. `replica_lanes` is the capability the NetServer advertises
 in HOLA, so a host `ReplicaGroup` can delegate its fan-out to the plane.
+
+Device time (`runtime/profiler.py`): each fetched phase is attributed as
+`plane.<phase>`, split over the shards by the routed counts as in JAX.
+Its `device_us` is the handle's CUDA event window (the first shard's
+start event to the last shard's end event, `ShardedKV` records it when
+every shard is on one CUDA device); without a pair it is the fetch's
+host time, as JAX measures it.
 """
 
 from __future__ import annotations
@@ -46,6 +53,7 @@ from pmdfc_tpu_torch.config import (ContainmentConfig, KVConfig, MeshConfig,
                                     mesh_enabled)
 from pmdfc_tpu_torch.parallel.shard import (ShardedKV, _local_devices,
                                             make_mesh, make_mesh2d)
+from pmdfc_tpu_torch.runtime import profiler
 from pmdfc_tpu_torch.runtime import telemetry as tele
 from pmdfc_tpu_torch.runtime.failure import ShardFault, ShardQuarantine
 from pmdfc_tpu_torch.utils.keys import INVALID_WORD
@@ -126,8 +134,10 @@ class PlaneBackend:
     def _run(self, phase: str, handle):
         """Fetch one launched phase under its telemetry envelope; a
         failure rung names the shards whose routed ops were aboard."""
+        prof = profiler.active() if tele.enabled() else None
         t0 = time.perf_counter()
-        t0_ns = time.monotonic_ns() if tele.enabled() else 0
+        t0_ns = (time.monotonic_ns()
+                 if (tele.enabled() or prof is not None) else 0)
         try:
             out = handle.fetch()
         except Exception as e:  # noqa: BLE001 — attribution, then re-raise
@@ -141,6 +151,21 @@ class PlaneBackend:
         dur_us = (time.perf_counter() - t0) * 1e6
         self._note(phase, handle.counts, dur_us, t0_ns,
                    time.monotonic_ns() if t0_ns else 0)
+        ev = handle.events
+        if prof is not None:
+            # the device window: the handle's event pair when it has one
+            # (the copy above waited for the stream), else the fetch's
+            # host time; split over the shards by the routed counts
+            t_l = handle.t_launch_ns
+            prof.note_launch(
+                f"plane.{phase}", phase,
+                profiler.elapsed_us(ev) if ev is not None else dur_us,
+                dispatch_us=(max(0.0, (t0_ns - t_l) / 1e3)
+                             if t_l and t0_ns else 0.0),
+                n_ops=handle.b, counts=handle.counts,
+                n_shards=self.n_shards)
+        else:
+            profiler.release(ev)
         return out
 
     # -- containment front door (rung 8) --
@@ -267,11 +292,19 @@ class PlaneBackend:
         return out
 
     def insert_extent(self, key, value, length: int) -> int:
+        prof = profiler.active() if tele.enabled() else None
         t0 = time.perf_counter()
         t0_ns = time.monotonic_ns() if tele.enabled() else 0
         _, uncovered = self.skv.insert_extent(key, value, length)
-        self._note("ins_ext", None, (time.perf_counter() - t0) * 1e6,
+        dur_us = (time.perf_counter() - t0) * 1e6
+        self._note("ins_ext", None, dur_us,
                    t0_ns, time.monotonic_ns() if t0_ns else 0)
+        if prof is not None:
+            # broadcast phase: every shard ran the program — the same
+            # ones-vector `_note` uses (a host verb: host time)
+            prof.note_launch("plane.ins_ext", "ins_ext", dur_us, n_ops=1,
+                             counts=np.ones(self.n_shards, np.int64),
+                             n_shards=self.n_shards)
         return uncovered
 
     def get_extent(self, keys: np.ndarray):

@@ -61,6 +61,16 @@ reads one lane.
 
 The JAX `_wrap` donation rule has no counterpart: the state is updated in
 place and never copied per call.
+
+Device time (`runtime/profiler.py`). With a profiler attached and every
+shard and lane on one CUDA device, each plane verb records one CUDA event
+pair around all of its shards' programs (they run one after another on
+that device's stream): the phase's device window, first shard's start to
+last shard's end, which the fetch splits over the shards by `counts` as
+the JAX profiler splits its fetch window. A grid of distinct devices
+records no pair (events of two devices have no common clock), and the
+fetch times the host. The first call of each plane GET width sets the
+`cost.plane.get` gauges from the fused kernel's bytes per shard.
 """
 
 from __future__ import annotations
@@ -86,6 +96,7 @@ from pmdfc_tpu_torch.models.base import (
 from pmdfc_tpu_torch.ops import bloom as bloom_ops
 from pmdfc_tpu_torch.ops import pagepool
 from pmdfc_tpu_torch.parallel import partitioning as pt
+from pmdfc_tpu_torch.runtime import profiler
 from pmdfc_tpu_torch.utils import u32
 from pmdfc_tpu_torch.utils.hashing import shard_of
 from pmdfc_tpu_torch.utils.keys import INVALID_I32, INVALID_WORD, is_invalid
@@ -296,15 +307,18 @@ class PlaneHandle:
     read-back that reorders them to request order. `fetch()` copies to
     the host (CUDA work is asynchronous: the device time is paid there).
     `counts` is the per-shard routed-op vector (which shards this phase
-    touched)."""
+    touched). `t_launch_ns` stamps the dispatch and `events` is the
+    phase's CUDA event pair (None unless a profiler records one), both
+    for the device-time profiler (`runtime/profiler.py`)."""
 
-    __slots__ = ("_fetch", "b", "counts", "t_launch_ns")
+    __slots__ = ("_fetch", "b", "counts", "t_launch_ns", "events")
 
-    def __init__(self, fetch, b: int, counts=None):
+    def __init__(self, fetch, b: int, counts=None, events=None):
         self._fetch = fetch
         self.b = b
         self.counts = counts
         self.t_launch_ns = time.monotonic_ns()
+        self.events = events
 
     def fetch(self):
         return self._fetch()
@@ -493,6 +507,11 @@ class ShardedKV:
         self._dev = [[devs[s, r] for r in range(self.n_replicas)]
                      for s in range(self.n_shards)]
         self.device = self._dev[0][0]
+        # the one CUDA device every shard and lane names, else None: only
+        # then does a plane verb record a device-time event pair
+        one = {d for lanes in self._dev for d in lanes}
+        self._event_dev = (self.device if len(one) == 1
+                           and self.device.type == "cuda" else None)
         self._router = pt.ShardRouter(self.n_shards,
                                       pad_floor=plane_pad_floor)
         # host stats plane of the read-only GETs and the host overlays
@@ -845,6 +864,7 @@ class ShardedKV:
             values = np.asarray(values, np.uint32).reshape(rb.b, -1)
             live = np.argsort(rb.pos, kind="stable")  # routed-lane order
             bounds = np.concatenate([[0], np.cumsum(rb.counts)])
+            ev = profiler.launch_begin(self._event_dev)
             res = []
             for s in range(self.n_shards):
                 idx = live[bounds[s]:bounds[s + 1]]
@@ -867,6 +887,7 @@ class ShardedKV:
                             self._routed(rb, s, dev), vals)
                     if r == 0:
                         res.append(rs)
+            profiler.launch_end(ev, self._event_dev)
             self._mut_seq += 1
 
         def fetch():
@@ -876,7 +897,7 @@ class ShardedKV:
                 f: rb.scatter(np.concatenate([h[f] for h in host]))
                 for f in InsertResult._fields})
 
-        return PlaneHandle(fetch, rb.b, rb.counts)
+        return PlaneHandle(fetch, rb.b, rb.counts, ev)
 
     # caller-holds: _lock
     def _get_one(self, s: int, r: int, keys, counting: bool):
@@ -904,6 +925,12 @@ class ShardedKV:
     def _plane_get(self, rb: pt.RoutedBatch, counting: bool) -> PlaneHandle:
         outs, founds, deltas, lanes = [], [], [], []
         nrep = self.n_replicas
+        if kv_mod.fused_ops.supports(self.config):
+            profiler.cost_probe(
+                "plane.get", rb.wl,
+                lambda: self.n_shards * kv_mod.fused_ops.hit_bytes(
+                    self._st[0][0], rb.wl))
+        ev = profiler.launch_begin(self._event_dev)
         for s in range(self.n_shards):
             per = []
             for r in range(nrep):
@@ -928,6 +955,7 @@ class ShardedKV:
             outs.append(out)
             founds.append(found)
             deltas.append(delta)
+        profiler.launch_end(ev, self._event_dev)
 
         def fetch():
             f_routed = np.concatenate([f.cpu().numpy() for f in founds])
@@ -944,7 +972,7 @@ class ShardedKV:
             routed = np.concatenate([u32.to_numpy(o) for o in outs])
             return PlaneGets(rb, routed, rb.scatter(f_routed), ls, lr)
 
-        return PlaneHandle(fetch, rb.b, rb.counts)
+        return PlaneHandle(fetch, rb.b, rb.counts, ev)
 
     @staticmethod
     def _replica_merge(per: list, dev0):
@@ -982,11 +1010,14 @@ class ShardedKV:
         no lane attribution is noted (warmup is not traffic)."""
         with self._lock:
             rb = self._router.build(keys)
+            # warmup syncs are sanctioned and unattributed: the handles
+            # (and their event pairs) are dropped unread
             self._plane_get(rb, False)
+            self._sync()
             if get_index_ops(self.config.index.kind).touch is not None \
                     or isinstance(self._st[0][0].pool, tier_mod.TierState):
                 self._plane_get(rb, True)
-            self._sync()
+                self._sync()
 
     def plane_delete(self, keys: np.ndarray) -> PlaneHandle:
         with self._lock:
@@ -994,6 +1025,7 @@ class ShardedKV:
             rb = self._router.build(keys)
             if rb.b == 0:
                 return PlaneHandle(lambda: np.zeros(0, bool), 0, rb.counts)
+            ev = profiler.launch_begin(self._event_dev)
             hits = []
             for s in range(self.n_shards):
                 if not rb.counts[s]:
@@ -1009,6 +1041,7 @@ class ShardedKV:
                         per.append(kv_mod.delete(self._st[s][r], self.config,
                                                  self._routed(rb, s, dev))[1])
                 hits.append(_gather_to(per, self._dev[s][0]).any(dim=0))
+            profiler.launch_end(ev, self._event_dev)
             self._mut_seq += 1
             self.dir_epoch += 1
 
@@ -1016,20 +1049,22 @@ class ShardedKV:
             return rb.scatter(np.concatenate([h.cpu().numpy()
                                               for h in hits]))
 
-        return PlaneHandle(fetch, rb.b, rb.counts)
+        return PlaneHandle(fetch, rb.b, rb.counts, ev)
 
     def plane_get_extent(self, keys: np.ndarray) -> PlaneHandle:
         """Extent covers are replicated, so this phase is the broadcast
         body (counts=None: every shard probes the whole batch)."""
         with self._lock:
             keys_p, _, b, w = self._pad(keys)
+            ev = profiler.launch_begin(self._event_dev)
             out, found = [self._get_extent_lane(r, keys_p)
                           for r in range(self.n_replicas)][0]
+            profiler.launch_end(ev, self._event_dev)
 
         def fetch():
             return u32.to_numpy(out)[:b], found.cpu().numpy()[:b]
 
-        return PlaneHandle(fetch, b, None)
+        return PlaneHandle(fetch, b, None, ev)
 
     def _plane_note_get(self, delta: np.ndarray) -> None:
         """Fold one read-only GET's per-shard stats delta ([n, NSTATS])
@@ -1262,10 +1297,10 @@ class ShardedKV:
     # -- persistence --
 
     def _sync(self) -> None:
-        for lanes in self._dev:
-            for dev in lanes:
-                if dev.type == "cuda":
-                    torch.cuda.synchronize(dev)
+        """Wait for every lane's device: the profiler's sanctioned,
+        unattributed sync (`profiler.block_ready`)."""
+        profiler.block_ready([st.stats for lanes in self._st
+                              for st in lanes])
 
     def save(self, path: str, delta: bool = False) -> dict:
         """Atomic snapshot of the whole plane, every leaf stacked

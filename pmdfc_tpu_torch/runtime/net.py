@@ -9,9 +9,11 @@ The port's differences, all server-side:
   put's new bytes under the old digest;
 - every thread that drives a backend (connection readers, the flush
   loop, the bloom push sender) enters the backend's CUDA device;
-- the port has no device-time profiler yet, so `MSG_PROFILE` is always
-  refused with `MSG_NOTEXIST`, the answer a server with no capture to
-  offer gives (`PMDFC_PROF` still decides the handshake ack).
+- `MSG_PROFILE` captures a bounded `torch.profiler` session (CPU and
+  CUDA activity) through the attached device-time profiler
+  (`runtime/profiler.py`) into `<dump_dir>/prof_<seq>/trace.json`, where
+  the JAX server captures a `jax.profiler` trace; the refusal rules are
+  the JAX server's.
 
 Reference: the tcp_style client generation speaks a kernel TCP messaging
 layer ported from OCFS2 o2net (`client/tcp_style/tcp.c`), with message
@@ -1183,11 +1185,25 @@ class NetServer(_BaseServer):
                 int(bool(info.get("recovering"))))
 
     def _serve_profile(self, duration_ms: int):
-        """MSG_PROFILE body -> the reply payload, or None = refuse
-        (MSG_NOTEXIST). The port has no device-time profiler to attach
-        yet, so every request is refused: the answer a server gives when
-        no capture can start, which every client already handles."""
-        return None
+        """MSG_PROFILE body, shared by the lockstep loop and the
+        coalesced aux phase (both already serialize with dispatch, so
+        the capture window brackets whole launches). Starts ONE bounded
+        `torch.profiler` session under the flight recorder's dump dir
+        via the attached profiler — its own thread stops it, so the
+        serving loop never blocks for the capture window. Returns the
+        reply payload (JSON bytes) or None = refuse (MSG_NOTEXIST):
+        profiler not attached, no dump dir, capture live, or cooldown."""
+        import json as _json
+
+        from pmdfc_tpu_torch.runtime import profiler as prof_mod
+
+        p = prof_mod.active()
+        if p is None:
+            return None
+        res = p.start_capture(int(duration_ms) or 200)
+        if res is None:
+            return None
+        return _json.dumps(res).encode("utf-8")
 
     def _serve_ringnote(self, be, ring_epoch: int, members: int,
                         cid: int) -> int:

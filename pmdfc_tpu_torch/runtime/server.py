@@ -36,9 +36,15 @@ and device, so a caller's thread may cut one while the driver serves.
 
 Mesh mode (`mesh=`, or a `ShardedKV` passed as `kv=`): the phases become
 the sharded plane's routed verbs (`ShardedKV.plane_*`), each launched as a
-`PlaneHandle` and fetched in `_finalize`; see `parallel/plane.py`. The
-device-time profiler is not ported yet, so the handles are fetched
-directly.
+`PlaneHandle` and fetched in `_finalize`; see `parallel/plane.py`.
+
+Every blocking fetch in `_finalize` goes through the device-time
+profiler's seam (`runtime/profiler.py` `fetch`), as in the JAX driver:
+with a profiler attached, each async verb records a CUDA event pair on
+the KV's stream (`KV.take_launch`; a plane handle carries its own), and
+the launch stamp `t_ns` charges the launch-to-fetch gap to the first
+fetched phase as `dispatch_us`. With none attached every seam passes
+through.
 """
 
 from __future__ import annotations
@@ -53,6 +59,7 @@ import numpy as np
 from pmdfc_tpu_torch.config import KVConfig
 from pmdfc_tpu_torch.kv import KV
 from pmdfc_tpu_torch.ops.bloom import dirty_blocks
+from pmdfc_tpu_torch.runtime import profiler
 from pmdfc_tpu_torch.runtime import sanitizer as san
 from pmdfc_tpu_torch.runtime import telemetry as tele
 from pmdfc_tpu_torch.runtime import timeseries
@@ -376,6 +383,8 @@ class KVServer:
 
         keys = np.stack([reqs["khi"], reqs["klo"]], axis=-1)
         handles: dict = {}
+        # each phase's CUDA event pair (None unless a profiler records)
+        ev = handles["events"] = {}
         floor = self.pad_floor
 
         puts = reqs["op"] == OP_PUT
@@ -399,6 +408,7 @@ class KVServer:
             else:
                 res, nb = self.kv.insert_async(keys[puts], vals,
                                                pad_floor=floor)
+                ev["puts"] = self.kv.take_launch()
                 handles["puts"] = (puts, res, nb)
 
         # Extent inserts land after puts, before deletes/gets, so a client
@@ -433,6 +443,7 @@ class KVServer:
                     keys[dels]), None)
             else:
                 hit, nb = self.kv.delete_async(keys[dels], pad_floor=floor)
+                ev["dels"] = self.kv.take_launch()
                 handles["dels"] = (dels, hit, nb)
 
         gext = reqs["op"] == OP_GET_EXT
@@ -444,6 +455,7 @@ class KVServer:
             else:
                 out, found, nb = self.kv.get_extent_async(keys[gext],
                                                           pad_floor=floor)
+                ev["get_ext"] = self.kv.take_launch()
                 handles["get_ext"] = (gext, out, found, nb)
 
         gets = reqs["op"] == OP_GET
@@ -455,28 +467,52 @@ class KVServer:
             elif self.config.paged:
                 out, order, found, nfound, nb = \
                     self.kv.get_compact_async(keys[gets], pad_floor=floor)
+                ev["gets"] = self.kv.take_launch()
                 handles["gets"] = (gets, (out, order, found, nfound), nb)
             else:
                 out, found, nb = self.kv.get_async(keys[gets],
                                                    pad_floor=floor)
+                ev["gets"] = self.kv.take_launch()
                 handles["gets"] = (gets, (out, None, found, None), nb)
+        # launch stamp for the dispatch-vs-device split: _finalize
+        # charges the launch-to-first-fetch gap as dispatch_us
+        handles["t_ns"] = time.monotonic_ns()
         return handles
 
     def _finalize(self, reqs: np.ndarray, handles) -> None:
         """Copy one launched batch's results to the host (this is where
         the device work is waited for) and publish completions. Timer
         phases as the reference's TIME_CHECK accumulators
-        (`server/rdma_svr.cpp:64-76`)."""
+        (`server/rdma_svr.cpp:64-76`); every blocking fetch is the
+        profiler's timed seam. `t_l` (the launch stamp) charges the
+        dispatch gap to the FIRST fetched phase; plane handles carry
+        their own stamps."""
         if handles is None:
             return  # fault-injected drop
         status = np.zeros(len(reqs), np.int32)
+        t_l = handles.pop("t_ns", 0)
+        ev = handles.pop("events", {})
+        n_sh = self._plane.n_shards if self._plane is not None else 0
+
+        def plane_fetch(program, phase, h):
+            return profiler.fetch(
+                program, phase, h.fetch, n_ops=h.b, counts=h.counts,
+                n_shards=n_sh, t_launch_ns=h.t_launch_ns, ring=True,
+                events=h.events)
+
         if "puts" in handles:
             with self.timers.phase("write"):
                 puts, res, nb = handles["puts"]
                 if nb is None:  # plane handle, request order
-                    dropped = np.asarray(res.fetch().dropped)
+                    dropped = np.asarray(
+                        plane_fetch("plane.put", "put", res).dropped)
                 else:
-                    dropped = res.dropped[:nb].cpu().numpy()
+                    dropped = profiler.fetch(
+                        "kv.insert", "put",
+                        lambda: res.dropped[:nb].cpu().numpy(),
+                        n_ops=nb, t_launch_ns=t_l, ring=True,
+                        events=ev.get("puts"))
+                t_l = 0
                 status[puts] = np.where(dropped, -1, 0)
         if "ins_ext" in handles:
             iext, st = handles["ins_ext"]
@@ -485,23 +521,36 @@ class KVServer:
             with self.timers.phase("read"):
                 gext, out, found, nb = handles["get_ext"]
                 if nb is None:  # plane handle
-                    out_h, found_h = out.fetch()
+                    out_h, found_h = plane_fetch("plane.get_ext", "get_ext",
+                                                 out)
                 else:
-                    out_h = u32.to_numpy(out[:nb])
-                    found_h = found[:nb].cpu().numpy()
+                    out_h, found_h = profiler.fetch(
+                        "kv.get_extent", "get_ext",
+                        lambda: (u32.to_numpy(out[:nb]),
+                                 found[:nb].cpu().numpy()),
+                        n_ops=nb, t_launch_ns=t_l, ring=True,
+                        events=ev.get("get_ext"))
+                t_l = 0
                 self.engine.arena[reqs["page_off"][gext], :2] = out_h
                 status[gext] = np.where(found_h, 0, -1)
         if "dels" in handles:
             with self.timers.phase("delete"):
                 dels, hit, nb = handles["dels"]
-                hit_h = (hit.fetch() if nb is None
-                         else hit[:nb].cpu().numpy())
+                if nb is None:
+                    hit_h = plane_fetch("plane.del", "del", hit)
+                else:
+                    hit_h = profiler.fetch(
+                        "kv.delete", "del",
+                        lambda: hit[:nb].cpu().numpy(),
+                        n_ops=nb, t_launch_ns=t_l, ring=True,
+                        events=ev.get("dels"))
+                t_l = 0
                 status[dels] = np.where(hit_h, 0, -1)
         if "gets" in handles:
             with self.timers.phase("read"):
                 gets, got, nb = handles["gets"]
                 if nb is None:  # plane: request-ordered PlaneGets
-                    pg = got.fetch()
+                    pg = plane_fetch("plane.get", "get", got)
                     found_h = np.asarray(pg.found, bool)
                     if self.config.paged and found_h.any():
                         # hit rows straight out of the routed buffer
@@ -509,15 +558,22 @@ class KVServer:
                             = pg.hit_rows()
                 else:
                     out, order, found, nfound = got
-                    found_h = found[:nb].cpu().numpy()
-                    if self.config.paged:
-                        # only the hit rows cross (device-compacted)
-                        nf = int(nfound)
-                        if nf:
-                            pages = u32.to_numpy(out[:nf])
-                            src = order[:nf].cpu().numpy()
-                            self.engine.arena[
-                                reqs["page_off"][gets][src]] = pages
+
+                    def _fetch_gets():
+                        found_h = found[:nb].cpu().numpy()
+                        if self.config.paged:
+                            # only the hit rows cross (device-compacted)
+                            nf = int(nfound)
+                            if nf:
+                                pages = u32.to_numpy(out[:nf])
+                                src = order[:nf].cpu().numpy()
+                                self.engine.arena[
+                                    reqs["page_off"][gets][src]] = pages
+                        return found_h
+
+                    found_h = profiler.fetch(
+                        "kv.get", "get", _fetch_gets, n_ops=nb,
+                        t_launch_ns=t_l, ring=True, events=ev.get("gets"))
                 # (unpaged mode returns hit/miss status only, like the
                 # reference's TX_READ_COMMITTED/ABORTED imm)
                 status[gets] = np.where(found_h, 0, -1)

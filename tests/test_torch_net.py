@@ -10,7 +10,8 @@ in order, lockstep (`NetConfig(coalesce=False)`, `pipeline=False`) and
 pipelined into the coalescing server, with `PMDFC_FASTPATH` on and off:
 every reply, `KV.stats()` and the `net` counters must be equal. Then the
 cross drills (a JAX client against the port's server, and the reverse),
-the port's refusal of `MSG_PROFILE` while it has no profiler, the
+`MSG_PROFILE` on the port's server (every capture refused without a dump
+dir; with one, a capture and a refusal inside its cooldown), the
 one-sided pool over the wire against JAX's host pool, and a region saved
 by one package loaded by the other.
 """
@@ -200,23 +201,55 @@ def test_cross_package_wire(client, server):
     assert want[1] == got[1] and want[2] == got[2]
 
 
-def test_profile_verb_is_refused_without_a_profiler(monkeypatch):
-    """With PMDFC_PROF on, the port's server acks the verb and refuses
-    every capture (MSG_NOTEXIST): it has no device-time profiler yet."""
+def test_profile_verb_is_refused_without_a_profiler(monkeypatch, tmp_path):
+    """MSG_PROFILE on the port's server, for both packages' clients: with
+    PMDFC_PROF on the verb is acked; a profiler with no dump dir to write
+    to refuses every capture (MSG_NOTEXIST) and the connection serves on;
+    with a dump dir the same server captures (a path under it, where the
+    capture thread writes `trace.json`) and refuses a second request
+    inside the cooldown."""
+    import os
+    import time
+
+    from pmdfc_tpu_torch.runtime import profiler as tprof
+    from pmdfc_tpu_torch.runtime import telemetry as ttele
+
     monkeypatch.setenv("PMDFC_PROF", "on")
     kv = PORT.kv(_cfg(PORT))
     shared = tbackends.DirectBackend(kv)
-    for net in (None, tconfig.NetConfig()):
-        with tnet.NetServer(lambda: shared, net=net).start() as srv:
-            for pkg in (JAX, PORT):
-                be = pkg.net.TcpBackend("127.0.0.1", srv.port, page_words=W,
-                                        keepalive_s=None)
-                assert be.prof
-                assert be.server_profile(50) is None
-                keys = np.array([[1, 2]], np.uint32)
-                be.put(keys, np.ones((1, W), np.uint32))
-                assert be.get(keys)[1].all()  # the connection lives on
-                be.close()
+    try:
+        for dump in (None, tmp_path):
+            ttele.configure(tconfig.TelemetryConfig(
+                dump_dir=str(dump) if dump else None))
+            tprof.install(tconfig.ProfilerConfig(trace_min_interval_s=60.0))
+            paths = []
+            for net in (None, tconfig.NetConfig()):
+                with tnet.NetServer(lambda: shared, net=net).start() as srv:
+                    for pkg in (JAX, PORT):
+                        be = pkg.net.TcpBackend("127.0.0.1", srv.port,
+                                                page_words=W,
+                                                keepalive_s=None)
+                        assert be.prof
+                        res = be.server_profile(50)
+                        if dump is None or paths:
+                            assert res is None
+                        else:
+                            assert res["path"].startswith(str(tmp_path))
+                            assert res["duration_ms"] == 50
+                            paths.append(res["path"])
+                        keys = np.array([[1, 2]], np.uint32)
+                        be.put(keys, np.ones((1, W), np.uint32))
+                        assert be.get(keys)[1].all()  # the connection lives
+                        be.close()
+            if dump is not None:
+                assert len(paths) == 1
+                trace = os.path.join(paths[0], "trace.json")
+                deadline = time.monotonic() + 30
+                while not os.path.exists(trace):
+                    assert time.monotonic() < deadline
+                    time.sleep(0.05)
+    finally:
+        ttele.configure()
 
 
 def _pool_script(pkg, pool):

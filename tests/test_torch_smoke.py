@@ -501,3 +501,153 @@ def test_plane_phase_fails_when_a_shard_launch_fails(plane_smoke,
     monkeypatch.setattr(fused, "fused_get", failing)
     with pytest.raises(AssertionError, match="plane: a phase failed"):
         chip_smoke.run_plane(plane_smoke)
+
+
+CONTROL_TINY = (("ROW_INDEX", dict(capacity=1 << 12)),
+                ("CONTROL_INDEX", dict(capacity=1 << 12)),
+                ("CONTROL_BLOOM_BITS", 1 << 18), ("CONTROL_CONNS", 4),
+                ("CONTROL_LIGHT_S", 1.0), ("CONTROL_LIGHT_VERB", 16),
+                ("CONTROL_FANIN_VERBS", 4), ("VERB", 1 << 6),
+                ("CONTROL_CAPTURE_MS", 100),
+                # a CPU session records only its own thread's ops (the
+                # serving threads' are not in it) and no CUDA kernel: the
+                # rehearsal holds the trace to the session's own record
+                ("TRACE_CAT", "Trace"), ("TRACE_NAME", "PyTorch Profiler"),
+                ("HARNESSES", (("insert_rowscatter", ("--smoke",)),
+                               ("telemetry_overhead",
+                                ("--smoke", "--pairs", "16", "--gets", "32",
+                                 "--gate", "1e9")))))
+
+
+@pytest.fixture
+def control_smoke(smoke, monkeypatch, tmp_path):
+    """Phase 11 at a tiny size; the row-path KV runs in this process with
+    the registry pointed at the row path (what PMDFC_INSERT_PATH=row does
+    at import in the child)."""
+    import dataclasses
+
+    from pmdfc_tpu_torch.config import IndexKind
+    from pmdfc_tpu_torch.models import base, linear
+
+    for name, value in CONTROL_TINY:
+        monkeypatch.setattr(chip_smoke, name, value)
+    monkeypatch.setattr(chip_smoke, "control_dir", lambda: tmp_path / "ctl")
+
+    def row_kv(sm):
+        monkeypatch.setitem(base._REGISTRY, IndexKind.LINEAR,
+                            dataclasses.replace(
+                                base._REGISTRY[IndexKind.LINEAR],
+                                insert_batch=linear.insert_batch_row))
+        entry = chip_smoke.run_row_kv(sm)
+        entry = json_roundtrip(entry)
+        monkeypatch.setitem(base._REGISTRY, IndexKind.LINEAR,
+                            dataclasses.replace(
+                                base._REGISTRY[IndexKind.LINEAR],
+                                insert_batch=linear.insert_batch_element))
+        return entry
+
+    monkeypatch.setattr(chip_smoke, "row_kv_subprocess", row_kv)
+    return smoke
+
+
+def json_roundtrip(d):
+    import json
+
+    return json.loads(json.dumps(d))
+
+
+def test_control_phase_and_its_kernels_lines(control_smoke, capsys):
+    """Phase 11 at a tiny size: row and element equal after every batch,
+    the KV on the row path byte-exact, the profiler and controller behind
+    the wire (one kv.get launch per GET phase, a capture's trace written
+    and a second refused, knobs inside their envelope, proftool over the
+    stats pull), the harnesses, and the two kernels entries."""
+    import os
+
+    entries = chip_smoke.run_control(control_smoke)
+    assert [e["path"] for e in entries] == ["row-path", "control"]
+    assert [e["name"] for e in entries] == ["fused_get_linear_flat",
+                                            "fused_get_linear_tiered"]
+    for e in entries:
+        assert set(e) == KEYS
+        assert e["launches"] > 0 and e["max_abs_err"] == 0
+        assert e["bound_by"] == "bytes" and e["library_ms"] is None
+    out = capsys.readouterr().out
+    assert "equal after every batch" in out
+    assert "a second request inside the cooldown refused" in out
+    assert "every knob inside its envelope" in out
+    assert "harness insert_rowscatter" in out
+    assert "harness telemetry_overhead" in out and "overhead_ratio" in out
+    assert os.environ.get("PMDFC_PROF") is None
+
+
+def test_control_phase_fails_on_a_trace_without_the_kernel(
+        control_smoke, monkeypatch):
+    """A capture whose session recorded nothing of the GETs fails the
+    phase."""
+    class Empty:
+        def __init__(self, **_):
+            pass
+
+        def start(self):
+            pass
+
+        def stop(self):
+            pass
+
+        def export_chrome_trace(self, path):
+            with open(path, "w") as f:
+                f.write('{"traceEvents": []}')
+
+    monkeypatch.setattr(torch.profiler, "profile", Empty)
+    with pytest.raises(AssertionError, match="holds no"):
+        chip_smoke.run_control(control_smoke)
+
+
+def test_control_phase_fails_on_a_knob_outside_its_envelope(
+        control_smoke, monkeypatch):
+    from pmdfc_tpu_torch.runtime.net import NetServer
+
+    real = NetServer.flush_knobs
+    monkeypatch.setattr(NetServer, "flush_knobs",
+                        lambda self: tuple(100 * v for v in real(self)))
+    with pytest.raises(AssertionError, match="outside their envelope"):
+        chip_smoke.run_control(control_smoke)
+
+
+def test_control_phase_fails_on_a_row_element_mismatch(control_smoke,
+                                                       monkeypatch):
+    from pmdfc_tpu_torch.models import linear
+
+    real = linear.insert_batch_row
+    calls = [0]
+
+    def off_by_one(state, keys, values):
+        state, res = real(state, keys, values)
+        calls[0] += 1
+        if calls[0] == 3:
+            state.head[0] += 1
+        return state, res
+
+    monkeypatch.setattr(linear, "insert_batch_row", off_by_one)
+    with pytest.raises(AssertionError, match="head differs after batch"):
+        chip_smoke.run_control(control_smoke)
+
+
+def test_control_phase_fails_when_kv_get_launches_go_uncounted(
+        control_smoke, monkeypatch):
+    from pmdfc_tpu_torch.runtime.profiler import Profiler
+
+    real = Profiler.note_launch
+    seen = [0]
+
+    def lossy(self, program, *a, **kw):
+        if program == "kv.get":
+            seen[0] += 1
+            if seen[0] % 3 == 0:
+                return None
+        return real(self, program, *a, **kw)
+
+    monkeypatch.setattr(Profiler, "note_launch", lossy)
+    with pytest.raises(AssertionError, match="kv.get launches for"):
+        chip_smoke.run_control(control_smoke)
