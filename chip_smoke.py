@@ -286,6 +286,39 @@ Phases, each reported on its own line; any failure exits nonzero:
              harnesses `bench/insert_rowscatter.py` and
              `bench/telemetry_overhead.py --smoke` on the card, each its
              own process (the ON/OFF ratio is reported, not gated).
+12. scale — the multi-process plane on torch.distributed and the
+             reference's workload harnesses, after control. (a) Two
+             processes from the `spawn` context join over gloo on
+             loopback (`connect_multihost`, two shards each on the card,
+             the exchange staged through pinned host buffers), each shard
+             linear·flat at 2^19 slots, 8 bloom bits per slot, 4 KiB
+             pages (8 GiB in all, phase 10's split). Every process passes
+             the same full batches: 75% of the slots in 2^14-key a2a
+             inserts (the pair overflow counted), 2^12 deletes, 6 a2a
+             GETs of 2^14 keys (5/8 present, 1/8 deleted, 1/8 never
+             inserted, 1/8 any) and one broadcast GET of 2^12 on the same
+             plane. Checks in every process: every present key hits, every
+             hit byte-exact, every deleted or never-inserted key misses,
+             every miss zeroed, `misses == Σ miss_*` on `stats()` and on
+             every shard's row of `shard_report()`, one fused-GET launch
+             per shard per GET phase; the processes' results are
+             identical; the kernel against plain on each process's first
+             full shard at w = 8 and at the widest per-shard width (rank
+             0 times it). Reports fill and GET rates and the exchange's
+             bytes and seconds per batch. (b) One process in an NCCL
+             group of world size 1, four 2^16-slot shards on the card
+             (the exchange's collectives run on the card): the same
+             checks. Then two NCCL ranks naming the one card must both
+             be refused (`SharedDeviceError`) before any collective. (c)
+             The harnesses of `pmdfc_tpu_torch/bench/`, each its own
+             process with `--device cuda`, four side by side:
+             `multihost_bench --procs 2 --backend gloo` (hits == n),
+             `test_kv` over the reference baseline's 10M uniform keys at
+             2^25 slots, linear then cceh (`failedSearch` 0), the six
+             `paging_sim` jobs, `swap_sim`, filebench's fileserver and
+             webserver (8 GiB pools; `verify_failures` 0), `replay` of
+             the bundled trace and of 10^6 synthetic events (no wrong
+             value), `multinode` with 3 clients (no wrong page).
 
 Each KV is freed before the next path's fill, so no two pools share the
 card but the fleet's and the plane's own shards. The next-to-last line is one JSON object naming each kernel with its
@@ -429,6 +462,61 @@ TRACE_CAT, TRACE_NAME = "kernel", "fused_get_kernel"
 # the harnesses run on the card, each as its own process
 HARNESSES = (("insert_rowscatter", ()),
              ("telemetry_overhead", ("--smoke", "--gate", "1e9")))
+
+# phase 12, scale: the multi-process plane on torch.distributed and the
+# reference's workload harnesses. Part (a): 2 spawned processes joined
+# over gloo, 2 shards each on the one card, each shard linear·flat at
+# 2^19 slots (8 bits of bloom per slot, 4 KiB pages: 2 GiB pools, 8 GiB in
+# all, phase 10's split); part (b): one process in an NCCL group of world
+# size 1, 4 shards of 2^16 slots
+SCALE_PROCS = 2
+SCALE_PER_PROC = 2
+SCALE_INDEX = dict(capacity=1 << 19)
+SCALE_BLOOM_BITS = 1 << 22
+SCALE_SOLO_BACKEND = "nccl"
+SCALE_SOLO_SHARDS = 4
+SCALE_SOLO_INDEX = dict(capacity=1 << 16)
+SCALE_SOLO_BLOOM_BITS = 1 << 19
+SCALE_INS_B = 1 << 14     # keys per a2a insert
+SCALE_GET_B = 1 << 14     # keys per a2a GET
+SCALE_GETS = 6            # a2a GET batches
+SCALE_BCAST_B = 1 << 12   # the broadcast GET batch
+SCALE_DELETE = 1 << 12    # present keys deleted before the GETs
+SCALE_HI = 0xF0000000     # the plane's keys are (SCALE_HI, i)
+SCALE_JOIN_S = 120.0      # connect_multihost's timeout
+SCALE_TIMEOUT_S = 600.0   # a part's workers, spawn to exit
+SCALE_TIMED = True        # rank 0 times the kernel (not in the rehearsal)
+SCALE_HARNESS_LANES = 4   # harness processes run side by side
+# the paging jobs over an 8 GiB pool (2^21 slots, 4 KiB pages): the read
+# jobs batch 16 faults a window over a 4096-page file through a
+# 1024-page RAM cache (8 passes of it); the write jobs go op by op (each
+# write invalidates its page on the card), over a 1024-page file through
+# a 256-page cache (8 passes)
+_POOL = ("--capacity", str(1 << 21))
+_READS = (*_POOL, "--file-pages", "4096", "--ram-pages", "1024", "--ops",
+          "8192", "--iodepth", "16")
+_WRITES = (*_POOL, "--file-pages", "1024", "--ram-pages", "256", "--ops",
+           "2048")
+SCALE_HARNESSES = (
+    ("multihost_bench", ("--procs", "2", "--backend", "gloo")),
+    ("test_kv", ("--n", "10000000", "--batch", "1000000", "--capacity",
+                 str(1 << 25), "--index", "linear", "--no-engine")),
+    ("test_kv", ("--n", "10000000", "--batch", "1000000", "--capacity",
+                 str(1 << 25), "--index", "cceh", "--no-engine")),
+    ("paging_sim", ("--job", "seq_read", *_READS)),
+    ("paging_sim", ("--job", "rand_read", *_READS)),
+    *(("paging_sim", ("--job", job, *_WRITES)) for job in
+      ("rand_rw", "seq_rw", "seq_write")),
+    ("paging_sim", ("--job", "scan_mix", *_POOL, "--ops", "4096",
+                    "--iodepth", "16", "--repeats", "1")),
+    ("swap_sim", (*_POOL, "--working-pages", "4096", "--ram-pages", "1024",
+                  "--ops", "4096", "--iodepth", "16")),
+    ("filebench", ("--personality", "fileserver", *_POOL, "--loops", "15")),
+    ("filebench", ("--personality", "webserver", *_POOL, "--loops", "15")),
+    ("replay", ("--trace", "tests/data/fileserver.trace")),
+    ("replay", ("--synthetic", "1000000")),
+    ("multinode", ("--clients", "3", *_POOL, "--ops", "3000")),
+)
 
 
 def log(phase: str, msg: str) -> None:
@@ -3416,17 +3504,19 @@ def plane_checks(sm, skv, be, srv, clients, counts, launches_per_phase,
     return launches
 
 
-def plane_kernel(sm, state, present, pw: int, widths, label: str, smi):
-    """Kernel against plain on one shard's full state at each width, and
-    the kernel's times at each -> {w: (ms, plain_ms, bound_ms)}."""
+def plane_kernel(sm, state, present, pw: int, widths, label: str, smi,
+                 hi: int = DIRECT_HI, timed: bool = True):
+    """Kernel against plain on one shard's full state at each width (its
+    keys (hi, present) and never-inserted ones), and with `timed` the
+    kernel's times at each -> {w: (ms, plain_ms, bound_ms)}."""
     np, torch, fused = sm.np, sm.torch, sm.fused
     present = torch.from_numpy(present.astype(np.int64)).to(sm.dev)
 
     def batch(w):
         n_never = max(1, w // 8)
         keys = torch.cat([
-            sm.keys_of(DIRECT_HI, sm.pick(present, w - n_never)),
-            sm.keys_of(DIRECT_HI, torch.randint(
+            sm.keys_of(hi, sm.pick(present, w - n_never)),
+            sm.keys_of(hi, torch.randint(
                 NEVER_LO, 1 << 32, (n_never,), device=sm.dev,
                 generator=sm.gen))])
         return keys[torch.randperm(w, device=sm.dev, generator=sm.gen)]
@@ -3438,6 +3528,8 @@ def plane_kernel(sm, state, present, pw: int, widths, label: str, smi):
         causes, _ = sm.compare(batch(w), state, f"{label} w={w}")
         log("kernel", f"{label} shard 0 full w={w}: kernel == plain, "
             f"causes {CAUSE_NAMES}={causes}")
+        if not timed:
+            continue
         batches = [batch(w) for _ in range(8)]
         nbytes = [fused.fused_get_bytes(
             sm.compare(k, state, f"{label} timed")[0], w, s_, pw,
@@ -4510,6 +4602,423 @@ def run_control(sm: Smoke):
     return [row_entry, control_entry]
 
 
+# ---------------------------------------------------------------------------
+# phase 12, scale: the multi-process plane and the workload harnesses
+# ---------------------------------------------------------------------------
+
+def scale_params(label: str) -> dict:
+    """What the children of one part of phase 12 run, from the module's
+    constants (the children import this module afresh, so they are
+    passed, not read there)."""
+    solo = label == "nccl"
+    return {"label": label, "device": DEVICE, "seed": 0,
+            "world": 1 if solo else SCALE_PROCS,
+            "per_proc": SCALE_SOLO_SHARDS if solo else SCALE_PER_PROC,
+            "backend": SCALE_SOLO_BACKEND if solo else "gloo",
+            "index": SCALE_SOLO_INDEX if solo else SCALE_INDEX,
+            "bloom_bits": SCALE_SOLO_BLOOM_BITS if solo else SCALE_BLOOM_BITS,
+            "ins_b": SCALE_INS_B, "get_b": SCALE_GET_B, "gets": SCALE_GETS,
+            "bcast_b": SCALE_BCAST_B, "delete": SCALE_DELETE,
+            "hi": SCALE_HI, "join_s": SCALE_JOIN_S, "timed": SCALE_TIMED}
+
+
+def scale_child(rank: int, port: int, p: dict, q) -> None:
+    """One process of a multi-process plane (spawned): its results, or the
+    traceback of what failed, go to the parent through `q`."""
+    try:
+        q.put((rank, "ok", scale_drive(rank, port, p)))
+    except BaseException:
+        import traceback
+
+        q.put((rank, "error", traceback.format_exc()))
+        raise
+
+
+def scale_drive(rank: int, port: int, p: dict) -> dict:
+    global DEVICE
+    DEVICE = p["device"]
+    import torch
+
+    from pmdfc_tpu_torch.ops import _build, fused
+    from pmdfc_tpu_torch.parallel import shard as shard_mod
+
+    if torch.device(DEVICE).type == "cuda":
+        _build.load("fused_get")
+    else:
+        # the CPU rehearsal: on CPU tensors the wrapper runs the plain
+        # version and counts nothing, so count its calls here; and there
+        # is no stream to wait for
+        torch.cuda.synchronize = lambda *a: None
+        plain = fused.fused_get
+
+        def counted(keys, *a, **kw):
+            fused.launches["fused_get_linear_flat"] += 1
+            return plain(keys, *a, **kw)
+
+        fused.fused_get = counted
+    ndev = shard_mod.connect_multihost(
+        f"localhost:{port}", p["world"], rank, timeout_s=p["join_s"],
+        backend=p["backend"], devices=[DEVICE] * p["per_proc"])
+    try:
+        return scale_plane(rank, ndev, p)
+    finally:
+        shard_mod.shutdown_multihost()
+
+
+def scale_plane(rank: int, ndev: int, p: dict) -> dict:
+    """Fill, delete, a2a GETs, a broadcast GET, the stats rows and the
+    kernel against plain, in one process of the group; every check
+    raises. -> the numbers the parent reports and compares."""
+    import zlib
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from pmdfc_tpu_torch.config import BloomConfig, IndexConfig, KVConfig
+    from pmdfc_tpu_torch.models.base import get_index_ops
+    from pmdfc_tpu_torch.ops import fused
+    from pmdfc_tpu_torch.parallel.partitioning import shard_of_np
+    from pmdfc_tpu_torch.parallel.shard import (
+        ShardedKV, make_mesh, pair_capacity)
+    from pmdfc_tpu_torch.utils import u32
+
+    sm = Smoke(p["seed"] + rank)
+    label, hi = f"{p['label']} rank {rank}", p["hi"]
+    cfg = KVConfig(index=IndexConfig(**p["index"]),
+                   bloom=BloomConfig(num_bits=p["bloom_bits"]))
+    pw = cfg.page_words
+    skv = ShardedKV(cfg, mesh=make_mesh(), dispatch="a2a")
+    n = skv.n_shards
+    if ndev != n or n != p["world"] * p["per_proc"]:
+        raise AssertionError(f"{label}: {ndev} devices, {n} shards")
+    n_fill = 3 * skv.capacity() // 4
+    alive = np.zeros(n_fill, bool)
+    rng = np.random.default_rng(p["seed"])  # the same batches everywhere
+
+    def keys_of(lo):
+        lo = np.asarray(lo, np.uint32)
+        return np.stack([np.full(len(lo), hi, np.uint32), lo], -1)
+
+    def xch():
+        r = skv.exchange_report()
+        return np.array([r["calls"], r["bytes"], r["seconds"]])
+
+    # the fill: a2a inserts; drops, evictions and the pair overflow
+    ins_b = p["ins_b"]
+    drops = overflow = 0
+    x0, t0 = xch(), time.monotonic()
+    for i in range(0, n_fill, ins_b):
+        lo = np.arange(i, min(i + ins_b, n_fill), dtype=np.uint32)
+        keys = keys_of(lo)
+        res = skv.insert(keys, pages_np(hi, lo, pw))
+        drops += int(res.dropped.sum())
+        alive[lo[~np.asarray(res.dropped)]] = True
+        ev = np.asarray(res.evicted)
+        ev = ev[ev[:, 0] == np.uint32(hi), 1]
+        alive[ev[ev < n_fill]] = False
+        w = 16
+        while w < len(lo):
+            w <<= 1
+        w += -w % n
+        bl, own = w // n, shard_of_np(keys, n)
+        c = pair_capacity(bl, n)
+        for s in range(n):
+            per = np.bincount(own[s * bl:(s + 1) * bl], minlength=n)
+            overflow += int(np.maximum(per - c, 0).sum())
+    t_fill = time.monotonic() - t0
+    x_fill = xch() - x0
+    n_ins = -(-n_fill // ins_b)
+
+    # deletes, then the GETs: present, deleted, never inserted, any
+    gone = rng.choice(np.flatnonzero(alive), p["delete"], replace=False)
+    hit = skv.delete(keys_of(gone))
+    if not hit.all():
+        raise AssertionError(f"{label}: {(~hit).sum()} deletes missed")
+    alive[gone] = False
+
+    def get_batch(b):
+        k = b // 8
+        lo = np.concatenate([
+            rng.choice(np.flatnonzero(alive), 5 * k),
+            rng.choice(gone, k),
+            rng.integers(NEVER_LO, 1 << 32, k, dtype=np.uint32),
+            rng.integers(0, n_fill, b - 7 * k, dtype=np.uint32)])
+        return rng.permutation(lo).astype(np.uint32)
+
+    digests = []
+
+    def check_get(lo, what):
+        out, found = skv.get(keys_of(lo))
+        known = lo < n_fill
+        must = np.zeros(len(lo), bool)
+        must[known] = alive[lo[known]]
+        never = ~known | np.isin(lo, gone)
+        if not found[must].all():
+            raise AssertionError(f"{label} {what}: {(~found[must]).sum()} "
+                                 "present keys missed")
+        if found[never].any():
+            raise AssertionError(f"{label} {what}: a deleted or "
+                                 "never-inserted key hit")
+        if not np.array_equal(out[found], pages_np(hi, lo[found], pw)):
+            raise AssertionError(f"{label} {what}: a hit's page differs")
+        if out[~found].any():
+            raise AssertionError(f"{label} {what}: a miss is not zeroed")
+        digests.append(zlib.crc32(out.tobytes(), zlib.crc32(
+            found.tobytes())))
+        return int(found.sum())
+
+    batches = [get_batch(p["get_b"]) for _ in range(p["gets"])]
+    bcast = get_batch(p["bcast_b"])
+    fused.launches.clear()
+    x0, t0 = xch(), time.monotonic()
+    hits = sum(check_get(lo, f"a2a GET {j}") for j, lo in enumerate(batches))
+    t_get = time.monotonic() - t0
+    x_get = xch() - x0
+    skv.dispatch = "broadcast"  # the same plane, its other dispatch
+    hits += check_get(bcast, "broadcast GET")
+    skv.dispatch = "a2a"
+    launches = fused.launches["fused_get_linear_flat"]
+    phases = p["gets"] + 1
+    if launches != p["per_proc"] * phases:
+        raise AssertionError(f"{label}: {launches} fused-GET launches for "
+                             f"{phases} GET phases x {p['per_proc']} shards")
+    rep, s = skv.shard_report(), skv.stats()
+    causes = sm.kv_mod.MISS_CAUSE_NAMES
+    if s["misses"] != sum(s[c] for c in causes) or not all(
+            rep["stats"]["misses"][i] == sum(rep["stats"][c][i]
+                                             for c in causes)
+            for i in range(n)):
+        raise AssertionError(f"{label}: misses != the sum of the causes")
+
+    # the kernel against plain on this process's first shard, full
+    st = skv.states[0]
+    flat, _ = get_index_ops(cfg.index.kind).scan(st.index)
+    flat = u32.to_numpy(flat)
+    present = flat[flat[:, 0] == np.uint32(hi), 1]
+    widths = (8, n * pair_capacity(p["get_b"] // n, n))
+    for r in range(p["world"]):  # one process at a time on the card
+        if r == rank:
+            times = plane_kernel(sm, st, present, pw, widths,
+                                 f"{p['label']} rank {rank}", nvidia_smi()
+                                 if p["timed"] else "rehearsal", hi=hi,
+                                 timed=p["timed"] and rank == 0)
+        dist.barrier()
+    return {"rank": rank, "shards": n, "n_fill": n_fill, "fill_s": t_fill,
+            "drops": drops, "overflow": overflow, "inserts": n_ins,
+            "x_fill": x_fill.tolist(), "gets": p["gets"],
+            "get_keys": p["gets"] * p["get_b"], "get_s": t_get,
+            "x_get": x_get.tolist(), "hits": hits, "launches": launches,
+            "phases": phases, "digests": digests,
+            "stats": {k: s[k] for k in ("puts", "gets", "hits", "misses",
+                                        "evictions", "drops")},
+            "widths": widths, "times": times,
+            "max_err": sm.max_err.get("fused_get_linear_flat", 0)}
+
+
+def scale_spawn(target, world: int, args: tuple, label: str) -> list:
+    """`world` spawned processes (CUDA cannot be forked) running
+    `target(rank, port, *args, q)` -> their messages in rank order. A
+    worker that reports an error, dies, or outlives SCALE_TIMEOUT_S fails
+    the phase; every worker is stopped on the way out."""
+    import multiprocessing as mp
+    import queue
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    procs = [ctx.Process(target=target, args=(r, port, *args, q))
+             for r in range(world)]
+    got = {}
+    deadline = time.monotonic() + SCALE_TIMEOUT_S
+    try:
+        for pr in procs:
+            pr.start()
+        while len(got) < world:
+            try:
+                rank, status, body = q.get(timeout=1.0)
+                got[rank] = (status, body)
+                if status == "error":
+                    # a peer's failure often follows from this one's: wait
+                    # a little for every report, then name them all
+                    end = time.monotonic() + 5.0
+                    while len(got) < world and time.monotonic() < end:
+                        try:
+                            r, st, b = q.get(timeout=0.5)
+                            got[r] = (st, b)
+                        except queue.Empty:
+                            pass
+                    raise AssertionError("\n".join(
+                        f"{label} rank {r} failed:\n{b}"
+                        for r, (st, b) in sorted(got.items())
+                        if st == "error"))
+            except queue.Empty:
+                dead = [r for r, pr in enumerate(procs)
+                        if r not in got and pr.exitcode is not None]
+                if dead:
+                    raise AssertionError(
+                        f"{label}: worker {dead[0]} died (exit code "
+                        f"{procs[dead[0]].exitcode}) with no report")
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"{label}: workers outlived "
+                                         f"{SCALE_TIMEOUT_S} s")
+        for r, pr in enumerate(procs):
+            pr.join(timeout=60)
+            if pr.exitcode != 0:
+                raise AssertionError(f"{label}: worker {r} exited "
+                                     f"{pr.exitcode}")
+    finally:
+        for pr in procs:
+            if pr.is_alive():
+                pr.kill()
+                pr.join(timeout=10)
+    return [got[r] for r in range(world)]
+
+
+def scale_part(label: str) -> dict:
+    """One multi-process plane (part a: 2 processes over gloo; part b:
+    one process in an NCCL group), checked across its processes ->
+    rank 0's numbers with the launches of every rank."""
+    p = scale_params(label)
+    res = [body for _, body in scale_spawn(scale_child, p["world"], (p,),
+                                           f"scale {label}")]
+    if any(r["digests"] != res[0]["digests"] for r in res):
+        raise AssertionError(f"scale {label}: the processes returned "
+                             "different results")
+    r0 = res[0]
+    r0["launches_all"] = sum(r["launches"] for r in res)
+    r0["max_err"] = max(r["max_err"] for r in res)
+    ins_s, get_s = r0["fill_s"], r0["get_s"]
+    xf, xg = r0["x_fill"], r0["x_get"]
+    log("scale", f"{label}: {p['world']} process(es) x {p['per_proc']} "
+        f"shards over {p['backend']}, {r0['shards']} shards of "
+        f"{p['index']['capacity']} slots: fill {r0['n_fill']} pages in "
+        f"{r0['inserts']} a2a inserts of {p['ins_b']} in {ins_s:.3f} s = "
+        f"{r0['n_fill'] / ins_s:.0f} pages/s; a2a pair overflow "
+        f"{r0['overflow']} rows, drops {r0['drops']}; GETs "
+        f"{r0['get_keys']} keys in {get_s:.3f} s = "
+        f"{r0['get_keys'] / get_s:.0f} keys/s, {r0['hits']} hits "
+        f"byte-exact (broadcast batch included), every miss zeroed, "
+        f"identical on every process; exchange per insert "
+        f"{xf[1] / r0['inserts']:.0f} bytes sent, "
+        f"{xf[2] / r0['inserts'] * 1e3:.2f} ms ({xf[0] / r0['inserts']:.0f} "
+        f"collectives); per GET {xg[1] / r0['gets']:.0f} bytes, "
+        f"{xg[2] / r0['gets'] * 1e3:.2f} ms; fused-GET launches "
+        f"{r0['launches_all']} over every process for {r0['phases']} GET "
+        f"phases; stats {r0['stats']} ({nvidia_smi()})")
+    return r0
+
+
+def scale_refuse_child(rank: int, port: int, device: str, q) -> None:
+    """One of two NCCL ranks naming the same card: the join must refuse."""
+    from pmdfc_tpu_torch.parallel import shard as shard_mod
+
+    try:
+        shard_mod.connect_multihost(f"localhost:{port}", 2, rank,
+                                    timeout_s=SCALE_JOIN_S, backend="nccl",
+                                    devices=[device])
+    except shard_mod.SharedDeviceError as e:
+        q.put((rank, "refused", str(e)))
+        return
+    except BaseException:
+        import traceback
+
+        q.put((rank, "error", traceback.format_exc()))
+        raise
+    shard_mod.shutdown_multihost()
+    q.put((rank, "error", "two NCCL ranks on one card joined"))
+
+
+def scale_refusal() -> None:
+    got = scale_spawn(scale_refuse_child, 2, (DEVICE,), "scale nccl x2")
+    log("scale", f"nccl with two ranks on one card: both refused with "
+        f"SharedDeviceError before any collective ({got[0][1][:120]})")
+
+
+def run_harnesses(runs, lanes: int) -> list:
+    """Harness processes, `lanes` side by side -> their rows in order."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(lanes) as ex:
+        futs = [ex.submit(run_harness, name, args) for name, args in runs]
+        return [f.result() for f in futs]
+
+
+def harness_check(name: str, args, row: dict) -> str:
+    """The harness's own correctness gate on its row -> what held."""
+    fails = []
+    if name == "multihost_bench":
+        if row["hits"] != row["n"] or row.get("wrong_values"):
+            fails.append(f"hits {row['hits']} of {row['n']}")
+    elif name == "test_kv":
+        if row["failed_search"] != 0:
+            fails.append(f"failed_search {row['failed_search']}")
+    elif name == "paging_sim" and row.get("job") == "scan_mix":
+        for arm in ("admit_on", "admit_off"):
+            if row[arm]["verify_failures"]:
+                fails.append(f"{arm} verify_failures")
+            row[f"{arm}_zipf_hit_rate"] = row[arm]["zipf_hit_rate"]
+            row[f"{arm}_get_p99_us"] = row[arm]["get_p99_us"]
+    elif name == "replay":
+        if row["wrong_values"]:
+            fails.append(f"wrong_values {row['wrong_values']}")
+    elif name == "multinode":
+        if row["errors"] or row["ok"] != row["clients"]:
+            fails.append(f"client errors {row['errors']}")
+    if row.get("verify_failures"):
+        fails.append(f"verify_failures {row['verify_failures']}")
+    if row.get("device") != torch_device_type():
+        fails.append(f"ran on {row.get('device')}")
+    if fails:
+        raise AssertionError(f"harness {name} {' '.join(args)}: "
+                             + "; ".join(fails))
+    keep = ("value", "unit", "insert_mops", "hits", "n", "failed_search",
+            "found", "verify_failures", "cc_hits", "disk_reads", "iops",
+            "swap_hits", "pages_per_sec", "read_mib_per_sec", "read_hits",
+            "read_misses", "wrong_values", "evictions", "ok",
+            "total_pages_per_sec", "secs", "exchange_bytes",
+            "exchange_seconds", "p99_batch_ms", "admit_on_zipf_hit_rate",
+            "admit_off_zipf_hit_rate", "admit_on_get_p99_us",
+            "admit_off_get_p99_us", "hit_rate_ratio_on_vs_off")
+    return json.dumps({k: row[k] for k in keep if k in row})
+
+
+def torch_device_type() -> str:
+    import torch
+
+    return torch.device(DEVICE).type
+
+
+def scale_entry(r: dict, path: str) -> dict:
+    widest = r["widths"][-1]
+    ms, plain_ms, bound_ms = r["times"].get(widest, (None,) * 3)
+    return {"name": "fused_get_linear_flat", "route": "cuda",
+            "source": "pmdfc_tpu_torch/ops/csrc/fused_get.cu",
+            "replaces": "pmdfc_tpu/ops/fused.py:414",
+            "launches": r["launches_all"], "max_abs_err": r["max_err"],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes", "library_ms": None, "path": path}
+
+
+def run_scale(sm: Smoke):
+    """The multi-process plane and the workload harnesses (phase 12).
+    -> the kernel entries of its two multi-process planes."""
+    t_phase = time.monotonic()
+    free_card(sm.torch)
+    gloo = scale_part("gloo")
+    solo = scale_part("nccl")
+    scale_refusal()
+    rows = run_harnesses(SCALE_HARNESSES, SCALE_HARNESS_LANES)
+    for (name, args), row in zip(SCALE_HARNESSES, rows):
+        log("scale", f"harness {name} {' '.join(args)}: "
+            f"{harness_check(name, args, row)} ({nvidia_smi()})")
+    log("scale", f"phase 12 took {time.monotonic() - t_phase:.1f} s")
+    return [scale_entry(gloo, "scale-gloo"), scale_entry(solo, "scale-nccl")]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4583,9 +5092,9 @@ def main() -> int:
     kernels = []
     for run in (run_linear, run_cceh, lambda sm: run_tiered(sm, "linear"),
                 lambda sm: run_tiered(sm, "cceh"), run_families, run_serving,
-                run_wire, run_fleet, run_plane, run_control):
+                run_wire, run_fleet, run_plane, run_control, run_scale):
         entry = run(sm)
-        if isinstance(entry, list):  # the plane's and control's entries
+        if isinstance(entry, list):  # the plane's, control's, scale's
             kernels.extend(entry)
         elif entry is not None:  # the families launch no kernel of their own
             kernels.append(entry)

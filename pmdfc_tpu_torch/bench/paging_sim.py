@@ -1,0 +1,679 @@
+"""Paging workload simulator — the fio-under-cgroup pressure harness
+(twin of `pmdfc_tpu/bench/paging_sim.py`).
+
+Reference: `client/fio_test/` runs fio jobs (seq_read, rand_read, rand_rw,
+seq_rw, seq_write) inside a memory-limited cgroup so the kernel constantly
+evicts clean pages into the cleancache path and faults them back
+(`gen_cgroup.sh`, `run_cgroup_fio.sh`). No kernel hooks exist on a GPU host,
+so the cgroup+VFS machinery is simulated: a bounded LRU "RAM" page cache in
+front of a CleanCacheClient, with fio's job shapes as access patterns.
+
+Semantics mirrored from the kernel path:
+- only CLEAN pages enter the clean cache on eviction (dirty pages go to
+  "disk" first, then may be cached);
+- a fault probes RAM → cleancache (`julee_cleancache_get_page`) → disk;
+- every read verifies page content against the deterministic generator —
+  the `rdpma_page_test.c` content-verification discipline applied to the
+  whole workload;
+- evictions are batched through a buffer before shipping (the tcp_style
+  client's async remotify workqueue, `client/tcp_style/pmdfc.c:91-160`).
+
+The KV behind the client is the port's, reached through
+`bench/common.build_backend` on `--device` (default `cuda`; `cpu` to run
+without a GPU). Rows carry the JAX harness's keys.
+
+Run: `python -m pmdfc_tpu_torch.bench.paging_sim --job seq_read ...`
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+from collections import OrderedDict
+
+import numpy as np
+
+JOBS = ("seq_read", "rand_read", "rand_rw", "seq_rw", "seq_write",
+        "scan_mix")
+
+
+def _zipf_stream(rng, n_keys: int, n: int, a: float) -> np.ndarray:
+    """Zipf ranks over [0, n_keys) — rank r picked w.p. ∝ (r+1)^-a (a copy
+    of `pmdfc_tpu/bench/tier_sweep._zipf_stream`, draw for draw).
+
+    Finite-universe inverse-CDF sampler (numpy's `rng.zipf` needs a > 1;
+    the interesting cache skews live at a <= 1)."""
+    if a <= 0:
+        return rng.integers(0, n_keys, n).astype(np.uint32)
+    w = np.power(np.arange(1, n_keys + 1, dtype=np.float64), -a)
+    cdf = np.cumsum(w)
+    cdf /= cdf[-1]
+    ranks = np.searchsorted(cdf, rng.random(n), side="right")
+    ranks = np.minimum(ranks, n_keys - 1)
+    # rank-shuffled so hot keys are scattered across the key space (the
+    # hash-routed reality), not clustered at low ids
+    perm = rng.permutation(n_keys).astype(np.uint32)
+    return perm[ranks]
+
+
+def page_content(oid: int, index: int, page_words: int,
+                 version: int = 0) -> np.ndarray:
+    """Deterministic page fill so every read self-verifies."""
+    base = np.uint32((oid * 2654435761 + index * 40503 + version * 97) & 0xFFFFFFFF)
+    return base + np.arange(page_words, dtype=np.uint32)
+
+
+class PagingSim:
+    def __init__(self, client, ram_pages: int, page_words: int,
+                 put_batch: int = 64, disk_read_us: float = 0.0):
+        self.client = client
+        self.ram_pages = ram_pages
+        self.page_words = page_words
+        self.put_batch = put_batch
+        # simulated per-page disk READ service time (µs; 0 = the free
+        # disk the micro jobs always had). A clean-cache miss's whole
+        # reason to matter is that the fallback device is slow — with a
+        # zero-cost disk a policy that converts misses into hits can
+        # never show a latency win, so the scan_mix scenario charges an
+        # NVMe-class default here while every pre-existing job keeps
+        # the free disk (their recorded lanes are throughput shapes).
+        self.disk_read_us = float(disk_read_us)
+        self.ram: OrderedDict[tuple[int, int], tuple[np.ndarray, bool]] = (
+            OrderedDict()
+        )  # key -> (page, dirty)
+        self.versions: dict[tuple[int, int], int] = {}
+        self._evict_buf: list[tuple[int, int, np.ndarray]] = []
+        self.stats = {
+            "reads": 0, "writes": 0, "ram_hits": 0, "cc_hits": 0,
+            "disk_reads": 0, "disk_writes": 0, "verify_failures": 0,
+            "cc_puts": 0,
+        }
+
+    # -- RAM cache mechanics --
+    def _touch(self, k):
+        self.ram.move_to_end(k)
+
+    def _evict_if_full(self):
+        while len(self.ram) > self.ram_pages:
+            k, (page, dirty) = self.ram.popitem(last=False)  # LRU out
+            if dirty:
+                self.stats["disk_writes"] += 1  # writeback first
+            # now clean: eligible for the clean cache
+            self._evict_buf.append((k[0], k[1], page))
+            if len(self._evict_buf) >= self.put_batch:
+                self.flush_evictions()
+
+    def flush_evictions(self):
+        if not self._evict_buf:
+            return
+        oids = np.array([e[0] for e in self._evict_buf], np.uint32)
+        idxs = np.array([e[1] for e in self._evict_buf], np.uint32)
+        pages = np.stack([e[2] for e in self._evict_buf])
+        self.client.put_pages(oids, idxs, pages)
+        self.stats["cc_puts"] += len(oids)
+        self._evict_buf.clear()
+
+    def _expected(self, oid: int, index: int) -> np.ndarray:
+        v = self.versions.get((oid, index), 0)
+        return page_content(oid, index, self.page_words, v)
+
+    # -- faults --
+    def read(self, oid: int, index: int) -> None:
+        self.stats["reads"] += 1
+        k = (oid, index)
+        if k in self.ram:
+            self.stats["ram_hits"] += 1
+            self._touch(k)
+            page = self.ram[k][0]
+        else:
+            # a page still in the un-flushed evict buffer is readable there
+            # (the kernel's page-under-writeback case)
+            buffered = next(
+                (p for o, i2, p in self._evict_buf if (o, i2) == k), None
+            )
+            page = buffered if buffered is not None else self.client.get_page(
+                oid, index
+            )
+            if page is not None:
+                self.stats["cc_hits"] += 1
+            else:
+                self.stats["disk_reads"] += 1
+                self._disk_wait(1)
+                page = self._expected(oid, index)  # "disk" materializes it
+            self._finish_read(oid, index, page)
+            return
+        if not np.array_equal(page, self._expected(oid, index)):
+            self.stats["verify_failures"] += 1
+
+    def read_batch(self, oid: int, indexes) -> None:
+        """Service a window of outstanding reads at once — the fio libaio
+        iodepth model (the reference's recorded runs use iodepth 16): all
+        missing pages fault as ONE batched cleancache get. Duplicates in
+        the window count as RAM hits after their first service; every page
+        (hit or faulted) content-verifies, same as read().
+        """
+        idxs = np.asarray(indexes, np.uint32)
+        self.stats["reads"] += len(idxs)
+        uniq, counts = np.unique(idxs, return_counts=True)
+        self.stats["ram_hits"] += len(idxs) - len(uniq)
+        missing, missing_n = [], []
+        for i, c in zip((int(x) for x in uniq), (int(x) for x in counts)):
+            k = (oid, i)
+            if k in self.ram:
+                self.stats["ram_hits"] += 1
+                self._touch(k)
+                if not np.array_equal(self.ram[k][0], self._expected(oid, i)):
+                    # a corrupt page fails once per occurrence, like read()
+                    self.stats["verify_failures"] += c
+            else:
+                buffered = next(
+                    (p for o, i2, p in self._evict_buf if (o, i2) == k),
+                    None,
+                )
+                if buffered is not None:
+                    self.stats["cc_hits"] += 1
+                    self._finish_read(oid, i, buffered, occurrences=c)
+                else:
+                    missing.append(i)
+                    missing_n.append(c)
+        if missing:
+            arr = np.asarray(missing, np.uint32)
+            pages, found = self.client.get_pages(
+                np.full(len(arr), oid, np.uint32), arr
+            )
+            n_disk = 0
+            for j, i in enumerate(missing):
+                if found[j]:
+                    self.stats["cc_hits"] += 1
+                    page = pages[j]
+                else:
+                    self.stats["disk_reads"] += 1
+                    n_disk += 1
+                    page = self._expected(oid, i)
+                self._finish_read(oid, i, page, occurrences=missing_n[j])
+            self._disk_wait(n_disk)
+
+    def _disk_wait(self, n_pages: int) -> None:
+        """Charge the simulated disk service time for `n_pages` reads
+        (one queue, iodepth-batched like the cc get — per-page cost,
+        busy-wait for sub-sleep-granularity precision)."""
+        if not self.disk_read_us or not n_pages:
+            return
+        t_end = time.perf_counter() + n_pages * self.disk_read_us / 1e6
+        while time.perf_counter() < t_end:
+            pass
+
+    def _finish_read(self, oid: int, i: int, page: np.ndarray,
+                     occurrences: int = 1) -> None:
+        if not np.array_equal(page, self._expected(oid, i)):
+            self.stats["verify_failures"] += occurrences
+        self.ram[(oid, i)] = (page, False)
+        self._evict_if_full()
+
+    def trim(self, oid: int, indexes) -> None:
+        """Drop pages of a file everywhere — RAM, evict buffer, versions,
+        and the clean cache. The truncate / `invalidate_inode` path
+        (cleancache flush ops, `client/julee.c:212-272`): after a trim,
+        serving any old copy would be stale data, not a legal miss."""
+        idx_set = {int(i) for i in indexes}
+        for i in idx_set:
+            self.ram.pop((oid, i), None)
+            self.versions.pop((oid, i), None)
+        self._evict_buf = [
+            e for e in self._evict_buf
+            if not (e[0] == oid and e[1] in idx_set)
+        ]
+        if idx_set:
+            arr = np.fromiter(idx_set, np.uint32)
+            self.client.invalidate_pages(
+                np.full(len(arr), oid, np.uint32), arr
+            )
+
+    def write(self, oid: int, index: int) -> None:
+        self.stats["writes"] += 1
+        k = (oid, index)
+        v = self.versions.get(k, 0) + 1
+        self.versions[k] = v
+        page = page_content(oid, index, self.page_words, v)
+        self.ram[k] = (page, True)
+        self._touch(k)
+        # a fresher write invalidates any stale cleancached copy — including
+        # one still waiting in the evict buffer (it would re-poison the cache
+        # if it flushed after this invalidate)
+        self._evict_buf = [e for e in self._evict_buf if (e[0], e[1]) != k]
+        self.client.invalidate_pages(np.array([oid]), np.array([index]))
+        self._evict_if_full()
+
+
+def run_job(sim: PagingSim, job: str, file_pages: int, ops: int,
+            oid: int = 1, seed: int = 0, iodepth: int = 1) -> dict:
+    rng = np.random.default_rng(seed)
+    t0 = time.perf_counter()
+    if iodepth > 1 and job in ("seq_read", "rand_read"):
+        # pure-read jobs batch their outstanding window (libaio model);
+        # mixed jobs keep per-op ordering (writes version pages in order)
+        ops = ops // iodepth * iodepth
+        for lo in range(0, ops, iodepth):
+            if job == "seq_read":
+                idxs = (lo + np.arange(iodepth)) % file_pages
+            else:
+                idxs = rng.integers(file_pages, size=iodepth)
+            sim.read_batch(oid, idxs)
+    else:
+        iodepth = 1
+        for i in range(ops):
+            if job == "seq_read":
+                sim.read(oid, i % file_pages)
+            elif job == "rand_read":
+                sim.read(oid, int(rng.integers(file_pages)))
+            elif job == "rand_rw":
+                idx = int(rng.integers(file_pages))
+                (sim.write if rng.random() < 0.5 else sim.read)(oid, idx)
+            elif job == "seq_rw":
+                idx = i % file_pages
+                (sim.write if i % 2 else sim.read)(oid, idx)
+            elif job == "seq_write":
+                sim.write(oid, i % file_pages)
+            else:
+                raise ValueError(f"unknown job {job}")
+    sim.flush_evictions()
+    dt = time.perf_counter() - t0
+    out = dict(sim.stats)
+    out.update(job=job, ops=ops, iodepth=iodepth, secs=round(dt, 3),
+               pages_per_sec=round(ops / dt, 1),
+               mib_per_sec=round(ops * sim.page_words * 4 / dt / 2**20, 1))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# scan_mix — the scan-antagonist scenario (ISSUE 15)
+#
+# A zipf tenant (oid 1, a small hot working set) shares the RAM page
+# cache and the clean cache with a concurrent cyclic sequential scanner
+# (oid 2, a file much larger than RAM). The scanner touches every page
+# once per pass, so on its SECOND pass each scan row's touch counter
+# crosses `promote_touches` and — without admission — floods the hot
+# tier, demoting the zipf tenant's pages to cold rows with a reset
+# reuse history. Periodic memory-pressure pulses (balloon shrink+grow)
+# then evict the coldest live rows: the demoted zipf pages are prime
+# victims, so the tenant's end-to-end hit-rate drops and every re-fault
+# re-pays promotion churn. With the TinyLFU gate ON, scan keys age out
+# of the sketch between passes (estimate ~1 < threshold — denied) while
+# the zipf set's estimates stay high: the tenant keeps its hot rows,
+# survives the pressure pulses, and its GET path stays churn-free.
+#
+# The harness runs BOTH arms (admit_on / admit_off) on identical seeds
+# and emits paired BENCH_HISTORY lanes (`paging_scanmix_hit_rate`,
+# `paging_scanmix_get_p99`) plus a pure-zipf control pair
+# (`paging_scanmix_pure_zipf_rate`) that prices the gate's overhead on
+# scan-free traffic (the <= 3% acceptance gate).
+# ---------------------------------------------------------------------------
+
+ZIPF_OID, SCAN_OID = 1, 2
+
+
+def _scan_mix_backend(args, admit: bool):
+    """Tiered direct/engine backend for one scan_mix arm."""
+    from pmdfc_tpu_torch.bench.common import build_backend
+    from pmdfc_tpu_torch.config import AdmitConfig, TierConfig
+
+    acfg = AdmitConfig(
+        sketch_width=max(64, args.capacity),
+        door_bits=max(64, 2 * args.capacity),
+        reset_ops=max(1, args.admit_reset_ops),
+        threshold=args.admit_threshold,
+    ) if admit else None
+    # promote-on-first-touch: the paging flow re-PUTS every RAM-evicted
+    # page, which resets its cold row's reuse counter (`tier.write_rows`
+    # — a fresh write is a fresh history), so multi-touch thresholds
+    # never fire through a page cache. First-touch promotion is the
+    # naive recency policy scans collapse (the reference's fio findings)
+    # — admission is then the ONLY thing standing between a scan and
+    # the hot tier, which is exactly what this scenario prices.
+    tier = TierConfig(promote_touches=1, admit=acfg)
+    return build_backend(args.backend, args.page_words, args.capacity,
+                         device=args.device, tier=tier)
+
+
+def _warm_file(sim: PagingSim, oid: int, pages: int, iodepth: int) -> None:
+    """One sequential pass so the file's pages flow RAM -> clean cache."""
+    for lo in range(0, pages, iodepth):
+        sim.read_batch(oid, (lo + np.arange(iodepth)) % pages)
+    sim.flush_evictions()
+
+
+def run_scan_mix_arm(sim: PagingSim, backend, *, hot_pages: int,
+                     scan_pages: int, rounds: int, theta: float,
+                     iodepth: int, seed: int, shrink_every: int,
+                     shrink_rows: int) -> dict:
+    """One arm of the scan-antagonist scenario (the backend already
+    carries — or lacks — the admission gate). Returns the zipf
+    tenant's end-to-end numbers plus the store's placement counters.
+    The collector is paused across the measured loops (the
+    telemetry_overhead discipline): a gen-2 GC pause is milliseconds on
+    this allocation pattern and lands in whatever round it likes,
+    which is exactly the p99 this harness is trying to attribute."""
+    import gc
+
+    rng = np.random.default_rng(seed)
+    zipf_all = _zipf_stream(rng, hot_pages, rounds * iodepth, theta)
+    ctl_rounds = max(8, rounds // 8)
+    zipf_ctl = _zipf_stream(rng, hot_pages, (ctl_rounds + 4) * iodepth,
+                            theta)
+    _warm_file(sim, ZIPF_OID, hot_pages, iodepth)
+    _warm_file(sim, SCAN_OID, scan_pages, iodepth)
+
+    # pure-zipf control phase (scan-free): prices the gate's overhead
+    # on the traffic the gate exists to protect. Four untimed rounds
+    # first — the warmup's async device tail and the serving widths'
+    # first compiles must not be charged to either arm's rate.
+    for r in range(4):
+        sim.read_batch(ZIPF_OID, zipf_ctl[r * iodepth:(r + 1) * iodepth])
+    gc.collect()
+    gc.disable()
+    try:
+        pure_lat = np.empty(ctl_rounds)
+        for j, r in enumerate(range(4, 4 + ctl_rounds)):
+            t0 = time.perf_counter()
+            sim.read_batch(ZIPF_OID,
+                           zipf_ctl[r * iodepth:(r + 1) * iodepth])
+            pure_lat[j] = time.perf_counter() - t0
+    finally:
+        gc.enable()
+
+    cursor = 0
+    lead = min(4, rounds - 1)  # untimed lead-in: the mixed loop's first
+    lat_us: list[float] = []   # widths compile here, like the pure phase
+    cc0, dr0 = sim.stats["cc_hits"], sim.stats["disk_reads"]
+    zipf_hits = zipf_faults = 0
+    gc.collect()
+    gc.disable()
+    try:
+        for r in range(rounds):
+            idxs = zipf_all[r * iodepth:(r + 1) * iodepth]
+            c0, d0 = sim.stats["cc_hits"], sim.stats["disk_reads"]
+            # quiesce before the timer: the antagonist's inserts and
+            # the pressure pulses are async device dispatches nothing
+            # fetches, so their queued tail would otherwise be charged
+            # to the NEXT timed zipf batch — and the arms queue
+            # DIFFERENT amounts of scan re-fault work there (denying
+            # the scan hot slots is the point), which would pollute
+            # the paired p99 asymmetrically. A stats pull forces
+            # everything submitted so far.
+            backend.stats()
+            t0 = time.perf_counter()
+            sim.read_batch(ZIPF_OID, idxs)
+            if r >= lead:
+                lat_us.append((time.perf_counter() - t0) * 1e6)
+            zipf_hits += sim.stats["cc_hits"] - c0
+            zipf_faults += (sim.stats["cc_hits"] - c0
+                            + sim.stats["disk_reads"] - d0)
+            # the antagonist: one sequential scan window per round
+            sim.read_batch(SCAN_OID,
+                           (cursor + np.arange(iodepth)) % scan_pages)
+            cursor = (cursor + iodepth) % scan_pages
+            if shrink_every and (r + 1) % shrink_every == 0:
+                # memory-pressure pulse: evict the coldest live rows
+                # (free rows park first; the grow only returns PARKED
+                # capacity — evicted bytes are legally gone)
+                backend.balloon_shrink(shrink_rows)
+                backend.balloon_grow(shrink_rows)
+    finally:
+        gc.enable()
+    sim.flush_evictions()
+    st = backend.stats()
+    admit_on = "admit_denied" in st
+    return {
+        "zipf_hit_rate": (round(zipf_hits / zipf_faults, 4)
+                          if zipf_faults else None),
+        "zipf_faults": int(zipf_faults),
+        "_lat_us": np.asarray(lat_us),
+        "_pure_lat_s": pure_lat,
+        "verify_failures": int(sim.stats["verify_failures"]),
+        "tier": {k: int(st.get(k, 0))
+                 for k in ("hot_hits", "cold_hits", "promotions",
+                           "demotions", "ghost_readmits",
+                           "shrink_evictions")},
+        **({"admit": {k: int(st[k]) for k in st
+                      if k.startswith("admit")}} if admit_on else {}),
+    }
+
+
+def run_scan_mix(args) -> dict:
+    """Both arms on identical seeds, INTERLEAVED `--repeats` times with
+    best-of-rounds folding (the net_sweep/tier_sweep discipline, at
+    round granularity): the placement counters and hit-rates are
+    seed-deterministic — repeat 0 is the truth — while per-round
+    latencies fold ELEMENTWISE MIN across repeats before the
+    percentiles are taken. The seeds make round r structurally
+    identical across repeats (same faults, same disk reads, same
+    promotions), so the min preserves the deterministic per-round cost
+    and strips the multi-ms host-jitter spikes that land on ~1% of
+    rounds per run — which would otherwise BE the p99 on a shared
+    host. The pure-zipf rate takes the best repeat."""
+    from pmdfc_tpu_torch.client import CleanCacheClient
+
+    out = {"job": "scan_mix", "theta": args.theta,
+           "hot_pages": args.hot_pages, "scan_pages": args.scan_pages,
+           "ram_pages": args.ram_pages, "iodepth": args.iodepth,
+           "rounds": args.ops // args.iodepth,
+           "shrink_every": args.shrink_every,
+           "shrink_rows": args.shrink_rows, "repeats": args.repeats,
+           "disk_us": args.disk_us}
+    for rep in range(args.repeats):
+        for arm, admit in (("admit_on", True), ("admit_off", False)):
+            backend, closer = _scan_mix_backend(args, admit)
+            try:
+                client = CleanCacheClient(backend)
+                sim = PagingSim(client, args.ram_pages, args.page_words,
+                                disk_read_us=args.disk_us)
+                res = run_scan_mix_arm(
+                    sim, backend, hot_pages=args.hot_pages,
+                    scan_pages=args.scan_pages,
+                    rounds=args.ops // args.iodepth, theta=args.theta,
+                    iodepth=args.iodepth, seed=7,
+                    shrink_every=args.shrink_every,
+                    shrink_rows=args.shrink_rows)
+            finally:
+                closer()
+            if arm not in out:
+                out[arm] = res
+            else:
+                a = out[arm]
+                a["_lat_us"] = np.minimum(a["_lat_us"], res["_lat_us"])
+                a["_pure_lat_s"] = np.minimum(a["_pure_lat_s"],
+                                              res["_pure_lat_s"])
+                a["verify_failures"] += res["verify_failures"]
+    for arm in ("admit_on", "admit_off"):
+        lat = np.sort(out[arm].pop("_lat_us"))
+        out[arm]["get_p50_us"] = round(float(lat[len(lat) // 2]), 1)
+        out[arm]["get_p99_us"] = round(float(
+            lat[min(len(lat) - 1, int(len(lat) * 0.99))]), 1)
+        pure = out[arm].pop("_pure_lat_s")
+        out[arm]["pure_zipf_rounds_per_s"] = round(
+            len(pure) / float(pure.sum()), 1)
+    on, off = out["admit_on"], out["admit_off"]
+    if on["zipf_hit_rate"] and off["zipf_hit_rate"]:
+        out["hit_rate_ratio_on_vs_off"] = round(
+            on["zipf_hit_rate"] / off["zipf_hit_rate"], 4)
+    out["p99_ratio_on_vs_off"] = round(
+        on["get_p99_us"] / off["get_p99_us"], 4)
+    out["pure_zipf_ratio_on_vs_off"] = round(
+        on["pure_zipf_rounds_per_s"] / off["pure_zipf_rounds_per_s"], 4)
+    return out
+
+
+def _scan_mix_history(args, out: dict) -> None:
+    """Paired admit_on/admit_off lanes under the bench_gate (identity
+    stamps are strings/ints; measured values ride `value` as floats —
+    the `check_bench.lane_key` type split)."""
+    from pmdfc_tpu_torch.bench.common import append_history, stamp_live_device
+
+    base = {"job": "scan_mix", "backend": args.backend,
+            "theta": args.theta, "iodepth": args.iodepth,
+            "hot_pages": args.hot_pages, "scan_pages": args.scan_pages,
+            "ram_pages": args.ram_pages, "capacity": args.capacity,
+            "repeats": args.repeats, "disk_us": args.disk_us,
+            "smoke": bool(args.smoke), "host_evidence": True}
+    stamp_live_device(base, args.backend, args.device)
+    for arm in ("admit_on", "admit_off"):
+        a = out[arm]
+        if a["zipf_hit_rate"] is not None:
+            append_history(args.history, {
+                **base, "admit": arm.split("_")[1],
+                "metric": "paging_scanmix_hit_rate", "unit": "",
+                "value": float(a["zipf_hit_rate"])})
+        append_history(args.history, {
+            **base, "admit": arm.split("_")[1],
+            "metric": "paging_scanmix_get_p99", "unit": "us",
+            "value": float(a["get_p99_us"])})
+        append_history(args.history, {
+            **base, "admit": arm.split("_")[1],
+            "metric": "paging_scanmix_pure_zipf_rate", "unit": "",
+            "value": float(a["pure_zipf_rounds_per_s"])})
+
+
+def _scan_mix_smoke_gate(out: dict) -> list[str]:
+    """Machinery assertions for the agenda's `paging_smoke` step (kept
+    qualitative where CI timing noise would flake: the measured
+    hit-rate/p99 deltas are the BENCH_HISTORY lanes' job)."""
+    errs = []
+    on, off = out["admit_on"], out["admit_off"]
+    for arm, a in (("admit_on", on), ("admit_off", off)):
+        if a["verify_failures"]:
+            errs.append(f"{arm}: {a['verify_failures']} wrong-byte reads")
+    if not on.get("admit"):
+        errs.append("admit_on arm reports no admission counters")
+    elif on["admit"].get("admit_denied", 0) <= 0:
+        errs.append("gate never denied a candidate under a scan flood")
+    if off.get("admit"):
+        errs.append("admit_off arm leaked admission counters")
+    if off["tier"]["demotions"] <= on["tier"]["demotions"]:
+        errs.append(
+            f"scan churn not suppressed: demotions on={on['tier']['demotions']} "
+            f">= off={off['tier']['demotions']}")
+    r = out.get("hit_rate_ratio_on_vs_off")
+    if r is not None and r < 1.0:
+        errs.append(f"zipf hit-rate with admission lost to off ({r})")
+    if out["pure_zipf_ratio_on_vs_off"] < 0.7:
+        # machinery band only — CI boxes are noisy at iodepth-16 CPU
+        # dispatch widths; the honest overhead number is the
+        # paging_scanmix_pure_zipf_rate lane pair under check_bench
+        errs.append("pure-zipf overhead beyond the smoke band "
+                    f"({out['pure_zipf_ratio_on_vs_off']})")
+    return errs
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser()
+    p.add_argument("--job", default=None, choices=JOBS,
+                   help="workload (default seq_read; --smoke implies "
+                        "scan_mix and refuses any other explicit job)")
+    p.add_argument("--file-pages", type=int, default=4096)
+    p.add_argument("--ram-pages", type=int, default=1024)
+    p.add_argument("--ops", type=int, default=20000)
+    p.add_argument("--page-words", type=int, default=1024)
+    p.add_argument("--backend", default="direct",
+                   choices=("direct", "local", "engine"))
+    p.add_argument("--capacity", type=int, default=1 << 14)
+    p.add_argument("--device", default="cuda", choices=("cpu", "cuda"))
+    p.add_argument("--iodepth", type=int, default=1,
+                   help="outstanding reads batched per window "
+                        "(pure-read jobs only; ref fio runs use 16)")
+    p.add_argument("--history", default=None,
+                   help="append the result row (+timestamp/backend) to "
+                        "this jsonl evidence log")
+    # scan_mix (the scan-antagonist scenario) knobs
+    p.add_argument("--theta", type=float, default=0.99,
+                   help="scan_mix: zipf skew of the tenant workload")
+    p.add_argument("--hot-pages", type=int, default=512,
+                   help="scan_mix: zipf tenant file size (pages)")
+    p.add_argument("--scan-pages", type=int, default=6144,
+                   help="scan_mix: antagonist scan file size (pages)")
+    p.add_argument("--shrink-every", type=int, default=24,
+                   help="scan_mix: memory-pressure pulse cadence in "
+                        "rounds (0 disables)")
+    p.add_argument("--shrink-rows", type=int, default=512,
+                   help="scan_mix: live rows each pressure pulse evicts")
+    p.add_argument("--admit-threshold", type=int, default=2)
+    p.add_argument("--disk-us", type=float, default=100.0,
+                   help="scan_mix: simulated per-page disk read service "
+                        "time in µs (NVMe-class default; the legacy "
+                        "micro jobs keep the free disk their recorded "
+                        "lanes were measured with)")
+    p.add_argument("--repeats", type=int, default=2,
+                   help="scan_mix: interleaved arm repeats; percentiles "
+                        "and the pure-zipf rate fold best-of (counters "
+                        "and hit-rates are seed-deterministic)")
+    p.add_argument("--admit-reset-ops", type=int, default=4096,
+                   help="scan_mix: sketch aging epoch in observed "
+                        "touches (size to a few rounds of traffic so "
+                        "scan keys age out between passes)")
+    p.add_argument("--smoke", action="store_true",
+                   help="scan_mix: small shapes + machinery assertions "
+                        "(the agenda's paging_smoke step)")
+    args = p.parse_args(argv)
+
+    from pmdfc_tpu_torch.bench.common import build_backend
+    from pmdfc_tpu_torch.client import CleanCacheClient
+
+    if args.smoke and args.job not in (None, "scan_mix"):
+        # --smoke is the scan_mix machinery gate; silently rewriting an
+        # explicit other job would emit lanes the caller never asked for
+        p.error(f"--smoke is a scan_mix mode (got --job {args.job})")
+    if args.job is None:
+        args.job = "scan_mix" if args.smoke else "seq_read"
+    if args.job == "scan_mix":
+        if args.smoke:
+            # CI shapes: two passes of the scan inside ~200 rounds, one
+            # aging epoch every ~2 rounds of touches
+            args.capacity = min(args.capacity, 1 << 11)
+            args.page_words = min(args.page_words, 64)
+            args.hot_pages, args.scan_pages = 256, 1536
+            args.ram_pages, args.iodepth = 96, 16
+            args.ops = 192 * 16
+            args.shrink_every, args.shrink_rows = 24, 256
+            args.admit_reset_ops = 2048
+        out = run_scan_mix(args)
+        from pmdfc_tpu_torch.bench.common import stamp_live_device
+
+        stamp_live_device(out, args.backend, args.device)
+        out["backend"] = args.backend
+        _scan_mix_history(args, out)
+        print(json.dumps(out), file=sys.stdout)
+        if args.smoke:
+            errs = _scan_mix_smoke_gate(out)
+            for e in errs:
+                print(f"[paging_sim] FAIL: {e}", file=sys.stderr)
+            return 1 if errs else 0
+        # scan_mix lanes are host evidence (the subject is placement
+        # policy, not chip throughput) — no off-chip refusal here
+        return 0
+
+    backend, closer = build_backend(args.backend, args.page_words,
+                                    args.capacity, device=args.device)
+    client = CleanCacheClient(backend)
+    sim = PagingSim(client, args.ram_pages, args.page_words)
+    out = run_job(sim, args.job, args.file_pages, args.ops,
+                  iodepth=args.iodepth)
+    out["client"] = client.stats()
+    closer()
+    from pmdfc_tpu_torch.bench.common import stamp_live_device
+
+    stamp_live_device(out, args.backend, args.device)
+    out["backend"] = args.backend
+    from pmdfc_tpu_torch.bench.common import append_history
+
+    append_history(args.history, out)
+    print(json.dumps(out), file=sys.stdout)
+    if args.history and out["device"] != "cuda":
+        # an on-card evidence request run off the card: rc=3 (the guard
+        # refused the row)
+        return 3
+    return 1 if out["verify_failures"] else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -313,19 +313,28 @@ class EngineBackend:
     (the registered-MR region discipline, `server/rdma_svr.cpp:873-886`).
     """
 
-    def __init__(self, server, queue: int = 0, slice_pages: int | None = None,
+    def __init__(self, server, queue: int = 0, arena_lo: int | None = None,
+                 arena_hi: int | None = None, slice_pages: int | None = None,
                  timeout_us: int = 10_000_000):
         self.server = server
         self.engine = server.engine
         self.queue = queue
         self.timeout_us = timeout_us
-        # A disjoint staging slice per client (default: an eighth of the
-        # arena) — two clients must never clobber each other. The slice
-        # width caps one verb; a bigger batch splits into back-to-back
-        # verbs. close() returns the slice.
-        want = slice_pages or max(1, self.engine.arena_pages // 8)
-        self.arena_lo, self.arena_hi = self.engine.alloc_arena_slice(want)
-        self._owns_slice = True
+        self._owns_slice = arena_lo is None
+        if arena_lo is None:
+            # A disjoint staging slice per client (default: an eighth of
+            # the arena) — two clients must never clobber each other. The
+            # slice width caps one verb; a bigger batch splits into
+            # back-to-back verbs. close() returns the slice.
+            want = slice_pages or max(1, self.engine.arena_pages // 8)
+            self.arena_lo, self.arena_hi = self.engine.alloc_arena_slice(
+                want)
+        else:
+            # a caller-chosen slice [arena_lo, arena_hi) (default: to the
+            # arena's end): the caller keeps it disjoint from every other
+            # client's, and close() leaves it to the caller
+            self.arena_lo = arena_lo
+            self.arena_hi = arena_hi or self.engine.arena_pages
         self.page_words = self.engine.page_words
         self.device = server.kv.device
 

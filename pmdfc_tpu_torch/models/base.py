@@ -59,6 +59,10 @@ class IndexOps:
     # hot-point shift), every `IndexConfig.decay_every_gets` GET keys
     decay: Callable[[Any], Any] | None = None
     get_values: Callable[..., tuple] | None = None
+    # rows one GET probes and the slots of each gathered row (None: the
+    # config's cluster width), the test_kv roofline's metadata
+    rows_per_get: int = 1
+    gather_row_slots: int | None = None
 
 
 _REGISTRY: dict[IndexKind, IndexOps] = {}

@@ -177,5 +177,6 @@ register_index(
         set_values=linear.set_values,
         scan=linear.scan,
         get_values=get_values,
+        rows_per_get=2,  # home + second-chance window
     ),
 )

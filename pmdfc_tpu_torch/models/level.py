@@ -199,5 +199,6 @@ register_index(
         set_values=linear.set_values,
         scan=linear.scan,
         get_values=get_values,
+        rows_per_get=2,  # top windows; bottom tier only on miss
     ),
 )

@@ -261,5 +261,7 @@ register_index(
         set_values=set_values,
         scan=scan,
         get_values=get_values,
+        rows_per_get=2,  # bank-0 rows of both seeds (bank 1 only on miss)
+        gather_row_slots=ROW,
     ),
 )

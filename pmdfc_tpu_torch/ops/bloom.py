@@ -19,7 +19,7 @@ import torch
 from pmdfc_tpu_torch.config import BloomConfig
 from pmdfc_tpu_torch.utils.hashing import hash_u64_multi
 from pmdfc_tpu_torch.utils.keys import is_invalid
-from pmdfc_tpu_torch.utils.u32 import narrow
+from pmdfc_tpu_torch.utils.u32 import narrow, widen
 
 
 @dataclasses.dataclass
@@ -74,6 +74,15 @@ def to_packed_bits(state: BloomState) -> torch.Tensor:
     bits = (state.counters > 0).reshape(-1, 32).to(torch.int64)
     weights = 1 << (31 - torch.arange(32, device=bits.device))
     return narrow((bits * weights[None, :]).sum(dim=1))
+
+
+def query_packed(packed: torch.Tensor, keys: torch.Tensor, *,
+                 num_hashes: int) -> torch.Tensor:
+    """Membership against the packed client-side mirror (u32 words as
+    int32 bits, MSB-first per word): bool[B]."""
+    pos = _positions(keys, packed.shape[0] * 32, num_hashes)
+    bit = (widen(packed[pos >> 5]) >> (31 - (pos & 31))) & 1
+    return (bit > 0).all(dim=0)
 
 
 def dirty_blocks(old_packed: np.ndarray, new_packed: np.ndarray,

@@ -62,6 +62,23 @@ reads one lane.
 The JAX `_wrap` donation rule has no counterpart: the state is updated in
 place and never copied per call.
 
+Multi-process grids (`connect_multihost`, on `torch.distributed`): after
+the join, `make_mesh()` is the global grid in process-major order and
+each process holds the states of its own shards. Every process passes the
+same full batch (JAX's `_to_global`) and routes the source slices of its
+own shards; the exchange is `all_to_all_single` over the bucket buffers
+in JAX's source-major order with its `pair_capacity`, the merges are
+all-reduces (SUM for psum, MAX for pmax, MIN over words widened to int64
+for the unsigned pmin), and every host verb returns the full result on
+every process, an all-gather of the source slices (JAX's `_fetch`):
+`insert`, `get`, `delete`, `insert_extent`, `get_extent`, `find_anyway`,
+`recovery`, `stats`, `utilization`, `shard_report` and the packed bloom,
+on both dispatches. Extents stay replicated. The plane verbs, the fast
+lane and the directory, and snapshots raise `MultihostUnsupportedError`
+there, as do 2-D grids and tiered pools. Under gloo a CUDA tensor's
+collective stages through pinned host buffers; NCCL refuses two ranks on
+one card (`SharedDeviceError`, before any collective runs).
+
 Device time (`runtime/profiler.py`). With a profiler attached and every
 shard and lane on one CUDA device, each plane verb records one CUDA event
 pair around all of its shards' programs (they run one after another on
@@ -114,15 +131,18 @@ class Mesh:
     """A grid of devices with named axes: `devices` is a numpy object
     array of `torch.device` of shape `(n_shards,)` or `(n_shards,
     n_replicas)`, `axis_names` `("kv",)` or `("kv", "replica")`. A device
-    may appear more than once."""
+    may appear more than once. `owners` (a multi-process grid only, see
+    `connect_multihost`) is the rank of the process that holds each
+    shard's device; None when one process holds every shard."""
 
-    def __init__(self, devices, axis_names):
+    def __init__(self, devices, axis_names, owners=None):
         devices = np.asarray(devices, dtype=object)
         if devices.ndim != len(axis_names):
             raise ValueError(f"grid of shape {devices.shape} for axes "
                              f"{tuple(axis_names)}")
         self.devices = devices
         self.axis_names = tuple(axis_names)
+        self.owners = None if owners is None else np.asarray(owners, int)
 
     @property
     def shape(self) -> dict:
@@ -151,7 +171,19 @@ def _local_devices() -> list:
 
 def make_mesh(devices=None, axis: str = AXIS) -> Mesh:
     """1-D grid over the given devices (default: every local GPU); axis
-    name ``"kv"``. `devices` may repeat a device (`["cpu"] * 4`)."""
+    name ``"kv"``. `devices` may repeat a device (`["cpu"] * 4`).
+
+    After `connect_multihost`, the default is the global grid: every
+    process's devices in process-major order (as `jax.devices()` orders
+    them), each shard owned by the process that holds its device."""
+    if devices is None and _LAYOUT is not None:
+        lay = _LAYOUT
+        flat = [d for per in lay.devices for d in per]
+        devs = np.empty(len(flat), dtype=object)
+        for i, d in enumerate(flat):
+            devs[i] = torch.device(d)
+        owners = [p for p, per in enumerate(lay.devices) for _ in per]
+        return Mesh(devs, (axis,), owners=owners)
     devs = _resolve_devices(list(np.asarray(
         devices if devices is not None else _local_devices(),
         dtype=object).reshape(-1)))
@@ -164,6 +196,9 @@ def make_mesh2d(n_shards: int, n_replicas: int, devices=None) -> Mesh:
     `n_replicas` full copies of each shard's state, so one call replaces
     the host ReplicaGroup's rf TCP fan-out loops."""
     need = n_shards * n_replicas
+    if devices is None and _LAYOUT is not None:
+        raise MultihostUnsupportedError(
+            "a 2-D grid does not span processes")
     if devices is None:
         devices = _local_devices()[:need]
     flat = list(np.asarray(devices, dtype=object).reshape(-1))
@@ -173,6 +208,141 @@ def make_mesh2d(n_shards: int, n_replicas: int, devices=None) -> Mesh:
             f"got {len(flat)}")
     return Mesh(_resolve_devices(flat).reshape(n_shards, n_replicas),
                 (AXIS, RAXIS))
+
+
+# ---------------------------------------------------------------------------
+# multi-process grids (torch.distributed)
+# ---------------------------------------------------------------------------
+
+class MultihostError(RuntimeError):
+    """A multi-process grid cannot be set up as asked."""
+
+
+class SharedDeviceError(MultihostError):
+    """Two NCCL ranks name one card: NCCL refuses a communicator whose
+    ranks share a device, so the join is refused before any collective
+    runs (gloo stages through host buffers and allows it)."""
+
+
+class MultihostUnsupportedError(MultihostError, NotImplementedError):
+    """A verb or configuration the multi-process grid does not run."""
+
+
+@dataclasses.dataclass(frozen=True)
+class _Layout:
+    """What `connect_multihost` learned: this process's rank, the
+    backend, and every process's device list (rank order)."""
+
+    rank: int
+    world: int
+    backend: str
+    devices: tuple
+
+
+# the joined process group's layout (None: one process). Process-wide, as
+# torch.distributed's default group is.
+_LAYOUT: _Layout | None = None
+
+
+def _card_ids(devices: list) -> list:
+    """Identity of each CUDA device this process names (host and card
+    UUID), None for the CPU: what the NCCL shared-card check compares."""
+    import socket
+
+    out = []
+    for d in devices:
+        dev = torch.device(d)
+        if dev.type != "cuda":
+            out.append(None)
+            continue
+        idx = dev.index if dev.index is not None else torch.cuda.current_device()
+        props = torch.cuda.get_device_properties(idx)
+        out.append(f"{socket.gethostname()}/{getattr(props, 'uuid', idx)}")
+    return out
+
+
+def shared_cards(cards_by_rank: list) -> dict:
+    """{card: [ranks]} of every card named by more than one rank."""
+    seen: dict = {}
+    for rank, cards in enumerate(cards_by_rank):
+        for c in set(cards):
+            if c is not None:
+                seen.setdefault(c, []).append(rank)
+    return {c: r for c, r in seen.items() if len(r) > 1}
+
+
+def connect_multihost(coordinator: str, num_processes: int, process_id: int,
+                      timeout_s: float | None = None, *,
+                      backend: str = "gloo", devices=None) -> int:
+    """Join a multi-process grid — the twin of the JAX package's
+    `connect_multihost` (`jax.distributed.initialize`) on
+    `torch.distributed`. -> the global device count.
+
+    `devices` is this process's local device list (default: every local
+    GPU); a device may repeat, as on one grid (`["cpu", "cpu"]` stands in
+    for the JAX worker's two forced CPU devices). Every process must name
+    as many devices. `backend` is "gloo" (collectives on host tensors;
+    CUDA tensors are staged through pinned host buffers) or "nccl"
+    (collectives on the cards; no two ranks may name one card). There is
+    no switch between the two. `timeout_s` bounds the join and every
+    collective; a peer that never joins fails the join within it.
+
+    Afterwards `make_mesh()` builds the global grid and a `ShardedKV`
+    over it serves its own shards in every process: every process passes
+    the same full batch and every host verb returns the full result on
+    every process."""
+    global _LAYOUT
+    import datetime
+
+    import torch.distributed as dist
+
+    if backend not in ("gloo", "nccl"):
+        raise ValueError(f"unknown backend {backend!r} (gloo or nccl)")
+    if _LAYOUT is not None or dist.is_initialized():
+        raise MultihostError("this process already joined a process group")
+    local = [str(kv_mod.resolve_device(d)) for d in (
+        devices if devices is not None else _local_devices())]
+    if backend == "nccl" and any(torch.device(d).type != "cuda"
+                                 for d in local):
+        raise ValueError(f"nccl needs CUDA devices, got {local}")
+    kw = {} if timeout_s is None else {
+        "timeout": datetime.timedelta(seconds=timeout_s)}
+    dist.init_process_group(backend, init_method=f"tcp://{coordinator}",
+                            world_size=num_processes, rank=process_id, **kw)
+    try:
+        # the layout travels over a gloo group (the default one under
+        # gloo): nothing has run on NCCL yet when the card check refuses
+        side = dist.new_group(backend="gloo") if backend == "nccl" else None
+        infos = [None] * num_processes
+        dist.all_gather_object(infos, (local, _card_ids(local)), group=side)
+        counts = {len(d) for d, _ in infos}
+        if len(counts) != 1:
+            raise MultihostError(
+                f"every process must hold as many devices: "
+                f"{[len(d) for d, _ in infos]}")
+        if backend == "nccl":
+            shared = shared_cards([c for _, c in infos])
+            if shared:
+                raise SharedDeviceError(
+                    f"NCCL ranks share a card: {shared}; use gloo, or give "
+                    f"each rank its own card")
+    except BaseException:
+        dist.destroy_process_group()
+        raise
+    _LAYOUT = _Layout(rank=process_id, world=num_processes, backend=backend,
+                      devices=tuple(tuple(d) for d, _ in infos))
+    return sum(len(d) for d, _ in infos)
+
+
+def shutdown_multihost() -> None:
+    """Leave the process group `connect_multihost` joined (the twin of
+    `jax.distributed.shutdown`); a no-op without one."""
+    global _LAYOUT
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    _LAYOUT = None
 
 
 def _on(dev: torch.device):
@@ -246,16 +416,22 @@ def _exchange(bufs: list, devs: list, c_pair: int) -> list:
                        for i in range(n)]) for d in range(n)]
 
 
-def _to_source(outs: list, flat: list, ok: list, devs: list, c_pair: int,
-               miss) -> list:
-    """Reverse exchange of per-request results, gathered back to each
-    source's batch order; rows that never reached an owner get `miss`."""
+def _exchange_back(outs: list, devs: list, c_pair: int) -> list:
+    """The reverse all_to_all: source i receives, in destination-major
+    order, slice i of every owner's results, on its own device."""
     n = len(outs)
+    return [torch.cat([outs[d][i * c_pair:(i + 1) * c_pair].to(devs[i])
+                       for d in range(n)]) for i in range(n)]
+
+
+def _to_source(backs: list, flat: list, ok: list, c_pair: int,
+               miss) -> list:
+    """Per-request results of each source (its reverse-exchanged buffer
+    `backs[i]`) gathered back to the source's batch order; rows that
+    never reached an owner get `miss`."""
     res = []
-    for i in range(n):
-        back = torch.cat([outs[d][i * c_pair:(i + 1) * c_pair].to(devs[i])
-                          for d in range(n)])
-        got = back[flat[i].clamp(max=n * c_pair - 1)]
+    for i, back in enumerate(backs):
+        got = back[flat[i].clamp(max=back.shape[0] - 1)]
         sel = ok[i].reshape(ok[i].shape + (1,) * (got.dim() - 1))
         m = miss(i) if callable(miss) else miss
         if isinstance(m, torch.Tensor):
@@ -300,6 +476,172 @@ def _combine_values(outs: list, founds: list, dev):
 def _mask_to_owner(keys: torch.Tensor, n: int, me: int) -> torch.Tensor:
     mine = shard_of(keys, n) == me
     return torch.where(mine[:, None], keys, INVALID_I32)
+
+
+# ---------------------------------------------------------------------------
+# the exchange: one process, or many on torch.distributed
+# ---------------------------------------------------------------------------
+
+class _LocalExchange:
+    """One process holds every shard: the all_to_all and the merges are
+    tensor work on the shards' own devices (the single-controller
+    plane), and the host rows of every shard are already here."""
+
+    def __init__(self, n: int):
+        self.mine = list(range(n))
+
+    @staticmethod
+    def to_owner(bufs: list, devs: list, c_pair: int) -> list:
+        return _exchange(bufs, devs, c_pair)
+
+    @staticmethod
+    def to_source(outs: list, devs: list, c_pair: int) -> list:
+        return _exchange_back(outs, devs, c_pair)
+
+    @staticmethod
+    def full(parts: list, dev) -> torch.Tensor:
+        return torch.cat([p.to(dev) for p in parts])
+
+    @staticmethod
+    def merge_insert(res: InsertResult) -> InsertResult:
+        return res
+
+    @staticmethod
+    def merge_values(out, found):
+        return out, found
+
+    @staticmethod
+    def reduce(t: torch.Tensor, op: str) -> torch.Tensor:
+        return t
+
+    @staticmethod
+    def gather_rows(rows: np.ndarray) -> np.ndarray:
+        return rows
+
+    def report(self) -> None:
+        return None
+
+
+class _DistExchange:
+    """The collectives of a multi-process grid on torch.distributed.
+
+    Each process holds `per` shards (`mine`, contiguous in the
+    process-major grid) and routes its own source slices of the full
+    batch. The all_to_all is one `all_to_all_single` over the stacked
+    bucket buffers, laid out [destination][local source] so that each
+    destination receives its buckets in source-major order (JAX's
+    order, which dedupe-last-wins depends on); the reverse exchange is
+    the same with the roles swapped. psum / pmax are SUM / MAX
+    all-reduces, the unsigned pmin a MIN of the words widened to int64,
+    and a host verb's result is the all-gather of every process's source
+    slices, so every process returns the full result. Under gloo a CUDA
+    tensor crosses through a pinned host buffer; under NCCL the tensors
+    stay on the card. `calls`, `bytes` (this process's sends) and
+    `seconds` (each collective's wall with its staging, between two
+    device syncs) account the exchange."""
+
+    def __init__(self, mesh: Mesh, layout: _Layout):
+        import torch.distributed as dist
+
+        self._dist = dist
+        owners = mesh.owners.reshape(-1)
+        self.world = layout.world
+        self.mine = [s for s in range(len(owners))
+                     if owners[s] == layout.rank]
+        self.per = len(self.mine)
+        self.dev = mesh.devices.reshape(-1)[self.mine[0]]
+        self.staged = layout.backend == "gloo" and self.dev.type == "cuda"
+        self.calls = self.bytes = 0
+        self.seconds = 0.0
+
+    def _run(self, collective, t: torch.Tensor, out_shape) -> torch.Tensor:
+        """`collective(out, inp)` on `t` (a tensor on `self.dev`) into a
+        fresh tensor of `out_shape` on `self.dev`."""
+        if self.dev.type == "cuda":  # time the collective, not the queue
+            torch.cuda.synchronize(self.dev)
+        t0 = time.perf_counter()
+        flag = t.dtype == torch.bool  # carried as bytes
+        if flag:
+            t = t.to(torch.uint8)
+        if self.staged:
+            inp = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            inp.copy_(t)
+            out = torch.empty(out_shape, dtype=t.dtype, pin_memory=True)
+        else:
+            inp = t.contiguous()
+            out = torch.empty(out_shape, dtype=t.dtype, device=t.device)
+        collective(out, inp)
+        out = out.to(self.dev)
+        if self.dev.type == "cuda":
+            torch.cuda.synchronize(self.dev)
+        self.calls += 1
+        self.bytes += inp.numel() * inp.element_size()
+        self.seconds += time.perf_counter() - t0
+        return out.bool() if flag else out
+
+    def _a2a(self, stacked: torch.Tensor) -> torch.Tensor:
+        return self._run(self._dist.all_to_all_single, stacked,
+                         stacked.shape)
+
+    def to_owner(self, bufs: list, devs: list, c_pair: int) -> list:
+        n, p = self.per * self.world, self.per
+        rest = bufs[0].shape[1:]
+        send = torch.stack([b.to(self.dev).view(n, c_pair, *rest)
+                            for b in bufs], dim=1)  # [dest, source, c]
+        recv = self._a2a(send).view(self.world, p, p, c_pair, *rest)
+        return [recv[:, j].reshape(n * c_pair, *rest).to(devs[d])
+                for j, d in enumerate(self.mine)]
+
+    def to_source(self, outs: list, devs: list, c_pair: int) -> list:
+        return self.to_owner(outs, devs, c_pair)  # the same permutation
+
+    def full(self, parts: list, dev) -> torch.Tensor:
+        loc = torch.cat([x.to(self.dev) for x in parts])
+        out = self._run(self._all_gather, loc,
+                        (self.world * loc.shape[0], *loc.shape[1:]))
+        return out.to(dev)
+
+    def _all_gather(self, out, inp):
+        self._dist.all_gather(list(out.chunk(self.world)), inp)
+
+    def reduce(self, t: torch.Tensor, op: str) -> torch.Tensor:
+        """SUM / MAX / MIN of `t` over every process (the local shards
+        are merged already)."""
+        red = {"sum": self._dist.ReduceOp.SUM, "max": self._dist.ReduceOp.MAX,
+               "min": self._dist.ReduceOp.MIN}[op]
+
+        def all_reduce(out, inp):
+            out.copy_(inp)
+            self._dist.all_reduce(out, op=red)
+
+        dev = t.device
+        return self._run(all_reduce, t.to(self.dev), t.shape).to(dev)
+
+    def umin(self, words: torch.Tensor) -> torch.Tensor:
+        """pmin of u32 words (unsigned: all-ones is the largest)."""
+        return u32.narrow(self.reduce(u32.widen(words), "min"))
+
+    def merge_insert(self, res: InsertResult) -> InsertResult:
+        return InsertResult(
+            slots=self.reduce(res.slots, "max"),
+            evicted=self.umin(res.evicted),
+            dropped=self.reduce(res.dropped, "max"),
+            fresh=self.reduce(res.fresh, "max"),
+            evicted_vals=self.umin(res.evicted_vals))
+
+    def merge_values(self, out, found):
+        return (u32.narrow(self.reduce(u32.widen(out), "sum")),
+                self.reduce(found, "max"))
+
+    def gather_rows(self, rows: np.ndarray) -> np.ndarray:
+        """Host rows of the local shards -> every shard's rows."""
+        t = torch.from_numpy(np.ascontiguousarray(rows, np.int64))
+        out = self.full([t.to(self.dev)], "cpu").numpy()
+        return out.astype(rows.dtype)
+
+    def report(self) -> dict:
+        return {"calls": self.calls, "bytes": self.bytes,
+                "seconds": self.seconds}
 
 
 class PlaneHandle:
@@ -497,6 +839,22 @@ class ShardedKV:
                 "replication) or drop tier= from the KVConfig")
         self.dispatch = dispatch
         self._batches_since_touch = 0
+        # the exchange and the shards this process holds: every shard on
+        # one process, or this process's own on a multi-process grid
+        if self.mesh.owners is None:
+            self._xch = _LocalExchange(self.n_shards)
+        else:
+            if _LAYOUT is None:
+                raise MultihostError("a multi-process grid needs the process "
+                                     "group of connect_multihost")
+            if self.n_replicas > 1 or states is not None or (
+                    self.config.paged and self.config.tier is not None):
+                raise MultihostUnsupportedError(
+                    "a multi-process grid serves 1-D flat or unpaged planes "
+                    "built from kv.init (no replica lanes, tiered pool or "
+                    "carried states)")
+            self._xch = _DistExchange(self.mesh, _LAYOUT)
+        self._mine = self._xch.mine
         # logical-axis rules -> placement, validated against the live grid:
         # every leaf splits over `kv` only and is replicated along the
         # lanes, so each shard (each lane) holds one whole KVState
@@ -506,7 +864,7 @@ class ShardedKV:
         devs = self.mesh.devices.reshape(self.n_shards, self.n_replicas)
         self._dev = [[devs[s, r] for r in range(self.n_replicas)]
                      for s in range(self.n_shards)]
-        self.device = self._dev[0][0]
+        self.device = self._dev[self._mine[0]][0]
         # the one CUDA device every shard and lane names, else None: only
         # then does a plane verb record a device-time event pair
         one = {d for lanes in self._dev for d in lanes}
@@ -527,7 +885,8 @@ class ShardedKV:
         self._freq = np.zeros((self.n_shards,), np.int64)
         self._lrfu_tick = 0
         self._st = states if states is not None else self._init_states()
-        self._tiered = isinstance(self._st[0][0].pool, tier_mod.TierState)
+        self._tiered = isinstance(self._st[self._mine[0]][0].pool,
+                                  tier_mod.TierState)
         from pmdfc_tpu_torch.runtime import sanitizer as san
 
         # serializes every verb against the others and against readers
@@ -544,14 +903,27 @@ class ShardedKV:
         self._chain: dict | None = None
 
     def _init_states(self) -> list:
+        mine = set(self._mine)
         return [[kv_mod.init(self.config, self._dev[s][r])
-                 for r in range(self.n_replicas)]
+                 for r in range(self.n_replicas)] if s in mine else None
                 for s in range(self.n_shards)]
 
     @property
     def states(self) -> list:
-        """Lane 0's `KVState` of every shard."""
-        return [lanes[0] for lanes in self._st]
+        """Lane 0's `KVState` of every shard this process holds (every
+        shard, unless the grid spans processes)."""
+        return [self._st[s][0] for s in self._mine]
+
+    def _one_process(self, verb: str) -> None:
+        """Refuse a verb the multi-process grid does not run."""
+        if self.mesh.owners is not None:
+            raise MultihostUnsupportedError(
+                f"ShardedKV.{verb} does not run on a multi-process grid")
+
+    def exchange_report(self) -> dict | None:
+        """A multi-process grid's exchange so far (collectives, bytes this
+        process sent, seconds); None on one process."""
+        return self._xch.report()
 
     def _on_device(self):
         """Enter the grid's first device (a server thread's default);
@@ -580,7 +952,7 @@ class ShardedKV:
         """Sampled hotness cadence, `kv.KV._touch_due`'s contract."""
         every = self.config.index.touch_sample_every
         if get_index_ops(self.config.index.kind).touch is None \
-                and not isinstance(self._st[0][0].pool, tier_mod.TierState):
+                and not self._tiered:
             return False
         if every <= 1:
             return True
@@ -623,7 +995,7 @@ class ShardedKV:
         bl = w // n
         devs = self._lane_devs(r)
         kb, vb, route = [], [], []
-        for i in range(n):
+        for i in self._mine:
             with _on(devs[i]):
                 k = _to_dev(keys[i * bl:(i + 1) * bl], devs[i])
                 ok, flat = _route(k, n, c_pair)
@@ -632,24 +1004,29 @@ class ShardedKV:
                 if values is not None:
                     v = _to_dev(values[i * bl:(i + 1) * bl], devs[i])
                     vb.append(_bucket(v, flat, n, c_pair, 0))
-        k_go = _exchange(kb, devs, c_pair)
-        v_go = _exchange(vb, devs, c_pair) if values is not None else None
+        k_go = self._xch.to_owner(kb, devs, c_pair)
+        v_go = (self._xch.to_owner(vb, devs, c_pair) if values is not None
+                else [None] * len(k_go))
         outs = []
-        for d in range(n):
+        for d, k, v in zip(self._mine, k_go, v_go):
             with _on(devs[d]):
-                outs.append(program(d, k_go[d],
-                                    v_go[d] if v_go is not None else None))
+                outs.append(program(d, k, v))
         return route, outs
 
     def _back(self, r, route, outs, field, c_pair, miss):
-        devs = self._lane_devs(r)
-        return _to_source([o[field] for o in outs],
-                          [x[1] for x in route], [x[0] for x in route],
-                          devs, c_pair, miss)
+        backs = self._xch.to_source([o[field] for o in outs],
+                                    self._lane_devs(r), c_pair)
+        return _to_source(backs, [x[1] for x in route],
+                          [x[0] for x in route], c_pair, miss)
+
+    def _dev0(self, r: int) -> torch.device:
+        """Where lane r's merged results land: the first shard's device
+        this process holds."""
+        return self._dev[self._mine[0]][r]
 
     def _bump_lost(self, r: int, route, **by_lane) -> None:
         """Account the bucket-overflow rows on their requesting shard."""
-        for i, (ok, _, valid) in enumerate(route):
+        for i, (ok, _, valid) in zip(self._mine, route):
             lost = (valid & ~ok).sum(dtype=torch.int32)
             st = self._st[i][r]
             for lane in by_lane.values():
@@ -679,18 +1056,18 @@ class ShardedKV:
                                            inval2),
             }
             self._bump_lost(r, route, puts=PUTS, drops=DROPS)
-            return InsertResult(**{
-                f: torch.cat([p.to(devs[0]) for p in parts[f]])
-                for f in InsertResult._fields})
+            return InsertResult(**{f: self._xch.full(parts[f], self._dev0(r))
+                                   for f in InsertResult._fields})
         res = []
-        for s in range(n):
+        for s in self._mine:
             dev = self._dev[s][r]
             with _on(dev):
                 k = _mask_to_owner(_to_dev(keys, dev), n, s)
                 _, rs = kv_mod.insert(self._st[s][r], cfg, k,
                                       _to_dev(values, dev))
                 res.append(rs)
-        return _combine_insert_result(res, self._dev[0][r])
+        return self._xch.merge_insert(_combine_insert_result(res,
+                                                             self._dev0(r)))
 
     def _get_lane(self, r: int, keys, w: int, lean: bool):
         cfg, n = self.config, self.n_shards
@@ -708,17 +1085,18 @@ class ShardedKV:
             got = self._back(r, route, outs, 1, c_pair, torch.tensor(False))
             self._bump_lost(r, route, gets=GETS, misses=MISSES,
                             routed=MISS_ROUTED)
-            return (torch.cat([v.to(devs[0]) for v in vals]),
-                    torch.cat([g.to(devs[0]) for g in got]))
+            return (self._xch.full(vals, self._dev0(r)),
+                    self._xch.full(got, self._dev0(r)))
         outs, founds = [], []
-        for s in range(n):
+        for s in self._mine:
             dev = self._dev[s][r]
             with _on(dev):
                 k = _mask_to_owner(_to_dev(keys, dev), n, s)
                 _, out, found = kv_mod.get(self._st[s][r], cfg, k, lean=lean)
                 outs.append(out)
                 founds.append(found)
-        return _combine_values(outs, founds, self._dev[0][r])
+        return self._xch.merge_values(*_combine_values(outs, founds,
+                                                       self._dev0(r)))
 
     def _delete_lane(self, r: int, keys, w: int) -> torch.Tensor:
         cfg, n = self.config, self.n_shards
@@ -733,14 +1111,15 @@ class ShardedKV:
 
             route, outs = self._a2a(r, keys, w, bl, program)
             got = self._back(r, route, outs, 0, bl, torch.tensor(False))
-            return torch.cat([g.to(self._dev[0][r]) for g in got])
+            return self._xch.full(got, self._dev0(r))
         hits = []
-        for s in range(n):
+        for s in self._mine:
             dev = self._dev[s][r]
             with _on(dev):
                 k = _mask_to_owner(_to_dev(keys, dev), n, s)
                 hits.append(kv_mod.delete(self._st[s][r], cfg, k)[1])
-        return _gather_to(hits, self._dev[0][r]).any(dim=0)
+        return self._xch.reduce(_gather_to(hits, self._dev0(r)).any(dim=0),
+                                "max")
 
     # -- ops (numpy in/out, like kv.KV) --
 
@@ -781,13 +1160,14 @@ class ShardedKV:
             lanes = []
             for r in range(self.n_replicas):
                 res = []
-                for s in range(n):
+                for s in self._mine:
                     with _on(self._dev[s][r]):
                         _, rs, uncovered = kv_mod.insert_extent(
                             self._st[s][r], cfg, key, value, length,
                             shard=(n, s))
                         res.append(rs)
-                lanes.append(_combine_insert_result(res, self._dev[0][r]))
+                lanes.append(self._xch.merge_insert(
+                    _combine_insert_result(res, self._dev0(r))))
             self._mut_seq += 1
             return (InsertResult(**_res_host(lanes[0])), int(uncovered))
 
@@ -797,10 +1177,10 @@ class ShardedKV:
         distinct across shards: a probe key has one owner); gets/misses
         are rewritten onto shard 0 and the global misses classified
         there; hits stay where they won."""
-        cfg, n = self.config, self.n_shards
-        dev0 = self._dev[0][r]
+        cfg, xch = self.config, self._xch
+        dev0 = self._dev0(r)
         per = []
-        for s in range(n):
+        for s in self._mine:
             dev = self._dev[s][r]
             with _on(dev):
                 _, out, found, height, ev = kv_mod._get_extent_impl(
@@ -809,22 +1189,24 @@ class ShardedKV:
                 per.append((out, found, height, ev))
         with _on(dev0):
             k0 = _to_dev(keys, dev0)
-            best = _gather_to([p[2] for p in per], dev0).min(dim=0).values
+            best = xch.reduce(_gather_to([p[2] for p in per], dev0)
+                              .min(dim=0).values, "min")
             wins = [p[1].to(dev0) & (p[2].to(dev0) == best) for p in per]
-            out, found = _combine_values([p[0] for p in per], wins, dev0)
+            out, found = xch.merge_values(*_combine_values(
+                [p[0] for p in per], wins, dev0))
             valid = ~is_invalid(k0)
             n_valid = valid.sum(dtype=torch.int32)
             global_hits = found.sum(dtype=torch.int32)
             miss_glob = valid & ~found
-            ev_glob = _gather_to([p[3] for p in per], dev0).any(dim=0) \
-                & miss_glob
+            ev_glob = xch.reduce(_gather_to([p[3] for p in per], dev0)
+                                 .any(dim=0), "max") & miss_glob
             n_ev = ev_glob.sum(dtype=torch.int32)
             n_miss = miss_glob.sum(dtype=torch.int32)
-        for s in range(n):
+        for j, s in enumerate(self._mine):
             dev = self._dev[s][r]
             with _on(dev):
-                local_hits = per[s][1].sum(dtype=torch.int32)
-                win_hits = wins[s].sum(dtype=torch.int32).to(dev)
+                local_hits = per[j][1].sum(dtype=torch.int32)
+                win_hits = wins[j].sum(dtype=torch.int32).to(dev)
                 fix = torch.zeros(NSTATS, dtype=torch.int32, device=dev)
                 if s == 0:
                     fix[MISSES] += local_hits - global_hits.to(dev)
@@ -852,6 +1234,7 @@ class ShardedKV:
 
     def plane_insert(self, keys: np.ndarray,
                      values: np.ndarray) -> PlaneHandle:
+        self._one_process("plane_insert")
         with self._lock:
             self._lrfu_touch(keys)
             # the router places the keys; each shard's values cross to its
@@ -911,6 +1294,7 @@ class ShardedKV:
         return out, found, scratch.stats
 
     def plane_get(self, keys: np.ndarray) -> PlaneHandle:
+        self._one_process("plane_get")
         with self._lock:
             self._lrfu_touch(keys)
             rb = self._router.build(keys)
@@ -1008,6 +1392,7 @@ class ShardedKV:
         kernel is built at its first launch, and a build or launch
         failure then raises here. The read-only delta is not folded and
         no lane attribution is noted (warmup is not traffic)."""
+        self._one_process("plane_warm_get")
         with self._lock:
             rb = self._router.build(keys)
             # warmup syncs are sanctioned and unattributed: the handles
@@ -1020,6 +1405,7 @@ class ShardedKV:
                 self._sync()
 
     def plane_delete(self, keys: np.ndarray) -> PlaneHandle:
+        self._one_process("plane_delete")
         with self._lock:
             self._lrfu_touch(keys)
             rb = self._router.build(keys)
@@ -1054,6 +1440,7 @@ class ShardedKV:
     def plane_get_extent(self, keys: np.ndarray) -> PlaneHandle:
         """Extent covers are replicated, so this phase is the broadcast
         body (counts=None: every shard probes the whole batch)."""
+        self._one_process("plane_get_extent")
         with self._lock:
             keys_p, _, b, w = self._pad(keys)
             ev = profiler.launch_begin(self._event_dev)
@@ -1178,9 +1565,9 @@ class ShardedKV:
         `server/IKV.h:18`). -> (vals, found, slot, shard)."""
         with self._lock:
             keys, _, b, w = self._pad(keys)
-            dev0 = self._dev[0][0]
+            dev0 = self._dev0(0)
             vals, founds, slots, shards = [], [], [], []
-            for s in range(self.n_shards):
+            for s in self._mine:
                 dev = self._dev[s][0]
                 with _on(dev):
                     v, f, sl = kv_mod.find_anyway(self._st[s][0], self.config,
@@ -1190,9 +1577,12 @@ class ShardedKV:
                     slots.append(sl)
                     shards.append(torch.where(f, s, -1).to(torch.int32))
             with _on(dev0):
-                v, f = _combine_values(vals, founds, dev0)
-                slot = _gather_to(slots, dev0).max(dim=0).values
-                sh = _gather_to(shards, dev0).max(dim=0).values
+                v, f = self._xch.merge_values(*_combine_values(vals, founds,
+                                                               dev0))
+                slot = self._xch.reduce(_gather_to(slots, dev0)
+                                        .max(dim=0).values, "max")
+                sh = self._xch.reduce(_gather_to(shards, dev0)
+                                      .max(dim=0).values, "max")
             return (u32.to_numpy(v)[:b], f.cpu().numpy()[:b],
                     slot.cpu().numpy()[:b], sh.cpu().numpy()[:b])
 
@@ -1200,11 +1590,11 @@ class ShardedKV:
     def _occupancy(self) -> np.ndarray:
         ops = get_index_ops(self.config.index.kind)
         occ = []
-        for s in range(self.n_shards):
+        for s in self._mine:
             with _on(self._dev[s][0]):
                 flat_keys, _ = ops.scan(self._st[s][0].index)
                 occ.append(int((~is_invalid(flat_keys)).sum()))
-        return np.asarray(occ, np.int32)
+        return self._xch.gather_rows(np.asarray(occ, np.int32))
 
     def utilization(self) -> float:
         with self._lock:
@@ -1215,7 +1605,7 @@ class ShardedKV:
         ops = get_index_ops(self.config.index.kind)
         with self._lock:
             if ops.recovery is not None:
-                for s in range(self.n_shards):
+                for s in self._mine:
                     for r in range(self.n_replicas):
                         with _on(self._dev[s][r]):
                             ops.recovery(self._st[s][r].index)
@@ -1231,6 +1621,7 @@ class ShardedKV:
         on 2-D grids: one lane's pages with intact digests elsewhere
         could validate wrong bytes, so 2-D clients keep the (lane-
         arbitrated) verbs."""
+        self._one_process("fast_view")
         if not self.config.paged or self.n_replicas > 1:
             return None
         with self._lock:
@@ -1245,6 +1636,7 @@ class ShardedKV:
         """Compact key -> (shard, row, digest) directory across every
         shard (`kv.directory_entries` per shard, on its device). None
         when unpaged, on 2-D grids, or without a scan."""
+        self._one_process("directory_snapshot")
         if not self.config.paged or self.n_replicas > 1 or \
                 get_index_ops(self.config.index.kind).scan is None:
             return None
@@ -1288,11 +1680,11 @@ class ShardedKV:
             return None
         with self._lock:
             out = []
-            for s in range(self.n_shards):
+            for s in self._mine:
                 with _on(self._dev[s][0]):
                     out.append(u32.to_numpy(bloom_ops.to_packed_bits(
                         self._st[s][0].bloom)))
-            return np.stack(out)
+            return self._xch.gather_rows(np.stack(out))
 
     # -- persistence --
 
@@ -1300,7 +1692,7 @@ class ShardedKV:
         """Wait for every lane's device: the profiler's sanctioned,
         unattributed sync (`profiler.block_ready`)."""
         profiler.block_ready([st.stats for lanes in self._st
-                              for st in lanes])
+                              if lanes is not None for st in lanes])
 
     def save(self, path: str, delta: bool = False) -> dict:
         """Atomic snapshot of the whole plane, every leaf stacked
@@ -1309,6 +1701,7 @@ class ShardedKV:
         stats leaf. `delta=True` writes a chain member over the FLAT row
         space (shard axis folded into the rows); falls back to a full
         (starting a new chain) like `kv.KV.snapshot`."""
+        self._one_process("save")
         with self._lock:
             self._sync()
             folded = np.clip(self._stats_matrix(),
@@ -1343,6 +1736,7 @@ class ShardedKV:
         too. The chain resumes only when the shard count matches: a
         resharded restore rewrites the row space, so the next snapshot
         starts a new chain."""
+        self._one_process("restore_chain")
         with self._lock:
             folded = ckpt_mod.materialize_chain(list(paths))
             label = paths[-1] if paths else "<chain>"
@@ -1363,6 +1757,7 @@ class ShardedKV:
         Different shard count: the snapshot's live entries are re-routed
         (see `_restore_resharded`). The admission gate starts EMPTY
         either way (`checkpoint.strip_admission`)."""
+        self._one_process("restore")
         with self._lock:
             loaded = ckpt_mod.load_leaves(path, None)
             self._restore_from_leaves(loaded, path, run_recovery)
@@ -1485,8 +1880,9 @@ class ShardedKV:
     def _stats_matrix(self) -> np.ndarray:
         """[n, NSTATS] int64: each shard's stats leaf (lane 0) plus the
         host plane."""
-        return np.stack([st.stats.cpu().numpy().astype(np.int64)
-                         for st in self.states]) + self._plane_stats
+        return self._xch.gather_rows(np.stack(
+            [self._st[s][0].stats.cpu().numpy().astype(np.int64)
+             + self._plane_stats[s] for s in self._mine]))
 
     def shard_report(self) -> dict:
         """Per-shard load report — the `segments_in_node` / per-node freq
@@ -1581,7 +1977,7 @@ class ShardedKV:
 
     def _balloon(self, fn, rows: int) -> bool:
         with self._lock:
-            if not isinstance(self._st[0][0].pool, tier_mod.TierState):
+            if not self._tiered:
                 return False
             k = self._balloon_rows(rows)
             for s in range(self.n_shards):

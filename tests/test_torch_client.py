@@ -377,3 +377,40 @@ def test_integrity_backend_turns_a_corrupted_page_into_a_miss():
     small._be = Flipper()
     _, found = small.get(keys)
     assert found.all() and small.counters["verified_gets"] == 4
+
+
+def test_engine_backend_caller_chosen_arena_slice():
+    """`EngineBackend(arena_lo=, arena_hi=)`: the caller's slice is used as
+    given (`arena_hi` defaults to the arena's end, as JAX's does), two
+    clients on disjoint caller slices round-trip their own pages, and
+    close() leaves a caller's slice alone (only an owned slice returns
+    to the engine)."""
+    from pmdfc_tpu.client.backends import EngineBackend as JEngineBackend
+
+    with _server() as srv:
+        eng = srv.engine
+        a = EngineBackend(srv, queue=0, arena_lo=0, arena_hi=64,
+                          timeout_us=30_000_000)
+        b = EngineBackend(srv, queue=1, arena_lo=64, timeout_us=30_000_000)
+        # the JAX client's slice rule over the same engine
+        j = JEngineBackend(srv, queue=1, arena_lo=64)
+        assert (b.arena_lo, b.arena_hi) == (j.arena_lo, j.arena_hi) == (
+            64, eng.arena_pages)
+        assert (a.arena_lo, a.arena_hi) == (0, 64)
+        ka, kb = _keys(100, seed=1), _keys(100, seed=2) + np.uint32(1 << 12)
+        pa = ka[:, 1:2] * np.uint32(7) + np.arange(PW, dtype=np.uint32)
+        pb = kb[:, 1:2] * np.uint32(5) + np.arange(PW, dtype=np.uint32)
+        a.put(ka, pa)  # 100 pages through a 64-page slice: two verbs
+        b.put(kb, pb)
+        out_a, fa = a.get(ka)
+        out_b, fb = b.get(kb)
+        assert fa.all() and fb.all()
+        np.testing.assert_array_equal(out_a, pa)
+        np.testing.assert_array_equal(out_b, pb)
+        a.close()
+        b.close()
+        # an owned slice still comes from the free list, past nothing the
+        # caller slices were given back
+        c = EngineBackend(srv, slice_pages=32)
+        assert c._owns_slice and not a._owns_slice and not b._owns_slice
+        c.close()

@@ -86,3 +86,30 @@ def test_pack_key_and_is_invalid_match_jax():
     assert np.array_equal(tkeys.is_invalid(tk).numpy(),
                           np.asarray(jkeys.is_invalid(jnp.asarray(jk))))
     assert tkeys.INVALID_WORD == jkeys.INVALID_WORD
+
+
+@pytest.mark.parametrize("family", ["murmur3", "std", "murmur2", "jenkins",
+                                    "xxhash"])
+def test_hash_families_match_jax(family):
+    """The reference's `h()` dispatcher: each family on torch and in numpy
+    (`hashing_np.h_np`) bit for bit against the JAX package's, over
+    random and edge words and three seeds."""
+    from pmdfc_tpu.utils import hashing_np as jhnp
+    from pmdfc_tpu_torch.utils import hashing_np as thnp
+
+    assert sorted(thash.FAMILIES) == sorted(jhash.FAMILIES)
+    assert sorted(thnp.FAMILIES_NP) == sorted(jhnp.FAMILIES_NP)
+    hi, lo = _words(len(family))
+    for seed in (0, 11, 0xFFFFFFFF):
+        want = np.asarray(jhash.h(jnp.asarray(hi), jnp.asarray(lo),
+                                  seed=seed, family=family))
+        got = thash.h(u32.from_numpy(hi, "cpu"), u32.from_numpy(lo, "cpu"),
+                      seed=seed, family=family)
+        assert got.dtype == torch.int64
+        assert np.array_equal(got.numpy(), want.astype(np.int64)), seed
+        assert np.array_equal(thnp.h_np(hi, lo, seed, family), want), seed
+    with pytest.raises(ValueError, match="unknown hash family"):
+        thash.h(u32.from_numpy(hi, "cpu"), u32.from_numpy(lo, "cpu"),
+                family="nope")
+    with pytest.raises(ValueError, match="unknown hash family"):
+        thnp.h_np(hi, lo, family="nope")

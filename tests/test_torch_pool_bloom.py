@@ -159,3 +159,26 @@ def test_bloom_counters_and_packed_bits_match_jax(num_bits, num_hashes):
     assert tpk.dtype == np.uint32 and tpk.tobytes() == jpk.tobytes()
     # MSB-first: counter 0 is bit 31 of word 0
     assert bool(jpk[0] >> 31) == bool(np.asarray(js.counters)[0] > 0)
+
+
+@pytest.mark.parametrize("num_bits,num_hashes", [(1 << 12, 4), (96 * 32, 3)])
+def test_query_packed_matches_jax(num_bits, num_hashes):
+    """Membership against the packed client mirror, on torch, against the
+    JAX package's `query_packed` over the same packed words: inserted keys
+    hit, and the false positives are the same ones."""
+    rng = np.random.default_rng(num_hashes)
+    ts = tbloom.init(TBloomConfig(num_bits=num_bits, num_hashes=num_hashes),
+                     device="cpu")
+    keys = _keys(rng, 300)
+    tbloom.insert_batch(ts, _t(keys), torch.ones(300, dtype=torch.bool),
+                        num_hashes=num_hashes)
+    packed = tbloom.to_packed_bits(ts)
+    probe = np.concatenate([keys[:100], _keys(rng, 400)])
+    want = np.asarray(jbloom.query_packed(
+        jnp.asarray(u32.to_numpy(packed)), jnp.asarray(probe),
+        num_hashes=num_hashes))
+    got = tbloom.query_packed(packed, _t(probe), num_hashes=num_hashes)
+    assert got.dtype == torch.bool
+    assert np.array_equal(got.numpy(), want)
+    live = (keys[:100] != 0xFFFFFFFF).any(axis=1)
+    assert want[:100][live].all() and not want[100:].all()

@@ -651,3 +651,91 @@ def test_control_phase_fails_when_kv_get_launches_go_uncounted(
     monkeypatch.setattr(Profiler, "note_launch", lossy)
     with pytest.raises(AssertionError, match="kv.get launches for"):
         chip_smoke.run_control(control_smoke)
+
+
+# -- phase 12, scale: the multi-process plane and the workload harnesses --
+
+SCALE_TINY = (
+    ("SCALE_INDEX", dict(capacity=1 << 10)), ("SCALE_BLOOM_BITS", 1 << 13),
+    # no NCCL here: the rehearsal's one-process group is gloo's, and the
+    # two-ranks-on-one-card refusal is the card's (its logic is pinned in
+    # test_torch_multihost.py)
+    ("SCALE_SOLO_BACKEND", "gloo"), ("SCALE_SOLO_INDEX", dict(capacity=1 << 9)),
+    ("SCALE_SOLO_BLOOM_BITS", 1 << 12), ("SCALE_INS_B", 1 << 9),
+    ("SCALE_GET_B", 1 << 8), ("SCALE_GETS", 2), ("SCALE_BCAST_B", 1 << 6),
+    ("SCALE_DELETE", 1 << 5), ("SCALE_JOIN_S", 60.0),
+    ("SCALE_TIMEOUT_S", 240.0), ("SCALE_TIMED", False),
+    ("SCALE_HARNESSES", (
+        ("multihost_bench", ("--procs", "2", "--n", "4096", "--batch",
+                             "1024", "--capacity", "4096")),
+        ("test_kv", ("--n", "4000", "--batch", "1000", "--capacity", "4096",
+                     "--index", "cceh", "--no-engine")),
+        ("paging_sim", ("--job", "rand_rw", "--capacity", "2048",
+                        "--file-pages", "256", "--ram-pages", "64", "--ops",
+                        "400", "--page-words", "64")),
+        ("swap_sim", ("--capacity", "2048", "--working-pages", "256",
+                      "--ram-pages", "64", "--ops", "400", "--page-words",
+                      "64", "--iodepth", "16")),
+        ("filebench", ("--personality", "webserver", "--capacity", "2048",
+                       "--loops", "4", "--nfiles", "8", "--mean-pages", "4",
+                       "--page-words", "64")),
+        ("replay", ("--trace", "tests/data/fileserver.trace", "--capacity",
+                    "65536", "--batch", "1024")),
+        ("multinode", ("--clients", "2", "--capacity", "2048", "--ops",
+                       "300", "--file-pages", "128", "--ram-pages", "32",
+                       "--page-words", "64")))))
+
+
+@pytest.fixture
+def scale_smoke(smoke, monkeypatch):
+    for name, value in SCALE_TINY:
+        monkeypatch.setattr(chip_smoke, name, value)
+    monkeypatch.setattr(chip_smoke, "scale_refusal", lambda: None)
+    return smoke
+
+
+def test_scale_phase_and_its_kernels_lines(scale_smoke, capsys):
+    """Phase 12 at a tiny size: two spawned processes over gloo and a
+    one-process group, each filling, deleting and serving a2a and
+    broadcast GETs byte-exact with every miss zeroed, the same results on
+    every process, one launch per shard per GET phase, the kernel against
+    plain in every process; then every harness as its own process, each
+    held to its own gate."""
+    entries = chip_smoke.run_scale(scale_smoke)
+    assert [e["path"] for e in entries] == ["scale-gloo", "scale-nccl"]
+    for e in entries:
+        assert set(e) == KEYS
+        assert e["name"] == "fused_get_linear_flat" and e["max_abs_err"] == 0
+    # every shard of every process, per GET phase (2 a2a + 1 broadcast)
+    assert entries[0]["launches"] == 4 * 3 and entries[1]["launches"] == 4 * 3
+    out = capsys.readouterr().out
+    assert "identical on every process" in out
+    for name, _ in chip_smoke.SCALE_HARNESSES:
+        assert f"harness {name}" in out
+
+
+def _dying_child(rank, port, q):
+    import os
+
+    if rank == 1:
+        os._exit(3)
+    q.put((rank, "ok", {}))
+
+
+def test_scale_phase_fails_when_a_worker_dies(monkeypatch):
+    monkeypatch.setattr(chip_smoke, "SCALE_TIMEOUT_S", 60.0)
+    with pytest.raises(AssertionError, match="worker 1 died"):
+        chip_smoke.scale_spawn(_dying_child, 2, (), "rehearsal")
+
+
+def test_scale_harness_gates_fail_on_wrong_bytes(monkeypatch):
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    ok = {"device": "cpu", "verify_failures": 0}
+    chip_smoke.harness_check("swap_sim", (), ok)
+    for name, row in (("swap_sim", {**ok, "verify_failures": 2}),
+                      ("test_kv", {**ok, "failed_search": 1}),
+                      ("replay", {**ok, "wrong_values": 1}),
+                      ("multihost_bench", {**ok, "hits": 3, "n": 4}),
+                      ("filebench", {**ok, "device": "cuda"})):
+        with pytest.raises(AssertionError, match=f"harness {name}"):
+            chip_smoke.harness_check(name, (), row)
