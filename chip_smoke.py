@@ -97,7 +97,8 @@ Phases, each reported on its own line; any failure exits nonzero:
              its own queue and a 2^11-page arena slice, the server pushing
              its bloom filter every 0.05 s. `warmup()` first, on the main
              thread (a kernel that fails to build or launch raises there,
-             not as -2 statuses inside the driver). Fill 75% of the slots
+             not as -2 statuses inside the driver). Fill 75% of the slots:
+             5/8 through `KV.insert` in 2^16-page batches, then 1/8
              through the engine in 2^11-page put_pages verbs; push; every
              acknowledged key a mirror denies must miss at the server;
              invalidate; then 8 get_pages verbs per thread (5/8 present,
@@ -319,6 +320,37 @@ Phases, each reported on its own line; any failure exits nonzero:
              webserver (8 GiB pools; `verify_failures` 0), `replay` of
              the bundled trace and of 10^6 synthetic events (no wrong
              value), `multinode` with 3 clients (no wrong page).
+13. tail   — the bench tail of `pmdfc_tpu_torch/bench/`, after scale.
+             In this process, launches counted: `fused_get` for
+             linear·flat and cceh·flat at phase 4's configurations (8 GiB
+             pools filled to 75% of the slots), one family at a time, its
+             kernel side (`KV.get_async`) against the composed chain
+             (`kv._get_core` on a second KV) on zipf 0 and 0.99 streams
+             of 2^18 keys in batches of 2^11, 2^14 and 2^16: pages, found
+             and every stats lane equal on every batch, every hit the
+             key's page, every miss zeroed, one launch per kernel-side GET
+             and none on the composed side, both timed by CUDA events;
+             then `tier_sweep`, linear at 2^21 slots tiered against flat
+             (8 GiB each), batches of 2^14, zipf 0, 0.6, 0.99 and 1.2,
+             2^18 GETs a skew: every hit byte-exact, every miss zeroed,
+             `misses == Σ miss_*`. Each harness's last state is held
+             kernel against plain and timed (w = 2^11, 2^14, 2^16). Then
+             `mesh_sweep` (1, 2, 4 and 8 shards over an 8 GiB total, the
+             one card named per shard, and the PMDFC_MESH=off row, behind
+             `NetServer`; every verb verified, one launch per shard per
+             GET phase). From the phase's start, five side by side, each
+             its own process with `--device cuda`: `soak` (linear·flat at
+             8 GiB through the engine for 60 s; no wrong page, no stale
+             serve, no serve error), `fill_sweep` (its families and fills
+             at 2^21 slots, inserts of 2^16), `insert_profile`,
+             `train_pressure` (4 KiB pages), and `fastpath_sweep`,
+             `replica_soak` and `elastic_sweep` (300 storm steps),
+             `recovery_soak`, `containment_soak`, `qos_soak --backend
+             direct` (4 KiB pages, 2^18 slots a node), each held to its
+             gates (no wrong byte, no serve error, and its own: the RPO
+             bound and `miss_recovering`, the isolation and re-admission,
+             the shed attribution, a falling loss). Reports every row
+             beside the card's name and power limit, and its wall time.
 
 Each KV is freed before the next path's fill, so no two pools share the
 card but the fleet's and the plane's own shards. The next-to-last line is one JSON object naming each kernel with its
@@ -330,8 +362,10 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published memory rate
@@ -371,6 +405,7 @@ PUT_ODD = 11_826       # a quiet PUT flush off the ladder: the mean width of
 MISS_FILL = 0xA5A5A5A5  # a GET verb's arena slots hold this until served
 BF_PUSH_S = 0.05       # the server's bloom push period
 SERVE_HI = 0x90000000  # thread t's page keys are (SERVE_HI + t, i)
+SERVE_DIRECT_HI = 0x9F000000  # the pre-fill's keys are (SERVE_DIRECT_HI, i)
 NEVER_LO = 1 << 24     # lo words at or above this were never inserted
 CLIENT_TIMEOUT_US = 120_000_000
 # one deadline for all the client threads of a serving phase (the fill
@@ -517,6 +552,53 @@ SCALE_HARNESSES = (
     ("replay", ("--synthetic", "1000000")),
     ("multinode", ("--clients", "3", *_POOL, "--ops", "3000")),
 )
+
+
+# ---------------------------------------------------------------------------
+# phase 13, tail: the bench tail's harnesses
+# ---------------------------------------------------------------------------
+
+# fused_get, one family at a time at phase 4's configurations (4 KiB
+# pages, 8 GiB pools, 75% of the slots filled), two KVs each
+TAIL_FUSED = (("linear", LINEAR_INDEX["capacity"]),
+              ("cceh", CCEH_INDEX["capacity"]))
+TAIL_FUSED_ARGS = dict(page_words=1024, fill=0.75,
+                       batches=[1 << 11, 1 << 14, 1 << 16], gets=1 << 18,
+                       zipfs=[0.0, 0.99])
+# tier_sweep: linear at 2^21 slots, tiered vs flat (8 GiB each); 2^18
+# GETs a skew (cut from 2^19 for the time limit)
+TAIL_TIER_ARGS = dict(capacity=1 << 21, page_words=1024, batch=1 << 14,
+                      gets=1 << 18, zipfs=[0.0, 0.6, 0.99, 1.2],
+                      hot_fraction=16)
+TAIL_WIDTHS = (1 << 11, 1 << 14, 1 << 16)  # kernel against plain, timed
+TAIL_TIMED_W = 1 << 14                    # the kernels line's width
+# after the in-process sweeps, on the card alone: mesh_sweep over an
+# 8 GiB total (1, 2, 4, 8 shards and PMDFC_MESH=off)
+_TAIL_POOL = ("--capacity", str(1 << 21), "--page-words", "1024")
+TAIL_SERIAL = (
+    ("mesh_sweep", ("--shards", "1,2,4,8", *_TAIL_POOL, "--rounds", "1")),
+)
+# side by side in lanes from the phase's start: the soak (8 GiB, 60 s),
+# then the host-bound harnesses at their JAX defaults but 4 KiB pages and
+# 2^18 slots per node, the replica and elastic storms cut to 300 steps
+# (from 600) for the time limit
+_TAIL_NODE = ("--page-words", "1024", "--capacity", str(1 << 18))
+TAIL_LANE_RUNS = (
+    ("elastic_sweep", (*_TAIL_NODE, "--steps", "300", "--settle-steps",
+                       "30")),
+    ("recovery_soak", _TAIL_NODE),
+    ("soak", ("--minutes", "1", *_TAIL_POOL)),
+    ("train_pressure", ("--page-words", "1024")),
+    ("replica_soak", (*_TAIL_NODE, "--steps", "300", "--kill-every", "75",
+                      "--down-steps", "37")),
+    ("fill_sweep", ("--capacity", str(1 << 21), "--batch", str(1 << 16))),
+    ("fastpath_sweep", _TAIL_NODE),
+    ("containment_soak", _TAIL_NODE),
+    ("qos_soak", ("--backend", "direct", *_TAIL_NODE)),
+    ("insert_profile", ()),
+)
+TAIL_LANES = 5
+TAIL_ROWS = ("mesh_sweep", "fastpath_sweep", "qos_soak")  # rows in --out
 
 
 def log(phase: str, msg: str) -> None:
@@ -1998,7 +2080,8 @@ def run_serving(sm: Smoke):
     """The serving path: linear·flat at the serving size behind the native
     engine and the `KVServer` driver, CLIENT_GROUPS x GROUP_THREADS clean-
     cache client threads (one engine queue each), a bloom push every
-    BF_PUSH_S. Fill 75% of the slots through the engine, push, then the GET
+    BF_PUSH_S. Fill 75% of the slots (5/8 through KV.insert, then an
+    eighth through the engine), push, then the GET
     storm and the extent verbs; then kernel against plain on the server's
     full-size state and phase 5's times."""
     np, torch, fused = sm.np, sm.torch, sm.fused
@@ -2023,7 +2106,11 @@ def run_serving(sm: Smoke):
     eng.wait_many = wait_many  # every client verb's statuses pass here
     nthreads = CLIENT_GROUPS * GROUP_THREADS
     unit = nthreads * VERB
-    n_fill = (3 * kv.capacity() // 4) // unit * unit
+    # 75% of the slots, 5/8 straight through KV.insert, then an eighth
+    # through the engine: the fill through the engine runs at 8,000-10,000
+    # pages/s, and the whole 75% through it took 156 s
+    n_fill = (kv.capacity() // 8) // unit * unit
+    n_direct = (3 * kv.capacity() // 4 - n_fill) // INS_B * INS_B
     st = kv.state
     log("serve", f"KVServer on {kv.device}: {kv.capacity()} slots, table "
         f"{tuple(st.index.table.shape)}, pool {tuple(st.pool.pages.shape)} = "
@@ -2037,6 +2124,16 @@ def run_serving(sm: Smoke):
     torch.cuda.synchronize()
     log("serve", f"warmup: {n_warm} (kind, width) ops in "
         f"{time.monotonic() - t0:.3f} s, pad floor {srv.pad_floor}")
+    # the pre-fill straight through KV.insert; the clients' fill then
+    # evicts the oldest entries of full clusters, the pre-fill's
+    t0 = time.monotonic()
+    for i in range(0, n_direct, INS_B):
+        keys = sm.keys_of(SERVE_DIRECT_HI,
+                          torch.arange(i, i + INS_B, device=sm.dev))
+        kv.insert(keys, sm.pages_of(keys, cfg.page_words))
+    torch.cuda.synchronize()
+    log("serve", f"pre-fill: {n_direct} pages through KV.insert in "
+        f"{INS_B}-page batches in {time.monotonic() - t0:.3f} s")
 
     fused.launches.clear()
     torch.cuda.synchronize()
@@ -2136,7 +2233,12 @@ def run_serving(sm: Smoke):
     pool = torch.cat([path.keys(1), path.keys(3), path.mixed(1 << 16)])
     covers = sm.keys_of(EXT_HI, torch.tensor(
         [(j + 1) * 4096 for j in range(SERVE_EXTENTS)], device=sm.dev))
-    sm.kernel_phase(kv, pool, present, covers, "serving full")
+    # the capacity evictions fell on the pre-fill's oldest keys: a few of
+    # its first batch that miss now ride every batch (the EVICTED cause)
+    first = sm.keys_of(SERVE_DIRECT_HI, torch.arange(INS_B, device=sm.dev))
+    _, found = kv.get(first)
+    sm.kernel_phase(kv, pool, present, covers, "serving full",
+                    extra=first[~found][:4])
     return measure(sm, path, launches)
 
 
@@ -3505,41 +3607,49 @@ def plane_checks(sm, skv, be, srv, clients, counts, launches_per_phase,
 
 
 def plane_kernel(sm, state, present, pw: int, widths, label: str, smi,
-                 hi: int = DIRECT_HI, timed: bool = True):
-    """Kernel against plain on one shard's full state at each width (its
-    keys (hi, present) and never-inserted ones), and with `timed` the
-    kernel's times at each -> {w: (ms, plain_ms, bound_ms)}."""
+                 hi: int = DIRECT_HI, timed: bool = True, batch=None):
+    """Kernel against plain on one full state at each width (its keys (hi,
+    present) and never-inserted ones, or the batches `batch(w)` draws),
+    and with `timed` the kernel's times at each -> {w: (ms, plain_ms,
+    bound_ms)}."""
     np, torch, fused = sm.np, sm.torch, sm.fused
-    present = torch.from_numpy(present.astype(np.int64)).to(sm.dev)
+    name = variant_of(state)
+    if batch is None:
+        present = torch.from_numpy(present.astype(np.int64)).to(sm.dev)
 
-    def batch(w):
-        n_never = max(1, w // 8)
-        keys = torch.cat([
-            sm.keys_of(hi, sm.pick(present, w - n_never)),
-            sm.keys_of(hi, torch.randint(
-                NEVER_LO, 1 << 32, (n_never,), device=sm.dev,
-                generator=sm.gen))])
-        return keys[torch.randperm(w, device=sm.dev, generator=sm.gen)]
+        def batch(w):
+            n_never = max(1, w // 8)
+            keys = torch.cat([
+                sm.keys_of(hi, sm.pick(present, w - n_never)),
+                sm.keys_of(hi, torch.randint(
+                    NEVER_LO, 1 << 32, (n_never,), device=sm.dev,
+                    generator=sm.gen))])
+            return keys[torch.randperm(w, device=sm.dev, generator=sm.gen)]
 
     args, kw = sm.kernel_args(state)
     s_ = state.index.table.shape[1] // 4
+    # a CCEH key reads its directory word first; a tiered key past the
+    # generation gate its cold row's generation and live byte
+    dirr = getattr(state.index, "dirr", None)
+    dir_bytes = 0 if dirr is None else 4 * dirr.numel()
     out = {}
     for w in widths:
         causes, _ = sm.compare(batch(w), state, f"{label} w={w}")
-        log("kernel", f"{label} shard 0 full w={w}: kernel == plain, "
+        log("kernel", f"{label} full w={w}: kernel == plain, "
             f"causes {CAUSE_NAMES}={causes}")
         if not timed:
             continue
         batches = [batch(w) for _ in range(8)]
         nbytes = [fused.fused_get_bytes(
-            sm.compare(k, state, f"{label} timed")[0], w, s_, pw,
-            state.evicted_filter.numel()) for k in batches]
+            *cmp[:1], w, s_, pw, state.evicted_filter.numel(), dir_bytes,
+            cmp[1]) for cmp in (sm.compare(k, state, f"{label} timed")
+                                for k in batches)]
         ms = time_ms(torch, [lambda k=k: fused.fused_get(k, *args, **kw)
                              for k in batches], 48, device_only=True)
         plain_ms = time_ms(torch, [lambda k=k: fused.get_core_reference(
             k, *args, **kw) for k in batches], 8, device_only=True)
         bound_ms = sum(nbytes) / len(nbytes) / HBM_BYTES_PER_S * 1e3
-        log("times", f"fused_get_linear_flat w={w} on {label} shard 0, "
+        log("times", f"{name} w={w} on {label}, "
             f"rotated over {len(batches)} batches: kernel {ms:.4f} ms, "
             f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms = "
             f"{bound_ms / ms:.1%} of the memory rate ({smi})")
@@ -3547,15 +3657,16 @@ def plane_kernel(sm, state, present, pw: int, widths, label: str, smi,
     return out
 
 
-def plane_entry(sm, path: str, launches: int, t) -> dict:
+def plane_entry(sm, path: str, launches: int, t,
+                name: str = "fused_get_linear_flat") -> dict:
     ms, plain_ms, bound_ms = t
     return {
-        "name": "fused_get_linear_flat",
+        "name": name,
         "route": "cuda",
         "source": "pmdfc_tpu_torch/ops/csrc/fused_get.cu",
         "replaces": "pmdfc_tpu/ops/fused.py:414",
         "launches": launches,
-        "max_abs_err": sm.max_err["fused_get_linear_flat"],
+        "max_abs_err": sm.max_err[name],
         "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
@@ -3767,7 +3878,7 @@ def plane_1d(sm: Smoke, root):
     kt = plane_kernel(sm, skv.states[0], direct_present[
         skv.node_of(np.stack([np.full(len(direct_present), DIRECT_HI,
                                       np.uint32), direct_present], -1)) == 0],
-        pw, widths, "plane", smi)
+        pw, widths, "plane shard 0", smi)
 
     # snapshots: a full, then PLANE_MUTATE puts and invalidates, a delta
     deleted = np.concatenate(
@@ -4068,7 +4179,7 @@ def plane_2d(sm: Smoke) -> dict:
                                          np.uint32), direct_present], -1)) == 0
     skv.replica_repair()
     kt = plane_kernel(sm, skv.states[0], direct_present[own0], pw, widths,
-                      "plane2d", smi)
+                      "plane2d shard 0", smi)
     del skv, be, srv, clients
     return plane_entry(sm, "plane2d", launches, kt[8])
 
@@ -4799,10 +4910,10 @@ def scale_plane(rank: int, ndev: int, p: dict) -> dict:
     widths = (8, n * pair_capacity(p["get_b"] // n, n))
     for r in range(p["world"]):  # one process at a time on the card
         if r == rank:
+            smi = nvidia_smi() if p["timed"] else "rehearsal"
             times = plane_kernel(sm, st, present, pw, widths,
-                                 f"{p['label']} rank {rank}", nvidia_smi()
-                                 if p["timed"] else "rehearsal", hi=hi,
-                                 timed=p["timed"] and rank == 0)
+                                 f"{p['label']} rank {rank} shard 0", smi,
+                                 hi=hi, timed=p["timed"] and rank == 0)
         dist.barrier()
     return {"rank": rank, "shards": n, "n_fill": n_fill, "fill_s": t_fill,
             "drops": drops, "overflow": overflow, "inserts": n_ins,
@@ -5019,6 +5130,188 @@ def run_scale(sm: Smoke):
     return [scale_entry(gloo, "scale-gloo"), scale_entry(solo, "scale-nccl")]
 
 
+# ---------------------------------------------------------------------------
+# phase 13, tail: the bench tail's harnesses on the card
+# ---------------------------------------------------------------------------
+
+def uncounted(fused, fn):
+    """Run `fn` and take back the fused-GET launches it made: the launches
+    that compare a kernel with its plain version do not count."""
+    before = dict(fused.launches)
+    try:
+        return fn()
+    finally:
+        fused.launches.clear()
+        fused.launches.update(before)
+
+
+def tail_kernel(sm, kv, keys, label: str, smi):
+    """Kernel against plain on a harness's full-size state at TAIL_WIDTHS,
+    on batches of its inserted keys with an eighth never inserted, timed
+    at each -> {w: (ms, plain_ms, bound_ms)} (these launches uncounted)."""
+    torch = sm.torch
+    n = len(keys)
+    present = torch.from_numpy(keys.view(sm.np.int32)).to(sm.dev)
+
+    def batch(w):
+        n_never = max(1, w // 8)
+        lo = torch.randint(n + 1, 1 << 30, (n_never,), device=sm.dev,
+                           generator=sm.gen)
+        never = torch.stack([lo >> 16, lo], -1).to(torch.int32)
+        keys_w = torch.cat([sm.pick(present, w - n_never), never])
+        return keys_w[torch.randperm(w, device=sm.dev, generator=sm.gen)]
+
+    return uncounted(sm.fused, lambda: plane_kernel(
+        sm, kv.state, None, kv.config.page_words, TAIL_WIDTHS, label, smi,
+        batch=batch))
+
+
+def tail_check(name: str, row: dict) -> str:
+    """A tail harness's own gates on its row (beyond its exit code) ->
+    what held."""
+    fails = []
+    for k in ("wrong_bytes", "serve_errors", "verify_failures",
+              "mismatches", "deleted_hits", "conformance_violations"):
+        if row.get(k):
+            fails.append(f"{k} {row[k]}")
+    if name == "recovery_soak":
+        if row["miss_recovering"] <= 0 or row["pages_lost"] > row["rpo_bound"]:
+            fails.append(f"miss_recovering {row['miss_recovering']}, lost "
+                         f"{row['pages_lost']} of bound {row['rpo_bound']}")
+    elif name == "replica_soak":
+        if row["hit_rate_ratio"] < 0.8:
+            fails.append(f"hit_rate_ratio {row['hit_rate_ratio']}")
+    elif name == "containment_soak":
+        iso = row["isolation"]
+        if iso["poison_ops"] != 1 or iso["bisect_failures"] > row["bound"] \
+                or not row["readmitted"] or row["proof"]["poison_ops"]:
+            fails.append(f"isolation {iso}, readmitted {row['readmitted']}, "
+                         f"proof {row['proof']}")
+    elif name == "qos_soak":
+        if not row["miss_shed"] or row["lanes"]["good"].get("shed_edge"):
+            fails.append(f"miss_shed {row['miss_shed']}, lanes "
+                         f"{row['lanes']}")
+    elif name == "train_pressure":
+        if not row["loss_last"] < row["loss_first"]:
+            fails.append(f"loss {row['loss_first']} -> {row['loss_last']}")
+    elif name == "soak":
+        if not (row["clean_cache_invariant_ok"] and row["causes_ok"]):
+            fails.append("clean-cache invariant or miss causes broken")
+    if row.get("device") != torch_device_type():
+        fails.append(f"ran on {row.get('device')}")
+    if fails:
+        raise AssertionError(f"harness {name}: " + "; ".join(fails))
+    skip = ("rows", "lanes", "client", "tier", "teledoc")
+    return json.dumps({k: v for k, v in row.items() if k not in skip})
+
+
+def tail_harness(name: str, args, tmp: str):
+    """One tail harness as its own process -> (its last JSON row, with the
+    rows it wrote to `--out` for the harnesses in TAIL_ROWS; seconds)."""
+    t0 = time.monotonic()
+    out = os.path.join(tmp, f"{name}.json")
+    extra = ("--out", out) if name in TAIL_ROWS else ()
+    row = run_harness(name, (*args, *extra))
+    if extra:
+        with open(out) as f:
+            row["rows"] = json.load(f)["rows"]
+    return row, time.monotonic() - t0
+
+
+def tail_log(name: str, args, row: dict, secs: float) -> None:
+    log("tail", f"harness {name} {' '.join(args)} ({secs:.1f} s): "
+        f"{tail_check(name, row)} ({nvidia_smi()})")
+    keep = ("transport", "n_shards", "value", "unit", "p50_us", "p95_us",
+            "gets_per_s", "cpu_us_per_get")
+    for r in row.get("rows", ()):
+        log("tail", f"  {name} row {r['metric']}: "
+            + json.dumps({k: r[k] for k in keep if k in r}))
+
+
+def run_tail(sm):
+    """The bench tail (phase 13): fused_get and tier_sweep in this
+    process, their launches counted, then mesh_sweep; the soak and the
+    host-bound harnesses side by side in lanes from the start. -> the
+    kernel entries of its path."""
+    import argparse
+    from concurrent.futures import ThreadPoolExecutor
+
+    from pmdfc_tpu_torch.bench import fused_get as fg
+    from pmdfc_tpu_torch.bench import tier_sweep as ts
+
+    fused, torch = sm.fused, sm.torch
+    t_phase = time.monotonic()
+    free_card(torch)
+    smi = nvidia_smi()
+    times = {}
+    with ThreadPoolExecutor(TAIL_LANES) as ex, \
+            tempfile.TemporaryDirectory() as tmp:
+        lanes = [ex.submit(tail_harness, name, args, tmp)
+                 for name, args in TAIL_LANE_RUNS]
+        fused.launches.clear()
+        for fam, cap in TAIL_FUSED:
+            t0 = time.monotonic()
+            args = argparse.Namespace(
+                capacity=cap, families=[fam], seed=sm.seed, device=DEVICE,
+                out=None, history=None, smoke=False, **TAIL_FUSED_ARGS)
+
+            def keep(f, kv, keys):
+                times[variant_of(kv.state)] = tail_kernel(
+                    sm, kv, keys, f"tail fused_get {f}·flat", smi)
+
+            out = fg.run(args, keep=keep)
+            for r in out["sweeps"]:
+                log("tail", f"fused_get {fam}·flat zipf {r['zipf']} batch "
+                    f"{r['batch']}: kernel side {r['ms_fused']:.4f} ms, "
+                    f"composed chain {r['ms_composed']:.4f} ms per GET "
+                    f"(CUDA event window) = "
+                    f"{r['speedup_fused_vs_composed']}x; {r['hits']} hits "
+                    f"of {r['gets']}, parity bit for bit on every batch, "
+                    f"one launch per kernel-side GET, none composed ({smi})")
+            free_card(torch)
+            log("tail", f"fused_get {fam}·flat took "
+                f"{time.monotonic() - t0:.1f} s (its fill "
+                f"{out['sweeps'][0]['fill_s']} s)")
+        t0 = time.monotonic()
+        args = argparse.Namespace(seed=sm.seed, device=DEVICE, out=None,
+                                  history=None, smoke=False,
+                                  **TAIL_TIER_ARGS)
+
+        def keep_tier(kv, keys):
+            times[variant_of(kv.state)] = tail_kernel(
+                sm, kv, keys, "tail tier_sweep linear·tiered", smi)
+
+        out = ts.run(args, keep=keep_tier)
+        for r in out["sweeps"]:
+            log("tail", f"tier_sweep zipf {r['zipf']}: tiered "
+                f"{r['stream_mops_tier']} Mops/s, flat "
+                f"{r['stream_mops_flat']} Mops/s (KV.get, host clock); hot "
+                f"gather {r['hot_gather_us_tier']} vs "
+                f"{r['hot_gather_us_flat']} us (CUDA events); hits "
+                f"{r['hits_tier']} / {r['hits_flat']}, every hit byte-exact, "
+                f"every miss zeroed, misses == sum of causes; promotions "
+                f"{r['tier']['promotions']} ({smi})")
+        launches = dict(fused.launches)
+        free_card(torch)
+        log("tail", f"tier_sweep took {time.monotonic() - t0:.1f} s")
+        for want in times:
+            if not launches.get(want):
+                raise AssertionError(f"tail: {want} was never launched")
+        log("tail", f"fused-GET launches of the in-process sweeps: "
+            f"{launches}")
+        for name, args in TAIL_SERIAL:
+            tail_log(name, args, *tail_harness(name, args, tmp))
+        log("tail", f"main thread done at {time.monotonic() - t_phase:.1f} s")
+        for (name, args), f in zip(TAIL_LANE_RUNS, lanes):
+            tail_log(name, args, *f.result())
+    log("tail", f"phase 13 took {time.monotonic() - t_phase:.1f} s")
+    return [plane_entry(sm, "tail", launches[name], t[TAIL_TIMED_W], name)
+            for name, t in times.items()]
+
+
+T0 = time.monotonic()  # the smoke's start: phase times are logged from it
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5090,11 +5383,20 @@ def main() -> int:
 
     # 4 and 5, one path at a time: each KV is freed before the next fill
     kernels = []
-    for run in (run_linear, run_cceh, lambda sm: run_tiered(sm, "linear"),
-                lambda sm: run_tiered(sm, "cceh"), run_families, run_serving,
-                run_wire, run_fleet, run_plane, run_control, run_scale):
+    log("smoke", f"phases 1-3 took {time.monotonic() - T0:.1f} s")
+    for label, run in (
+            ("linear", run_linear), ("cceh", run_cceh),
+            ("linear·tiered", lambda sm: run_tiered(sm, "linear")),
+            ("cceh·tiered", lambda sm: run_tiered(sm, "cceh")),
+            ("families", run_families), ("serve", run_serving),
+            ("wire", run_wire), ("fleet", run_fleet), ("plane", run_plane),
+            ("control", run_control), ("scale", run_scale),
+            ("tail", run_tail)):
+        t0 = time.monotonic()
         entry = run(sm)
-        if isinstance(entry, list):  # the plane's, control's, scale's
+        log("smoke", f"{label} took {time.monotonic() - t0:.1f} s, "
+            f"{time.monotonic() - T0:.1f} s since the start")
+        if isinstance(entry, list):  # the plane's, control's, scale's, tail's
             kernels.extend(entry)
         elif entry is not None:  # the families launch no kernel of their own
             kernels.append(entry)

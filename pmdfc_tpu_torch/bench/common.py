@@ -118,3 +118,37 @@ def smoke_sizes(parser, args, **sizes) -> None:
     for k, v in sizes.items():
         if getattr(args, k) == parser.get_default(k):
             setattr(args, k, v)
+
+
+def timed_ms(fn, device, reps: int = 1) -> float:
+    """Mean milliseconds per call of `fn` over `reps` calls: on a card the
+    device's time between two CUDA events (the calls' work queued between
+    them, then a synchronize), on the CPU the host clock."""
+    import time
+
+    import torch
+
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t0) * 1e3 / reps
+    with torch.cuda.device(dev):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps
+
+
+def launches_per_get(device) -> int:
+    """Fused-GET kernel launches one GET program makes per shard on
+    `device`: one on a card; none on the CPU, where the kernel's wrapper
+    runs its plain version."""
+    import torch
+
+    return 1 if torch.device(device).type == "cuda" else 0

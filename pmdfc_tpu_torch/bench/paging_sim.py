@@ -35,27 +35,10 @@ from collections import OrderedDict
 
 import numpy as np
 
+from pmdfc_tpu_torch.bench.tier_sweep import _zipf_stream
+
 JOBS = ("seq_read", "rand_read", "rand_rw", "seq_rw", "seq_write",
         "scan_mix")
-
-
-def _zipf_stream(rng, n_keys: int, n: int, a: float) -> np.ndarray:
-    """Zipf ranks over [0, n_keys) — rank r picked w.p. ∝ (r+1)^-a (a copy
-    of `pmdfc_tpu/bench/tier_sweep._zipf_stream`, draw for draw).
-
-    Finite-universe inverse-CDF sampler (numpy's `rng.zipf` needs a > 1;
-    the interesting cache skews live at a <= 1)."""
-    if a <= 0:
-        return rng.integers(0, n_keys, n).astype(np.uint32)
-    w = np.power(np.arange(1, n_keys + 1, dtype=np.float64), -a)
-    cdf = np.cumsum(w)
-    cdf /= cdf[-1]
-    ranks = np.searchsorted(cdf, rng.random(n), side="right")
-    ranks = np.minimum(ranks, n_keys - 1)
-    # rank-shuffled so hot keys are scattered across the key space (the
-    # hash-routed reality), not clustered at low ids
-    perm = rng.permutation(n_keys).astype(np.uint32)
-    return perm[ranks]
 
 
 def page_content(oid: int, index: int, page_words: int,

@@ -64,9 +64,10 @@ def state_from_numpy(leaves: dict[str, np.ndarray], config: KVConfig,
                      device="cuda", consume: bool = False) -> kv_mod.KVState:
     """The JAX package's `KVState` leaves (numpy, by dotted path) -> this
     package's `KVState` on `device`: any index family over the flat pool,
-    or the tiered one when `config.tier` is set (its admission leaves iff
-    the leaves hold them). An index state's static knobs (CCEH's, cuckoo's
-    `max_kicks`, level's `top_rows`, path's `top`) come from the config.
+    or the tiered one when the leaves hold a tiered pool (its admission
+    leaves iff the leaves hold them). An index state's static knobs
+    (CCEH's, cuckoo's `max_kicks`, level's `top_rows`, path's `top`) come
+    from the config.
 
     `consume=True` hands the arrays over (a restore's freshly read
     leaves): a contiguous, writeable u32/int32/bool leaf crosses to the
@@ -101,7 +102,9 @@ def state_from_numpy(leaves: dict[str, np.ndarray], config: KVConfig,
                            IndexKind.HOTRING: HotRingState}[kind])
 
     pool = None
-    if config.paged and config.tier is not None:
+    # the leaves' pool type decides, as the state's does after `kv.init`
+    # (which `PMDFC_TIER` may have flipped against `config.tier`)
+    if config.paged and "pool.hfree" in leaves:
         pool = tier_mod.TierState(**{
             f.name: t(f"pool.{f.name}")
             for f in dataclasses.fields(tier_mod.TierState)

@@ -95,12 +95,13 @@ def strip_admission(state):
 
 
 def transplant_admission(state, config: KVConfig):
-    """Fresh (empty) admission leaves, built from `config` on the state's
+    """Fresh (empty) admission leaves, built from `config` as `kv.init`
+    resolves it (`PMDFC_TIER`/`PMDFC_ADMIT` applied) on the state's
     device, onto a restored state whose gate was stripped. No-op when the
-    config carries no gate. (The JAX twin takes them off a whole live
-    `kv.init` skeleton; here only the gate's leaves are built.)"""
+    resolved config carries no gate. (The JAX twin takes them off a whole
+    live `kv.init` skeleton; here only the gate's leaves are built.)"""
     pool = getattr(state, "pool", None)
-    tier = config.tier
+    tier = kv_mod._tier_cfg_at_init(config)
     if not isinstance(pool, tier_mod.TierState) or tier is None \
             or tier.admit is None:
         return state

@@ -1,18 +1,17 @@
 """Typed configuration (twin of `pmdfc_tpu/config.py`, this slice's part).
 
 The same frozen dataclasses with the same fields and defaults, so one
-configuration reads the same in both packages. Two differences:
-
-- no environment switch on the KV: the JAX package lets `PMDFC_TIER` and
-  `PMDFC_ADMIT` add or strip the tiered store and its admission gate at
-  init; here they come from `KVConfig.tier` (and its `admit`) alone. The
-  serving plane's switches are the JAX package's, with the same env
-  names and defaults: `PMDFC_QOS`, `PMDFC_NET_PIPE`, `PMDFC_FASTPATH`,
-  `PMDFC_RING`, `PMDFC_MESH2D`, `PMDFC_PROF`, `PMDFC_TELEMETRY`,
-  `PMDFC_SAN`, `PMDFC_CONTAINMENT` and `PMDFC_AUTOTUNE`;
-- there is no `fused_get` switch: on CUDA a configuration that
-  `ops.fused.supports` accepts always runs the fused GET kernel, and one
-  it rejects runs the composed GET, as the JAX package composes it.
+configuration reads the same in both packages. The environment
+switches are the JAX package's, with the same env names and defaults:
+`PMDFC_TIER` and `PMDFC_ADMIT` add or strip the tiered store and its
+admission gate when `kv.init` builds a state (`kv._tier_cfg_at_init`;
+after that the state's pool decides), and the serving plane's
+`PMDFC_QOS`, `PMDFC_NET_PIPE`, `PMDFC_FASTPATH`, `PMDFC_RING`,
+`PMDFC_MESH`, `PMDFC_MESH2D`, `PMDFC_PROF`, `PMDFC_TELEMETRY`,
+`PMDFC_SAN`, `PMDFC_CONTAINMENT` and `PMDFC_AUTOTUNE`. One difference:
+there is no `fused_get` switch: on CUDA a configuration that
+`ops.fused.supports` accepts always runs the fused GET kernel, and one
+it rejects runs the composed GET, as the JAX package composes it.
 """
 
 from __future__ import annotations

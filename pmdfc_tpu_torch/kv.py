@@ -72,7 +72,7 @@ import numpy as np
 import torch
 
 from pmdfc_tpu_torch import tier as tier_mod
-from pmdfc_tpu_torch.config import KVConfig, TierConfig
+from pmdfc_tpu_torch.config import AdmitConfig, KVConfig, TierConfig
 from pmdfc_tpu_torch.models.base import dedupe_last_wins, get_index_ops
 from pmdfc_tpu_torch.models.rowops import first_lane
 from pmdfc_tpu_torch.ops import bloom as bloom_ops
@@ -116,7 +116,8 @@ class ExtentState:
 class KVState:
     index: Any
     bloom: bloom_ops.BloomState | None
-    # flat PoolState, or TierState when `config.tier` is set
+    # flat PoolState, or TierState when `config.tier` is set (after
+    # `PMDFC_TIER`/`PMDFC_ADMIT`, `_tier_cfg_at_init`)
     pool: pagepool.PoolState | tier_mod.TierState | None
     extents: ExtentState
     stats: torch.Tensor           # int32[NSTATS]
@@ -136,9 +137,49 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def _admit_cfg_at_init(tcfg: TierConfig) -> TierConfig:
+    """Apply the `PMDFC_ADMIT` escape hatch to an effective tier config
+    (init-time only, the `PMDFC_TIER` discipline: after init the STATE's
+    admission leaves, present or not, carry the decision, so a
+    mid-process env flip never mixes programs). `off` strips the gate
+    (the TierState never grows the sketch leaves and the serving path is
+    bit-identical to an admission-less config); `on` installs
+    `AdmitConfig()` defaults on a tiered config that carries none."""
+    env = os.environ.get("PMDFC_ADMIT", "")
+    if env not in ("", "on", "off"):
+        # a typo'd flag must not silently run the other promotion policy
+        raise ValueError(
+            f"PMDFC_ADMIT={env!r}: expected 'on', 'off', or unset")
+    if env == "off" and tcfg.admit is not None:
+        return dataclasses.replace(tcfg, admit=None)
+    if env == "on" and tcfg.admit is None:
+        return dataclasses.replace(tcfg, admit=AdmitConfig())
+    return tcfg
+
+
+def _tier_cfg_at_init(config: KVConfig) -> TierConfig | None:
+    """Effective tier config, env escape hatches applied (init-time only:
+    after init the pool's TYPE carries the decision, so a mid-process env
+    flip never mixes programs). `PMDFC_ADMIT` rides the same resolution
+    (see `_admit_cfg_at_init`)."""
+    if not config.paged:
+        return None
+    env = os.environ.get("PMDFC_TIER", "")
+    if env not in ("", "on", "off"):
+        # a typo'd flag must not silently run the other pool layout
+        raise ValueError(
+            f"PMDFC_TIER={env!r}: expected 'on', 'off', or unset")
+    if env == "off":
+        return None
+    if config.tier is not None:
+        return _admit_cfg_at_init(config.tier)
+    return _admit_cfg_at_init(TierConfig()) if env == "on" else None
+
+
 def _tcfg(config: KVConfig) -> TierConfig:
-    """Tier knobs of a tiered state: `config.tier` (the defaults where a
-    tiered state meets a config without one)."""
+    """Tier knobs for an already-tiered state (config.tier, or the
+    defaults when the tier came from PMDFC_TIER=on). Whether the gate
+    runs is the state's: `tier.admit_cfg` reads its admission leaves."""
     return config.tier if config.tier is not None else TierConfig()
 
 
@@ -151,8 +192,9 @@ def init(config: KVConfig, device="cuda") -> KVState:
     ops = get_index_ops(config.index.kind)
     n = ops.num_slots(config.index)
     pool = None
-    if config.paged and config.tier is not None:
-        pool = tier_mod.init(n, config.page_words, config.tier, device=dev)
+    tcfg = _tier_cfg_at_init(config)
+    if tcfg is not None:
+        pool = tier_mod.init(n, config.page_words, tcfg, device=dev)
     elif config.paged:
         pool = pagepool.init(n, config.page_words, device=dev)
     return KVState(

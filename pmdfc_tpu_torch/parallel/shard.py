@@ -831,8 +831,8 @@ class ShardedKV:
         # placement keys off the per-lane found mask, so a damaged lane's
         # hot/cold layout would drift for good.
         self.n_replicas = shape.get(RAXIS, 1)
-        if self.n_replicas > 1 and self.config.paged \
-                and self.config.tier is not None:
+        if self.n_replicas > 1 and \
+                kv_mod._tier_cfg_at_init(self.config) is not None:
             raise ValueError(
                 "the 2-D replica plane does not compose with the tiered "
                 "pool yet — run the tier on a 1-D mesh (host ReplicaGroup "
@@ -847,8 +847,8 @@ class ShardedKV:
             if _LAYOUT is None:
                 raise MultihostError("a multi-process grid needs the process "
                                      "group of connect_multihost")
-            if self.n_replicas > 1 or states is not None or (
-                    self.config.paged and self.config.tier is not None):
+            if self.n_replicas > 1 or states is not None or \
+                    kv_mod._tier_cfg_at_init(self.config) is not None:
                 raise MultihostUnsupportedError(
                     "a multi-process grid serves 1-D flat or unpaged planes "
                     "built from kv.init (no replica lanes, tiered pool or "
