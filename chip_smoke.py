@@ -68,10 +68,10 @@ Phases, each reported on its own line; any failure exits nonzero:
 6. families — the six index families that take the composed GET (cuckoo,
              cuckoo-probing, level, path, static, HotRing), one at a time,
              each through `KV` at linear·flat's serving configuration with
-             only the kind changed (requested capacity 2^21, the 2^24-bit
-             bloom, 4 KiB pages, the sketch); the pool follows each
-             family's slot count (level 3 x 2^20 slots = 12 GiB, path's
-             base-15 slots 2,088,960). Fill 75% of the slots; serve mixed
+             only the kind changed but the requested capacity cut to 2^20
+             for the time limit (the 2^24-bit bloom, 4 KiB pages, the
+             sketch); the pool follows each family's slot count (level
+             3 x 2^19 slots = 6 GiB). Fill 75% of the slots; serve mixed
              get and get_compact batches (present, never-inserted,
              evicted or dropped, padding) and, after a delete, with the
              deleted keys mixed in: every key an insert reported placed
@@ -153,22 +153,23 @@ Phases, each reported on its own line; any failure exits nonzero:
              byte-exact; rows/s both ways.
 9. fleet  — durability and the replicated fleet, after the wire: three
              nodes, each a `pmdfc_tpu_torch.tools.crashbox` child process
-             (spawn) on the card serving linear·flat's configuration (an
-             8 GiB pool) from a `KV` with its own write-ahead `Journal`
-             (`JournalConfig()`) behind `NetServer(NetConfig())` on
-             loopback: three 8 GiB pools on the one H100, the one phase
-             where pools share the card, because a fleet needs them to.
+             (spawn) on the card serving linear·flat's configuration cut
+             to 2^19 slots (a 2 GiB pool) from a `KV` with its own
+             write-ahead `Journal` (`JournalConfig()`) behind
+             `NetServer(NetConfig())` on loopback: three 2 GiB pools on
+             the one H100, the one phase where pools share the card,
+             because a fleet needs them to.
              Snapshots and journals go to `build/fleet` (git-ignored; its
              filesystem and free bytes are printed, tmpfs or less than
-             11 GiB free fails), removed at the end. One `ReplicaGroup`
+             4 GiB free fails), removed at the end. One `ReplicaGroup`
              (rf 2, hedge 50 ms, the ring; repair by manual ticks) over a
              `ReconnectingClient(TcpBackend)` per node, whose factory
              follows the node's port, shared by 8 client threads with
-             2^11-key verbs; keys (0xC0000000, i). Put 2^18 keys; node 2
-             cuts a full snapshot; put 2^15; node 2 cuts a delta; put 2^14
-             and invalidate 2^12 earlier keys (node 2's journal tail); a
-             GET storm of 2^17 keys. With the traffic paused, SIGKILL node
-             2; while it is down put 2^13, invalidate 2^11 and storm 2^17:
+             2^11-key verbs; keys (0xC0000000, i). Put 2^16 keys; node 2
+             cuts a full snapshot; put 2^13; node 2 cuts a delta; put 2^12
+             and invalidate 2^10 earlier keys (node 2's journal tail); a
+             GET storm of 2^15 keys. With the traffic paused, SIGKILL node
+             2; while it is down put 2^11, invalidate 2^9 and storm 2^15:
              every acknowledged, non-invalidated key hits byte-exact by
              failover, every invalidated key misses, node 2's breaker
              opens. Warm restart node 2 from [full, delta] and its journal
@@ -190,7 +191,7 @@ Phases, each reported on its own line; any failure exits nonzero:
              more delta; the nodes stop; this process restores the
              three-member chain with `checkpoint.load_chain(...,
              device="cuda")` into a `KV`, where every such key hits
-             byte-exact, and phase 3's comparison runs on that 8 GiB
+             byte-exact, and phase 3's comparison runs on that 2 GiB
              state. Throughout: one fused-GET launch per GET phase on
              every node (read over each child's control pipe), no serve
              error, no contained phase failure, no corrupt page, no wrong
@@ -201,17 +202,18 @@ Phases, each reported on its own line; any failure exits nonzero:
              in-process restore's seconds and peak RSS.
 10. plane — the sharded plane, last: `ShardedKV` over a grid that names the
              card four times (`make_mesh(["cuda"] * 4)`), each shard
-             linear·flat at 2^19 slots, `BloomConfig(num_bits=1 << 22)`
-             (8 bits per slot, as linear·flat) and 4 KiB pages: four 2 GiB
-             pools, 8 GiB in all — the reference server's 10 GB buffer
-             split over four shards as `NuMA_KV` splits one server over its
-             NUMA nodes; four shards on one card stand in for four devices
-             (no width is cut). Fill 1,310,720 pages through
+             linear·flat at 2^17 slots, `BloomConfig(num_bits=1 << 20)`
+             (8 bits per slot, as linear·flat) and 4 KiB pages: four
+             512 MiB pools, 2 GiB in all — the reference server's 10 GB
+             buffer split over four shards as `NuMA_KV` splits one server
+             over its NUMA nodes, cut to a quarter for the time limit;
+             four shards on one card stand in for four devices (no width
+             is cut). Fill 327,680 pages through
              `ShardedKV.insert` (a2a, 2^16-key batches; the a2a pair
              overflow is counted, 0 expected); put `PlaneBackend(skv)`
              behind `NetServer(NetConfig())` with the wire phase's 4 x 8
-             pipelined connections: 262,144 pages over the wire (75% of the
-             slots), the mirror check and invalidates, a GET storm of 2^19
+             pipelined connections: 65,536 pages over the wire (75% of the
+             slots), the mirror check and invalidates, a GET storm of 2^18
              keys (present, never inserted, invalidated, evicted), 64
              extents, and the fast lane's three passes over 2^14 pre-fill
              keys per directory connection (per-(shard, row) validated
@@ -234,13 +236,13 @@ Phases, each reported on its own line; any failure exits nonzero:
              threads putting and getting 2^16 pages through the engine:
              every hit byte-exact, no -2, no serve error, one launch per
              shard per GET flush); then, with both planes freed, the full
-             reshard-restored onto 8 shards (16 GiB): no live page lost,
+             reshard-restored onto 8 shards (4 GiB): no live page lost,
              invalidated keys stay missing, the replay drops nothing,
              counters carried. Last the 2 x 2 plane (`make_mesh2d(2, 2,
-             ["cuda"] * 4)`, 2^20 slots per lane: 4 GiB pools, 16 GiB on
-             the card, 8 GiB of distinct pages) behind `NetServer`: every
-             connection negotiates `replica_lanes == 2`; 1,310,720 pages
-             through `plane_insert` (one call writes both lanes) and 262,144
+             ["cuda"] * 4)`, 2^18 slots per lane: 1 GiB pools, 4 GiB on
+             the card, 2 GiB of distinct pages) behind `NetServer`: every
+             connection negotiates `replica_lanes == 2`; 327,680 pages
+             through `plane_insert` (one call writes both lanes) and 65,536
              over the wire; lane 1 corrupted: a storm serves every hit
              byte-exact from lane 0 and lane 1's `digest_refused` counts
              exactly lane 0's serves; `TcpBackend.replica_repair()`
@@ -292,8 +294,9 @@ Phases, each reported on its own line; any failure exits nonzero:
              processes from the `spawn` context join over gloo on
              loopback (`connect_multihost`, two shards each on the card,
              the exchange staged through pinned host buffers), each shard
-             linear·flat at 2^19 slots, 8 bloom bits per slot, 4 KiB
-             pages (8 GiB in all, phase 10's split). Every process passes
+             linear·flat at 2^18 slots, 8 bloom bits per slot, 4 KiB
+             pages (4 GiB in all, cut from 8 GiB for the time limit).
+             Every process passes
              the same full batches: 75% of the slots in 2^14-key a2a
              inserts (the pair overflow counted), 2^12 deletes, 6 a2a
              GETs of 2^14 keys (5/8 present, 1/8 deleted, 1/8 never
@@ -312,7 +315,9 @@ Phases, each reported on its own line; any failure exits nonzero:
              checks. Then two NCCL ranks naming the one card must both
              be refused (`SharedDeviceError`) before any collective. (c)
              The harnesses of `pmdfc_tpu_torch/bench/`, each its own
-             process with `--device cuda`, four side by side:
+             process with `--device cuda`, five side by side in lanes
+             from the phase's start, beside (a) and (b); phase 13's
+             harnesses are queued behind them in the same lanes:
              `multihost_bench --procs 2 --backend gloo` (hits == n),
              `test_kv` over the reference baseline's 10M uniform keys at
              2^25 slots, linear then cceh (`failedSearch` 0), the six
@@ -330,31 +335,34 @@ Phases, each reported on its own line; any failure exits nonzero:
              and every stats lane equal on every batch, every hit the
              key's page, every miss zeroed, one launch per kernel-side GET
              and none on the composed side, both timed by CUDA events;
-             then `tier_sweep`, linear at 2^21 slots tiered against flat
-             (8 GiB each), batches of 2^14, zipf 0, 0.6, 0.99 and 1.2,
-             2^18 GETs a skew: every hit byte-exact, every miss zeroed,
+             then `tier_sweep`, linear at 2^20 slots tiered against flat
+             (4 GiB each), batches of 2^14, zipf 0, 0.6, 0.99 and 1.2,
+             2^16 GETs a skew: every hit byte-exact, every miss zeroed,
              `misses == Σ miss_*`. Each harness's last state is held
-             kernel against plain and timed (w = 2^11, 2^14, 2^16). Then
-             `mesh_sweep` (1, 2, 4 and 8 shards over an 8 GiB total, the
-             one card named per shard, and the PMDFC_MESH=off row, behind
-             `NetServer`; every verb verified, one launch per shard per
-             GET phase). From the phase's start, five side by side, each
-             its own process with `--device cuda`: `soak` (linear·flat at
-             8 GiB through the engine for 60 s; no wrong page, no stale
-             serve, no serve error), `fill_sweep` (its families and fills
-             at 2^21 slots, inserts of 2^16), `insert_profile`,
-             `train_pressure` (4 KiB pages), and `fastpath_sweep`,
-             `replica_soak` and `elastic_sweep` (300 storm steps),
-             `recovery_soak`, `containment_soak`, `qos_soak --backend
-             direct` (4 KiB pages, 2^18 slots a node), each held to its
+             kernel against plain and timed (w = 2^11, 2^14, 2^16).
+             Beside them, in the lanes phase 12 started, each its own
+             process with `--device cuda`: `mesh_sweep` (1, 2, 4 and 8
+             shards over a 4 GiB total, the one card named per shard, and
+             the PMDFC_MESH=off row, behind `NetServer`; every verb
+             verified, one launch per shard per GET phase), `soak`
+             (linear·flat at 4 GiB through the engine for 30 s; no wrong
+             page, no stale serve, no serve error), `fill_sweep` (its
+             families and fills at 2^20 slots, inserts of 2^16),
+             `insert_profile`,
+             `train_pressure` (4 KiB pages, 100 steps), and
+             `fastpath_sweep`, `replica_soak` and `elastic_sweep` (120
+             storm steps), `recovery_soak` (160 steps),
+             `containment_soak`, `qos_soak --backend direct` (4 KiB
+             pages, 2^18 slots a node), each held to its
              gates (no wrong byte, no serve error, and its own: the RPO
              bound and `miss_recovering`, the isolation and re-admission,
              the shed attribution, a falling loss). Reports every row
              beside the card's name and power limit, and its wall time.
 
 Each KV is freed before the next path's fill, so no two pools share the
-card but the fleet's and the plane's own shards. The next-to-last line is one JSON object naming each kernel with its
-path, launches, error and times; the last is `{"ok": true, "device": ...}`.
+card but the fleet's and the plane's own shards, and, in phases 12 and
+13, the harness processes'. The next-to-last line is one JSON object
+naming each kernel with its path, launches, error and times; the last is `{"ok": true, "device": ...}`.
 """
 
 from __future__ import annotations
@@ -373,6 +381,7 @@ PAGE_HI = 0x80000001  # hi word of page keys (>= 2^31: unsigned order matters)
 EXT_HI = 0x80000002   # hi word of extent keys
 INS_B, GET_B = 1 << 16, 1 << 14
 HOT_SET = 1 << 12      # tiered paths: a quarter of each GET comes from it
+EXTENTS = 300          # the CCEH path's extents (two cross 2^31 and 2^32)
 BALLOON_EVICT = 2 * 1024  # tiered paths: live rows a forced shrink evicts
 # the serving size: 2^21 slots for each family (CCEH's capacity is its
 # initial segments' slots; one split of each gives the 2^21)
@@ -382,7 +391,7 @@ CCEH_INDEX = dict(capacity=1 << 20)
 CAUSE_NAMES = "(hit,pad,cold,evicted,ext,parked,stale,digest)"
 # the families phase: linear·flat's serving configuration with only the
 # index kind changed, for each family that takes the composed GET
-FAMILY_INDEX = dict(capacity=1 << 21)
+FAMILY_INDEX = dict(capacity=1 << 20)
 FAMILIES = ("cuckoo", "ccp", "level", "path", "static", "hotring")
 # hotring: GET keys served before the mirror drill, and the decay period
 # (`IndexConfig`'s default, so the decay fires once through `KV`)
@@ -433,50 +442,52 @@ DIRECT_HI = 0xB0000000   # the pre-fill's keys are (DIRECT_HI, i)
 POOL_ROWS = 1 << 21
 POOL_CLIENTS = 4
 POOL_PAGES = 1 << 16
-# the fleet: three crashbox nodes at linear·flat's configuration behind a
-# ReplicaGroup (rf 2); node FLEET_CRASH is snapshotted, killed, warm
-# restarted and rejoined. Keys are (FLEET_HI, i).
-FLEET_INDEX = dict(capacity=1 << 21)
-FLEET_BLOOM_BITS = 1 << 24
+# the fleet: three crashbox nodes at linear·flat's configuration cut to
+# 2^19 slots (2 GiB pools; the keys cut by the same quarter, for the time
+# limit) behind a ReplicaGroup (rf 2); node FLEET_CRASH is snapshotted,
+# killed, warm restarted and rejoined. Keys are (FLEET_HI, i).
+FLEET_INDEX = dict(capacity=1 << 19)
+FLEET_BLOOM_BITS = 1 << 22
 FLEET_NODES = 3
 FLEET_CRASH = 2
 FLEET_THREADS = 8         # client threads sharing the group
-FLEET_FILL = 1 << 18      # keys put before the full snapshot
-FLEET_DELTA = 1 << 15     # keys put before the delta
-FLEET_TAIL = 1 << 14      # keys put after the delta (the journal tail)
-FLEET_INVAL = 1 << 12     # earlier keys invalidated in the tail
-FLEET_STORM = 1 << 17     # GET keys of each storm
-FLEET_DOWN_PUT = 1 << 13  # keys put while the node is down
-FLEET_DOWN_INVAL = 1 << 11  # keys invalidated while it is down
+FLEET_FILL = 1 << 16      # keys put before the full snapshot
+FLEET_DELTA = 1 << 13     # keys put before the delta
+FLEET_TAIL = 1 << 12      # keys put after the delta (the journal tail)
+FLEET_INVAL = 1 << 10     # earlier keys invalidated in the tail
+FLEET_STORM = 1 << 15     # GET keys of each storm
+FLEET_DOWN_PUT = 1 << 11  # keys put while the node is down
+FLEET_DOWN_INVAL = 1 << 9  # keys invalidated while it is down
 FLEET_HI = 0xC0000000
 FLEET_JOURNAL: dict = {}  # JournalConfig's defaults (rpo_ops 256, 50 ms)
-FLEET_DISK_BYTES = 11 << 30  # a full, deltas and the journals
+FLEET_DISK_BYTES = 4 << 30   # a full, deltas and the journals
 FLEET_START_S = 300.0     # a node's start timeout (spawn to serving)
 FLEET_REPAIR_S = 600.0    # the repair drain's deadline
 
-# the sharded plane (phase 10): per shard linear·flat at 2^19 slots and 8
-# bloom bits per slot (a 2 GiB pool); four shards on the one card hold
-# 8 GiB, the reference's 10 GB buffer split as NuMA_KV splits one server
+# the sharded plane (phase 10): per shard linear·flat at 2^17 slots and 8
+# bloom bits per slot (a 512 MiB pool); four shards on the one card hold
+# 2 GiB, the reference's 10 GB buffer split as NuMA_KV splits one server,
+# cut to a quarter (slots, fills and storms) for the time limit
 PLANE_SHARDS = 4
-PLANE_INDEX = dict(capacity=1 << 19)
-PLANE_BLOOM_BITS = 1 << 22
-PLANE_DIRECT = 1_310_720  # pages through ShardedKV.insert (a2a)
+PLANE_INDEX = dict(capacity=1 << 17)
+PLANE_BLOOM_BITS = 1 << 20
+PLANE_DIRECT = 327_680    # pages through ShardedKV.insert (a2a)
 PLANE_INS_B = 1 << 16     # keys per a2a fill batch
-PLANE_FILL = 1 << 18      # pages then put over the wire (75% of the slots)
-PLANE_GETS = 1 << 19      # keys of the GET storm
+PLANE_FILL = 1 << 16      # pages then put over the wire (75% of the slots)
+PLANE_GETS = 1 << 18      # keys of the GET storm
 PLANE_EXTENTS = 64
 PLANE_FAST_KEYS = 1 << 14  # pre-fill keys each fast connection reads
 PLANE_MUTATE = 1 << 14    # keys put between the full and the delta
 PLANE_MUT_HI = 0xD0000000
-PLANE_RESHARD = 8         # shards the full is reshard-restored onto (16 GiB)
+PLANE_RESHARD = 8         # shards the full is reshard-restored onto (4 GiB)
 PLANE_ENGINE_THREADS = 8
 PLANE_ENGINE_PAGES = 1 << 16
-PLANE_DISK_BYTES = 10 << 30  # the full and the delta
-# the 2 x 2 replica plane: 2^20 slots per lane (a 4 GiB pool), 16 GiB on
-# the card, 8 GiB of distinct pages
+PLANE_DISK_BYTES = 3 << 30   # the full and the delta
+# the 2 x 2 replica plane: 2^18 slots per lane (a 1 GiB pool), 4 GiB on
+# the card, 2 GiB of distinct pages
 PLANE2D = (2, 2)
-PLANE2D_INDEX = dict(capacity=1 << 20)
-PLANE2D_BLOOM_BITS = 1 << 23
+PLANE2D_INDEX = dict(capacity=1 << 18)
+PLANE2D_BLOOM_BITS = 1 << 21
 
 # phase 11, control: the row insert, the profiler and the controller
 ROW_INDEX = dict(capacity=1 << 21)  # each of the two A/B indexes (32 MiB)
@@ -501,13 +512,13 @@ HARNESSES = (("insert_rowscatter", ()),
 # phase 12, scale: the multi-process plane on torch.distributed and the
 # reference's workload harnesses. Part (a): 2 spawned processes joined
 # over gloo, 2 shards each on the one card, each shard linear·flat at
-# 2^19 slots (8 bits of bloom per slot, 4 KiB pages: 2 GiB pools, 8 GiB in
-# all, phase 10's split); part (b): one process in an NCCL group of world
-# size 1, 4 shards of 2^16 slots
+# 2^18 slots (8 bits of bloom per slot, 4 KiB pages: 1 GiB pools, 4 GiB
+# in all, cut from 8 GiB for the time limit); part (b): one process in an
+# NCCL group of world size 1, 4 shards of 2^16 slots
 SCALE_PROCS = 2
 SCALE_PER_PROC = 2
-SCALE_INDEX = dict(capacity=1 << 19)
-SCALE_BLOOM_BITS = 1 << 22
+SCALE_INDEX = dict(capacity=1 << 18)
+SCALE_BLOOM_BITS = 1 << 21
 SCALE_SOLO_BACKEND = "nccl"
 SCALE_SOLO_SHARDS = 4
 SCALE_SOLO_INDEX = dict(capacity=1 << 16)
@@ -521,17 +532,40 @@ SCALE_HI = 0xF0000000     # the plane's keys are (SCALE_HI, i)
 SCALE_JOIN_S = 120.0      # connect_multihost's timeout
 SCALE_TIMEOUT_S = 600.0   # a part's workers, spawn to exit
 SCALE_TIMED = True        # rank 0 times the kernel (not in the rehearsal)
-SCALE_HARNESS_LANES = 4   # harness processes run side by side
+# part (a) then drives the plane verbs in both processes: through
+# PlaneBackend, 2^14-key plane puts (rewrites of present keys), deletes,
+# extents and GET phases (5/8 present, 1/8 deleted, 1/8 never inserted,
+# 1/8 any); the fast lane over a sample of the directory (a host mirror
+# of every pool in each process); restore_chain and a reshard restore of
+# a one-process plane's snapshots; a tiered plane with the gate (its GETs
+# on both cadences); and a 2 x 2 grid with a corrupted lane. Part (b)
+# runs the plane verbs once over its four shards.
+SCALE_PLANE_PUTS = 2       # 2^14-key plane puts
+SCALE_PLANE_GETS = 2       # 2^14-key plane GET phases
+SCALE_PLANE_EXTENTS = 16
+SCALE_FAST_KEYS = 1 << 14  # directory entries read on the fast lane
+SCALE_FAST_REWRITE = 1 << 10  # of those, keys rewritten before the mirror
+# the one-process plane whose full and delta snapshots the grid restores:
+# 2 shards of 2^17 slots (1 GiB), half filled; restore_chain onto a
+# 2-shard grid (one shard a process), the reshard onto the 4-shard grid
+SCALE_RESTORE_INDEX = dict(capacity=1 << 17)
+SCALE_RESTORE_BLOOM_BITS = 1 << 20
+# the tiered plane (TierConfig() with AdmitConfig(), every second GET
+# batch counting) and the 2 x 2 grid: 2 GiB each
+SCALE_TIER_INDEX = dict(capacity=1 << 17, touch_sample_every=2)
+SCALE_2D_INDEX = dict(capacity=1 << 17)
+SCALE_SIDE_BLOOM_BITS = 1 << 20
 # the paging jobs over an 8 GiB pool (2^21 slots, 4 KiB pages): the read
 # jobs batch 16 faults a window over a 4096-page file through a
 # 1024-page RAM cache (8 passes of it); the write jobs go op by op (each
 # write invalidates its page on the card), over a 1024-page file through
-# a 256-page cache (8 passes)
+# a 256-page cache (4 passes); swap_sim 2^11 ops, filebench 4 loops over
+# 32 files and multinode 1500 ops (halved for the time limit)
 _POOL = ("--capacity", str(1 << 21))
 _READS = (*_POOL, "--file-pages", "4096", "--ram-pages", "1024", "--ops",
           "8192", "--iodepth", "16")
 _WRITES = (*_POOL, "--file-pages", "1024", "--ram-pages", "256", "--ops",
-           "2048")
+           "1024")
 SCALE_HARNESSES = (
     ("multihost_bench", ("--procs", "2", "--backend", "gloo")),
     ("test_kv", ("--n", "10000000", "--batch", "1000000", "--capacity",
@@ -545,12 +579,14 @@ SCALE_HARNESSES = (
     ("paging_sim", ("--job", "scan_mix", *_POOL, "--ops", "4096",
                     "--iodepth", "16", "--repeats", "1")),
     ("swap_sim", (*_POOL, "--working-pages", "4096", "--ram-pages", "1024",
-                  "--ops", "4096", "--iodepth", "16")),
-    ("filebench", ("--personality", "fileserver", *_POOL, "--loops", "15")),
-    ("filebench", ("--personality", "webserver", *_POOL, "--loops", "15")),
+                  "--ops", "2048", "--iodepth", "16")),
+    ("filebench", ("--personality", "fileserver", *_POOL, "--loops", "4",
+                   "--nfiles", "32")),
+    ("filebench", ("--personality", "webserver", *_POOL, "--loops", "4",
+                   "--nfiles", "32")),
     ("replay", ("--trace", "tests/data/fileserver.trace")),
     ("replay", ("--synthetic", "1000000")),
-    ("multinode", ("--clients", "3", *_POOL, "--ops", "3000")),
+    ("multinode", ("--clients", "3", *_POOL, "--ops", "1500")),
 )
 
 
@@ -565,39 +601,38 @@ TAIL_FUSED = (("linear", LINEAR_INDEX["capacity"]),
 TAIL_FUSED_ARGS = dict(page_words=1024, fill=0.75,
                        batches=[1 << 11, 1 << 14, 1 << 16], gets=1 << 18,
                        zipfs=[0.0, 0.99])
-# tier_sweep: linear at 2^21 slots, tiered vs flat (8 GiB each); 2^18
-# GETs a skew (cut from 2^19 for the time limit)
-TAIL_TIER_ARGS = dict(capacity=1 << 21, page_words=1024, batch=1 << 14,
-                      gets=1 << 18, zipfs=[0.0, 0.6, 0.99, 1.2],
+# tier_sweep: linear at 2^20 slots, tiered vs flat (4 GiB each); 2^16
+# GETs a skew (cut from 2^21 slots and 2^19 GETs for the time limit)
+TAIL_TIER_ARGS = dict(capacity=1 << 20, page_words=1024, batch=1 << 14,
+                      gets=1 << 16, zipfs=[0.0, 0.6, 0.99, 1.2],
                       hot_fraction=16)
 TAIL_WIDTHS = (1 << 11, 1 << 14, 1 << 16)  # kernel against plain, timed
 TAIL_TIMED_W = 1 << 14                    # the kernels line's width
-# after the in-process sweeps, on the card alone: mesh_sweep over an
-# 8 GiB total (1, 2, 4, 8 shards and PMDFC_MESH=off)
-_TAIL_POOL = ("--capacity", str(1 << 21), "--page-words", "1024")
-TAIL_SERIAL = (
-    ("mesh_sweep", ("--shards", "1,2,4,8", *_TAIL_POOL, "--rounds", "1")),
-)
-# side by side in lanes from the phase's start: the soak (8 GiB, 60 s),
-# then the host-bound harnesses at their JAX defaults but 4 KiB pages and
-# 2^18 slots per node, the replica and elastic storms cut to 300 steps
-# (from 600) for the time limit
+# in the harness lanes, the longest first: mesh_sweep over a 4 GiB total
+# (1, 2, 4, 8 shards and PMDFC_MESH=off), the soak (4 GiB, 30 s), and the
+# host-bound harnesses at their JAX defaults but 4 KiB pages and 2^18
+# slots per node, cut for the time limit: the replica and elastic storms
+# to 120 steps (from 600), the recovery soak to 160 (from 400),
+# train_pressure to 100 (from 200), fill_sweep to 2^20 slots
+_TAIL_POOL = ("--capacity", str(1 << 20), "--page-words", "1024")
 _TAIL_NODE = ("--page-words", "1024", "--capacity", str(1 << 18))
 TAIL_LANE_RUNS = (
-    ("elastic_sweep", (*_TAIL_NODE, "--steps", "300", "--settle-steps",
-                       "30")),
-    ("recovery_soak", _TAIL_NODE),
-    ("soak", ("--minutes", "1", *_TAIL_POOL)),
-    ("train_pressure", ("--page-words", "1024")),
-    ("replica_soak", (*_TAIL_NODE, "--steps", "300", "--kill-every", "75",
-                      "--down-steps", "37")),
-    ("fill_sweep", ("--capacity", str(1 << 21), "--batch", str(1 << 16))),
+    ("elastic_sweep", (*_TAIL_NODE, "--steps", "120", "--settle-steps",
+                       "12")),
+    ("recovery_soak", (*_TAIL_NODE, "--steps", "160")),
+    ("replica_soak", (*_TAIL_NODE, "--steps", "120", "--kill-every", "30",
+                      "--down-steps", "15")),
+    ("mesh_sweep", ("--shards", "1,2,4,8", *_TAIL_POOL, "--rounds", "1")),
+    ("train_pressure", ("--page-words", "1024", "--steps", "100")),
     ("fastpath_sweep", _TAIL_NODE),
+    ("fill_sweep", ("--capacity", str(1 << 20), "--batch", str(1 << 16))),
+    ("soak", ("--minutes", "0.5", *_TAIL_POOL)),
     ("containment_soak", _TAIL_NODE),
     ("qos_soak", ("--backend", "direct", *_TAIL_NODE)),
     ("insert_profile", ()),
 )
-TAIL_LANES = 5
+# harness processes side by side (phases 12 and 13 share the lanes)
+HARNESS_LANES = 5
 TAIL_ROWS = ("mesh_sweep", "fastpath_sweep", "qos_soak")  # rows in --out
 
 
@@ -1217,7 +1252,7 @@ def extent_phase(sm: Smoke, path: MainPath):
     lengths = [1, 2, 3, 7, 64, 100, 255, 1000, 4096, 3000, 33, 517]
     vlos = [0x7FFFF000, 0xFFFFF000, 0x7FF00000, 0xFFF80000, 0, 0x12345000]
     exts = []  # (base, length, value words)
-    for j in range(298):
+    for j in range(EXTENTS - 2):
         base = (j + 1) * (1 << 22) + int(sm.rng.integers(0, 4096))
         vlo = (vlos[j % len(vlos)] - 4096 * (j % 5)) % (1 << 32)
         exts.append((base, lengths[j % len(lengths)], (j, vlo)))
@@ -3190,7 +3225,7 @@ def fleet_check_rejoined(fleet: Fleet, i: int, gone, fp_keys) -> int:
 
 def run_fleet(sm: Smoke):
     """The fleet phase (9): three crashbox nodes at linear·flat's serving
-    configuration (8 GiB pools, all three on the one card) behind a
+    configuration (2 GiB pools, all three on the one card) behind a
     `ReplicaGroup`; node FLEET_CRASH is snapshotted (a full, a delta),
     killed with SIGKILL, warm restarted from its chain and journal, and
     rejoined; its final chain is restored in this process. -> the fleet's
@@ -3414,7 +3449,7 @@ def fleet_run(sm: Smoke, cfg, root):
         f"{len(live)} acknowledged keys it owns hit byte-exact, its "
         f"{len(gone_own)} invalidated keys miss ({smi})")
 
-    # kernel against plain on the restored 8 GiB state, and its times
+    # kernel against plain on the restored 2 GiB state, and its times
     present = sm.u32.from_numpy(fleet.keys(live[:4096]), sm.dev)
     never = sm.keys_of(FLEET_HI, torch.randint(
         NEVER_LO, 1 << 32, (1024,), device=sm.dev, generator=sm.gen))
@@ -3686,7 +3721,7 @@ def free_card(torch) -> None:
 
 
 def run_plane(sm: Smoke):
-    """The sharded plane (phase 10): a 4-shard 8 GiB plane behind
+    """The sharded plane (phase 10): a 4-shard 2 GiB plane behind
     `NetServer`, its snapshots, chain restore and reshard restore, the
     engine pass, and the 2 x 2 replica plane. -> the plane's kernel
     entries (1-D and 2-D)."""
@@ -4730,7 +4765,15 @@ def scale_params(label: str) -> dict:
             "bloom_bits": SCALE_SOLO_BLOOM_BITS if solo else SCALE_BLOOM_BITS,
             "ins_b": SCALE_INS_B, "get_b": SCALE_GET_B, "gets": SCALE_GETS,
             "bcast_b": SCALE_BCAST_B, "delete": SCALE_DELETE,
-            "hi": SCALE_HI, "join_s": SCALE_JOIN_S, "timed": SCALE_TIMED}
+            "hi": SCALE_HI, "join_s": SCALE_JOIN_S, "timed": SCALE_TIMED,
+            "plane_puts": SCALE_PLANE_PUTS, "plane_gets": SCALE_PLANE_GETS,
+            "extents": SCALE_PLANE_EXTENTS, "more": not solo,
+            "fast_keys": SCALE_FAST_KEYS, "fast_rewrite": SCALE_FAST_REWRITE,
+            "restore_index": SCALE_RESTORE_INDEX,
+            "restore_bloom_bits": SCALE_RESTORE_BLOOM_BITS,
+            "tier_index": SCALE_TIER_INDEX, "index_2d": SCALE_2D_INDEX,
+            "side_bloom_bits": SCALE_SIDE_BLOOM_BITS,
+            "dir": str(scale_dir())}
 
 
 def scale_child(rank: int, port: int, p: dict, q) -> None:
@@ -4763,7 +4806,8 @@ def scale_drive(rank: int, port: int, p: dict) -> dict:
         plain = fused.fused_get
 
         def counted(keys, *a, **kw):
-            fused.launches["fused_get_linear_flat"] += 1
+            pool = "tiered" if kw.get("cgen") is not None else "flat"
+            fused.launches[f"fused_get_linear_{pool}"] += 1
             return plain(keys, *a, **kw)
 
         fused.fused_get = counted
@@ -4780,8 +4824,6 @@ def scale_plane(rank: int, ndev: int, p: dict) -> dict:
     """Fill, delete, a2a GETs, a broadcast GET, the stats rows and the
     kernel against plain, in one process of the group; every check
     raises. -> the numbers the parent reports and compares."""
-    import zlib
-
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -4804,12 +4846,10 @@ def scale_plane(rank: int, ndev: int, p: dict) -> dict:
     if ndev != n or n != p["world"] * p["per_proc"]:
         raise AssertionError(f"{label}: {ndev} devices, {n} shards")
     n_fill = 3 * skv.capacity() // 4
-    alive = np.zeros(n_fill, bool)
+    ver = np.full(n_fill, -1, np.int8)
     rng = np.random.default_rng(p["seed"])  # the same batches everywhere
-
-    def keys_of(lo):
-        lo = np.asarray(lo, np.uint32)
-        return np.stack([np.full(len(lo), hi, np.uint32), lo], -1)
+    digests = []
+    ck = ScaleCheck(label, hi, pw, ver, digests)
 
     def xch():
         r = skv.exchange_report()
@@ -4821,13 +4861,13 @@ def scale_plane(rank: int, ndev: int, p: dict) -> dict:
     x0, t0 = xch(), time.monotonic()
     for i in range(0, n_fill, ins_b):
         lo = np.arange(i, min(i + ins_b, n_fill), dtype=np.uint32)
-        keys = keys_of(lo)
+        keys = ck.keys(lo)
         res = skv.insert(keys, pages_np(hi, lo, pw))
         drops += int(res.dropped.sum())
-        alive[lo[~np.asarray(res.dropped)]] = True
+        ver[lo[~np.asarray(res.dropped)]] = 0
         ev = np.asarray(res.evicted)
         ev = ev[ev[:, 0] == np.uint32(hi), 1]
-        alive[ev[ev < n_fill]] = False
+        ver[ev[ev < n_fill]] = -1
         w = 16
         while w < len(lo):
             w <<= 1
@@ -4842,45 +4882,17 @@ def scale_plane(rank: int, ndev: int, p: dict) -> dict:
     n_ins = -(-n_fill // ins_b)
 
     # deletes, then the GETs: present, deleted, never inserted, any
-    gone = rng.choice(np.flatnonzero(alive), p["delete"], replace=False)
-    hit = skv.delete(keys_of(gone))
+    gone = rng.choice(np.flatnonzero(ver >= 0), p["delete"], replace=False)
+    hit = skv.delete(ck.keys(gone))
     if not hit.all():
         raise AssertionError(f"{label}: {(~hit).sum()} deletes missed")
-    alive[gone] = False
-
-    def get_batch(b):
-        k = b // 8
-        lo = np.concatenate([
-            rng.choice(np.flatnonzero(alive), 5 * k),
-            rng.choice(gone, k),
-            rng.integers(NEVER_LO, 1 << 32, k, dtype=np.uint32),
-            rng.integers(0, n_fill, b - 7 * k, dtype=np.uint32)])
-        return rng.permutation(lo).astype(np.uint32)
-
-    digests = []
+    ver[gone] = -1
 
     def check_get(lo, what):
-        out, found = skv.get(keys_of(lo))
-        known = lo < n_fill
-        must = np.zeros(len(lo), bool)
-        must[known] = alive[lo[known]]
-        never = ~known | np.isin(lo, gone)
-        if not found[must].all():
-            raise AssertionError(f"{label} {what}: {(~found[must]).sum()} "
-                                 "present keys missed")
-        if found[never].any():
-            raise AssertionError(f"{label} {what}: a deleted or "
-                                 "never-inserted key hit")
-        if not np.array_equal(out[found], pages_np(hi, lo[found], pw)):
-            raise AssertionError(f"{label} {what}: a hit's page differs")
-        if out[~found].any():
-            raise AssertionError(f"{label} {what}: a miss is not zeroed")
-        digests.append(zlib.crc32(out.tobytes(), zlib.crc32(
-            found.tobytes())))
-        return int(found.sum())
+        return ck.check(lo, *skv.get(ck.keys(lo)), what)
 
-    batches = [get_batch(p["get_b"]) for _ in range(p["gets"])]
-    bcast = get_batch(p["bcast_b"])
+    batches = [ck.mix(rng, p["get_b"], gone) for _ in range(p["gets"])]
+    bcast = ck.mix(rng, p["bcast_b"], gone)
     fused.launches.clear()
     x0, t0 = xch(), time.monotonic()
     hits = sum(check_get(lo, f"a2a GET {j}") for j, lo in enumerate(batches))
@@ -4894,13 +4906,7 @@ def scale_plane(rank: int, ndev: int, p: dict) -> dict:
     if launches != p["per_proc"] * phases:
         raise AssertionError(f"{label}: {launches} fused-GET launches for "
                              f"{phases} GET phases x {p['per_proc']} shards")
-    rep, s = skv.shard_report(), skv.stats()
-    causes = sm.kv_mod.MISS_CAUSE_NAMES
-    if s["misses"] != sum(s[c] for c in causes) or not all(
-            rep["stats"]["misses"][i] == sum(rep["stats"][c][i]
-                                             for c in causes)
-            for i in range(n)):
-        raise AssertionError(f"{label}: misses != the sum of the causes")
+    s = scale_stats(label, skv)
 
     # the kernel against plain on this process's first shard, full
     st = skv.states[0]
@@ -4908,13 +4914,64 @@ def scale_plane(rank: int, ndev: int, p: dict) -> dict:
     flat = u32.to_numpy(flat)
     present = flat[flat[:, 0] == np.uint32(hi), 1]
     widths = (8, n * pair_capacity(p["get_b"] // n, n))
-    for r in range(p["world"]):  # one process at a time on the card
-        if r == rank:
-            smi = nvidia_smi() if p["timed"] else "rehearsal"
-            times = plane_kernel(sm, st, present, pw, widths,
-                                 f"{p['label']} rank {rank} shard 0", smi,
-                                 hi=hi, timed=p["timed"] and rank == 0)
-        dist.barrier()
+    smi = nvidia_smi() if p["timed"] else "rehearsal"
+
+    def kernel(state, present, widths, what, hi=hi):
+        out = {}
+        for r in range(p["world"]):  # one process at a time on the card
+            if r == rank:
+                out = plane_kernel(sm, state, present, pw, widths,
+                                   f"{p['label']} rank {rank} {what}", smi,
+                                   hi=hi, timed=p["timed"] and rank == 0)
+            dist.barrier()
+        return out
+
+    times = kernel(st, present, widths, "shard 0")
+
+    # the plane verbs (both parts), then part (a)'s fast lane, restores,
+    # tiered plane and 2 x 2 grid
+    more = {}
+    plane = scale_verbs(sm, p, skv, hi, ver, gone, digests, label)
+    more["plane"] = {"launches": plane["launches"], "wl": plane["wl"],
+                     "took": plane["took"], "stats": plane["stats"],
+                     "times": kernel(st, present, (plane["wl"],),
+                                     "plane shard 0")}
+    if p["more"]:
+        # JAX's semantics put a host mirror of every pool in every
+        # process: on the whole plane when the host holds two of them
+        need = 2 * p["world"] * sum(
+            x.pool.pages.numel() * 4 for x in skv.states) * 5 // 4
+        fits = [mem_available() > need]
+        dist.broadcast_object_list(fits, src=0)
+        if fits[0]:
+            more["fast"] = scale_fast(sm, p, skv, hi, ver, digests, label)
+        del skv, st
+        free_card(torch)
+        more["restore"] = scale_restore(sm, p, rank, digests, label)
+        if not fits[0]:
+            side = ShardedKV(KVConfig(index=IndexConfig(
+                **p["restore_index"]), bloom=BloomConfig(
+                num_bits=p["restore_bloom_bits"])), mesh=make_mesh())
+            side_hi = hi + 5
+            side_ver = scale_fill(side, side_hi, 3 * side.capacity() // 4,
+                                  p["ins_b"], pw)
+            log("scale", f"{label}: MemAvailable {mem_available()} bytes "
+                f"under the {need} two whole-plane mirrors need: the fast "
+                f"lane runs on a {side.capacity()}-slot plane")
+            more["fast"] = scale_fast(sm, p, side, side_hi, side_ver,
+                                      digests, label)
+            del side
+            free_card(torch)
+        tiered = scale_tiered(sm, p, rank, digests, label)
+        more["tiered"] = {
+            "launches": tiered["launches"], "wl": tiered["wl"],
+            "took": tiered["took"], "stats": tiered["stats"],
+            "times": kernel(tiered["skv"].states[0], tiered["present"],
+                            (8, tiered["wl"]), "tiered shard 0",
+                            hi=tiered["hi"])}
+        del tiered
+        free_card(torch)
+        more["grid2d"] = scale_grid2d(sm, p, rank, digests, label)
     return {"rank": rank, "shards": n, "n_fill": n_fill, "fill_s": t_fill,
             "drops": drops, "overflow": overflow, "inserts": n_ins,
             "x_fill": x_fill.tolist(), "gets": p["gets"],
@@ -4923,8 +4980,504 @@ def scale_plane(rank: int, ndev: int, p: dict) -> dict:
             "phases": phases, "digests": digests,
             "stats": {k: s[k] for k in ("puts", "gets", "hits", "misses",
                                         "evictions", "drops")},
-            "widths": widths, "times": times,
-            "max_err": sm.max_err.get("fused_get_linear_flat", 0)}
+            "widths": widths, "times": times, "more": more,
+            "max_err": sm.max_err.get("fused_get_linear_flat", 0),
+            "max_err_tiered": sm.max_err.get("fused_get_linear_tiered", 0)}
+
+
+def scale_dir():
+    """Where part (a) writes its one-process plane's snapshots:
+    `build/scale` under the checkout (git-ignored)."""
+    from pathlib import Path
+
+    return Path(__file__).resolve().parent / "build" / "scale"
+
+
+def mem_available() -> int:
+    """The host's MemAvailable, in bytes."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    raise AssertionError("no MemAvailable in /proc/meminfo")
+
+
+class ScaleCheck:
+    """One process's checks of a plane's GET phases: the keys' versions
+    (-1 absent, 0 the first page, 1 rewritten with `XOR`), every present
+    key hits, every deleted or never-inserted key misses, every hit
+    byte-exact, every miss zeroed; each phase's digest goes to
+    `digests`."""
+
+    XOR = 0x5A5A5A5A
+
+    def __init__(self, label, hi, pw, ver, digests):
+        self.label, self.hi, self.pw = label, hi, pw
+        self.ver, self.digests = ver, digests
+
+    def keys(self, lo):
+        import numpy as np
+
+        lo = np.asarray(lo, np.uint32)
+        return np.stack([np.full(len(lo), self.hi, np.uint32), lo], -1)
+
+    def expect(self, lo):
+        import numpy as np
+
+        pages = pages_np(self.hi, lo, self.pw)
+        v = np.full(len(lo), -1, np.int8)
+        known = lo < len(self.ver)
+        v[known] = self.ver[lo[known]]
+        pages[v == 1] ^= np.uint32(self.XOR)
+        return pages, v
+
+    def check(self, lo, out, found, what, legal_misses=None):
+        """-> hits; with `legal_misses` (a callable of the count), present
+        keys may miss up to what it allows (a tiered pool's legal
+        misses)."""
+        import zlib
+
+        import numpy as np
+
+        want, v = self.expect(lo)
+        must, never = v >= 0, v < 0
+        missed = int((~found[must]).sum())
+        if missed and (legal_misses is None or not legal_misses(missed)):
+            raise AssertionError(f"{self.label} {what}: {missed} present "
+                                 "keys missed")
+        if found[never].any():
+            raise AssertionError(f"{self.label} {what}: a deleted or "
+                                 "never-inserted key hit")
+        if not np.array_equal(out[found], want[found]):
+            raise AssertionError(f"{self.label} {what}: a hit's page "
+                                 "differs")
+        if out[~found].any():
+            raise AssertionError(f"{self.label} {what}: a miss is not "
+                                 "zeroed")
+        self.digests.append(zlib.crc32(np.ascontiguousarray(out).tobytes(),
+                                       zlib.crc32(found.tobytes())))
+        return int(found.sum())
+
+    def mix(self, rng, b, gone):
+        """A GET batch: 5/8 present, 1/8 deleted, 1/8 never inserted, 1/8
+        any."""
+        import numpy as np
+
+        k = b // 8
+        lo = np.concatenate([
+            rng.choice(np.flatnonzero(self.ver >= 0), 5 * k),
+            rng.choice(gone, k),
+            rng.integers(NEVER_LO, 1 << 32, k, dtype=np.uint32),
+            rng.integers(0, len(self.ver), b - 7 * k, dtype=np.uint32)])
+        return rng.permutation(lo).astype(np.uint32)
+
+
+def scale_stats(label, skv) -> dict:
+    """`misses == Σ miss_*` on `stats()` and on every shard's row."""
+    import numpy as np
+
+    from pmdfc_tpu_torch.kv import MISS_CAUSE_NAMES as causes
+
+    s, rep = skv.stats(), skv.shard_report()["stats"]
+    if s["misses"] != sum(s[c] for c in causes) or not np.array_equal(
+            rep["misses"], np.sum([rep[c] for c in causes], axis=0)):
+        raise AssertionError(f"{label}: misses != the sum of the causes")
+    return s
+
+
+def scale_launched(fused, name, want, label) -> int:
+    n = fused.launches[name]
+    if n != want:
+        raise AssertionError(f"{label}: {n} {name} launches, {want} "
+                             "expected (one per owned shard and lane per "
+                             "GET phase)")
+    return n
+
+
+def scale_fill(skv, hi, n, b, pw):
+    """Pages (hi, i < n) through `plane_insert` in b-key batches -> the
+    version array (-1 where a key was dropped or evicted)."""
+    import numpy as np
+
+    ver = np.full(n, -1, np.int8)
+    for i in range(0, n, b):
+        lo = np.arange(i, min(i + b, n), dtype=np.uint32)
+        keys = np.stack([np.full(len(lo), hi, np.uint32), lo], -1)
+        res = skv.plane_insert(keys, pages_np(hi, lo, pw)).fetch()
+        ver[lo[~np.asarray(res.dropped)]] = 0
+        ev = np.asarray(res.evicted)
+        ev = ev[ev[:, 0] == np.uint32(hi), 1]
+        ver[ev[ev < n]] = -1
+    return ver
+
+
+def scale_verbs(sm, p, skv, hi, ver, gone, digests, label) -> dict:
+    """The plane verbs through `PlaneBackend` in step: plane puts
+    (rewrites of present keys), deletes, extents, GET phases and
+    `plane_get_extent`, each checked; one fused-GET launch per owned
+    shard per GET phase."""
+    import numpy as np
+
+    from pmdfc_tpu_torch.parallel.plane import PlaneBackend
+
+    t0 = time.monotonic()
+    fused = sm.fused
+    be = PlaneBackend(skv)
+    pw = skv.config.page_words
+    rng = np.random.default_rng(p["seed"] + 1)
+    ck = ScaleCheck(f"{label} plane", hi, pw, ver, digests)
+    s0 = skv.stats()
+    for _ in range(p["plane_puts"]):
+        lo = rng.choice(np.flatnonzero(ver >= 0), p["ins_b"], replace=False)
+        be.put(ck.keys(lo), pages_np(hi, lo, pw) ^ np.uint32(ck.XOR))
+        ver[lo] = 1
+    s1 = skv.stats()
+    if s1["evictions"] != s0["evictions"] or s1["drops"] != s0["drops"]:
+        raise AssertionError(f"{label} plane: a rewrite evicted or dropped")
+    dele = rng.choice(np.flatnonzero(ver >= 0), p["delete"], replace=False)
+    if not be.invalidate(ck.keys(dele)).all():
+        raise AssertionError(f"{label} plane: a plane delete missed")
+    ver[dele] = -1
+    gone = np.concatenate([gone, dele]).astype(np.uint32)
+    exts = []
+    for j in range(p["extents"]):
+        # the host verb PlaneBackend.insert_extent calls, for its result:
+        # a cover may evict a page key
+        base = (j + 1) << 22
+        val = (j, (0xFFFFF000 - 4096 * j) % (1 << 32))
+        res, unc = skv.insert_extent(np.array([EXT_HI, base], np.uint32),
+                                     np.array(val, np.uint32), 64 + j)
+        if unc or res.dropped.any():
+            raise AssertionError(f"{label} plane: an extent left {unc} "
+                                 "pages uncovered or dropped a cover")
+        ev = np.asarray(res.evicted)
+        ev = ev[ev[:, 0] == np.uint32(hi), 1]
+        ver[ev[ev < len(ver)]] = -1
+        exts.append((base, 64 + j, val))
+    fused.launches.clear()
+    hits, t_get = 0, 0.0
+    for j in range(p["plane_gets"]):
+        lo = ck.mix(rng, p["get_b"], gone)
+        t1 = time.monotonic()
+        out, found = be.get(ck.keys(lo))
+        t_get += time.monotonic() - t1
+        hits += ck.check(lo, out, found, f"plane GET {j}")
+    launches = scale_launched(fused, "fused_get_linear_flat",
+                              p["per_proc"] * p["plane_gets"],
+                              f"{label} plane")
+    wl = skv._router.width(int(np.bincount(
+        skv.node_of(ck.keys(lo)), minlength=skv.n_shards).max()))
+    probe, want = [], []
+    for base, n, val in exts:
+        for o in (0, n - 1, n // 2, n + 3):
+            probe.append([EXT_HI, base + o])
+            want.append((o < n, (((val[0] << 32) | val[1]) + 4096 * o)
+                         % (1 << 64)))
+    out, found = be.get_extent(np.array(probe, np.uint32))
+    got = np.asarray(out).astype(np.uint64)
+    addr = (got[:, 0] << np.uint64(32)) | got[:, 1]
+    wf = np.array([w[0] for w in want])
+    wa = np.array([w[1] for w in want], np.uint64)
+    if not np.array_equal(found, wf) or not np.array_equal(
+            addr[found], wa[found]) or addr[~found].any():
+        raise AssertionError(f"{label} plane: plane_get_extent differs")
+    s = scale_stats(f"{label} plane", skv)
+    took = time.monotonic() - t0
+    log("scale", f"{label} plane verbs through PlaneBackend: "
+        f"{p['plane_puts']} puts of {p['ins_b']} rewrites, {p['delete']} "
+        f"deletes, {p['extents']} extents, {p['plane_gets']} GET phases of "
+        f"{p['get_b']} keys in {t_get:.3f} s = "
+        f"{p['plane_gets'] * p['get_b'] / t_get:.0f} keys/s ({hits} hits "
+        f"byte-exact, every miss zeroed), "
+        f"plane_get_extent of {len(probe)} keys exact; "
+        f"fused_get_linear_flat {launches} launches = {p['per_proc']} "
+        f"owned shards x {p['plane_gets']} phases; misses == sum of the "
+        f"causes on stats() and every shard; took {took:.1f} s")
+    return {"launches": launches, "wl": wl, "took": took,
+            "stats": {k: s[k] for k in ("gets", "hits", "misses")}}
+
+
+def scale_fast(sm, p, skv, hi, ver, digests, label) -> dict:
+    """The fast lane: `directory_snapshot`, then rewrites of a part of a
+    sample of it, then `fast_view` (a host mirror of every pool in every
+    process) and `read` of the sample with the directory's digests: the
+    rewritten keys' old digests are refused, every other lane is served
+    with the key's current page, and a stale epoch refuses every lane."""
+    import numpy as np
+
+    t0 = time.monotonic()
+    pw = skv.config.page_words
+    rng = np.random.default_rng(p["seed"] + 2)
+    ck = ScaleCheck(f"{label} fast", hi, pw, ver, digests)
+    d = skv.directory_snapshot(max_entries=1 << 30)
+    t_dir = time.monotonic() - t0
+    sel = np.flatnonzero(d["keys"][:, 0] == np.uint32(hi))
+    sel = rng.choice(sel, min(p["fast_keys"], len(sel)), replace=False)
+    lo = d["keys"][sel, 1]
+    sh, rows, digs = d["shards"][sel], d["rows"][sel], d["digs"][sel]
+    n_rw = p["fast_rewrite"]
+    rw = lo[:n_rw]
+    res = skv.plane_insert(ck.keys(rw), pages_np(hi, rw, pw) ^ np.uint32(
+        0x0F0F0F0F)).fetch()
+    if res.dropped.any():
+        raise AssertionError(f"{label} fast: a rewrite dropped")
+    ver[rw] = -1  # a third page: out of the later checks' key sets
+    t1 = time.monotonic()
+    fv = skv.fast_view()
+    t_view = time.monotonic() - t1
+    ok, pages, _ = fv.read(fv.epoch, sh, rows, digs)
+    if ok[:n_rw].any() or not ok[n_rw:].all():
+        raise AssertionError(f"{label} fast: {int(ok[:n_rw].sum())} stale "
+                             f"rows served, {int((~ok[n_rw:]).sum())} fresh "
+                             "directory lanes refused")
+    ck.check(lo[n_rw:], pages, ok[n_rw:], "fast read")
+    if fv.read(fv.epoch ^ 2, sh, rows, digs)[0].any():
+        raise AssertionError(f"{label} fast: a stale epoch was served")
+    took = time.monotonic() - t0
+    log("scale", f"{label} fast lane: directory_snapshot "
+        f"{len(d['keys'])} entries in {t_dir:.3f} s; after {n_rw} rewrites "
+        f"of a {len(sel)}-entry sample of it, fast_view() (the host mirror "
+        f"of {skv.n_shards} pools) in {t_view:.3f} s; the read refused "
+        f"the rewritten rows' old digests and served the rest, each the "
+        f"key's own page; a stale epoch refused; took {took:.1f} s")
+    return {"entries": len(d["keys"]), "view_s": t_view, "took": took}
+
+
+def scale_restore(sm, p, rank, digests, label) -> dict:
+    """A one-process plane of 2 shards (rank 0 builds it on its card and
+    writes a full and a delta snapshot), then `restore_chain` of both
+    onto a 2-shard grid of one shard a process, and a reshard `restore`
+    of the full onto the 4-shard grid: every key each snapshot held hits
+    byte-exact, every deleted key misses, the replay drops nothing."""
+    import shutil
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from pmdfc_tpu_torch.config import BloomConfig, IndexConfig, KVConfig
+    from pmdfc_tpu_torch.parallel.shard import Mesh, ShardedKV, make_mesh
+
+    t0 = time.monotonic()
+    cfg = KVConfig(index=IndexConfig(**p["restore_index"]),
+                   bloom=BloomConfig(num_bits=p["restore_bloom_bits"]))
+    pw, hi = cfg.page_words, p["hi"] + 2
+    root = p["dir"]
+    files = {k: f"{root}/{k}.npz" for k in ("full", "delta", "keys")}
+    if rank == 0:
+        shutil.rmtree(root, ignore_errors=True)
+        import os
+
+        os.makedirs(root)
+        one = ShardedKV(cfg, mesh=make_mesh([p["device"]] * 2))
+        n = one.capacity() // 2
+        scale_fill(one, hi, n, p["ins_b"], pw)
+        s_full = one.stats()
+        one.save(files["full"])
+        d_full = one.directory_snapshot(max_entries=1 << 30)["keys"]
+        rng = np.random.default_rng(p["seed"] + 3)
+        held = d_full[d_full[:, 0] == np.uint32(hi), 1]
+        rw = rng.choice(held, p["ins_b"], replace=False)
+        one.plane_insert(np.stack([np.full(len(rw), hi, np.uint32), rw], -1),
+                         pages_np(hi, rw, pw) ^ np.uint32(
+                             ScaleCheck.XOR)).fetch()
+        dele = rng.choice(np.setdiff1d(held, rw), p["delete"],
+                          replace=False)
+        one.plane_delete(np.stack([np.full(len(dele), hi, np.uint32), dele],
+                                  -1)).fetch()
+        one.save(files["delta"], delta=True)
+        d_delta = one.directory_snapshot(max_entries=1 << 30)["keys"]
+        np.savez(files["keys"], full=d_full, delta=d_delta, rewritten=rw,
+                 deleted=dele, drops=np.asarray(s_full["drops"]))
+        del one
+        free_card(sm.torch)
+    dist.barrier()
+    t_write = time.monotonic() - t0
+    with np.load(files["keys"]) as z:
+        d_full, d_delta, rw, dele = (z[k] for k in (
+            "full", "delta", "rewritten", "deleted"))
+        drops_full = int(z["drops"])
+
+    def serves(skv, keys, ver_rw, what):
+        lo = keys[keys[:, 0] == np.uint32(hi), 1]
+        ver = np.full(int(lo.max()) + 1, -1, np.int8)
+        ver[lo] = 0
+        if ver_rw:
+            ver[rw] = 1
+        ck = ScaleCheck(f"{label} {what}", hi, pw, ver, digests)
+        for i in range(0, len(lo), p["get_b"]):
+            part = lo[i:i + p["get_b"]]
+            g = skv.plane_get(ck.keys(part)).fetch()
+            ck.check(part, g.dense(), g.found, "GET")
+        g = skv.plane_get(ck.keys(dele)).fetch()
+        if ver_rw and g.found.any():
+            raise AssertionError(f"{label} {what}: a deleted key hit")
+        return len(lo)
+
+    grid = make_mesh()
+    two = Mesh(grid.devices[::2], grid.axis_names, owners=grid.owners[::2])
+    skv = ShardedKV(cfg, mesh=two)
+    t1 = time.monotonic()
+    skv.restore_chain([files["full"], files["delta"]])
+    skv._sync()
+    t_chain = time.monotonic() - t1
+    n_chain = serves(skv, d_delta, True, "restore_chain")
+    del skv
+    free_card(sm.torch)
+    skv = ShardedKV(cfg, mesh=grid)
+    t1 = time.monotonic()
+    skv.restore(files["full"])
+    skv._sync()
+    t_rs = time.monotonic() - t1
+    if skv.stats()["drops"] != drops_full:
+        raise AssertionError(f"{label} reshard restore: the replay "
+                             "dropped pages")
+    n_full = serves(skv, d_full, False, "reshard restore")
+    del skv
+    free_card(sm.torch)
+    dist.barrier()
+    if rank == 0:
+        shutil.rmtree(root, ignore_errors=True)
+    took = time.monotonic() - t0
+    log("scale", f"{label} restore: a one-process plane of 2 shards x "
+        f"{p['restore_index']['capacity']} slots wrote a full and a delta "
+        f"({t_write:.1f} s with its fill); restore_chain onto 2 shards over "
+        f"2 processes in {t_chain:.3f} s, all {n_chain} live keys hit "
+        f"byte-exact, the deleted keys miss; reshard restore of the full "
+        f"onto 4 shards in {t_rs:.3f} s, all {n_full} keys hit byte-exact, "
+        f"the replay dropped 0; took {took:.1f} s")
+    return {"chain_s": t_chain, "reshard_s": t_rs, "took": took}
+
+
+def scale_tiered(sm, p, rank, digests, label) -> dict:
+    """A tiered plane (`TierConfig()` with `AdmitConfig()`, 2 GiB) over
+    the 4-shard grid: the fill through `plane_insert`, GET phases on both
+    cadences (every second one counting), each hit byte-exact and present
+    keys missing only by their legal causes; one `linear · tiered` launch
+    per owned shard per phase; the tier and gate verbs equal on every
+    process; the kernel against plain on an owned shard."""
+    import json
+    import zlib
+
+    import numpy as np
+
+    from pmdfc_tpu_torch.config import (AdmitConfig, BloomConfig,
+                                        IndexConfig, KVConfig, TierConfig)
+    from pmdfc_tpu_torch.models.base import get_index_ops
+    from pmdfc_tpu_torch.parallel.shard import ShardedKV, make_mesh
+    from pmdfc_tpu_torch.utils import u32
+
+    t0 = time.monotonic()
+    fused = sm.fused
+    cfg = KVConfig(index=IndexConfig(**p["tier_index"]),
+                   bloom=BloomConfig(num_bits=p["side_bloom_bits"]),
+                   tier=TierConfig(admit=AdmitConfig()))
+    pw, hi = cfg.page_words, p["hi"] + 3
+    skv = ShardedKV(cfg, mesh=make_mesh())
+    n = 3 * skv.capacity() // 4
+    ver = scale_fill(skv, hi, n, p["ins_b"], pw)
+    rng = np.random.default_rng(p["seed"] + 4)
+    ck = ScaleCheck(f"{label} tiered", hi, pw, ver, digests)
+    s0 = skv.stats()
+    fused.launches.clear()
+    hits = 0
+    for j in range(2 * p["plane_gets"]):
+        lo = ck.mix(rng, p["get_b"], np.asarray([NEVER_LO], np.uint32))
+        g = skv.plane_get(ck.keys(lo)).fetch()
+        s1 = skv.stats()
+        legal = sum(s1[c] - s0[c] for c in ("miss_evicted", "miss_stale",
+                                            "miss_parked"))
+        hits += ck.check(lo, g.dense(), g.found, f"GET {j}",
+                         lambda k: k <= legal)
+        s0 = s1
+    launches = scale_launched(fused, "fused_get_linear_tiered",
+                              p["per_proc"] * 2 * p["plane_gets"],
+                              f"{label} tiered")
+    wl = skv._router.width(int(np.bincount(
+        skv.node_of(ck.keys(lo)), minlength=skv.n_shards).max()))
+    s = scale_stats(f"{label} tiered", skv)
+    tier = skv.tier_stats()
+    gate = skv.admit_state()
+    if tier["promotions"] <= 0 or gate is None:
+        raise AssertionError(f"{label} tiered: no promotion on the "
+                             f"counting GETs ({tier}) or no gate")
+    digests.append(zlib.crc32(json.dumps(
+        [tier, gate, skv.balloon_state()], sort_keys=True).encode()))
+    st = skv.states[0]
+    flat, _ = get_index_ops(cfg.index.kind).scan(st.index)
+    flat = u32.to_numpy(flat)
+    present = flat[flat[:, 0] == np.uint32(hi), 1]
+    took = time.monotonic() - t0
+    log("scale", f"{label} tiered plane ({cfg.tier}): {n} pages through "
+        f"plane_insert, {2 * p['plane_gets']} GET phases of {p['get_b']} "
+        f"keys on both cadences ({hits} hits byte-exact, every miss "
+        f"zeroed, present keys missed only by their legal causes); "
+        f"fused_get_linear_tiered {launches} launches = {p['per_proc']} "
+        f"owned shards x {2 * p['plane_gets']} phases; tier_stats "
+        f"promotions {tier['promotions']}, hot_hits {tier['hot_hits']}, "
+        f"admit threshold {gate['threshold']}; took {took:.1f} s")
+    return {"skv": skv, "present": present, "hi": hi, "wl": wl,
+            "launches": launches, "took": took,
+            "stats": {k: s[k] for k in ("gets", "hits", "misses")}}
+
+
+def scale_grid2d(sm, p, rank, digests, label) -> dict:
+    """`make_mesh2d(2, 2)` across the two processes (each holds one shard
+    and both of its lanes): the fill, lane 0 corrupted, GET phases served
+    byte-exact around it with lane 0's refusals counted, `replica_repair`
+    repairing it, and GETs served by lane 0 again; one launch per lane per
+    owned shard per phase."""
+    import numpy as np
+
+    from pmdfc_tpu_torch.config import BloomConfig, IndexConfig, KVConfig
+    from pmdfc_tpu_torch.parallel.shard import ShardedKV, make_mesh2d
+
+    t0 = time.monotonic()
+    fused = sm.fused
+    cfg = KVConfig(index=IndexConfig(**p["index_2d"]),
+                   bloom=BloomConfig(num_bits=p["side_bloom_bits"]))
+    pw, hi = cfg.page_words, p["hi"] + 4
+    skv = ShardedKV(cfg, mesh=make_mesh2d(2, 2))
+    n = 3 * skv.capacity() // 4
+    ver = scale_fill(skv, hi, n, p["ins_b"], pw)
+    rng = np.random.default_rng(p["seed"] + 5)
+    ck = ScaleCheck(f"{label} 2x2", hi, pw, ver, digests)
+    gone = np.asarray([NEVER_LO], np.uint32)
+    skv.corrupt_replica_lane(0)
+    fused.launches.clear()
+    served = np.zeros(2, np.int64)
+    refused = np.zeros(2, np.int64)
+    for j in range(p["plane_gets"]):
+        lo = ck.mix(rng, p["get_b"], gone)
+        g = skv.plane_get(ck.keys(lo)).fetch()
+        ck.check(lo, g.dense(), g.found, f"GET {j} around lane 0")
+        served += g.lane_served
+        refused += g.lane_refused
+    launches = scale_launched(fused, "fused_get_linear_flat",
+                              2 * p["plane_gets"], f"{label} 2x2")
+    if served[0] or not refused[0] or not served[1]:
+        raise AssertionError(f"{label} 2x2: lane 0 served {served[0]}, "
+                             f"refused {refused[0]}; lane 1 served "
+                             f"{served[1]}")
+    repaired = skv.replica_repair()
+    lo = ck.mix(rng, p["get_b"], gone)
+    g = skv.plane_get(ck.keys(lo)).fetch()
+    ck.check(lo, g.dense(), g.found, "GET after the repair")
+    if not repaired or g.lane_refused.any() or not g.lane_served[0]:
+        raise AssertionError(f"{label} 2x2: replica_repair repaired "
+                             f"{repaired} rows, then lanes refused "
+                             f"{g.lane_refused.tolist()}")
+    digests.append(int(repaired))
+    scale_stats(f"{label} 2x2", skv)
+    del skv
+    free_card(sm.torch)
+    took = time.monotonic() - t0
+    log("scale", f"{label} 2 x 2 over 2 processes ({p['index_2d']} "
+        f"slots a shard): lane 0 corrupted, {p['plane_gets']} GET phases "
+        f"byte-exact around it (lane 0 refused {refused[0]}, lane 1 served "
+        f"{served[1]}), {launches} launches = 2 lanes x {p['plane_gets']} "
+        f"phases; replica_repair repaired {repaired} rows, then lane 0 "
+        f"served {g.lane_served[0]} with no refusal; took {took:.1f} s")
+    return {"repaired": repaired, "took": took}
 
 
 def scale_spawn(target, world: int, args: tuple, label: str) -> list:
@@ -5002,6 +5555,11 @@ def scale_part(label: str) -> dict:
     r0 = res[0]
     r0["launches_all"] = sum(r["launches"] for r in res)
     r0["max_err"] = max(r["max_err"] for r in res)
+    r0["max_err_tiered"] = max(r["max_err_tiered"] for r in res)
+    for step in ("plane", "tiered"):
+        if step in r0["more"]:
+            r0["more"][step]["launches_all"] = sum(
+                r["more"][step]["launches"] for r in res)
     ins_s, get_s = r0["fill_s"], r0["get_s"]
     xf, xg = r0["x_fill"], r0["x_get"]
     log("scale", f"{label}: {p['world']} process(es) x {p['per_proc']} "
@@ -5049,13 +5607,38 @@ def scale_refusal() -> None:
         f"SharedDeviceError before any collective ({got[0][1][:120]})")
 
 
-def run_harnesses(runs, lanes: int) -> list:
-    """Harness processes, `lanes` side by side -> their rows in order."""
-    from concurrent.futures import ThreadPoolExecutor
+class Lanes:
+    """Harness processes side by side, at most `n` at a time, each started
+    as a lane frees in the order queued; a phase collects its own rows.
+    The whole smoke queues phase 12's harnesses and then phase 13's at
+    phase 12's start, so the tail's host-bound soaks run beside phase
+    12's plane and phase 13's sweeps."""
 
-    with ThreadPoolExecutor(lanes) as ex:
-        futs = [ex.submit(run_harness, name, args) for name, args in runs]
-        return [f.result() for f in futs]
+    def __init__(self, n: int):
+        from concurrent.futures import ThreadPoolExecutor
+
+        self.ex = ThreadPoolExecutor(n)
+        self.tmp = tempfile.TemporaryDirectory()  # the tail's --out files
+        self.futs: dict[str, list] = {}
+
+    def queue(self, phase: str) -> "Lanes":
+        if phase == "scale":
+            self.futs[phase] = [self.ex.submit(run_harness, name, args)
+                                for name, args in SCALE_HARNESSES]
+        else:
+            self.futs[phase] = [
+                self.ex.submit(tail_harness, name, args, self.tmp.name)
+                for name, args in TAIL_LANE_RUNS]
+        return self
+
+    def rows(self, phase: str) -> list:
+        return [f.result() for f in self.futs.pop(phase)]
+
+    def close(self) -> None:
+        """Drop what has not started, wait for what has (a harness ends
+        within run_harness's timeout)."""
+        self.ex.shutdown(wait=True, cancel_futures=True)
+        self.tmp.cleanup()
 
 
 def harness_check(name: str, args, row: dict) -> str:
@@ -5104,30 +5687,59 @@ def torch_device_type() -> str:
 
 
 def scale_entry(r: dict, path: str) -> dict:
-    widest = r["widths"][-1]
-    ms, plain_ms, bound_ms = r["times"].get(widest, (None,) * 3)
-    return {"name": "fused_get_linear_flat", "route": "cuda",
+    """The kernels entry of a part (scale-gloo, scale-nccl) or of part
+    (a)'s plane GETs (scale-plane on the flat plane, scale-tiered)."""
+    name, err = "fused_get_linear_flat", r["max_err"]
+    if path in ("scale-plane", "scale-tiered"):
+        step = r["more"][path[6:]]
+        launches, times, widest = (step["launches_all"], step["times"],
+                                   step["wl"])
+        if path == "scale-tiered":
+            name, err = "fused_get_linear_tiered", r["max_err_tiered"]
+    else:
+        launches, times, widest = (r["launches_all"], r["times"],
+                                   r["widths"][-1])
+    ms, plain_ms, bound_ms = times.get(widest, (None,) * 3)
+    return {"name": name, "route": "cuda",
             "source": "pmdfc_tpu_torch/ops/csrc/fused_get.cu",
             "replaces": "pmdfc_tpu/ops/fused.py:414",
-            "launches": r["launches_all"], "max_abs_err": r["max_err"],
+            "launches": launches, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "bytes", "library_ms": None, "path": path}
 
 
-def run_scale(sm: Smoke):
-    """The multi-process plane and the workload harnesses (phase 12).
-    -> the kernel entries of its two multi-process planes."""
+def run_scale(sm: Smoke, lanes: Lanes | None = None):
+    """The multi-process plane and the workload harnesses (phase 12): the
+    harnesses run in `lanes` (queued there by the caller; its own when
+    none is given) beside the two parts. -> the kernel entries of its two
+    multi-process planes."""
     t_phase = time.monotonic()
     free_card(sm.torch)
-    gloo = scale_part("gloo")
-    solo = scale_part("nccl")
-    scale_refusal()
-    rows = run_harnesses(SCALE_HARNESSES, SCALE_HARNESS_LANES)
+    own = lanes is None
+    if own:
+        lanes = Lanes(HARNESS_LANES).queue("scale")
+    try:
+        gloo = scale_part("gloo")
+        t_a = time.monotonic() - t_phase
+        solo = scale_part("nccl")
+        scale_refusal()
+        t_b = time.monotonic() - t_phase - t_a
+        rows = lanes.rows("scale")
+    finally:
+        if own:
+            lanes.close()
     for (name, args), row in zip(SCALE_HARNESSES, rows):
         log("scale", f"harness {name} {' '.join(args)}: "
             f"{harness_check(name, args, row)} ({nvidia_smi()})")
-    log("scale", f"phase 12 took {time.monotonic() - t_phase:.1f} s")
-    return [scale_entry(gloo, "scale-gloo"), scale_entry(solo, "scale-nccl")]
+    steps = {k: round(v["took"], 1) for k, v in gloo["more"].items()}
+    t_all = time.monotonic() - t_phase
+    log("scale", f"phase 12 took {t_all:.1f} s: part (a) {t_a:.1f} s (its "
+        f"plane steps, rank 0, s: {steps}), part (b) and the refusal "
+        f"{t_b:.1f} s (its plane verbs {solo['more']['plane']['took']:.1f} "
+        f"s), then {t_all - t_a - t_b:.1f} s more for the harnesses")
+    return [scale_entry(gloo, "scale-gloo"), scale_entry(solo, "scale-nccl"),
+            scale_entry(gloo, "scale-plane"),
+            scale_entry(gloo, "scale-tiered")]
 
 
 # ---------------------------------------------------------------------------
@@ -5228,13 +5840,13 @@ def tail_log(name: str, args, row: dict, secs: float) -> None:
             + json.dumps({k: r[k] for k in keep if k in r}))
 
 
-def run_tail(sm):
+def run_tail(sm, lanes: Lanes | None = None):
     """The bench tail (phase 13): fused_get and tier_sweep in this
-    process, their launches counted, then mesh_sweep; the soak and the
-    host-bound harnesses side by side in lanes from the start. -> the
-    kernel entries of its path."""
+    process, their launches counted, beside mesh_sweep, the soak and the
+    host-bound harnesses in `lanes` (queued there by the caller; its own,
+    from the phase's start, when none is given). -> the kernel entries of
+    its path."""
     import argparse
-    from concurrent.futures import ThreadPoolExecutor
 
     from pmdfc_tpu_torch.bench import fused_get as fg
     from pmdfc_tpu_torch.bench import tier_sweep as ts
@@ -5244,10 +5856,10 @@ def run_tail(sm):
     free_card(torch)
     smi = nvidia_smi()
     times = {}
-    with ThreadPoolExecutor(TAIL_LANES) as ex, \
-            tempfile.TemporaryDirectory() as tmp:
-        lanes = [ex.submit(tail_harness, name, args, tmp)
-                 for name, args in TAIL_LANE_RUNS]
+    own = lanes is None
+    if own:
+        lanes = Lanes(HARNESS_LANES).queue("tail")
+    try:
         fused.launches.clear()
         for fam, cap in TAIL_FUSED:
             t0 = time.monotonic()
@@ -5299,11 +5911,12 @@ def run_tail(sm):
                 raise AssertionError(f"tail: {want} was never launched")
         log("tail", f"fused-GET launches of the in-process sweeps: "
             f"{launches}")
-        for name, args in TAIL_SERIAL:
-            tail_log(name, args, *tail_harness(name, args, tmp))
         log("tail", f"main thread done at {time.monotonic() - t_phase:.1f} s")
-        for (name, args), f in zip(TAIL_LANE_RUNS, lanes):
-            tail_log(name, args, *f.result())
+        for (name, args), got in zip(TAIL_LANE_RUNS, lanes.rows("tail")):
+            tail_log(name, args, *got)
+    finally:
+        if own:
+            lanes.close()
     log("tail", f"phase 13 took {time.monotonic() - t_phase:.1f} s")
     return [plane_entry(sm, "tail", launches[name], t[TAIL_TIMED_W], name)
             for name, t in times.items()]
@@ -5381,26 +5994,38 @@ def main() -> int:
         del kv
     torch.cuda.empty_cache()
 
-    # 4 and 5, one path at a time: each KV is freed before the next fill
+    # 4 and 5, one path at a time: each KV is freed before the next fill;
+    # from phase 12's start the harness processes of phases 12 and 13 run
+    # side by side in one set of lanes
     kernels = []
     log("smoke", f"phases 1-3 took {time.monotonic() - T0:.1f} s")
-    for label, run in (
-            ("linear", run_linear), ("cceh", run_cceh),
-            ("linear·tiered", lambda sm: run_tiered(sm, "linear")),
-            ("cceh·tiered", lambda sm: run_tiered(sm, "cceh")),
-            ("families", run_families), ("serve", run_serving),
-            ("wire", run_wire), ("fleet", run_fleet), ("plane", run_plane),
-            ("control", run_control), ("scale", run_scale),
-            ("tail", run_tail)):
-        t0 = time.monotonic()
-        entry = run(sm)
-        log("smoke", f"{label} took {time.monotonic() - t0:.1f} s, "
-            f"{time.monotonic() - T0:.1f} s since the start")
-        if isinstance(entry, list):  # the plane's, control's, scale's, tail's
-            kernels.extend(entry)
-        elif entry is not None:  # the families launch no kernel of their own
-            kernels.append(entry)
-        torch.cuda.empty_cache()
+    lanes = Lanes(HARNESS_LANES)
+    try:
+        for label, run in (
+                ("linear", run_linear), ("cceh", run_cceh),
+                ("linear·tiered", lambda sm: run_tiered(sm, "linear")),
+                ("cceh·tiered", lambda sm: run_tiered(sm, "cceh")),
+                ("families", run_families), ("serve", run_serving),
+                ("wire", run_wire), ("fleet", run_fleet),
+                ("plane", run_plane), ("control", run_control),
+                ("scale", lambda sm: run_scale(
+                    sm, lanes.queue("scale").queue("tail"))),
+                ("tail", lambda sm: run_tail(sm, lanes))):
+            t0 = time.monotonic()
+            entry = run(sm)
+            log("smoke", f"{label} took {time.monotonic() - t0:.1f} s, "
+                f"{time.monotonic() - T0:.1f} s since the start")
+            # on stderr too: a run stopped at its time limit shows how far
+            # it got in the end of its errors
+            print(f"[smoke] {label} done at {time.monotonic() - T0:.1f} s",
+                  file=sys.stderr, flush=True)
+            if isinstance(entry, list):  # plane, control, scale, tail
+                kernels.extend(entry)
+            elif entry is not None:  # the families launch no kernel
+                kernels.append(entry)
+            torch.cuda.empty_cache()
+    finally:
+        lanes.close()
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)

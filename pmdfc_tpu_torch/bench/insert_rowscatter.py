@@ -33,7 +33,7 @@ import numpy as np
 
 
 def check_equivalence(seed: int = 0, trials: int = 40,
-                      device: str = "cpu") -> int:
+                      device: str = "cuda") -> int:
     """Randomized equivalence on a small index: the same batches through
     both paths, on two copies of one state, give identical tables, heads
     and results after every batch (a tiny keyspace forces updates,
@@ -41,9 +41,11 @@ def check_equivalence(seed: int = 0, trials: int = 40,
     import torch
 
     from pmdfc_tpu_torch.config import IndexConfig
+    from pmdfc_tpu_torch.kv import resolve_device
     from pmdfc_tpu_torch.models import linear as L
     from pmdfc_tpu_torch.utils.keys import INVALID_WORD
 
+    device = resolve_device(device)
     rng = np.random.default_rng(seed)
     cfg = IndexConfig(capacity=1 << 9, cluster_slots=16)
     a = L.init(cfg, device)

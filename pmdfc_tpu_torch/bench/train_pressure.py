@@ -35,6 +35,8 @@ import time
 import numpy as np
 import torch
 
+from pmdfc_tpu_torch import kv as kv_mod
+
 
 class _RoundGrad(torch.autograd.Function):
     """Identity forward; the backward rounds the gradient to bf16."""
@@ -88,8 +90,9 @@ class MLP(torch.nn.Module):
     gradient is still rounded to bf16, as the transposed cast rounds it."""
 
     def __init__(self, feat_dim: int, hidden: int,
-                 generator: torch.Generator | None = None, device="cpu"):
+                 generator: torch.Generator | None = None, device="cuda"):
         super().__init__()
+        device = kv_mod.resolve_device(device)
         f32 = dict(dtype=torch.float32, device=device)
         self.w1 = torch.nn.Parameter(
             torch.randn(feat_dim, hidden, generator=generator,

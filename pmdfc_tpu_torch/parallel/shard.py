@@ -73,11 +73,20 @@ for the unsigned pmin), and every host verb returns the full result on
 every process, an all-gather of the source slices (JAX's `_fetch`):
 `insert`, `get`, `delete`, `insert_extent`, `get_extent`, `find_anyway`,
 `recovery`, `stats`, `utilization`, `shard_report` and the packed bloom,
-on both dispatches. Extents stay replicated. The plane verbs, the fast
-lane and the directory, and snapshots raise `MultihostUnsupportedError`
-there, as do 2-D grids and tiered pools. Under gloo a CUDA tensor's
-collective stages through pinned host buffers; NCCL refuses two ranks on
-one card (`SharedDeviceError`, before any collective runs).
+on both dispatches. Extents stay replicated. The plane verbs run each
+process's own shards on the routed batch and all-gather the per-shard
+outputs (pages, found, the read-only stats delta, insert results, lane
+attribution), so `PlaneBackend` works over such a grid driven in step;
+`fast_view` gathers JAX's host mirror of every pool, `directory_snapshot`
+every shard's entries; `restore`/`restore_chain` keep each process's own
+shards (a reshard replays through the plane verbs); the tier, balloon
+and admission verbs reduce over every shard. A tiered pool, carried
+`states=` (the owned shards) and `make_mesh2d` span processes, with every
+lane of a shard in one process. `save` and `snapshot` raise
+`MultihostUnsupportedError`, as JAX's `checkpoint.save` fails on arrays
+it cannot address. Under gloo a CUDA tensor's collective stages through
+pinned host buffers; NCCL refuses two ranks on one card
+(`SharedDeviceError`, before any collective runs).
 
 Device time (`runtime/profiler.py`). With a profiler attached and every
 shard and lane on one CUDA device, each plane verb records one CUDA event
@@ -125,6 +134,9 @@ RAXIS = pt.REPLICA_MESH_AXIS
 # rows digested per step of a whole-pool pass (replica repair): bounds
 # the int64 temporaries of `page_digest` to 2^16 pages at a time
 _DIGEST_CHUNK = 1 << 16
+# pool rows per gather of a multi-process fast-lane mirror: 32 MiB a shard
+# at 4 KiB pages, so gloo's pinned staging stays bounded
+_MIRROR_CHUNK = 1 << 13
 
 
 class Mesh:
@@ -194,11 +206,21 @@ def make_mesh2d(n_shards: int, n_replicas: int, devices=None) -> Mesh:
     """2-D grid `(kv=n_shards, replica=n_replicas)`: the kv axis
     partitions the key space as the 1-D grid does, the replica axis holds
     `n_replicas` full copies of each shard's state, so one call replaces
-    the host ReplicaGroup's rf TCP fan-out loops."""
+    the host ReplicaGroup's rf TCP fan-out loops.
+
+    After `connect_multihost` the default is the first `n_shards *
+    n_replicas` devices of the global grid, process-major, as JAX's
+    `make_mesh2d` takes them from `jax.devices()`."""
     need = n_shards * n_replicas
     if devices is None and _LAYOUT is not None:
-        raise MultihostUnsupportedError(
-            "a 2-D grid does not span processes")
+        # the global grid, process-major (JAX's `jax.devices()[:need]`)
+        grid = make_mesh()
+        if grid.devices.size < need:
+            raise ValueError(f"mesh2d needs {n_shards}x{n_replicas}={need} "
+                             f"devices, the grid has {grid.devices.size}")
+        return Mesh(grid.devices[:need].reshape(n_shards, n_replicas),
+                    (AXIS, RAXIS),
+                    owners=grid.owners[:need].reshape(n_shards, n_replicas))
     if devices is None:
         devices = _local_devices()[:need]
     flat = list(np.asarray(devices, dtype=object).reshape(-1))
@@ -370,12 +392,14 @@ def _res_host(res: InsertResult) -> dict:
             for f, x in res._asdict().items()}
 
 
-def _unrouted(w: int) -> dict:
-    """Host InsertResult fields of w lanes no request was routed to."""
-    inval = np.full((w, 2), INVALID_WORD, np.uint32)
-    return {"slots": np.full(w, -1, np.int32), "evicted": inval,
-            "dropped": np.zeros(w, bool), "fresh": np.zeros(w, bool),
-            "evicted_vals": inval}
+def _unrouted(w: int, dev) -> InsertResult:
+    """The InsertResult of w lanes no request was routed to, on `dev`."""
+    inval = torch.full((w, 2), INVALID_I32, dtype=torch.int32, device=dev)
+    return InsertResult(
+        slots=torch.full((w,), -1, dtype=torch.int32, device=dev),
+        evicted=inval, dropped=torch.zeros(w, dtype=torch.bool, device=dev),
+        fresh=torch.zeros(w, dtype=torch.bool, device=dev),
+        evicted_vals=inval)
 
 
 # ---------------------------------------------------------------------------
@@ -544,12 +568,18 @@ class _DistExchange:
         import torch.distributed as dist
 
         self._dist = dist
-        owners = mesh.owners.reshape(-1)
+        n = mesh.devices.shape[0]
+        owners = mesh.owners.reshape(n, -1)
+        if (owners != owners[:, :1]).any():
+            # JAX's shard_map runs such a grid (XLA joins the lanes over
+            # the network); here a shard's lanes merge and repair inside
+            # the one process that holds all of them
+            raise MultihostUnsupportedError(
+                "every replica lane of a shard must live in one process")
         self.world = layout.world
-        self.mine = [s for s in range(len(owners))
-                     if owners[s] == layout.rank]
+        self.mine = [s for s in range(n) if owners[s, 0] == layout.rank]
         self.per = len(self.mine)
-        self.dev = mesh.devices.reshape(-1)[self.mine[0]]
+        self.dev = mesh.devices.reshape(n, -1)[self.mine[0], 0]
         self.staged = layout.backend == "gloo" and self.dev.type == "cuda"
         self.calls = self.bytes = 0
         self.seconds = 0.0
@@ -638,6 +668,16 @@ class _DistExchange:
         t = torch.from_numpy(np.ascontiguousarray(rows, np.int64))
         out = self.full([t.to(self.dev)], "cpu").numpy()
         return out.astype(rows.dtype)
+
+    def gather_ragged(self, rows: np.ndarray) -> np.ndarray:
+        """Host rows, as many as each process has -> every process's rows
+        in rank order (the lengths first, then one padded gather)."""
+        k = self.gather_rows(np.array([len(rows)], np.int64))
+        pad = np.zeros((max(int(k.max()), 1), *rows.shape[1:]), np.int64)
+        pad[:len(rows)] = rows
+        got = self.gather_rows(pad).reshape(self.world, *pad.shape)
+        return np.concatenate([got[p, :k[p]] for p in range(self.world)]
+                              ).astype(rows.dtype)
 
     def report(self) -> dict:
         return {"calls": self.calls, "bytes": self.bytes,
@@ -765,6 +805,51 @@ class PlaneFastView:
             return self._lanes(epoch, shards, rows, digs)[0]
 
 
+class PlaneHostView:
+    """The fast lane over a plane that spans processes: JAX's host mirror
+    (`kv.FastView` with a leading shard axis) of every shard's `pages`
+    `[S, R, W]`, `sums` `[S, R]` and, tiered, row liveness `live`
+    `[S, R]`, taken by one gather in `ShardedKV.fast_view` at directory
+    epoch `epoch` and mutation sequence `seq`. A reader thread cannot
+    join a collective, so a read touches only this mirror: it serves the
+    bytes of that sequence point, and `fast_view()` mirrors again after
+    a mutation."""
+
+    __slots__ = ("epoch", "seq", "pages", "sums", "live")
+
+    def __init__(self, epoch: int, seq: int, pages: np.ndarray,
+                 sums: np.ndarray, live: np.ndarray | None):
+        self.epoch = epoch
+        self.seq = seq
+        self.pages = pages
+        self.sums = sums
+        self.live = live
+
+    def validate(self, epoch: int, shards, rows, digs) -> np.ndarray:
+        """ok[N]: the (shard, row) is in range, live, and its stored
+        digest equals the client's; a stale epoch fails every lane."""
+        shards = np.asarray(shards, np.uint32)
+        rows = np.asarray(rows, np.uint32)
+        if epoch != self.epoch:
+            return np.zeros(len(rows), bool)
+        ns, nr = self.sums.shape
+        ok = (shards < ns) & (rows < nr)
+        s = np.where(ok, shards, 0).astype(np.int64)
+        r = np.where(ok, rows, 0).astype(np.int64)
+        ok &= self.sums[s, r] == np.asarray(digs, np.uint32)
+        if self.live is not None:
+            ok &= self.live[s, r]
+        return ok
+
+    def read(self, epoch: int, shards, rows, digs):
+        """One validated read -> (ok[N] bool, pages[nok, W] uint32 of the
+        ok lanes in lane order, the mirror's epoch)."""
+        ok = self.validate(epoch, shards, rows, digs)
+        s = np.asarray(shards, np.int64)[ok]
+        r = np.asarray(rows, np.int64)[ok]
+        return ok, self.pages[s, r], self.epoch
+
+
 class _StackedLeaves:
     """The plane's state as `checkpoint`'s writers read it: every leaf
     stacked `[n_shards, ...]` (lane 0's copy on a 2-D grid), each shard's
@@ -816,7 +901,9 @@ class ShardedKV:
                  plane_pad_floor: int = 8, axis_rules=None, states=None):
         """`states` (optional) is `states[s][r]` to serve from, e.g.
         `carry.sharded_from_numpy` of a JAX plane's leaves; by default
-        every lane starts from `kv.init` on its device."""
+        every lane starts from `kv.init` on its device. On a grid that
+        spans processes it holds the shards this process owns; the other
+        entries are not read (None)."""
         if dispatch not in ("a2a", "broadcast"):
             raise ValueError(f"unknown dispatch {dispatch!r}")
         self.config = config or KVConfig()
@@ -847,12 +934,6 @@ class ShardedKV:
             if _LAYOUT is None:
                 raise MultihostError("a multi-process grid needs the process "
                                      "group of connect_multihost")
-            if self.n_replicas > 1 or states is not None or \
-                    kv_mod._tier_cfg_at_init(self.config) is not None:
-                raise MultihostUnsupportedError(
-                    "a multi-process grid serves 1-D flat or unpaged planes "
-                    "built from kv.init (no replica lanes, tiered pool or "
-                    "carried states)")
             self._xch = _DistExchange(self.mesh, _LAYOUT)
         self._mine = self._xch.mine
         # logical-axis rules -> placement, validated against the live grid:
@@ -865,9 +946,10 @@ class ShardedKV:
         self._dev = [[devs[s, r] for r in range(self.n_replicas)]
                      for s in range(self.n_shards)]
         self.device = self._dev[self._mine[0]][0]
-        # the one CUDA device every shard and lane names, else None: only
-        # then does a plane verb record a device-time event pair
-        one = {d for lanes in self._dev for d in lanes}
+        # the one CUDA device every shard and lane of this process names,
+        # else None: only then does a plane verb record a device-time
+        # event pair (over the programs this process runs)
+        one = {d for s in self._mine for d in self._dev[s]}
         self._event_dev = (self.device if len(one) == 1
                            and self.device.type == "cuda" else None)
         self._router = pt.ShardRouter(self.n_shards,
@@ -884,7 +966,9 @@ class ShardedKV:
         self._lrfu = np.zeros((self.n_shards, 2))  # [atime, crf]
         self._freq = np.zeros((self.n_shards,), np.int64)
         self._lrfu_tick = 0
-        self._st = states if states is not None else self._init_states()
+        self._st = (self._init_states() if states is None else
+                    [states[s] if s in self._mine else None
+                     for s in range(self.n_shards)])
         self._tiered = isinstance(self._st[self._mine[0]][0].pool,
                                   tier_mod.TierState)
         from pmdfc_tpu_torch.runtime import sanitizer as san
@@ -1232,9 +1316,18 @@ class ShardedKV:
         """Shard s's routed keys, on `dev`."""
         return _to_dev(rb.keys[s * rb.wl:(s + 1) * rb.wl], dev)
 
+    # caller-holds: _lock
+    def _all_shards(self, parts: list) -> list:
+        """One tensor per shard this process holds (each of one shape) ->
+        one per shard of the grid: the list itself on one process, an
+        all-gather on a grid that spans processes (JAX's `_fetch`: every
+        process gets the full result)."""
+        if self.mesh.owners is None:
+            return parts
+        return list(self._xch.full(parts, self.device).chunk(self.n_shards))
+
     def plane_insert(self, keys: np.ndarray,
                      values: np.ndarray) -> PlaneHandle:
-        self._one_process("plane_insert")
         with self._lock:
             self._lrfu_touch(keys)
             # the router places the keys; each shard's values cross to its
@@ -1249,13 +1342,13 @@ class ShardedKV:
             bounds = np.concatenate([[0], np.cumsum(rb.counts)])
             ev = profiler.launch_begin(self._event_dev)
             res = []
-            for s in range(self.n_shards):
+            for s in self._mine:
                 idx = live[bounds[s]:bounds[s + 1]]
                 if not len(idx) and not self._tiered:
                     # nothing routed here: an all-INVALID insert changes
                     # nothing on a flat pool (a tiered one may balloon),
                     # and no request reads this shard's lanes back
-                    res.append(None)
+                    res.append(_unrouted(rb.wl, self._dev[s][0]))
                     continue
                 for r in range(self.n_replicas):
                     # one call writes every replica lane; lane 0 speaks
@@ -1271,11 +1364,14 @@ class ShardedKV:
                     if r == 0:
                         res.append(rs)
             profiler.launch_end(ev, self._event_dev)
+            # every process joins the gather, a skipped shard too
+            res = [InsertResult(*f) for f in zip(*(
+                self._all_shards([getattr(x, f) for x in res])
+                for f in InsertResult._fields))]
             self._mut_seq += 1
 
         def fetch():
-            host = [_res_host(x) if x is not None else _unrouted(rb.wl)
-                    for x in res]
+            host = [_res_host(x) for x in res]
             return InsertResult(**{
                 f: rb.scatter(np.concatenate([h[f] for h in host]))
                 for f in InsertResult._fields})
@@ -1294,7 +1390,6 @@ class ShardedKV:
         return out, found, scratch.stats
 
     def plane_get(self, keys: np.ndarray) -> PlaneHandle:
-        self._one_process("plane_get")
         with self._lock:
             self._lrfu_touch(keys)
             rb = self._router.build(keys)
@@ -1310,12 +1405,13 @@ class ShardedKV:
         outs, founds, deltas, lanes = [], [], [], []
         nrep = self.n_replicas
         if kv_mod.fused_ops.supports(self.config):
+            # the bytes of a shard this process holds (shard 0 may not be)
             profiler.cost_probe(
                 "plane.get", rb.wl,
                 lambda: self.n_shards * kv_mod.fused_ops.hit_bytes(
-                    self._st[0][0], rb.wl))
+                    self._st[self._mine[0]][0], rb.wl))
         ev = profiler.launch_begin(self._event_dev)
-        for s in range(self.n_shards):
+        for s in self._mine:
             per = []
             for r in range(nrep):
                 dev = self._dev[s][r]
@@ -1340,6 +1436,11 @@ class ShardedKV:
             founds.append(found)
             deltas.append(delta)
         profiler.launch_end(ev, self._event_dev)
+        outs, founds = self._all_shards(outs), self._all_shards(founds)
+        if not counting:  # the global delta, folded once at the fetch
+            deltas = self._all_shards(deltas)
+        if lanes:
+            lanes = self._all_shards(lanes)
 
         def fetch():
             f_routed = np.concatenate([f.cpu().numpy() for f in founds])
@@ -1392,7 +1493,6 @@ class ShardedKV:
         kernel is built at its first launch, and a build or launch
         failure then raises here. The read-only delta is not folded and
         no lane attribution is noted (warmup is not traffic)."""
-        self._one_process("plane_warm_get")
         with self._lock:
             rb = self._router.build(keys)
             # warmup syncs are sanctioned and unattributed: the handles
@@ -1400,12 +1500,11 @@ class ShardedKV:
             self._plane_get(rb, False)
             self._sync()
             if get_index_ops(self.config.index.kind).touch is not None \
-                    or isinstance(self._st[0][0].pool, tier_mod.TierState):
+                    or self._tiered:
                 self._plane_get(rb, True)
                 self._sync()
 
     def plane_delete(self, keys: np.ndarray) -> PlaneHandle:
-        self._one_process("plane_delete")
         with self._lock:
             self._lrfu_touch(keys)
             rb = self._router.build(keys)
@@ -1413,10 +1512,11 @@ class ShardedKV:
                 return PlaneHandle(lambda: np.zeros(0, bool), 0, rb.counts)
             ev = profiler.launch_begin(self._event_dev)
             hits = []
-            for s in range(self.n_shards):
+            for s in self._mine:
                 if not rb.counts[s]:
                     # an all-INVALID delete changes nothing on any pool
-                    hits.append(torch.zeros(rb.wl, dtype=torch.bool))
+                    hits.append(torch.zeros(rb.wl, dtype=torch.bool,
+                                            device=self._dev[s][0]))
                     continue
                 per = []
                 for r in range(self.n_replicas):
@@ -1428,6 +1528,7 @@ class ShardedKV:
                                                  self._routed(rb, s, dev))[1])
                 hits.append(_gather_to(per, self._dev[s][0]).any(dim=0))
             profiler.launch_end(ev, self._event_dev)
+            hits = self._all_shards(hits)
             self._mut_seq += 1
             self.dir_epoch += 1
 
@@ -1440,7 +1541,6 @@ class ShardedKV:
     def plane_get_extent(self, keys: np.ndarray) -> PlaneHandle:
         """Extent covers are replicated, so this phase is the broadcast
         body (counts=None: every shard probes the whole batch)."""
-        self._one_process("plane_get_extent")
         with self._lock:
             keys_p, _, b, w = self._pad(keys)
             ev = profiler.launch_begin(self._event_dev)
@@ -1507,7 +1607,7 @@ class ShardedKV:
         nrep = self.n_replicas
         per = np.zeros(nrep, np.int64)
         with self._lock:
-            for s in range(self.n_shards):
+            for s in self._mine:
                 dev0 = self._dev[s][0]
                 oks = []
                 for r in range(nrep):
@@ -1538,6 +1638,7 @@ class ShardedKV:
                             pages = self._st[s][r].pool.pages
                             for sel, rows_d in got:
                                 pages[sel] = rows_d
+            per = self._xch.gather_rows(per[None]).sum(axis=0)
             zero = np.zeros_like(per)
             self._note_lanes(zero, zero, per)
             self._mut_seq += 1
@@ -1553,7 +1654,7 @@ class ShardedKV:
         if not 0 <= lane < self.n_replicas:
             raise ValueError(f"lane {lane} not in [0, {self.n_replicas})")
         with self._lock:
-            for s in range(self.n_shards):
+            for s in self._mine:
                 with _on(self._dev[s][lane]):
                     self._st[s][lane].pool.pages ^= 0x5A5A5A5A
             self._mut_seq += 1
@@ -1615,34 +1716,59 @@ class ShardedKV:
 
     # -- one-sided fast-path surface --
 
-    def fast_view(self) -> PlaneFastView | None:
+    def fast_view(self) -> PlaneFastView | PlaneHostView | None:
         """The fast lane's handle on the per-shard pools at the current
         (epoch, seq), cached per mutation sequence. None when unpaged and
         on 2-D grids: one lane's pages with intact digests elsewhere
         could validate wrong bytes, so 2-D clients keep the (lane-
-        arbitrated) verbs."""
-        self._one_process("fast_view")
+        arbitrated) verbs. One process reads the live pools under the
+        lock (`PlaneFastView`); on a grid that spans processes every
+        process calls this in step and gets JAX's host mirror of every
+        shard (`PlaneHostView`)."""
         if not self.config.paged or self.n_replicas > 1:
             return None
         with self._lock:
             fv = self._fastview
             if fv is None or fv.seq != self._mut_seq \
                     or fv.epoch != self.dir_epoch:
-                fv = self._fastview = PlaneFastView(self, self.dir_epoch,
-                                                    self._mut_seq)
+                fv = self._fastview = (
+                    PlaneFastView(self, self.dir_epoch, self._mut_seq)
+                    if self.mesh.owners is None else self._host_view())
             return fv
+
+    # caller-holds: _lock
+    def _host_view(self) -> PlaneHostView:
+        """Every shard's pages, sums and (tiered) liveness gathered to the
+        host of every process, `_MIRROR_CHUNK` rows a collective, so the
+        staging of one gather stays bounded."""
+        pools = self._pools()
+        nr = pools[0].sums.shape[0]
+        n, pw = self.n_shards, self.config.page_words
+        pages = np.empty((n, nr, pw), np.uint32)
+        for i in range(0, nr, _MIRROR_CHUNK):
+            j = min(i + _MIRROR_CHUNK, nr)
+            got = self._all_shards([p.pages[i:j] for p in pools])
+            for s in range(n):
+                pages[s, i:j] = u32.to_numpy(got[s])
+        sums = np.stack([u32.to_numpy(x) for x in
+                         self._all_shards([p.sums for p in pools])])
+        live = None
+        if self._tiered:
+            live = self._xch.gather_rows(np.stack(
+                [tier_mod.live_mask(p) for p in pools]))
+        return PlaneHostView(self.dir_epoch, self._mut_seq, pages, sums,
+                             live)
 
     def directory_snapshot(self, max_entries: int = 1 << 20) -> dict | None:
         """Compact key -> (shard, row, digest) directory across every
         shard (`kv.directory_entries` per shard, on its device). None
         when unpaged, on 2-D grids, or without a scan."""
-        self._one_process("directory_snapshot")
         if not self.config.paged or self.n_replicas > 1 or \
                 get_index_ops(self.config.index.kind).scan is None:
             return None
         with self._lock:
             out_k, out_s, out_r, out_d = [], [], [], []
-            for s in range(self.n_shards):
+            for s in self._mine:
                 with _on(self._dev[s][0]):
                     ents = kv_mod.directory_entries(self._st[s][0],
                                                     self.config)
@@ -1655,6 +1781,15 @@ class ShardedKV:
                 out_d.append(digs)
             keys, shards, rows, digs = (
                 np.concatenate(x) for x in (out_k, out_s, out_r, out_d))
+            if self.mesh.owners is not None:
+                # every process's entries, in shard order (ranks hold
+                # contiguous shards)
+                ent = self._xch.gather_ragged(np.concatenate(
+                    [keys, shards[:, None], rows[:, None], digs[:, None]],
+                    axis=1))
+                keys, shards, rows, digs = (
+                    np.ascontiguousarray(x) for x in (
+                        ent[:, :2], ent[:, 2], ent[:, 3], ent[:, 4]))
             return {"epoch": self.dir_epoch, "keys": keys[:max_entries],
                     "shards": shards[:max_entries],
                     "rows": rows[:max_entries], "digs": digs[:max_entries]}
@@ -1720,12 +1855,12 @@ class ShardedKV:
     def _dirty_basis(self):
         """Host `(sums, live)` over the flat row space (a copy: the basis
         must not alias the live sidecar)."""
-        if self._st[0][0].pool is None:
+        if self.states[0].pool is None:
             return None, None
         sums = np.concatenate([u32.to_numpy(st.pool.sums).reshape(-1)
                                for st in self.states])
         live = None
-        if kv_mod._tiered(self._st[0][0]):
+        if self._tiered:
             live = np.concatenate([tier_mod.live_mask(st.pool).reshape(-1)
                                    for st in self.states])
         return sums, live
@@ -1736,7 +1871,6 @@ class ShardedKV:
         too. The chain resumes only when the shard count matches: a
         resharded restore rewrites the row space, so the next snapshot
         starts a new chain."""
-        self._one_process("restore_chain")
         with self._lock:
             folded = ckpt_mod.materialize_chain(list(paths))
             label = paths[-1] if paths else "<chain>"
@@ -1756,8 +1890,9 @@ class ShardedKV:
         grid. Same shard count: each shard's slice becomes its state.
         Different shard count: the snapshot's live entries are re-routed
         (see `_restore_resharded`). The admission gate starts EMPTY
-        either way (`checkpoint.strip_admission`)."""
-        self._one_process("restore")
+        either way (`checkpoint.strip_admission`). On a grid that spans
+        processes every process reads the file and keeps the shards it
+        holds; a reshard replays through the plane verbs in step."""
         with self._lock:
             loaded = ckpt_mod.load_leaves(path, None)
             self._restore_from_leaves(loaded, path, run_recovery)
@@ -1775,8 +1910,8 @@ class ShardedKV:
         n = self.n_shards
         loaded = [np.asarray(x) for x in loaded]
         if [tuple(x.shape) for x in loaded] == [(n, *s) for s in shapes]:
-            new = []
-            for s in range(n):
+            new = [None] * n
+            for s in self._mine:
                 lanes = []
                 for r in range(self.n_replicas):
                     # lane 0 takes the freshly read arrays over; every
@@ -1786,7 +1921,7 @@ class ShardedKV:
                         self.config, self._dev[s][r], consume=r == 0)
                     lanes.append(ckpt_mod.transplant_admission(st,
                                                                self.config))
-                new.append(lanes)
+                new[s] = lanes
             self._st = new
         else:
             self._restore_resharded(loaded, names, shapes, path)
@@ -1835,7 +1970,7 @@ class ShardedKV:
         self._st = None  # the old plane's memory first, then the new
         self._st = self._init_states()
         totals = np.zeros((NSTATS,), np.int64)
-        dev = self._dev[0][0]
+        dev = self.device
         for s in range(n_old):
             with _on(dev):
                 st_s = carry.state_from_numpy(
@@ -1857,7 +1992,8 @@ class ShardedKV:
                     continue
                 self.insert_extent(np.array([khi, klo], np.uint32),
                                    np.array([vhi, vlo], np.uint32), length)
-        n_dropped = int(sum(int(st.stats[DROPS]) for st in self.states))
+        n_dropped = int(self._xch.gather_rows(np.array(
+            [int(st.stats[DROPS]) for st in self.states], np.int64)).sum())
         if n_dropped:
             print(f"[sharded-kv] reshard replay dropped {n_dropped} "
                   "pages (target mesh capacity pressure; legal misses)")
@@ -1865,7 +2001,7 @@ class ShardedKV:
         stacked = np.zeros((self.n_shards, NSTATS), np.int32)
         stacked[0] = np.clip(totals, np.iinfo(np.int32).min,
                              np.iinfo(np.int32).max).astype(np.int32)
-        for s in range(self.n_shards):
+        for s in self._mine:
             for r in range(self.n_replicas):
                 with _on(self._dev[s][r]):
                     self._st[s][r].stats.copy_(
@@ -1922,39 +2058,48 @@ class ShardedKV:
     def _pools(self) -> list:
         return [st.pool for st in self.states]
 
+    # caller-holds: _lock
+    def _per_shard(self, rows: list) -> np.ndarray:
+        """One host row per shard this process holds -> `[n_shards, ...]`
+        over the grid (gathered when it spans processes)."""
+        return self._xch.gather_rows(np.stack(rows))
+
     def _tier_report(self) -> dict:
         """shard_report's tier block (empty when the pool is flat)."""
         pools = self._pools()
         if not isinstance(pools[0], tier_mod.TierState):
             return {}
-        per = np.stack([p.tstats.cpu().numpy() for p in pools])
+        per = self._per_shard([p.tstats.cpu().numpy() for p in pools])
         hk = [u32.to_numpy(p.hot_keys) for p in pools]
         met = [u32.to_numpy(p.metric) for p in pools]
         tick = [int(u32.widen(p.tick)) for p in pools]
-        occ = [int((~np.all(h == INVALID_WORD, axis=-1)).sum()) for h in hk]
-        heat = [round(tier_mod.hot_heat_arrays(hk[s], met[s], tick[s],
-                                               self.lrfu_lambda), 3)
-                for s in range(self.n_shards)]
+        occ = self._per_shard(
+            [int((~np.all(h == INVALID_WORD, axis=-1)).sum()) for h in hk])
+        # float64 heats cross as their bits
+        heat = self._per_shard([np.float64(round(tier_mod.hot_heat_arrays(
+            hk[j], met[j], tick[j], self.lrfu_lambda), 3)).view(np.int64)
+            for j in range(len(pools))]).view(np.float64)
         admit = {}
         if pools[0].admit_stats is not None:
-            ast = np.stack([p.admit_stats.cpu().numpy() for p in pools])
+            ast = self._per_shard([p.admit_stats.cpu().numpy()
+                                   for p in pools])
             admit = {name: [int(x) for x in ast[:, i]]
                      for i, name in enumerate(tier_mod.ADMIT_STAT_NAMES)}
         return {
             "tier": {
                 **{name: [int(x) for x in per[:, i]]
                    for i, name in enumerate(tier_mod.TIER_STAT_NAMES)},
-                "hot_occupied": occ,
+                "hot_occupied": [int(x) for x in occ],
                 **admit,
             },
-            "hot_heat": heat,
+            "hot_heat": [float(x) for x in heat],
         }
 
     # caller-holds: _lock
     def _balloon_rows(self, rows: int) -> int:
         """PER-SHARD balloon amount (`kv.KV._balloon_rows`'s rule)."""
         step = kv_mod._tcfg(self.config).balloon_step
-        c = self._st[0][0].pool.cfree.shape[-1]
+        c = self.states[0].pool.cfree.shape[-1]
         return min(-(-int(rows) // step) * step, c)
 
     def balloon_state(self) -> dict | None:
@@ -1964,9 +2109,9 @@ class ShardedKV:
             pools = self._pools()
             if not isinstance(pools[0], tier_mod.TierState):
                 return None
-            hwm = sum(int(p.hwm) for p in pools)
-            ptop = sum(int(p.ptop) for p in pools)
-            ctop = sum(int(p.ctop) for p in pools)
+            hwm, ptop, ctop = (int(x) for x in self._per_shard(
+                [np.array([int(p.hwm), int(p.ptop), int(p.ctop)])
+                 for p in pools]).sum(axis=0))
             return {
                 "cold_rows": self.n_shards * pools[0].cfree.shape[-1],
                 "circulating": hwm - ptop,
@@ -1980,7 +2125,7 @@ class ShardedKV:
             if not self._tiered:
                 return False
             k = self._balloon_rows(rows)
-            for s in range(self.n_shards):
+            for s in self._mine:
                 with _on(self._dev[s][0]):
                     fn(self._st[s][0].pool, k)
             self._mut_seq += 1
@@ -2004,15 +2149,16 @@ class ShardedKV:
             pools = self._pools()
             if not isinstance(pools[0], tier_mod.TierState):
                 return None
-            per = np.stack([p.tstats.cpu().numpy() for p in pools])
+            per = self._per_shard([p.tstats.cpu().numpy() for p in pools])
             d = tier_mod.counters_dict(per.sum(axis=0),
                                        self.config.page_words * 4)
             if pools[0].admit_stats is not None:
-                ast = np.stack([p.admit_stats.cpu().numpy() for p in pools])
+                ast = self._per_shard([p.admit_stats.cpu().numpy()
+                                       for p in pools])
                 d.update(tier_mod.admit_counters_dict(
                     torch.from_numpy(ast.sum(axis=0))))
-                d["admit_threshold"] = max(int(u32.widen(p.admit_thresh))
-                                           for p in pools)
+                d["admit_threshold"] = int(self._per_shard(
+                    [int(u32.widen(p.admit_thresh)) for p in pools]).max())
             return d
 
     def admit_state(self) -> dict | None:
@@ -2024,12 +2170,15 @@ class ShardedKV:
                     or pools[0].admit_cm is None:
                 return None
             acfg = tier_mod.admit_cfg(pools[0], kv_mod._tcfg(self.config))
-            ast = np.stack([p.admit_stats.cpu().numpy() for p in pools])
+            ast = self._per_shard([p.admit_stats.cpu().numpy()
+                                   for p in pools])
             d = tier_mod.admit_counters_dict(torch.from_numpy(ast.sum(axis=0)))
+            gate = self._per_shard([np.array([int(u32.widen(p.admit_thresh)),
+                                              int(u32.widen(p.admit_ops))])
+                                    for p in pools])
             d.update({
-                "threshold": max(int(u32.widen(p.admit_thresh))
-                                 for p in pools),
-                "ops": sum(int(u32.widen(p.admit_ops)) for p in pools),
+                "threshold": int(gate[:, 0].max()),
+                "ops": int(gate[:, 1].sum()),
                 "reset_ops": int(acfg.reset_ops),
                 "epochs": d["admit_age_epochs"],
             })
@@ -2043,7 +2192,7 @@ class ShardedKV:
             if not isinstance(pools[0], tier_mod.TierState) \
                     or pools[0].admit_cm is None:
                 return False
-            for s, p in enumerate(pools):
+            for s, p in zip(self._mine, pools):
                 with _on(self._dev[s][0]):
                     tier_mod.set_admit_threshold(p, value)
             return True

@@ -249,6 +249,17 @@ def test_train_pressure_pages_and_loss_match_jax(monkeypatch, capsys):
                                                rel=1e-4, abs=1e-4)
 
 
+def test_mlp_defaults_to_cuda(monkeypatch):
+    """Without `device=` the model asks for CUDA, which raises where there
+    is no GPU; `device="cpu"` builds it here."""
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no GPU"):
+        ttp.MLP(8, 4)
+    assert ttp.MLP(8, 4, device="cpu").w1.device.type == "cpu"
+
+
 def test_train_pressure_learns_from_a_seeded_start(capsys):
     assert ttp.main(["--device", "cpu", "--smoke"]) == 0
     row = _json_objects(capsys.readouterr().out)[-1]

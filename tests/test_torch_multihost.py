@@ -192,9 +192,12 @@ def test_nccl_ranks_sharing_a_card_are_named():
 
 
 def test_verbs_a_multi_process_grid_does_not_run_raise(monkeypatch):
-    """On a grid that spans processes the plane verbs, the fast lane and
-    snapshots raise a named error, as do 2-D grids and tiered pools; no
-    collective runs for that (the layout is stood in for)."""
+    """On a grid that spans processes only `save` and `snapshot` raise a
+    named error (JAX's `checkpoint.save` fails there too). A tiered pool,
+    a 2-D grid whose shards keep their lanes in one process and carried
+    states (the owned shards' only) construct; a 2-D grid that splits a
+    shard's lanes over processes is refused. No collective runs for that
+    (the layout is stood in for)."""
     monkeypatch.setattr(tshard, "_LAYOUT", tshard._Layout(
         rank=0, world=2, backend="gloo",
         devices=(("cpu", "cpu"), ("cpu", "cpu"))))
@@ -203,20 +206,23 @@ def test_verbs_a_multi_process_grid_does_not_run_raise(monkeypatch):
     cfg = tc.KVConfig(index=tc.IndexConfig(capacity=1 << 8), page_words=16)
     skv = tshard.ShardedKV(cfg, mesh=grid)
     assert skv._mine == [0, 1] and skv._st[2] is None and skv._st[3] is None
-    keys = np.zeros((4, 2), np.uint32)
-    for call in (lambda: skv.plane_get(keys), lambda: skv.plane_delete(keys),
-                 lambda: skv.plane_insert(keys, np.zeros((4, 16), np.uint32)),
-                 lambda: skv.plane_get_extent(keys), skv.fast_view,
-                 skv.directory_snapshot, lambda: skv.save("x"),
-                 lambda: skv.restore("x"), lambda: skv.restore_chain(["x"])):
+    for call in (lambda: skv.save("x"), lambda: skv.snapshot("x")):
         with pytest.raises(tshard.MultihostUnsupportedError):
             call()
-    with pytest.raises(tshard.MultihostUnsupportedError):
-        tshard.ShardedKV(tc.KVConfig(index=tc.IndexConfig(capacity=1 << 8),
-                                     page_words=16, tier=tc.TierConfig()),
-                         mesh=grid)
-    with pytest.raises(tshard.MultihostUnsupportedError):
-        tshard.make_mesh2d(2, 2)
+    tiered = tshard.ShardedKV(
+        tc.KVConfig(index=tc.IndexConfig(capacity=1 << 8), page_words=16,
+                    tier=tc.TierConfig()), mesh=grid)
+    assert tiered._tiered and tiered._st[2] is None
+    g2 = tshard.make_mesh2d(2, 2)
+    assert g2.owners.tolist() == [[0, 0], [1, 1]]
+    two = tshard.ShardedKV(cfg, mesh=g2)
+    assert two._mine == [0] and len(two._st[0]) == 2 and two._st[1] is None
+    split = tshard.Mesh(g2.devices, g2.axis_names, owners=[[0, 1], [0, 1]])
+    with pytest.raises(tshard.MultihostUnsupportedError, match="lane"):
+        tshard.ShardedKV(cfg, mesh=split)
+    own = [[st] for st in skv.states] + ["not read", "not read"]
+    carried = tshard.ShardedKV(cfg, mesh=grid, states=own)
+    assert carried._st[0][0] is skv._st[0][0] and carried._st[3] is None
     monkeypatch.setattr(tshard, "_LAYOUT", None)
     with pytest.raises(tshard.MultihostError, match="process group"):
         tshard.ShardedKV(cfg, mesh=grid)

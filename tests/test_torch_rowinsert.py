@@ -36,7 +36,17 @@ INV = 0xFFFFFFFF
 
 
 def test_row_path_equals_element_path_over_40_trials():
-    assert check_equivalence(seed=7, trials=40) == 40
+    assert check_equivalence(seed=7, trials=40, device="cpu") == 40
+
+
+def test_check_equivalence_defaults_to_cuda(monkeypatch):
+    """Without `device=` the drill asks for CUDA, which raises where there
+    is no GPU (the port's entry points have no CPU fallback)."""
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no GPU"):
+        check_equivalence(trials=1)
 
 
 def _batches(rng, n_clusters):

@@ -31,6 +31,9 @@ pytestmark = pytest.mark.torch
 KEYS = {"name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "path"}
 
+# the function itself: the `smoke` fixture caps its windows
+PROFILE_BREAKDOWN = chip_smoke.profile_breakdown
+
 
 class _HostEvent:
     def __init__(self, **_):
@@ -48,11 +51,22 @@ def smoke(monkeypatch):
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
     monkeypatch.setattr(torch.cuda, "Event", _HostEvent)
     monkeypatch.setattr(torch.cuda, "_sleep", lambda cycles: None)
+    # the times printed here mean nothing: each timing loop runs its
+    # calls (the same code) twice, each profiled window once
+    time_ms = chip_smoke.time_ms
+    monkeypatch.setattr(
+        chip_smoke, "time_ms",
+        lambda torch, fns, iters, warmup=3, device_only=False: time_ms(
+            torch, fns, min(iters, 2), min(warmup, 1), device_only))
+    monkeypatch.setattr(
+        chip_smoke, "profile_breakdown",
+        lambda torch, fn, iters: PROFILE_BREAKDOWN(torch, fn, 1))
     monkeypatch.setattr(chip_smoke, "nvidia_smi", lambda: "CPU rehearsal")
     monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
     monkeypatch.setattr(chip_smoke, "INS_B", 1 << 10)
     monkeypatch.setattr(chip_smoke, "GET_B", 1 << 8)
     monkeypatch.setattr(chip_smoke, "HOT_SET", 1 << 7)
+    monkeypatch.setattr(chip_smoke, "EXTENTS", 40)
     monkeypatch.setattr(chip_smoke, "LINEAR_INDEX", dict(capacity=1 << 13))
     monkeypatch.setattr(chip_smoke, "CCEH_INDEX",
                         dict(capacity=1 << 12, segment_slots=256))
@@ -108,12 +122,12 @@ def test_tiered_main_path_and_its_kernels_line(smoke, kind, capsys):
 
 
 def test_families_phase(smoke, monkeypatch, capsys):
-    """The families phase over 2^13 requested slots per family: each fills,
+    """The families phase over 2^12 requested slots per family: each fills,
     serves byte-exact (every present key hits), deletes, and its table's
     scan holds exactly the present keys; HotRing's decay fires through
     `KV` and its mirror drill passes; no family takes the fused GET."""
-    monkeypatch.setattr(chip_smoke, "FAMILY_INDEX", dict(capacity=1 << 13))
-    monkeypatch.setattr(chip_smoke, "HOT_GETS", 1 << 14)
+    monkeypatch.setattr(chip_smoke, "FAMILY_INDEX", dict(capacity=1 << 12))
+    monkeypatch.setattr(chip_smoke, "HOT_GETS", 1 << 13)
     monkeypatch.setattr(chip_smoke, "POLICY_CAPACITY", 1 << 11)
     monkeypatch.setattr(chip_smoke, "POLICY_B", 1 << 7)
     assert chip_smoke.run_families(smoke) is None
@@ -123,8 +137,8 @@ def test_families_phase(smoke, monkeypatch, capsys):
         assert f"[families] {kind}: fill" in out
         assert f"[families] {kind} torch.profiler, KV.get" in out
         assert f"[main] {kind} serve after the timed inserts" in out
-    assert "[families] level: num_slots 12288" in out
-    assert "hotring mirror: 1 decay(s) through KV after 16384 GET keys" in out
+    assert "[families] level: num_slots 6144" in out
+    assert "hotring mirror: 1 decay(s) through KV after 8192 GET keys" in out
     assert "served their new bytes from the table" in out
     for policy in ("lru", "lfu", "fifo"):
         assert f"[families] policy cache {policy} on cpu: every get" in out
@@ -159,7 +173,7 @@ def test_profile_breakdown_reports_only_its_own_failure(smoke, monkeypatch):
         raise RuntimeError("the verb failed")
 
     with pytest.raises(RuntimeError, match="the verb failed"):
-        chip_smoke.profile_breakdown(torch, boom, 2)
+        PROFILE_BREAKDOWN(torch, boom, 2)
 
     class Broken:
         def __init__(self, **_):
@@ -170,7 +184,7 @@ def test_profile_breakdown_reports_only_its_own_failure(smoke, monkeypatch):
 
     monkeypatch.setattr(torch.profiler, "profile", Broken)
     calls = []
-    line = chip_smoke.profile_breakdown(torch, lambda: calls.append(1), 2)
+    line = PROFILE_BREAKDOWN(torch, lambda: calls.append(1), 2)
     assert line.startswith("not measured") and "no tracer" in line
     assert len(calls) == 3
 

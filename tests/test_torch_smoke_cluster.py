@@ -175,10 +175,14 @@ def test_plane_phase_fails_when_a_corrupt_lane_serves(plane_smoke,
                                                       monkeypatch):
     """Lane 0 damaged in a way its digest cannot see (the sidecar
     rewritten over the damaged bytes): its pages come back over the wire,
-    and the 2-D storm fails."""
+    and the 2-D storm fails. The 1-D plane and its restores ahead of the
+    2 x 2 plane (held by `test_plane_phase_and_its_kernels_lines`) are
+    stood in for."""
     from pmdfc_tpu_torch.ops.pagepool import page_digest
     from pmdfc_tpu_torch.parallel.shard import ShardedKV
 
+    monkeypatch.setattr(chip_smoke, "plane_1d", lambda sm, root: ({}, None))
+    monkeypatch.setattr(chip_smoke, "plane_restore", lambda sm, snap: None)
     real = ShardedKV.corrupt_replica_lane
 
     def unseen(self, lane):
@@ -222,7 +226,9 @@ CONTROL_TINY = (("ROW_INDEX", dict(capacity=1 << 12)),
                 # serving threads' are not in it) and no CUDA kernel: the
                 # rehearsal holds the trace to the session's own record
                 ("TRACE_CAT", "Trace"), ("TRACE_NAME", "PyTorch Profiler"),
-                ("HARNESSES", (("insert_rowscatter", ("--smoke",)),
+                ("HARNESSES", (("insert_rowscatter",
+                                ("--smoke", "--capacity", "1024", "--n",
+                                 "256")),
                                ("telemetry_overhead",
                                 ("--smoke", "--pairs", "16", "--gets", "32",
                                  "--gate", "1e9")))))
@@ -259,6 +265,17 @@ def control_smoke(smoke, monkeypatch, tmp_path):
     return smoke
 
 
+@pytest.fixture
+def control_checks(control_smoke, monkeypatch):
+    """Phase 11 for a fault that shows in the checks of the served storm:
+    the row A/B and the row-path KV ahead of it (held by
+    `test_control_phase_and_its_kernels_lines`) are stood in for."""
+    monkeypatch.setattr(chip_smoke, "control_row_ab", lambda sm: None)
+    monkeypatch.setattr(chip_smoke, "row_kv_subprocess",
+                        lambda sm: {"fill_pages_per_s": 1.0, "launches": 0})
+    return control_smoke
+
+
 def json_roundtrip(d):
     import json
 
@@ -291,7 +308,7 @@ def test_control_phase_and_its_kernels_lines(control_smoke, capsys):
 
 
 def test_control_phase_fails_on_a_trace_without_the_kernel(
-        control_smoke, monkeypatch):
+        control_checks, monkeypatch):
     """A capture whose session recorded nothing of the GETs fails the
     phase."""
     class Empty:
@@ -310,18 +327,18 @@ def test_control_phase_fails_on_a_trace_without_the_kernel(
 
     monkeypatch.setattr(torch.profiler, "profile", Empty)
     with pytest.raises(AssertionError, match="holds no"):
-        chip_smoke.run_control(control_smoke)
+        chip_smoke.run_control(control_checks)
 
 
 def test_control_phase_fails_on_a_knob_outside_its_envelope(
-        control_smoke, monkeypatch):
+        control_checks, monkeypatch):
     from pmdfc_tpu_torch.runtime.net import NetServer
 
     real = NetServer.flush_knobs
     monkeypatch.setattr(NetServer, "flush_knobs",
                         lambda self: tuple(100 * v for v in real(self)))
     with pytest.raises(AssertionError, match="outside their envelope"):
-        chip_smoke.run_control(control_smoke)
+        chip_smoke.run_control(control_checks)
 
 
 def test_control_phase_fails_on_a_row_element_mismatch(control_smoke,
@@ -344,7 +361,7 @@ def test_control_phase_fails_on_a_row_element_mismatch(control_smoke,
 
 
 def test_control_phase_fails_when_kv_get_launches_go_uncounted(
-        control_smoke, monkeypatch):
+        control_checks, monkeypatch):
     from pmdfc_tpu_torch.runtime.profiler import Profiler
 
     real = Profiler.note_launch
@@ -359,7 +376,7 @@ def test_control_phase_fails_when_kv_get_launches_go_uncounted(
 
     monkeypatch.setattr(Profiler, "note_launch", lossy)
     with pytest.raises(AssertionError, match="kv.get launches for"):
-        chip_smoke.run_control(control_smoke)
+        chip_smoke.run_control(control_checks)
 
 
 # -- phase 12, scale: the multi-process plane and the workload harnesses --
@@ -373,6 +390,13 @@ SCALE_TINY = (
     ("SCALE_SOLO_BLOOM_BITS", 1 << 12), ("SCALE_INS_B", 1 << 9),
     ("SCALE_GET_B", 1 << 8), ("SCALE_GETS", 2), ("SCALE_BCAST_B", 1 << 6),
     ("SCALE_DELETE", 1 << 5), ("SCALE_JOIN_S", 60.0),
+    ("SCALE_PLANE_EXTENTS", 4), ("SCALE_FAST_KEYS", 1 << 8),
+    ("SCALE_FAST_REWRITE", 1 << 5),
+    ("SCALE_RESTORE_INDEX", dict(capacity=1 << 10)),
+    ("SCALE_RESTORE_BLOOM_BITS", 1 << 13),
+    ("SCALE_TIER_INDEX", dict(capacity=1 << 10, touch_sample_every=2)),
+    ("SCALE_2D_INDEX", dict(capacity=1 << 10)),
+    ("SCALE_SIDE_BLOOM_BITS", 1 << 13),
     ("SCALE_TIMEOUT_S", 240.0), ("SCALE_TIMED", False),
     ("SCALE_HARNESSES", (
         ("multihost_bench", ("--procs", "2", "--n", "4096", "--batch",
@@ -396,31 +420,82 @@ SCALE_TINY = (
 
 
 @pytest.fixture
-def scale_smoke(smoke, monkeypatch):
+def scale_smoke(smoke, monkeypatch, tmp_path):
     for name, value in SCALE_TINY:
         monkeypatch.setattr(chip_smoke, name, value)
     monkeypatch.setattr(chip_smoke, "scale_refusal", lambda: None)
+    monkeypatch.setattr(chip_smoke, "scale_dir", lambda: tmp_path / "scale")
     return smoke
 
 
-def test_scale_phase_and_its_kernels_lines(scale_smoke, capsys):
+def test_scale_phase_and_its_kernels_lines(scale_smoke, tmp_path, capfd):
     """Phase 12 at a tiny size: two spawned processes over gloo and a
     one-process group, each filling, deleting and serving a2a and
     broadcast GETs byte-exact with every miss zeroed, the same results on
     every process, one launch per shard per GET phase, the kernel against
-    plain in every process; then every harness as its own process, each
-    held to its own gate."""
+    plain in every process; the plane verbs through PlaneBackend in both
+    parts; in part (a) the fast lane, the restores of a one-process
+    plane's snapshots, the tiered plane and the 2 x 2 grid; then every
+    harness as its own process, each held to its own gate."""
     entries = chip_smoke.run_scale(scale_smoke)
-    assert [e["path"] for e in entries] == ["scale-gloo", "scale-nccl"]
+    assert [e["path"] for e in entries] == ["scale-gloo", "scale-nccl",
+                                            "scale-plane", "scale-tiered"]
     for e in entries:
-        assert set(e) == KEYS
-        assert e["name"] == "fused_get_linear_flat" and e["max_abs_err"] == 0
-    # every shard of every process, per GET phase (2 a2a + 1 broadcast)
+        assert set(e) == KEYS and e["max_abs_err"] == 0
+    assert [e["name"] for e in entries] == ["fused_get_linear_flat"] * 3 + [
+        "fused_get_linear_tiered"]
+    # every shard of every process, per GET phase (2 a2a + 1 broadcast;
+    # 2 plane GETs; 4 tiered GETs)
     assert entries[0]["launches"] == 4 * 3 and entries[1]["launches"] == 4 * 3
-    out = capsys.readouterr().out
+    assert entries[2]["launches"] == 4 * 2 and entries[3]["launches"] == 4 * 4
+    out = capfd.readouterr().out
     assert "identical on every process" in out
+    for line in ("plane verbs through PlaneBackend", "fast lane:",
+                 "restore_chain onto 2 shards over 2 processes",
+                 "tiered plane", "2 x 2 over 2 processes",
+                 "replica_repair repaired"):
+        assert line in out, line
+    assert not (tmp_path / "scale").exists()
     for name, _ in chip_smoke.SCALE_HARNESSES:
         assert f"harness {name}" in out
+
+
+def _wrong_page_child(rank, port, p, q):
+    """A part (a) process whose plane GETs return one wrong page on rank
+    1 (one word of its first hit flipped)."""
+    from pmdfc_tpu_torch.parallel.shard import ShardedKV
+
+    if rank == 1:
+        real = ShardedKV.plane_get
+
+        def plane_get(self, keys):
+            h = real(self, keys)
+            fetch = h._fetch
+
+            def wrong():
+                g = fetch()
+                if g.found.any():
+                    routed = np.array(g._routed)
+                    routed[g._rb.pos[np.flatnonzero(g.found)[0]], 0] ^= 1
+                    g._routed = routed
+                return g
+
+            h._fetch = wrong
+            return h
+
+        ShardedKV.plane_get = plane_get
+    chip_smoke.scale_child(rank, port, p, q)
+
+
+def test_scale_phase_fails_when_a_plane_get_serves_a_wrong_page(
+        scale_smoke, monkeypatch):
+    """Part (a) with rank 1's plane GETs serving one wrong page: the
+    phase fails at its first plane GET."""
+    monkeypatch.setattr(chip_smoke, "SCALE_TIMEOUT_S", 120.0)
+    p = chip_smoke.scale_params("gloo")
+    with pytest.raises(AssertionError, match="(?s)rank 1 failed.*a hit's page "
+                       "differs"):
+        chip_smoke.scale_spawn(_wrong_page_child, 2, (p,), "rehearsal")
 
 
 def _dying_child(rank, port, q):

@@ -6,8 +6,9 @@ the CPU at tiny sizes, with the card-only calls stood in for as
 clock, the kernel's launch count by a count of the wrapper's calls), and
 with `launches_per_get` reading one launch per GET so the harnesses hold
 the card's launch rule: fused_get and tier_sweep in this process, their
-launches counted, then mesh_sweep; the soak and every host-bound
-harness as its own process with `--device cpu --smoke`, side by side.
+launches counted, beside mesh_sweep, the soak and every host-bound
+harness, each its own process with `--device cpu` (tiny sizes), side by
+side.
 The mutation cases show the phase fails when a composed-side GET
 secretly launches the kernel and when a harness serves one wrong byte.
 """
@@ -39,12 +40,12 @@ def tail(smoke, monkeypatch):  # noqa: F811
         zipfs=[0.99], hot_fraction=16))
     monkeypatch.setattr(chip_smoke, "TAIL_WIDTHS", (64, 256))
     monkeypatch.setattr(chip_smoke, "TAIL_TIMED_W", 256)
-    monkeypatch.setattr(chip_smoke, "TAIL_SERIAL", (
-        ("mesh_sweep", ("--shards", "1,2", "--connections", "2",
-                        "--window", "2", "--gets", "4", "--rounds", "1",
-                        "--preload", "512", "--capacity", str(1 << 12))),))
+    mesh = ("--shards", "1,2", "--connections", "2", "--window", "2",
+            "--gets", "4", "--rounds", "1", "--preload", "512",
+            "--capacity", str(1 << 12))
     monkeypatch.setattr(chip_smoke, "TAIL_LANE_RUNS", tuple(
-        (name, ("--smoke",)) for name, _ in chip_smoke.TAIL_LANE_RUNS))
+        (name, mesh if name == "mesh_sweep" else ("--smoke",))
+        for name, _ in chip_smoke.TAIL_LANE_RUNS))
     return smoke
 
 
@@ -61,7 +62,7 @@ def test_tail_phase_and_its_kernels_lines(tail, capsys):
     assert out.count("[tail] fused_get linear·flat zipf") == 4
     assert out.count("[tail] fused_get cceh·flat zipf") == 4
     assert "composed chain" in out and "[tail] tier_sweep zipf 0.99" in out
-    for name, _ in chip_smoke.TAIL_SERIAL + chip_smoke.TAIL_LANE_RUNS:
+    for name, _ in chip_smoke.TAIL_LANE_RUNS:
         assert f"[tail] harness {name} " in out, name
     assert "[tail] phase 13 took" in out
     json.dumps(entries)
@@ -70,7 +71,6 @@ def test_tail_phase_and_its_kernels_lines(tail, capsys):
 @pytest.fixture
 def tail_alone(tail, monkeypatch):
     """Phase 13 without the harness processes: the in-process sweeps."""
-    monkeypatch.setattr(chip_smoke, "TAIL_SERIAL", ())
     monkeypatch.setattr(chip_smoke, "TAIL_LANE_RUNS", ())
     return tail
 
@@ -112,7 +112,6 @@ def test_tail_fails_when_a_harness_serves_one_wrong_byte(tail_alone,
 def test_tail_fails_on_a_lane_harness_gate(tail, monkeypatch):
     """A lane harness whose row breaks its gate fails the phase even when
     the process exited 0."""
-    monkeypatch.setattr(chip_smoke, "TAIL_SERIAL", ())
     monkeypatch.setattr(chip_smoke, "TAIL_LANE_RUNS",
                         (("recovery_soak", ("--smoke",)),))
     real = chip_smoke.run_harness
