@@ -358,10 +358,57 @@ Phases, each reported on its own line; any failure exits nonzero:
              bound and `miss_recovering`, the isolation and re-admission,
              the shed attribution, a falling loss). Reports every row
              beside the card's name and power limit, and its wall time.
+14. chaos  — the failure ladder through `ChaosProxy`, in a child
+             process (`--chaos`) queued first in phase 12's lanes, so its
+             wall hides beside phases 12 and 13; its lines are echoed and
+             its kernel entries added after phase 13. (a) A linear·flat
+             `KV` of 2^18 slots (1 GiB of 4 KiB pages) filled to 75%
+             through `KV.insert`, behind `NetServer`, a `ChaosProxy` at
+             `tests/test_chaos.py`'s rates and `IntegrityBackend` over
+             `ReconnectingClient` over `TcpBackend`: 120 steps
+             unpipelined and 120 pipelined (window 8) of puts, GETs and
+             invalidates of up to 2^11 pages, after a warm GET on a
+             chaos-free connection. A quarter in, 2^10 probe keys are put
+             directly and every pool byte is XORed in place under the
+             KV's lock and device: the probe GET launches the kernel,
+             misses every probe key and counts them as corrupt. Midway, a
+             durable snapshot and a newer one torn at 70%, the server
+             killed: the torn file is refused, the KV restored from the
+             durable one serves exactly the hit set (and bytes) the
+             killed one served. Gates: zero wrong bytes, the torn file
+             refused, the hit sets equal, `corrupt_detected > 0`, no
+             NACK and no serve error (the wire's -2). (b) The xray
+             acceptance soak: a 4-shard plane naming the card four times,
+             2^16 slots a shard, linear over `TierConfig` (balloon step
+             1/8, ghost rows 1/16), behind the coalescing `NetServer` and
+             a `ChaosProxy` (flip 1%, duplicate 0.5%): a zipf 0.99 stream
+             of 2^11-key verbs, puts every third step, the balloon shrunk
+             by a shard's whole cold pool midway; every hit byte-exact,
+             `misses == Σ miss_*` on `stats()`, every `shard_report()`
+             row, `KVServer.health` and the wire document (which passes
+             `tools/check_teledump.py`); one collector window later the
+             port's `teletop --once --json` against this server and a
+             2-shard one reports rates and per-shard rows. (c) The wire
+             drills, 2^11-page verbs, the card's counterparts of the JAX
+             suites' `slow` drills: poison bisection with 4
+             connections fused into one GET flush (only the culprit
+             NACKed within ceil(log2 4) failures, no connection dropped,
+             the resubmit refused, the fingerprint seeded with the verb,
+             the NACKed ops' spans closed failed; the kernel launches of
+             the bisection counted), NACK negotiation and its kill
+             switches and an unnegotiated peer's dropped connection, the
+             deadline shed (`miss_deadline`, no launch; a zero deadline
+             never sheds), plane shard quarantine and half-open
+             re-admission (`miss_quarantined`, the shard's rows
+             reconciled) and the plane with containment off, the QoS
+             edge shed (`miss_shed`, the tenant lanes) and `PMDFC_QOS=off`,
+             and the reconnect storm's bounded backoff. Each GET path's
+             kernel is held against its plain version at 2^11 and timed
+             (`chaos`: linear·flat, `xray-plane`: linear·tiered).
 
 Each KV is freed before the next path's fill, so no two pools share the
 card but the fleet's and the plane's own shards, and, in phases 12 and
-13, the harness processes'. The next-to-last line is one JSON object
+13, the harness processes' and phase 14's child's. The next-to-last line is one JSON object
 naming each kernel with its path, launches, error and times; the last is `{"ok": true, "device": ...}`.
 """
 
@@ -5610,9 +5657,10 @@ def scale_refusal() -> None:
 class Lanes:
     """Harness processes side by side, at most `n` at a time, each started
     as a lane frees in the order queued; a phase collects its own rows.
-    The whole smoke queues phase 12's harnesses and then phase 13's at
-    phase 12's start, so the tail's host-bound soaks run beside phase
-    12's plane and phase 13's sweeps."""
+    The whole smoke queues phase 14's child, phase 12's harnesses and
+    then phase 13's at phase 12's start, so the tail's host-bound soaks
+    and the chaos child run beside phase 12's plane and phase 13's
+    sweeps."""
 
     def __init__(self, n: int):
         from concurrent.futures import ThreadPoolExecutor
@@ -5621,8 +5669,10 @@ class Lanes:
         self.tmp = tempfile.TemporaryDirectory()  # the tail's --out files
         self.futs: dict[str, list] = {}
 
-    def queue(self, phase: str) -> "Lanes":
-        if phase == "scale":
+    def queue(self, phase: str, seed: int = 0) -> "Lanes":
+        if phase == "chaos":
+            self.futs[phase] = [self.ex.submit(chaos_subprocess, seed)]
+        elif phase == "scale":
             self.futs[phase] = [self.ex.submit(run_harness, name, args)
                                 for name, args in SCALE_HARNESSES]
         else:
@@ -5922,6 +5972,1156 @@ def run_tail(sm, lanes: Lanes | None = None):
             for name, t in times.items()]
 
 
+# ---------------------------------------------------------------------------
+# phase 14, chaos: the failure ladder through ChaosProxy on the card
+# ---------------------------------------------------------------------------
+
+CHAOS_INDEX = dict(capacity=1 << 18)  # a 1 GiB pool of 4 KiB pages
+CHAOS_BLOOM_BITS = 1 << 21
+CHAOS_PAGE_WORDS = 1024
+CHAOS_STEPS = 120          # ops of each soak, unpipelined then pipelined
+CHAOS_VERB = 1 << 11       # pages of the widest verb
+CHAOS_WINDOW = 8           # the pipelined soak's window
+# tests/test_chaos.py's RATES
+CHAOS_RATES = {"flip": 0.04, "truncate": 0.02, "duplicate": 0.04,
+               "delay": 0.02, "reorder": 0.02}
+CHAOS_PROBE = 1 << 10      # keys put directly, poisoned in place, probed
+CHAOS_GET_B = 1 << 14      # direct GETs over the whole key set
+CHAOS_HI = 0xC4000000
+CHAOS_OP_TIMEOUT_S = 1.0   # the soak client's TcpBackend, as test_chaos
+CHAOS_TIMEOUT_S = 600.0    # the phase's child process, spawn to exit
+XRAY_SHARDS = 4
+XRAY_INDEX = dict(capacity=1 << 16)  # a shard
+XRAY_BLOOM_BITS = 1 << 19
+XRAY_KEYS = 1 << 17        # the zipf stream's key space
+XRAY_STEPS = 24
+XRAY_VERB = 1 << 11        # keys of each soak verb
+XRAY_ZIPF = 0.99
+XRAY_RATES = {"flip": 0.01, "duplicate": 0.005}  # test_xray's soak
+XRAY_HI = 0xC5000000
+COLLECTOR_WAIT_S = 1.1     # a collector window (1 s) and some slack
+DRILL_INDEX = dict(capacity=1 << 16)  # the wire drills' KV and shards
+DRILL_VERB = 1 << 11       # keys of each drill verb
+DRILL_HI = 0xC6000000
+
+
+def pull_all(kv, keys, b: int):
+    """`kv.get` over host keys in batches of b -> (pages, found)."""
+    import numpy as np
+
+    outs, founds = [], []
+    for a in range(0, len(keys), b):
+        out, found = kv.get(keys[a:a + b])
+        outs.append(np.asarray(out))
+        founds.append(np.asarray(found, bool))
+    return np.concatenate(outs), np.concatenate(founds)
+
+
+def wrong_pages(out, found, want) -> int:
+    """Hits whose page differs from the key's page."""
+    return int((out[found] != want[found]).any(axis=1).sum())
+
+
+def launched(fused) -> int:
+    return sum(fused.launches.values())
+
+
+def chaos_poison(sm, kv, keys, pages, label: str) -> int:
+    """Hazard (r) on the card: put `keys` directly, XOR every pool byte in
+    place under the KV's lock and on its device, and GET them: the GET
+    launches the kernel, which misses every one of them as corrupt (the
+    digest check is the kernel's) -> the corrupt pages it counted."""
+    kv.insert(keys, pages)
+    out, found = kv.get(keys)
+    if not found.all() or wrong_pages(out, found, pages):
+        raise AssertionError(f"{label}: a probe key did not serve its page "
+                             "before the poison")
+    before, n0 = kv.stats()["corrupt_pages"], launched(sm.fused)
+    with kv._lock, kv._on_device():
+        kv.state.pool.pages.bitwise_xor_(1 << 9)
+    out, found = kv.get(keys)
+    detected = kv.stats()["corrupt_pages"] - before
+    n = launched(sm.fused) - n0
+    if found.any() or detected < len(keys) or n < 1:
+        raise AssertionError(
+            f"{label}: poisoned probe served {int(found.sum())} hits, "
+            f"{detected} corrupt pages counted of {len(keys)}, {n} kernel "
+            "launches")
+    return detected
+
+
+def chaos_soak(sm, cfg, *, steps: int, seed: int, rates: dict, kill_at,
+               root, pipe: bool = False, n_fill: int = 0, n_ops: int = 224,
+               max_verb: int = 16, n_warm: int = 16, n_probe: int = 16,
+               poison: bool = True, label: str = "chaos") -> dict:
+    """`tests/test_chaos.py`'s seeded soak at any size: a `KV` (its first
+    `n_fill` op keys put directly) behind `NetServer` and a `ChaosProxy`
+    at `rates`, driven through `IntegrityBackend` over
+    `ReconnectingClient` over `TcpBackend` (pipelined with `pipe`) with
+    `steps` seeded puts, GETs and invalidates of 1..max_verb-1 op keys;
+    with `poison` the pool poisoned a quarter in (`chaos_poison` on the
+    probe keys);
+    at each step of `kill_at` a durable snapshot and a torn newer one,
+    the server killed and restored from the durable one. Raises when a
+    restore breaks its invariants; the caller gates the rest -> counts."""
+    import numpy as np
+
+    from pmdfc_tpu_torch import checkpoint
+    from pmdfc_tpu_torch.checkpoint import CheckpointCorruptError
+    from pmdfc_tpu_torch.client.backends import (DirectBackend,
+                                                 IntegrityBackend)
+    from pmdfc_tpu_torch.runtime.failure import (ChaosProxy,
+                                                 ReconnectingClient)
+    from pmdfc_tpu_torch.runtime.net import NetServer, TcpBackend
+
+    pw = cfg.page_words
+    rng = np.random.default_rng(seed)
+    n = n_ops + n_warm + n_probe
+    lo = rng.choice(1 << 30, size=n, replace=False).astype(np.uint32)
+    keys = np.stack([np.full(n, CHAOS_HI, np.uint32), lo], -1)
+    warm = slice(n_ops, n_ops + n_warm)
+    probe = slice(n_ops + n_warm, n)
+
+    def pages(sel):
+        return pages_np(CHAOS_HI, lo[sel], pw)
+
+    kv = sm.kv_mod.KV(cfg, device=sm.dev)
+    t0 = time.monotonic()
+    for a in range(0, n_fill, CHAOS_GET_B):
+        b = min(a + CHAOS_GET_B, n_fill)
+        kv.insert(keys[a:b], pages(slice(a, b)))
+    t_fill = time.monotonic() - t0
+    servers, proxies = [], []
+
+    def serve(kv, proxy_seed):
+        srv = NetServer(lambda: DirectBackend(kv)).start()
+        servers.append(srv)
+        px = ChaosProxy("127.0.0.1", srv.port, seed=proxy_seed, rates=rates,
+                        delay_s=0.02, reorder_wait_s=0.05)
+        proxies.append(px)
+        return srv, px
+
+    srv, px = serve(kv, seed)
+    # the kernel's first launch and the GET at the verb widths, on a
+    # chaos-free connection before the faulted window (test_chaos warms
+    # its compile the same way): every warm key must serve its page
+    with TcpBackend("127.0.0.1", srv.port, page_words=pw, keepalive_s=None,
+                    op_timeout_s=120.0) as w:
+        w.put(keys[warm], pages(warm))
+        out, found = w.get(keys[warm])
+        if not found.all() or wrong_pages(out, found, pages(warm)):
+            raise AssertionError(f"{label}: the warm GET served a wrong "
+                                 "page or missed")
+        w.invalidate(keys[warm])
+    port = [px.port]
+
+    def factory():
+        return TcpBackend("127.0.0.1", port[0], page_words=pw,
+                          keepalive_s=None, op_timeout_s=CHAOS_OP_TIMEOUT_S,
+                          pipeline=pipe, window=CHAOS_WINDOW)
+
+    rc = ReconnectingClient(factory, page_words=pw, retry_delay_s=0.005,
+                            max_retry_delay_s=0.1, seed=seed)
+    be = IntegrityBackend(rc)
+    st = dict(wrong_bytes=0, gets=0, found_gets=0, poisoned=0, restores=0,
+              corrupt_detected=0, torn_refused=0, restored_hits=0,
+              fill_s=t_fill)
+
+    def restart(kv, step):
+        """Kill and restore: a durable snapshot, a newer one torn at 70%
+        (it must be refused), the server stopped, a KV restored from the
+        durable file, which must serve exactly the hit set and pages the
+        killed one served -> the restored KV."""
+        durable = os.path.join(root, f"durable_{seed}_{step}.npz")
+        torn = os.path.join(root, f"torn_{seed}_{step}.npz")
+        want, want_found = pull_all(kv, keys, CHAOS_GET_B)
+        kv.snapshot(durable)
+        kv.snapshot(torn)
+        os.truncate(torn, int(os.path.getsize(torn) * 0.7))
+        srv.stop()
+        px.close()
+        try:
+            checkpoint.load(torn, cfg, device=sm.dev)
+        except CheckpointCorruptError:
+            st["torn_refused"] += 1
+        else:
+            raise AssertionError(f"{label}: the torn snapshot loaded")
+        kv = sm.kv_mod.KV(cfg, state=checkpoint.load(
+            durable, cfg, device=sm.dev), device=sm.dev)
+        for f in (durable, torn):
+            os.remove(f)
+        out, found = pull_all(kv, keys, CHAOS_GET_B)
+        if not np.array_equal(found, want_found):
+            raise AssertionError(
+                f"{label}: the restored KV serves {int(found.sum())} keys, "
+                f"the durable one served {int(want_found.sum())} "
+                f"({int((found != want_found).sum())} differ)")
+        if wrong_pages(out, found, want) \
+                or wrong_pages(out, found, pages(slice(0, n))):
+            raise AssertionError(f"{label}: the restored KV serves a wrong "
+                                 "page")
+        st["restores"] += 1
+        st["restored_hits"] += int(found.sum())
+        return kv
+
+    t0 = time.monotonic()
+    for step in range(steps):
+        op = int(rng.integers(4))
+        a = int(rng.integers(0, n_ops))
+        sel = slice(a, min(a + int(rng.integers(1, max_verb)), n_ops))
+        if op == 0:
+            be.put(keys[sel], pages(sel))
+        elif op in (1, 2):
+            out, found = be.get(keys[sel])
+            found = np.asarray(found, bool)
+            st["gets"] += len(found)
+            st["found_gets"] += int(found.sum())
+            st["wrong_bytes"] += wrong_pages(np.asarray(out), found,
+                                             pages(sel))
+        else:
+            be.invalidate(keys[sel])
+        if not rc.stats()["connected"]:
+            # disconnected ops fail locally in microseconds: pace them so
+            # a reconnect is part of every run (as test_chaos does)
+            time.sleep(0.02)
+        if poison and step == steps // 4:
+            st["corrupt_detected"] += chaos_poison(
+                sm, kv, keys[probe], pages(probe), label)
+            st["poisoned"] += 1
+        if step in kill_at:
+            kv = restart(kv, step)
+            srv, px = serve(kv, seed + step)
+            port[0] = px.port  # the factory dials the new proxy
+    st["soak_s"] = time.monotonic() - t0
+    be.close()
+    px.close()  # the earlier ones were closed at their restart
+    srv.stop()
+    st["corrupt_detected"] += int(be.counters["corrupt_pages"])
+    chaos = {}
+    for x in proxies:
+        for k, v in x.stats.items():
+            chaos[k] = chaos.get(k, 0) + int(v)
+    st["chaos"] = chaos
+    st["client"] = {k: v for k, v in rc.stats().items()
+                    if isinstance(v, (int, float, bool))}
+    st["serve_errors"] = sum(int(x.stats["serve_errors"]) for x in servers)
+    st["nacks_sent"] = sum(int(x.stats.snapshot()["nacks_sent"])
+                           for x in servers)
+    st["kv"] = kv
+    st["present_lo"] = lo[:n_ops]
+    return st
+
+
+def chaos_gates(label: str, st: dict, restores: int,
+                poisoned: int = 1) -> None:
+    """The soak's gates (test_chaos's invariants and the wire's error
+    counters)."""
+    fails = []
+    if st["wrong_bytes"]:
+        fails.append(f"{st['wrong_bytes']} wrong pages served")
+    if st["restores"] != restores or st["torn_refused"] != restores:
+        fails.append(f"{st['restores']} restores, {st['torn_refused']} torn "
+                     f"snapshots refused of {restores}")
+    if st["poisoned"] != poisoned \
+            or (poisoned and st["corrupt_detected"] <= 0):
+        fails.append(f"poisoned {st['poisoned']}, corrupt_detected "
+                     f"{st['corrupt_detected']}")
+    if st["serve_errors"] or st["nacks_sent"]:
+        fails.append(f"serve_errors {st['serve_errors']}, nacks_sent "
+                     f"{st['nacks_sent']}")
+    if fails:
+        raise AssertionError(f"{label}: " + "; ".join(fails))
+
+
+def chaos_cfg(index, bloom_bits, pw, tier=None):
+    from pmdfc_tpu_torch.config import (BloomConfig, IndexConfig, KVConfig,
+                                        TierConfig)
+
+    if tier is not None:
+        tier = TierConfig(**tier)
+    return KVConfig(index=IndexConfig(**index),
+                    bloom=BloomConfig(num_bits=bloom_bits), page_words=pw,
+                    tier=tier)
+
+
+def run_chaos_soaks(sm, root, smi):
+    """Phase 14 (a): the soak unpipelined (the pool poisoned a quarter
+    in, one kill and restore midway), then pipelined on a fresh 1 GiB KV
+    -> (its kernels entry, the last soak's counts)."""
+    cfg = chaos_cfg(CHAOS_INDEX, CHAOS_BLOOM_BITS, CHAOS_PAGE_WORDS)
+    n_fill = int(CHAOS_INDEX["capacity"] * 0.75)
+    sm.fused.launches.clear()
+    last = None
+    for pipe in (False, True):
+        mode = "pipelined" if pipe else "unpipelined"
+        kills = () if pipe else (CHAOS_STEPS // 2,)
+        st = chaos_soak(sm, cfg, steps=CHAOS_STEPS, seed=sm.seed + 5,
+                        rates=CHAOS_RATES, kill_at=kills, root=root,
+                        pipe=pipe, n_fill=n_fill, n_ops=n_fill,
+                        max_verb=CHAOS_VERB, n_warm=CHAOS_VERB,
+                        n_probe=CHAOS_PROBE, poison=not pipe,
+                        label=f"chaos {mode}")
+        chaos_gates(f"chaos {mode}", st, len(kills), int(not pipe))
+        held = ("the pool poisoned in place and every probe refused by the "
+                f"kernel's digest check, a torn snapshot refused, the "
+                f"restored hit set == durable ({st['restored_hits']} keys), "
+                f"corrupt_detected {st['corrupt_detected']}"
+                if not pipe else "window 8")
+        client = {k: st["client"][k] for k in ("disconnects", "reconnects")
+                  if k in st["client"]}
+        log("chaos", f"soak {mode}: {CHAOS_STEPS} steps in "
+            f"{st['soak_s']:.1f} s (fill {n_fill} pages in "
+            f"{st['fill_s']:.1f} s), {st['found_gets']} hits of "
+            f"{st['gets']} GET keys, 0 wrong bytes, {held}, no NACK, no "
+            f"serve error; chaos {st['chaos']}; client {client} ({smi})")
+        if last is not None:
+            del last["kv"]
+        last = st
+        free_card(sm.torch)
+    launches = sm.fused.launches["fused_get_linear_flat"]
+    if launches <= 0:
+        raise AssertionError("chaos: the fused GET never launched")
+    kv = last.pop("kv")
+    t = uncounted(sm.fused, lambda: plane_kernel(
+        sm, kv.state, last["present_lo"], CHAOS_PAGE_WORDS, (CHAOS_VERB,),
+        "chaos linear·flat", smi, hi=CHAOS_HI))
+    del kv
+    free_card(sm.torch)
+    return plane_entry(sm, "chaos", launches, t[CHAOS_VERB]), last
+
+
+def xray_plane(cfg, n: int):
+    from pmdfc_tpu_torch.config import NetConfig
+    from pmdfc_tpu_torch.parallel.plane import PlaneBackend
+    from pmdfc_tpu_torch.parallel.shard import ShardedKV, make_mesh
+    from pmdfc_tpu_torch.runtime.net import NetServer
+
+    skv = ShardedKV(cfg, mesh=make_mesh([DEVICE] * n))
+    be = PlaneBackend(skv)
+    srv = NetServer(lambda: be, net=NetConfig(flush_timeout_us=200,
+                                              settle_us=50)).start()
+    return skv, srv
+
+
+def reconciled(stats, where: str) -> None:
+    from pmdfc_tpu_torch.kv import MISS_CAUSE_NAMES
+
+    total = sum(int(stats[k]) for k in MISS_CAUSE_NAMES)
+    if int(stats["misses"]) != total:
+        raise AssertionError(f"{where}: misses {stats['misses']} != "
+                             f"sum of causes {total}")
+
+
+def shards_reconciled(rep: dict, where: str) -> None:
+    from pmdfc_tpu_torch.kv import MISS_CAUSE_NAMES
+
+    st = rep["stats"]
+    for i in range(rep["n_shards"]):
+        total = sum(int(st[k][i]) for k in MISS_CAUSE_NAMES)
+        if int(st["misses"][i]) != total:
+            raise AssertionError(f"{where}: shard {i} misses "
+                                 f"{st['misses'][i]} != causes {total}")
+
+
+def run_xray(sm, smi):
+    """Phase 14 (b): `tests/test_xray.py`'s acceptance soak on the card ->
+    its kernels entry."""
+    import io
+    import threading
+
+    import numpy as np
+
+    from pmdfc_tpu_torch.bench.tier_sweep import _zipf_stream
+    from pmdfc_tpu_torch.config import TelemetryConfig
+    from pmdfc_tpu_torch.kv import MISS_CAUSE_NAMES
+    from pmdfc_tpu_torch.runtime import telemetry, timeseries
+    from pmdfc_tpu_torch.runtime.failure import (ChaosProxy,
+                                                 ReconnectingClient)
+    from pmdfc_tpu_torch.runtime.net import TcpBackend
+    from pmdfc_tpu_torch.runtime.server import KVServer
+    from pmdfc_tpu_torch.tools import teletop
+    from tools.check_teledump import check
+
+    telemetry.configure(TelemetryConfig(enabled=True))
+    cap = XRAY_INDEX["capacity"]
+    pw = CHAOS_PAGE_WORDS
+    tier = dict(balloon_step=max(1, cap // 8), ghost_rows=max(1, cap // 16))
+    cfg = chaos_cfg(XRAY_INDEX, XRAY_BLOOM_BITS, pw, tier)
+    skv, srv = xray_plane(cfg, XRAY_SHARDS)
+    skv2, srv2 = xray_plane(dataclasses.replace(cfg, tier=None), 2)
+    rng = np.random.default_rng(sm.seed + 23)
+    space = rng.choice(1 << 30, size=XRAY_KEYS, replace=False).astype(
+        np.uint32)
+    verb = XRAY_VERB
+    # the kernel's first launch on every shard, chaos-free
+    with TcpBackend("127.0.0.1", srv.port, page_words=pw,
+                    keepalive_s=None, op_timeout_s=120.0) as w:
+        k = np.stack([np.full(verb, XRAY_HI, np.uint32), space[:verb]], -1)
+        w.get(k)
+    proxy = ChaosProxy("127.0.0.1", srv.port, seed=11, rates=XRAY_RATES)
+    cli = ReconnectingClient(
+        lambda: TcpBackend("127.0.0.1", proxy.port, page_words=pw,
+                           keepalive_s=None, op_timeout_s=5.0),
+        page_words=pw, retry_delay_s=0.01)
+    put_lo = set()
+    sm.fused.launches.clear()
+    t0 = time.monotonic()
+    hits = gets = 0
+    try:
+        zipf = _zipf_stream(rng, XRAY_KEYS, XRAY_STEPS * verb, XRAY_ZIPF)
+        for step in range(XRAY_STEPS):
+            lo = space[zipf[step * verb:(step + 1) * verb]]
+            keys = np.stack([np.full(verb, XRAY_HI, np.uint32), lo], -1)
+            want = pages_np(XRAY_HI, lo, pw)
+            if step % 3 == 0:
+                cli.put(keys, want)
+                put_lo.update(lo.tolist())
+            out, found = cli.get(keys)
+            found = np.asarray(found, bool)
+            hits, gets = hits + int(found.sum()), gets + verb
+            if wrong_pages(np.asarray(out), found, want):
+                raise AssertionError(f"xray: step {step}: a hit's page "
+                                     "differs from the key's page")
+            if step == XRAY_STEPS // 2 and not skv.balloon_shrink(cap):
+                raise AssertionError("xray: the balloon did not shrink")
+            if step % 5 == 0:
+                cli.invalidate(keys[:16])
+        t_soak = time.monotonic() - t0
+        launches = sm.fused.launches["fused_get_linear_tiered"]
+        if launches <= 0:
+            raise AssertionError("xray: the fused GET never launched")
+        with TcpBackend("127.0.0.1", srv2.port, page_words=pw,
+                        keepalive_s=None) as b2:
+            k2 = np.stack([np.full(verb, XRAY_HI, np.uint32),
+                           space[:verb]], -1)
+            b2.put(k2[:verb // 2], pages_np(XRAY_HI, space[:verb // 2], pw))
+            b2.get(k2)
+        s = skv.stats()
+        if not (s["gets"] > 0 and s["misses"] > 0):
+            raise AssertionError(f"xray: gets {s['gets']}, misses "
+                                 f"{s['misses']}")
+        reconciled(s, "xray ShardedKV.stats")
+        rep = skv.shard_report()
+        shards_reconciled(rep, "xray shard_report")
+        for k in ("misses", *MISS_CAUSE_NAMES):
+            if sum(rep["stats"][k]) != s[k]:
+                raise AssertionError(f"xray: shard rows of {k} sum to "
+                                     f"{sum(rep['stats'][k])}, not {s[k]}")
+        if s["miss_stale"] + s["miss_parked"] <= 0:
+            raise AssertionError(f"xray: the shrink left no stale or parked "
+                                 f"miss: {s}")
+        ksrv = KVServer(cfg, kv=skv)
+        reconciled(ksrv.health()["kv"], "xray KVServer.health")
+        ksrv.engine.close()
+        with TcpBackend("127.0.0.1", srv.port, page_words=pw,
+                        keepalive_s=None) as mon:
+            doc = mon.server_stats()
+        reconciled(doc, "xray MSG_STATS")
+        now = skv.stats()
+        for k in ("misses", *MISS_CAUSE_NAMES):
+            if int(doc[k]) != now[k]:
+                raise AssertionError(f"xray: the wire's {k} {doc[k]} != "
+                                     f"{now[k]}")
+        shards_reconciled(doc["shard_report"], "xray MSG_STATS shards")
+        errs = check(doc)
+        if errs:
+            raise AssertionError(f"xray: check_teledump: {errs[:5]}")
+        # the port has no compile time to pad the soak: with light GETs
+        # on the second server all the while, wait until the collector
+        # has closed a window that holds them (one window, 1 s, once the
+        # counters are armed), so teletop's one poll has a rate to read
+        done = threading.Event()
+
+        def light():
+            with TcpBackend("127.0.0.1", srv2.port, page_words=pw,
+                            keepalive_s=None) as b2:
+                while not done.is_set():
+                    b2.get(k2[:16])
+                    done.wait(0.02)
+
+        light_t = threading.Thread(target=light, name="xray-light")
+        light_t.start()
+        buf = io.StringIO()
+        stdout, sys.stdout = sys.stdout, buf
+        try:
+            ring = timeseries.ensure_collector().ring
+            deadline = time.monotonic() + 5 * COLLECTOR_WAIT_S
+            while time.monotonic() < deadline and not any(
+                    k.endswith(".ops") and v for w in ring.tail()[-1:]
+                    for k, v in w["counters"].items()):
+                time.sleep(0.05)
+            rc = teletop.main([f"127.0.0.1:{srv.port}",
+                               f"127.0.0.1:{srv2.port}", "--once", "--json",
+                               "--page-words", str(pw)])
+        finally:
+            sys.stdout = stdout
+            done.set()
+            light_t.join(30)
+        rows = json.loads(buf.getvalue())["servers"]
+        r0 = rows[0] if rows else {}
+        bad = [] if rc == 0 else [f"teletop exited {rc}"]
+        if len(rows) != 2 or not all(r["ok"] for r in rows):
+            bad.append(f"rows {rows}")
+        elif (not all(r["ops_rate"] for r in rows) or r0["p99_us"] is None
+              or not 0.0 <= r0["hit_rate"] <= 1.0
+              or not 0 < r0["working_set"] <= 4 * r0["capacity"]
+              or len(r0["shards"]) != XRAY_SHARDS
+              or len(rows[1]["shards"]) != 2
+              or r0["misses"] != sum(r0["miss_causes"].values())
+              or any(x["misses"] != sum(x["miss_causes"].values())
+                     for x in r0["shards"])):
+            bad.append(f"row {json.dumps(r0)[:600]}")
+        if bad or "teletop" not in teletop.render(rows):
+            raise AssertionError("xray: teletop --once --json: "
+                                 + "; ".join(bad))
+        chaos = {k: int(v) for k, v in proxy.stats.items()}
+    finally:
+        cli.close()
+        proxy.close()
+        srv.stop()
+        srv2.stop()
+    log("xray", f"zipf {XRAY_ZIPF} soak over {XRAY_SHARDS} shards x {cap} "
+        f"slots: {XRAY_STEPS} steps of {verb} keys in {t_soak:.1f} s, "
+        f"{hits} hits of {gets}, every hit byte-exact; misses == sum of "
+        f"causes on stats, {XRAY_SHARDS} shard rows, KVServer.health and "
+        f"MSG_STATS (stale {s['miss_stale']}, parked {s['miss_parked']}, "
+        f"cold {s['miss_cold']}, evicted {s['miss_evicted']}); "
+        f"check_teledump clean; teletop rows: ops_rate "
+        f"{r0['ops_rate']:.1f}/s (the last window, light GETs on the "
+        f"second server), p99 {r0['p99_us']:.0f} us, hit_rate "
+        f"{r0['hit_rate']:.3f}, per-shard gets "
+        f"{[x['gets'] for x in r0['shards']]}; chaos {chaos}; "
+        f"{launches} launches ({smi})")
+    # each shard is held to the keys the plane routes to it, as the soak's
+    # GETs reached it: another shard's keys would only miss its index
+    present = np.fromiter(put_lo, np.uint32, len(put_lo))
+    owner = skv.node_of(np.stack([np.full(len(present), XRAY_HI, np.uint32),
+                                  present], -1))
+    t = uncounted(sm.fused, lambda: plane_kernel(
+        sm, skv._st[0][0], present[owner == 0], pw, (verb,),
+        "xray shard 0 linear·tiered", smi, hi=XRAY_HI))
+    for i in range(1, XRAY_SHARDS):
+        uncounted(sm.fused, lambda i=i: plane_kernel(
+            sm, skv._st[i][0], present[owner == i], pw, (verb,),
+            f"xray shard {i} linear·tiered", smi, hi=XRAY_HI, timed=False))
+    del skv, skv2
+    free_card(sm.torch)
+    return plane_entry(sm, "xray-plane", launches, t[verb],
+                       "fused_get_linear_tiered")
+
+
+def drill_keys(n: int, seed: int):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lo = rng.choice(1 << 30, size=n, replace=False).astype(np.uint32)
+    return np.stack([np.full(n, DRILL_HI, np.uint32), lo], -1)
+
+
+def drill_pages(keys, pw: int):
+    return pages_np(keys[:, 0], keys[:, 1], pw)
+
+
+def drill_bisection(sm, kv, pw: int) -> str:
+    """Poison bisection on the card: 4 connections GET their own 2^11-key
+    batches in one fused flush, the first connection's keys poisoned at
+    the fault seam -> what held."""
+    import math
+    import threading
+
+    import numpy as np
+
+    from pmdfc_tpu_torch.client.backends import DirectBackend
+    from pmdfc_tpu_torch.config import NetConfig, TelemetryConfig
+    from pmdfc_tpu_torch.runtime import telemetry
+    from pmdfc_tpu_torch.runtime.failure import FaultPlan, FaultyBackend
+    from pmdfc_tpu_torch.runtime.net import NetServer, TcpBackend
+
+    telemetry.configure(TelemetryConfig(ring_capacity=1 << 15))
+    b, verb = 4, DRILL_VERB
+    plan = FaultPlan()
+    shared = FaultyBackend(DirectBackend(kv), plan)
+    srv = NetServer(lambda: shared, net=NetConfig(
+        flush_timeout_us=150_000, settle_us=40_000)).start()
+    try:
+        bes = [TcpBackend("127.0.0.1", srv.port, page_words=pw,
+                          keepalive_s=None, op_timeout_s=60.0)
+               for _ in range(b)]
+        pools = [drill_keys(verb, 50 + i) for i in range(b)]
+        for be, ks in zip(bes, pools):
+            be.put(ks, drill_pages(ks, pw))
+        plan.poison_keys(pools[0])
+        barrier = threading.Barrier(b)
+        errs, got = [], [None] * b
+
+        def worker(i):
+            try:
+                barrier.wait()
+                got[i] = bes[i].get(pools[i])
+            except Exception as e:  # noqa: BLE001 - reported below
+                errs.append((i, repr(e)))
+
+        n0 = launched(sm.fused)
+        ts = [threading.Thread(target=worker, args=(i,)) for i in range(b)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(120)
+        n_bisect = launched(sm.fused) - n0
+        st = srv.stats.snapshot()
+        fails = [f"an op raised through a NACK: {errs}"] if errs else []
+        if st["poison_ops"] != 1 or st["nacks_sent"] < 1 \
+                or st["bisect_failures"] > math.ceil(math.log2(b)):
+            fails.append(f"poison_ops {st['poison_ops']}, nacks "
+                         f"{st['nacks_sent']}, bisect_failures "
+                         f"{st['bisect_failures']}")
+        if got[0] is not None and np.asarray(got[0][1]).any():
+            fails.append("the culprit's GET reported hits")
+        for i in range(1, b):
+            if got[i] is None:
+                continue
+            out, found = np.asarray(got[i][0]), np.asarray(got[i][1], bool)
+            if not found.all() or wrong_pages(out, found,
+                                              drill_pages(pools[i], pw)):
+                fails.append(f"conn{i} lost or garbled its batch")
+        out, found = bes[0].get(pools[1])
+        if not np.asarray(found).all():
+            fails.append("the victim's connection was dropped")
+        bes[0].get(pools[0])  # the resubmit: refused at staging
+        st2 = srv.stats.snapshot()
+        if st2["poison_refused"] < 1 or st2["poison_ops"] != 1:
+            fails.append(f"resubmit: refused {st2['poison_refused']}, "
+                         f"poison_ops {st2['poison_ops']}")
+        # the fingerprint is seeded with the verb: a PUT of the culprit's
+        # keys is its own op (isolated, not refused), its resubmit is
+        bad = pools[0]
+        bes[0].put(bad, drill_pages(bad, pw))
+        st3 = srv.stats.snapshot()
+        bes[0].put(bad, drill_pages(bad, pw))
+        st4 = srv.stats.snapshot()
+        if st3["poison_ops"] != 2 \
+                or st3["poison_refused"] != st2["poison_refused"] \
+                or st4["poison_refused"] <= st3["poison_refused"]:
+            fails.append(f"verb-seeded fingerprint: poison_ops "
+                         f"{st3['poison_ops']}, refused "
+                         f"{st2['poison_refused']} -> "
+                         f"{st3['poison_refused']} -> "
+                         f"{st4['poison_refused']}")
+        if st2["serve_errors"]:
+            fails.append(f"serve_errors {st2['serve_errors']}")
+        for be in bes:
+            be.close()
+    finally:
+        srv.stop()
+    nacked = {r["src"] for r in telemetry.get().ring
+               if r.get("kind") == "span" and not r.get("ok", True)
+               and str(r.get("err", "")).startswith("nack:")
+               and "span" in r and "trace" in r}
+    if not {"client", "server"} <= nacked:
+        fails.append(f"NACKed ops closed failed v2 spans only on {nacked}")
+    if fails:
+        raise AssertionError("drill bisection: " + "; ".join(fails))
+    return (f"poison bisection over {b} connections x {verb} keys: 1 "
+            f"culprit NACKed, bisect_failures {st['bisect_failures']} <= "
+            f"{math.ceil(math.log2(b))}, {st['nacks_sent']} NACKs, no "
+            f"connection dropped, resubmit refused; {n_bisect} kernel "
+            f"launches in the bisected flush; a PUT of its keys isolated "
+            f"on its own and its resubmit refused; the NACKed ops' client "
+            f"and server spans closed failed")
+
+
+def drill_deadline(sm, kv, pw: int, present) -> str:
+    """A 1 ms budget against a 120 ms settle: the sweep sheds the staged
+    GETs before dispatch (no launch) into `miss_deadline`."""
+    import numpy as np
+
+    from pmdfc_tpu_torch.client.backends import DirectBackend
+    from pmdfc_tpu_torch.config import NetConfig
+    from pmdfc_tpu_torch.runtime.net import NetServer, TcpBackend
+
+    srv = NetServer(lambda: DirectBackend(kv), net=NetConfig(
+        flush_timeout_us=200_000, settle_us=120_000)).start()
+    try:
+        s0, n0 = kv.stats(), launched(sm.fused)
+        with TcpBackend("127.0.0.1", srv.port, page_words=pw,
+                        keepalive_s=None, deadline_ms=1.0) as be:
+            if not be.nack:
+                raise AssertionError("drill deadline: NACK not negotiated")
+            _, f1 = be.get(present)
+            _, f2 = be.get(present[:4])
+        n = launched(sm.fused) - n0
+        st, s = srv.stats.snapshot(), kv.stats()
+        # deadline_ms=0 (the default, an old peer's stamp) never sheds
+        fresh = drill_keys(len(present), 5)
+        with TcpBackend("127.0.0.1", srv.port, page_words=pw,
+                        keepalive_s=None) as be:
+            be.put(fresh, drill_pages(fresh, pw))
+            out, f0 = be.get(fresh)
+        f0 = np.asarray(f0, bool)
+        if not f0.all() or wrong_pages(np.asarray(out), f0,
+                                       drill_pages(fresh, pw)) \
+                or srv.stats.snapshot()["deadline_shed"] != st[
+                    "deadline_shed"]:
+            raise AssertionError("drill deadline: a GET without a deadline "
+                                 "was shed or served wrong")
+    finally:
+        srv.stop()
+    shed = s["miss_deadline"] - s0["miss_deadline"]
+    reconciled(s, "drill deadline KV.stats")
+    if np.asarray(f1).any() or np.asarray(f2).any() or n \
+            or st["deadline_shed"] < 1 or shed < len(present):
+        raise AssertionError(
+            f"drill deadline: hits {int(np.asarray(f1).sum())}, launches "
+            f"{n}, deadline_shed {st['deadline_shed']}, miss_deadline "
+            f"+{shed} of {len(present)}")
+    return (f"deadline: {len(present)} + 4 expired GET keys shed before "
+            f"dispatch ({st['deadline_shed']} ops, miss_deadline +{shed}, "
+            f"no kernel launch); deadline 0 served all {len(present)} "
+            f"fresh keys")
+
+
+def drill_quarantine(sm, pw: int) -> str:
+    """Plane shard quarantine on the card: a 4-shard plane, one shard
+    failed at the seam until its breaker trips, its rows miss as
+    `miss_quarantined` while the others serve, then healed and re-admitted
+    through the half-open probe with its keys intact."""
+    import numpy as np
+
+    from pmdfc_tpu_torch.config import ContainmentConfig
+    from pmdfc_tpu_torch.parallel.plane import make_serving_backend
+    from pmdfc_tpu_torch.parallel.shard import make_mesh
+    from pmdfc_tpu_torch.runtime.failure import FaultPlan, ShardFault
+
+    plan = FaultPlan()
+    cfg = chaos_cfg(DRILL_INDEX, 1 << 16, pw)
+    be = make_serving_backend(
+        cfg, mesh=make_mesh([DEVICE] * 4),
+        containment=ContainmentConfig(quarantine_failures=2,
+                                      quarantine_cooldown_s=0.05,
+                                      quarantine_max_cooldown_s=0.2),
+        fault_plan=plan)
+    skv = be.skv
+    pool = drill_keys(DRILL_VERB, 7)
+    be.put(pool, drill_pages(pool, pw))
+    _, res = be.get(pool)
+    pool = pool[np.asarray(res, bool)]
+    node = skv.node_of(pool)
+    k = int(np.bincount(node, minlength=4).argmax())
+    on_k = pool[node == k]
+    plan.fail_shard(k)
+    for _ in range(8):
+        try:
+            be.get(pool[:256])
+        except ShardFault:
+            pass
+        if be.quarantine.quarantined():
+            break
+    if be.quarantine.quarantined() != [k]:
+        raise AssertionError(f"drill quarantine: quarantined "
+                             f"{be.quarantine.quarantined()}, not [{k}]")
+    out, found = be.get(pool)
+    f = np.asarray(found, bool)
+    st = skv.stats()
+    rep = skv.shard_report()
+    reconciled(st, "drill quarantine stats")
+    shards_reconciled(rep, "drill quarantine shard_report")
+    if f[node == k].any() or not f[node != k].all() \
+            or wrong_pages(np.asarray(out), f, drill_pages(pool, pw)) \
+            or st["miss_quarantined"] < int((node == k).sum()) \
+            or rep["stats"]["miss_quarantined"][k] <= 0:
+        raise AssertionError(f"drill quarantine: sick rows hit "
+                             f"{int(f[node == k].sum())}, healthy missed "
+                             f"{int((~f[node != k]).sum())}, "
+                             f"miss_quarantined {st['miss_quarantined']}")
+    plan.heal_shard(k)
+    deadline = time.monotonic() + 10.0
+    while be.quarantine.quarantined() and time.monotonic() < deadline:
+        time.sleep(0.02)
+        try:
+            be.get(on_k[:16])
+        except ShardFault:
+            pass
+    out, found = be.get(on_k)
+    found = np.asarray(found, bool)
+    if be.quarantine.quarantined() or not found.all() \
+            or wrong_pages(np.asarray(out), found, drill_pages(on_k, pw)):
+        raise AssertionError("drill quarantine: the healed shard was not "
+                             "re-admitted with its keys")
+    reconciled(skv.stats(), "drill quarantine after re-admission")
+    readmits = be.quarantine.report()["stats"]["readmits"]
+    del be, skv
+    free_card(sm.torch)
+    return (f"plane quarantine: shard {k} tripped, {int((node == k).sum())}"
+            f" rows miss_quarantined, the other shards served byte-exact, "
+            f"shard rows reconciled, re-admitted ({readmits}) with its "
+            f"{len(on_k)} keys intact")
+
+
+def drill_qos(sm, kv, pw: int) -> str:
+    """The QoS wire shed drill: a tenant whose 2^11-page verbs exceed its
+    bucket's burst sheds at the edge; every shed lands in `miss_shed` on
+    the KV and the wire document, the untagged tenant is untouched."""
+    import numpy as np
+
+    from pmdfc_tpu_torch.client.backends import DirectBackend
+    from pmdfc_tpu_torch.config import NetConfig, QosConfig, TenantConfig
+    from pmdfc_tpu_torch.runtime import qos
+    from pmdfc_tpu_torch.runtime.net import NetServer, TcpBackend
+    from tools.check_teledump import check
+
+    verb = DRILL_VERB
+    qcfg = QosConfig(tenant_bits=4, tenants=(
+        TenantConfig(tid=2, rate_ops_per_s=1.0, burst_ops=4),))
+    s0 = kv.stats()
+    srv = NetServer(lambda: DirectBackend(kv), net=NetConfig(),
+                    qos=qcfg).start()
+    try:
+        with TcpBackend("127.0.0.1", srv.port, page_words=pw,
+                        keepalive_s=None) as be:
+            good = drill_keys(verb, 1)
+            be.put(good, drill_pages(good, pw))
+            out, found = be.get(good)
+            ok = bool(np.asarray(found).all()) and not wrong_pages(
+                np.asarray(out), np.asarray(found, bool),
+                drill_pages(good, pw))
+            bad = drill_keys(3 * verb, 2)
+            bad[:, 0] = qos.tag_oids(bad[:, 0], 2, 4)
+            be.put(bad[:verb], drill_pages(bad[:verb], pw))
+            shed_hits = 0
+            for i in range(3):
+                _, found = be.get(bad[i * verb:(i + 1) * verb])
+                shed_hits += int(np.asarray(found).sum())
+            doc = be.server_stats()
+        sc = dict(srv.qos_plane().scope(2))
+        edge0 = dict(srv.qos_plane().scope(0))["shed_edge"]
+    finally:
+        srv.stop()
+    s = kv.stats()
+    shed = s["miss_shed"] - s0["miss_shed"]
+    reconciled(s, "drill qos KV.stats")
+    reconciled(doc, "drill qos MSG_STATS")
+    errs = check(doc)
+    if not ok or shed_hits or shed != 3 * verb \
+            or s["drops"] - s0["drops"] < verb \
+            or int(doc["miss_shed"]) - s0["miss_shed"] != 3 * verb \
+            or (sc["ops"], sc["shed_edge"], sc["staged"], sc["shed_ladder"],
+                sc["shed_gets"], sc["shed_puts"]) != (4, 4, 0, 0, 3, 1) \
+            or edge0 or errs:
+        raise AssertionError(f"drill qos: compliant served {ok}, shed hits "
+                             f"{shed_hits}, miss_shed +{shed}, lanes {sc}, "
+                             f"default edge sheds {edge0}, {errs[:3]}")
+    return (f"qos: 4 verbs of tenant 2 ({verb} pages each, burst 4) shed at "
+            f"the edge, miss_shed +{shed} on KV.stats and MSG_STATS, the "
+            f"untagged tenant served whole, teledump clean")
+
+
+class env_set:
+    """`os.environ[name] = value` inside the block, restored after."""
+
+    def __init__(self, name: str, value: str):
+        self.name, self.value = name, value
+
+    def __enter__(self):
+        self.old = os.environ.get(self.name)
+        os.environ[self.name] = self.value
+
+    def __exit__(self, *exc):
+        if self.old is None:
+            os.environ.pop(self.name, None)
+        else:
+            os.environ[self.name] = self.old
+
+
+def drill_negotiation(sm, kv, pw: int) -> str:
+    """`MSG_NACK` negotiation and its kill switches (either side's
+    `PMDFC_CONTAINMENT=off` withholds it), and an unnegotiated peer's
+    contract: its poisoned op drops the connection, nothing is a NACK,
+    the server serves a fresh one."""
+    import numpy as np
+
+    from pmdfc_tpu_torch.client.backends import DirectBackend
+    from pmdfc_tpu_torch.config import NetConfig
+    from pmdfc_tpu_torch.runtime.failure import FaultPlan, FaultyBackend
+    from pmdfc_tpu_torch.runtime.net import NetServer, TcpBackend
+
+    plan = FaultPlan()
+    shared = FaultyBackend(DirectBackend(kv), plan)
+
+    def server():
+        return NetServer(lambda: shared, net=NetConfig(
+            flush_timeout_us=150_000, settle_us=40_000)).start()
+
+    def tcp(srv, **kw):
+        return TcpBackend("127.0.0.1", srv.port, page_words=pw,
+                          keepalive_s=None, **kw)
+
+    srv = server()
+    with env_set("PMDFC_CONTAINMENT", "off"):
+        srv_off = server()
+    try:
+        with tcp(srv) as be:
+            on = be.nack
+        with env_set("PMDFC_CONTAINMENT", "off"):
+            with tcp(srv) as be:
+                client_off = be.nack
+        with tcp(srv_off) as be:
+            server_off = be.nack
+        if not on or client_off or server_off:
+            raise AssertionError(f"drill negotiation: nack {on}, client off "
+                                 f"{client_off}, server off {server_off}")
+        bad = drill_keys(DRILL_VERB, 70)
+        plan.poison_keys(bad)
+        dropped = False
+        with env_set("PMDFC_CONTAINMENT", "off"):
+            be = tcp(srv, op_timeout_s=30.0)
+            try:
+                be.put(bad, drill_pages(bad, pw))
+                be.get(bad)  # the drop may land on the next roundtrip
+            except (ConnectionError, OSError):
+                dropped = True
+            be.close()
+        ks = drill_keys(DRILL_VERB, 71)
+        with tcp(srv) as be:
+            be.put(ks, drill_pages(ks, pw))
+            out, found = be.get(ks)
+        found = np.asarray(found, bool)
+        if not dropped or not found.all() or wrong_pages(
+                np.asarray(out), found, drill_pages(ks, pw)):
+            raise AssertionError(f"drill negotiation: unnegotiated peer "
+                                 f"dropped {dropped}, the server then "
+                                 f"served {int(found.sum())} of {len(ks)}")
+    finally:
+        srv.stop()
+        srv_off.stop()
+    return ("NACK negotiated by default and withheld by either side's "
+            "PMDFC_CONTAINMENT=off; an unnegotiated peer's poisoned op "
+            "dropped its connection and the server served a fresh one")
+
+
+def drill_plane_off(sm, pw: int) -> str:
+    """`PMDFC_CONTAINMENT=off` on the plane: no quarantine, verbs served
+    as before, a shard failure raised as it comes."""
+    import numpy as np
+
+    from pmdfc_tpu_torch.parallel.plane import make_serving_backend
+    from pmdfc_tpu_torch.parallel.shard import make_mesh
+    from pmdfc_tpu_torch.runtime.failure import FaultPlan, ShardFault
+
+    plan = FaultPlan()
+    with env_set("PMDFC_CONTAINMENT", "off"):
+        be = make_serving_backend(chaos_cfg(DRILL_INDEX, 1 << 16, pw),
+                                  mesh=make_mesh([DEVICE] * 4),
+                                  fault_plan=plan)
+    pool = drill_keys(DRILL_VERB, 9)
+    be.put(pool, drill_pages(pool, pw))
+    out, found = be.get(pool)
+    f = np.asarray(found, bool)
+    raised = False
+    plan.fail_shard(0)
+    try:
+        for _ in range(4):
+            be.get(pool)
+    except ShardFault:
+        raised = True
+    st = be.skv.stats()
+    if be.quarantine is not None or not f.any() or wrong_pages(
+            np.asarray(out), f, drill_pages(pool, pw)) or not raised \
+            or st["miss_quarantined"] or st["miss_deadline"]:
+        raise AssertionError(f"drill plane off: quarantine "
+                             f"{be.quarantine}, raised {raised}, {st}")
+    del be
+    free_card(sm.torch)
+    return ("plane with PMDFC_CONTAINMENT=off: no quarantine, "
+            f"{int(f.sum())} hits byte-exact, the shard fault raised raw, "
+            "nothing attributed to miss_quarantined or miss_deadline")
+
+
+def drill_qos_off(sm, kv, pw: int) -> str:
+    """`PMDFC_QOS=off`: a server built with a QosConfig carries no plane
+    and no tenant scope and serves the throttled tenant whole; the client
+    edge stops tagging."""
+    import numpy as np
+
+    from pmdfc_tpu_torch.client.backends import DirectBackend, LocalBackend
+    from pmdfc_tpu_torch.client.cleancache import CleanCacheClient
+    from pmdfc_tpu_torch.config import (NetConfig, QosConfig,
+                                        TelemetryConfig, TenantConfig)
+    from pmdfc_tpu_torch.runtime import qos, telemetry
+    from pmdfc_tpu_torch.runtime.net import NetServer, TcpBackend
+
+    # a fresh registry: the QoS drill's tenant scopes stay in the last one
+    telemetry.configure(TelemetryConfig(enabled=True))
+    qcfg = QosConfig(tenant_bits=4, tenants=(
+        TenantConfig(tid=2, rate_ops_per_s=1.0, burst_ops=1),))
+    with env_set("PMDFC_QOS", "off"):
+        srv = NetServer(lambda: DirectBackend(kv), net=NetConfig(),
+                        qos=qcfg).start()
+        try:
+            keys = drill_keys(DRILL_VERB, 4)
+            keys[:, 0] = qos.tag_oids(keys[:, 0], 2, 4)
+            with TcpBackend("127.0.0.1", srv.port, page_words=pw,
+                            keepalive_s=None) as be:
+                be.put(keys, drill_pages(keys, pw))
+                out, found = be.get(keys)
+                doc = be.server_stats()
+            plane = srv._qos
+        finally:
+            srv.stop()
+        cc = CleanCacheClient(LocalBackend(page_words=pw, capacity=1 << 10),
+                              tenant=5, tenant_bits=4)
+        oids = np.array([1, 2, 3], np.uint32)
+        untagged = np.array_equal(cc._tag(oids), oids)
+    found = np.asarray(found, bool)
+    snap = doc.get("telemetry") or {}
+    scopes = [k for sect in ("counters", "gauges")
+              for k in (snap.get(sect) or {}) if ".qos.t" in k]
+    if plane is not None or not found.all() or wrong_pages(
+            np.asarray(out), found, drill_pages(keys, pw)) or scopes \
+            or not untagged:
+        raise AssertionError(f"drill qos off: plane {plane}, served "
+                             f"{int(found.sum())}, scopes {scopes[:3]}, "
+                             f"client untagged {untagged}")
+    return (f"PMDFC_QOS=off: no plane, no tenant scope, the throttled "
+            f"tenant's {len(keys)} pages served whole, the client untagged")
+
+
+def drill_storm(sm, kv, pw: int) -> str:
+    """An unnegotiated client against a server whose every phase fails
+    drops and redials; once the server is gone its dials are spaced by
+    backoff, not one per degraded op."""
+    import numpy as np
+
+    from pmdfc_tpu_torch.client.backends import DirectBackend
+    from pmdfc_tpu_torch.config import NetConfig
+    from pmdfc_tpu_torch.runtime.failure import (FaultPlan, FaultyBackend,
+                                                 ReconnectingClient)
+    from pmdfc_tpu_torch.runtime.net import NetServer, TcpBackend
+
+    plan = FaultPlan()
+    shared = FaultyBackend(DirectBackend(kv), plan)
+    keys = drill_keys(DRILL_VERB, 31)
+    plan.poison_keys(keys)
+    with env_set("PMDFC_CONTAINMENT", "off"):
+        srv = NetServer(lambda: shared, net=NetConfig(
+            flush_timeout_us=20_000, settle_us=2_000)).start()
+        rc = ReconnectingClient(
+            lambda: TcpBackend("127.0.0.1", srv.port, page_words=pw,
+                               keepalive_s=None, op_timeout_s=30.0),
+            page_words=pw, retry_delay_s=0.02, max_retry_delay_s=0.3,
+            backoff=2.0, seed=31)
+        hits = 0
+        try:
+            for _ in range(3):
+                hits += int(np.asarray(rc.get(keys)[1]).sum())
+                deadline = time.monotonic() + 0.25
+                while not rc.connected and time.monotonic() < deadline:
+                    rc.get(keys[:1])
+                    time.sleep(0.01)
+            disconnects = rc.stats()["disconnects"]
+        finally:
+            srv.stop()
+        rc.get(keys)
+        b0 = rc.stats()["reconnect_backoffs"]
+        t_end = time.monotonic() + 0.7
+        ops = 0
+        while time.monotonic() < t_end:
+            hits += int(np.asarray(rc.get(keys)[1]).sum())
+            ops += 1
+        attempts = rc.stats()["reconnect_backoffs"] - b0
+        rc.close()
+    if hits or disconnects < 3 or ops <= 50 or not 2 <= attempts <= 10:
+        raise AssertionError(f"drill storm: hits {hits}, disconnects "
+                             f"{disconnects}, {ops} degraded ops, "
+                             f"{attempts} dials in 0.7 s")
+    return (f"reconnect storm: {disconnects} dropped connections, then "
+            f"{ops} degraded ops against the dead server cost {attempts} "
+            f"dials in 0.7 s")
+
+
+def run_drills(sm, smi) -> None:
+    """Phase 14 (c): the wire drills on a 2^16-slot KV on the card (each
+    the card's counterpart of a JAX drill marked `slow`)."""
+    pw = CHAOS_PAGE_WORDS
+    kv = sm.kv_mod.KV(chaos_cfg(DRILL_INDEX, 1 << 16, pw), device=sm.dev)
+    present = drill_keys(DRILL_VERB, 3)
+    kv.insert(present, drill_pages(present, pw))
+    for drill in (lambda: drill_bisection(sm, kv, pw),
+                  lambda: drill_negotiation(sm, kv, pw),
+                  lambda: drill_deadline(sm, kv, pw, present),
+                  lambda: drill_quarantine(sm, pw),
+                  lambda: drill_plane_off(sm, pw),
+                  lambda: drill_qos(sm, kv, pw),
+                  lambda: drill_qos_off(sm, kv, pw),
+                  lambda: drill_storm(sm, kv, pw)):
+        log("drill", f"{drill()} ({smi})")
+    del kv
+    free_card(sm.torch)
+
+
+def chaos_dir():
+    """Where phase 14 writes its snapshots (git-ignored, on the checkout's
+    disk); removed at the end of the phase."""
+    from pathlib import Path
+
+    return Path(__file__).resolve().parent / "build" / "chaos"
+
+
+def run_chaos(sm):
+    """Phase 14, in this process: (a), (b) and (c) -> the kernel entries
+    of its two GET paths."""
+    import shutil
+
+    t_phase = time.monotonic()
+    smi = nvidia_smi()
+    root = chaos_dir()
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    try:
+        t0 = time.monotonic()
+        chaos, _ = run_chaos_soaks(sm, str(root), smi)
+        t_a = time.monotonic() - t0
+        xray = run_xray(sm, smi)
+        t_b = time.monotonic() - t0 - t_a
+        run_drills(sm, smi)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    t_all = time.monotonic() - t_phase
+    log("chaos", f"phase 14 took {t_all:.1f} s: (a) {t_a:.1f} s, (b) "
+        f"{t_b:.1f} s, (c) {t_all - t_a - t_b:.1f} s")
+    return [chaos, xray]
+
+
+def chaos_subprocess(seed: int):
+    """`run_chaos` in a child process of this script (`--chaos`) -> (its
+    kernel entries, its log lines, seconds). A child that fails fails
+    the phase."""
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--chaos", "--seed",
+         str(seed)], capture_output=True, text=True,
+        timeout=CHAOS_TIMEOUT_S)
+    entries, lines = None, []
+    for line in proc.stdout.splitlines():
+        if line.startswith("CHAOS "):
+            entries = json.loads(line[len("CHAOS "):])
+        else:
+            lines.append(line)
+    if proc.returncode != 0 or entries is None:
+        raise AssertionError(f"chaos child exited {proc.returncode}: "
+                             f"{proc.stdout[-2000:]} {proc.stderr[-3000:]}")
+    return entries, lines, time.monotonic() - t0
+
+
+def collect_chaos(lanes: "Lanes"):
+    """Phase 14's child, queued in `lanes` at phase 12's start: its lines
+    echoed, its kernel entries returned."""
+    (entries, lines, secs), = lanes.rows("chaos")
+    for line in lines:
+        print(line, flush=True)
+    log("chaos", f"phase 14's child took {secs:.1f} s (in the lanes)")
+    return entries
+
+
 T0 = time.monotonic()  # the smoke's start: phase times are logged from it
 
 
@@ -5931,6 +7131,9 @@ def main() -> int:
     ap.add_argument("--row-kv", action="store_true",
                     help="run only the row-path KV of phase 11 (the child "
                          "process phase 11 starts with PMDFC_INSERT_PATH=row)")
+    ap.add_argument("--chaos", action="store_true",
+                    help="run only phase 14 (the child process the whole "
+                         "smoke starts in its lanes)")
     args = ap.parse_args()
 
     import torch
@@ -5946,6 +7149,11 @@ def main() -> int:
         _build.load("fused_get")
         print("ROWKV " + json.dumps(run_row_kv(Smoke(args.seed))),
               flush=True)
+        return 0
+    if args.chaos:
+        _build.load("fused_get")
+        _build.load_host("runtime")
+        print("CHAOS " + json.dumps(run_chaos(Smoke(args.seed))), flush=True)
         return 0
 
     # 1. env
@@ -6009,8 +7217,10 @@ def main() -> int:
                 ("wire", run_wire), ("fleet", run_fleet),
                 ("plane", run_plane), ("control", run_control),
                 ("scale", lambda sm: run_scale(
-                    sm, lanes.queue("scale").queue("tail"))),
-                ("tail", lambda sm: run_tail(sm, lanes))):
+                    sm, lanes.queue("chaos", args.seed).queue("scale")
+                    .queue("tail"))),
+                ("tail", lambda sm: run_tail(sm, lanes)),
+                ("chaos", lambda sm: collect_chaos(lanes))):
             t0 = time.monotonic()
             entry = run(sm)
             log("smoke", f"{label} took {time.monotonic() - t0:.1f} s, "
@@ -6019,7 +7229,7 @@ def main() -> int:
             # it got in the end of its errors
             print(f"[smoke] {label} done at {time.monotonic() - T0:.1f} s",
                   file=sys.stderr, flush=True)
-            if isinstance(entry, list):  # plane, control, scale, tail
+            if isinstance(entry, list):  # plane .. chaos
                 kernels.extend(entry)
             elif entry is not None:  # the families launch no kernel
                 kernels.append(entry)

@@ -945,7 +945,7 @@ class KV:
 
         # guarded-by: state, _gets_since_decay, _batches_since_touch,
         # guarded-by: dir_epoch, _mut_seq, _fastview, _host_stats,
-        # guarded-by: _recovering, _recover_t0
+        # guarded-by: _recovering, _recover_t0, _fused
         self._lock = san.rlock("KV._lock")
         # bounded-RPO durability (`runtime/journal.py`, duck-typed): when
         # attached, every mutation appends its record before the device
@@ -956,6 +956,9 @@ class KV:
         self._chain: dict | None = None
         self._batches_since_touch = 0
         self._gets_since_decay = 0
+        # the fused/composed GET decision (`ops/fused.py resolve`), made
+        # at the first GET and published as the `serving.fused_get` gauge
+        self._fused: bool | None = None
         # warm-restart serving state: GET misses that would read
         # `miss_cold` land in `miss_recovering` until `mark_recovered()`
         self._recovering = False
@@ -1041,6 +1044,7 @@ class KV:
                 for f, x in res._asdict().items()}),
             n_ops=b, ring=True, events=self.take_launch())
 
+    # caller-holds: _lock
     def _touch_due(self) -> bool:
         """Sampled hotness accounting: one GET batch in
         `touch_sample_every` pays the counting path (an index's access
@@ -1057,6 +1061,7 @@ class KV:
             return True
         return False
 
+    # caller-holds: _lock
     def _maybe_decay(self, gets: int) -> None:
         """Periodic heat drain of an index that counts accesses (hotring):
         `ops.decay` once every `decay_every_gets` keys asked for (each
@@ -1089,11 +1094,19 @@ class KV:
             n_ops=b, ring=True, events=self.take_launch())
 
     # caller-holds: _lock
+    def _fused_on(self) -> bool:
+        """Whether this instance's GETs take the fused route, resolved
+        once (`fused_ops.resolve`, which publishes it)."""
+        if self._fused is None:
+            self._fused = fused_ops.resolve(self.config)
+        return self._fused
+
+    # caller-holds: _lock
     def _cost_get(self, program: str, w: int) -> None:
         """The profiler's cost gauges at the first (GET program, width):
         the fused kernel's bytes with every key a hit; the composed GET
         has no byte count and sets none."""
-        if fused_ops.supports(self.config):
+        if self._fused_on():
             self._prof.cost_probe(
                 program, w, lambda: fused_ops.hit_bytes(self.state, w))
 

@@ -34,7 +34,7 @@ CXX_FLAGS = ["-O2", "-std=c++17", "-fPIC", "-Wall", "-Wextra", "-pthread",
              "-shared"]
 
 _LOADED: dict[str, ctypes.CDLL] = {}
-_LOCK = threading.Lock()
+_LOCK = threading.Lock()  # guarded-by: _LOADED
 # name -> (seconds, the compiler's output, incl. nvcc's -Xptxas -v) of the
 # builds this process ran
 BUILD_LOG: dict[str, tuple[float, str]] = {}

@@ -78,6 +78,21 @@ def supports(config: KVConfig) -> bool:
     return not (pw & (pw - 1) or pw % 4 or nb & (nb - 1))
 
 
+def resolve(config: KVConfig) -> bool:
+    """Whether the GET of this config takes the fused route (`supports`),
+    published as the `serving.fused_get` gauge (0|1) as the JAX package
+    publishes its decision, so observers (teletop's kernel-path
+    indicator, teledumps) can tell which GET a server runs: 1 is the
+    fused route (the CUDA kernel on the card, its plain version on the
+    CPU), 0 the composed `kv._get_core`."""
+    from pmdfc_tpu_torch.runtime import telemetry as tele
+
+    fused = supports(config)
+    tele.get().scope("serving", unique=False).gauge("fused_get").set(
+        1 if fused else 0)
+    return fused
+
+
 def fused_get_bytes(causes, w: int, s: int, pw: int, sketch_bytes: int,
                     dir_bytes: int = 0, cold_rows: int = 0) -> int:
     """Least bytes one fused GET must move for a batch of `w` keys with

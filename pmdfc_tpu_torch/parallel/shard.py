@@ -925,6 +925,9 @@ class ShardedKV:
                 "pool yet — run the tier on a 1-D mesh (host ReplicaGroup "
                 "replication) or drop tier= from the KVConfig")
         self.dispatch = dispatch
+        # the fused/composed GET decision, made at the first GET as
+        # `kv.KV._fused_on` makes it
+        self._fused: bool | None = None
         self._batches_since_touch = 0
         # the exchange and the shards this process holds: every shard on
         # one process, or this process's own on a multi-process grid
@@ -977,7 +980,7 @@ class ShardedKV:
         # (stats, save, the fast lane): the state is updated in place
         # guarded-by: _st, _lrfu, _freq, _lrfu_tick,
         # guarded-by: _batches_since_touch, _plane_stats, _lane_stats,
-        # guarded-by: dir_epoch, _mut_seq, _fastview, _chain
+        # guarded-by: dir_epoch, _mut_seq, _fastview, _chain, _fused
         self._lock = san.rlock("ShardedKV._lock")
         # one-sided fast-path surface (same contract as kv.KV)
         self.dir_epoch = int.from_bytes(os.urandom(4), "little") | 1
@@ -1045,6 +1048,14 @@ class ShardedKV:
             self._batches_since_touch = 0
             return True
         return False
+
+    # caller-holds: _lock
+    def _fused_on(self) -> bool:
+        """Whether the plane's GETs take the fused route, resolved once
+        (`fused_ops.resolve`, which publishes it)."""
+        if self._fused is None:
+            self._fused = kv_mod.fused_ops.resolve(self.config)
+        return self._fused
 
     def _pad(self, keys: np.ndarray, values: np.ndarray | None = None):
         """Pad to a power-of-two width >= 16, rounded up to a multiple of
@@ -1221,6 +1232,7 @@ class ShardedKV:
         with self._lock:
             self._lrfu_touch(keys)
             keys, _, b, w = self._pad(keys)
+            self._fused_on()
             lean = not self._touch_due()
             out, found = [self._get_lane(r, keys, w, lean)
                           for r in range(self.n_replicas)][0]
@@ -1404,7 +1416,7 @@ class ShardedKV:
     def _plane_get(self, rb: pt.RoutedBatch, counting: bool) -> PlaneHandle:
         outs, founds, deltas, lanes = [], [], [], []
         nrep = self.n_replicas
-        if kv_mod.fused_ops.supports(self.config):
+        if self._fused_on():
             # the bytes of a shard this process holds (shard 0 may not be)
             profiler.cost_probe(
                 "plane.get", rb.wl,

@@ -71,7 +71,7 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 
 _lib = None
-_lib_lock = threading.Lock()
+_lib_lock = threading.Lock()  # guarded-by: _lib
 
 
 def get_lib() -> ctypes.CDLL:

@@ -99,11 +99,17 @@ HIERARCHY = {
     "_BaseServer._lock": 50,
     "_ConnState.out_cv": 55,
     # device serving tier
+    # one bloom push cycle (port only): takes _bf_lock and, through
+    # packed_bloom, KV._lock while held
+    "KVServer._bf_push_lock": 58,
     "KVServer._bf_lock": 60,
     "KV._lock": 65,
     "ShardedKV._lock": 65,
     "Engine._call_lock": 70,
     "Engine._slice_lock": 72,
+    # the engine library's first load (port only): held across the g++
+    # build, takes nothing ranked
+    "engine._lib_lock": 75,
     # leaf bookkeeping (never calls out while held)
     "FaultInjector._lock": 80,
     "ChaosProxy._lock": 80,

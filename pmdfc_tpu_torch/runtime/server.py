@@ -130,8 +130,10 @@ class KVServer:
         # guarded-by: _bf_clients, _bf_last_sent
         self._bf_lock = san.lock("KVServer._bf_lock")
         # one push cycle at a time (the sender thread and push_bloom_now
-        # callers): guards bf_push_stats and the delta baselines
-        self._bf_push_lock = threading.Lock()
+        # callers): ranked outside _bf_lock and KV._lock, both taken
+        # while it is held
+        # guarded-by: bf_push_stats
+        self._bf_push_lock = san.lock("KVServer._bf_push_lock")
         self._bf_thread: threading.Thread | None = None
         self.bf_push_stats = {"cycles": 0, "full_pushes": 0,
                               "delta_pushes": 0, "blocks_pushed": 0,

@@ -20,6 +20,7 @@ import threading
 import types
 
 import pytest
+import torch_threads  # noqa: F401 (one torch thread a worker)
 
 import pmdfc_tpu.client.backends as jbackends
 import pmdfc_tpu.client.replica as jreplica

@@ -10,6 +10,7 @@ import subprocess
 import sys
 
 import pytest
+import torch_threads  # noqa: F401 (one torch thread a worker)
 
 pytestmark = pytest.mark.torch
 

@@ -18,6 +18,7 @@ AUCs, t90 steps, replayed pages and `miss_recovering` (gated > 0), and
 from __future__ import annotations
 
 import pytest
+import torch_threads  # noqa: F401 (one torch thread a worker)
 
 from test_torch_bench_sweeps import _jax_main, _json_objects
 

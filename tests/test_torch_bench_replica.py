@@ -17,6 +17,7 @@ breaker opening. Exempt as timing: `fault_hit_rate`, `hit_rate_ratio`,
 from __future__ import annotations
 
 import pytest
+import torch_threads  # noqa: F401 (one torch thread a worker)
 
 from test_torch_bench_sweeps import _jax_main, _json_objects
 

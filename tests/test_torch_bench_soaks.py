@@ -16,6 +16,7 @@ arms' verb counts, denials, lane counters and `miss_shed`.
 from __future__ import annotations
 
 import pytest
+import torch_threads  # noqa: F401 (one torch thread a worker)
 
 from test_torch_bench_sweeps import _jax_main, _json_objects
 

@@ -27,6 +27,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401 (one torch thread a worker)
 
 from pmdfc_tpu.bench import fill_sweep as jfs
 from pmdfc_tpu.bench import fused_get as jfg

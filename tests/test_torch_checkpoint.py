@@ -31,6 +31,7 @@ import zipfile
 import jax
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401 (one torch thread a worker)
 
 from pmdfc_tpu import checkpoint as jck
 from pmdfc_tpu import kv as jkv

@@ -21,6 +21,7 @@ import time
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401 (one torch thread a worker)
 import torch
 
 from pmdfc_tpu.client import cleancache as jcc

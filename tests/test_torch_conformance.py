@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401 (one torch thread a worker)
 import torch
 
 from pmdfc_tpu_torch import kv as tkv

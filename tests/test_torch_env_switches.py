@@ -19,6 +19,7 @@ from __future__ import annotations
 import jax
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401 (one torch thread a worker)
 
 from pmdfc_tpu import checkpoint as jckpt
 from pmdfc_tpu import tier as jtier

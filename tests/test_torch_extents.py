@@ -19,6 +19,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401 (one torch thread a worker)
 
 from pmdfc_tpu import kv as jkv
 from pmdfc_tpu.config import IndexConfig as JIndexConfig

@@ -27,6 +27,7 @@ import types
 
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401 (one torch thread a worker)
 
 import pmdfc_tpu.client.backends as jbackends
 import pmdfc_tpu.config as jconfig

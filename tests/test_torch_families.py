@@ -27,6 +27,7 @@ import dataclasses
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401 (one torch thread a worker)
 import torch
 
 from pmdfc_tpu.config import IndexConfig as JIndexConfig

@@ -13,6 +13,7 @@ from __future__ import annotations
 import json
 
 import pytest
+import torch_threads  # noqa: F401 (one torch thread a worker)
 
 from pmdfc_tpu_torch.bench import common
 

@@ -16,6 +16,7 @@ import sys
 from pathlib import Path
 
 import pytest
+import torch_threads  # noqa: F401 (one torch thread a worker)
 
 pytestmark = pytest.mark.torch
 

@@ -26,6 +26,7 @@ import shutil
 import jax
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401 (one torch thread a worker)
 import torch
 
 from pmdfc_tpu import checkpoint as jck

@@ -3,6 +3,7 @@ the tiered pool, and of HotRing over the flat pool, against the JAX `KV`
 (`run_case` in `test_torch_kv_family_paths.py`)."""
 
 import pytest
+import torch_threads  # noqa: F401 (one torch thread a worker)
 
 from test_torch_kv_family_paths import run_case
 

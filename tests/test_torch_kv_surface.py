@@ -24,6 +24,7 @@ import threading
 import jax
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401 (one torch thread a worker)
 
 from pmdfc_tpu import kv as jkv
 from pmdfc_tpu.config import BloomConfig as JBloomConfig

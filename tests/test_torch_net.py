@@ -18,17 +18,20 @@ by one package loaded by the other.
 
 from __future__ import annotations
 
+import contextlib
 import socket
 import types
 
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401 (one torch thread a worker)
 
 import pmdfc_tpu.client.backends as jbackends
 import pmdfc_tpu.config as jconfig
 import pmdfc_tpu.kv as jkv
 import pmdfc_tpu.onesided as jonesided
 import pmdfc_tpu.runtime.net as jnet
+import pmdfc_tpu.runtime.telemetry as jtele
 import pmdfc_tpu_torch.client.backends as tbackends
 import pmdfc_tpu_torch.config as tconfig
 import pmdfc_tpu_torch.kv as tkv
@@ -285,8 +288,28 @@ def _pool_script(pkg, pool):
     return out
 
 
+@contextlib.contextmanager
+def _fresh_jax_registry():
+    """The JAX side under a fresh telemetry registry, and the registry
+    found before put back after: the JAX `PoolServer`'s `poolN` scope
+    must not stay behind for a later JAX test of the same worker that
+    reads the registry's pool gauges."""
+    state = jtele._STATE
+    found = (state.registry, state.tracing)
+    jtele.configure()
+    try:
+        yield
+    finally:
+        state.registry, state.tracing = found
+
+
 def test_pool_server_matches_jax_host_pool():
-    a = _pool_script(JAX, jonesided.PassivePool(256, W, mode="host"))
+    registry = jtele.get()
+    gauges = set(registry.snapshot()["gauges"])
+    with _fresh_jax_registry():
+        a = _pool_script(JAX, jonesided.PassivePool(256, W, mode="host"))
+    assert jtele.get() is registry
+    assert set(registry.snapshot()["gauges"]) == gauges
     b = _pool_script(PORT, tonesided.PassivePool(256, W, device="cpu"))
     _same(a, b, "one-sided transcript")
 

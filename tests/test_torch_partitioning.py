@@ -14,6 +14,7 @@ from __future__ import annotations
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401 (one torch thread a worker)
 import torch
 
 from pmdfc_tpu.parallel import partitioning as jpt

@@ -19,6 +19,7 @@ import time
 
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401 (one torch thread a worker)
 
 from pmdfc_tpu.config import MeshConfig as JMeshConfig
 from pmdfc_tpu.config import NetConfig as JNetConfig

@@ -23,6 +23,7 @@ import time
 
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401 (one torch thread a worker)
 
 import pmdfc_tpu.client.backends as jbackends
 import pmdfc_tpu.config as jconfig

@@ -25,6 +25,7 @@ import time
 
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401 (one torch thread a worker)
 
 import pmdfc_tpu.client.backends as jbe
 import pmdfc_tpu.config as jconf
@@ -45,9 +46,12 @@ pytestmark = pytest.mark.torch
 W = 16
 CFG = KVConfig(index=IndexConfig(capacity=1 << 12),
                bloom=BloomConfig(num_bits=1 << 13), paged=True, page_words=W)
+# every case on FAST_CFG asserts a tripped breaker reads "open": its
+# cooldown (1 s, up to 1.25 s with jitter) outlasts what a loaded host
+# takes between the verb that trips it and the read
 FAST_CFG = ReplicaConfig(
     n_replicas=3, rf=2, hedge_ms=50.0, breaker_failures=3,
-    breaker_cooldown_s=0.05, breaker_max_cooldown_s=0.4,
+    breaker_cooldown_s=1.0, breaker_max_cooldown_s=4.0,
     repair_interval_s=0.0, repair_batch=64)
 
 

@@ -15,6 +15,7 @@ import time
 
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401 (one torch thread a worker)
 
 from pmdfc_tpu.cluster import migrate as jmig
 from pmdfc_tpu.cluster import ring as jring

@@ -20,6 +20,7 @@ from pathlib import Path
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401 (one torch thread a worker)
 
 from pmdfc_tpu.config import IndexConfig as JIndexConfig
 from pmdfc_tpu.models import linear as jlin

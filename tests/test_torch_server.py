@@ -23,6 +23,7 @@ import time
 import jax
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401 (one torch thread a worker)
 
 from pmdfc_tpu.config import BloomConfig as JBloom
 from pmdfc_tpu.config import IndexConfig as JIndex

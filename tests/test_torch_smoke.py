@@ -21,6 +21,7 @@ import time
 
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401 (one torch thread a worker)
 import torch
 
 import chip_smoke

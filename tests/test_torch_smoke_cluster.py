@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401 (one torch thread a worker)
 import torch
 
 import chip_smoke

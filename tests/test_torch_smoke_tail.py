@@ -18,6 +18,7 @@ from __future__ import annotations
 import json
 
 import pytest
+import torch_threads  # noqa: F401 (one torch thread a worker)
 
 import chip_smoke
 from test_torch_smoke import KEYS, smoke  # noqa: F401  (fixture)

@@ -18,6 +18,7 @@ import types
 
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401 (one torch thread a worker)
 
 import pmdfc_tpu.config as jconfig
 import pmdfc_tpu.runtime.qos as jqos
@@ -130,7 +131,11 @@ def test_registry_snapshot_render_and_schema_match_jax(clock):
 
 
 def test_sanitizer_ranks_and_order_check(monkeypatch):
-    assert JAX.san.HIERARCHY == PORT.san.HIERARCHY
+    # the port ranks two locks of its own: the bloom push cycle's and
+    # the engine library's first load
+    assert PORT.san.HIERARCHY == {**JAX.san.HIERARCHY,
+                                  "KVServer._bf_push_lock": 58,
+                                  "engine._lib_lock": 75}
     assert JAX.san.HOLD_WATCH == PORT.san.HOLD_WATCH
     results = []
     for p in PKGS:

@@ -22,6 +22,7 @@ from __future__ import annotations
 import jax
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401 (one torch thread a worker)
 import torch
 
 from pmdfc_tpu import kv as jkv

@@ -22,6 +22,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401 (one torch thread a worker)
 
 from pmdfc_tpu.bench import common as jcommon
 from pmdfc_tpu.bench import filebench as jfb
