@@ -405,6 +405,44 @@ Phases, each reported on its own line; any failure exits nonzero:
              and the reconnect storm's bounded backoff. Each GET path's
              kernel is held against its plain version at 2^11 and timed
              (`chaos`: linear·flat, `xray-plane`: linear·tiered).
+15. trace  — causal tracing across processes and the SLO watchdog, last.
+             (a) This process holds a 4-shard linear·flat plane naming the
+             card four times, 2^17 slots of 4 KiB pages a shard (2 GiB),
+             filled to 75% through `ShardedKV.insert`, behind
+             `NetServer(NetConfig())`, its flight ring fresh and the
+             profiler installed. A client child of this script
+             (`--trace-client`, queued in phase 12's lanes, waiting for the
+             server's address) drives 8 connections, each `ReplicaGroup(rf
+             1) -> ReconnectingClient -> pipelined TcpBackend`, 4 PUT and
+             16 GET verbs of 2^11 keys each (pre-filled, its own and
+             never-inserted keys): every hit byte-exact, every miss zeroed,
+             no never-inserted key served, acknowledged misses <=
+             evictions + drops, no disconnect. Each process writes its
+             flight dump (`dump_now`); `tools/tracetool.py` joins every
+             traced GET across the two dumps at depth >= 6 with the chain
+             get -> attempt -> client get -> server get -> phase ->
+             flush:get -> shard_program, `clock_offsets` finds every
+             connection with |offset| under its round trip, `chrome_trace`
+             gives >= 6 events per GET trace, the breakdown holds
+             flush:get, shard:get and server:queue_wait (p50/p95 per stage
+             printed), and `tools/check_teledump.py`'s `check_flight` is
+             clean on both dumps. (b) The shard_program spans' ops per
+             shard equal `mesh.shard{i}_ops`; one launch per shard per GET
+             phase. (c) Every flush:get span lasts at least the CUDA-event
+             window of the plane launch it holds (the handle's event pair);
+             the device share of flush:get and of each shard_program span
+             is printed, not gated. (d) The SLO watchdog: JAX's
+             injected-latency drill (20 ms lag on a `KV` on the card behind
+             `NetServer`, a 2 ms p99 GET target, 2 burn windows) must
+             breach and dump `flight_slo_breach_*` naming flush:get,
+             `check_flight` clean; on the healthy plane of (a), a target of
+             10x the warm-up window's p99 must see no breach over 3
+             windows. (e) In the lanes, `bench/net_sweep.py --smoke` (4 KiB
+             pages, 2^17 slots) and `bench/autotune_sweep.py --smoke
+             --backend direct` (4 KiB pages), each held to its own gate
+             (exit 0, `smoke OK`), rows echoed. (f) The kernel against
+             plain on shard 0's state at the widest per-shard GET width (a)
+             launched, timed (`trace-plane`).
 
 Each KV is freed before the next path's fill, so no two pools share the
 card but the fleet's and the plane's own shards, and, in phases 12 and
@@ -5657,10 +5695,11 @@ def scale_refusal() -> None:
 class Lanes:
     """Harness processes side by side, at most `n` at a time, each started
     as a lane frees in the order queued; a phase collects its own rows.
-    The whole smoke queues phase 14's child, phase 12's harnesses and
-    then phase 13's at phase 12's start, so the tail's host-bound soaks
-    and the chaos child run beside phase 12's plane and phase 13's
-    sweeps."""
+    The whole smoke queues phase 14's child, phase 15's two sweeps,
+    phase 12's harnesses, phase 13's, then phase 15's client child at
+    phase 12's start, so the tail's host-bound soaks, the chaos child and
+    the sweeps run beside phase 12's plane and phase 13's sweeps (the
+    client, queued last, waits in its lane for phase 15's server)."""
 
     def __init__(self, n: int):
         from concurrent.futures import ThreadPoolExecutor
@@ -5668,10 +5707,21 @@ class Lanes:
         self.ex = ThreadPoolExecutor(n)
         self.tmp = tempfile.TemporaryDirectory()  # the tail's --out files
         self.futs: dict[str, list] = {}
+        # phase 15's rendezvous: the server writes its address here, the
+        # client child waits for it (or for `abort`)
+        self.trace_root = os.path.join(self.tmp.name, "trace")
 
     def queue(self, phase: str, seed: int = 0) -> "Lanes":
         if phase == "chaos":
             self.futs[phase] = [self.ex.submit(chaos_subprocess, seed)]
+        elif phase == "trace":
+            self.futs[phase] = [
+                self.ex.submit(trace_sweep, name, args, self.tmp.name)
+                for name, args in TRACE_SWEEPS]
+        elif phase == "trace-client":
+            os.makedirs(self.trace_root, exist_ok=True)
+            self.futs[phase] = [self.ex.submit(
+                trace_client_subprocess, self.trace_root, seed)]
         elif phase == "scale":
             self.futs[phase] = [self.ex.submit(run_harness, name, args)
                                 for name, args in SCALE_HARNESSES]
@@ -5686,7 +5736,10 @@ class Lanes:
 
     def close(self) -> None:
         """Drop what has not started, wait for what has (a harness ends
-        within run_harness's timeout)."""
+        within run_harness's timeout; a phase 15 client still waiting for
+        its server is told to stop)."""
+        if os.path.isdir(self.trace_root):
+            open(os.path.join(self.trace_root, "abort"), "w").close()
         self.ex.shutdown(wait=True, cancel_futures=True)
         self.tmp.cleanup()
 
@@ -7122,6 +7175,653 @@ def collect_chaos(lanes: "Lanes"):
     return entries
 
 
+# ---------------------------------------------------------------------------
+# phase 15, trace: causal tracing across processes and the SLO watchdog
+# ---------------------------------------------------------------------------
+
+TRACE_SHARDS = 4
+TRACE_INDEX = dict(capacity=1 << 17)  # a shard: 512 MiB of 4 KiB pages
+TRACE_BLOOM_BITS = 1 << 20
+TRACE_PAGE_WORDS = 1024
+TRACE_FILL = 0.75          # of the plane's slots, through plane_fill (a2a)
+TRACE_CONNS = 8            # the client child's connections
+TRACE_PUTS = 4             # PUT verbs of TRACE_VERB keys per connection
+TRACE_GETS = 16            # GET verbs of TRACE_VERB keys per connection
+TRACE_VERB = 1 << 11
+TRACE_HI = 0xC7000000      # the pre-fill's keys are (TRACE_HI, i)
+TRACE_PUT_HI = 0xC7100000  # connection c puts (TRACE_PUT_HI + c, i)
+TRACE_RING = 1 << 16       # each process's flight ring holds the window
+TRACE_WAIT_S = 1150.0      # the client child's wait for the server
+TRACE_CLIENT_TIMEOUT_S = 1200.0
+# CUDA events time to about half a microsecond: a flush span shorter
+# than its device window by less than this is the timer's resolution
+TRACE_EVENT_SLACK_NS = 1000
+# the SLO drills: JAX's injected-latency drill (20 ms lag, a 2 ms p99
+# GET target, two burn windows) and the healthy control (10x the warm-up
+# p99, at least three evaluated windows)
+TRACE_LAG_S = 0.02
+TRACE_BREACH_TARGET_US = 2000.0
+TRACE_SLO_GETS = 6         # GET verbs per window of the breach drill
+TRACE_WARMUP_GETS = 16     # the healthy control's warm-up verbs
+TRACE_HEALTHY_WINDOWS = 3
+TRACE_HEALTHY_GETS = 8     # GET verbs per healthy window
+TRACE_CHAIN = (("group", "get"), ("group", "attempt"), ("client", "get"),
+               ("server", "get"), ("server", "phase"),
+               ("server", "flush:get"), ("server", "shard_program"))
+TRACE_STAGES = ("flush:get", "shard:get", "server:queue_wait")
+# the two sweeps, each its own process in the lanes at 4 KiB pages
+TRACE_SWEEPS = (
+    ("net_sweep", ("--smoke", "--page-words", "1024", "--capacity",
+                   str(1 << 17))),
+    ("autotune_sweep", ("--smoke", "--backend", "direct", "--page-words",
+                        "1024")),
+)
+
+
+def trace_client(root: str) -> int:
+    """Phase 15's client process (`--trace-client DIR`): waits for the
+    server's address and the phase's sizes in DIR/server.json (or for
+    DIR/abort), drives one `ReplicaGroup(rf 1) -> ReconnectingClient ->
+    pipelined TcpBackend` per connection, each in its own thread (PUT
+    verbs of its own keys, then GET verbs of pre-filled, own and
+    never-inserted keys), checks every page it gets, writes its flight
+    dump and prints `TRACE_CLIENT {...}`. It touches no device."""
+    import threading
+
+    import numpy as np
+
+    from pmdfc_tpu_torch.client.replica import ReplicaGroup
+    from pmdfc_tpu_torch.config import ReplicaConfig, TelemetryConfig
+    from pmdfc_tpu_torch.runtime import telemetry as tele
+    from pmdfc_tpu_torch.runtime.failure import ReconnectingClient
+    from pmdfc_tpu_torch.runtime.net import TcpBackend
+
+    deadline = time.monotonic() + TRACE_WAIT_S
+    spec = os.path.join(root, "server.json")
+    while not os.path.exists(spec):
+        if os.path.exists(os.path.join(root, "abort")) \
+                or time.monotonic() > deadline:
+            print("trace client: no server", file=sys.stderr)
+            return 1
+        time.sleep(0.05)
+    with open(spec) as f:
+        p = json.load(f)
+    pw, verb = p["page_words"], p["verb"]
+    dump_dir = os.path.join(root, "client")
+    os.makedirs(dump_dir, exist_ok=True)
+    tele.configure(TelemetryConfig(enabled=True, ring_capacity=p["ring"],
+                                   dump_records=p["ring"], dump_dir=dump_dir,
+                                   dump_min_interval_s=0.0))
+
+    def group(c):
+        def factory():
+            return TcpBackend("127.0.0.1", p["port"], page_words=pw,
+                              pipeline=True, op_timeout_s=120.0)
+
+        rc = ReconnectingClient(factory, page_words=pw, seed=c)
+        return rc, ReplicaGroup(
+            [rc], page_words=pw, seed=c,
+            cfg=ReplicaConfig(n_replicas=1, rf=1, repair_interval_s=0.0))
+
+    conns = [group(c) for c in range(p["conns"])]
+    out = [None] * len(conns)
+
+    def drive(c):
+        g = conns[c][1]
+        rng = np.random.default_rng(p["seed"] * 1000 + c)
+        r = dict(hits=0, keys=0, wrong=0, nonzero=0, never_hits=0,
+                 acked_misses=0, put_ms=[], get_ms=[])
+        hi_own = p["put_hi"] + c
+        for v in range(p["puts"]):
+            lo = np.arange(v * verb, (v + 1) * verb, dtype=np.uint32)
+            his = np.full(verb, hi_own, np.uint32)
+            t0 = time.perf_counter()
+            g.put(np.stack([his, lo], -1), pages_np(his, lo, pw))
+            r["put_ms"].append((time.perf_counter() - t0) * 1e3)
+        n_own, n_never = verb // 4, verb // 8
+        n_pre = verb - n_own - n_never
+        for _ in range(p["gets"]):
+            his = np.concatenate([
+                np.full(n_pre, p["hi"], np.uint32),
+                np.full(n_own, hi_own, np.uint32),
+                np.full(n_never, p["hi"], np.uint32)])
+            los = np.concatenate([
+                rng.integers(0, p["fill"], n_pre),
+                rng.integers(0, p["puts"] * verb, n_own),
+                rng.integers(NEVER_LO, 1 << 32, n_never)]).astype(np.uint32)
+            never = np.arange(verb) >= n_pre + n_own
+            perm = rng.permutation(verb)
+            his, los, never = his[perm], los[perm], never[perm]
+            t0 = time.perf_counter()
+            got, found = g.get(np.stack([his, los], -1))
+            r["get_ms"].append((time.perf_counter() - t0) * 1e3)
+            got, found = np.asarray(got, np.uint32), np.asarray(found, bool)
+            want = pages_np(his, los, pw)
+            r["keys"] += verb
+            r["hits"] += int(found.sum())
+            r["wrong"] += int((got[found] != want[found]).any(1).sum())
+            r["nonzero"] += int(got[~found].any(1).sum())
+            r["never_hits"] += int((found & never).sum())
+            r["acked_misses"] += int((~found & ~never).sum())
+        out[c] = r
+
+    def run(c):
+        try:
+            drive(c)
+        except Exception as e:  # noqa: BLE001 — reported to the server
+            out[c] = {"error": repr(e)}
+
+    threads = [threading.Thread(target=run, args=(c,))
+               for c in range(len(conns))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    rcs = [rc.stats() for rc, _ in conns]
+    for _, g in conns:
+        g.close()
+    errors = [r["error"] for r in out if "error" in r]
+    held = len(tele.get().ring)
+    res = {"errors": errors, "ring": held,
+           "dump": tele.dump_now("trace_client")}
+    if not errors:
+        for k in ("hits", "keys", "wrong", "nonzero", "never_hits",
+                  "acked_misses"):
+            res[k] = sum(r[k] for r in out)
+        for k in ("put_ms", "get_ms"):
+            xs = np.concatenate([r[k] for r in out])
+            res[k] = [float(np.percentile(xs, q)) for q in (50, 99)]
+    for k in ("disconnects", "dropped_puts", "missed_gets"):
+        res[k] = sum(int(s[k]) for s in rcs)
+    print("TRACE_CLIENT " + json.dumps(res), flush=True)
+    return 0
+
+
+def trace_client_subprocess(root: str, seed: int):
+    """`trace_client` as a child process of this script -> (its result,
+    its log lines, seconds). A child that fails fails the phase."""
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--trace-client", root,
+         "--seed", str(seed)], capture_output=True, text=True,
+        timeout=TRACE_CLIENT_TIMEOUT_S)
+    res, lines = None, []
+    for line in proc.stdout.splitlines():
+        if line.startswith("TRACE_CLIENT "):
+            res = json.loads(line[len("TRACE_CLIENT "):])
+        else:
+            lines.append(line)
+    if proc.returncode != 0 or res is None:
+        raise AssertionError(f"trace client exited {proc.returncode}: "
+                             f"{proc.stdout[-2000:]} {proc.stderr[-3000:]}")
+    return res, lines, time.monotonic() - t0
+
+
+def trace_sweep(name: str, args, tmp: str):
+    """One of phase 15's sweeps as its own process on DEVICE, held to its
+    own gate (exit 0 and its `smoke OK` line) -> (its summary with its
+    rows, seconds)."""
+    t0 = time.monotonic()
+    out = os.path.join(tmp, f"trace_{name}.json")
+    proc = subprocess.run(
+        [sys.executable, "-m", f"pmdfc_tpu_torch.bench.{name}", "--device",
+         DEVICE, *args, "--out", out], capture_output=True, text=True,
+        timeout=600)
+    if proc.returncode != 0 or f"[{name}] smoke OK" not in proc.stdout:
+        raise AssertionError(f"sweep {name} exited {proc.returncode} "
+                             f"without its smoke OK: {proc.stdout[-2000:]} "
+                             f"{proc.stderr[-2000:]}")
+    with open(out) as f:
+        return json.load(f), time.monotonic() - t0
+
+
+def has_chain(node, chain) -> bool:
+    """Does a path from `node` down its joined children name `chain`'s
+    (src, op) pairs in order?"""
+    if (node.rec.get("src"), node.op) != chain[0]:
+        return False
+    return len(chain) == 1 or any(has_chain(k, chain[1:])
+                                  for k in node.all_children())
+
+
+def quantiles(xs, qs=(50, 95)) -> list:
+    import numpy as np
+
+    return [float(np.percentile(xs, q)) for q in qs]
+
+
+def trace_joined(dumps, conns: int, n_gets: int, smi: str) -> list:
+    """Phase 15 (a)'s checks through `tools/tracetool.py` and
+    `tools/check_teledump.py` over the two processes' flight dumps
+    (`dumps`: [(path, the records its process's ring held)], the
+    client's first) -> the server dump's span records."""
+    import tools.check_teledump as chk
+    import tools.tracetool as tracetool
+
+    for path, held in dumps:
+        with open(path) as f:
+            doc = json.load(f)
+        errs = chk.check_flight(doc)
+        if errs:
+            raise AssertionError(f"trace: check_flight on {path}: {errs[:5]}")
+        if len(doc["records"]) < held:
+            raise AssertionError(f"trace: {path} holds {len(doc['records'])}"
+                                 f" records of the {held} its ring held")
+    records = tracetool.load_dumps([path for path, _ in dumps])
+    nodes = tracetool.build_tree(records)
+    roots = [n for n in nodes[(-1, 0)].children
+             if n.pid == 0 and n.rec.get("src") == "group"
+             and n.op == "get" and n.rec.get("ok")]
+    if len(roots) != n_gets:
+        raise AssertionError(f"trace: {len(roots)} traced group GETs in the "
+                             f"client dump, {n_gets} driven")
+    n_events = []
+    for n in roots:
+        t = n.rec["trace"]
+        if n.depth() < 6 or not has_chain(n, TRACE_CHAIN):
+            held = [(pid, r.get("src"), r.get("op"), r.get("conn"))
+                    for pid, r in records if r.get("trace") == t]
+            raise AssertionError(
+                f"trace: GET trace {t:#010x} is {n.depth()} deep without "
+                f"the chain {' -> '.join(f'{s}:{o}' for s, o in TRACE_CHAIN)}"
+                f" across the two dumps (its records: {held})")
+        n_events.append(len(tracetool.chrome_trace(records, t)
+                            ["traceEvents"]))
+    if min(n_events) < 6:
+        raise AssertionError(f"trace: a GET trace exports {min(n_events)} "
+                             "Chrome events, fewer than 6")
+    offsets, _ = tracetool.clock_offsets(records)
+    clocks = [r for pid, r in records if r.get("kind") == "clock"]
+    wire = {r["conn"] for pid, r in records if pid == 0
+            and r.get("kind") == "span" and r.get("src") == "client"}
+    if len(offsets) != conns or set(offsets) != wire:
+        raise AssertionError(f"trace: clock offsets for {sorted(offsets)}, "
+                             f"{conns} connections {sorted(wire)}")
+    for r in clocks:
+        if abs(r["offset_ns"]) >= r["rtt_ns"]:
+            raise AssertionError(f"trace: connection {r['conn']}'s clock "
+                                 f"offset {r['offset_ns']} ns is not below "
+                                 f"its round trip {r['rtt_ns']} ns")
+    rows = tracetool.breakdown(records)
+    missing = set(TRACE_STAGES) - {r["stage"] for r in rows}
+    if missing:
+        raise AssertionError(f"trace: the breakdown has no {missing}")
+    for r in rows:
+        log("trace", f"stage {r['stage']}: {r['count']} spans, p50 "
+            f"{r['p50_us']} us, p95 {r['p95_us']} us, max {r['max_us']} us "
+            f"({smi})")
+    log("trace", f"{len(roots)} GET traces joined across the client's and "
+        f"the server's dumps, each at least 6 deep with the chain "
+        f"{' -> '.join(o for _, o in TRACE_CHAIN)}; Chrome events per "
+        f"trace {min(n_events)}-{max(n_events)}; clock offsets of "
+        f"{len(offsets)} connections {min(offsets.values())}.."
+        f"{max(offsets.values())} ns, each under its round trip "
+        f"({min(r['rtt_ns'] for r in clocks)}.."
+        f"{max(r['rtt_ns'] for r in clocks)} ns); check_flight clean on "
+        "both dumps")
+    return [r for pid, r in records if pid == 1 and r.get("kind") == "span"]
+
+
+def trace_device_windows(spans: list, windows: dict, smi: str) -> None:
+    """Phase 15 (c): every `flush:get` span lasts at least the device
+    window (the plane handle's CUDA event pair) of the launches it holds;
+    the device shares of `flush:get` and of `shard_program` are logged."""
+    flush = [r for r in spans if r["op"] == "flush:get"]
+    if not flush:
+        raise AssertionError("trace: no flush:get span in the server dump")
+    by_parent: dict = {}
+    for r in spans:
+        if r["op"] == "shard_program" and r.get("phase") == "get":
+            by_parent.setdefault(r["parent"], []).append(r)
+    flush_share, shard_share = [], []
+    for r in flush:
+        dev = windows.get(r["span"], [])
+        if len(dev) != 1:
+            raise AssertionError(f"trace: flush:get span {r['span']} holds "
+                                 f"{len(dev)} device windows, not 1")
+        dev_ns = dev[0] * 1e3
+        span_ns = r["t1_ns"] - r["t0_ns"]
+        if span_ns + TRACE_EVENT_SLACK_NS < dev_ns:
+            raise AssertionError(
+                f"trace: flush:get span of {span_ns} ns is shorter than "
+                f"the {dev_ns:.0f} ns device window it holds")
+        flush_share.append(dev_ns / span_ns)
+        for s in by_parent.get(r["span"], ()):
+            shard_share.append(dev_ns / max(s["t1_ns"] - s["t0_ns"], 1))
+    if not shard_share:
+        raise AssertionError("trace: no shard_program span under a "
+                             "flush:get span")
+    f50, f95 = quantiles(flush_share)
+    s50, s95 = quantiles(shard_share)
+    log("trace", f"device windows: every one of {len(flush)} flush:get spans "
+        f"holds its CUDA-event window (within {TRACE_EVENT_SLACK_NS} ns); "
+        f"device share of flush:get p50 {f50:.3f}, p95 {f95:.3f}; of each "
+        f"of {len(shard_share)} shard_program spans p50 {s50:.3f}, p95 "
+        f"{s95:.3f} (over 1: the kernel began before the fetch window) "
+        f"({smi})")
+
+
+def trace_breach_drill(sm, root: str, smi: str) -> None:
+    """Phase 15 (d), breach: JAX's injected-latency drill on a `KV` on the
+    card behind `NetServer`: the 20 ms lag breaches the 2 ms p99 GET
+    target and the breach dump names `flush:get`."""
+    import numpy as np
+
+    import tools.check_teledump as chk
+    from pmdfc_tpu_torch.client.backends import DirectBackend
+    from pmdfc_tpu_torch.config import (BloomConfig, IndexConfig, KVConfig,
+                                        NetConfig, TelemetryConfig)
+    from pmdfc_tpu_torch.runtime import slo
+    from pmdfc_tpu_torch.runtime import telemetry as tele
+    from pmdfc_tpu_torch.runtime.net import NetServer, TcpBackend
+
+    d = os.path.join(root, "breach")
+    os.makedirs(d, exist_ok=True)
+    tele.configure(TelemetryConfig(enabled=True, ring_capacity=TRACE_RING,
+                                   dump_dir=d, dump_min_interval_s=0.0))
+    pw = TRACE_PAGE_WORDS
+    kv = sm.kv_mod.KV(KVConfig(index=IndexConfig(**DRILL_INDEX),
+                               bloom=BloomConfig(num_bits=1 << 16),
+                               page_words=pw), device=sm.dev)
+
+    class Laggy(DirectBackend):
+        def get(self, keys):
+            time.sleep(TRACE_LAG_S)  # the injected fault
+            return super().get(keys)
+
+    shared = Laggy(kv)
+    wd = slo.SloWatchdog(slo.SloConfig(targets=(slo.SloTarget(
+        "get_p99", "latency_p99", "net.client.get_us",
+        TRACE_BREACH_TARGET_US),), window_s=0.5, burn_windows=2,
+        min_count=4))
+    lo = np.arange(TRACE_VERB, dtype=np.uint32)
+    his = np.full(TRACE_VERB, TRACE_HI, np.uint32)
+    keys, pages = np.stack([his, lo], -1), pages_np(his, lo, pw)
+    breaches = []
+    t0 = time.monotonic()
+    with NetServer(lambda: shared, net=NetConfig()).start() as srv, \
+            TcpBackend("127.0.0.1", srv.port, page_words=pw,
+                       op_timeout_s=30.0) as be:
+        be.put(keys, pages)
+        out, found = be.get(keys)
+        if not found.all() or not np.array_equal(out, pages):
+            raise AssertionError("trace breach drill: a put page did not "
+                                 "come back")
+        wd.tick()  # prime the window state
+        for _ in range(2):
+            for _ in range(TRACE_SLO_GETS):
+                be.get(keys)
+            breaches += wd.tick()
+    if not breaches:
+        raise AssertionError(f"trace breach drill: the p99 target never "
+                             f"breached ({dict(wd.stats)})")
+    dumps = sorted(f for f in os.listdir(d)
+                   if f.startswith("flight_slo_breach_")
+                   and f.endswith(".json"))
+    if not dumps:
+        raise AssertionError("trace breach drill: no slo_breach dump")
+    with open(os.path.join(d, dumps[-1])) as f:
+        doc = json.load(f)
+    det = doc["detail"]
+    errs = chk.check_flight(doc)
+    if det["stage"] != "flush:get" or det["target"] != "get_p99" \
+            or not det["value"] > det["threshold"] or errs:
+        raise AssertionError(f"trace breach drill: dump names stage "
+                             f"{det['stage']} for {det['target']} "
+                             f"({det['value']} vs {det['threshold']}); "
+                             f"check_flight {errs[:3]}")
+    log("trace", f"breach drill: {TRACE_LAG_S * 1e3:.0f} ms lag on a "
+        f"KV on {sm.dev} behind NetServer breached get_p99 "
+        f"({det['value']:.0f} us > {det['threshold']:.0f} us over "
+        f"{det['burn_windows']} windows); the dump names {det['stage']} "
+        f"(stages {json.dumps(det['stages'])}); check_flight clean; "
+        f"{time.monotonic() - t0:.1f} s ({smi})")
+    del kv, shared
+    free_card(sm.torch)
+
+
+def trace_healthy(sm, be, keys, root: str, smi: str) -> None:
+    """Phase 15 (d), control: the same watchdog on the healthy plane of
+    (a), its GET p99 target 10x the warm-up window's p99: no breach over
+    at least TRACE_HEALTHY_WINDOWS evaluated windows."""
+    import numpy as np
+
+    from pmdfc_tpu_torch.config import NetConfig, TelemetryConfig
+    from pmdfc_tpu_torch.runtime import slo
+    from pmdfc_tpu_torch.runtime import telemetry as tele
+    from pmdfc_tpu_torch.runtime.net import NetServer, TcpBackend
+
+    d = os.path.join(root, "healthy")
+    os.makedirs(d, exist_ok=True)
+    reg = tele.configure(TelemetryConfig(
+        enabled=True, ring_capacity=TRACE_RING, dump_dir=d,
+        dump_min_interval_s=0.0))
+    rng = np.random.default_rng(sm.seed)
+    pw = be.page_words
+
+    def gets(n):
+        for _ in range(n):
+            k = keys[rng.integers(0, len(keys), TRACE_VERB)]
+            out, found = tcp.get(k)
+            want = pages_np(k[:, 0], k[:, 1], pw)
+            if (np.asarray(out)[found] != want[found]).any() \
+                    or np.asarray(out)[~found].any():
+                raise AssertionError("trace healthy control: wrong bytes")
+
+    with NetServer(lambda: be, net=NetConfig()).start() as srv, \
+            TcpBackend("127.0.0.1", srv.port, page_words=pw,
+                       pipeline=True, op_timeout_s=60.0) as tcp:
+        gets(TRACE_WARMUP_GETS)
+        p99 = reg.metric("net.client.get_us").snapshot()["p99"]
+        wd = slo.SloWatchdog(slo.SloConfig(targets=(slo.SloTarget(
+            "get_p99", "latency_p99", "net.client.get_us", 10 * p99),),
+            window_s=1.0, burn_windows=2, min_count=4))
+        wd.tick()  # prime the window state
+        breaches = []
+        for _ in range(TRACE_HEALTHY_WINDOWS):
+            gets(TRACE_HEALTHY_GETS)
+            breaches += wd.tick()
+    st = dict(wd.stats)
+    if breaches or st["breaches"] \
+            or st["evaluations"] < TRACE_HEALTHY_WINDOWS:
+        raise AssertionError(f"trace healthy control: {len(breaches)} "
+                             f"breaches at 10x the warm-up p99 {p99:.0f} "
+                             f"us ({st})")
+    dumps = [f for f in os.listdir(d) if f.startswith("flight_slo_breach_")]
+    if dumps:
+        raise AssertionError(f"trace healthy control: breach dumps {dumps}")
+    log("trace", f"healthy control: warm-up GET p99 {p99:.0f} us over "
+        f"{TRACE_WARMUP_GETS} verbs of {TRACE_VERB} keys, target "
+        f"{10 * p99:.0f} us: no breach over {st['evaluations']} windows "
+        f"({st}) ({smi})")
+
+
+def run_trace(sm, lanes: "Lanes | None" = None):
+    """Phase 15: the cross-process trace on a 4-shard plane on the card,
+    spans against counters and device windows, the SLO drills, the two
+    sweeps (in `lanes`, queued by the caller; its own, from the phase's
+    start, when none is given) -> its kernels entry."""
+    import numpy as np
+
+    from pmdfc_tpu_torch.config import (BloomConfig, IndexConfig, KVConfig,
+                                        NetConfig, TelemetryConfig)
+    from pmdfc_tpu_torch.parallel.plane import PlaneBackend
+    from pmdfc_tpu_torch.parallel.shard import ShardedKV, make_mesh
+    from pmdfc_tpu_torch.runtime import profiler
+    from pmdfc_tpu_torch.runtime import telemetry as tele
+    from pmdfc_tpu_torch.runtime.net import NetServer
+
+    fused, torch = sm.fused, sm.torch
+    t_phase = time.monotonic()
+    free_card(torch)
+    smi = nvidia_smi()
+    own = lanes is None
+    if own:
+        lanes = Lanes(HARNESS_LANES).queue("trace").queue("trace-client",
+                                                          sm.seed)
+    root = lanes.trace_root
+    try:
+        cfg = KVConfig(index=IndexConfig(**TRACE_INDEX),
+                       bloom=BloomConfig(num_bits=TRACE_BLOOM_BITS),
+                       page_words=TRACE_PAGE_WORDS)
+        pw, n = cfg.page_words, TRACE_SHARDS
+        skv = ShardedKV(cfg, mesh=make_mesh([DEVICE] * n))
+        fill = int(skv.capacity() * TRACE_FILL)
+        t_fill, drops, _ = plane_fill(skv, fill, TRACE_HI, plane=False)
+        pool_b = sum(st.pool.pages.numel() * 4 for st in skv.states)
+        log("trace", f"ShardedKV over {n} shards on {skv.mesh}: "
+            f"{skv.capacity()} slots, pools {pool_b / 2**30:.2f} GiB; fill "
+            f"{fill} pages in {t_fill:.3f} s, drops {drops} ({smi})")
+
+        # (a) the server half in this process, its ring and profiler fresh
+        server_dir = os.path.join(root, "server")
+        os.makedirs(server_dir, exist_ok=True)
+        reg = tele.configure(TelemetryConfig(
+            enabled=True, ring_capacity=TRACE_RING, dump_records=TRACE_RING,
+            dump_dir=server_dir, dump_min_interval_s=0.0))
+        prof = profiler.install()
+        windows: dict = {}
+        note = prof.note_launch
+
+        def note_launch(program, phase, device_us, *a, **kw):
+            # the plane GET's device window, keyed by the flush span the
+            # flush loop holds open around the launch and the fetch
+            if program == "plane.get":
+                stack = tele._SPAN_TLS.stack
+                windows.setdefault(stack[-1].sid if stack else 0,
+                                   []).append(device_us)
+            return note(program, phase, device_us, *a, **kw)
+
+        prof.note_launch = note_launch
+        be = PlaneBackend(skv)
+        counts = PlaneCounts(skv)
+        fused.launches.clear()
+        ops0, stats0 = shard_ops(be), skv.stats()
+        t0 = time.monotonic()
+        srv = NetServer(lambda: be, net=NetConfig()).start()
+        try:
+            spec = dict(port=srv.port, page_words=pw, verb=TRACE_VERB,
+                        conns=TRACE_CONNS, puts=TRACE_PUTS, gets=TRACE_GETS,
+                        hi=TRACE_HI, put_hi=TRACE_PUT_HI, fill=fill,
+                        ring=TRACE_RING, seed=sm.seed)
+            tmp = os.path.join(root, "server.json.tmp")
+            with open(tmp, "w") as f:
+                json.dump(spec, f)
+            os.replace(tmp, os.path.join(root, "server.json"))
+            (client, lines, secs), = lanes.rows("trace-client")
+        finally:
+            srv.stop()
+        t_a = time.monotonic() - t0
+        for line in lines:
+            print(line, flush=True)
+        torch.cuda.synchronize()
+        n_gets = TRACE_CONNS * TRACE_GETS
+        s = skv.stats()
+        lost = s["evictions"] + s["drops"]
+        for ok, msg in [
+                (not client["errors"], f"client errors {client['errors']}"),
+                (client.get("wrong") == 0, f"{client.get('wrong')} hits "
+                 "with wrong bytes"),
+                (client.get("nonzero") == 0, f"{client.get('nonzero')} "
+                 "misses not zeroed"),
+                (client.get("never_hits") == 0, f"{client.get('never_hits')}"
+                 " never-inserted keys hit"),
+                (client.get("acked_misses", lost + 1) <= lost,
+                 f"{client.get('acked_misses')} acknowledged keys missed, "
+                 f"more than evictions + drops {lost}"),
+                (client["disconnects"] == 0 and client["dropped_puts"] == 0
+                 and client["missed_gets"] == 0,
+                 f"disconnects {client['disconnects']}, dropped puts "
+                 f"{client['dropped_puts']}, missed GETs "
+                 f"{client['missed_gets']}"),
+                (client["ring"] < TRACE_RING and len(reg.ring) < TRACE_RING,
+                 f"a flight ring filled ({client['ring']}, {len(reg.ring)} "
+                 f"of {TRACE_RING})")]:
+            if not ok:
+                raise AssertionError(f"trace: {msg}")
+        launches = plane_checks(sm, skv, be, srv, [], counts, n, ops0,
+                                stats0, "trace")
+        held = len(reg.ring)
+        server_dump = tele.dump_now("trace_server")
+        log("trace", f"client child ({secs:.1f} s in the lanes): "
+            f"{TRACE_CONNS} connections x ({TRACE_PUTS} PUT + {TRACE_GETS} "
+            f"GET verbs of {TRACE_VERB} keys) through ReplicaGroup(rf 1) -> "
+            f"ReconnectingClient -> pipelined TcpBackend: {client['hits']} "
+            f"hits of {client['keys']} GET keys, every hit byte-exact, every"
+            f" miss zeroed, no never-inserted key served, "
+            f"{client['acked_misses']} acknowledged misses <= evictions + "
+            f"drops {lost}; put verb p50/p99 {client['put_ms'][0]:.2f}/"
+            f"{client['put_ms'][1]:.2f} ms, get verb "
+            f"{client['get_ms'][0]:.2f}/{client['get_ms'][1]:.2f} ms ({smi})")
+        log("trace", f"server: {srv.stats['flushes']} flushes of "
+            f"{srv.stats['coalesced_ops']} verbs "
+            f"({srv.stats['coalesced_ops'] / max(srv.stats['flushes'], 1):.2f}"
+            f" a flush); GET phases {counts.get_phases}, widest per-shard "
+            f"width {counts.wl_max}; fused_get_linear_flat launches "
+            f"{launches} = {n} per GET phase; no serve error")
+        spans = trace_joined([(client["dump"], client["ring"]),
+                              (server_dump, held)], TRACE_CONNS,
+                             n_gets, smi)
+
+        # (b) the shard spans against the mesh counters
+        sums = [0] * n
+        for r in spans:
+            if r["op"] == "shard_program":
+                sums[r["shard"]] += r["ops"]
+        ctr = [int(c.value) for c in be._c_shard]
+        if sums != ctr:
+            raise AssertionError(f"trace: shard_program ops {sums} != "
+                                 f"mesh.shard{{i}}_ops {ctr}")
+        log("trace", f"shard_program ops per shard {sums} == "
+            f"mesh.shard{{i}}_ops; one launch per shard per GET phase")
+
+        # (c) what the spans cover on the device
+        trace_device_windows(spans, windows, smi)
+
+        # (f) the kernel at the widest per-shard GET width (a) launched
+        keys = np.stack([np.full(fill, TRACE_HI, np.uint32),
+                         np.arange(fill, dtype=np.uint32)], -1)
+        own0 = plane_held(skv, TRACE_HI)
+        own0 = own0[skv.node_of(np.stack(
+            [np.full(len(own0), TRACE_HI, np.uint32), own0], -1)) == 0]
+        kt = uncounted(fused, lambda: plane_kernel(
+            sm, skv.states[0], own0, pw, [counts.wl_max], "trace shard 0",
+            smi, hi=TRACE_HI))
+        entry = plane_entry(sm, "trace-plane", launches, kt[counts.wl_max])
+
+        # (d) the SLO watchdog on the card
+        t0 = time.monotonic()
+        trace_healthy(sm, be, keys, root, smi)
+        del skv, be, srv, counts
+        free_card(torch)
+        trace_breach_drill(sm, root, smi)
+        t_d = time.monotonic() - t0
+        log("trace", f"in-process part took {time.monotonic() - t_phase:.1f}"
+            f" s: (a)-(c) {t_a:.1f} s with the client's run, (d) {t_d:.1f} s")
+
+        # (e) the two sweeps, collected from the lanes
+        for (name, args), (summary, secs) in zip(TRACE_SWEEPS,
+                                                 lanes.rows("trace")):
+            log("trace", f"sweep {name} {' '.join(args)} ({secs:.1f} s): "
+                f"exit 0, smoke OK; " + json.dumps(
+                    {k: v for k, v in summary.items() if k != "rows"}))
+            for r in summary["rows"]:
+                if r.get("device") != torch_device_type():
+                    raise AssertionError(f"sweep {name} ran on "
+                                         f"{r.get('device')}")
+                log("trace", f"  {name} row {r['metric']}: " + json.dumps(
+                    {k: r[k] for k in ("transport", "connections", "window",
+                                       "verb_keys", "value", "unit",
+                                       "p50_us") if k in r})
+                    + f" ({smi})")
+    finally:
+        tele.configure()
+        if own:
+            lanes.close()
+    log("trace", f"phase 15 took {time.monotonic() - t_phase:.1f} s")
+    return [entry]
+
+
 T0 = time.monotonic()  # the smoke's start: phase times are logged from it
 
 
@@ -7134,7 +7834,17 @@ def main() -> int:
     ap.add_argument("--chaos", action="store_true",
                     help="run only phase 14 (the child process the whole "
                          "smoke starts in its lanes)")
+    ap.add_argument("--trace", action="store_true",
+                    help="run only phase 15, with its client child and "
+                         "sweeps in its own lanes")
+    ap.add_argument("--trace-client", metavar="DIR", default=None,
+                    help="phase 15's client child: wait for the server "
+                         "named in DIR/server.json and drive it (touches "
+                         "no device)")
     args = ap.parse_args()
+
+    if args.trace_client:
+        return trace_client(args.trace_client)
 
     import torch
 
@@ -7154,6 +7864,11 @@ def main() -> int:
         _build.load("fused_get")
         _build.load_host("runtime")
         print("CHAOS " + json.dumps(run_chaos(Smoke(args.seed))), flush=True)
+        return 0
+    if args.trace:
+        _build.load("fused_get")
+        log("env", nvidia_smi())
+        print("TRACE " + json.dumps(run_trace(Smoke(args.seed))), flush=True)
         return 0
 
     # 1. env
@@ -7217,10 +7932,12 @@ def main() -> int:
                 ("wire", run_wire), ("fleet", run_fleet),
                 ("plane", run_plane), ("control", run_control),
                 ("scale", lambda sm: run_scale(
-                    sm, lanes.queue("chaos", args.seed).queue("scale")
-                    .queue("tail"))),
+                    sm, lanes.queue("chaos", args.seed).queue("trace")
+                    .queue("scale").queue("tail")
+                    .queue("trace-client", args.seed))),
                 ("tail", lambda sm: run_tail(sm, lanes)),
-                ("chaos", lambda sm: collect_chaos(lanes))):
+                ("chaos", lambda sm: collect_chaos(lanes)),
+                ("trace", lambda sm: run_trace(sm, lanes))):
             t0 = time.monotonic()
             entry = run(sm)
             log("smoke", f"{label} took {time.monotonic() - t0:.1f} s, "
@@ -7229,7 +7946,7 @@ def main() -> int:
             # it got in the end of its errors
             print(f"[smoke] {label} done at {time.monotonic() - T0:.1f} s",
                   file=sys.stderr, flush=True)
-            if isinstance(entry, list):  # plane .. chaos
+            if isinstance(entry, list):  # plane .. trace
                 kernels.extend(entry)
             elif entry is not None:  # the families launch no kernel
                 kernels.append(entry)

@@ -1,13 +1,19 @@
 """Unified telemetry — metrics registry, op trace spans, flight recorder
 (twin of `pmdfc_tpu/runtime/telemetry.py`).
 
-One difference: the JAX package also counts true backend compiles
-(`recompile.backend_compiles`, `recompile.backend_compile_ms`) with a
-`jax.monitoring` listener. Torch has no such event, so the port has no
-listener: those two metrics are never registered, and every other
-`recompile.*` counter keeps its name (`track_program` still counts first
-sightings of a signature for any caller that reports one). The port's
-`KV` verbs report none, so their `recompile.*` counters stay at 0.
+Differences, all in the recompile tracker. The JAX package counts true
+backend compiles (`recompile.backend_compiles`,
+`recompile.backend_compile_ms`) with a `jax.monitoring` listener. Torch
+has no such event, so the port has no listener and never registers those
+two metrics. JAX also reports a program signature from three dispatch
+seams, each a jit cache the port does not have: `KV`'s padded verbs
+(`recompile.kv.*`), the sharded plane's `_wrap` cache
+(`recompile.plane.*`) and the fused GET's Pallas program
+(`recompile.kv.get_fused.kernel`). The port calls `track_program` from
+none of them, so driving its `KV`, plane or fused GET moves no
+`recompile.*` counter and rings no `recompile` event. The seam itself
+(`track_program`) counts first sightings exactly as JAX's does for any
+caller that reports one (`tests/test_torch_tracing.py` pins both).
 
 The reference system's operators lived off per-queue counters and
 `PrintStats` dumps (`server/rdma_svr.cpp:107-150`); this repo had grown
@@ -50,12 +56,10 @@ share:
   dumps (clock offset estimated from the HOLA exchange, see
   `clock_event`) into a Chrome-trace/Perfetto timeline.
 
-- **Continuous profiling.** `track_program()` is the jit program-cache
-  miss tracker: every dispatch seam (kv.py's padded verbs, the sharded
-  plane's `_wrap` cache) reports its program signature; the first
+- **Continuous profiling.** `track_program()` is the program-cache miss
+  tracker: a caller reports its program signature, and the first
   sighting per registry bumps a NAMED `recompile.*` counter and rings a
-  `recompile` event — a cold pad-ladder rung or a shape drift shows up
-  as a named recompile storm, not a mystery p99 spike.
+  `recompile` event (no port seam reports one; see above).
 
 - **Flight recorder.** A bounded ring of recent span/event records.
   `rung(name, **detail)` marks a degradation-ladder rung firing (digest
