@@ -443,6 +443,39 @@ Phases, each reported on its own line; any failure exits nonzero:
              (exit 0, `smoke OK`), rows echoed. (f) The kernel against
              plain on shard 0's state at the widest per-shard GET width (a)
              launched, timed (`trace-plane`).
+16. ops    — the operator pull where JAX is absent, and the fast lane's
+             structural drills under serving traffic, last. A linear·tiered
+             `KV` of 2^18 slots of 4 KiB pages (`TierConfig()`; cut from
+             2^21), 75% full through `KV.insert`, behind `NetServer(
+             NetConfig())`, read by directory connections (`TcpBackend(
+             directory=True)`) in 2^11-key verbs, each GET checked lane by
+             lane: (b) a delete's epoch bump (every lane of the next fast
+             read stale, the verb path answers, a refresh re-arms), a tier
+             promotion then a re-put (the vacated and re-digested rows'
+             lanes stale, the verb path serves the new bytes), a balloon
+             shrink by the free rows plus 2 x 1024 while a second directory
+             connection serves; (a) then, against the quiet server, in
+             child interpreters where importing jax or pmdfc_tpu raises:
+             `python -m pmdfc_tpu_torch.tools.teledump HOST PORT --out`
+             and `--format prom`, `python -m pmdfc_tpu_torch.tools.
+             check_teledump --live HOST PORT` and on the pulled file, each
+             exit 0, the document passing `check` and `check_fastpath` with
+             the server's fast-lane counters. Then a 4-shard linear·flat
+             plane of 2^16 slots a shard (cut from 2^17), 30% full, behind
+             `NetServer` through `DirectBackend`: saved, restored onto 2
+             shards and swapped in while a directory connection serves, a
+             read pass (every fast lane stale, the verb path serves every
+             key the replay kept), a refresh (owners on the 2 shards).
+             Throughout: every fast hit and every hit the key's current
+             page, every stale lane re-asked through the verb path and
+             answered as a plain connection answers it, no deleted key
+             served, `fastpath_hits + fastpath_stale` on the server equal
+             to the fast lanes the connections read and to their
+             directories' counters, no serve error, no NACK; one fused-GET
+             launch per fallback GET phase (per shard on the plane). The
+             kernel against plain on the widest batch each part served,
+             timed (`ops-tiered`: linear·tiered, `ops-plane`: shard 0 of
+             the 2-shard plane).
 
 Each KV is freed before the next path's fill, so no two pools share the
 card but the fleet's and the plane's own shards, and, in phases 12 and
@@ -456,6 +489,7 @@ import argparse
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -7822,6 +7856,717 @@ def run_trace(sm, lanes: "Lanes | None" = None):
     return [entry]
 
 
+# ---------------------------------------------------------------------------
+# phase 16, ops: the operator pull where JAX is absent, and the fast lane's
+# structural drills under serving traffic
+# ---------------------------------------------------------------------------
+
+# Widths kept: 4 KiB pages, verbs of 2^11 keys. Depth cut: a linear·tiered
+# KV of 2^18 slots (the serving size is 2^21) and a 4-shard plane of 2^16
+# slots a shard (the plane phase's shards hold 2^17), filled to 30% so the
+# 2-shard plane it is resharded onto holds it at 60%.
+OPS_INDEX = dict(capacity=1 << 18)
+OPS_TIER = dict()          # TierConfig()'s defaults
+OPS_BLOOM_BITS = 1 << 21
+OPS_PAGE_WORDS = 1024
+OPS_FILL = 0.75            # of the KV's slots, through KV.insert
+OPS_VERB = 1 << 11         # keys of each GET, PUT and invalidate verb
+OPS_READ = 4               # verbs of a read pass
+OPS_SHRINK_EVICT = 2 * 1024  # live rows the mid-serve shrink takes past the free
+OPS_MIDSERVE = 4           # verbs the serving reader reads after a change
+OPS_SHARDS, OPS_RESHARD = 4, 2
+OPS_PLANE_INDEX = dict(capacity=1 << 16)  # a shard
+OPS_PLANE_BLOOM_BITS = 1 << 20
+OPS_PLANE_FILL = 0.3       # of the 4-shard plane's slots
+OPS_HI = 0xC8000000        # the KV's keys are (OPS_HI, i)
+OPS_PLANE_HI = 0xC8100000  # the plane's keys are (OPS_PLANE_HI, i)
+OPS_XOR = 0x5A5A5A5A       # a re-put page is the key's page XOR this
+OPS_CHILD_TIMEOUT_S = 120.0
+OPS_TOOLS = "pmdfc_tpu_torch.tools"
+
+# The prelude of the operator pull's child interpreters: importing JAX or
+# the JAX package raises there, so a tool that needs either fails.
+NO_JAX_PRELUDE = '''
+import sys
+
+
+class _NoJax:
+    """Refuses JAX and the JAX package in this interpreter."""
+
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "pmdfc_tpu"):
+            raise ImportError(f"{name} is refused in this interpreter")
+        return None
+
+
+sys.meta_path.insert(0, _NoJax())
+for _name in ("jax", "pmdfc_tpu"):
+    try:
+        __import__(_name)
+    except ImportError:
+        pass
+    else:
+        raise SystemExit(f"{_name} imported past the blocker")
+'''
+
+
+def no_jax_argv(module: str, *args: str) -> list:
+    """argv of `python -m module args...` in an interpreter where importing
+    JAX or the JAX package raises (run from the repo's root)."""
+    argv = [module, *args]
+    return [sys.executable, "-c", NO_JAX_PRELUDE + (
+        f"import runpy\nsys.argv = {argv!r}\n"
+        f"runpy.run_module({module!r}, run_name='__main__', "
+        "alter_sys=True)\n")]
+
+
+def start_no_jax(procs: dict) -> dict:
+    """Start each {name: argv} child (no JAX) side by side from the repo's
+    root -> {name: Popen}."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    return {name: subprocess.Popen(
+        argv, cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for name, argv in procs.items()}
+
+
+def wait_no_jax(label: str, started: dict) -> dict:
+    """Wait for children `start_no_jax` started -> {name: stdout}; a
+    nonzero exit or a timeout fails the phase (every child is reaped)."""
+    outs, fails = {}, []
+    deadline = time.monotonic() + OPS_CHILD_TIMEOUT_S
+    for name, p in started.items():
+        try:
+            out, err = p.communicate(
+                timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            out, err = p.communicate()
+            fails.append(f"{name}: timed out")
+            continue
+        if p.returncode != 0:
+            fails.append(f"{name}: exit {p.returncode}: "
+                         f"{err.strip().splitlines()[-3:]}")
+        outs[name] = out
+    if fails:
+        raise AssertionError(f"{label}: {fails}")
+    return outs
+
+
+class OpsPull:
+    """Phase 16 (a): the operator pull against the live server on `port`,
+    each tool in a child interpreter without JAX. `__init__` starts
+    `teledump HOST PORT --out`, `--format prom` and `check_teledump
+    --live` side by side; `finish` waits for them, runs `check_teledump
+    PATH` on the pulled document, and requires each to exit 0 and the
+    document to pass `check` and `check_fastpath` with the server scope
+    `prefix`'s fast-lane counters at `expect` (the server quiet
+    meanwhile)."""
+
+    def __init__(self, port: int, pw: int, root: str, prefix: str,
+                 expect: dict):
+        self.t0 = time.monotonic()
+        self.prefix, self.expect = prefix, expect
+        self.doc_path = os.path.join(root, "teledump.json")
+        host, words = "127.0.0.1", ("--page-words", str(pw))
+        self.started = start_no_jax({
+            "teledump --out": no_jax_argv(f"{OPS_TOOLS}.teledump", host,
+                                          str(port), *words, "--out",
+                                          self.doc_path),
+            "teledump --format prom": no_jax_argv(
+                f"{OPS_TOOLS}.teledump", host, str(port), *words,
+                "--format", "prom"),
+            "check_teledump --live": no_jax_argv(
+                f"{OPS_TOOLS}.check_teledump", "--live", host, str(port),
+                *words)})
+
+    def kill(self) -> None:
+        for p in self.started.values():
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+
+    def finish(self, smi: str) -> None:
+        import tools.check_teledump as chk
+
+        outs = wait_no_jax("ops (a)", self.started)
+        outs.update(wait_no_jax("ops (a)", start_no_jax({
+            "check_teledump PATH": no_jax_argv(
+                f"{OPS_TOOLS}.check_teledump", self.doc_path)})))
+        with open(self.doc_path) as f:
+            doc = json.load(f)
+        errs = chk.check(doc) + chk.check_fastpath(doc["telemetry"])
+        if errs:
+            raise AssertionError(f"ops (a): the pulled document: {errs[:5]}")
+        ctr = doc["telemetry"]["counters"]
+        got = {k: ctr.get(f"{self.prefix}.{k}") for k in self.expect}
+        if got != self.expect:
+            raise AssertionError(f"ops (a): the pulled fast-lane counters "
+                                 f"{got} != the server's {self.expect}")
+        prom = outs["teledump --format prom"]
+        if "fastpath_hits" not in prom:
+            raise AssertionError("ops (a): the Prometheus text lacks the "
+                                 "fast lane's counters")
+        for name in ("check_teledump --live", "check_teledump PATH"):
+            if not outs[name].startswith("[check_teledump] OK"):
+                raise AssertionError(f"ops (a): {name}: {outs[name]!r}")
+        log("ops", f"(a) operator pull without JAX (4 child interpreters "
+            f"refusing jax and pmdfc_tpu): teledump --out, --format prom "
+            f"({len(prom.splitlines())} lines), check_teledump --live and "
+            f"PATH exit 0; the document passes check and check_fastpath, "
+            f"{self.prefix}.fastpath_hits/stale {got['fastpath_hits']}/"
+            f"{got['fastpath_stale']} as served; "
+            f"{outs['check_teledump --live'].strip()}; "
+            f"{time.monotonic() - self.t0:.1f} s from the start, beside the "
+            f"plane's part ({smi})")
+
+
+class OpsKeys:
+    """The keys (hi, i < n) of one phase-16 store and the page each holds
+    now: a re-put key's page is its first page XOR OPS_XOR; a deleted key
+    must miss."""
+
+    def __init__(self, hi: int, n: int, pw: int):
+        import numpy as np
+
+        self.np, self.hi, self.pw = np, hi, pw
+        self.xored = np.zeros(n, bool)
+        self.gone = np.zeros(n, bool)
+
+    def keys(self, lo):
+        np = self.np
+        return np.stack([np.full(len(lo), self.hi, np.uint32),
+                         np.asarray(lo, np.uint32)], -1)
+
+    def want(self, lo):
+        page = pages_np(self.hi, lo, self.pw)
+        page[self.xored[lo]] ^= self.np.uint32(OPS_XOR)
+        return page
+
+
+class OpsReader:
+    """A directory connection (`TcpBackend(directory=True)`) whose every GET
+    is checked lane by lane: the fast lanes it read (`_fast_read`) and the
+    lanes it re-asked through the verb path (`_get_verb`), both spied."""
+
+    def __init__(self, port: int, ks: OpsKeys, label: str):
+        from pmdfc_tpu_torch.runtime.net import TcpBackend
+
+        self.ks, self.label = ks, label
+        self.be = TcpBackend("127.0.0.1", port, page_words=ks.pw,
+                             op_timeout_s=120.0, directory=True)
+        if not self.be.fastpath:
+            raise AssertionError(f"{label}: the server refused the fast "
+                                 "lane")
+        self.lanes = self.hits = self.stale = self.verbs = 0
+        self.c0 = self.client_lanes()
+        fast_read, get_verb = self.be._fast_read, self.be._get_verb
+
+        def spy_fast(keys, *a):
+            ok, hit, epoch = fast_read(keys, *a)
+            self._fast = (keys.copy(), ok.copy(), hit.copy())
+            return ok, hit, epoch
+
+        def spy_verb(keys):
+            out, found = get_verb(keys)
+            self._verb = (keys.copy(), out.copy(), found.copy())
+            return out, found
+
+        self.be._fast_read, self.be._get_verb = spy_fast, spy_verb
+
+    def client_lanes(self):
+        c = self.be.directory.counters
+        return (c["fastpath_gets"], c["fastpath_hits"], c["fastpath_stale"])
+
+    def refresh(self) -> None:
+        if not (self.be.dir_refresh() and self.be.directory.ready()):
+            raise AssertionError(f"{self.label}: a directory pull failed")
+
+    def read(self, lo, ref=None) -> int:
+        """One GET verb of keys (hi, lo): every hit the key's current page
+        (a fast hit too), every deleted key missed, every miss zeroed,
+        every stale lane re-asked through the verb path and, with `ref` (a
+        plain connection, the store quiet), answered as `ref` answers it.
+        -> hits."""
+        np, ks, label = self.ks.np, self.ks, self.label
+        self._fast = self._verb = None
+        out, found = self.be.get(ks.keys(lo))
+        want, gone = ks.want(lo), ks.gone[lo]
+        if self._fast is not None:
+            fk, ok, hit = self._fast
+            flo = fk[:, 1]
+            if (ok & ks.gone[flo]).any():
+                raise AssertionError(f"{label}: a fast hit on a deleted key")
+            bad = (hit != ks.want(flo[ok])).any(axis=1)
+            if bad.any():
+                raise AssertionError(
+                    f"{label}: {int(bad.sum())} fast hits are not the key's "
+                    "current page")
+            stale = flo[~ok]
+            asked = self._verb[0][:, 1] if self._verb is not None else []
+            if not np.isin(stale, asked).all():
+                raise AssertionError(f"{label}: a stale lane was not re-asked"
+                                     " through the verb path")
+            if ref is not None and len(stale):
+                idx = np.nonzero(np.isin(lo, stale))[0]
+                r_out, r_found = ref.get(ks.keys(lo[idx]))
+                if not (np.array_equal(r_found, found[idx])
+                        and np.array_equal(r_out, out[idx])):
+                    raise AssertionError(f"{label}: the stale lanes' answer "
+                                         "differs from the verb path's")
+            self.lanes += len(ok)
+            self.hits += int(ok.sum())
+            self.stale += int((~ok).sum())
+        if (found & gone).any():
+            raise AssertionError(f"{label}: a deleted key hit")
+        bad = found & (out != want).any(axis=1)
+        if bad.any():
+            raise AssertionError(f"{label}: {int(bad.sum())} hits are not the"
+                                 " key's current page")
+        if out[~found].any():
+            raise AssertionError(f"{label}: a miss returned nonzero bytes")
+        self.verbs += 1
+        return int(found.sum())
+
+    def read_pass(self, los, ref=None) -> int:
+        return sum(self.read(los[i:i + OPS_VERB], ref)
+                   for i in range(0, len(los), OPS_VERB))
+
+    def counted(self) -> tuple:
+        """(lanes, hits, stale) this reader read, checked against its own
+        directory's counters."""
+        c = tuple(a - b for a, b in zip(self.client_lanes(), self.c0))
+        mine = (self.lanes, self.hits, self.stale)
+        if c != mine or self.hits + self.stale != self.lanes:
+            raise AssertionError(f"{self.label}: client lanes {c} != the "
+                                 f"lanes read {mine}")
+        return mine
+
+    def close(self) -> None:
+        self.be.close()
+
+
+def ops_server(backend, shards):
+    """A `NetServer(NetConfig())` over `backend` whose GET phases are
+    counted, each with the shard count `shards()` serves it, and whose
+    widest GET batch is kept for each shard count -> (server, phases,
+    widest)."""
+    from pmdfc_tpu_torch.config import NetConfig
+    from pmdfc_tpu_torch.runtime.net import NetServer
+
+    phases: list = []
+    widest: dict = {}
+    real_get = backend.get
+
+    def get(keys):
+        n = shards()
+        phases.append(n)
+        if len(keys) >= len(widest.get(n, ())):
+            widest[n] = keys.copy()
+        return real_get(keys)
+
+    backend.get = get
+    return NetServer(lambda: backend, net=NetConfig()).start(), phases, widest
+
+
+def ops_midserve(reader, los, change, label: str) -> float:
+    """`change()` while `reader` serves GET verbs of `los` in another
+    thread: the reader reads two verbs, the change runs, the reader reads
+    OPS_MIDSERVE verbs begun after it -> the change's seconds."""
+    import threading
+
+    started, done = threading.Event(), threading.Event()
+    took = []
+
+    def serve():
+        i = after = 0
+        try:
+            while after < OPS_MIDSERVE:
+                changed = done.is_set()
+                j = (i * OPS_VERB) % len(los)
+                reader.read(los[j:j + OPS_VERB])
+                i += 1
+                after += changed
+                if i == 2:
+                    started.set()
+        finally:
+            started.set()  # a reader that failed frees the change
+
+    def drive():
+        started.wait(PHASE_TIMEOUT_S)
+        t0 = time.monotonic()
+        try:
+            change()
+        finally:
+            took.append(time.monotonic() - t0)
+            done.set()
+
+    run_threads([serve, drive], label)
+    return took[0]
+
+
+def ops_accounting(srv, readers, s0, label: str) -> tuple:
+    """`fastpath_hits + fastpath_stale` on the server since `s0` equals the
+    fast lanes the readers read, lane for lane, as each reader's directory
+    counts them; no serve error, no NACK, no failed or shed phase."""
+    lanes = [r.counted() for r in readers]
+    tot = tuple(sum(x[i] for x in lanes) for i in range(3))
+    s = dict(srv.stats)
+    h, st = (int(s[k]) - s0[k] for k in ("fastpath_hits", "fastpath_stale"))
+    if (h + st, h, st) != tot:
+        raise AssertionError(f"{label}: server fast lanes {(h + st, h, st)}"
+                             f" != the readers' {tot}")
+    bad = {k: s[k] for k in ("serve_errors", "nacks_sent", "bisect_failures",
+                             "poison_ops", "deadline_shed") if int(s[k])}
+    if bad:
+        raise AssertionError(f"{label}: the server failed: {bad}")
+    return tot
+
+
+def replay_evictions(skv, out: dict) -> None:
+    """Count in out["evicted"] the live entries `skv`'s plane inserts
+    evict: a reshard restore's replay evicts where a cluster of the smaller
+    grid overflows, and neither package's restore carries those evictions
+    onto its counters (only the replay's drops)."""
+    import numpy as np
+
+    out["evicted"] = 0
+    real = skv.plane_insert
+
+    class Counted:
+        def __init__(self, handle):
+            self.handle = handle
+
+        def fetch(self):
+            r = self.handle.fetch()
+            ev = np.asarray(r.evicted)
+            out["evicted"] += int((~(ev == 0xFFFFFFFF).all(-1)).sum())
+            return r
+
+    def plane_insert(keys, pages):
+        return Counted(real(keys, pages))
+
+    skv.plane_insert = plane_insert
+
+
+def ops_kernel(sm, state, batch, label: str, smi):
+    """Kernel against plain on `batch` (the keys of a GET phase the server
+    served, padding included), timed -> (ms, plain_ms, bound_ms)."""
+    torch = sm.torch
+    keys = torch.from_numpy(batch.view(sm.np.int32)).to(sm.dev)
+    w = keys.shape[0]
+    t = uncounted(sm.fused, lambda: plane_kernel(
+        sm, state, None, state.pool.pages.shape[1], [w], label, smi,
+        batch=lambda _w: keys))
+    return w, t[w]
+
+
+def ops_kv(sm, root: str, smi: str):
+    """Phase 16's `KV` part: a linear·tiered `KV` behind `NetServer`, the
+    delete, promotion and balloon drills through directory connections,
+    then (a) started against the quiet server -> (its kernels entry, the
+    server, the started pull); the caller stops both."""
+    import numpy as np
+
+    from pmdfc_tpu_torch.client import DirectBackend
+    from pmdfc_tpu_torch.config import (BloomConfig, IndexConfig, KVConfig,
+                                        TierConfig)
+    from pmdfc_tpu_torch.runtime.net import TcpBackend
+
+    fused, torch = sm.fused, sm.torch
+    cfg = KVConfig(index=IndexConfig(**OPS_INDEX),
+                   bloom=BloomConfig(num_bits=OPS_BLOOM_BITS),
+                   page_words=OPS_PAGE_WORDS, tier=TierConfig(**OPS_TIER))
+    kv = sm.kv_mod.KV(cfg, device=DEVICE)
+    pw = cfg.page_words
+    n = int(kv.capacity() * OPS_FILL)
+    t0 = time.monotonic()
+    for i in range(0, n, INS_B):
+        lo = torch.arange(i, min(i + INS_B, n), device=sm.dev)
+        keys = sm.keys_of(OPS_HI, lo)
+        kv.insert(keys, sm.pages_of(keys, pw))
+    torch.cuda.synchronize()
+    t_fill = time.monotonic() - t0
+    with kv._lock:
+        flat, _ = kv._ops.scan(kv.state.index)
+        held = flat[flat[:, 0] == sm.u32.narrow(torch.tensor(OPS_HI))]
+        present = np.sort(sm.u32.to_numpy(held[:, 1]))
+    ks = OpsKeys(OPS_HI, n, pw)
+    perm = np.random.default_rng(sm.seed).permutation(present).astype(
+        np.uint32)
+    k = OPS_READ * OPS_VERB
+    sample, dele, hot = perm[:k], perm[k:k + OPS_VERB], \
+        perm[k + OPS_VERB:k + 2 * OPS_VERB]
+    serve_set = perm[k + 2 * OPS_VERB:2 * k + 2 * OPS_VERB]
+    pool_b = kv.state.pool.pages.numel() * 4
+    log("ops", f"linear·tiered KV on {kv.device}: {kv.capacity()} slots "
+        f"(cut from 2^21), pools {pool_b / 2**30:.2f} GiB of {pw}-word "
+        f"pages; fill {n} pages through KV.insert in {t_fill:.3f} s, "
+        f"{len(present)} held ({smi})")
+
+    srv, phases, widest = ops_server(DirectBackend(kv), lambda: 1)
+    fused.launches.clear()
+    conns = []
+    try:
+        plain = TcpBackend("127.0.0.1", srv.port, page_words=pw,
+                           op_timeout_s=120.0)
+        conns.append(plain)
+        a = OpsReader(srv.port, ks, "ops a")
+        conns.append(a)
+        s0 = {k_: int(srv.stats[k_])
+              for k_ in ("fastpath_hits", "fastpath_stale")}
+        t0 = time.monotonic()
+        a.refresh()
+        n_dir = len(a.be.directory)
+        a.read_pass(sample, plain)
+        if a.stale or a.hits != len(sample):
+            raise AssertionError(f"ops: the first fast pass: {a.hits} hits, "
+                                 f"{a.stale} stale of {len(sample)}")
+        # (b1) a delete's epoch bump: every lane of the next fast read is
+        # stale, the verb path answers, a refresh re-arms
+        e0 = kv.dir_epoch
+        if not plain.invalidate(ks.keys(dele)).all():
+            raise AssertionError("ops: an invalidate missed a held key")
+        ks.gone[dele] = True
+        if kv.dir_epoch != e0 + 1:
+            raise AssertionError(f"ops: the delete moved the epoch by "
+                                 f"{kv.dir_epoch - e0}, not 1")
+        h1 = (a.hits, a.stale)
+        mixed = np.concatenate([dele[:OPS_VERB // 2], sample[:OPS_VERB // 2]])
+        a.read(mixed, plain)
+        if (a.hits, a.stale) != (h1[0], h1[1] + OPS_VERB):
+            raise AssertionError(f"ops: after the epoch bump the fast lanes "
+                                 f"read {(a.hits, a.stale)} from {h1}, not "
+                                 f"{OPS_VERB} stale")
+        a.refresh()
+        a.read(mixed, plain)
+        d1 = a.hits - h1[0]
+        # (b2) a tier promotion, then a re-put: the directory's rows are
+        # vacated and re-digested, the stale lanes serve the new bytes
+        prom0 = kv.tier_stats()["promotions"]
+        for _ in range(3):
+            plain.get(ks.keys(hot))
+        prom = kv.tier_stats()["promotions"] - prom0
+        if prom <= 0:
+            raise AssertionError("ops: no promotion from the hot set")
+        plain.put(ks.keys(hot), ks.want(hot) ^ np.uint32(OPS_XOR))
+        ks.xored[hot] = True
+        h2 = a.stale
+        a.read(hot, plain)
+        if a.stale == h2:
+            raise AssertionError("ops: no stale lane after the re-put")
+        d2 = a.stale - h2
+        a.refresh()
+        a.read(hot, plain)
+        # (b3) a balloon shrink mid-serve
+        c = OpsReader(srv.port, ks, "ops serving")
+        conns.append(c)
+        c.refresh()
+        e0 = kv.dir_epoch
+        ev0 = kv.tier_stats()["shrink_evictions"]
+
+        def shrink():
+            if not kv.balloon_shrink(kv.balloon_state()["free"]
+                                     + OPS_SHRINK_EVICT):
+                raise AssertionError("ops: the balloon refused to shrink")
+
+        t_shrink = ops_midserve(c, serve_set, shrink, "ops balloon shrink")
+        evicted = kv.tier_stats()["shrink_evictions"] - ev0
+        if kv.dir_epoch == e0 or evicted <= 0:
+            raise AssertionError(f"ops: the shrink evicted {evicted} rows, "
+                                 f"epoch moved {kv.dir_epoch - e0}")
+        a.refresh()
+        served = a.read_pass(sample, plain)
+        t_b = time.monotonic() - t0
+        tot = ops_accounting(srv, [a, c], s0, "ops KV")
+        log("ops", f"(b) directory of {n_dir} entries; delete of "
+            f"{len(dele)} keys: epoch +1, the next {OPS_VERB} fast lanes "
+            f"stale, the verb path answered, after the refresh {d1} fast "
+            f"hits (stale lanes leave the client's directory); {prom} "
+            f"promotions then a re-put of {len(hot)} keys: {d2} stale lanes"
+            f" served the new bytes by the verb path; balloon shrink "
+            f"mid-serve in {t_shrink:.3f} s evicted {evicted} rows, the "
+            f"serving reader's {c.verbs} verbs read {c.hits} fast hits and "
+            f"{c.stale} stale lanes; {served} of {len(sample)} sample keys "
+            f"served after it; fast lanes (read, hits, stale) {tot} on both "
+            f"sides; {t_b:.1f} s")
+    finally:
+        for x in conns:
+            x.close()
+    torch.cuda.synchronize()
+    launches = fused.launches["fused_get_linear_tiered"]
+    if not phases or launches != len(phases):
+        srv.stop()
+        raise AssertionError(f"ops: {launches} fused-GET launches for "
+                             f"{len(phases)} fallback GET phases")
+    s = kv.stats()
+    if s["misses"] != sum(s[c_] for c_ in sm.kv_mod.MISS_CAUSE_NAMES):
+        srv.stop()
+        raise AssertionError("ops: misses != the sum of the miss causes")
+    # (a) against this server, quiet from here on, beside the plane's part
+    pull = OpsPull(srv.port, pw, root, srv.stats.prefix,
+                   {k_: int(srv.stats[k_])
+                    for k_ in ("fastpath_hits", "fastpath_stale")})
+    try:
+        w, t = ops_kernel(sm, kv.state, widest[1], "ops KV", smi)
+    except BaseException:
+        pull.kill()
+        srv.stop()
+        raise
+    log("ops", f"fused_get_linear_tiered: {launches} launches = one per "
+        f"fallback GET phase ({len(phases)}); the widest phase's batch "
+        f"(w = {w}): kernel == plain, {t[0]:.4f} ms vs bound {t[2]:.4f} ms,"
+        f" plain {t[1]:.4f} ms ({smi})")
+    return (plane_entry(sm, "ops-tiered", launches, t,
+                        name="fused_get_linear_tiered"), srv, pull)
+
+
+def ops_plane(sm, root: str, smi: str) -> dict:
+    """Phase 16's plane part: a 4-shard plane behind `NetServer` through
+    `DirectBackend`, resharded onto 2 shards mid-serve -> its kernels
+    entry."""
+    import numpy as np
+
+    from pmdfc_tpu_torch.client import DirectBackend
+    from pmdfc_tpu_torch.config import BloomConfig, IndexConfig, KVConfig
+    from pmdfc_tpu_torch.parallel.shard import ShardedKV, make_mesh
+    from pmdfc_tpu_torch.runtime.net import TcpBackend
+
+    fused, torch = sm.fused, sm.torch
+    cfg = KVConfig(index=IndexConfig(**OPS_PLANE_INDEX),
+                   bloom=BloomConfig(num_bits=OPS_PLANE_BLOOM_BITS),
+                   page_words=OPS_PAGE_WORDS)
+    pw = cfg.page_words
+    skv4 = ShardedKV(cfg, mesh=make_mesh([DEVICE] * OPS_SHARDS))
+    n = int(skv4.capacity() * OPS_PLANE_FILL)
+    t_fill, drops, _ = plane_fill(skv4, n, OPS_PLANE_HI, plane=False)
+    ks = OpsKeys(OPS_PLANE_HI, n, pw)
+    perm = np.random.default_rng(sm.seed).permutation(
+        plane_held(skv4, OPS_PLANE_HI)).astype(np.uint32)
+    k = OPS_READ * OPS_VERB
+    sample, serve_set = perm[:k], perm[k:2 * k]
+    db = DirectBackend(skv4)
+    srv, phases, widest = ops_server(db, lambda: db.kv.n_shards)
+    fused.launches.clear()
+    path = os.path.join(root, "plane4.ckpt")
+    conns = []
+    try:
+        plain = TcpBackend("127.0.0.1", srv.port, page_words=pw,
+                           op_timeout_s=120.0)
+        conns.append(plain)
+        a = OpsReader(srv.port, ks, "ops plane a")
+        conns.append(a)
+        c = OpsReader(srv.port, ks, "ops plane serving")
+        conns.append(c)
+        s0 = {k_: int(srv.stats[k_])
+              for k_ in ("fastpath_hits", "fastpath_stale")}
+        t0 = time.monotonic()
+        a.refresh()
+        c.refresh()
+        owners4 = sorted({e[0] for e in a.be.directory._map.values()})
+        a.read_pass(sample, plain)
+        if a.stale or len(owners4) != OPS_SHARDS:
+            raise AssertionError(f"ops plane: first pass {a.stale} stale, "
+                                 f"owners {owners4}")
+        rs = {}
+
+        def reshard():
+            t1 = time.monotonic()
+            skv4.save(path)
+            rs["save"] = time.monotonic() - t1
+            skv2 = ShardedKV(cfg, mesh=make_mesh([DEVICE] * OPS_RESHARD))
+            replay_evictions(skv2, rs)
+            skv2.restore(path)
+            skv2._sync()
+            del skv2.plane_insert
+            rs["restore"] = time.monotonic() - t1 - rs["save"]
+            db.kv = skv2   # swapped in mid-serve
+
+        t_rs = ops_midserve(c, serve_set, reshard, "ops reshard")
+        skv2 = db.kv
+        lost = {"drops": skv2.stats()["drops"] - skv4.stats()["drops"],
+                "evicted": rs["evicted"]}
+        h3 = (a.hits, a.stale)
+        served = a.read_pass(sample, plain)
+        if a.hits != h3[0] or a.stale == h3[1]:
+            raise AssertionError("ops plane: the reshard left a fast lane "
+                                 "valid")
+        if len(sample) - served > sum(lost.values()):
+            raise AssertionError(f"ops plane: {len(sample) - served} keys "
+                                 f"lost, the replay's losses {lost}")
+        a.refresh()
+        owners2 = sorted({e[0] for e in a.be.directory._map.values()})
+        h4 = a.hits
+        a.read_pass(sample, plain)
+        if not set(owners2) <= set(range(OPS_RESHARD)) or a.hits == h4:
+            raise AssertionError(f"ops plane: after the refresh owners "
+                                 f"{owners2}, {a.hits - h4} fast hits")
+        t_b = time.monotonic() - t0
+        tot = ops_accounting(srv, [a, c], s0, "ops plane")
+    finally:
+        for x in conns:
+            x.close()
+        srv.stop()
+        if os.path.exists(path):
+            os.remove(path)
+    torch.cuda.synchronize()
+    launches = fused.launches["fused_get_linear_flat"]
+    if not phases or launches != sum(phases):
+        raise AssertionError(f"ops plane: {launches} fused-GET launches for "
+                             f"{len(phases)} fallback GET phases of "
+                             f"{sum(phases)} shard programs")
+    log("ops", f"(b) plane: {OPS_SHARDS} x {skv4.capacity() // OPS_SHARDS} "
+        f"slots, fill {n} pages in {t_fill:.3f} s (drops {drops}); 4 -> 2 "
+        f"reshard mid-serve in {t_rs:.1f} s (save {rs['save']:.1f} s, "
+        f"restore {rs['restore']:.1f} s, replay {lost}); every fast lane of"
+        f" the swapped plane stale, the verb path served {served} of "
+        f"{len(sample)}; after the refresh owners {owners2}; the serving "
+        f"reader's {c.verbs} verbs {c.hits} fast hits, {c.stale} stale; "
+        f"fast lanes {tot} on both sides; {launches} launches = one per "
+        f"shard per fallback GET phase ({len(phases)}); {t_b:.1f} s")
+    batch = widest[OPS_RESHARD]
+    real = batch[~(batch == 0xFFFFFFFF).all(axis=1)]
+    own = real[skv2.node_of(real) == 0]
+    own = np.concatenate([own, np.full(
+        (sm.kv_mod._pad_pow2(len(own)) - len(own), 2), 0xFFFFFFFF,
+        np.uint32)])
+    w, t = ops_kernel(sm, skv2.states[0], own, "ops plane shard 0", smi)
+    log("ops", f"fused_get_linear_flat: the widest 2-shard phase's shard-0 "
+        f"batch (w = {w}): kernel == plain, {t[0]:.4f} ms vs bound "
+        f"{t[2]:.4f} ms, plain {t[1]:.4f} ms ({smi})")
+    return plane_entry(sm, "ops-plane", launches, t)
+
+
+def run_ops(sm):
+    """Phase 16: the operator pull without JAX against a live port server,
+    and the fast lane's structural drills under serving traffic -> its two
+    kernels entries."""
+    from pmdfc_tpu_torch.config import TelemetryConfig
+    from pmdfc_tpu_torch.runtime import telemetry as tele
+
+    torch = sm.torch
+    t_phase = time.monotonic()
+    free_card(torch)
+    smi = nvidia_smi()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "ops")
+    os.makedirs(root, exist_ok=True)
+    tele.configure(TelemetryConfig(enabled=True))
+    try:
+        kv_entry, srv, pull = ops_kv(sm, root, smi)
+        try:
+            plane_entry_ = ops_plane(sm, root, smi)
+            pull.finish(smi)
+        finally:
+            pull.kill()
+            srv.stop()
+    finally:
+        tele.configure()
+        free_card(torch)
+        shutil.rmtree(root, ignore_errors=True)
+    log("ops", f"phase 16 took {time.monotonic() - t_phase:.1f} s")
+    return [kv_entry, plane_entry_]
+
+
 T0 = time.monotonic()  # the smoke's start: phase times are logged from it
 
 
@@ -7837,6 +8582,8 @@ def main() -> int:
     ap.add_argument("--trace", action="store_true",
                     help="run only phase 15, with its client child and "
                          "sweeps in its own lanes")
+    ap.add_argument("--ops", action="store_true",
+                    help="run only phase 16")
     ap.add_argument("--trace-client", metavar="DIR", default=None,
                     help="phase 15's client child: wait for the server "
                          "named in DIR/server.json and drive it (touches "
@@ -7869,6 +8616,11 @@ def main() -> int:
         _build.load("fused_get")
         log("env", nvidia_smi())
         print("TRACE " + json.dumps(run_trace(Smoke(args.seed))), flush=True)
+        return 0
+    if args.ops:
+        _build.load("fused_get")
+        log("env", nvidia_smi())
+        print("OPS " + json.dumps(run_ops(Smoke(args.seed))), flush=True)
         return 0
 
     # 1. env
@@ -7937,7 +8689,8 @@ def main() -> int:
                     .queue("trace-client", args.seed))),
                 ("tail", lambda sm: run_tail(sm, lanes)),
                 ("chaos", lambda sm: collect_chaos(lanes)),
-                ("trace", lambda sm: run_trace(sm, lanes))):
+                ("trace", lambda sm: run_trace(sm, lanes)),
+                ("ops", run_ops)):
             t0 = time.monotonic()
             entry = run(sm)
             log("smoke", f"{label} took {time.monotonic() - t0:.1f} s, "
@@ -7946,7 +8699,7 @@ def main() -> int:
             # it got in the end of its errors
             print(f"[smoke] {label} done at {time.monotonic() - T0:.1f} s",
                   file=sys.stderr, flush=True)
-            if isinstance(entry, list):  # plane .. trace
+            if isinstance(entry, list):  # plane .. ops
                 kernels.extend(entry)
             elif entry is not None:  # the families launch no kernel
                 kernels.append(entry)

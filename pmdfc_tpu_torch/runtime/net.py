@@ -1352,9 +1352,10 @@ class NetServer(_BaseServer):
                 else:
                     snap = fn() if fn is not None else {}
                 if tele.enabled():
-                    # the wire surface tools/teledump.py pulls: the whole
-                    # process registry + workload sketches ride the
-                    # backend snapshot (`pmdfc-telemetry-v2`)
+                    # the wire surface pmdfc_tpu_torch.tools.teledump
+                    # pulls: the whole process registry + workload
+                    # sketches ride the backend snapshot
+                    # (`pmdfc-telemetry-v2`)
                     snap = dict(snap)
                     snap["telemetry"] = tele.snapshot()
                     snap["workload"] = self.workload.snapshot()

@@ -135,9 +135,9 @@ class KVServer:
         # guarded-by: bf_push_stats
         self._bf_push_lock = san.lock("KVServer._bf_push_lock")
         self._bf_thread: threading.Thread | None = None
+        # "errors" appears with the first failed push, as in JAX
         self.bf_push_stats = {"cycles": 0, "full_pushes": 0,
-                              "delta_pushes": 0, "blocks_pushed": 0,
-                              "errors": 0}
+                              "delta_pushes": 0, "blocks_pushed": 0}
 
     def _build_mesh_kv(self, mesh, pad_floor: int):
         """Resolve a mesh= request into a ShardedKV, or None (one device)
@@ -306,7 +306,8 @@ class KVServer:
                     sent.append(i)
                 except Exception as e:  # noqa: BLE001 — one bad sink must
                     # not kill the sender thread for every other client
-                    self.bf_push_stats["errors"] += 1
+                    self.bf_push_stats["errors"] = (
+                        self.bf_push_stats.get("errors", 0) + 1)
                     print(f"[kv-server] bf push to client {i} failed: {e!r}")
             with self._bf_lock:
                 for i in sent:

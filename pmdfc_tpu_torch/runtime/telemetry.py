@@ -82,8 +82,8 @@ net-smoke overhead of `on` vs `off` within 3%.
 
 Exports: `telemetry.render()` (Prometheus-style text),
 `telemetry.snapshot()` (the JSON form `MSG_STATS` ships and
-`tools/teledump.py` pulls), `telemetry.configure()` (tests/benches swap
-a fresh registry in).
+`python -m pmdfc_tpu_torch.tools.teledump` pulls), `telemetry.configure()`
+(tests/benches swap a fresh registry in).
 """
 
 from __future__ import annotations
@@ -561,8 +561,8 @@ class Registry:
 
     def snapshot(self) -> dict:
         """JSON-safe registry snapshot — the wire form (`MSG_STATS`
-        ships it under the `telemetry` key; `tools/teledump.py` pulls
-        it; `tools/check_teledump.py` pins this schema)."""
+        ships it under the `telemetry` key; `pmdfc_tpu_torch.tools.
+        teledump` pulls it; `tools/check_teledump.py` pins this schema)."""
         with self._l:
             items = list(self._metrics.items())
         counters, gauges, hists = {}, {}, {}
@@ -627,7 +627,8 @@ def _shard_family(name: str, kind: str):
 
 def render_snapshot(snap: dict) -> str:
     """Prometheus-style text exposition of a `snapshot()` dict (local or
-    pulled over the wire — `tools/teledump.py --format prom`).
+    pulled over the wire — `pmdfc_tpu_torch.tools.teledump --format
+    prom`).
 
     Per-shard families additionally render with a real `shard` label
     (`pmdfc_mesh_phase_get_us{shard="3",quantile="p95"}`) so teledump

@@ -125,3 +125,31 @@ print("ok")
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("ok")
+
+
+def test_operator_tools_run_where_jax_is_absent(tmp_path):
+    """In interpreters where importing jax or pmdfc_tpu raises (the
+    prelude `chip_smoke.py` gives phase 16's children): the root tools the
+    smoke and the port's docs lean on import, `python -m
+    pmdfc_tpu_torch.tools.teledump --local --out` writes this process's
+    registry, and `python -m pmdfc_tpu_torch.tools.check_teledump` passes
+    the document it wrote."""
+    import chip_smoke
+
+    def run(argv):
+        proc = subprocess.run(argv, cwd=ROOT, capture_output=True, text=True,
+                              timeout=120)
+        assert proc.returncode == 0, proc.stderr
+        return proc.stdout
+
+    out = run([sys.executable, "-c", chip_smoke.NO_JAX_PRELUDE + (
+        "import tools.check_teledump, tools.tracetool, tools.proftool\n"
+        "try:\n    import jax\nexcept ImportError:\n    print('refused')\n")])
+    assert out.strip() == "refused"
+    doc = tmp_path / "local.json"
+    run(chip_smoke.no_jax_argv("pmdfc_tpu_torch.tools.teledump", "--local",
+                               "--out", str(doc)))
+    assert '"telemetry"' in doc.read_text()
+    out = run(chip_smoke.no_jax_argv("pmdfc_tpu_torch.tools.check_teledump",
+                                     str(doc)))
+    assert out.startswith("[check_teledump] OK: telemetry snapshot")

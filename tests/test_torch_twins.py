@@ -1,0 +1,259 @@
+"""PyTorch port: every JAX test suite has its twin, checkably.
+
+`TWINS` gives, for every `tests/test_*.py` of the JAX package, the
+`tests/test_torch_*.py` files that hold the same drills against the port,
+or the one-line reason why no port file can. `DRILLS` maps, for the
+suites twinned last, each JAX test function to the port test function
+that runs it on both packages, or to an earlier port test that already
+held it. The tests parse the files with `ast` and fail when a JAX suite
+or one of those JAX drills has no entry, when an entry names a JAX file
+or function that is gone, or when a named port file or function does not
+exist. They read no benchmark file.
+"""
+
+from __future__ import annotations
+
+import ast
+from pathlib import Path
+
+import pytest
+import torch_threads  # noqa: F401 (one torch thread a worker)
+
+pytestmark = pytest.mark.torch
+
+TESTS = Path(__file__).resolve().parent
+
+TWINS = {
+    "test_admit.py": ("test_torch_tier.py", "test_torch_env_switches.py"),
+    "test_analyze.py": ("test_torch_analyze.py",),
+    "test_autotune.py": ("test_torch_autotune.py",),
+    "test_aux.py": ("test_torch_policy_cache.py", "test_torch_logger.py",
+                    "test_torch_checkpoint.py", "test_torch_server.py"),
+    "test_bench_cert.py": "certifies the TPU history rows of the frozen "
+                          "`bench.py` (BENCH_HISTORY.jsonl, BENCH_TPU_CERT."
+                          "json); the port has no TPU history to certify",
+    "test_bf_push.py": ("test_torch_bf_push.py", "test_torch_client.py"),
+    "test_bloom.py": ("test_torch_pool_bloom.py",),
+    "test_cceh.py": ("test_torch_cceh.py",),
+    "test_chaos.py": ("test_torch_chaos.py",),
+    "test_client.py": ("test_torch_client.py",),
+    "test_containment.py": ("test_torch_containment.py",),
+    "test_durability.py": ("test_torch_checkpoint.py",
+                           "test_torch_journal.py"),
+    "test_elastic.py": ("test_torch_ring.py", "test_torch_replica_rejoin.py",
+                        "test_torch_bench_elastic.py"),
+    "test_failure.py": ("test_torch_failure.py",),
+    "test_fastpath.py": ("test_torch_fastpath.py", "test_torch_kv_surface.py",
+                         "test_torch_net.py"),
+    "test_fused.py": ("test_torch_fused.py",),
+    "test_hashing.py": ("test_torch_hashing.py",),
+    "test_hotring.py": ("test_torch_hotring.py",),
+    "test_index_conformance.py": ("test_torch_conformance.py",
+                                  "test_torch_families.py"),
+    "test_insert_compaction.py": ("test_torch_insert_compaction.py",
+                                  "test_torch_insert_fresh_slots.py"),
+    "test_jax_pin.py": "pins the JAX and jaxlib versions the compile-cache "
+                       "hardening of `pmdfc_tpu/bench/common.py` was "
+                       "verified on; the port uses no JAX",
+    "test_kv.py": ("test_torch_kv.py", "test_torch_extents.py",
+                   "test_torch_kv_families.py"),
+    "test_linear.py": ("test_torch_linear.py",),
+    "test_mesh.py": ("test_torch_plane.py", "test_torch_shard.py",
+                     "test_torch_partitioning.py"),
+    "test_mesh2d.py": ("test_torch_mesh2d.py",),
+    "test_multihost.py": ("test_torch_multihost.py",
+                          "test_torch_multihost_plane.py"),
+    "test_net.py": ("test_torch_net.py",),
+    "test_onesided.py": ("test_torch_onesided.py", "test_torch_net.py"),
+    "test_pressure.py": ("test_torch_workloads.py",
+                         "test_torch_bench_sweeps.py"),
+    "test_profiler.py": ("test_torch_profiler.py",),
+    "test_qos.py": ("test_torch_qos.py",),
+    "test_replica.py": ("test_torch_replica.py",
+                        "test_torch_replica_rejoin.py"),
+    "test_runtime.py": ("test_torch_engine.py", "test_torch_server.py"),
+    "test_shard.py": ("test_torch_shard.py", "test_torch_mesh_ckpt.py"),
+    "test_soak.py": ("test_torch_bench_soaks.py",
+                     "test_torch_bench_sweeps.py"),
+    "test_telemetry.py": ("test_torch_telemetry.py", "test_torch_teletop.py"),
+    "test_tier.py": ("test_torch_tier.py",),
+    "test_tracing.py": ("test_torch_tracing.py",),
+    "test_xray.py": ("test_torch_xray.py",),
+}
+
+_FP = "test_torch_fastpath.py::"
+_NET = "test_torch_net.py::"
+_SURF = "test_torch_kv_surface.py::"
+_BF = "test_torch_bf_push.py::"
+_CLIENT = "test_torch_client.py::"
+_INS = "test_torch_insert_compaction.py::"
+_ONE = "test_torch_onesided.py::"
+
+DRILLS = {
+    "test_fastpath.py": {
+        "test_directory_snapshot_matches_live_state":
+            (_SURF + "test_kv_surface_matches_jax",),
+        "test_epoch_bumps_on_structural_invalidation":
+            (_FP + "test_epoch_bumps_on_structural_invalidation",),
+        "test_unpaged_config_has_no_fast_surface":
+            (_SURF + "test_unpaged_kv_has_no_fast_surface_and_live_entries_"
+                     "match", _FP + "test_unpaged_server_acks_no_fast_lane"),
+        "test_fastread_end_to_end_bit_identical":
+            (_NET + "test_wire_transcript_matches_jax",),
+        "test_teledump_pins_fastpath_invariant":
+            (_FP + "test_teledump_pins_fastpath_invariant",),
+        "test_reput_stales_entry_delete_bumps_epoch":
+            (_NET + "test_wire_transcript_matches_jax",),
+        "test_dir_delta_upserts_and_tombstones":
+            (_FP + "test_dir_delta_upserts_and_tombstones",),
+        "test_fastpath_off_is_verb_for_verb_identical":
+            (_NET + "test_wire_transcript_matches_jax",),
+        "test_tier_promotion_vacates_directory_rows":
+            (_FP + "test_tier_promotion_vacates_directory_rows",),
+        "test_balloon_shrink_drill_zero_wrong_bytes":
+            (_FP + "test_balloon_shrink_drill_zero_wrong_bytes",),
+        "test_reshard_4_to_2_drill_zero_wrong_bytes":
+            (_FP + "test_reshard_4_to_2_drill_zero_wrong_bytes",),
+        "test_chaos_fastpath_soak_no_wrong_bytes":
+            (_FP + "test_chaos_fastpath_soak_no_wrong_bytes",),
+        "test_cleancache_close_joins_refresher_and_dir_refresh":
+            (_FP + "test_cleancache_close_joins_refresher_and_dir_refresh",),
+        "test_pool_server_stats_parity":
+            (_NET + "test_pool_server_matches_jax_host_pool",),
+        "test_replica_group_prefers_fastpath_over_hedging":
+            (_FP + "test_replica_group_prefers_fastpath_over_hedging",),
+        "test_fastpath_under_concurrent_writers":
+            (_SURF + "test_fast_reads_under_concurrent_rewrites_never_tear",
+             _SURF + "test_put_landing_between_check_and_gather_cannot_"
+                     "serve_wrong_bytes"),
+    },
+    "test_bf_push.py": {
+        "test_first_push_is_full_then_deltas":
+            (_CLIENT + "test_first_push_is_full_then_deltas",),
+        "test_delta_push_reflects_deletes":
+            (_BF + "test_delta_push_reflects_deletes",),
+        "test_no_false_negative_when_push_races_put":
+            (_CLIENT + "test_no_false_negative_when_push_races_put",),
+        "test_stale_snapshot_delivery_rejected":
+            (_BF + "test_stale_snapshot_delivery_rejected",),
+        "test_push_error_does_not_kill_other_clients":
+            (_BF + "test_push_error_does_not_kill_other_clients",),
+        "test_pushed_client_stops_pulling":
+            (_BF + "test_pushed_client_stops_pulling",),
+        "test_concurrent_put_storm_under_push_never_false_negative":
+            (_CLIENT + "test_put_storm_under_the_push_thread_never_false_"
+                       "negative",),
+    },
+    "test_insert_compaction.py": {
+        "test_narrow_rounds_place_everything_at_fill":
+            (_INS + "test_narrow_rounds_place_everything_at_fill",),
+        "test_overflow_fallback_keeps_accounting":
+            (_INS + "test_overflow_fallback_keeps_accounting",),
+        "test_level_narrow_bottom_tail_exact":
+            (_INS + "test_level_narrow_bottom_tail_exact",),
+        "test_eviction_free_batches_keep_every_fresh_slot":
+            ("test_torch_insert_fresh_slots.py::"
+             "test_eviction_free_batches_keep_every_fresh_slot",),
+    },
+    "test_onesided.py": {
+        "test_roundtrip_content": (_ONE + "test_roundtrip_content",),
+        "test_overwrite_reuses_row":
+            (_NET + "test_pool_server_matches_jax_host_pool",),
+        "test_invalidate_frees_rows":
+            (_NET + "test_pool_server_matches_jax_host_pool",),
+        "test_grant_exhaustion_drops_oldest":
+            (_NET + "test_pool_server_matches_jax_host_pool",),
+        "test_duplicate_keys_in_batch_last_wins":
+            (_ONE + "test_duplicate_keys_in_batch_last_wins",),
+        "test_client_map_loss_is_legal_miss":
+            (_ONE + "test_client_map_loss_is_legal_miss",),
+        "test_multi_client_isolation":
+            (_ONE + "test_multi_client_isolation",),
+        "test_pool_persistence_across_restart":
+            (_ONE + "test_pool_persistence_across_restart",),
+        "test_cleancache_client_rides_onesided":
+            (_ONE + "test_cleancache_client_rides_onesided",),
+        "test_storm_content_verified": (_ONE + "test_storm_content_verified",),
+        "test_remote_pool_grant_and_verbs":
+            (_NET + "test_pool_server_matches_jax_host_pool",),
+        "test_onesided_client_stack_over_network":
+            (_ONE + "test_onesided_client_stack_over_network",),
+        "test_remote_pool_grant_exhaustion_refused":
+            (_ONE + "test_remote_pool_grant_exhaustion_refused",),
+    },
+}
+
+
+def _jax_suites() -> list[str]:
+    return sorted(p.name for p in TESTS.glob("test_*.py")
+                  if not p.name.startswith("test_torch_"))
+
+
+def _test_functions(name: str) -> set[str]:
+    """The module-level `test_*` functions of tests/<name>."""
+    tree = ast.parse((TESTS / name).read_text(), name)
+    return {n.name for n in tree.body if isinstance(n, ast.FunctionDef)
+            and n.name.startswith("test_")}
+
+
+def _packages(name: str) -> set[str]:
+    """The packages tests/<name> reaches: `pmdfc_tpu` and `pmdfc_tpu_torch`
+    directly, or through `torch_twin` (both) or another port test file
+    (the port's)."""
+    mods = set()
+    for n in ast.walk(ast.parse((TESTS / name).read_text(), name)):
+        if isinstance(n, ast.Import):
+            mods |= {a.name for a in n.names}
+        elif isinstance(n, ast.ImportFrom) and n.module:
+            mods.add(n.module)
+    tops = {m.split(".")[0] for m in mods}
+    out = tops & {"pmdfc_tpu", "pmdfc_tpu_torch"}
+    if "torch_twin" in tops:
+        out |= {"pmdfc_tpu", "pmdfc_tpu_torch"}
+    if any(t.startswith("test_torch_") for t in tops):
+        out.add("pmdfc_tpu_torch")
+    return out
+
+
+def test_the_table_names_exactly_the_jax_suites():
+    suites = _jax_suites()
+    assert len(suites) >= 39
+    missing = sorted(set(suites) - set(TWINS))
+    gone = sorted(set(TWINS) - set(suites))
+    assert not missing, f"JAX suites with no twin and no reason: {missing}"
+    assert not gone, f"entries for JAX suites that no longer exist: {gone}"
+
+
+@pytest.mark.parametrize("suite", sorted(TWINS))
+def test_each_jax_suite_has_a_twin_or_a_reason(suite):
+    twins = TWINS[suite]
+    if isinstance(twins, str):
+        assert len(twins) > 40, f"{suite}: the reason is not recorded"
+        return
+    assert twins, f"{suite}: no twin named"
+    for name in twins:
+        assert name.startswith("test_torch_"), name
+        assert (TESTS / name).exists(), f"{suite}: {name} does not exist"
+        assert _test_functions(name), f"{suite}: {name} holds no test"
+        assert "pmdfc_tpu_torch" in _packages(name), \
+            f"{suite}: {name} does not reach the port"
+
+
+@pytest.mark.parametrize("suite", sorted(DRILLS))
+def test_each_jax_drill_maps_to_an_existing_port_test(suite):
+    drills = DRILLS[suite]
+    jax_tests = _test_functions(suite)
+    missing = sorted(jax_tests - set(drills))
+    gone = sorted(set(drills) - jax_tests)
+    assert not missing, f"{suite}: drills with no port test: {missing}"
+    assert not gone, f"{suite}: entries for drills that are gone: {gone}"
+    for drill, targets in drills.items():
+        assert targets, f"{suite}::{drill}: no port test named"
+        for target in targets:
+            name, func = target.split("::")
+            assert name in TWINS[suite], \
+                f"{suite}::{drill}: {name} is not among the suite's twins"
+            assert func in _test_functions(name), \
+                f"{suite}::{drill}: {target} does not exist"
+            assert _packages(name) == {"pmdfc_tpu", "pmdfc_tpu_torch"}, \
+                f"{suite}::{drill}: {name} does not run both packages"

@@ -1,13 +1,16 @@
 """Shared pieces of the twin suites (`test_torch_qos.py`,
-`test_torch_containment.py`, `test_torch_chaos.py`, `test_torch_xray.py`):
-each package's modules under one name, the telemetry registries, and the
-loopback server stop."""
+`test_torch_containment.py`, `test_torch_chaos.py`, `test_torch_xray.py`,
+`test_torch_fastpath.py`, `test_torch_bf_push.py`,
+`test_torch_onesided.py`): each package's modules under one name, the
+telemetry registries, the loopback server stop and the deep comparison of
+two packages' transcripts."""
 
 from __future__ import annotations
 
 import socket
 import types
 
+import numpy as np
 import pytest
 
 import pmdfc_tpu.client.backends as jbackends
@@ -55,6 +58,14 @@ def registries():
     ttele.configure()
 
 
+@pytest.fixture
+def fresh_jax_registry(registries):
+    """JAX's side registers its servers' scopes in a fresh JAX registry;
+    `registries` puts the one found back after the test (a later JAX test
+    of the worker reads the registry's gauges)."""
+    jtele.configure()
+
+
 def stop(srv) -> None:
     """Stop a server of either package without waiting out its accept
     loop's join timeout."""
@@ -73,3 +84,32 @@ def counters(st) -> dict:
     """A stats document's counters (every int field but the clock's
     `uptime_s`)."""
     return {k: int(v) for k, v in st.items() if k != "uptime_s"}
+
+
+def same(a, b, where: str = "") -> None:
+    """Deep equality of two packages' transcripts: arrays (and numpy
+    scalars) by dtype, shape and value, sequences and dicts item by item,
+    anything else by ==."""
+    if isinstance(a, (np.ndarray, np.generic)) or isinstance(
+            b, (np.ndarray, np.generic)):
+        a, b = np.asarray(a), np.asarray(b)
+        assert a.dtype == b.dtype, f"{where}: dtype {a.dtype} vs {b.dtype}"
+        assert a.shape == b.shape and np.array_equal(a, b), f"{where} differs"
+    elif isinstance(a, (tuple, list)):
+        assert len(a) == len(b), f"{where}: length {len(a)} vs {len(b)}"
+        for i, (x, y) in enumerate(zip(a, b)):
+            same(x, y, f"{where}[{i}]")
+    elif isinstance(a, dict):
+        assert a.keys() == b.keys(), f"{where}: {set(a) ^ set(b)}"
+        for k in a:
+            same(a[k], b[k], f"{where}.{k}")
+    else:
+        assert a == b, f"{where}: {a!r} vs {b!r}"
+
+
+def twin(drill, *args, pkgs=PKGS):
+    """`drill(pkg, *args)` on JAX, then on the port; the transcripts must
+    be equal -> the port's."""
+    a, b = (drill(pkg, *args) for pkg in pkgs)
+    same(a, b, drill.__name__)
+    return b
