@@ -476,10 +476,42 @@ Phases, each reported on its own line; any failure exits nonzero:
              kernel against plain on the widest batch each part served,
              timed (`ops-tiered`: linear·tiered, `ops-plane`: shard 0 of
              the 2-shard plane).
+17. failure — the failure ladder on the engine-backed server, in a child
+             process (`--failure`) queued last in phase 12's lanes; its
+             lines are echoed and its kernel entry added after phase 16.
+             A linear·flat `KVServer` on the card behind the engine, 2^18
+             slots of 4 KiB pages (1 GiB; phase 14's cut), filled to 75%
+             by eight `ReconnectingClient`s over `EngineBackend` slices of
+             2^11 pages, one engine queue each. (a) The eight clients
+             stream puts and GETs of 2^11 pages while a durable
+             `KVServer.checkpoint` is cut (the index scanned under the same
+             lock: the durable set), 2^11 of its keys are invalidated
+             through a control client, 2^11 more are put, a newest
+             checkpoint is torn to half and the server killed; downtime
+             GETs miss zeroed, downtime puts count dropped, the torn file
+             is refused (`CheckpointCorruptError`) and the durable one
+             restored on the card; the control client's journal replays
+             its invalidations, and every key ever put is read back: found
+             exactly when the durable cut held it and it was not
+             invalidated, every hit byte-exact. (b) `drop_next(3)`: the
+             put verb times out within 5 s, every request of a dropped
+             batch is counted lost and no dropped put lands; one kernel
+             launch per GET flush not dropped. (d) A `NetServer` of
+             `EngineBackend`s over the same server takes garbage, a
+             truncated header, an oversized payload, an unknown verb, a
+             CRC-flipped put and a handshake of the wrong page words
+             (refused): `bad_frames` counts them, `serve_errors` 0, a
+             2^11-key GET through the wire byte-exact. (c) A server over
+             the same KV with queues of 64, `stall_next(6, 0.25)` under
+             six 2^11-page put verbs: the loss bounded and counted, then
+             full service byte-exact. Gates: no wrong byte, every miss
+             zeroed, `misses == Σ miss_*`, no serve error, no -2 status,
+             launches == the GET flushes not dropped. The kernel against
+             plain at w = 2^11 on the restored KV, timed (`failure`).
 
 Each KV is freed before the next path's fill, so no two pools share the
-card but the fleet's and the plane's own shards, and, in phases 12 and
-13, the harness processes' and phase 14's child's. The next-to-last line is one JSON object
+card but the fleet's and the plane's own shards, and, in phases 12 to
+16, the harness processes' and phase 14's and phase 17's children's. The next-to-last line is one JSON object
 naming each kernel with its path, launches, error and times; the last is `{"ok": true, "device": ...}`.
 """
 
@@ -5730,10 +5762,11 @@ class Lanes:
     """Harness processes side by side, at most `n` at a time, each started
     as a lane frees in the order queued; a phase collects its own rows.
     The whole smoke queues phase 14's child, phase 15's two sweeps,
-    phase 12's harnesses, phase 13's, then phase 15's client child at
-    phase 12's start, so the tail's host-bound soaks, the chaos child and
-    the sweeps run beside phase 12's plane and phase 13's sweeps (the
-    client, queued last, waits in its lane for phase 15's server)."""
+    phase 12's harnesses, phase 13's, phase 15's client child and phase
+    17's child at phase 12's start, so the tail's host-bound soaks, the
+    chaos child and the sweeps run beside phase 12's plane and phase 13's
+    sweeps (the client waits in its lane for phase 15's server; the
+    failure child, queued last, runs beside phases 13 to 16)."""
 
     def __init__(self, n: int):
         from concurrent.futures import ThreadPoolExecutor
@@ -5748,6 +5781,8 @@ class Lanes:
     def queue(self, phase: str, seed: int = 0) -> "Lanes":
         if phase == "chaos":
             self.futs[phase] = [self.ex.submit(chaos_subprocess, seed)]
+        elif phase == "failure":
+            self.futs[phase] = [self.ex.submit(failure_subprocess, seed)]
         elif phase == "trace":
             self.futs[phase] = [
                 self.ex.submit(trace_sweep, name, args, self.tmp.name)
@@ -8567,6 +8602,767 @@ def run_ops(sm):
     return [kv_entry, plane_entry_]
 
 
+# ---------------------------------------------------------------------------
+# phase 17, failure: the failure ladder on the engine-backed server
+# ---------------------------------------------------------------------------
+
+FAIL_INDEX = dict(capacity=1 << 18)  # a 1 GiB pool of 4 KiB pages
+FAIL_BLOOM_BITS = 1 << 21
+FAIL_PAGE_WORDS = 1024
+FAIL_FILL = 0.75           # of the slots, put through the engine
+FAIL_CLIENTS = 8           # ReconnectingClients, one engine queue each
+FAIL_VERB = 1 << 11        # pages (keys) of every verb
+FAIL_ARENA_SLICES = 32     # the engine arena in verb slices: the clients',
+#                            the drills' and the quarantined ones
+FAIL_STREAM = 2            # verbs of its own keys each streaming thread puts
+FAIL_PAUSE_S = 0.05        # between a streaming thread's verbs
+FAIL_DOWN_S = 0.5          # the streams run on against the killed server
+FAIL_CLIENT_TIMEOUT_US = 120_000_000
+FAIL_DRILL_TIMEOUT_US = 1_000_000  # the dropped and stalled drills' clients
+FAIL_DROPS = 3             # drop_next(n)
+FAIL_STALLS = (6, 0.25)    # stall_next(n, seconds)
+FAIL_STALL_QUEUE = 64      # queue_cap (and flush cap) of the stalled engine
+FAIL_STALL_VERBS = 6       # put verbs into the stalled driver
+FAIL_BAD_FRAMES = 4        # of drill (d)'s malformed connections, the ones
+#                            a reader can name (bad magic, oversized payload,
+#                            unknown verb, CRC); the truncated one is an EOF
+FAIL_HI = 0xC9000000       # client t fills (FAIL_HI + t, i)
+FAIL_STREAM_HI = 0xC9100000  # thread t streams (FAIL_STREAM_HI + t, i)
+FAIL_POST_HI = 0xC9200000  # put after the durable snapshot, and while down
+FAIL_DRILL_HI = 0xC9300000  # drills (b), (c) and (d) put (FAIL_DRILL_HI + j, i)
+FAIL_TIMEOUT_S = 900.0     # the phase's child process, spawn to exit
+
+
+def fail_keys(hi, lo):
+    """[n, 2] uint32 host keys (hi, lo), hi a word or one per key."""
+    import numpy as np
+
+    lo = np.asarray(lo, np.uint32)
+    return np.stack([np.broadcast_to(np.asarray(hi, np.uint32), lo.shape),
+                     lo], -1).astype(np.uint32)
+
+
+def key64(keys):
+    import numpy as np
+
+    return (keys[:, 0].astype(np.uint64) << np.uint64(32)) \
+        | keys[:, 1].astype(np.uint64)
+
+
+def fail_check(out, found, keys, pw: int, label: str, expect=None) -> int:
+    """One GET verb's reply: every hit the key's page, every miss zeroed,
+    and with `expect` the found mask exactly that -> hits."""
+    import numpy as np
+
+    found = np.asarray(found, bool)
+    wrong = wrong_pages(out, found, pages_np(keys[:, 0], keys[:, 1], pw))
+    if wrong:
+        raise AssertionError(f"{label}: {wrong} hits served a wrong page")
+    if out[~found].any():
+        raise AssertionError(f"{label}: a miss returned nonzero bytes")
+    if expect is not None and not np.array_equal(found, expect):
+        raise AssertionError(
+            f"{label}: {int((found & ~expect).sum())} keys hit that must "
+            f"miss, {int((~found & expect).sum())} missed that must hit")
+    return int(found.sum())
+
+
+class FailServers:
+    """Phase 17's `KVServer`s in turn behind one registry: `srv` is the
+    live one (None while it is down), which every client's factory dials.
+    Each engine's `wait_many` is watched for -2 statuses."""
+
+    def __init__(self, cfg):
+        import threading
+
+        self.cfg, self.srv, self.all = cfg, None, []
+        self.minus_two = 0
+        self._lock = threading.Lock()
+
+    def start(self, kv=None, fi=None, warm: bool = False, **eng):
+        from pmdfc_tpu_torch.runtime import Engine, KVServer
+
+        pw = self.cfg.page_words
+        e = dict(num_queues=FAIL_CLIENTS, queue_cap=2 * FAIL_VERB,
+                 batch=FAIL_CLIENTS * FAIL_VERB, timeout_us=200,
+                 arena_pages=FAIL_ARENA_SLICES * FAIL_VERB, page_bytes=pw * 4)
+        e.update(eng)
+        srv = KVServer(self.cfg, engine=Engine(**e), kv=kv,
+                       fault_injector=fi, device=DEVICE)
+        real = srv.engine.wait_many
+
+        def wait_many(base, n, timeout_us=10_000_000):
+            st = real(base, n, timeout_us=timeout_us)
+            bad = int((st == -2).sum())
+            if bad:
+                with self._lock:
+                    self.minus_two += bad
+            return st
+
+        srv.engine.wait_many = wait_many
+        if warm:  # the kernel's first launch, on this thread
+            srv.warmup(FAIL_VERB)
+        self.all.append(srv.start())
+        self.srv = srv
+        return srv
+
+    def kill(self) -> None:
+        srv, self.srv = self.srv, None
+        srv.stop()
+
+    def client(self, queue: int, timeout_us: int = FAIL_CLIENT_TIMEOUT_US):
+        """A `ReconnectingClient` over `EngineBackend`s of the live server
+        (ConnectionError while none is), `FAIL_VERB`-page slices."""
+        from pmdfc_tpu_torch.client import EngineBackend
+        from pmdfc_tpu_torch.runtime.failure import ReconnectingClient
+
+        def factory():
+            srv = self.srv
+            if srv is None:
+                raise ConnectionError("server down")
+            return EngineBackend(srv, queue=queue, slice_pages=FAIL_VERB,
+                                 timeout_us=timeout_us)
+
+        return ReconnectingClient(factory, page_words=self.cfg.page_words,
+                                  retry_delay_s=0.005,
+                                  max_retry_delay_s=0.05, seed=queue)
+
+    def get_flushes(self) -> int:
+        return sum(s.op_batches["get"] for s in self.all)
+
+    def serve_errors(self) -> int:
+        return sum(s.errors for s in self.all)
+
+
+def fail_connect(rc, probe, label: str) -> None:
+    """GET `probe` (keys that must miss) until the client is attached."""
+    deadline = time.monotonic() + 30
+    while not rc.connected:
+        if time.monotonic() > deadline:
+            raise AssertionError(f"{label}: the client never reattached")
+        out, found = rc.get(probe)
+        if found.any() or out.any():
+            raise AssertionError(f"{label}: a probe key hit")
+        time.sleep(0.01)
+
+
+class FailStream:
+    """A client thread of drill (a): alternately re-puts one of its own
+    `FAIL_STREAM` verbs of keys (FAIL_STREAM_HI + t, i) and GETs
+    `FAIL_VERB` keys drawn from its fill and its own keys, every reply
+    checked, until told to stop. A verb that starts and ends while the
+    server is down is a downtime verb: a GET must miss every key (zeroed),
+    a put must count every page dropped."""
+
+    def __init__(self, reg, rc, t: int, n_fill: int, seed: int):
+        import numpy as np
+
+        self.reg, self.rc, self.t = reg, rc, t
+        self.rng = np.random.default_rng([seed, t, 17])
+        self.own = fail_keys(FAIL_STREAM_HI + t,
+                             np.arange(FAIL_STREAM * FAIL_VERB))
+        self.pool = np.concatenate([
+            fail_keys(FAIL_HI + t, np.arange(n_fill)), self.own])
+        self.puts = self.gets = self.hits = 0
+        self.down_gets = self.down_puts = 0
+        self.error = None
+
+    def run(self, stop) -> None:
+        try:
+            self._run(stop)
+        except BaseException as e:  # noqa: BLE001 — raised by the phase
+            self.error = e
+
+    def _run(self, stop) -> None:
+        rc, pw, v = self.rc, self.reg.cfg.page_words, FAIL_VERB
+        i = 0
+        while not stop.is_set():
+            down = self.reg.srv is None
+            if i % 2 == 0:
+                j = (i // 2) % FAIL_STREAM
+                ks = self.own[j * v:(j + 1) * v]
+                d0 = rc.stats()["dropped_puts"]
+                rc.put(ks, pages_np(ks[:, 0], ks[:, 1], pw))
+                self.puts += 1
+                if down and self.reg.srv is None:
+                    if rc.stats()["dropped_puts"] - d0 != v:
+                        raise AssertionError(
+                            f"failure stream {self.t}: a downtime put was "
+                            "not counted dropped")
+                    self.down_puts += 1
+            else:
+                ks = self.pool[self.rng.integers(0, len(self.pool), v)]
+                out, found = rc.get(ks)
+                hits = fail_check(out, found, ks, pw,
+                                  f"failure stream {self.t}")
+                self.gets += 1
+                self.hits += hits
+                if down and self.reg.srv is None:
+                    if hits:
+                        raise AssertionError(
+                            f"failure stream {self.t}: a downtime GET hit")
+                    self.down_gets += 1
+            i += 1
+            time.sleep(FAIL_PAUSE_S if rc.connected else FAIL_PAUSE_S / 5)
+
+
+def fail_held(sm, kv):
+    """The keys the KV's index holds, as sorted uint64 (caller holds the
+    KV's lock, on its device)."""
+    import numpy as np
+
+    flat, _ = kv._ops.scan(kv.state.index)
+    keys = sm.u32.to_numpy(flat)
+    return np.sort(key64(keys[~(keys == 0xFFFFFFFF).all(axis=1)]))
+
+
+def fail_kill_restore(sm, reg, root: str, smi: str) -> dict:
+    """Drill (a): the fill through the engine, then eight streaming
+    client threads across a durable checkpoint, an invalidation, more
+    puts, a torn newest checkpoint, the kill and the downtime; the torn
+    file refused, the durable one restored; every key ever put read back
+    against the durable cut minus the invalidated keys."""
+    import threading
+
+    import numpy as np
+
+    from pmdfc_tpu_torch import checkpoint
+    from pmdfc_tpu_torch.checkpoint import CheckpointCorruptError
+    from pmdfc_tpu_torch.runtime.failure import FaultInjector
+
+    cfg, pw, v = reg.cfg, reg.cfg.page_words, FAIL_VERB
+    out = {}
+    srv = reg.srv
+    n_fill = int(srv.kv.capacity() * FAIL_FILL) // (FAIL_CLIENTS * v) * v
+    clients = [reg.client(t) for t in range(FAIL_CLIENTS)]
+
+    def fill(t):
+        rc = clients[t]
+        for a in range(0, n_fill, v):
+            ks = fail_keys(FAIL_HI + t, np.arange(a, a + v))
+            rc.put(ks, pages_np(ks[:, 0], ks[:, 1], pw))
+        if rc.stats()["dropped_puts"]:
+            raise AssertionError(f"failure fill {t}: a put was dropped")
+
+    out["fill_s"] = run_threads([lambda t=t: fill(t)
+                                 for t in range(FAIL_CLIENTS)],
+                                "failure fill")
+    n_all = n_fill * FAIL_CLIENTS
+    log("failure", f"(a) fill: {n_all} pages through the engine by "
+        f"{FAIL_CLIENTS} ReconnectingClients over EngineBackend slices of "
+        f"{v} pages in {out['fill_s']:.3f} s = "
+        f"{n_all / out['fill_s']:.0f} pages/s ({smi})")
+
+    stop = threading.Event()
+    streams = [FailStream(reg, clients[t], t, n_fill, sm.seed)
+               for t in range(FAIL_CLIENTS)]
+    threads = [threading.Thread(target=s.run, args=(stop,),
+                                name=f"failure-stream-{s.t}")
+               for s in streams]
+    for th in threads:
+        th.start()
+    ctl = reg.client(0)
+    durable = os.path.join(root, "durable.ckpt")
+    newest = os.path.join(root, "newest.ckpt")
+    post = fail_keys(FAIL_POST_HI, np.arange(2 * v))
+    # attached before it invalidates: a client whose invalidate opens its
+    # connection replays that invalidation at the connect and drops it
+    # from its journal, so a later restore would not replay it
+    fail_connect(ctl, post[:1], "failure control")
+    try:
+        time.sleep(4 * FAIL_PAUSE_S)  # every stream under way
+        kv = srv.kv
+        t0 = time.monotonic()
+        with kv._lock, kv._on_device():
+            held = fail_held(sm, kv)  # the durable cut, at one op boundary
+            srv.checkpoint(durable)
+        out["save_s"] = time.monotonic() - t0
+        size = os.path.getsize(durable)
+        out["save_gbs"] = size / out["save_s"] / 1e9
+        fill_held = held[((held >> np.uint64(32)) - np.uint64(FAIL_HI))
+                         < np.uint64(FAIL_CLIENTS)]
+        gone64 = np.random.default_rng(sm.seed).choice(
+            fill_held, v, replace=False)
+        gone = np.stack([(gone64 >> np.uint64(32)).astype(np.uint32),
+                         (gone64 & np.uint64(0xFFFFFFFF)).astype(np.uint32)],
+                        -1)
+        inval_hits = int(ctl.invalidate(gone).sum())
+        ctl.put(post[:v], pages_np(post[:v, 0], post[:v, 1], pw))
+        t0 = time.monotonic()
+        srv.checkpoint(newest)
+        out["save2_s"] = time.monotonic() - t0
+        os.truncate(newest, os.path.getsize(newest) // 2)
+        reg.kill()  # the streams run on against the dead server
+        t_kill = time.monotonic()
+        probe = fail_keys(FAIL_HI, np.arange(v))
+        got, found = ctl.get(probe)
+        if found.any() or got.any():
+            raise AssertionError("failure: a GET hit while the server was "
+                                 "down")
+        d0 = ctl.stats()["dropped_puts"]
+        ctl.put(post[v:], pages_np(post[v:, 0], post[v:, 1], pw))
+        if ctl.stats()["dropped_puts"] - d0 != v:
+            raise AssertionError("failure: a downtime put was not counted "
+                                 "dropped")
+        try:
+            checkpoint.load(newest, cfg, device=DEVICE)
+        except CheckpointCorruptError:
+            pass
+        else:
+            raise AssertionError("failure: the torn snapshot loaded")
+        time.sleep(max(0.0, FAIL_DOWN_S - (time.monotonic() - t_kill)))
+    finally:
+        stop.set()
+        for th in threads:
+            th.join(PHASE_TIMEOUT_S)
+    for s in streams:
+        if s.error is not None:
+            raise AssertionError(f"failure stream {s.t}: {s.error}") \
+                from s.error
+    down_gets = sum(s.down_gets for s in streams)
+    down_puts = sum(s.down_puts for s in streams)
+    if not down_gets or not down_puts:
+        raise AssertionError(f"failure: the streams ran {down_gets} GET and "
+                             f"{down_puts} put verbs while down")
+    out["streams"] = {k: sum(getattr(s, k) for s in streams)
+                      for k in ("puts", "gets", "hits")}
+    del srv, kv
+
+    t0 = time.monotonic()
+    state = checkpoint.load(durable, cfg, device=DEVICE)
+    out["load_s"] = time.monotonic() - t0
+    fi = FaultInjector()
+    srv = reg.start(kv=sm.kv_mod.KV(cfg, state=state, device=DEVICE), fi=fi)
+    fail_connect(ctl, post[:1], "failure control")  # replays the journal
+    got, found = ctl.get(gone)
+    out["recovery_s"] = time.monotonic() - t0
+    if found.any():
+        raise AssertionError(f"failure: {int(found.sum())} invalidated keys "
+                             f"were served after the restore (the control "
+                             f"client's counters {ctl.stats()})")
+    fail_check(got, found, gone, pw, "failure invalidated")
+    replayed = ctl.stats()["replayed_invalidates"]
+    if replayed < v:
+        raise AssertionError(f"failure: {replayed} invalidations replayed "
+                             f"of {v}")
+    # every key ever put: exactly the durable cut, less the invalidated
+    every = np.concatenate(
+        [fail_keys(FAIL_HI + t, np.arange(n_fill))
+         for t in range(FAIL_CLIENTS)]
+        + [s.own for s in streams] + [post])
+    expect = np.isin(key64(every), held) & ~np.isin(key64(every), gone64)
+    inval = np.isin(key64(every), gone64)
+    parts = np.array_split(np.arange(len(every)), FAIL_CLIENTS)
+    hits = [0] * FAIL_CLIENTS
+
+    def verify(t):
+        rc = clients[t]
+        fail_connect(rc, post[:1], f"failure client {t}")
+        for a in range(0, len(parts[t]), v):
+            sel = parts[t][a:a + v]
+            got, found = rc.get(every[sel])
+            if np.asarray(found)[inval[sel]].any():
+                raise AssertionError(f"failure client {t}: an invalidated "
+                                     "key was served after the restore")
+            hits[t] += fail_check(got, found, every[sel], pw,
+                                  f"failure restored {t}", expect[sel])
+
+    out["verify_s"] = run_threads([lambda t=t: verify(t)
+                                   for t in range(FAIL_CLIENTS)],
+                                  "failure verify")
+    if sum(hits) != int(expect.sum()):
+        raise AssertionError(f"failure: {sum(hits)} hits after the restore, "
+                             f"the durable cut holds {int(expect.sum())}")
+    log("failure", f"(a) {FAIL_CLIENTS} streaming threads ({out['streams']}"
+        f" verbs and hits; {down_gets} GET and {down_puts} put verbs while "
+        f"down, every one a zeroed miss or a counted drop); durable "
+        f"checkpoint of {size / 2**30:.2f} GiB in {out['save_s']:.3f} s = "
+        f"{out['save_gbs']:.3f} GB/s under load, the newest in "
+        f"{out['save2_s']:.3f} s, torn to half and refused "
+        f"(CheckpointCorruptError); {inval_hits} of {v} invalidations hit "
+        f"before the kill; load {out['load_s']:.3f} s, recovery (restart to "
+        f"the first full GET, the journal's {replayed} invalidations "
+        f"replayed) {out['recovery_s']:.3f} s; {len(every)} keys read back "
+        f"in {out['verify_s']:.3f} s: {sum(hits)} hits byte-exact = the "
+        f"durable cut ({len(held)} keys) less the {v} invalidated, every "
+        f"invalidated and post-durable key a zeroed miss ({smi})")
+    out.update(clients=clients, ctl=ctl, expect=every[expect], fi=fi)
+    return out
+
+
+def fail_dropped(sm, reg, fi, smi: str) -> dict:
+    """Drill (b): `drop_next(FAIL_DROPS)` on the restored server; the
+    dropped batches' requests recorded as the driver pops them."""
+    import numpy as np
+
+    from pmdfc_tpu_torch.runtime import OP_GET, OP_PUT
+
+    pw, v, fused = reg.cfg.page_words, FAIL_VERB, sm.fused
+    srv = reg.srv
+    dropped = []
+    real = fi.on_batch
+
+    def on_batch(reqs):
+        r = real(reqs)
+        if r == "drop":
+            dropped.append(reqs.copy())
+        return r
+
+    fi.on_batch = on_batch
+    rc = reg.client(1, FAIL_DRILL_TIMEOUT_US)
+    acked = fail_keys(FAIL_DRILL_HI, np.arange(v))
+    lost = fail_keys(FAIL_DRILL_HI, np.arange(v, 2 * v))
+    never = fail_keys(FAIL_DRILL_HI + 8, np.arange(1))
+    t_drill = time.monotonic()
+    fail_connect(rc, never, "failure (b)")
+    rc.put(acked, pages_np(acked[:, 0], acked[:, 1], pw))
+    got, found = rc.get(acked)
+    fail_check(got, found, acked, pw, "failure (b) acked",
+               np.ones(v, bool))
+    g0, l0 = srv.op_batches["get"], launched(fused)
+    s0 = dict(rc.stats())
+    fi.drop_next(FAIL_DROPS)
+    t0 = time.monotonic()
+    rc.put(lost, pages_np(lost[:, 0], lost[:, 1], pw))
+    t_put = time.monotonic() - t0
+    if t_put >= 5.0:
+        raise AssertionError(f"failure (b): the dropped put took {t_put} s")
+    deadline = time.monotonic() + 60
+    while fi._drop_left > 0:
+        if time.monotonic() > deadline:
+            raise AssertionError("failure (b): the armed drops never drained")
+        got, found = rc.get(acked)
+        fail_check(got, found, acked, pw, "failure (b) drain")
+        time.sleep(0.01)
+    fail_connect(rc, never, "failure (b)")
+    got, found = rc.get(acked)
+    fail_check(got, found, acked, pw, "failure (b) after the drops",
+               np.ones(v, bool))
+    reqs = np.concatenate(dropped) if dropped else np.zeros(0, np.uint32)
+    put_lost = fail_keys(reqs["khi"], reqs["klo"])[reqs["op"] == OP_PUT] \
+        if len(dropped) else np.zeros((0, 2), np.uint32)
+    get_lost = int((reqs["op"] == OP_GET).sum()) if len(dropped) else 0
+    got, found = rc.get(lost)
+    if np.asarray(found)[np.isin(key64(lost), key64(put_lost))].any():
+        raise AssertionError("failure (b): a dropped batch's key hit")
+    fail_check(got, found, lost, pw, "failure (b) dropped verb")
+    s = rc.stats()
+    launches = launched(fused) - l0
+    gets = srv.op_batches["get"] - g0
+    fails = []
+    if fi.stats["dropped_batches"] != FAIL_DROPS or len(dropped) != FAIL_DROPS:
+        fails.append(f"{fi.stats['dropped_batches']} batches dropped")
+    if s["dropped_puts"] - s0["dropped_puts"] < len(put_lost):
+        fails.append(f"{len(put_lost)} put requests dropped, "
+                     f"{s['dropped_puts'] - s0['dropped_puts']} counted")
+    if s["missed_gets"] - s0["missed_gets"] < get_lost:
+        fails.append(f"{get_lost} GET requests dropped, "
+                     f"{s['missed_gets'] - s0['missed_gets']} counted")
+    if launches != gets:
+        fails.append(f"{launches} kernel launches for {gets} GET flushes "
+                     "that were not dropped")
+    if fails:
+        raise AssertionError("failure (b): " + "; ".join(fails))
+    rc.close()
+    secs = time.monotonic() - t_drill
+    log("failure", f"(b) drop_next({FAIL_DROPS}): the {v}-page put timed out "
+        f"in {t_put:.3f} s (client timeout "
+        f"{FAIL_DRILL_TIMEOUT_US / 1e6:.1f} s), {len(put_lost)} put and "
+        f"{get_lost} GET requests in the dropped batches, each counted "
+        f"(dropped_puts +{s['dropped_puts'] - s0['dropped_puts']}, "
+        f"missed_gets +{s['missed_gets'] - s0['missed_gets']}); after the "
+        f"drops drained every acknowledged key hit byte-exact and no "
+        f"dropped put landed; {launches} kernel launches = {gets} GET "
+        f"flushes not dropped, one per flush; {secs:.1f} s ({smi})")
+    return {"secs": secs, "acked": acked}
+
+
+def fail_malformed(sm, reg, keys, smi: str) -> dict:
+    """Drill (d): a `NetServer` of `EngineBackend`s over the live server;
+    garbage, a truncated header, an oversized payload, an unknown verb, a
+    CRC-flipped put and a handshake with the wrong page words, then a GET
+    of `keys` (present, `FAIL_VERB` of them) through the wire."""
+    import socket
+    import zlib
+
+    import numpy as np
+
+    from pmdfc_tpu_torch.client import EngineBackend
+    from pmdfc_tpu_torch.runtime import net
+
+    pw, v = reg.cfg.page_words, FAIL_VERB
+    srv = reg.srv
+    t0 = time.monotonic()
+    ns = net.NetServer(lambda: EngineBackend(
+        srv, slice_pages=v, timeout_us=FAIL_CLIENT_TIMEOUT_US)).start()
+    socks = []
+    try:
+        addr = ("127.0.0.1", ns.port)
+        s1 = socket.create_connection(addr)
+        socks.append(s1)
+        s1.sendall(b"\xde\xad\xbe\xef" * 9)  # bad magic
+        s2 = socket.create_connection(addr)
+        s2.sendall(b"\x13\xfc")  # a truncated header, then close
+        s2.close()
+        s3 = socket.create_connection(addr)
+        socks.append(s3)
+        s3.sendall(net._HDR.pack(net.MAGIC, 0, 0, 0, 0, 0, 1 << 40, 0))
+        s4 = socket.create_connection(addr)
+        socks.append(s4)
+        s4.settimeout(30)
+        net._send_msg(s4, net.MSG_HOLA, count=77, words=pw)
+        s4.recv(4096)
+        net._send_msg(s4, 99)  # a valid frame, an unknown verb
+        s5 = socket.create_connection(addr)
+        socks.append(s5)
+        s5.settimeout(30)
+        net._send_msg(s5, net.MSG_HOLA, count=78, words=pw)
+        s5.recv(4096)
+        flip = fail_keys(FAIL_DRILL_HI + 3, np.arange(4))
+        body = flip.tobytes() + pages_np(flip[:, 0], flip[:, 1], pw).tobytes()
+        hdr0 = net._HDR.pack(net.MAGIC, net.MSG_PUTPAGE, 0, 4, pw, 0,
+                             len(body), 0)
+        crc = zlib.crc32(body, zlib.crc32(hdr0))
+        frame = bytearray(hdr0[:-4] + crc.to_bytes(4, "little") + body)
+        frame[net._HDR.size + 10] ^= 0x40  # the in-flight bit flip
+        s5.sendall(bytes(frame))
+        try:
+            net.TcpBackend(addr[0], addr[1], page_words=2 * pw)
+        except net.ProtocolError:
+            pass
+        else:
+            raise AssertionError("failure (d): a handshake with the wrong "
+                                 "page words was accepted")
+        deadline = time.monotonic() + 30
+        while ns.stats["bad_frames"] < FAIL_BAD_FRAMES:
+            if time.monotonic() > deadline:
+                break
+            time.sleep(0.05)
+        time.sleep(0.2)
+        bad = int(ns.stats["bad_frames"])
+        good = net.TcpBackend(addr[0], addr[1], page_words=pw,
+                              keepalive_s=None, op_timeout_s=120.0)
+        try:
+            got, found = good.get(keys)
+            fail_check(got, found, keys, pw, "failure (d) wire GET",
+                       np.ones(v, bool))
+            got, found = good.get(flip)
+            fail_check(got, found, flip, pw, "failure (d) flipped put",
+                       np.zeros(4, bool))
+        finally:
+            good.close()
+        errors = int(ns.stats["serve_errors"])
+    finally:
+        for s in socks:
+            s.close()
+        ns.stop()
+    if bad != FAIL_BAD_FRAMES or errors:
+        raise AssertionError(f"failure (d): bad_frames {bad} (want "
+                             f"{FAIL_BAD_FRAMES}), serve_errors {errors}")
+    secs = time.monotonic() - t0
+    log("failure", f"(d) NetServer of EngineBackends: garbage, a truncated "
+        f"header, an oversized payload, an unknown verb and a CRC-flipped "
+        f"put -> bad_frames {bad}, the flipped put not applied; a handshake "
+        f"of {2 * pw} page words refused (ProtocolError); serve_errors 0; a "
+        f"{v}-key GET through the wire byte-exact; {secs:.1f} s ({smi})")
+    return {"secs": secs, "bad_frames": bad}
+
+
+def fail_stalled(sm, reg, smi: str) -> dict:
+    """Drill (c): a server over the same KV whose engine queues hold
+    `FAIL_STALL_QUEUE` requests, its driver stalled by
+    `stall_next(*FAIL_STALLS)` under `FAIL_STALL_VERBS` put verbs."""
+    import numpy as np
+
+    from pmdfc_tpu_torch.runtime.failure import FaultInjector
+
+    pw, v = reg.cfg.page_words, FAIL_VERB
+    kv = reg.srv.kv
+    reg.kill()
+    fi = FaultInjector()
+    reg.start(kv=kv, fi=fi, queue_cap=FAIL_STALL_QUEUE,
+              batch=FAIL_STALL_QUEUE, timeout_us=100)
+    t0 = time.monotonic()
+    rc = reg.client(2, FAIL_DRILL_TIMEOUT_US)
+    warm = fail_keys(FAIL_DRILL_HI + 1, np.arange(v))
+    keys = fail_keys(FAIL_DRILL_HI + 2, np.arange(FAIL_STALL_VERBS * v))
+    fail_connect(rc, fail_keys(FAIL_DRILL_HI + 8, np.arange(1)),
+                 "failure (c)")
+    rc.put(warm, pages_np(warm[:, 0], warm[:, 1], pw))
+    got, found = rc.get(warm)
+    fail_check(got, found, warm, pw, "failure (c) warm", np.ones(v, bool))
+    d0 = rc.stats()["dropped_puts"]
+    fi.stall_next(*FAIL_STALLS)
+    for a in range(0, len(keys), v):
+        ks = keys[a:a + v]
+        rc.put(ks, pages_np(ks[:, 0], ks[:, 1], pw))
+    dropped = rc.stats()["dropped_puts"] - d0
+    got, found = rc.get(keys[:2 * v])
+    hits_under = fail_check(got, found, keys[:2 * v], pw,
+                            "failure (c) under pressure")
+    deadline = time.monotonic() + 60
+    while True:
+        rc.put(keys[:v], pages_np(keys[:v, 0], keys[:v, 1], pw))
+        got, found = rc.get(keys[:v])
+        fail_check(got, found, keys[:v], pw, "failure (c) recovery")
+        if found.all():
+            break
+        if time.monotonic() > deadline:
+            raise AssertionError("failure (c): service never returned")
+        time.sleep(0.1)
+    stalled = fi.stats["stalled_batches"]
+    if stalled < 1 or dropped > len(keys):
+        raise AssertionError(f"failure (c): {stalled} stalled batches, "
+                             f"{dropped} dropped of {len(keys)}")
+    rc.close()
+    secs = time.monotonic() - t0
+    log("failure", f"(c) stall_next{FAIL_STALLS} under queues of "
+        f"{FAIL_STALL_QUEUE}: {stalled} batches stalled, {dropped} of "
+        f"{len(keys)} put pages dropped and counted, {hits_under} hits "
+        f"under pressure, each byte-exact; full service after it, "
+        f"byte-exact; {secs:.1f} s ({smi})")
+    return {"secs": secs}
+
+
+def failure_dir():
+    """Where phase 17 writes its checkpoints (git-ignored, on the
+    checkout's disk); removed at the end of the phase."""
+    from pathlib import Path
+
+    return Path(__file__).resolve().parent / "build" / "failure"
+
+
+def run_failure(sm):
+    """Phase 17: the failure ladder on the engine-backed server on the
+    card: (a) kill and restore under load, (b) dropped completions, (d)
+    malformed frames through a `NetServer`, (c) a stalled driver -> its
+    kernels entry."""
+    import shutil
+
+    import numpy as np
+
+    from pmdfc_tpu_torch.config import BloomConfig, IndexConfig, KVConfig
+
+    torch, fused = sm.torch, sm.fused
+    t_phase = time.monotonic()
+    free_card(torch)
+    smi = nvidia_smi()
+    root = failure_dir()
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    cfg = KVConfig(index=IndexConfig(**FAIL_INDEX),
+                   bloom=BloomConfig(num_bits=FAIL_BLOOM_BITS),
+                   page_words=FAIL_PAGE_WORDS)
+    reg = FailServers(cfg)
+    times = {}
+    try:
+        srv = reg.start(warm=True)
+        log("failure", f"KVServer on {srv.kv.device}: linear·flat, "
+            f"{srv.kv.capacity()} slots (clusters of "
+            f"{srv.kv.state.index.table.shape[1] // 4}), pool "
+            f"{srv.kv.state.pool.pages.numel() * 4 / 2**30:.2f} GiB of "
+            f"{cfg.page_words}-word pages; engine of {FAIL_CLIENTS} queues, "
+            f"arena {FAIL_ARENA_SLICES} x {FAIL_VERB} pages ({smi})")
+        torch.cuda.synchronize()
+        fused.launches.clear()  # the main path from here
+        t0 = time.monotonic()
+        a = fail_kill_restore(sm, reg, str(root), smi)
+        times["a"] = time.monotonic() - t0
+        b = fail_dropped(sm, reg, a["fi"], smi)
+        times["b"] = b["secs"]
+        times["d"] = fail_malformed(sm, reg, b["acked"], smi)["secs"]
+        kv = reg.srv.kv
+        times["c"] = fail_stalled(sm, reg, smi)["secs"]
+        reg.kill()
+        for rc in a["clients"] + [a["ctl"]]:
+            rc.close()
+        torch.cuda.synchronize()
+        launches = fused.launches["fused_get_linear_flat"]
+        flushes = reg.get_flushes()
+        s = kv.stats()
+        fails = []
+        if launches != flushes or not launches:
+            fails.append(f"{launches} kernel launches for {flushes} GET "
+                         "flushes that were not dropped")
+        if s["misses"] != sum(s[c] for c in sm.kv_mod.MISS_CAUSE_NAMES):
+            fails.append("misses != the sum of the miss causes")
+        if reg.serve_errors():
+            fails.append(f"serve_errors {reg.serve_errors()}")
+        if reg.minus_two:
+            fails.append(f"{reg.minus_two} requests completed with -2")
+        if fails:
+            raise AssertionError("failure: " + "; ".join(fails))
+        log("failure", f"gates: no wrong byte, every miss zeroed, misses == "
+            f"sum of the miss causes on the restored KV (hits {s['hits']}, "
+            f"misses {s['misses']}), serve_errors 0 on {len(reg.all)} "
+            f"servers, no -2 status; {launches} fused-GET launches = "
+            f"{flushes} GET flushes not dropped ({smi})")
+        present = a["expect"]
+        n = len(present)
+
+        def batch(w):
+            n_never = max(1, w // 8)
+            lo = torch.randint(NEVER_LO, 1 << 32, (n_never,), device=sm.dev,
+                               generator=sm.gen)
+            never = sm.keys_of(FAIL_DRILL_HI + 9, lo)
+            pick = np.random.default_rng(sm.seed + w).integers(
+                0, n, w - n_never)
+            keys = torch.cat([torch.from_numpy(
+                present[pick].view(np.int32)).to(sm.dev), never])
+            return keys[torch.randperm(w, device=sm.dev, generator=sm.gen)]
+
+        t = uncounted(fused, lambda: plane_kernel(
+            sm, kv.state, None, cfg.page_words, [FAIL_VERB],
+            "failure restored", smi, batch=batch))[FAIL_VERB]
+        log("failure", f"fused_get_linear_flat w = {FAIL_VERB} on the "
+            f"restored KV: kernel == plain, {t[0]:.4f} ms vs bound "
+            f"{t[2]:.4f} ms ({t[2] / t[0]:.0%}), plain {t[1]:.4f} ms; "
+            f"{launches} launches on the phase's path ({smi})")
+    finally:
+        if reg.srv is not None:
+            reg.kill()
+        free_card(torch)
+        shutil.rmtree(root, ignore_errors=True)
+    t_all = time.monotonic() - t_phase
+    log("failure", f"phase 17 took {t_all:.1f} s: (a) {times['a']:.1f} s, "
+        f"(b) {times['b']:.1f} s, (d) {times['d']:.1f} s, (c) "
+        f"{times['c']:.1f} s")
+    return [plane_entry(sm, "failure", launches, t)]
+
+
+def failure_subprocess(seed: int):
+    """`run_failure` in a child process of this script (`--failure`) ->
+    (its kernel entries, its log lines, seconds). A child that fails
+    fails the phase."""
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--failure", "--seed",
+         str(seed)], capture_output=True, text=True,
+        timeout=FAIL_TIMEOUT_S)
+    entries, lines = None, []
+    for line in proc.stdout.splitlines():
+        if line.startswith("FAILURE "):
+            entries = json.loads(line[len("FAILURE "):])
+        else:
+            lines.append(line)
+    if proc.returncode != 0 or entries is None:
+        raise AssertionError(f"failure child exited {proc.returncode}: "
+                             f"{proc.stdout[-2000:]} {proc.stderr[-3000:]}")
+    return entries, lines, time.monotonic() - t0
+
+
+def collect_failure(lanes: "Lanes"):
+    """Phase 17's child, queued in `lanes` at phase 12's start: its lines
+    echoed, its kernel entries returned."""
+    t0 = time.monotonic()
+    (entries, lines, secs), = lanes.rows("failure")
+    for line in lines:
+        print(line, flush=True)
+    log("failure", f"phase 17's child took {secs:.1f} s (in the lanes; "
+        f"waited {time.monotonic() - t0:.1f} s for it here)")
+    return entries
+
+
 T0 = time.monotonic()  # the smoke's start: phase times are logged from it
 
 
@@ -8584,6 +9380,9 @@ def main() -> int:
                          "sweeps in its own lanes")
     ap.add_argument("--ops", action="store_true",
                     help="run only phase 16")
+    ap.add_argument("--failure", action="store_true",
+                    help="run only phase 17 (the child process the whole "
+                         "smoke starts in its lanes)")
     ap.add_argument("--trace-client", metavar="DIR", default=None,
                     help="phase 15's client child: wait for the server "
                          "named in DIR/server.json and drive it (touches "
@@ -8621,6 +9420,13 @@ def main() -> int:
         _build.load("fused_get")
         log("env", nvidia_smi())
         print("OPS " + json.dumps(run_ops(Smoke(args.seed))), flush=True)
+        return 0
+    if args.failure:
+        _build.load("fused_get")
+        _build.load_host("runtime")
+        log("env", nvidia_smi())
+        print("FAILURE " + json.dumps(run_failure(Smoke(args.seed))),
+              flush=True)
         return 0
 
     # 1. env
@@ -8686,11 +9492,13 @@ def main() -> int:
                 ("scale", lambda sm: run_scale(
                     sm, lanes.queue("chaos", args.seed).queue("trace")
                     .queue("scale").queue("tail")
-                    .queue("trace-client", args.seed))),
+                    .queue("trace-client", args.seed)
+                    .queue("failure", args.seed))),
                 ("tail", lambda sm: run_tail(sm, lanes)),
                 ("chaos", lambda sm: collect_chaos(lanes)),
                 ("trace", lambda sm: run_trace(sm, lanes)),
-                ("ops", run_ops)):
+                ("ops", run_ops),
+                ("failure", lambda sm: collect_failure(lanes))):
             t0 = time.monotonic()
             entry = run(sm)
             log("smoke", f"{label} took {time.monotonic() - t0:.1f} s, "
@@ -8699,7 +9507,7 @@ def main() -> int:
             # it got in the end of its errors
             print(f"[smoke] {label} done at {time.monotonic() - T0:.1f} s",
                   file=sys.stderr, flush=True)
-            if isinstance(entry, list):  # plane .. ops
+            if isinstance(entry, list):  # plane .. failure
                 kernels.extend(entry)
             elif entry is not None:  # the families launch no kernel
                 kernels.append(entry)

@@ -12,6 +12,7 @@ taken out, as a server that publishes none sends it.
 from __future__ import annotations
 
 import copy
+import time
 
 import numpy as np
 import pytest
@@ -75,7 +76,7 @@ def _document(name: str) -> dict:
 
 @pytest.mark.parametrize("gauge", ["published", "absent"])
 @pytest.mark.parametrize("name", sorted(KIND))
-def test_rows_and_render_match_jax(name, gauge):
+def test_rows_and_render_match_jax(name, gauge, monkeypatch):
     doc = _document(name)
     assert "error" not in doc, doc
     gauges = doc["telemetry"]["gauges"]
@@ -92,4 +93,8 @@ def test_rows_and_render_match_jax(name, gauge):
     assert tb["misses"] == sum(tb["miss_causes"].values())
     assert len(tb.get("shards") or ()) == (2 if name == "plane" else 0)
     down = {"endpoint": "127.0.0.1:7001", "ok": False, "error": "refused"}
+    # both renders stamp the wall clock: one frozen second for the two,
+    # or a second boundary between them shows as a difference
+    stamp = time.strftime("%H:%M:%S")
+    monkeypatch.setattr(time, "strftime", lambda fmt, *a: stamp)
     assert jteletop.render([ja, down]) == tteletop.render([tb, down])

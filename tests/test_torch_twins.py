@@ -42,7 +42,8 @@ TWINS = {
                            "test_torch_journal.py"),
     "test_elastic.py": ("test_torch_ring.py", "test_torch_replica_rejoin.py",
                         "test_torch_bench_elastic.py"),
-    "test_failure.py": ("test_torch_failure.py",),
+    "test_failure.py": ("test_torch_failure.py",
+                        "test_torch_failure_ladder.py"),
     "test_fastpath.py": ("test_torch_fastpath.py", "test_torch_kv_surface.py",
                          "test_torch_net.py"),
     "test_fused.py": ("test_torch_fused.py",),
@@ -57,13 +58,15 @@ TWINS = {
                        "verified on; the port uses no JAX",
     "test_kv.py": ("test_torch_kv.py", "test_torch_extents.py",
                    "test_torch_kv_families.py"),
-    "test_linear.py": ("test_torch_linear.py",),
+    "test_linear.py": ("test_torch_linear.py", "test_torch_linear_drills.py",
+                       "test_torch_rowinsert.py"),
     "test_mesh.py": ("test_torch_plane.py", "test_torch_shard.py",
                      "test_torch_partitioning.py"),
     "test_mesh2d.py": ("test_torch_mesh2d.py",),
     "test_multihost.py": ("test_torch_multihost.py",
                           "test_torch_multihost_plane.py"),
-    "test_net.py": ("test_torch_net.py",),
+    "test_net.py": ("test_torch_net.py", "test_torch_net_drills.py",
+                    "test_torch_net_pipes.py", "test_torch_failure.py"),
     "test_onesided.py": ("test_torch_onesided.py", "test_torch_net.py"),
     "test_pressure.py": ("test_torch_workloads.py",
                          "test_torch_bench_sweeps.py"),
@@ -72,7 +75,9 @@ TWINS = {
     "test_replica.py": ("test_torch_replica.py",
                         "test_torch_replica_rejoin.py"),
     "test_runtime.py": ("test_torch_engine.py", "test_torch_server.py"),
-    "test_shard.py": ("test_torch_shard.py", "test_torch_mesh_ckpt.py"),
+    "test_shard.py": ("test_torch_shard.py", "test_torch_mesh_ckpt.py",
+                      "test_torch_shard_drills.py",
+                      "test_torch_partitioning.py"),
     "test_soak.py": ("test_torch_bench_soaks.py",
                      "test_torch_bench_sweeps.py"),
     "test_telemetry.py": ("test_torch_telemetry.py", "test_torch_teletop.py"),
@@ -88,6 +93,14 @@ _BF = "test_torch_bf_push.py::"
 _CLIENT = "test_torch_client.py::"
 _INS = "test_torch_insert_compaction.py::"
 _ONE = "test_torch_onesided.py::"
+_LAD = "test_torch_failure_ladder.py::"
+_ND = "test_torch_net_drills.py::"
+_NP = "test_torch_net_pipes.py::"
+_SH = "test_torch_shard.py::"
+_SHD = "test_torch_shard_drills.py::"
+_LIN = "test_torch_linear.py::"
+_VERBS = (_SH + "test_sharded_verbs_match_jax",)
+_LINOPS = (_LIN + "test_linear_ops_match_jax",)
 
 DRILLS = {
     "test_fastpath.py": {
@@ -180,6 +193,107 @@ DRILLS = {
             (_ONE + "test_onesided_client_stack_over_network",),
         "test_remote_pool_grant_exhaustion_refused":
             (_ONE + "test_remote_pool_grant_exhaustion_refused",),
+    },
+    "test_failure.py": {
+        name: (_LAD + name,) for name in (
+            "test_restart_with_checkpoint_restore_and_reconnect",
+            "test_restart_under_load_never_serves_wrong_data",
+            "test_dropped_completions_timeout_then_recover",
+            "test_stalled_driver_backpressure_is_bounded_loss",
+            "test_put_first_after_kill_degrades_not_raises",
+            "test_invalidation_journal_blocks_stale_resurrection",
+            "test_paging_sim_survives_restart",
+            "test_torn_checkpoint_detected_and_rejected",
+            "test_kill_restore_falls_back_past_torn_snapshot",
+            "test_reconnect_backoff_widens_and_resets")},
+    "test_net.py": {
+        **{name: (_ND + name,) for name in (
+            "test_client_bounds_oversized_server_frame",
+            "test_handshake_word_mismatch_rejected",
+            "test_cleancache_client_over_tcp",
+            "test_bf_push_full_then_delta",
+            "test_push_race_no_false_negative",
+            "test_idle_timeout_kills_and_keepalive_survives",
+            "test_reconnecting_client_over_tcp_restart",
+            "test_multiprocess_clients",
+            "test_server_survives_garbage_and_truncation",
+            "test_engine_backend_factory_over_tcp",
+            "test_pull_then_push_stamp_domains_coherent",
+            "test_stale_delta_or_merges_instead_of_dropping",
+            "test_kill_op_conn_is_idempotent")},
+        **{name: (_NP + name,) for name in (
+            "test_multinode_harness_small",
+            "test_tcp_over_sharded_mesh_server",
+            "test_pipeline_negotiation_and_env_killswitch",
+            "test_coalesced_server_fuses_across_connections",
+            "test_pipelined_storm_shared_backend",
+            "test_coalesced_vs_lockstep_conformance",
+            "test_chaos_duplicate_frame_desync_is_detected",
+            "test_chaos_truncated_frame_and_half_open_are_bounded")},
+        "test_chaos_bitflip_is_dropped_frame_then_reconnect":
+            (_NP + "test_chaos_bitflip_is_dropped_frame_then_reconnect",
+             "test_torch_failure.py::test_chaos_proxy_delay_and_drop"),
+        "test_roundtrip_put_get_invalidate":
+            (_NET + "test_wire_transcript_matches_jax",),
+        "test_extent_verbs_over_tcp":
+            (_NET + "test_wire_transcript_matches_jax",),
+    },
+    "test_shard.py": {
+        "test_shard_routing_balanced":
+            ("test_torch_partitioning.py::"
+             "test_shard_owners_equal_the_jax_hash",),
+        "test_insert_get_roundtrip": _VERBS,
+        "test_miss_is_legal": _VERBS,
+        "test_delete": _VERBS,
+        "test_matches_single_chip_ground_truth": _VERBS,
+        "test_dup_keys_last_wins_matches":
+            (_SH + "test_dup_keys_last_wins_across_shards",),
+        "test_a2a_find_anyway_utilization_recovery": _VERBS,
+        "test_packed_bloom_matches_single_chip": _VERBS,
+        "test_sharded_checkpoint_roundtrip":
+            ("test_torch_mesh_ckpt.py::"
+             "test_sharded_snapshots_and_chains_cross_both_ways",),
+        "test_a2a_bucket_overflow_is_reported_not_silent":
+            (_SH + "test_a2a_bucket_overflow_is_reported_like_jax",),
+        "test_extent_cross_shard": _VERBS,
+        "test_extent_matches_single_chip": _VERBS,
+        "test_paged_mode_sharded":
+            (_SHD + "test_paged_mode_sharded_matches_jax",),
+        "test_eviction_propagates":
+            (_SHD + "test_eviction_propagates_like_jax",),
+        "test_sharded_cceh_roundtrip": _VERBS,
+        "test_cleancache_client_over_sharded_server":
+            (_SHD + "test_cleancache_client_over_sharded_server_like_jax",),
+        "test_node_of_and_shard_report":
+            (_SHD + "test_node_of_and_shard_report_like_jax",),
+        "test_lrfu_stats_plane":
+            (_SH + "test_lrfu_plane_and_node_of_match_jax",),
+        "test_sampled_touch_sharded":
+            (_SHD + "test_sampled_touch_sharded_like_jax",),
+        "test_health_and_shard_report_tier_stats_agree":
+            (_SHD + "test_health_and_shard_report_tier_stats_agree_like_jax",),
+    },
+    "test_linear.py": {
+        "test_insert_then_get_roundtrip": _LINOPS,
+        "test_miss_is_legal_answer": _LINOPS,
+        "test_padding_keys_are_noops": _LINOPS,
+        "test_update_in_place_overwrites_value": _LINOPS,
+        "test_duplicate_keys_in_batch_last_wins":
+            (_LIN + "test_dedupe_last_wins_matches_jax",) + _LINOPS,
+        "test_fifo_eviction_on_full_cluster":
+            (_LIN + "test_overflowing_batch_drops_and_evicts_like_jax",),
+        "test_overflow_within_one_batch_drops_excess":
+            (_LIN + "test_overflowing_batch_drops_and_evicts_like_jax",),
+        "test_delete_then_miss": _LINOPS,
+        "test_large_random_workload_no_false_hits":
+            ("test_torch_linear_drills.py::"
+             "test_large_random_workload_no_false_hits_like_jax",),
+        "test_plan_insert_matches_legacy_helpers":
+            (_LIN + "test_plan_insert_and_rank_match_jax",),
+        "test_rowscatter_insert_equivalence":
+            ("test_torch_rowinsert.py::test_row_path_matches_jax_row_path",),
+        "test_insert_path_env_switch":
+            ("test_torch_rowinsert.py::test_insert_path_env_switch",),
     },
 }
 
