@@ -5762,11 +5762,12 @@ class Lanes:
     """Harness processes side by side, at most `n` at a time, each started
     as a lane frees in the order queued; a phase collects its own rows.
     The whole smoke queues phase 14's child, phase 15's two sweeps,
-    phase 12's harnesses, phase 13's, phase 15's client child and phase
-    17's child at phase 12's start, so the tail's host-bound soaks, the
-    chaos child and the sweeps run beside phase 12's plane and phase 13's
-    sweeps (the client waits in its lane for phase 15's server; the
-    failure child, queued last, runs beside phases 13 to 16)."""
+    phase 12's harnesses, phase 13's, phase 15's client child and the
+    children of phases 17 and 18 at phase 12's start, so the tail's
+    host-bound soaks, the chaos child and the sweeps run beside phase 12's
+    plane and phase 13's sweeps (the client waits in its lane for phase
+    15's server; the failure and store children, queued last, run beside
+    phases 13 to 16)."""
 
     def __init__(self, n: int):
         from concurrent.futures import ThreadPoolExecutor
@@ -5783,6 +5784,8 @@ class Lanes:
             self.futs[phase] = [self.ex.submit(chaos_subprocess, seed)]
         elif phase == "failure":
             self.futs[phase] = [self.ex.submit(failure_subprocess, seed)]
+        elif phase == "store":
+            self.futs[phase] = [self.ex.submit(store_subprocess, seed)]
         elif phase == "trace":
             self.futs[phase] = [
                 self.ex.submit(trace_sweep, name, args, self.tmp.name)
@@ -9363,6 +9366,1007 @@ def collect_failure(lanes: "Lanes"):
     return entries
 
 
+# ---------------------------------------------------------------------------
+# phase 18, store: the store's own suites' card-only drills
+# ---------------------------------------------------------------------------
+
+STORE_INDEX = dict(capacity=1 << 18)  # (a), (b): a 1 GiB pool of 4 KiB pages
+STORE_TIER = dict()        # (b): TierConfig()'s defaults
+STORE_BLOOM_BITS = 1 << 21
+STORE_PAGE_WORDS = 1024
+STORE_FILL = 0.75          # of the slots, through KV.insert
+STORE_GET_B = 1 << 14      # keys of (a)'s and (b)'s GETs and churn inserts
+STORE_VERB = 1 << 11       # keys of every wire verb
+STORE_CHURN = 4            # (a): the churn inserts this many times the slots
+STORE_POISON_EVERY = 1024  # (a): one pool row in this many is poisoned
+STORE_EXTENT = 1 << 16     # (a): pages of the long extent
+STORE_CAP_COVERS = 4       # (a): extent_max_covers of the capped KV
+STORE_HOT_GETS = 3         # (b): promoting GETs of the hot set
+STORE_PLANE_INDEX = dict(capacity=1 << 16)  # (c): a lane (cut from 2^18)
+STORE_PLANE_BLOOM_BITS = 1 << 20
+STORE_PLANE_FILL = 0.5     # (c): of the plane's slots, put before the storm
+STORE_CONNS = 8            # (c): the storm's connections
+STORE_STEPS = 12           # (c): verbs per connection, half before the fault
+STORE_TRANSCRIPT = 12      # (c): verbs of the PMDFC_MESH2D=off transcript
+STORE_NODE_INDEX = dict(capacity=1 << 16)   # (d): a node
+STORE_NODE_BLOOM_BITS = 1 << 20
+STORE_NODE_KEYS = 1 << 14  # (d): keys put through the group
+STORE_REPLACE_S = 0.05     # (d): auto_replace_after_s
+STORE_HI = 0xCA000000      # (a), (b): the fill's keys are (STORE_HI, i)
+STORE_ONES = 0xFFFFFFFF    # (a): the all-ones hi word
+STORE_CHURN_HI = 0xCA100000
+STORE_EXT_HI = 0xCA200000
+STORE_PLANE_HI = 0xCA300000  # (c): the GET set
+STORE_PUT_HI = 0xCA400000    # (c): connection c puts (STORE_PUT_HI + c, i)
+STORE_GROUP_HI = 0xCA500000  # (c): the groups' keys
+STORE_NODE_HI = 0xCA600000   # (d)
+STORE_XOR = 0x3C3C3C3C     # a re-put page is the key's page XOR this
+STORE_TIMEOUT_S = 600.0    # the phase's child process, spawn to exit
+
+
+def store_dir():
+    """Where phase 18 writes its snapshot (git-ignored, on the checkout's
+    disk); removed at the end of the phase."""
+    from pathlib import Path
+
+    return Path(__file__).resolve().parent / "build" / "store"
+
+
+def store_cfg(index, bloom_bits, tier=None, **kw):
+    from pmdfc_tpu_torch.config import (BloomConfig, IndexConfig, KVConfig,
+                                        TierConfig)
+
+    return KVConfig(index=IndexConfig(**index),
+                    bloom=BloomConfig(num_bits=bloom_bits),
+                    page_words=STORE_PAGE_WORDS,
+                    tier=None if tier is None else TierConfig(**tier), **kw)
+
+
+def store_check(sm, out, found, keys, label: str, xor: int = 0) -> int:
+    """A device GET's reply: every hit the key's page (XOR `xor`), every
+    miss zeroed -> hits."""
+    want = sm.pages_of(keys, out.shape[1])
+    if xor:
+        want = want ^ xor
+    wrong = int((out[found] != want[found]).any(dim=1).sum())
+    if wrong:
+        raise AssertionError(f"{label}: {wrong} hits served a wrong page")
+    if bool(out[~found].any()):
+        raise AssertionError(f"{label}: a miss returned nonzero bytes")
+    return int(found.sum())
+
+
+def store_held(sm, kv, hi: int):
+    """The lo words (int64, on the device) of the keys (hi, .) the KV's
+    index holds now."""
+    torch = sm.torch
+    with kv._lock, kv._on_device():
+        flat, _ = kv._ops.scan(kv.state.index)
+        lo = flat[flat[:, 0] == sm.u32.narrow(torch.tensor(hi))][:, 1]
+    return sm.u32.widen(lo)
+
+
+def store_key64(sm, keys):
+    """[n, 2] int32 device keys -> int64 (hi << 32 | lo)."""
+    return (sm.u32.widen(keys[:, 0]) << 32) | sm.u32.widen(keys[:, 1])
+
+
+def store_rows(sm, kv, keys):
+    """The pool row each key's index entry points at (-1 where absent)."""
+    with kv._lock, kv._on_device():
+        res = kv._ops.get_batch(kv.state.index, keys)
+    return sm.torch.where(res.found, res.values[:, 1], -1)
+
+
+class StoreLaunches:
+    """Counts one `KV`'s GET verbs (`get_async`, `get_compact_async`) that
+    carried keys: each launches the fused GET once."""
+
+    def __init__(self, kv):
+        self.n = 0
+        for name in ("get_async", "get_compact_async"):
+            real = getattr(kv, name)
+
+            def counted(keys, *a, _real=real, **kw):
+                self.n += len(keys) > 0
+                return _real(keys, *a, **kw)
+
+            setattr(kv, name, counted)
+
+
+def store_fill(sm, kv, n: int, hi: int, ones: int = 0):
+    """Pages (hi, i < n - ones) and (STORE_ONES, i < ones) put through
+    `KV.insert` in batches of STORE_GET_B - 16 keys, so `_pad_pow2` pads
+    every batch with INVALID rows -> the all-ones keys (every one placed,
+    none dropped)."""
+    torch = sm.torch
+    pw = kv.config.page_words
+    b = STORE_GET_B - 16
+    lo = torch.arange(n - ones, device=sm.dev)
+    for i in range(0, len(lo), b):
+        keys = sm.keys_of(hi, lo[i:i + b])
+        kv.insert(keys, sm.pages_of(keys, pw))
+    ones_keys = sm.keys_of(STORE_ONES, torch.arange(ones, device=sm.dev))
+    for i in range(0, ones, b):
+        keys = ones_keys[i:i + b]
+        res = kv.insert(keys, sm.pages_of(keys, pw))
+        if bool((res.slots < 0).any()) or bool(res.dropped.any()):
+            raise AssertionError(
+                f"store (a): {int((res.slots < 0).sum())} all-ones keys "
+                f"not placed, {int(res.dropped.sum())} dropped")
+    return ones_keys
+
+
+def store_edges(sm, smi: str) -> dict:
+    """Part (a): a linear·flat `KV` filled to STORE_FILL (its last
+    STORE_GET_B keys with the all-ones hi word), churned with STORE_CHURN
+    times its slots, deletes and re-puts, poisoned rows on the GET and
+    compact paths, the long and the capped extent -> its kernel entry."""
+    import numpy as np
+
+    torch, fused = sm.torch, sm.fused
+    cfg = store_cfg(STORE_INDEX, STORE_BLOOM_BITS)
+    kv = sm.kv_mod.KV(cfg, device=DEVICE)
+    pw, cap = cfg.page_words, kv.capacity()
+    count = StoreLaunches(kv)
+    n = int(cap * STORE_FILL)
+    t0 = time.monotonic()
+    torch.cuda.synchronize()
+    fused.launches.clear()  # (a)'s path from here
+    ones = store_fill(sm, kv, n, STORE_HI, STORE_GET_B)
+    out, found = kv.get(ones)
+    hits = store_check(sm, out, found, ones, "store (a) all-ones GET")
+    if hits != len(ones):
+        raise AssertionError(f"store (a): {len(ones) - hits} all-ones keys "
+                             f"missed of {len(ones)}")
+    # every fill key the index holds (evicting inserts recycled rows)
+    fill_held = store_held(sm, kv, STORE_HI)
+    for i in range(0, len(fill_held), STORE_GET_B):
+        keys = sm.keys_of(STORE_HI, fill_held[i:i + STORE_GET_B])
+        out, found = kv.get(keys)
+        if store_check(sm, out, found, keys, "store (a) fill") != len(keys):
+            raise AssertionError("store (a): a held fill key missed")
+    # the churn: STORE_CHURN x the slots in STORE_GET_B-page inserts
+    s0 = kv.stats()
+    m = STORE_CHURN * cap
+    lo = torch.arange(m, device=sm.dev)
+    for i in range(0, m, STORE_GET_B):
+        keys = sm.keys_of(STORE_CHURN_HI, lo[i:i + STORE_GET_B])
+        kv.insert(keys, sm.pages_of(keys, pw))
+    churn_hits = 0
+    for i in range(0, m, STORE_GET_B):
+        keys = sm.keys_of(STORE_CHURN_HI, lo[i:i + STORE_GET_B])
+        out, found = kv.get(keys)
+        churn_hits += store_check(sm, out, found, keys, "store (a) churn")
+    s1 = kv.stats()
+    lost = (s1["evictions"] - s0["evictions"]) + (s1["drops"] - s0["drops"])
+    top, live = int(kv.state.pool.top), round(kv.utilization() * cap)
+    if not 0 < churn_hits < m or m - churn_hits > lost \
+            or top != cap - live:
+        raise AssertionError(
+            f"store (a): churn of {m} keys: {churn_hits} hits, "
+            f"{m - churn_hits} misses vs evictions + drops {lost}; pool top "
+            f"{top} vs capacity - live {cap - live}")
+    # deletes free rows; re-puts and updates re-digest them
+    held = store_held(sm, kv, STORE_CHURN_HI)
+    perm = torch.randperm(len(held), device=sm.dev, generator=sm.gen)
+    half = STORE_GET_B // 2
+    dele = sm.keys_of(STORE_CHURN_HI, held[perm[:half]])
+    upd = sm.keys_of(STORE_CHURN_HI, held[perm[half:2 * half]])
+    top0 = int(kv.state.pool.top)
+    if not bool(kv.delete(dele).all()) \
+            or int(kv.state.pool.top) != top0 + half:
+        raise AssertionError(f"store (a): deleting {half} held keys moved "
+                             f"the pool top by {int(kv.state.pool.top) - top0}")
+    both = torch.cat([dele, upd])
+    res = kv.insert(both, sm.pages_of(both, pw) ^ STORE_XOR)
+    # a re-put into the full index evicts (FIFO) as JAX's does: a key of
+    # this batch the insert reported evicted is a legal miss
+    ev = res.evicted[~(res.evicted == -1).all(dim=1)]
+    gone = torch.isin(store_key64(sm, both), store_key64(sm, ev))
+    out, found = kv.get(both)
+    store_check(sm, out, found, both, "store (a) re-put", xor=STORE_XOR)
+    if not torch.equal(found, ~gone) or kv.stats()["corrupt_pages"]:
+        raise AssertionError(
+            f"store (a): {int((~found[:half] & ~gone[:half]).sum())} re-put "
+            f"and {int((~found[half:] & ~gone[half:]).sum())} updated keys "
+            f"missed that were not evicted, corrupt_pages "
+            f"{kv.stats()['corrupt_pages']}")
+    # one pool row in STORE_POISON_EVERY poisoned in place
+    held = store_held(sm, kv, STORE_CHURN_HI)
+    pick = held[torch.randperm(len(held), device=sm.dev,
+                               generator=sm.gen)[:STORE_GET_B]]
+    probe = sm.keys_of(STORE_CHURN_HI, pick)
+    xored = torch.isin(probe[:, 1], both[:, 1])
+    rows = store_rows(sm, kv, probe)
+    bad = (rows >= 0) & (rows % STORE_POISON_EVERY == 0)
+    c0 = kv.stats()["corrupt_pages"]
+    with kv._lock, kv._on_device():
+        kv.state.pool.pages[::STORE_POISON_EVERY] ^= 1 << 9
+    want = sm.pages_of(probe, pw) ^ torch.where(
+        xored, STORE_XOR, 0).to(torch.int32)[:, None]
+    out, found = kv.get(probe)
+    if not torch.equal(found, ~bad) or int((out[found] != want[found])
+                                           .any(dim=1).sum()) \
+            or bool(out[~found].any()) \
+            or kv.stats()["corrupt_pages"] - c0 != int(bad.sum()):
+        raise AssertionError(
+            f"store (a): poisoned GET: {int((found & bad).sum())} poisoned "
+            f"keys hit, {int((~found & ~bad).sum())} clean keys missed, "
+            f"corrupt_pages +{kv.stats()['corrupt_pages'] - c0} for "
+            f"{int(bad.sum())} poisoned")
+    out, order, _, nfound, _ = kv.get_compact_async(probe)
+    nf = int(nfound)
+    order = order[:nf].long()
+    if nf != int((~bad).sum()) or bool(bad[order].any()) \
+            or not torch.equal(order, (~bad).nonzero().flatten()) \
+            or int((out[:nf] != want[order]).any(dim=1).sum()):
+        raise AssertionError(
+            f"store (a): get_compact served {nf} rows for "
+            f"{int((~bad).sum())} clean keys, {int(bad[order].sum())} of "
+            "them poisoned, or out of request order or with wrong bytes")
+    with kv._lock, kv._on_device():
+        kv.state.pool.pages[::STORE_POISON_EVERY] ^= 1 << 9
+    # the long extent, and a capped KV's truncated tail
+    base = np.array([STORE_EXT_HI, 0], np.uint32)
+    _, unc = kv.insert_extent(base, np.array([0, 1 << 20], np.uint32),
+                              STORE_EXTENT)
+    probe_e = np.array([[STORE_EXT_HI, STORE_EXTENT * 5 // 8],
+                        [STORE_EXT_HI, STORE_EXTENT - 1],
+                        [STORE_EXT_HI, STORE_EXTENT]], np.uint32)
+    vals, efound = kv.get_extent(probe_e)
+    addr = (vals[:, 0].astype(np.uint64) << np.uint64(32)) | vals[:, 1]
+    if unc or list(efound) != [True, True, False] or list(addr[:2]) != [
+            (1 << 20) + 4096 * int(k) for k in probe_e[:2, 1]]:
+        raise AssertionError(f"store (a): the {STORE_EXTENT}-page extent: "
+                             f"uncovered {unc}, found {list(efound)}")
+    capped = sm.kv_mod.KV(store_cfg(dict(capacity=1 << 12), 1 << 14,
+                                    extent_max_covers=STORE_CAP_COVERS),
+                          device=DEVICE)
+    _, tail = capped.insert_extent(np.array([STORE_EXT_HI, 1], np.uint32),
+                                   np.array([0, 0], np.uint32), 1000)
+    if tail <= 0:
+        raise AssertionError("store (a): the capped extent reported no "
+                             "uncovered tail")
+    torch.cuda.synchronize()
+    launches = fused.launches["fused_get_linear_flat"]
+    if launches != count.n:
+        raise AssertionError(f"store (a): {launches} fused-GET launches for "
+                             f"{count.n} GETs")
+    s = kv.stats()
+    if s["misses"] != sum(s[c] for c in sm.kv_mod.MISS_CAUSE_NAMES):
+        raise AssertionError("store (a): misses != the sum of the causes")
+    secs = time.monotonic() - t0
+    log("store", f"(a) linear·flat KV on {kv.device}: {cap} slots, pool "
+        f"{kv.state.pool.pages.numel() * 4 / 2**30:.2f} GiB of {pw}-word "
+        f"pages; fill {n} pages, the last {len(ones)} with hi 0xFFFFFFFF in "
+        f"padded batches of {STORE_GET_B - 16}: every one placed and hit "
+        f"byte-exact by a w = {STORE_GET_B} GET, every other held key "
+        f"({len(fill_held)}) too; churn of {m} pages: {churn_hits} "
+        f"hits byte-exact, {m - churn_hits} misses <= evictions + drops "
+        f"{lost}, pool top {top} == capacity - live; {half} deletes freed "
+        f"{half} rows, {2 * half} re-puts and updates served their new "
+        f"bytes ({int(gone.sum())} evicted by their own batch), "
+        f"corrupt_pages 0; {int(bad.sum())} of {STORE_GET_B} probe "
+        f"keys on poisoned rows (1 in {STORE_POISON_EVERY}): missed as "
+        f"corrupt on the GET and left out of the compacted rows ({nf} in "
+        f"request order, byte-exact); {STORE_EXTENT}-page extent reachable, "
+        f"a {STORE_CAP_COVERS}-cover cap left {tail} pages uncovered; "
+        f"{launches} fused-GET launches = {count.n} GETs; {secs:.1f} s "
+        f"({smi})")
+    present = store_held(sm, kv, STORE_CHURN_HI).cpu().numpy()
+    t = uncounted(fused, lambda: plane_kernel(
+        sm, kv.state, present, pw, [STORE_GET_B], "store (a)", smi,
+        hi=STORE_CHURN_HI))[STORE_GET_B]
+    del kv, capped
+    free_card(torch)
+    return plane_entry(sm, "store", launches, t)
+
+
+def store_tiered(sm, root: str, smi: str) -> dict:
+    """Part (b): a linear·tiered `KV` filled to STORE_FILL, promoting GETs
+    then a compacted GET, a snapshot loaded into a fresh `KV` (every key,
+    the promoted ones among them, served byte-exact through the kernel,
+    every state leaf equal), `tier_stats` over `MSG_STATS` -> its kernel
+    entry."""
+    import os
+
+    import numpy as np
+
+    from pmdfc_tpu_torch import carry, checkpoint
+    from pmdfc_tpu_torch.client import DirectBackend
+    from pmdfc_tpu_torch.config import NetConfig
+    from pmdfc_tpu_torch.runtime.net import NetServer, TcpBackend
+
+    torch, fused = sm.torch, sm.fused
+    cfg = store_cfg(STORE_INDEX, STORE_BLOOM_BITS, tier=STORE_TIER)
+    kv = sm.kv_mod.KV(cfg, device=DEVICE)
+    pw, cap = cfg.page_words, kv.capacity()
+    count = StoreLaunches(kv)
+    n = int(cap * STORE_FILL)
+    t0 = time.monotonic()
+    torch.cuda.synchronize()
+    fused.launches.clear()  # (b)'s path from here
+    store_fill(sm, kv, n, STORE_HI)
+    held = store_held(sm, kv, STORE_HI)
+    perm = held[torch.randperm(len(held), device=sm.dev, generator=sm.gen)]
+    hot = sm.keys_of(STORE_HI, perm[:STORE_VERB])
+    for _ in range(STORE_HOT_GETS):
+        out, found = kv.get(hot)
+        store_check(sm, out, found, hot, "store (b) hot GET")
+    prom = kv.tier_stats()["promotions"]
+    never = sm.keys_of(STORE_HI, torch.arange(
+        NEVER_LO, NEVER_LO + STORE_GET_B // 2, device=sm.dev))
+    probe = torch.cat([sm.keys_of(STORE_HI, perm[:STORE_GET_B // 2]), never])
+    probe = probe[torch.randperm(len(probe), device=sm.dev,
+                                 generator=sm.gen)]
+    out, order, _, nfound, _ = kv.get_compact_async(probe)
+    nf = int(nfound)
+    order = order[:nf].long()
+    present = probe[:, 0] == sm.u32.narrow(torch.tensor(STORE_HI))
+    present &= probe[:, 1] < NEVER_LO
+    if prom <= 0 or nf != int(present.sum()) \
+            or not torch.equal(order, present.nonzero().flatten()) \
+            or int((out[:nf] != sm.pages_of(probe[order], pw))
+                   .any(dim=1).sum()):
+        raise AssertionError(
+            f"store (b): {prom} promotions; get_compact served {nf} rows "
+            f"for {int(present.sum())} held keys, not hits-first in request "
+            "order byte-exact")
+    with kv._lock, kv._on_device():
+        h = kv.state.pool.hfree.shape[0]
+    rows = store_rows(sm, kv, sm.keys_of(STORE_HI, held))
+    in_hot = (rows >= 0) & (rows < h)
+    path = os.path.join(root, "tiered.ckpt")
+    ts = time.monotonic()
+    kv.snapshot(path)
+    t_snap = time.monotonic() - ts
+    snap_bytes = os.path.getsize(path)
+    ts = time.monotonic()
+    kv2 = sm.kv_mod.KV(cfg, state=checkpoint.load(path, cfg, device=DEVICE),
+                       device=DEVICE)
+    t_load = time.monotonic() - ts
+    os.remove(path)
+    a = dict(carry.leaves(kv.state))
+    b2 = carry.leaves(kv2.state)
+    diff = [k for k, v in b2 if k not in a or not torch.equal(a[k], v)]
+    diff += sorted(set(a) - {k for k, _ in b2})
+    del a, b2
+    count2 = StoreLaunches(kv2)
+    served = lost_hot = 0
+    for i in range(0, len(held), STORE_GET_B):
+        keys = sm.keys_of(STORE_HI, held[i:i + STORE_GET_B])
+        out, found = kv2.get(keys)
+        served += store_check(sm, out, found, keys, "store (b) restored")
+        lost_hot += int((~found & in_hot[i:i + STORE_GET_B]).sum())
+    if served != len(held) or not int(in_hot.sum()):
+        raise AssertionError(
+            f"store (b): the restored KV lost {len(held) - served} keys "
+            f"({lost_hot} of them promoted to hot rows) of {len(held)}; "
+            f"{int(in_hot.sum())} keys on hot rows at the snapshot")
+    if diff:
+        raise AssertionError(f"store (b): restored leaves differ: {diff}")
+    srv = NetServer(lambda: DirectBackend(kv2), net=NetConfig()).start()
+    try:
+        with TcpBackend("127.0.0.1", srv.port, page_words=pw,
+                        keepalive_s=None) as tb:
+            keys = sm.u32.to_numpy(hot[:STORE_VERB].cpu())
+            out, found = tb.get(keys)
+            fail_check(out, found, keys, pw, "store (b) wire GET",
+                       expect=np.ones(len(keys), bool))
+            doc = tb.server_stats()
+        tier = kv2.tier_stats()
+        if {k: doc.get(k) for k in tier} != tier \
+                or int(srv.stats["serve_errors"]):
+            raise AssertionError(f"store (b): MSG_STATS tier counters "
+                                 f"{ {k: doc.get(k) for k in tier} } != {tier}")
+    finally:
+        srv.stop()
+    torch.cuda.synchronize()
+    launches = fused.launches["fused_get_linear_tiered"]
+    if launches != count.n + count2.n:
+        raise AssertionError(f"store (b): {launches} fused-GET launches for "
+                             f"{count.n + count2.n} GETs")
+    s = kv2.stats()
+    if s["misses"] != sum(s[c] for c in sm.kv_mod.MISS_CAUSE_NAMES):
+        raise AssertionError("store (b): misses != the sum of the causes")
+    secs = time.monotonic() - t0
+    log("store", f"(b) linear·tiered KV on {kv.device}: {cap} slots, pools "
+        f"{(kv.state.pool.pages.numel() * 4) / 2**30:.2f} GiB; fill {n} "
+        f"pages; {STORE_HOT_GETS} GETs of {len(hot)} hot keys: {prom} "
+        f"promotions; get_compact over {len(probe)} keys served {nf} hits "
+        f"first in request order, byte-exact; snapshot {snap_bytes / 2**30:.2f}"
+        f" GiB in {t_snap:.2f} s, loaded in {t_load:.2f} s into a fresh KV: "
+        f"all {len(held)} keys ({int(in_hot.sum())} on hot rows) served "
+        f"byte-exact through the kernel, every state leaf equal; tier_stats "
+        f"over MSG_STATS equal the KV's ({tier['promotions']} promotions, "
+        f"{tier['hot_hits']} hot hits); {launches} fused-GET launches = "
+        f"{count.n + count2.n} GETs; {secs:.1f} s ({smi})")
+    present = held.cpu().numpy()
+    t = uncounted(fused, lambda: plane_kernel(
+        sm, kv2.state, present, pw, [STORE_GET_B], "store (b) restored",
+        smi, hi=STORE_HI))[STORE_GET_B]
+    del kv, kv2
+    free_card(torch)
+    return plane_entry(sm, "store-tiered", launches, t,
+                       name="fused_get_linear_tiered")
+
+
+class local_devices:
+    """The port's serving factory sees `devs` as the host's devices inside
+    the block: one card stands in for the four devices of a 2 x 2 grid,
+    as every plane phase builds its grids (`[cuda] * 4`)."""
+
+    def __init__(self, devs):
+        self.devs = devs
+
+    def __enter__(self):
+        from pmdfc_tpu_torch.parallel import plane
+
+        self.old = plane._local_devices
+        plane._local_devices = lambda: list(self.devs)
+
+    def __exit__(self, *exc):
+        from pmdfc_tpu_torch.parallel import plane
+
+        plane._local_devices = self.old
+
+
+def store_transcript(be, pw: int, seed: int) -> list:
+    """A seeded mixed run of STORE_VERB-key verbs straight against a
+    backend -> its transcript (found masks, digests of the served bytes)."""
+    import hashlib
+
+    import numpy as np
+
+    rng = np.random.default_rng([seed, 18])
+    universe = fail_keys(STORE_GROUP_HI + 7, np.arange(4 * STORE_VERB))
+    out = []
+    for _ in range(STORE_TRANSCRIPT):
+        op = int(rng.integers(5))
+        lo = int(rng.integers(0, 3 * STORE_VERB))
+        sel = universe[lo:lo + int(rng.integers(1, STORE_VERB + 1))]
+        if op == 0:
+            be.put(sel, pages_np(sel[:, 0], sel[:, 1], pw))
+            out.append(("put", len(sel)))
+        elif op in (1, 2):
+            pages, found = be.get(sel)
+            out.append(("get", found.tolist(), hashlib.sha1(
+                np.ascontiguousarray(pages[found])).hexdigest()))
+        elif op == 3:
+            out.append(("inval", be.invalidate(sel).tolist()))
+        else:
+            vals, ef = be.get_extent(sel)
+            out.append(("gext", ef.tolist(), vals[ef].tolist()))
+    be.insert_extent(np.array([STORE_EXT_HI, 0], np.uint32),
+                     np.array([0, 4096], np.uint32), 32)
+    vals, ef = be.get_extent(np.array([[STORE_EXT_HI, 5],
+                                       [STORE_EXT_HI, 40]], np.uint32))
+    out.append(("ext", ef.tolist(), vals.tolist()))
+    return out
+
+
+class StoreConn:
+    """One connection of (c)'s storm: a pipelined `TcpBackend`; a step is
+    a put of a fresh verb of its own keys (one in four) or a GET of
+    STORE_VERB keys drawn from the GET set, every reply checked."""
+
+    def __init__(self, port: int, c: int, pw: int, seed: int, los):
+        import numpy as np
+
+        from pmdfc_tpu_torch.runtime.net import TcpBackend
+
+        self.be = TcpBackend("127.0.0.1", port, page_words=pw,
+                             keepalive_s=None, window=8, op_timeout_s=120.0)
+        self.c, self.pw, self.los = c, pw, los
+        self.rng = np.random.default_rng([seed, c, 18])
+        self.puts = self.gets = self.hits = 0
+
+    def step(self) -> None:
+        import numpy as np
+
+        v = STORE_VERB
+        if self.rng.integers(4) == 0:
+            keys = fail_keys(STORE_PUT_HI + self.c,
+                             np.arange(self.puts * v, (self.puts + 1) * v))
+            self.be.put(keys, pages_np(keys[:, 0], keys[:, 1], self.pw))
+            self.puts += 1
+        else:
+            self.get()
+
+    def get(self) -> int:
+        keys = fail_keys(STORE_PLANE_HI, self.los[self.rng.integers(
+            0, len(self.los), STORE_VERB)])
+        out, found = self.be.get(keys)
+        hits = fail_check(out, found, keys, self.pw,
+                          f"store (c) connection {self.c}")
+        self.gets += 1
+        self.hits += hits
+        return hits
+
+    def run(self, steps: int):
+        return lambda: [self.step() for _ in range(steps)]
+
+
+def store_stale_rows(skv) -> int:
+    """The rows a replica repair has to fix: on each shard and lane, the
+    pool rows that fail their digest there and validate on another lane."""
+    import torch
+
+    from pmdfc_tpu_torch.ops.pagepool import page_digest
+
+    n = 0
+    with skv._lock:
+        for row in skv._st:
+            oks = torch.stack([(page_digest(st.pool.pages) == st.pool.sums)
+                               .cpu() for st in row])
+            for r in range(len(row)):
+                other = torch.cat([oks[:r], oks[r + 1:]]).any(dim=0)
+                n += int((~oks[r] & other).sum())
+    return n
+
+
+def store_lane_delta(r0: dict, r1: dict) -> dict:
+    return {k: [b - a for a, b in zip(r0[k], r1[k])]
+            for k in ("served", "digest_refused", "repaired")}
+
+
+def store_plane(sm, smi: str) -> dict:
+    """Part (c): a 2 x 2 plane behind the coalescing `NetServer`, warmed
+    then filled; STORE_CONNS connections storm it and lane 1 is corrupted
+    between the storm's halves; MSG_RREPAIR heals it; three
+    `ReplicaGroup`s over its server (fused delegation and the
+    device-repair cadence; the host loops with `fused_plane=False` and
+    with `PMDFC_MESH2D=off` at connect); then `PMDFC_MESH2D=off` through
+    the factory against a plain plane, and an unpaged 2 x 2 plane -> its
+    kernel entry."""
+    import numpy as np
+
+    from pmdfc_tpu_torch.client.replica import ReplicaGroup
+    from pmdfc_tpu_torch.config import MeshConfig, NetConfig, ReplicaConfig
+    from pmdfc_tpu_torch.parallel.plane import (PlaneBackend,
+                                                make_serving_backend)
+    from pmdfc_tpu_torch.parallel.shard import ShardedKV, make_mesh2d
+    from pmdfc_tpu_torch.runtime.net import NetServer, TcpBackend
+
+    torch, fused = sm.torch, sm.fused
+    causes = sm.kv_mod.MISS_CAUSE_NAMES
+    ns, nr = 2, 2
+    cfg = store_cfg(STORE_PLANE_INDEX, STORE_PLANE_BLOOM_BITS)
+    pw = cfg.page_words
+    t0 = time.monotonic()
+    skv = ShardedKV(cfg, mesh=make_mesh2d(ns, nr, [DEVICE] * (ns * nr)))
+    be = PlaneBackend(skv)
+    warmed = be.warmup(STORE_VERB)
+    s = skv.stats()
+    if not warmed or s["gets"] or s["puts"]:
+        raise AssertionError(f"store (c): warmup ran {warmed} programs and "
+                             f"counted gets {s['gets']}, puts {s['puts']}")
+    n = int(skv.capacity() * STORE_PLANE_FILL)
+    plane_fill(skv, n, STORE_PLANE_HI, plane=True)
+    los = plane_held(skv, STORE_PLANE_HI)
+    counts = PlaneCounts(skv)
+    srv = NetServer(lambda: be, net=NetConfig()).start()
+    conns: list = []
+    torch.cuda.synchronize()
+    fused.launches.clear()  # (c)'s path from here
+    try:
+        conns = [StoreConn(srv.port, c, pw, sm.seed, los)
+                 for c in range(STORE_CONNS)]
+        if {c.be.replica_lanes for c in conns} != {nr}:
+            raise AssertionError("store (c): a connection did not negotiate "
+                                 f"{nr} replica lanes")
+        half = STORE_STEPS // 2
+        r0 = skv.replica_report()
+        run_threads([c.run(half) for c in conns], "store (c) storm")
+        r1 = skv.replica_report()
+        skv.corrupt_replica_lane(1)  # mid-soak: the storm resumes after it
+        h0 = sum(c.hits for c in conns)
+        run_threads([c.run(STORE_STEPS - half) for c in conns],
+                    "store (c) storm, lane 1 corrupt")
+        r2 = skv.replica_report()
+        before, after = store_lane_delta(r0, r1), store_lane_delta(r1, r2)
+        served = sum(c.hits for c in conns) - h0
+        if any(before["digest_refused"]) or after["served"][1] \
+                or after["served"][0] != served \
+                or after["digest_refused"][1] != after["served"][0] \
+                or not served or after["digest_refused"][0]:
+            raise AssertionError(f"store (c): lanes before the fault "
+                                 f"{before}, after it {after}, {served} hits")
+        st = skv.stats()
+        rep = skv.shard_report()["stats"]
+        wire = conns[0].be.server_stats()
+        if not (st["misses"] == sum(st[c] for c in causes)
+                and all(rep["misses"][i] == sum(rep[c][i] for c in causes)
+                        for i in range(ns))
+                and wire["misses"] == sum(int(wire[c]) for c in causes)
+                == st["misses"]):
+            raise AssertionError("store (c): misses != the sum of the causes "
+                                 "on stats(), a shard row or MSG_STATS")
+        stale = store_stale_rows(skv)
+        repaired = conns[0].be.replica_repair()
+        left = store_stale_rows(skv)
+        r3 = skv.replica_report()
+        run_threads([lambda c=c: c.get() for c in conns], "store (c) healed")
+        healed = store_lane_delta(r3, skv.replica_report())
+        skv.corrupt_replica_lane(0)
+        r4 = skv.replica_report()
+        h1 = sum(c.hits for c in conns)
+        run_threads([lambda c=c: c.get() for c in conns],
+                    "store (c) lane 0 corrupt")
+        rescue = store_lane_delta(r4, skv.replica_report())
+        got = sum(c.hits for c in conns) - h1
+        if repaired != stale or not stale \
+                or left or any(healed["digest_refused"]) \
+                or rescue["served"][1] != got or not got \
+                or rescue["digest_refused"][0] != got:
+            raise AssertionError(
+                f"store (c): MSG_RREPAIR repaired {repaired} of {stale} "
+                f"stale rows; after it {healed}; lane 0 corrupt: {rescue} for "
+                f"{got} hits")
+        skv.replica_repair()
+        # two groups over this server, each with two endpoints on it: the
+        # fused plane takes each put once (the lanes carry the rf) and runs
+        # the device repair on its cadence; fused_plane=False keeps the
+        # host's rf-way loops
+        def group(**kw):
+            return ReplicaGroup(
+                [TcpBackend("127.0.0.1", srv.port, page_words=pw,
+                            keepalive_s=None) for _ in range(2)],
+                page_words=pw, cfg=ReplicaConfig(
+                    n_replicas=2, rf=2, repair_interval_s=0, **kw))
+
+        g = group(device_repair_ticks=2)
+        try:
+            gk = fail_keys(STORE_GROUP_HI, np.arange(STORE_VERB))
+            p0 = skv.stats()["puts"]
+            g.put(gk, pages_np(gk[:, 0], gk[:, 1], pw))
+            delegated = dict(g.counters)["fused_delegated"]
+            fused_puts = skv.stats()["puts"] - p0
+            skv.corrupt_replica_lane(1)
+            stale2 = store_stale_rows(skv)
+            g.repair_tick()
+            first = dict(g.counters)["device_repair_rows"]
+            moved = g.repair_tick()
+            out, found = g.get(gk)
+            fail_check(out, found, gk, pw, "store (c) group GET",
+                       expect=np.ones(len(gk), bool))
+        finally:
+            g.close()
+        host = []
+        for j, off in enumerate((False, True)):
+            # fused_plane=False; then endpoints that connect under
+            # PMDFC_MESH2D=off, which never ask for the lanes
+            with env_set("PMDFC_MESH2D", "off" if off else "on"):
+                g2 = group(fused_plane=off)
+            try:
+                lanes = {ep.replica_lanes for ep in g2.endpoints}
+                gk2 = fail_keys(STORE_GROUP_HI + 1 + j,
+                                np.arange(STORE_VERB))
+                p0 = skv.stats()["puts"]
+                g2.put(gk2, pages_np(gk2[:, 0], gk2[:, 1], pw))
+                host.append((dict(g2.counters)["fused_delegated"],
+                             skv.stats()["puts"] - p0, lanes))
+            finally:
+                g2.close()
+        if delegated < STORE_VERB or fused_puts != STORE_VERB or first \
+                or moved != stale2 or not moved \
+                or host != [(0, 2 * STORE_VERB, {nr}),
+                            (0, 2 * STORE_VERB, {1})]:
+            raise AssertionError(
+                f"store (c): the fused group delegated {delegated} of "
+                f"{STORE_VERB} keys ({fused_puts} puts landed); device "
+                f"repair rows {first} then {moved} of {stale2} stale; the "
+                f"host-loop groups (delegated, puts, lanes) {host}")
+        torch.cuda.synchronize()
+        launches = fused.launches["fused_get_linear_flat"]
+        health = dict(srv.stats)
+        bad = {k: health[k] for k in ("serve_errors", "nacks_sent",
+                                      "bisect_failures", "poison_ops",
+                                      "deadline_shed") if int(health[k])}
+        if bad or launches != ns * nr * counts.get_phases:
+            raise AssertionError(f"store (c): server {bad}; {launches} "
+                                 f"fused-GET launches for "
+                                 f"{counts.get_phases} GET phases x "
+                                 f"{ns * nr}")
+        widest = counts.wl_max
+    finally:
+        srv.stop()
+        for c in conns:
+            c.be.close()
+    t_storm = time.monotonic() - t0
+    log("store", f"(c) ShardedKV {ns} shards x {nr} lanes on {skv.mesh}: "
+        f"{skv.capacity()} distinct slots; warmup ran {warmed} programs, "
+        f"counted nothing; fill {n} pages; {STORE_CONNS} connections x "
+        f"{STORE_STEPS} verbs of {STORE_VERB} keys, lane 1 corrupted after "
+        f"{half}: no wrong byte, lane 1 refused {after['digest_refused'][1]}"
+        f" = lane 0 served {after['served'][0]} after it; misses == sum of "
+        f"causes on stats(), every shard row and MSG_STATS; MSG_RREPAIR "
+        f"repaired {repaired} rows (every stale one), then lane 1 validated "
+        f"and served {rescue['served'][1]} with lane 0 corrupt; a group of "
+        f"rf 2 delegated {delegated} keys ({fused_puts} puts landed), its "
+        f"device repair fired on tick 2 ({moved} rows); the host-loop "
+        f"groups, fused_plane=False and PMDFC_MESH2D=off at connect "
+        f"(lanes 1), delegated 0 ({host[0][1]} and {host[1][1]} puts); "
+        f"{launches} fused-GET launches = {ns * nr} x {counts.get_phases} "
+        f"GET phases; {t_storm:.1f} s ({smi})")
+    own0 = skv.node_of(fail_keys(STORE_PLANE_HI, los)) == 0
+    t = uncounted(fused, lambda: plane_kernel(
+        sm, skv.states[0], los[own0], pw, [widest], "store (c) shard 0",
+        smi, hi=STORE_PLANE_HI))[widest]
+    del skv, be
+    free_card(torch)
+    # PMDFC_MESH2D=off: the same factory call, a 1-D plane, the transcript
+    # of a plain plane
+    t1 = time.monotonic()
+    mc = MeshConfig(n_shards=ns, replica_axis=nr)
+    with local_devices([sm.dev] * (ns * nr)):
+        with env_set("PMDFC_MESH2D", "off"):
+            off = make_serving_backend(cfg, mc)
+        plain = make_serving_backend(cfg, MeshConfig(n_shards=ns,
+                                                     replica_axis=1))
+    if off.replica_lanes != 1 or off.skv.n_replicas != 1 \
+            or off.skv.mesh.devices.ndim != 1:
+        raise AssertionError("store (c): PMDFC_MESH2D=off built a 2-D plane")
+    n0 = launched(fused)
+    got_off = store_transcript(off, pw, sm.seed)
+    got_plain = store_transcript(plain, pw, sm.seed)
+    if got_off != got_plain:
+        raise AssertionError("store (c): the PMDFC_MESH2D=off transcript "
+                             "differs from a plain plane's")
+    gets = sum(op[0] == "get" for op in got_off)
+    if launched(fused) - n0 != 2 * ns * gets:
+        raise AssertionError(f"store (c): {launched(fused) - n0} launches "
+                             f"for {2 * gets} GETs over {ns} shards")
+    fused.launches.clear()
+    del off, plain
+    free_card(torch)
+    # an unpaged 2 x 2 plane serves values; nothing to digest-compare
+    ucfg = store_cfg(STORE_PLANE_INDEX, STORE_PLANE_BLOOM_BITS, paged=False)
+    unpaged = PlaneBackend(ShardedKV(ucfg, mesh=make_mesh2d(
+        ns, nr, [DEVICE] * (ns * nr))))
+    uk = fail_keys(STORE_GROUP_HI + 9, np.arange(STORE_VERB))
+    uv = np.stack([uk[:, 0] ^ 7, uk[:, 1] + 1], -1).astype(np.uint32)
+    unpaged.put(uk, uv)
+    out, found = unpaged.get(uk)
+    if not found.all() or not np.array_equal(out, uv) \
+            or unpaged.replica_repair() != 0 or launched(fused):
+        raise AssertionError(f"store (c): the unpaged 2 x 2 plane served "
+                             f"{int(found.sum())} of {len(uk)} values")
+    del unpaged
+    log("store", f"(c) PMDFC_MESH2D=off: the factory's {ns} x {nr} request "
+        f"gave a 1-D plane of {ns} shards; {len(got_off)} verbs of up to "
+        f"{STORE_VERB} keys, transcript equal to a plain plane's; an unpaged "
+        f"{ns} x {nr} plane served {len(uk)} values, repair 0, no kernel "
+        f"launched; {time.monotonic() - t1:.1f} s ({smi})")
+    free_card(torch)
+    return plane_entry(sm, "store-2x2", launches, t)
+
+
+class StoreNodes:
+    """(d)'s `NetServer`s over `KV`s on the card, spawned and stopped (slots
+    append-only), each KV's GETs counted."""
+
+    def __init__(self, cfg, n: int):
+        self.cfg, self.kvs, self.servers, self.ports = cfg, [], [], []
+        self.counts: list = []
+        for _ in range(n):
+            self.spawn()
+
+    def spawn(self) -> int:
+        from pmdfc_tpu_torch.client import DirectBackend
+        from pmdfc_tpu_torch.kv import KV
+        from pmdfc_tpu_torch.runtime.net import NetServer
+
+        kv = KV(self.cfg, device=DEVICE)
+        self.counts.append(StoreLaunches(kv))
+        self.kvs.append(kv)
+        srv = NetServer(lambda kv=kv: DirectBackend(kv)).start()
+        self.servers.append(srv)
+        self.ports.append(srv.port)
+        return len(self.servers) - 1
+
+    def stop(self, i: int) -> None:
+        if self.servers[i] is not None:
+            self.servers[i].stop()
+            self.servers[i] = None
+
+    def endpoint(self, i: int):
+        from pmdfc_tpu_torch.runtime.failure import ReconnectingClient
+        from pmdfc_tpu_torch.runtime.net import TcpBackend
+
+        def factory(i=i):
+            return TcpBackend("127.0.0.1", self.ports[i],
+                              page_words=self.cfg.page_words,
+                              keepalive_s=None, op_timeout_s=10.0)
+
+        return ReconnectingClient(factory, page_words=self.cfg.page_words,
+                                  retry_delay_s=0.005,
+                                  max_retry_delay_s=0.05, seed=97 + i)
+
+    def close(self) -> None:
+        for i in range(len(self.servers)):
+            self.stop(i)
+
+
+def store_replace(sm, smi: str) -> int:
+    """Part (d): three card-backed nodes behind a `ReplicaGroup` (rf 2,
+    breaker-driven auto-replacement); node 1 killed under STORE_VERB-key
+    GETs, its breaker latched, one repair tick replaces it with a spare,
+    the migration drains, every acknowledged key served byte-exact -> its
+    fused-GET launches."""
+    import numpy as np
+
+    from pmdfc_tpu_torch.client.replica import ReplicaGroup
+    from pmdfc_tpu_torch.config import ReplicaConfig, RingConfig
+    from pmdfc_tpu_torch.runtime.failure import CircuitBreaker
+
+    torch, fused = sm.torch, sm.fused
+    cfg = store_cfg(STORE_NODE_INDEX, STORE_NODE_BLOOM_BITS)
+    pw = cfg.page_words
+    t0 = time.monotonic()
+    nodes = StoreNodes(cfg, 3)
+    spares: list = []
+
+    def spare_factory(failed_slot):
+        i = nodes.spawn()
+        spares.append((failed_slot, i))
+        return nodes.endpoint(i)
+
+    g = ReplicaGroup([nodes.endpoint(i) for i in range(3)], page_words=pw,
+                     cfg=ReplicaConfig(
+                         n_replicas=3, rf=2, repair_interval_s=0, hedge_ms=0,
+                         breaker_failures=2, breaker_cooldown_s=30.0,
+                         breaker_jitter=0.0,
+                         auto_replace_after_s=STORE_REPLACE_S,
+                         ring=RingConfig(migrate_pages_per_s=0)),
+                     spare_factory=spare_factory)
+    torch.cuda.synchronize()
+    n0 = fused.launches["fused_get_linear_flat"]
+    try:
+        keys = fail_keys(STORE_NODE_HI, np.arange(STORE_NODE_KEYS))
+        pages = pages_np(keys[:, 0], keys[:, 1], pw)
+        for i in range(0, len(keys), STORE_VERB):
+            g.put(keys[i:i + STORE_VERB], pages[i:i + STORE_VERB])
+        g.repair_tick()
+        if dict(g.counters)["auto_replacements"]:
+            raise AssertionError("store (d): a healthy fleet was replaced")
+        nodes.stop(1)
+        gets = 0
+        while g.breakers[1].state == CircuitBreaker.CLOSED and gets < 16:
+            j = gets * STORE_VERB % len(keys)
+            out, found = g.get(keys[j:j + STORE_VERB])
+            fail_check(out, found, keys[j:j + STORE_VERB], pw,
+                       "store (d) GET, node 1 down")
+            gets += 1
+        latched = g.breakers[1].state != CircuitBreaker.CLOSED \
+            and g.breakers[1].down_for() > 0
+        time.sleep(STORE_REPLACE_S + 0.05)
+        g.repair_tick()
+        replaced = dict(g.counters)["auto_replacements"]
+        members = g.ring.members
+        drained = g.drain_migration(60)
+        g.repair_tick()
+        if not latched or replaced != 1 or spares != [(1, 3)] \
+                or members != (0, 2, 3) or not drained or 1 not in g._dead \
+                or dict(g.counters)["auto_replacements"] != 1:
+            raise AssertionError(
+                f"store (d): breaker latched {latched} after {gets} GETs; "
+                f"auto-replacement fired {replaced} times, spares {spares}, "
+                f"members {members}, drained {drained}")
+        hits = 0
+        for i in range(0, len(keys), STORE_VERB):
+            out, found = g.get(keys[i:i + STORE_VERB])
+            hits += fail_check(out, found, keys[i:i + STORE_VERB], pw,
+                               "store (d) after the replacement",
+                               expect=np.ones(len(found), bool))
+        errors = sum(int(s.stats["serve_errors"]) for s in nodes.servers
+                     if s is not None)
+        torch.cuda.synchronize()
+        launches = fused.launches["fused_get_linear_flat"] - n0
+        asked = sum(c.n for c in nodes.counts)
+        if errors or launches != asked:
+            raise AssertionError(f"store (d): serve_errors {errors}; "
+                                 f"{launches} fused-GET launches for {asked} "
+                                 "GETs on the nodes")
+        mig = dict(g.migrator.scope)
+    finally:
+        g.close()
+        nodes.close()
+    log("store", f"(d) {len(nodes.kvs)} nodes of {cfg.index.capacity} slots "
+        f"on {DEVICE} behind a ReplicaGroup (rf 2, auto_replace_after_s "
+        f"{STORE_REPLACE_S}); {len(keys)} keys put; node 1 killed, its "
+        f"breaker latched after {gets} GETs of {STORE_VERB} keys; one repair "
+        f"tick replaced it (auto_replacements 1, members {members}); the "
+        f"migration moved {mig['moved_pages']} pages; all {hits} keys served "
+        f"byte-exact after it; {launches} fused-GET launches = the nodes' "
+        f"{asked} GETs (counted in the store entry); "
+        f"{time.monotonic() - t0:.1f} s ({smi})")
+    del nodes, g
+    free_card(torch)
+    return launches
+
+
+def run_store(sm):
+    """Phase 18: the store's own suites' card-only drills: (a) `KV` edges
+    on linear·flat, (b) a tiered snapshot restored, (c) a 2 x 2 plane's
+    lane corrupted mid-soak, (d) breaker-driven auto-replacement -> its
+    kernel entries."""
+    import shutil
+
+    torch = sm.torch
+    t_phase = time.monotonic()
+    free_card(torch)
+    smi = nvidia_smi()
+    root = store_dir()
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    times = {}
+    try:
+        t0 = time.monotonic()
+        a = store_edges(sm, smi)
+        times["a"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        b = store_tiered(sm, str(root), smi)
+        times["b"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        c = store_plane(sm, smi)
+        times["c"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        d = store_replace(sm, smi)
+        times["d"] = time.monotonic() - t0
+        a["launches"] += d
+    finally:
+        free_card(torch)
+        shutil.rmtree(root, ignore_errors=True)
+    for e in (a, b, c):
+        log("store", f"{e['name']} ({e['path']}): kernel == plain, "
+            f"{e['ms']:.4f} ms vs bound {e['bound_ms']:.4f} ms "
+            f"({e['bound_ms'] / e['ms']:.0%}), plain {e['plain_ms']:.4f} ms; "
+            f"{e['launches']} launches on the phase's path ({smi})")
+    log("store", "gates: no wrong byte, every miss zeroed, misses == sum of "
+        "the causes, serve_errors 0, one fused-GET launch per GET (per "
+        "shard and lane on the plane); no engine on this path, so no -2 "
+        "status can arise")
+    log("store", f"phase 18 took {time.monotonic() - t_phase:.1f} s: (a) "
+        f"{times['a']:.1f} s, (b) {times['b']:.1f} s, (c) {times['c']:.1f} "
+        f"s, (d) {times['d']:.1f} s")
+    return [a, b, c]
+
+
+def store_subprocess(seed: int):
+    """`run_store` in a child process of this script (`--store`) -> (its
+    kernel entries, its log lines, seconds). A child that fails fails the
+    phase."""
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--store", "--seed",
+         str(seed)], capture_output=True, text=True,
+        timeout=STORE_TIMEOUT_S)
+    entries, lines = None, []
+    for line in proc.stdout.splitlines():
+        if line.startswith("STORE "):
+            entries = json.loads(line[len("STORE "):])
+        else:
+            lines.append(line)
+    if proc.returncode != 0 or entries is None:
+        raise AssertionError(f"store child exited {proc.returncode}: "
+                             f"{proc.stdout[-2000:]} {proc.stderr[-3000:]}")
+    return entries, lines, time.monotonic() - t0
+
+
+def collect_store(lanes: "Lanes"):
+    """Phase 18's child, queued last in `lanes` at phase 12's start: its
+    lines echoed, its kernel entries returned."""
+    t0 = time.monotonic()
+    (entries, lines, secs), = lanes.rows("store")
+    for line in lines:
+        print(line, flush=True)
+    log("store", f"phase 18's child took {secs:.1f} s (in the lanes; "
+        f"waited {time.monotonic() - t0:.1f} s for it here)")
+    return entries
+
+
 T0 = time.monotonic()  # the smoke's start: phase times are logged from it
 
 
@@ -9382,6 +10386,9 @@ def main() -> int:
                     help="run only phase 16")
     ap.add_argument("--failure", action="store_true",
                     help="run only phase 17 (the child process the whole "
+                         "smoke starts in its lanes)")
+    ap.add_argument("--store", action="store_true",
+                    help="run only phase 18 (the child process the whole "
                          "smoke starts in its lanes)")
     ap.add_argument("--trace-client", metavar="DIR", default=None,
                     help="phase 15's client child: wait for the server "
@@ -9427,6 +10434,11 @@ def main() -> int:
         log("env", nvidia_smi())
         print("FAILURE " + json.dumps(run_failure(Smoke(args.seed))),
               flush=True)
+        return 0
+    if args.store:
+        _build.load("fused_get")
+        log("env", nvidia_smi())
+        print("STORE " + json.dumps(run_store(Smoke(args.seed))), flush=True)
         return 0
 
     # 1. env
@@ -9493,12 +10505,14 @@ def main() -> int:
                     sm, lanes.queue("chaos", args.seed).queue("trace")
                     .queue("scale").queue("tail")
                     .queue("trace-client", args.seed)
-                    .queue("failure", args.seed))),
+                    .queue("failure", args.seed)
+                    .queue("store", args.seed))),
                 ("tail", lambda sm: run_tail(sm, lanes)),
                 ("chaos", lambda sm: collect_chaos(lanes)),
                 ("trace", lambda sm: run_trace(sm, lanes)),
                 ("ops", run_ops),
-                ("failure", lambda sm: collect_failure(lanes))):
+                ("failure", lambda sm: collect_failure(lanes)),
+                ("store", lambda sm: collect_store(lanes))):
             t0 = time.monotonic()
             entry = run(sm)
             log("smoke", f"{label} took {time.monotonic() - t0:.1f} s, "
@@ -9507,7 +10521,7 @@ def main() -> int:
             # it got in the end of its errors
             print(f"[smoke] {label} done at {time.monotonic() - T0:.1f} s",
                   file=sys.stderr, flush=True)
-            if isinstance(entry, list):  # plane .. failure
+            if isinstance(entry, list):  # plane .. store
                 kernels.extend(entry)
             elif entry is not None:  # the families launch no kernel
                 kernels.append(entry)

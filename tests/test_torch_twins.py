@@ -33,15 +33,18 @@ TWINS = {
                           "`bench.py` (BENCH_HISTORY.jsonl, BENCH_TPU_CERT."
                           "json); the port has no TPU history to certify",
     "test_bf_push.py": ("test_torch_bf_push.py", "test_torch_client.py"),
-    "test_bloom.py": ("test_torch_pool_bloom.py",),
+    "test_bloom.py": ("test_torch_pool_bloom.py", "test_torch_client.py",
+                      "test_torch_bloom_drills.py"),
     "test_cceh.py": ("test_torch_cceh.py",),
     "test_chaos.py": ("test_torch_chaos.py",),
     "test_client.py": ("test_torch_client.py",),
     "test_containment.py": ("test_torch_containment.py",),
     "test_durability.py": ("test_torch_checkpoint.py",
                            "test_torch_journal.py"),
-    "test_elastic.py": ("test_torch_ring.py", "test_torch_replica_rejoin.py",
-                        "test_torch_bench_elastic.py"),
+    "test_elastic.py": ("test_torch_ring.py", "test_torch_replica.py",
+                        "test_torch_replica_rejoin.py",
+                        "test_torch_bench_elastic.py",
+                        "test_torch_elastic_drills.py"),
     "test_failure.py": ("test_torch_failure.py",
                         "test_torch_failure_ladder.py"),
     "test_fastpath.py": ("test_torch_fastpath.py", "test_torch_kv_surface.py",
@@ -57,12 +60,13 @@ TWINS = {
                        "hardening of `pmdfc_tpu/bench/common.py` was "
                        "verified on; the port uses no JAX",
     "test_kv.py": ("test_torch_kv.py", "test_torch_extents.py",
-                   "test_torch_kv_families.py"),
+                   "test_torch_kv_families.py", "test_torch_kv_drills.py"),
     "test_linear.py": ("test_torch_linear.py", "test_torch_linear_drills.py",
                        "test_torch_rowinsert.py"),
     "test_mesh.py": ("test_torch_plane.py", "test_torch_shard.py",
                      "test_torch_partitioning.py"),
-    "test_mesh2d.py": ("test_torch_mesh2d.py",),
+    "test_mesh2d.py": ("test_torch_mesh2d.py",
+                       "test_torch_mesh2d_drills.py"),
     "test_multihost.py": ("test_torch_multihost.py",
                           "test_torch_multihost_plane.py"),
     "test_net.py": ("test_torch_net.py", "test_torch_net_drills.py",
@@ -81,7 +85,8 @@ TWINS = {
     "test_soak.py": ("test_torch_bench_soaks.py",
                      "test_torch_bench_sweeps.py"),
     "test_telemetry.py": ("test_torch_telemetry.py", "test_torch_teletop.py"),
-    "test_tier.py": ("test_torch_tier.py",),
+    "test_tier.py": ("test_torch_tier.py", "test_torch_env_switches.py",
+                     "test_torch_tier_drills.py"),
     "test_tracing.py": ("test_torch_tracing.py",),
     "test_xray.py": ("test_torch_xray.py",),
 }
@@ -99,6 +104,15 @@ _NP = "test_torch_net_pipes.py::"
 _SH = "test_torch_shard.py::"
 _SHD = "test_torch_shard_drills.py::"
 _LIN = "test_torch_linear.py::"
+_KVD = "test_torch_kv_drills.py::"
+_TD = "test_torch_tier_drills.py::"
+_TIER = "test_torch_tier.py::"
+_ENV = "test_torch_env_switches.py::"
+_BD = "test_torch_bloom_drills.py::"
+_M2 = "test_torch_mesh2d_drills.py::"
+_ED = "test_torch_elastic_drills.py::"
+_RING = ("test_torch_ring.py::test_ring_matches_jax",)
+_HERMETIC = ("test_torch_replica.py::test_hermetic_drill_matches_jax",)
 _VERBS = (_SH + "test_sharded_verbs_match_jax",)
 _LINOPS = (_LIN + "test_linear_ops_match_jax",)
 
@@ -295,6 +309,134 @@ DRILLS = {
         "test_insert_path_env_switch":
             ("test_torch_rowinsert.py::test_insert_path_env_switch",),
     },
+    "test_kv.py": {name: (_KVD + name,) for name in (
+        "test_insert_then_get_roundtrip",
+        "test_miss_is_legal",
+        "test_paged_roundtrip",
+        "test_update_in_place",
+        "test_eviction_propagates_to_bloom",
+        "test_delete",
+        "test_extent_roundtrip",
+        "test_extent_cover_count_is_logarithmic",
+        "test_key_with_all_ones_hi_word_survives_padding",
+        "test_large_extent_reachable",
+        "test_extent_truncation_reported",
+        "test_find_anyway_and_utilization",
+        "test_stats_counts",
+        "test_paged_pool_rows_recycled_under_eviction",
+        "test_paged_delete_frees_rows",
+        "test_fill_sweep_point_conformance",
+        "test_corrupt_page_degrades_to_miss_never_wrong_bytes",
+        "test_corrupt_page_miss_on_compact_path",
+        "test_update_refreshes_digest_and_delete_clears_row",
+        "test_integrity_backend_stale_overwrite_degrades_to_miss")},
+    "test_tier.py": {
+        **{name: (_ENV + name,) for name in (
+            "test_tier_off_env_is_flat",
+            "test_tier_on_env_default",
+            "test_tier_off_bit_identical_conformance")},
+        **{name: (_TD + name,) for name in (
+            "test_get_compact_tiered_serves_hits_front",
+            "test_tier_sampled_touch_cadence",
+            "test_tier_stats_surface_in_print_stats",
+            "test_sharded_tier_counters_in_shard_report",
+            "test_passive_pool_tiered_mode",
+            "test_tier_stats_over_the_wire",
+            "test_checkpoint_roundtrip_tiered")},
+        "test_promotion_preserves_bytes_and_digests":
+            (_TD + "test_promotion_preserves_bytes_and_digests",
+             _TIER + "test_promotion_preserves_bytes_and_digests"),
+        "test_demotion_and_ghost_readmission":
+            (_TD + "test_demotion_and_ghost_readmission",
+             _TIER + "test_demotion_and_ghost_readmission"),
+        "test_balloon_grow_covers_fill_burst":
+            (_TD + "test_balloon_grow_covers_fill_burst",
+             _TIER + "test_balloon_grow_covers_fill_burst"),
+        "test_balloon_shrink_under_load_degrades_to_misses":
+            (_TD + "test_balloon_shrink_under_load_degrades_to_misses",
+             _TIER + "test_forced_shrink_under_load_degrades_to_misses"),
+        "test_stale_entries_never_alias_recirculated_rows":
+            (_TD + "test_stale_entries_never_alias_recirculated_rows",
+             _TIER + "test_stale_entries_never_alias_recirculated_rows"),
+        "test_delete_frees_hot_row":
+            (_TD + "test_delete_frees_hot_row",
+             _TIER + "test_delete_frees_hot_row"),
+        "test_update_in_place_of_hot_resident_key":
+            (_TD + "test_update_in_place_of_hot_resident_key",
+             _TIER + "test_update_in_place_of_hot_resident_key"),
+    },
+    "test_bloom.py": {
+        **{name: (_BD + name,) for name in (
+            "test_insert_query_no_false_negatives",
+            "test_absent_mostly_rejected",
+            "test_delete_removes",
+            "test_duplicate_inserts_accumulate",
+            "test_packed_matches_counters")},
+        "test_dirty_blocks":
+            (_BD + "test_dirty_blocks",
+             _CLIENT + "test_dirty_blocks_matches_jax"),
+    },
+    "test_mesh2d.py": {
+        **{name: (_M2 + name,) for name in (
+            "test_mesh2d_rules_and_replicated_markers",
+            "test_mesh2d_construction_gates",
+            "test_mesh2d_hedged_read_routes_around_corrupt_lane")},
+        # the ten `slow` drills, each with its card counterpart
+        **{name: (_M2 + name,) for name in (
+            # phase 10's 2 x 2 plane: every verb byte-exact, stats and
+            # shard rows reconciled
+            "test_mesh2d_matches_single_device_results",
+            # phase 18 (c): an unpaged 2 x 2 plane's values, repair 0
+            "test_mesh2d_unpaged_plane_serves_values",
+            # phase 18 (c): MSG_RREPAIR after the mid-soak corruption
+            "test_mesh2d_repair_is_attributed_per_lane",
+            # phase 18 (c): the plane warmed before its fill
+            "test_mesh2d_warmup_counts_nothing",
+            # phase 18 (c): the PMDFC_MESH2D=off transcript
+            "test_mesh2d_off_kill_switch_is_conformant",
+            # phase 18 (c): the storm with lane 1 corrupted mid-soak
+            "test_mesh2d_wire_soak_corrupt_lane_mid_flight",
+            # phase 18 (c): the fused group (one put a key)
+            "test_mesh2d_group_delegates_fanout_to_fused_plane",
+            # phase 18 (c): the fused_plane=False group
+            "test_mesh2d_group_fused_plane_off_keeps_host_loops",
+            # phase 18 (c): the group connected under PMDFC_MESH2D=off
+            "test_mesh2d_off_group_keeps_host_fanout",
+            # phase 18 (c): the fused group's device repair on tick 2
+            "test_mesh2d_group_device_repair_rides_repair_cadence")},
+    },
+    "test_elastic.py": {
+        **{name: (_ED + name,) + _RING for name in (
+            "test_ring_owner_identity_batch_vs_scalar",
+            "test_ring_epoch_monotonic_and_immutable",
+            "test_ring_stability_measured_join_and_leave")},
+        "test_token_bucket_rate_bound":
+            (_ED + "test_token_bucket_rate_bound",
+             "test_torch_ring.py::test_token_bucket_matches_jax_on_one_clock"),
+        **{name: _HERMETIC for name in (
+            "test_grow_migrates_owed_keys_and_dual_read_serves",
+            "test_shrink_retires_slot_after_drain",
+            "test_replace_endpoint_quarantines_and_migrates",
+            "test_miss_routed_attribution_mid_move",
+            "test_invalidate_survives_ownership_round_trip",
+            "test_repair_journal_drops_moved_keys",
+            "test_close_parity_joins_repair_thread",
+            "test_membership_lost_claim_retires_registered_spare")},
+        **{name: (_ED + name,) for name in (
+            "test_breaker_force_open_semantics",
+            "test_breaker_down_for_latch",
+            "test_ring_note_bumps_directory_epoch_and_handoff_counts")},
+        "test_ring_off_conformance":
+            (_ED + "test_ring_off_conformance",
+             "test_torch_replica.py::test_ring_off_conformance_matches_jax"),
+        # slow: phase 18 (d), three card-backed nodes, node 1 killed
+        "test_breaker_driven_auto_replacement":
+            (_ED + "test_breaker_driven_auto_replacement",),
+        # slow: phase 13's elastic_sweep (3 -> 5 -> 2 on the card)
+        "test_elastic_chaos_scale_3_5_2_mid_soak":
+            (_ED + "test_elastic_chaos_scale_3_5_2_mid_soak",),
+    },
+
 }
 
 
