@@ -508,11 +508,53 @@ Phases, each reported on its own line; any failure exits nonzero:
              zeroed, `misses == Σ miss_*`, no serve error, no -2 status,
              launches == the GET flushes not dropped. The kernel against
              plain at w = 2^11 on the restored KV, timed (`failure`).
+18. store  — the store's own suites' card-only drills, in a child process
+             (`--store`) queued in phase 12's lanes after phase 17's: (a)
+             `KV` edges on linear·flat, (b) a tiered snapshot restored, (c)
+             a 2 x 2 plane's lane corrupted mid-soak, (d) breaker-driven
+             auto-replacement (`store`, `store-tiered`, `store-2x2`).
+19. sanitize — the serving path under the runtime lock sanitizer, in a
+             child process (`--sanitize`) whose environment has
+             `PMDFC_SAN=on` (and JAX's 200 ms hold limit) before any import,
+             so every lock the port builds is instrumented, the module-level
+             `engine._lib_lock` among them; queued last in phase 12's lanes,
+             its lines echoed after phase 18. (a) JAX's acceptance soak on
+             the card: a linear·tiered `KV` of 2^18 slots of 4 KiB pages,
+             75% full through `KV.insert`, behind a coalescing
+             `NetServer(NetConfig(flush_ops=64, flush_timeout_us=500,
+             settle_us=100))` and a `ChaosProxy` (flip 0.01, duplicate 0.005,
+             delay 0.01 at 2 ms); four `ReconnectingClient` workers put and
+             GET verbs of 1..2^11 pages for 15 s, an `AutotuneController`
+             attached and bound to the KV's balloon (`hysteresis_windows=1`,
+             `balloon_every=1`, `balloon_max_extents=3`), a fifth
+             `TcpBackend` setting its window live 32 -> 4 -> 64. (c) Then
+             `tests/test_telemetry.py`'s traced chaos soak against the same
+             server: one pipelined `ReconnectingClient` (window 8) through a
+             `ChaosProxy` at seed 17 (flip 0.01, truncate 0.005, duplicate
+             0.01), 300 verbs of 1..2^11 keys over a 2^14-key set. (b) The
+             engine-backed `KVServer` on linear·flat 2^18 slots, eight
+             `ReconnectingClient`s over `EngineBackend` slices of 2^11
+             pages for 10 s with the bloom push on (`KVServer._bf_push_lock`,
+             `KV._lock` and `engine._lib_lock` at runtime). Gates:
+             `sanitizer.violations() == []` (a long hold that JAX's twin
+             shows JAX makes too is printed, `SAN_SHARED_HOLDS`), no wrong
+             byte, every miss zeroed, `check_autotune` over the server's
+             `MSG_STATS` document `[]` and the port's `check_teledump`
+             passing it, each balloon move one `balloon_step` extent inside
+             the envelope, every completed traced verb's trace joined to a
+             server span and every failed span closed with its error,
+             `misses == Σ miss_*`, no serve error, no -2 status, one launch
+             per GET phase (per flush in (b)). The kernel against plain at
+             (a)'s widest GET phase (`sanitize-tiered`) and (b)'s widest
+             flush (`sanitize`), timed.
+
+    python3 chip_smoke.py --sanitize   # phase 19 alone
 
 Each KV is freed before the next path's fill, so no two pools share the
 card but the fleet's and the plane's own shards, and, in phases 12 to
-16, the harness processes' and phase 14's and phase 17's children's. The next-to-last line is one JSON object
-naming each kernel with its path, launches, error and times; the last is `{"ok": true, "device": ...}`.
+18, the harness processes' and the children of phases 14, 17, 18 and
+19. The next-to-last line is one JSON object naming each kernel with its
+path, launches, error and times; the last is `{"ok": true, "device": ...}`.
 """
 
 from __future__ import annotations
@@ -762,16 +804,18 @@ TAIL_TIMED_W = 1 << 14                    # the kernels line's width
 # in the harness lanes, the longest first: mesh_sweep over a 4 GiB total
 # (1, 2, 4, 8 shards and PMDFC_MESH=off), the soak (4 GiB, 30 s), and the
 # host-bound harnesses at their JAX defaults but 4 KiB pages and 2^18
-# slots per node, cut for the time limit: the replica and elastic storms
-# to 120 steps (from 600), the recovery soak to 160 (from 400),
-# train_pressure to 100 (from 200), fill_sweep to 2^20 slots
+# slots per node, cut for the time limit: the elastic storm to 84 steps
+# and the replica storm to 90 (from 600; 120 until phase 19's child joined
+# the lanes: every membership change and two kill cycles still land), the
+# recovery soak to 100 (from 400; 160 before), train_pressure to 100
+# (from 200), fill_sweep to 2^20 slots
 _TAIL_POOL = ("--capacity", str(1 << 20), "--page-words", "1024")
 _TAIL_NODE = ("--page-words", "1024", "--capacity", str(1 << 18))
 TAIL_LANE_RUNS = (
-    ("elastic_sweep", (*_TAIL_NODE, "--steps", "120", "--settle-steps",
+    ("elastic_sweep", (*_TAIL_NODE, "--steps", "84", "--settle-steps",
                        "12")),
-    ("recovery_soak", (*_TAIL_NODE, "--steps", "160")),
-    ("replica_soak", (*_TAIL_NODE, "--steps", "120", "--kill-every", "30",
+    ("recovery_soak", (*_TAIL_NODE, "--steps", "100")),
+    ("replica_soak", (*_TAIL_NODE, "--steps", "90", "--kill-every", "30",
                       "--down-steps", "15")),
     ("mesh_sweep", ("--shards", "1,2,4,8", *_TAIL_POOL, "--rounds", "1")),
     ("train_pressure", ("--page-words", "1024", "--steps", "100")),
@@ -5763,11 +5807,11 @@ class Lanes:
     as a lane frees in the order queued; a phase collects its own rows.
     The whole smoke queues phase 14's child, phase 15's two sweeps,
     phase 12's harnesses, phase 13's, phase 15's client child and the
-    children of phases 17 and 18 at phase 12's start, so the tail's
+    children of phases 17, 18 and 19 at phase 12's start, so the tail's
     host-bound soaks, the chaos child and the sweeps run beside phase 12's
     plane and phase 13's sweeps (the client waits in its lane for phase
-    15's server; the failure and store children, queued last, run beside
-    phases 13 to 16)."""
+    15's server; the failure, store and sanitize children, queued last,
+    run beside phases 13 to 16)."""
 
     def __init__(self, n: int):
         from concurrent.futures import ThreadPoolExecutor
@@ -5775,17 +5819,40 @@ class Lanes:
         self.ex = ThreadPoolExecutor(n)
         self.tmp = tempfile.TemporaryDirectory()  # the tail's --out files
         self.futs: dict[str, list] = {}
+        # a child phase -> (start, end) in seconds since the smoke's start
+        self.spans: dict[str, tuple] = {}
         # phase 15's rendezvous: the server writes its address here, the
         # client child waits for it (or for `abort`)
         self.trace_root = os.path.join(self.tmp.name, "trace")
 
+    def _child(self, phase: str, run, seed: int, after=()):
+        """A phase's child process in a lane, started once the futures
+        `after` are done, its span kept."""
+        from concurrent.futures import wait
+
+        def go():
+            wait(after)
+            t0 = time.monotonic() - T0
+            try:
+                return run(seed)
+            finally:
+                self.spans[phase] = (t0, time.monotonic() - T0)
+
+        return [self.ex.submit(go)]
+
     def queue(self, phase: str, seed: int = 0) -> "Lanes":
         if phase == "chaos":
-            self.futs[phase] = [self.ex.submit(chaos_subprocess, seed)]
+            self.futs[phase] = self._child(phase, chaos_subprocess, seed)
         elif phase == "failure":
-            self.futs[phase] = [self.ex.submit(failure_subprocess, seed)]
+            self.futs[phase] = self._child(phase, failure_subprocess, seed)
         elif phase == "store":
-            self.futs[phase] = [self.ex.submit(store_subprocess, seed)]
+            self.futs[phase] = self._child(phase, store_subprocess, seed)
+        elif phase == "sanitize":
+            # its engine clients spin on the host's cores: it starts once
+            # phase 14's child, whose reconnect storm counts dials in a
+            # 0.7 s window, is done
+            self.futs[phase] = self._child(phase, sanitize_subprocess, seed,
+                                           self.futs.get("chaos", ()))
         elif phase == "trace":
             self.futs[phase] = [
                 self.ex.submit(trace_sweep, name, args, self.tmp.name)
@@ -5805,6 +5872,10 @@ class Lanes:
 
     def rows(self, phase: str) -> list:
         return [f.result() for f in self.futs.pop(phase)]
+
+    def span(self, phase: str) -> str:
+        t0, t1 = self.spans.get(phase, (float("nan"), float("nan")))
+        return f"from {t0:.1f} to {t1:.1f} s since the start"
 
     def close(self) -> None:
         """Drop what has not started, wait for what has (a harness ends
@@ -7243,7 +7314,8 @@ def collect_chaos(lanes: "Lanes"):
     (entries, lines, secs), = lanes.rows("chaos")
     for line in lines:
         print(line, flush=True)
-    log("chaos", f"phase 14's child took {secs:.1f} s (in the lanes)")
+    log("chaos", f"phase 14's child took {secs:.1f} s (in the lanes, "
+        f"{lanes.span('chaos')})")
     return entries
 
 
@@ -9191,9 +9263,24 @@ def fail_stalled(sm, reg, smi: str) -> dict:
     keys = fail_keys(FAIL_DRILL_HI + 2, np.arange(FAIL_STALL_VERBS * v))
     fail_connect(rc, fail_keys(FAIL_DRILL_HI + 8, np.arange(1)),
                  "failure (c)")
-    rc.put(warm, pages_np(warm[:, 0], warm[:, 1], pw))
-    got, found = rc.get(warm)
-    fail_check(got, found, warm, pw, "failure (c) warm", np.ones(v, bool))
+    deadline = time.monotonic() + 60
+    while True:
+        # service before the stall; on a loaded host a put or GET past the
+        # 1 s client timeout is a legal, counted loss: every miss must be
+        # one the client counted, then the warm keys are put again
+        s0 = rc.stats()
+        rc.put(warm, pages_np(warm[:, 0], warm[:, 1], pw))
+        got, found = rc.get(warm)
+        fail_check(got, found, warm, pw, "failure (c) warm")
+        s1 = rc.stats()
+        lost = sum(s1[k] - s0[k] for k in ("dropped_puts", "missed_gets"))
+        if int((~found).sum()) > lost:
+            raise AssertionError(f"failure (c) warm: {int((~found).sum())} "
+                                 f"keys missed, {lost} counted lost")
+        if found.all():
+            break
+        if time.monotonic() > deadline:
+            raise AssertionError("failure (c): no service before the stall")
     d0 = rc.stats()["dropped_puts"]
     fi.stall_next(*FAIL_STALLS)
     for a in range(0, len(keys), v):
@@ -9361,8 +9448,9 @@ def collect_failure(lanes: "Lanes"):
     (entries, lines, secs), = lanes.rows("failure")
     for line in lines:
         print(line, flush=True)
-    log("failure", f"phase 17's child took {secs:.1f} s (in the lanes; "
-        f"waited {time.monotonic() - t0:.1f} s for it here)")
+    log("failure", f"phase 17's child took {secs:.1f} s (in the lanes, "
+        f"{lanes.span('failure')}; waited {time.monotonic() - t0:.1f} s "
+        "for it here)")
     return entries
 
 
@@ -9370,7 +9458,8 @@ def collect_failure(lanes: "Lanes"):
 # phase 18, store: the store's own suites' card-only drills
 # ---------------------------------------------------------------------------
 
-STORE_INDEX = dict(capacity=1 << 18)  # (a), (b): a 1 GiB pool of 4 KiB pages
+STORE_INDEX = dict(capacity=1 << 18)  # (a): a 1 GiB pool of 4 KiB pages
+STORE_TIER_INDEX = dict(capacity=1 << 17)  # (b): cut from 2^18 for phase 19
 STORE_TIER = dict()        # (b): TierConfig()'s defaults
 STORE_BLOOM_BITS = 1 << 21
 STORE_PAGE_WORDS = 1024
@@ -9679,7 +9768,7 @@ def store_tiered(sm, root: str, smi: str) -> dict:
     from pmdfc_tpu_torch.runtime.net import NetServer, TcpBackend
 
     torch, fused = sm.torch, sm.fused
-    cfg = store_cfg(STORE_INDEX, STORE_BLOOM_BITS, tier=STORE_TIER)
+    cfg = store_cfg(STORE_TIER_INDEX, STORE_BLOOM_BITS, tier=STORE_TIER)
     kv = sm.kv_mod.KV(cfg, device=DEVICE)
     pw, cap = cfg.page_words, kv.capacity()
     count = StoreLaunches(kv)
@@ -10362,8 +10451,667 @@ def collect_store(lanes: "Lanes"):
     (entries, lines, secs), = lanes.rows("store")
     for line in lines:
         print(line, flush=True)
-    log("store", f"phase 18's child took {secs:.1f} s (in the lanes; "
-        f"waited {time.monotonic() - t0:.1f} s for it here)")
+    log("store", f"phase 18's child took {secs:.1f} s (in the lanes, "
+        f"{lanes.span('store')}; waited {time.monotonic() - t0:.1f} s for "
+        "it here)")
+    return entries
+
+
+# ---------------------------------------------------------------------------
+# phase 19, sanitize: the serving path under the runtime lock sanitizer
+# ---------------------------------------------------------------------------
+
+SAN_INDEX = dict(capacity=1 << 18)  # (a), (b): a 1 GiB pool of 4 KiB pages
+SAN_TIER = dict()          # (a): TierConfig()'s defaults
+SAN_BLOOM_BITS = 1 << 21
+SAN_PAGE_WORDS = 1024
+SAN_FILL = 0.75            # of the slots, through KV.insert
+SAN_VERB = 1 << 11         # pages (keys) of the widest verb
+SAN_WORKERS = 4            # (a): ReconnectingClients through the proxy
+SAN_OWN = 1 << 15          # (a): keys a worker cycles its puts over
+SAN_SOAK_S = 15.0          # (a): the soak's length
+SAN_NET = dict(flush_ops=64, flush_timeout_us=500, settle_us=100)  # JAX's
+SAN_RATES = {"flip": 0.01, "duplicate": 0.005, "delay": 0.01}
+SAN_DELAY_S = 0.002
+SAN_OP_TIMEOUT_S = 2.0     # the JAX drill's client timeout
+SAN_WINDOWS = (32, 4, 64)  # (a): the fifth connection's live window
+SAN_HOLD_MS = 200.0        # JAX's long-hold limit
+SAN_BALLOON_EXTENTS = 3    # (a): balloon_max_extents
+SAN_ENGINE_CLIENTS = 8     # (b): ReconnectingClients over EngineBackend
+SAN_ENGINE_S = 10.0        # (b): the stream's length
+SAN_ENGINE_OWN = 1 << 13   # (b): keys a client cycles its puts over
+SAN_TRACE_VERBS = 300      # (c)
+SAN_TRACE_KEYS = 1 << 14   # (c): the traced key set
+SAN_TRACE_WINDOW = 8
+SAN_TRACE_RATES = {"flip": 0.01, "truncate": 0.005, "duplicate": 0.01}
+SAN_TRACE_SEED = 17        # test_telemetry's seed
+SAN_TRACE_OP_TIMEOUT_S = 1.0
+SAN_RING = 1 << 17         # the flight ring holds (c)'s spans
+SAN_HI = 0xCB000000        # (a): the fill's keys are (SAN_HI, i)
+SAN_PUT_HI = 0xCB100000    # (a): worker t puts (SAN_PUT_HI + t, i)
+SAN_TRACE_HI = 0xCB200000  # (c)
+SAN_ENG_HI = 0xCB300000    # (b): the fill's keys are (SAN_ENG_HI, i)
+SAN_ENG_PUT_HI = 0xCB400000  # (b): client t puts (SAN_ENG_PUT_HI + t, i)
+# long holds that JAX's twin shows JAX makes too, on the same lock across
+# the same call (ROADMAP Queue 3): printed, not failed. None is known.
+SAN_SHARED_HOLDS: dict = {}
+SAN_TIMEOUT_S = 600.0      # the phase's child process, spawn to exit
+
+
+def san_fill(sm, kv, hi: int) -> tuple:
+    """Fill SAN_FILL of `kv`'s slots with keys (hi, i) through `KV.insert`
+    in INS_B batches -> (pages put, seconds, the lo words held)."""
+    import numpy as np
+
+    torch = sm.torch
+    n = int(kv.capacity() * SAN_FILL)
+    t0 = time.monotonic()
+    for i in range(0, n, INS_B):
+        lo = torch.arange(i, min(i + INS_B, n), device=sm.dev)
+        keys = sm.keys_of(hi, lo)
+        kv.insert(keys, sm.pages_of(keys, kv.config.page_words))
+    torch.cuda.synchronize()
+    secs = time.monotonic() - t0
+    with kv._lock, kv._on_device():
+        flat, _ = kv._ops.scan(kv.state.index)
+        held = flat[flat[:, 0] == sm.u32.narrow(torch.tensor(hi))]
+        present = np.sort(sm.u32.to_numpy(held[:, 1])).astype(np.uint32)
+    return n, secs, present
+
+
+def san_violations(san, label: str) -> list:
+    """The sanitizer's reports so far, each printed; the long holds JAX
+    shares (SAN_SHARED_HOLDS) set apart -> the reports that fail."""
+    bad = []
+    for v in san.violations():
+        shared = v.get("kind") == "long_hold" \
+            and v.get("lock") in SAN_SHARED_HOLDS
+        log("sanitize", f"{label}: violation {v}"
+            + (f" (shared with JAX: {SAN_SHARED_HOLDS[v['lock']]})"
+               if shared else ""))
+        if not shared:
+            bad.append(v)
+    return bad
+
+
+class SanWorker:
+    """Phase 19 (a)'s client: a `ReconnectingClient` over `TcpBackend`
+    through the chaos proxy, alternately putting 1..SAN_VERB of its own
+    keys and GETting 1..SAN_VERB keys, half its own and half the fill's,
+    every reply checked (hits byte-exact, misses zeroed)."""
+
+    def __init__(self, port: int, t: int, pw: int, present, seed: int):
+        import numpy as np
+
+        from pmdfc_tpu_torch.runtime.failure import ReconnectingClient
+        from pmdfc_tpu_torch.runtime.net import TcpBackend
+
+        self.t, self.pw, self.present = t, pw, present
+        self.rc = ReconnectingClient(
+            lambda: TcpBackend("127.0.0.1", port, page_words=pw,
+                               op_timeout_s=SAN_OP_TIMEOUT_S,
+                               keepalive_s=None),
+            page_words=pw, retry_delay_s=0.01, seed=t)
+        self.rng = np.random.default_rng([seed, t, 19])
+        self.next = 0
+        self.puts = self.gets = self.hits = 0
+
+    def run(self, stop) -> None:
+        import numpy as np
+
+        rng, pw, t = self.rng, self.pw, self.t
+        while not stop.is_set():
+            n = int(rng.integers(1, SAN_VERB + 1))
+            lo = (self.next + np.arange(n)) % SAN_OWN
+            self.next = (self.next + n) % SAN_OWN
+            own = fail_keys(SAN_PUT_HI + t, lo)
+            self.rc.put(own, pages_np(own[:, 0], own[:, 1], pw))
+            self.puts += 1
+            k = int(rng.integers(1, SAN_VERB + 1))
+            keys = np.concatenate([
+                own[:k // 2], fail_keys(SAN_HI, self.present[
+                    rng.integers(0, len(self.present), k - min(k // 2, n))])])
+            out, found = self.rc.get(keys)
+            self.hits += fail_check(out, found, keys, pw,
+                                    f"sanitize (a) worker {t}")
+            self.gets += 1
+
+
+def san_window(port: int, pw: int, present, stop, seed: int) -> dict:
+    """Phase 19 (a)'s fifth connection: a pipelined `TcpBackend` straight
+    to the server whose window is set live, 32 -> 4 -> 64, while the
+    workers serve; GET verbs of the fill's keys at each width, checked."""
+    import numpy as np
+
+    from pmdfc_tpu_torch.runtime.net import TcpBackend
+
+    rng = np.random.default_rng([seed, 5, 19])
+    be = TcpBackend("127.0.0.1", port, page_words=pw, op_timeout_s=120.0,
+                    keepalive_s=None, pipeline=True, window=SAN_WINDOWS[0])
+    out = {"limits": [], "gets": 0, "hits": 0}
+    try:
+        for i, w in enumerate(SAN_WINDOWS):
+            got = be.set_window(w)
+            if got != w or be._window_sem.limit != w:
+                raise AssertionError(
+                    f"sanitize (a): set_window({w}) -> {got}, the gate's "
+                    f"limit {be._window_sem.limit}")
+            out["limits"].append(be._window_sem.limit)
+            t_end = time.monotonic() + SAN_SOAK_S / (len(SAN_WINDOWS) + 1)
+            while time.monotonic() < t_end and not stop.is_set():
+                keys = fail_keys(SAN_HI, present[rng.integers(
+                    0, len(present), int(rng.integers(1, SAN_VERB + 1)))])
+                pages, found = be.get(keys)
+                out["hits"] += fail_check(pages, found, keys, pw,
+                                          f"sanitize (a) window {w}")
+                out["gets"] += 1
+        out["doc"] = be.server_stats()
+    finally:
+        be.close()
+    return out
+
+
+def san_balloon_spy(kv, moves: list) -> None:
+    """Record each balloon call the controller makes on `kv`: (verb, rows
+    asked, circulating rows before and after)."""
+    for name in ("balloon_grow", "balloon_shrink"):
+        real = getattr(kv, name)
+
+        def spy(rows, _real=real, _name=name):
+            c0 = kv.balloon_state()["circulating"]
+            r = _real(rows)
+            moves.append((_name, int(rows), c0,
+                          kv.balloon_state()["circulating"]))
+            return r
+
+        setattr(kv, name, spy)
+
+
+def san_soak(sm, root: str, smi: str) -> dict:
+    """Phase 19 (a) then (c): JAX's acceptance soak on the card, a
+    linear·tiered `KV` behind a coalescing `NetServer` and a `ChaosProxy`
+    with the controller attached and bound to the KV's balloon, then the
+    traced chaos soak against the same server -> its kernels entry."""
+    import json
+    import threading
+
+    from pmdfc_tpu_torch.client import DirectBackend
+    from pmdfc_tpu_torch.config import (AutotuneConfig, BloomConfig,
+                                        IndexConfig, KVConfig, NetConfig,
+                                        TierConfig)
+    from pmdfc_tpu_torch.runtime import autotune
+    from pmdfc_tpu_torch.runtime import sanitizer as san
+    from pmdfc_tpu_torch.runtime.failure import ChaosProxy
+    from pmdfc_tpu_torch.runtime.net import NetServer, TcpBackend
+    from pmdfc_tpu_torch.tools import check_teledump as port_check
+
+    fused = sm.fused
+    checker = port_check._schemas()
+    cfg = KVConfig(index=IndexConfig(**SAN_INDEX),
+                   bloom=BloomConfig(num_bits=SAN_BLOOM_BITS),
+                   page_words=SAN_PAGE_WORDS, tier=TierConfig(**SAN_TIER))
+    kv = sm.kv_mod.KV(cfg, device=DEVICE)
+    pw = cfg.page_words
+    n, t_fill, present = san_fill(sm, kv, SAN_HI)
+    log("sanitize", f"(a) linear·tiered KV on {kv.device}: {kv.capacity()} "
+        f"slots, pools {kv.state.pool.pages.numel() * 4 / 2**30:.2f} GiB of "
+        f"{pw}-word pages; {n} pages through KV.insert in {t_fill:.3f} s, "
+        f"{len(present)} held ({smi})")
+    moves: list = []
+    san_balloon_spy(kv, moves)
+    step = kv.balloon_state()["step"]
+    backend = DirectBackend(kv)
+    phases: list = []  # the width of every GET phase
+    widest: dict = {}
+    real_get = backend.get
+
+    def get(keys):
+        phases.append(len(keys))
+        if len(keys) >= len(widest.get("keys", ())):
+            widest["keys"] = keys.copy()
+        return real_get(keys)
+
+    backend.get = get
+    srv = NetServer(lambda: backend, net=NetConfig(**SAN_NET)).start()
+    ctl = None
+    workers: list = []
+    try:
+        with TcpBackend("127.0.0.1", srv.port, page_words=pw,
+                        keepalive_s=None, op_timeout_s=120.0) as w:
+            keys = fail_keys(SAN_HI, present[:SAN_VERB])
+            out, found = w.get(keys)  # the kernel's first launch
+            fail_check(out, found, keys, pw, "sanitize (a) warm")
+        del phases[:]
+        fused.launches.clear()
+        s0 = kv.stats()
+        proxy = ChaosProxy("127.0.0.1", srv.port, seed=7, rates=SAN_RATES,
+                           delay_s=SAN_DELAY_S)
+        workers = [SanWorker(proxy.port, t, pw, present, sm.seed)
+                   for t in range(SAN_WORKERS)]
+        ctl = autotune.attach(
+            server=srv, client=workers[0].rc,
+            cfg=AutotuneConfig(interval_s=0.1, hysteresis_windows=1,
+                               balloon_every=1,
+                               balloon_max_extents=SAN_BALLOON_EXTENTS),
+            start=True)
+        ctl.bind_balloon(kv)
+        stop = threading.Event()
+        win: dict = {}
+        t0 = time.monotonic()
+
+        def soak_clock():
+            try:
+                win.update(san_window(srv.port, pw, present, stop,
+                                      sm.seed))
+                time.sleep(max(0.0, SAN_SOAK_S - (time.monotonic() - t0)))
+            finally:
+                stop.set()
+
+        with proxy:
+            t_soak = run_threads(
+                [lambda w=w: w.run(stop) for w in workers] + [soak_clock],
+                "sanitize (a)")
+            fired = sum(v for k, v in proxy.stats.items()
+                        if k.endswith("_frames")
+                        and k != "forwarded_frames")
+        ctl.stop()
+        doc = win["doc"]
+        for w in workers:
+            w.rc.close()
+        # gates of (a)
+        fails = []
+        bad = san_violations(san, "sanitize (a)")
+        if bad:
+            fails.append(f"{len(bad)} sanitizer violations")
+        errs = checker.check_autotune(doc["telemetry"])
+        if errs:
+            fails.append(f"check_autotune: {errs}")
+        path = os.path.join(root, "msg_stats.json")
+        with open(path, "w") as f:
+            json.dump(doc, f)
+        if port_check.main([path]) != 0:
+            fails.append("the port's check_teledump refused MSG_STATS")
+        odd = [m for m in moves if m[1] != step or abs(m[3] - m[2]) > m[1]]
+        if odd:
+            fails.append(f"balloon moves of other than one {step}-row "
+                         f"extent: {odd[:4]}")
+        knobs = ctl.knob_values()
+        bx = knobs.get("balloon_x", 0)
+        if abs(bx) > SAN_BALLOON_EXTENTS:
+            fails.append(f"balloon offset {bx} outside +-"
+                         f"{SAN_BALLOON_EXTENTS} extents")
+        if fails:
+            raise AssertionError("sanitize (a): " + "; ".join(fails))
+        puts = sum(w.puts for w in workers)
+        gets = sum(w.gets for w in workers)
+        hits = sum(w.hits for w in workers)
+        log("sanitize", f"(a) soak {t_soak:.1f} s: {SAN_WORKERS} "
+            f"ReconnectingClients through ChaosProxy {SAN_RATES} (delay "
+            f"{SAN_DELAY_S * 1e3:.0f} ms, {fired} frames faulted), "
+            f"NetConfig({SAN_NET}): {puts} put and {gets} GET verbs of 1.."
+            f"{SAN_VERB} pages, {hits} hits byte-exact, every miss zeroed; "
+            f"window 32 -> 4 -> 64 live ({win['gets']} verbs, limits "
+            f"{win['limits']}); PMDFC_SAN=on at {san._STATE.hold_ms:.0f} ms: "
+            f"violations [] ({smi})")
+        log("sanitize", f"(a) controller: {int(ctl.stats['decisions'])} "
+            f"decisions, knobs {knobs}; {len(moves)} balloon moves of one "
+            f"{step}-row extent each, offset {bx} within +-"
+            f"{SAN_BALLOON_EXTENTS}; check_autotune over MSG_STATS [] and "
+            f"the port's check_teledump passes it")
+        c = san_traced(srv, pw, smi)
+        if san_violations(san, "sanitize (c)"):
+            raise AssertionError("sanitize (c): sanitizer violations")
+        s = kv.stats()
+        st = dict(srv.stats)
+        n_phases = len(phases)
+        launches = fused.launches["fused_get_linear_tiered"]
+        fails = []
+        if s["misses"] != sum(s[k] for k in sm.kv_mod.MISS_CAUSE_NAMES):
+            fails.append("misses != the sum of the miss causes")
+        if int(st["serve_errors"]):
+            fails.append(f"serve_errors {st['serve_errors']}")
+        if launches != n_phases or not launches:
+            fails.append(f"{launches} kernel launches for {n_phases} GET "
+                         "phases")
+        if fails:
+            raise AssertionError("sanitize (a): " + "; ".join(fails))
+        log("sanitize", f"(a) and (c) on the KV: gets {s['gets'] - s0['gets']}"
+            f", misses == sum of the causes ({s['misses']}), serve_errors 0; "
+            f"{launches} fused-GET launches = {n_phases} GET phases")
+        w_, t = ops_kernel(sm, kv.state, widest["keys"],
+                           "sanitize (a) widest", smi)
+        log("sanitize", f"fused_get_linear_tiered w = {w_} at (a)'s widest "
+            f"GET phase: kernel == plain, {t[0]:.4f} ms vs bound "
+            f"{t[2]:.4f} ms ({t[2] / t[0]:.0%}), plain {t[1]:.4f} ms ({smi})")
+        entry = plane_entry(sm, "sanitize-tiered", launches, t,
+                            name="fused_get_linear_tiered")
+        return {"entry": entry, "trace": c}
+    finally:
+        if ctl is not None:
+            ctl.stop()
+        for w in workers:
+            w.rc.close()
+        srv.stop()
+
+
+def san_traced(srv, pw: int, smi: str) -> dict:
+    """Phase 19 (c): `tests/test_telemetry.py`'s traced chaos soak against
+    (a)'s server: one pipelined `ReconnectingClient` (window 8) through a
+    `ChaosProxy` at seed 17, SAN_TRACE_VERBS verbs of 1..SAN_VERB keys over
+    a SAN_TRACE_KEYS-key set; every completed verb's trace joins a server
+    span, every failed span is closed with its error and a span id, every
+    hit byte-exact."""
+    import numpy as np
+
+    from pmdfc_tpu_torch.runtime import telemetry as tele
+    from pmdfc_tpu_torch.runtime.failure import ChaosProxy, ReconnectingClient
+    from pmdfc_tpu_torch.runtime.net import TcpBackend
+
+    keys = fail_keys(SAN_TRACE_HI, np.arange(SAN_TRACE_KEYS))
+    pages = pages_np(keys[:, 0], keys[:, 1], pw)
+    rng = np.random.default_rng(SAN_TRACE_SEED)
+    reg = tele.get()
+    t_start = time.monotonic_ns()
+    t0 = time.monotonic()
+    hits = 0
+    with ChaosProxy("127.0.0.1", srv.port, seed=SAN_TRACE_SEED,
+                    rates=SAN_TRACE_RATES) as px:
+        def factory():
+            return TcpBackend("127.0.0.1", px.port, page_words=pw,
+                              keepalive_s=None,
+                              op_timeout_s=SAN_TRACE_OP_TIMEOUT_S,
+                              pipeline=True, window=SAN_TRACE_WINDOW)
+
+        rc = ReconnectingClient(factory, page_words=pw, retry_delay_s=0.002,
+                                max_retry_delay_s=0.02, seed=SAN_TRACE_SEED)
+        try:
+            for _ in range(SAN_TRACE_VERBS):
+                n = int(rng.integers(1, SAN_VERB + 1))
+                lo = int(rng.integers(0, SAN_TRACE_KEYS - n + 1))
+                if rng.integers(2):
+                    rc.put(keys[lo:lo + n], pages[lo:lo + n])
+                else:
+                    out, found = rc.get(keys[lo:lo + n])
+                    hits += fail_check(out, found, keys[lo:lo + n], pw,
+                                       "sanitize (c)")
+                if not rc.connected:
+                    time.sleep(0.003)
+        finally:
+            rc.close()
+        fired = sum(v for k, v in px.stats.items()
+                    if k.endswith("_frames") and k != "forwarded_frames")
+    secs = time.monotonic() - t0
+    spans = [r for r in reg.ring_tail() if r.get("kind") == "span"]
+    server = {s["trace"] for s in spans if s["src"] == "server"}
+    verbs = [s for s in spans if s["src"] == "client"
+             and s["op"] in ("put", "get", "invalidate")
+             and s.get("t0_ns", 0) >= t_start]
+    done = [s for s in verbs if s["ok"]]
+    failed = [s for s in verbs if not s["ok"]]
+    missing = [s for s in done if s["trace"] not in server]
+    open_ = [s for s in failed if not s.get("err")
+             or not 0 < s.get("span", 0) <= 0xFFFFFFFF
+             or s["t1_ns"] < s["t0_ns"] or s["dur_us"] < 0]
+    fails = []
+    if len(done) <= 50:
+        fails.append(f"only {len(done)} verbs completed")
+    if not fired or not failed:
+        fails.append(f"{fired} faults fired, {len(failed)} failed spans")
+    if missing:
+        fails.append(f"{len(missing)} of {len(done)} completed verbs have "
+                     "no server span")
+    if open_:
+        fails.append(f"{len(open_)} failed spans not closed with an error "
+                     "and a span id")
+    if fails:
+        raise AssertionError("sanitize (c): " + "; ".join(fails))
+    log("sanitize", f"(c) traced soak {secs:.1f} s: {SAN_TRACE_VERBS} verbs of "
+        f"1..{SAN_VERB} keys over {SAN_TRACE_KEYS} keys through ChaosProxy "
+        f"{SAN_TRACE_RATES} seed {SAN_TRACE_SEED}, window "
+        f"{SAN_TRACE_WINDOW}: {fired} frames faulted, {len(done)} verbs "
+        f"completed, each joined to a server span; {len(failed)} failed "
+        f"spans closed with their errors; {hits} hits byte-exact ({smi})")
+    return {"secs": secs, "completed": len(done), "failed": len(failed)}
+
+
+def san_engine(sm, smi: str) -> dict:
+    """Phase 19 (b): the engine-backed `KVServer` under the sanitizer, a
+    linear·flat `KV` of SAN_INDEX slots, eight `ReconnectingClient`s over
+    `EngineBackend` slices streaming puts and GETs of SAN_VERB pages for
+    SAN_ENGINE_S with the bloom push on -> its kernels entry."""
+    import threading
+
+    import numpy as np
+
+    from pmdfc_tpu_torch.client import EngineBackend
+    from pmdfc_tpu_torch.client.cleancache import CleanCacheClient
+    from pmdfc_tpu_torch.config import BloomConfig, IndexConfig, KVConfig
+    from pmdfc_tpu_torch.runtime import Engine, KVServer
+    from pmdfc_tpu_torch.runtime import sanitizer as san
+    from pmdfc_tpu_torch.runtime.failure import ReconnectingClient
+
+    torch, fused = sm.torch, sm.fused
+    cfg = KVConfig(index=IndexConfig(**SAN_INDEX),
+                   bloom=BloomConfig(num_bits=SAN_BLOOM_BITS),
+                   page_words=SAN_PAGE_WORDS)
+    kv = sm.kv_mod.KV(cfg, device=DEVICE)
+    pw, v, nc = cfg.page_words, SAN_VERB, SAN_ENGINE_CLIENTS
+    n, t_fill, present = san_fill(sm, kv, SAN_ENG_HI)
+    eng = Engine(num_queues=nc + 1, queue_cap=2 * v, batch=nc * v,
+                 timeout_us=200, arena_pages=4 * (nc + 1) * v,
+                 page_bytes=pw * 4)
+    srv = KVServer(cfg, engine=eng, kv=kv, device=DEVICE,
+                   bf_push_s=BF_PUSH_S)
+    minus_two = []
+    real_wait = eng.wait_many
+
+    def wait_many(base, n_, timeout_us=10_000_000):
+        st = real_wait(base, n_, timeout_us=timeout_us)
+        if (st == -2).any():
+            minus_two.append(int((st == -2).sum()))
+        return st
+
+    eng.wait_many = wait_many
+    srv.warmup(v)  # the kernel's first launch, on this thread
+    srv.start()
+    widest: dict = {}
+    real_get = fused.fused_get
+
+    def fused_get(keys, *a, **kw):
+        if keys.shape[0] >= widest.get("w", 0):
+            widest["w"], widest["keys"] = keys.shape[0], keys.clone()
+        return real_get(keys, *a, **kw)
+
+    cc = CleanCacheClient(EngineBackend(srv, queue=nc, slice_pages=v))
+    srv.register_bf_client(cc)
+    clients = []
+    for t in range(nc):
+        def factory(t=t):
+            return EngineBackend(srv, queue=t, slice_pages=v,
+                                 timeout_us=FAIL_CLIENT_TIMEOUT_US)
+
+        clients.append(ReconnectingClient(factory, page_words=pw,
+                                          retry_delay_s=0.005,
+                                          max_retry_delay_s=0.05, seed=t))
+    counts = [[0, 0, 0] for _ in range(nc)]  # puts, gets, hits
+    stop = threading.Event()
+
+    def stream(t):
+        rng = np.random.default_rng([sm.seed, t, 23])
+        rc, i = clients[t], 0
+        while not stop.is_set():
+            own = fail_keys(SAN_ENG_PUT_HI + t,
+                            (i * v + np.arange(v)) % SAN_ENGINE_OWN)
+            rc.put(own, pages_np(own[:, 0], own[:, 1], pw))
+            counts[t][0] += 1
+            keys = np.concatenate([own[:v // 2], fail_keys(
+                SAN_ENG_HI, present[rng.integers(0, len(present), v // 2)])])
+            out, found = rc.get(keys)
+            counts[t][2] += fail_check(out, found, keys, pw,
+                                       f"sanitize (b) client {t}")
+            counts[t][1] += 1
+            i += 1
+
+    def clock():
+        time.sleep(SAN_ENGINE_S)
+        stop.set()
+
+    try:
+        fused.launches.clear()
+        g0 = srv.op_batches["get"]
+        fused.fused_get = fused_get
+        try:
+            secs = run_threads([lambda t=t: stream(t) for t in range(nc)]
+                               + [clock], "sanitize (b)")
+        finally:
+            fused.fused_get = real_get
+        torch.cuda.synchronize()
+        flushes = srv.op_batches["get"] - g0
+        launches = fused.launches["fused_get_linear_flat"]
+        s = kv.stats()
+        fails = []
+        bad = san_violations(san, "sanitize (b)")
+        if bad:
+            fails.append(f"{len(bad)} sanitizer violations")
+        if minus_two:
+            fails.append(f"{sum(minus_two)} requests completed with -2")
+        if srv.errors:
+            fails.append(f"serve errors {srv.errors}")
+        if launches != flushes or not launches:
+            fails.append(f"{launches} kernel launches for {flushes} GET "
+                         "flushes")
+        if s["misses"] != sum(s[k] for k in sm.kv_mod.MISS_CAUSE_NAMES):
+            fails.append("misses != the sum of the miss causes")
+        pushes = dict(srv.bf_push_stats)
+        if not pushes["cycles"] or pushes.get("errors", 0):
+            fails.append(f"bloom push {pushes}")
+        if fails:
+            raise AssertionError("sanitize (b): " + "; ".join(fails))
+        puts, gets, hits = (sum(c[i] for c in counts) for i in range(3))
+        log("sanitize", f"(b) engine-backed KVServer on {kv.device}: "
+            f"linear·flat {kv.capacity()} slots, {n} pages through KV.insert "
+            f"in {t_fill:.3f} s; {nc} ReconnectingClients over EngineBackend "
+            f"slices of {v} pages for {secs:.1f} s: {puts} put and {gets} "
+            f"GET verbs, {hits} hits byte-exact, every miss zeroed, no -2 "
+            f"status, serve errors 0; bloom push {pushes}; "
+            f"{launches} fused-GET launches = {flushes} GET flushes; "
+            f"PMDFC_SAN=on: violations [] ({smi})")
+        w = widest["keys"]
+        batch = w.cpu().numpy().view(np.uint32)
+        w_, t = ops_kernel(sm, kv.state, batch, "sanitize (b) widest", smi)
+        log("sanitize", f"fused_get_linear_flat w = {w_} at (b)'s widest "
+            f"flush: kernel == plain, {t[0]:.4f} ms vs bound {t[2]:.4f} ms "
+            f"({t[2] / t[0]:.0%}), plain {t[1]:.4f} ms ({smi})")
+        return plane_entry(sm, "sanitize", launches, t)
+    finally:
+        stop.set()
+        for rc in clients:
+            rc.close()
+        cc.close()
+        cc.backend.close()
+        srv.stop()
+
+
+def sanitize_dir():
+    """Where phase 19 writes its `MSG_STATS` document (git-ignored, on the
+    checkout's disk); removed at the end of the phase."""
+    from pathlib import Path
+
+    return Path(__file__).resolve().parent / "build" / "sanitize"
+
+
+def run_sanitize(sm):
+    """Phase 19: the serving path under the runtime lock sanitizer
+    (`PMDFC_SAN=on`, JAX's 200 ms hold limit): (a) JAX's acceptance soak
+    on the card with the controller and a live window, (c) the traced
+    chaos soak, (b) the engine-backed `KVServer` with the bloom push ->
+    its kernel entries."""
+    import shutil
+
+    from pmdfc_tpu_torch.config import TelemetryConfig
+    from pmdfc_tpu_torch.runtime import engine as eng_mod
+    from pmdfc_tpu_torch.runtime import sanitizer as san
+    from pmdfc_tpu_torch.runtime import telemetry as tele
+    from pmdfc_tpu_torch.runtime import timeseries
+
+    torch = sm.torch
+    t_phase = time.monotonic()
+    at_import = os.environ.get("PMDFC_SAN") == "on"
+    was_on = san.enabled()
+    san.configure(on=True, strict=False, hold_ms=SAN_HOLD_MS)
+    san.reset()
+    if at_import and type(eng_mod._lib_lock).__name__ != "SanLock":
+        raise AssertionError("sanitize: engine._lib_lock is not "
+                             "instrumented under PMDFC_SAN=on")
+    free_card(torch)
+    smi = nvidia_smi()
+    root = sanitize_dir()
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    tele.configure(TelemetryConfig(ring_capacity=SAN_RING))
+    collector = timeseries.ensure_collector(interval_s=0.25)
+    times = {}
+    try:
+        log("sanitize", f"PMDFC_SAN={'on at import' if at_import else 'on'}"
+            f", hold limit {san._STATE.hold_ms:.0f} ms; engine._lib_lock "
+            f"{type(eng_mod._lib_lock).__name__} ({smi})")
+        t0 = time.monotonic()
+        a = san_soak(sm, str(root), smi)
+        times["a"] = time.monotonic() - t0 - a["trace"]["secs"]
+        times["c"] = a["trace"]["secs"]
+        free_card(torch)
+        t0 = time.monotonic()
+        b = san_engine(sm, smi)
+        times["b"] = time.monotonic() - t0
+    finally:
+        collector.stop()
+        san.configure(on=was_on)
+        free_card(torch)
+        shutil.rmtree(root, ignore_errors=True)
+    entries = [a["entry"], b]
+    log("sanitize", "gates: violations [] (no inversion, self-deadlock or "
+        "long hold), no wrong byte, every miss zeroed, misses == sum of the "
+        "causes, serve errors 0, no -2 status, check_autotune [], balloon "
+        "moves of one extent inside the envelope, every completed traced "
+        "verb joined, one fused-GET launch per GET phase and flush")
+    log("sanitize", f"phase 19 took {time.monotonic() - t_phase:.1f} s: (a) "
+        f"{times['a']:.1f} s, (c) {times['c']:.1f} s, (b) {times['b']:.1f} s")
+    return entries
+
+
+def sanitize_subprocess(seed: int):
+    """`run_sanitize` in a child process of this script (`--sanitize`)
+    whose environment has `PMDFC_SAN=on` before any import -> (its kernel
+    entries, its log lines, seconds). A child that fails fails the phase."""
+    t0 = time.monotonic()
+    env = dict(os.environ, PMDFC_SAN="on",
+               PMDFC_SAN_HOLD_MS=str(SAN_HOLD_MS))
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--sanitize", "--seed",
+         str(seed)], capture_output=True, text=True, env=env,
+        timeout=SAN_TIMEOUT_S)
+    entries, lines = None, []
+    for line in proc.stdout.splitlines():
+        if line.startswith("SANITIZE "):
+            entries = json.loads(line[len("SANITIZE "):])
+        else:
+            lines.append(line)
+    if proc.returncode != 0 or entries is None:
+        raise AssertionError(f"sanitize child exited {proc.returncode}: "
+                             f"{proc.stdout[-2000:]} {proc.stderr[-3000:]}")
+    return entries, lines, time.monotonic() - t0
+
+
+def collect_sanitize(lanes: "Lanes"):
+    """Phase 19's child, queued last in `lanes` at phase 12's start: its
+    lines echoed, its kernel entries returned."""
+    t0 = time.monotonic()
+    (entries, lines, secs), = lanes.rows("sanitize")
+    for line in lines:
+        print(line, flush=True)
+    log("sanitize", f"phase 19's child took {secs:.1f} s (in the lanes, "
+        f"{lanes.span('sanitize')}; waited {time.monotonic() - t0:.1f} s "
+        "for it here)")
     return entries
 
 
@@ -10390,6 +11138,9 @@ def main() -> int:
     ap.add_argument("--store", action="store_true",
                     help="run only phase 18 (the child process the whole "
                          "smoke starts in its lanes)")
+    ap.add_argument("--sanitize", action="store_true",
+                    help="run only phase 19 under PMDFC_SAN=on (the child "
+                         "process the whole smoke starts in its lanes)")
     ap.add_argument("--trace-client", metavar="DIR", default=None,
                     help="phase 15's client child: wait for the server "
                          "named in DIR/server.json and drive it (touches "
@@ -10398,6 +11149,9 @@ def main() -> int:
 
     if args.trace_client:
         return trace_client(args.trace_client)
+    if args.sanitize:  # before any import of the port: every lock it builds
+        os.environ["PMDFC_SAN"] = "on"
+        os.environ["PMDFC_SAN_HOLD_MS"] = str(SAN_HOLD_MS)
 
     import torch
 
@@ -10439,6 +11193,13 @@ def main() -> int:
         _build.load("fused_get")
         log("env", nvidia_smi())
         print("STORE " + json.dumps(run_store(Smoke(args.seed))), flush=True)
+        return 0
+    if args.sanitize:
+        _build.load("fused_get")
+        _build.load_host("runtime")
+        log("env", nvidia_smi())
+        print("SANITIZE " + json.dumps(run_sanitize(Smoke(args.seed))),
+              flush=True)
         return 0
 
     # 1. env
@@ -10506,13 +11267,15 @@ def main() -> int:
                     .queue("scale").queue("tail")
                     .queue("trace-client", args.seed)
                     .queue("failure", args.seed)
-                    .queue("store", args.seed))),
+                    .queue("store", args.seed)
+                    .queue("sanitize", args.seed))),
                 ("tail", lambda sm: run_tail(sm, lanes)),
                 ("chaos", lambda sm: collect_chaos(lanes)),
                 ("trace", lambda sm: run_trace(sm, lanes)),
                 ("ops", run_ops),
                 ("failure", lambda sm: collect_failure(lanes)),
-                ("store", lambda sm: collect_store(lanes))):
+                ("store", lambda sm: collect_store(lanes)),
+                ("sanitize", lambda sm: collect_sanitize(lanes))):
             t0 = time.monotonic()
             entry = run(sm)
             log("smoke", f"{label} took {time.monotonic() - t0:.1f} s, "
@@ -10521,7 +11284,7 @@ def main() -> int:
             # it got in the end of its errors
             print(f"[smoke] {label} done at {time.monotonic() - T0:.1f} s",
                   file=sys.stderr, flush=True)
-            if isinstance(entry, list):  # plane .. store
+            if isinstance(entry, list):  # plane .. sanitize
                 kernels.extend(entry)
             elif entry is not None:  # the families launch no kernel
                 kernels.append(entry)

@@ -1266,8 +1266,7 @@ class KV:
         from pmdfc_tpu_torch import checkpoint as _ckpt  # imports kv
 
         with self._lock, self._on_device():
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+            self._prof.block_ready(self.device)
             sums, live = self._dirty_basis()
             report, self._chain = _ckpt.chain_step(
                 self.state, path, self._chain, sums, live, delta)

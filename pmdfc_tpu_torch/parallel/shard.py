@@ -587,8 +587,8 @@ class _DistExchange:
     def _run(self, collective, t: torch.Tensor, out_shape) -> torch.Tensor:
         """`collective(out, inp)` on `t` (a tensor on `self.dev`) into a
         fresh tensor of `out_shape` on `self.dev`."""
-        if self.dev.type == "cuda":  # time the collective, not the queue
-            torch.cuda.synchronize(self.dev)
+        # time the collective, not the queue
+        profiler.block_ready(self.dev)
         t0 = time.perf_counter()
         flag = t.dtype == torch.bool  # carried as bytes
         if flag:
@@ -602,8 +602,7 @@ class _DistExchange:
             out = torch.empty(out_shape, dtype=t.dtype, device=t.device)
         collective(out, inp)
         out = out.to(self.dev)
-        if self.dev.type == "cuda":
-            torch.cuda.synchronize(self.dev)
+        profiler.block_ready(self.dev)
         self.calls += 1
         self.bytes += inp.numel() * inp.element_size()
         self.seconds += time.perf_counter() - t0

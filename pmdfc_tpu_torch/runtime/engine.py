@@ -16,12 +16,12 @@ runs without a GPU.
 from __future__ import annotations
 
 import ctypes
-import threading
 import time
 
 import numpy as np
 
 from pmdfc_tpu_torch.ops import _build
+from pmdfc_tpu_torch.runtime import sanitizer as san
 
 OP_PUT, OP_GET, OP_DEL = 0, 1, 2
 # Extent verbs: INS_EXT stages [val_hi, val_lo, length] in its arena slot;
@@ -71,7 +71,7 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 
 _lib = None
-_lib_lock = threading.Lock()  # guarded-by: _lib
+_lib_lock = san.lock("engine._lib_lock")  # guarded-by: _lib
 
 
 def get_lib() -> ctypes.CDLL:
@@ -138,11 +138,11 @@ class Engine:
         # parked on long timeouts drain in microseconds), waits for the
         # call count to hit zero, then destroys.
         # guarded-by: _calls, _closing
-        self._call_lock = threading.Lock()
+        self._call_lock = san.lock("Engine._call_lock")
         self._calls = 0
         self._closing = False
         # guarded-by: _slice_free, _slice_quar, _slice_cursor
-        self._slice_lock = threading.Lock()
+        self._slice_lock = san.lock("Engine._slice_lock")
         self._slice_free: list[tuple[int, int]] = []  # returned slices
         # quarantined slices: freed by a backend torn down after a
         # transport failure, so in-flight requests may still reference

@@ -502,7 +502,6 @@ def warm_restart(config, chain_paths, journal_dir: str,
 
 def _sync(kv) -> None:
     """Wait for the KV's device (a step's time ends when its work does)."""
-    if kv.device.type == "cuda":
-        import torch
+    from pmdfc_tpu_torch.runtime import profiler
 
-        torch.cuda.synchronize(kv.device)
+    profiler.block_ready(kv.device)

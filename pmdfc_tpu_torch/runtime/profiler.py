@@ -39,7 +39,8 @@ Differences from the JAX module, all from what the card lets a host see:
   pool. Only a fetch with no pair (CPU tensors) times the thunk on the
   host clock, as JAX does.
 - `block_ready(x)` is `torch.cuda.synchronize(device)` for CUDA tensors
-  and nothing for CPU tensors (CPU ops have run when they return).
+  and CUDA devices, and nothing for CPU ones (CPU ops have run when they
+  return). It is the port's one sync outside `fetch` and `bench/`.
 - `cost_probe`: torch has no `lowered.cost_analysis()`. The seam takes a
   byte count from the caller — the fused GET's own count at that width
   with every key a hit (`ops.fused.hit_bytes`), FLOPs 0 (integer work).
@@ -497,9 +498,10 @@ def fetch(program: str, phase: str, thunk, *, n_ops: int = 0,
 
 def block_ready(x):
     """The ONE sanctioned device sync outside `fetch` thunks: warmup and
-    teardown syncs with nothing worth attributing. CUDA tensors (alone
-    or in a tuple/list) synchronize their devices; CPU tensors need
-    nothing. Returns `x`."""
+    teardown syncs with nothing worth attributing, and the waits that end
+    a timed step or cut a consistent snapshot. CUDA tensors and CUDA
+    `torch.device`s (alone or in a tuple/list) synchronize their devices;
+    CPU ones need nothing. Returns `x`."""
     import torch
 
     todo = [x]
@@ -508,10 +510,12 @@ def block_ready(x):
         t = todo.pop()
         if isinstance(t, (tuple, list)):
             todo.extend(t)
-        elif isinstance(t, torch.Tensor) and t.device.type == "cuda" \
-                and t.device not in seen:
-            seen.add(t.device)
-            torch.cuda.synchronize(t.device)
+            continue
+        dev = t.device if isinstance(t, torch.Tensor) else t
+        if isinstance(dev, torch.device) and dev.type == "cuda" \
+                and dev not in seen:
+            seen.add(dev)
+            torch.cuda.synchronize(dev)
     return x
 
 

@@ -53,10 +53,9 @@ def _child_main(conn, kv_cfg, journal_cfg, journal_dir, chain_paths,
     """Child body: serve a journal-attached KV until killed. Imports stay
     inside: the child starts from a fresh interpreter."""
     try:
-        import torch
-
         from pmdfc_tpu_torch.client.backends import DirectBackend
         from pmdfc_tpu_torch.ops import fused
+        from pmdfc_tpu_torch.runtime import profiler
         from pmdfc_tpu_torch.runtime.journal import Journal, warm_restart
         from pmdfc_tpu_torch.runtime.net import NetServer
 
@@ -71,8 +70,7 @@ def _child_main(conn, kv_cfg, journal_cfg, journal_dir, chain_paths,
             kv = KV(kv_cfg, device=device,
                     journal=Journal(journal_dir, journal_cfg))
             replay = {"records": 0, "pages": 0, "truncated_bytes": 0}
-        if kv.device.type == "cuda":
-            torch.cuda.synchronize(kv.device)
+        profiler.block_ready(kv.device)
         restore_s = time.perf_counter() - t0
         shared = DirectBackend(kv)
         phases: list[int] = []  # the padded width of every GET phase
@@ -111,8 +109,7 @@ def _child_main(conn, kv_cfg, journal_cfg, journal_dir, chain_paths,
                 elif op == "mark_recovered":
                     conn.send(kv.mark_recovered())
                 elif op == "serving":
-                    if kv.device.type == "cuda":
-                        torch.cuda.synchronize(kv.device)
+                    profiler.block_ready(kv.device)
                     conn.send({"launches": dict(fused.launches),
                                "get_phases": list(phases),
                                "server": dict(srv.stats),

@@ -37,6 +37,7 @@ pytestmark = pytest.mark.torch
 
 STORE_TINY = (
     ("STORE_INDEX", dict(capacity=1 << 12)),
+    ("STORE_TIER_INDEX", dict(capacity=1 << 12)),
     ("STORE_BLOOM_BITS", 1 << 15),
     ("STORE_PAGE_WORDS", 64),
     ("STORE_GET_B", 1 << 9),

@@ -25,8 +25,11 @@ TESTS = Path(__file__).resolve().parent
 
 TWINS = {
     "test_admit.py": ("test_torch_tier.py", "test_torch_env_switches.py"),
-    "test_analyze.py": ("test_torch_analyze.py",),
-    "test_autotune.py": ("test_torch_autotune.py",),
+    "test_analyze.py": ("test_torch_analyze.py",
+                        "test_torch_analyze_drills.py",
+                        "test_torch_sanitizer_drills.py"),
+    "test_autotune.py": ("test_torch_autotune.py",
+                         "test_torch_autotune_drills.py"),
     "test_aux.py": ("test_torch_policy_cache.py", "test_torch_logger.py",
                     "test_torch_checkpoint.py", "test_torch_server.py"),
     "test_bench_cert.py": "certifies the TPU history rows of the frozen "
@@ -38,7 +41,8 @@ TWINS = {
     "test_cceh.py": ("test_torch_cceh.py",),
     "test_chaos.py": ("test_torch_chaos.py",),
     "test_client.py": ("test_torch_client.py",),
-    "test_containment.py": ("test_torch_containment.py",),
+    "test_containment.py": ("test_torch_containment.py",
+                            "test_torch_bench_faults.py"),
     "test_durability.py": ("test_torch_checkpoint.py",
                            "test_torch_journal.py"),
     "test_elastic.py": ("test_torch_ring.py", "test_torch_replica.py",
@@ -53,7 +57,11 @@ TWINS = {
     "test_hashing.py": ("test_torch_hashing.py",),
     "test_hotring.py": ("test_torch_hotring.py",),
     "test_index_conformance.py": ("test_torch_conformance.py",
-                                  "test_torch_families.py"),
+                                  "test_torch_families.py",
+                                  "test_torch_kv_family_paths.py",
+                                  "test_torch_kv_family_paths_path.py",
+                                  "test_torch_kv_family_paths_tiered.py",
+                                  "test_torch_kv_family_paths_unpaged.py"),
     "test_insert_compaction.py": ("test_torch_insert_compaction.py",
                                   "test_torch_insert_fresh_slots.py"),
     "test_jax_pin.py": "pins the JAX and jaxlib versions the compile-cache "
@@ -77,14 +85,17 @@ TWINS = {
     "test_profiler.py": ("test_torch_profiler.py",),
     "test_qos.py": ("test_torch_qos.py",),
     "test_replica.py": ("test_torch_replica.py",
-                        "test_torch_replica_rejoin.py"),
+                        "test_torch_replica_rejoin.py",
+                        "test_torch_bench_replica.py"),
     "test_runtime.py": ("test_torch_engine.py", "test_torch_server.py"),
     "test_shard.py": ("test_torch_shard.py", "test_torch_mesh_ckpt.py",
                       "test_torch_shard_drills.py",
                       "test_torch_partitioning.py"),
     "test_soak.py": ("test_torch_bench_soaks.py",
-                     "test_torch_bench_sweeps.py"),
-    "test_telemetry.py": ("test_torch_telemetry.py", "test_torch_teletop.py"),
+                     "test_torch_bench_sweeps.py",
+                     "test_torch_harnesses.py"),
+    "test_telemetry.py": ("test_torch_telemetry.py", "test_torch_teletop.py",
+                          "test_torch_telemetry_drills.py"),
     "test_tier.py": ("test_torch_tier.py", "test_torch_env_switches.py",
                      "test_torch_tier_drills.py"),
     "test_tracing.py": ("test_torch_tracing.py",),
@@ -111,6 +122,12 @@ _ENV = "test_torch_env_switches.py::"
 _BD = "test_torch_bloom_drills.py::"
 _M2 = "test_torch_mesh2d_drills.py::"
 _ED = "test_torch_elastic_drills.py::"
+_AD = "test_torch_analyze_drills.py::"
+_SAN = "test_torch_sanitizer_drills.py::"
+_ATD = "test_torch_autotune_drills.py::"
+_AT = "test_torch_autotune.py::"
+_WALK = (_AT + "test_controllers_walk_identically",)
+_TLD = "test_torch_telemetry_drills.py::"
 _RING = ("test_torch_ring.py::test_ring_matches_jax",)
 _HERMETIC = ("test_torch_replica.py::test_hermetic_drill_matches_jax",)
 _VERBS = (_SH + "test_sharded_verbs_match_jax",)
@@ -436,6 +453,98 @@ DRILLS = {
         "test_elastic_chaos_scale_3_5_2_mid_soak":
             (_ED + "test_elastic_chaos_scale_3_5_2_mid_soak",),
     },
+    "test_analyze.py": {
+        **{name: (_AD + name,) for name in (
+            "test_tree_is_clean_under_checked_in_allowlist",
+            "test_lock_hierarchy_covers_every_ranked_module_lock",
+            "test_unranked_serving_lock_is_a_finding",
+            "test_unranked_slo_lock_is_a_finding",
+            "test_bad_inversion_fixture_yields_lock_order_cycle",
+            "test_bad_unguarded_fixture_yields_guarded_write",
+            "test_bad_donation_fixture_yields_jax_donation",
+            "test_bad_shardmap_donation_fixture_yields_jax_donation",
+            "test_bad_pallas_gate_fixture_yields_finding",
+            "test_interpret_false_literal_is_still_unconditional",
+            "test_bad_profiler_seam_fixture_yields_findings",
+            "test_profiler_seam_exempts_bench_and_the_seam_itself",
+            "test_clean_fixtures_pass",
+            "test_local_donate_spoof_does_not_count_as_guard",
+            "test_allowlist_suppresses_and_reports_stale",
+            "test_lambda_body_does_not_fabricate_lock_order_edges",
+            "test_lexical_self_reacquire_is_flagged",
+            "test_none_guard_with_justification_declares_no_fields",
+            "test_wire_drift_rule_catches_constant_divergence")},
+        **{name: (_SAN + name,) for name in (
+            "test_sanitizer_off_returns_plain_primitives",
+            "test_sanitizer_detects_ab_ba_inversion",
+            "test_sanitizer_refuses_self_deadlock",
+            "test_sanitizer_rlock_reentry_is_legal",
+            "test_sanitizer_times_long_holds_on_watched_locks",
+            "test_sanitizer_condition_wait_does_not_count_as_holding",
+            "test_sanitizer_condition_is_reentrant_like_the_primitive",
+            "test_sanitizer_nonblocking_self_probe_returns_false",
+            "test_sanitizer_flush_runs_after_the_physical_release",
+            "test_sanitizer_violations_reach_telemetry")},
+        # slow: phase 19 (a), the soak on the card under PMDFC_SAN=on
+        "test_chaos_soak_under_sanitizer_reports_nothing":
+            (_SAN + "test_chaos_soak_under_sanitizer_reports_nothing",),
+    },
+    "test_autotune.py": {
+        "test_config_validation": (_AT + "test_config_validation_matches_jax",),
+        "test_kill_switch_off_is_inert":
+            (_AT + "test_kill_switch_leaves_both_inert",),
+        # scenario "light"
+        "test_dwell_walks_down_under_light_load": _WALK,
+        # scenario "fanin"
+        "test_window_and_dwell_walk_up_under_fan_in": _WALK,
+        # scenario "starvation"
+        "test_starvation_reverts_once_then_holds": _WALK,
+        # scenario "balloon-pressure"
+        "test_balloon_steps_are_clamped_to_envelope": _WALK,
+        # scenario "balloon-saturated"
+        "test_balloon_offset_advances_only_on_observed_movement": _WALK,
+        "test_breach_freezes_reverts_and_dumps":
+            (_ATD + "test_breach_freezes_reverts_and_dumps",
+             _AT + "test_breach_freezes_and_reverts_identically"),
+        **{name: (_ATD + name,) for name in (
+            "test_hedge_tracks_wire_p99",
+            "test_migrate_rate_live_and_static_conformance",
+            "test_unbounded_migrate_rate_gets_no_knob",
+            "test_envelope_widens_to_contain_static_point",
+            "test_bind_unconnected_reconnecting_client_assumes_default",
+            "test_disabled_hedging_gets_no_knob",
+            "test_provisional_window_lkg_adopts_first_real_sighting",
+            "test_controller_move_never_adopted_as_lkg_sighting",
+            "test_clock_stepback_keeps_loop_alive",
+            "test_wedged_flush_window_keeps_up_streak_and_is_not_starvation",
+            "test_hysteresis_requires_consecutive_windows",
+            "test_kv_balloon_state_surface",
+            "test_window_gate_semantics",
+            "test_tcp_set_window_live_mid_traffic",
+            "test_reconnecting_client_window_survives_reconnect",
+            "test_check_autotune_pins")},
+    },
+    "test_telemetry.py": {name: (_TLD + name,) for name in (
+        "test_scope_counters_and_mapping_reads",
+        "test_scope_instances_never_share_counters",
+        "test_shared_scope_with_seed_counters",
+        "test_registry_collision_asserts",
+        "test_histogram_log2_quantiles",
+        "test_render_prometheus_style",
+        "test_kill_switch_noops_tracing_keeps_counters",
+        "test_env_kill_switch_resolution",
+        "test_set_enabled_runtime_toggle",
+        "test_mint_trace_32bit_nonzero",
+        "test_trace_negotiation_and_server_spans",
+        "test_trace_off_when_telemetry_disabled",
+        # phase 19 (c) runs it on the card
+        "test_trace_ids_match_under_chaos",
+        "test_rung3_phase_failure_dump_attributes_conn_and_phase",
+        "test_rung5_replica_exhausted_dump_attributes_endpoints",
+        "test_dump_cooldown_limits_writes",
+        "test_msg_stats_ships_registry_and_schema_conforms",
+        "test_reconnecting_client_counters_shim_removed",
+        "test_integrity_backend_namespaces_wrapper_counters")},
 
 }
 
