@@ -283,7 +283,7 @@ Phases, each reported on its own line; any failure exits nonzero:
              holding `fused_get_kernel` kernel events, a second capture
              inside the cooldown refused, the controller having consumed
              series windows with every knob inside its `AutotuneConfig`
-             envelope, and `tools/proftool.py` breaking down the pulled
+             envelope, and the port's `proftool` breaking down the pulled
              MSG_STATS snapshot. Prints the knob moves (their direction
              depends on the host's timing and is not checked). Last, the
              harnesses `bench/insert_rowscatter.py` and
@@ -386,7 +386,7 @@ Phases, each reported on its own line; any failure exits nonzero:
              by a shard's whole cold pool midway; every hit byte-exact,
              `misses == Σ miss_*` on `stats()`, every `shard_report()`
              row, `KVServer.health` and the wire document (which passes
-             `tools/check_teledump.py`); one collector window later the
+             the port's `check_teledump`); one collector window later the
              port's `teletop --once --json` against this server and a
              2-shard one reports rates and per-shard rows. (c) The wire
              drills, 2^11-page verbs, the card's counterparts of the JAX
@@ -418,14 +418,14 @@ Phases, each reported on its own line; any failure exits nonzero:
              never-inserted keys): every hit byte-exact, every miss zeroed,
              no never-inserted key served, acknowledged misses <=
              evictions + drops, no disconnect. Each process writes its
-             flight dump (`dump_now`); `tools/tracetool.py` joins every
+             flight dump (`dump_now`); the port's `tracetool` joins every
              traced GET across the two dumps at depth >= 6 with the chain
              get -> attempt -> client get -> server get -> phase ->
              flush:get -> shard_program, `clock_offsets` finds every
              connection with |offset| under its round trip, `chrome_trace`
              gives >= 6 events per GET trace, the breakdown holds
              flush:get, shard:get and server:queue_wait (p50/p95 per stage
-             printed), and `tools/check_teledump.py`'s `check_flight` is
+             printed), and the port's `check_teledump`'s `check_flight` is
              clean on both dumps. (b) The shard_program spans' ops per
              shard equal `mesh.shard{i}_ops`; one launch per shard per GET
              phase. (c) Every flush:get span lasts at least the CUDA-event
@@ -512,7 +512,16 @@ Phases, each reported on its own line; any failure exits nonzero:
              (`--store`) queued in phase 12's lanes after phase 17's: (a)
              `KV` edges on linear·flat, (b) a tiered snapshot restored, (c)
              a 2 x 2 plane's lane corrupted mid-soak, (d) breaker-driven
-             auto-replacement (`store`, `store-tiered`, `store-2x2`).
+             auto-replacement, (e) `tests/test_admit.py`'s scan-flood drill
+             on (b)'s depth, gated (its fast-aging `AdmitConfig`) and
+             without a gate: a zipf set of half the hot rows promoted
+             (through the live threshold knob: at 2^11-key GETs the gate
+             ages inside every GET and denies every zipf promotion, in
+             JAX as in the port), then a scan of four times the hot rows
+             read twice; the gate denies it and the zipf set keeps 3/4 of
+             its hot rows, without it the set keeps fewer and the KV
+             demotes more (`store`, `store-tiered`, `store-2x2`,
+             `store-admit`).
 19. sanitize — the serving path under the runtime lock sanitizer, in a
              child process (`--sanitize`) whose environment has
              `PMDFC_SAN=on` (and JAX's 200 ms hold limit) before any import,
@@ -4842,8 +4851,8 @@ def run_control(sm: Smoke):
             if not ok:
                 raise AssertionError(f"control: {msg}")
 
-        # tools/proftool.py over the pulled MSG_STATS snapshot
-        import tools.proftool as proftool
+        # the port's proftool over the pulled MSG_STATS snapshot
+        from pmdfc_tpu_torch.tools import proftool
 
         stats_path = root / "stats.json"
         stats_path.write_text(json.dumps(stats_doc))
@@ -6536,7 +6545,7 @@ def run_xray(sm, smi):
     from pmdfc_tpu_torch.runtime.net import TcpBackend
     from pmdfc_tpu_torch.runtime.server import KVServer
     from pmdfc_tpu_torch.tools import teletop
-    from tools.check_teledump import check
+    from pmdfc_tpu_torch.tools.check_teledump import check
 
     telemetry.configure(TelemetryConfig(enabled=True))
     cap = XRAY_INDEX["capacity"]
@@ -6963,7 +6972,7 @@ def drill_qos(sm, kv, pw: int) -> str:
     from pmdfc_tpu_torch.config import NetConfig, QosConfig, TenantConfig
     from pmdfc_tpu_torch.runtime import qos
     from pmdfc_tpu_torch.runtime.net import NetServer, TcpBackend
-    from tools.check_teledump import check
+    from pmdfc_tpu_torch.tools.check_teledump import check
 
     verb = DRILL_VERB
     qcfg = QosConfig(tenant_bits=4, tenants=(
@@ -7535,12 +7544,12 @@ def quantiles(xs, qs=(50, 95)) -> list:
 
 
 def trace_joined(dumps, conns: int, n_gets: int, smi: str) -> list:
-    """Phase 15 (a)'s checks through `tools/tracetool.py` and
-    `tools/check_teledump.py` over the two processes' flight dumps
-    (`dumps`: [(path, the records its process's ring held)], the
-    client's first) -> the server dump's span records."""
-    import tools.check_teledump as chk
-    import tools.tracetool as tracetool
+    """Phase 15 (a)'s checks through the port's `tracetool` and
+    `check_teledump` over the two processes' flight dumps (`dumps`:
+    [(path, the records its process's ring held)], the client's first) ->
+    the server dump's span records."""
+    from pmdfc_tpu_torch.tools import check_teledump as chk
+    from pmdfc_tpu_torch.tools import tracetool
 
     for path, held in dumps:
         with open(path) as f:
@@ -7651,7 +7660,7 @@ def trace_breach_drill(sm, root: str, smi: str) -> None:
     target and the breach dump names `flush:get`."""
     import numpy as np
 
-    import tools.check_teledump as chk
+    from pmdfc_tpu_torch.tools import check_teledump as chk
     from pmdfc_tpu_torch.client.backends import DirectBackend
     from pmdfc_tpu_torch.config import (BloomConfig, IndexConfig, KVConfig,
                                         NetConfig, TelemetryConfig)
@@ -8001,16 +8010,17 @@ import sys
 
 
 class _NoJax:
-    """Refuses JAX and the JAX package in this interpreter."""
+    """Refuses JAX, the JAX package and its root operator tools in this
+    interpreter."""
 
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "pmdfc_tpu"):
+        if name.split(".")[0] in ("jax", "jaxlib", "pmdfc_tpu", "tools"):
             raise ImportError(f"{name} is refused in this interpreter")
         return None
 
 
 sys.meta_path.insert(0, _NoJax())
-for _name in ("jax", "pmdfc_tpu"):
+for _name in ("jax", "pmdfc_tpu", "tools"):
     try:
         __import__(_name)
     except ImportError:
@@ -8096,7 +8106,7 @@ class OpsPull:
                 p.communicate()
 
     def finish(self, smi: str) -> None:
-        import tools.check_teledump as chk
+        from pmdfc_tpu_torch.tools import check_teledump as chk
 
         outs = wait_no_jax("ops (a)", self.started)
         outs.update(wait_no_jax("ops (a)", start_no_jax({
@@ -9491,6 +9501,13 @@ STORE_GROUP_HI = 0xCA500000  # (c): the groups' keys
 STORE_NODE_HI = 0xCA600000   # (d)
 STORE_XOR = 0x3C3C3C3C     # a re-put page is the key's page XOR this
 STORE_TIMEOUT_S = 600.0    # the phase's child process, spawn to exit
+# (e): `tests/test_admit.py`'s fast-aging gate (`ADMIT_FAST`, :60), on
+# (b)'s depth; the zipf set is half the hot rows, the scan this many
+# times the hot rows, inserted and read twice in STORE_VERB-key GETs
+STORE_ADMIT = dict(sketch_width=1 << 10, door_bits=1 << 11, reset_ops=64,
+                   threshold=2)
+STORE_ADMIT_SCAN = 4
+STORE_ADMIT_HI = 0xCA700000  # (e): zipf (hi, 1..), scan (hi, NEVER_LO - n..)
 
 
 def store_dir():
@@ -10376,11 +10393,157 @@ def store_replace(sm, smi: str) -> int:
     return launches
 
 
+def admit_resident(sm, kv, keys) -> int:
+    """How many of `keys` hold hot rows of the tiered `kv` now."""
+    torch = sm.torch
+    with kv._lock, kv._on_device():
+        hk = kv.state.pool.hot_keys
+        occ = hk[~sm.is_invalid(hk)]
+        return int(torch.isin(store_key64(sm, keys),
+                              store_key64(sm, occ)).sum())
+
+
+def admit_gets(sm, kv, keys, label: str) -> tuple:
+    """`keys` read in STORE_VERB-key GETs, each reply checked -> (hits,
+    misses)."""
+    hits = 0
+    for i in range(0, len(keys), STORE_VERB):
+        ks = keys[i:i + STORE_VERB]
+        out, found = kv.get(ks)
+        hits += store_check(sm, out, found, ks, label)
+    return hits, len(keys) - hits
+
+
+def admit_run(sm, gated: bool) -> dict:
+    """One build of part (e): a linear·tiered `KV` of STORE_TIER_INDEX
+    slots (with `tests/test_admit.py`'s fast-aging gate or with none), the
+    zipf set put and promoted, the scan put and read twice -> its counts
+    (and the `KV` itself)."""
+    from pmdfc_tpu_torch.config import AdmitConfig
+
+    torch, fused = sm.torch, sm.fused
+    label = f"store (e) {'gated' if gated else 'no gate'}"
+    cfg = store_cfg(STORE_TIER_INDEX, STORE_BLOOM_BITS, tier=dict(
+        promote_touches=1, max_promotes_per_batch=STORE_VERB,
+        admit=AdmitConfig(**STORE_ADMIT) if gated else None))
+    kv = sm.kv_mod.KV(cfg, device=DEVICE)
+    pw = cfg.page_words
+    count = StoreLaunches(kv)
+    with kv._lock, kv._on_device():
+        h = kv.state.pool.hfree.shape[0]
+    zipf = sm.keys_of(STORE_ADMIT_HI, torch.arange(1, h // 2 + 1,
+                                                   device=sm.dev))
+    scan = sm.keys_of(STORE_ADMIT_HI, torch.arange(
+        NEVER_LO - STORE_ADMIT_SCAN * h, NEVER_LO, device=sm.dev))
+    torch.cuda.synchronize()
+    fused.launches.clear()
+    for i in range(0, len(zipf), STORE_GET_B):
+        kv.insert(zipf[i:i + STORE_GET_B], sm.pages_of(
+            zipf[i:i + STORE_GET_B], pw))
+    refused = 0
+    if gated:
+        # what both packages do: a gate whose epoch (reset_ops 64) is
+        # shorter than one GET ages inside every GET, so no zipf key's
+        # estimate reaches the threshold and none is promoted
+        _, miss = admit_gets(sm, kv, zipf, f"{label} zipf at threshold 2")
+        refused = kv.admit_state()["admit_denied"]
+        if miss or refused != len(zipf) \
+                or kv.tier_stats()["promotions"]:
+            raise AssertionError(
+                f"{label}: at threshold {STORE_ADMIT['threshold']} the zipf "
+                f"GETs were denied {refused} of {len(zipf)} promotions and "
+                f"made {kv.tier_stats()['promotions']}; JAX and the port "
+                "deny every one at this width")
+        kv.set_admit_threshold(0)  # the live knob opens the gate
+    for _ in range(3):
+        _, miss = admit_gets(sm, kv, zipf, f"{label} zipf")
+        if miss:
+            raise AssertionError(f"{label}: {miss} zipf keys missed")
+    if gated:
+        kv.set_admit_threshold(STORE_ADMIT["threshold"])
+    before = admit_resident(sm, kv, zipf)
+    if before != len(zipf):
+        raise AssertionError(f"{label}: {before} of {len(zipf)} zipf keys "
+                             "promoted before the scan")
+    for i in range(0, len(scan), STORE_GET_B):
+        kv.insert(scan[i:i + STORE_GET_B], sm.pages_of(
+            scan[i:i + STORE_GET_B], pw))
+    misses = 0
+    for p in range(2):
+        misses += admit_gets(sm, kv, scan, f"{label} scan pass {p}")[1]
+    torch.cuda.synchronize()
+    launches = fused.launches["fused_get_linear_tiered"]
+    s, ts = kv.stats(), kv.tier_stats()
+    if launches != count.n:
+        raise AssertionError(f"{label}: {launches} fused-GET launches for "
+                             f"{count.n} GETs")
+    if s["misses"] != sum(s[c] for c in sm.kv_mod.MISS_CAUSE_NAMES):
+        raise AssertionError(f"{label}: misses != the sum of the causes")
+    if misses > s["evictions"] + s["drops"]:
+        raise AssertionError(f"{label}: {misses} scan misses > evictions "
+                             f"{s['evictions']} + drops {s['drops']}")
+    return dict(kv=kv, hot=h, zipf=len(zipf), scan=len(scan),
+                refused=refused, resident=admit_resident(sm, kv, zipf),
+                denied=(kv.admit_state() or {}).get("admit_denied", 0)
+                - refused,
+                gets=count.n, launches=launches, scan_misses=misses, **ts)
+
+
+def store_admit(sm, smi: str) -> dict:
+    """Part (e): `tests/test_admit.py`'s scan-flood drill at the serving
+    widths: the gated and the gateless builds, held to the drill's
+    invariants -> its kernel entry."""
+    torch = sm.torch
+    t0 = time.monotonic()
+    g = admit_run(sm, gated=True)
+    kv = g.pop("kv")
+    t = uncounted(sm.fused, lambda: plane_kernel(
+        sm, kv.state, store_held(sm, kv, STORE_ADMIT_HI).cpu().numpy(),
+        kv.config.page_words, [STORE_VERB], "store (e) gated", smi,
+        hi=STORE_ADMIT_HI))[STORE_VERB]
+    del kv
+    free_card(torch)
+    n = admit_run(sm, gated=False)
+    del n["kv"]
+    free_card(torch)
+    floor = g["zipf"] * 3 // 4
+    if not (g["denied"] > 0 and g["resident"] >= floor
+            and g["admit_ghost_override"] <= g["ghost_readmits"]):
+        raise AssertionError(
+            f"store (e): the gate denied {g['denied']} scan promotions; the "
+            f"zipf set kept {g['resident']} of {g['zipf']} hot rows (floor "
+            f"{floor}); ghost override {g['admit_ghost_override']} of "
+            f"{g['ghost_readmits']} readmits")
+    if not (n["resident"] < g["resident"]
+            and n["demotions"] > g["demotions"]):
+        raise AssertionError(
+            f"store (e): without the gate the zipf set kept {n['resident']} "
+            f"hot rows ({g['resident']} gated) after {n['demotions']} "
+            f"demotions ({g['demotions']} gated)")
+    secs = time.monotonic() - t0
+    log("store", f"(e) scan flood on linear·tiered, {g['hot']} hot rows: a "
+        f"zipf set of {g['zipf']} keys, a scan of {g['scan']} put and read "
+        f"twice in {STORE_VERB}-key GETs; gated (sketch 2^10, door 2^11, "
+        f"reset_ops {STORE_ADMIT['reset_ops']}, threshold "
+        f"{STORE_ADMIT['threshold']}): the zipf GETs at threshold "
+        f"{STORE_ADMIT['threshold']} denied {g['refused']} of {g['zipf']} "
+        f"promotions as JAX does, promoted at threshold 0; then the "
+        f"scan was denied {g['denied']} promotions, the zipf set kept "
+        f"{g['resident']} of {g['zipf']} hot rows, {g['demotions']} demotions, ghost override "
+        f"{g['admit_ghost_override']} <= readmits {g['ghost_readmits']}; no "
+        f"gate: kept {n['resident']}, {n['demotions']} demotions; scan "
+        f"misses {g['scan_misses']} / {n['scan_misses']} (legal), every hit "
+        f"byte-exact; {g['launches']} + {n['launches']} fused-GET launches "
+        f"= {g['gets']} + {n['gets']} GETs; {secs:.1f} s ({smi})")
+    return plane_entry(sm, "store-admit", g["launches"] + n["launches"], t,
+                       name="fused_get_linear_tiered")
+
+
 def run_store(sm):
     """Phase 18: the store's own suites' card-only drills: (a) `KV` edges
     on linear·flat, (b) a tiered snapshot restored, (c) a 2 x 2 plane's
-    lane corrupted mid-soak, (d) breaker-driven auto-replacement -> its
-    kernel entries."""
+    lane corrupted mid-soak, (d) breaker-driven auto-replacement, (e) the
+    admission gate's scan flood -> its kernel entries."""
     import shutil
 
     torch = sm.torch
@@ -10405,10 +10568,13 @@ def run_store(sm):
         d = store_replace(sm, smi)
         times["d"] = time.monotonic() - t0
         a["launches"] += d
+        t0 = time.monotonic()
+        e_ = store_admit(sm, smi)
+        times["e"] = time.monotonic() - t0
     finally:
         free_card(torch)
         shutil.rmtree(root, ignore_errors=True)
-    for e in (a, b, c):
+    for e in (a, b, c, e_):
         log("store", f"{e['name']} ({e['path']}): kernel == plain, "
             f"{e['ms']:.4f} ms vs bound {e['bound_ms']:.4f} ms "
             f"({e['bound_ms'] / e['ms']:.0%}), plain {e['plain_ms']:.4f} ms; "
@@ -10419,8 +10585,8 @@ def run_store(sm):
         "status can arise")
     log("store", f"phase 18 took {time.monotonic() - t_phase:.1f} s: (a) "
         f"{times['a']:.1f} s, (b) {times['b']:.1f} s, (c) {times['c']:.1f} "
-        f"s, (d) {times['d']:.1f} s")
-    return [a, b, c]
+        f"s, (d) {times['d']:.1f} s, (e) {times['e']:.1f} s")
+    return [a, b, c, e_]
 
 
 def store_subprocess(seed: int):
@@ -10643,10 +10809,9 @@ def san_soak(sm, root: str, smi: str) -> dict:
     from pmdfc_tpu_torch.runtime import sanitizer as san
     from pmdfc_tpu_torch.runtime.failure import ChaosProxy
     from pmdfc_tpu_torch.runtime.net import NetServer, TcpBackend
-    from pmdfc_tpu_torch.tools import check_teledump as port_check
+    from pmdfc_tpu_torch.tools import check_teledump as checker
 
     fused = sm.fused
-    checker = port_check._schemas()
     cfg = KVConfig(index=IndexConfig(**SAN_INDEX),
                    bloom=BloomConfig(num_bits=SAN_BLOOM_BITS),
                    page_words=SAN_PAGE_WORDS, tier=TierConfig(**SAN_TIER))
@@ -10729,7 +10894,7 @@ def san_soak(sm, root: str, smi: str) -> dict:
         path = os.path.join(root, "msg_stats.json")
         with open(path, "w") as f:
             json.dump(doc, f)
-        if port_check.main([path]) != 0:
+        if checker.main([path]) != 0:
             fails.append("the port's check_teledump refused MSG_STATS")
         odd = [m for m in moves if m[1] != step or abs(m[3] - m[2]) > m[1]]
         if odd:

@@ -33,7 +33,7 @@ real KV for the end-to-end picture.
 Run: `python -m pmdfc_tpu_torch.bench.autotune_sweep --smoke` (CI hook
 `autotune_smoke`: short phases + machinery gate — the controller made
 clamped decisions, walked dwell down in the light phase, and the live
-teledump passes `tools/check_teledump.py` including the
+teledump passes `pmdfc_tpu_torch.tools.check_teledump` including the
 `check_autotune` envelope pins; the static run's teledump must carry
 NO ctl scope) or full.
 """
@@ -336,7 +336,7 @@ def main(argv=None) -> int:
         if dw is None or not (acfg.dwell_us_lo <= dw < 2000.0):
             errs.append(f"light-phase dwell {dw} did not walk down "
                         "inside the envelope")
-        from tools.check_teledump import check
+        from pmdfc_tpu_torch.tools.check_teledump import check
 
         errs += [f"autotune teledump: {e}"
                  for e in check(at["teledoc"])]

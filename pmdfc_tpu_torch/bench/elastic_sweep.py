@@ -24,7 +24,7 @@ The nodes' KVs are the port's on `--device` (default `cuda`). Every run
 holds the gates and exits 1 on a violation: zero wrong bytes, no serve
 error on any node, five transitions, pages moved, the moved share within
 2x the consistent-hashing expectation, the hit-rate ratio >= 0.75 and a
-teledump that passes `tools/check_teledump.py`.
+teledump that passes `pmdfc_tpu_torch.tools.check_teledump`.
 
 Run: `python -m pmdfc_tpu_torch.bench.elastic_sweep --smoke --device cpu`
 (tiny shapes) or with real sizes; `--history` appends a
@@ -335,7 +335,7 @@ def main(argv=None) -> int:
         with open(args.out, "w") as f:
             json.dump({k: v for k, v in out.items() if k != "teledoc"},
                       f, indent=2)
-    from tools.check_teledump import check
+    from pmdfc_tpu_torch.tools.check_teledump import check
 
     tele_errs = check(out["teledoc"]) if out.get("teledoc") else \
         ["no teledump pulled"]

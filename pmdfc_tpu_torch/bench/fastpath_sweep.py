@@ -255,7 +255,7 @@ def main(argv=None) -> int:
         # (incl. the fastpath hits+stale==reads invariant), and the
         # bypass beat the verb path at all (the full run's 1.3x
         # acceptance floor rides check_bench lanes, not the smoke)
-        from tools.check_teledump import check
+        from pmdfc_tpu_torch.tools.check_teledump import check
 
         tele_errs = check(teledoc)
         ctr = (teledoc.get("telemetry") or {}).get("counters") or {}

@@ -41,8 +41,9 @@ Run: `python -m pmdfc_tpu_torch.bench.qos_soak --smoke --device cpu`
 (short arms + machinery gate — the antagonist was shed at the edge with
 every shed attributed to `miss_shed` (`misses == sum of causes` on the
 wire doc), the compliant tenant's lane shed NOTHING, the live teledump
-passes `tools/check_teledump.py` including the `check_qos` lane pins,
-and the no-QoS arm's teledump carries no tenant scope at all) or full.
+passes `pmdfc_tpu_torch.tools.check_teledump` including the `check_qos`
+lane pins, and the no-QoS arm's teledump carries no tenant scope at all)
+or full.
 """
 
 from __future__ import annotations
@@ -369,7 +370,7 @@ def main(argv=None) -> int:
         # pins including check_qos, and the no-QoS arm carries no
         # tenant scope at all (the scope-iff-enabled conformance)
         from pmdfc_tpu_torch.kv import MISS_CAUSE_NAMES
-        from tools.check_teledump import check
+        from pmdfc_tpu_torch.tools.check_teledump import check
 
         errs = []
         good, bad = summary["lanes"]["good"], summary["lanes"]["bad"]

@@ -16,7 +16,7 @@ disabled hedging, the hedge walk, the migrate rate's static conformance,
 an SLO breach's revert and its flight dump, `KV.balloon_state`, the
 window gate, `set_window` live over `TcpBackend`, the window kept across a
 reconnect, and `check_autotune`'s pins, through the root checker and the
-port's `tools/check_teledump` alike.
+port's copy of it alike.
 """
 
 from __future__ import annotations
@@ -65,8 +65,8 @@ PORT = types.SimpleNamespace(
     ts=tts, backends=tbackends, replica=treplica, failure=tfailure,
     KV=lambda cfg: tkv.KV(cfg, device="cpu"))
 PKGS = (JAX, PORT)
-# the root checker, and the one the port's `tools/check_teledump` reaches
-CHECKERS = (jcheck, tcheck._schemas())
+# the root checker and the port's own copy of it
+CHECKERS = (jcheck, tcheck)
 
 
 def twin(drill, *args):

@@ -1,11 +1,12 @@
 """PyTorch port: the import rules.
 
 The port (`pmdfc_tpu_torch/`) and `chip_smoke.py` import neither JAX nor
-anything of the JAX package `pmdfc_tpu` (they keep their own copies of
-what they need), and importing the port builds and loads nothing: the
-CUDA kernel is compiled at its first launch, the engine at the first
-`Engine()`, from the port's own copy of its source — nothing under the
-top-level `native/` is opened, built or loaded.
+anything of the JAX package `pmdfc_tpu`, nor the JAX system's operator
+tools under the repo's root `tools/` (they keep their own copies of what
+they need, `pmdfc_tpu_torch.tools`), and importing the port builds and
+loads nothing: the CUDA kernel is compiled at its first launch, the
+engine at the first `Engine()`, from the port's own copy of its source —
+nothing under the top-level `native/` is opened, built or loaded.
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ def _imported_modules(path: Path) -> list[str]:
 
 def _forbidden(mod: str) -> bool:
     top = mod.split(".")[0]
-    return top in ("jax", "jaxlib", "pmdfc_tpu")
+    return top in ("jax", "jaxlib", "pmdfc_tpu", "tools")
 
 
 @pytest.mark.parametrize("path", SOURCES,
@@ -51,6 +52,27 @@ def test_forbidden_rule_tells_the_packages_apart():
     assert _forbidden("pmdfc_tpu.kv") and _forbidden("jax.numpy")
     assert _forbidden("pmdfc_tpu")
     assert not _forbidden("pmdfc_tpu_torch.kv")
+    assert _forbidden("tools.check_teledump") and _forbidden("tools")
+    assert not _forbidden("pmdfc_tpu_torch.tools.check_teledump")
+
+
+@pytest.mark.parametrize("line", [
+    "from tools.check_teledump import check",
+    "import tools.check_teledump as chk",
+    "from tools import tracetool",
+    "import tools",
+])
+def test_a_port_file_importing_the_root_tools_is_caught(tmp_path, line):
+    """A planted port file that reaches into the root `tools` package (the
+    JAX system's operator tools) fails the import rule; the same file
+    importing the port's own copies passes."""
+    bad = tmp_path / "pmdfc_tpu_torch" / "bench" / "planted.py"
+    bad.parent.mkdir(parents=True)
+    bad.write_text(f"def gate(doc):\n    {line}\n    return doc\n")
+    assert [m for m in _imported_modules(bad) if _forbidden(m)]
+    bad.write_text("def gate(doc):\n    from pmdfc_tpu_torch.tools."
+                   "check_teledump import check\n    return check(doc)\n")
+    assert not [m for m in _imported_modules(bad) if _forbidden(m)]
 
 
 def test_importing_the_port_builds_nothing_and_pulls_no_jax():
@@ -129,8 +151,8 @@ print("ok")
 
 def test_operator_tools_run_where_jax_is_absent(tmp_path):
     """In interpreters where importing jax or pmdfc_tpu raises (the
-    prelude `chip_smoke.py` gives phase 16's children): the root tools the
-    smoke and the port's docs lean on import, `python -m
+    prelude `chip_smoke.py` gives phase 16's children): the port's operator
+    tools the smoke and the port's docs lean on import, `python -m
     pmdfc_tpu_torch.tools.teledump --local --out` writes this process's
     registry, and `python -m pmdfc_tpu_torch.tools.check_teledump` passes
     the document it wrote."""
@@ -143,7 +165,9 @@ def test_operator_tools_run_where_jax_is_absent(tmp_path):
         return proc.stdout
 
     out = run([sys.executable, "-c", chip_smoke.NO_JAX_PRELUDE + (
-        "import tools.check_teledump, tools.tracetool, tools.proftool\n"
+        "import pmdfc_tpu_torch.tools.check_teledump\n"
+        "import pmdfc_tpu_torch.tools.tracetool\n"
+        "import pmdfc_tpu_torch.tools.proftool\n"
         "try:\n    import jax\nexcept ImportError:\n    print('refused')\n")])
     assert out.strip() == "refused"
     doc = tmp_path / "local.json"

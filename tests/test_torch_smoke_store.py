@@ -8,13 +8,16 @@ compacted GET and a snapshot restored into a fresh `KV`, (c) a 2 x 2
 plane behind the coalescing `NetServer` whose lane 1 is corrupted
 mid-soak, MSG_RREPAIR, three `ReplicaGroup`s, the `PMDFC_MESH2D=off`
 transcript and an unpaged 2 x 2 plane, (d) breaker-driven
-auto-replacement of a killed node. Here it runs at 2^12 slots, 64-word
-pages and 128-key verbs, with the card-only calls stood in for as
-`tests/test_torch_smoke.py` stands them in. Five planted faults show the
-phase fails when a compacted GET returns a poisoned row, when a recycled
-pool row serves the evicted key's page, when the corrupted lane's bytes
-are served, when a tiered restore loses a promoted key and when the
-auto-replacement never fires.
+auto-replacement of a killed node, (e) the admission gate's scan flood
+on a gated and a gateless tiered `KV`. Here it runs at 2^12 slots,
+64-word pages and 128-key verbs, with the card-only calls stood in for
+as `tests/test_torch_smoke.py` stands them in. Seven planted faults show
+the phase fails when a compacted GET returns a poisoned row, when a
+recycled pool row serves the evicted key's page, when the corrupted
+lane's bytes are served, when a tiered restore loses a promoted key,
+when the auto-replacement never fires, when the gate's threshold is
+forced to 0 and when a GET of the scan flood serves one wrong page (the
+last two call part (e) alone).
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ STORE_TINY = (
     ("STORE_NODE_INDEX", dict(capacity=1 << 12)),
     ("STORE_NODE_BLOOM_BITS", 1 << 15),
     ("STORE_NODE_KEYS", 1 << 10),
+    ("STORE_ADMIT_SCAN", 4),
 )
 
 
@@ -63,10 +67,10 @@ def store(smoke, monkeypatch, tmp_path):  # noqa: F811
 def test_store_phase_and_its_kernels_line(store, capsys):
     entries = chip_smoke.run_store(store)
     assert [e["path"] for e in entries] == ["store", "store-tiered",
-                                            "store-2x2"]
+                                            "store-2x2", "store-admit"]
     assert [e["name"] for e in entries] == [
         "fused_get_linear_flat", "fused_get_linear_tiered",
-        "fused_get_linear_flat"]
+        "fused_get_linear_flat", "fused_get_linear_tiered"]
     for e in entries:
         assert set(e) == KEYS
         assert e["launches"] > 0 and e["max_abs_err"] == 0
@@ -82,6 +86,8 @@ def test_store_phase_and_its_kernels_line(store, capsys):
                    "transcript equal to a plain plane's",
                    "an unpaged 2 x 2 plane served",
                    "one repair tick replaced it (auto_replacements 1",
+                   "(e) scan flood on linear·tiered, 512 hot rows",
+                   "denied 256 of 256 promotions as JAX does",
                    "gates: no wrong byte", "kernel == plain",
                    "phase 18 took"):
         assert needle in out, needle
@@ -184,3 +190,35 @@ def test_store_fails_when_the_auto_replacement_never_fires(store,
                         lambda self: None)
     with pytest.raises(AssertionError, match="auto-replacement fired 0"):
         chip_smoke.run_store(store)
+
+
+def test_store_fails_when_the_gate_threshold_is_forced_to_zero(
+        store, monkeypatch):
+    """`KV.set_admit_threshold` sets 0 whatever it is asked: the gate the
+    scan meets admits every candidate, so it denies none."""
+    real = tkv.KV.set_admit_threshold
+    monkeypatch.setattr(tkv.KV, "set_admit_threshold",
+                        lambda self, value: real(self, 0))
+    with pytest.raises(AssertionError,
+                       match="store \\(e\\): the gate denied 0"):
+        chip_smoke.store_admit(store, "CPU rehearsal")
+
+
+def test_store_fails_when_a_scan_get_serves_a_wrong_page(store,
+                                                         monkeypatch):
+    """The first GET of the scan flood's keys that hits serves its first
+    hit with one word flipped."""
+    real = tkv.KV.get
+    armed = [True]
+
+    def flipped(self, keys, *a, **kw):
+        out, found = real(self, keys, *a, **kw)
+        scan = int(keys[0, 1]) >= chip_smoke.NEVER_LO // 2
+        if armed[0] and scan and bool(found.any()):
+            armed[0] = False
+            out[found.nonzero()[0, 0], 0] ^= 1
+        return out, found
+
+    monkeypatch.setattr(tkv.KV, "get", flipped)
+    with pytest.raises(AssertionError, match="store \\(e\\).*wrong page"):
+        chip_smoke.store_admit(store, "CPU rehearsal")

@@ -383,7 +383,7 @@ def test_rung3_phase_failure_dump_attributes_conn_and_phase(tmp_path,
         assert d["detail"]["conns"]
         assert any(r.get("conn") in d["detail"]["conns"] for r in fails)
         assert d["telemetry"]["counters"]["rung.phase_failure"] >= 1
-        assert [c.check_flight(d) for c in (jcheck, tcheck._schemas())] \
+        assert [c.check_flight(d) for c in (jcheck, tcheck)] \
             == [[], []]
         return (d["schema"], d["rung"], d["detail"]["phase"],
                 len(d["detail"]["conns"]), d["detail"]["ops"] >= 1,

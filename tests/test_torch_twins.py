@@ -24,7 +24,8 @@ pytestmark = pytest.mark.torch
 TESTS = Path(__file__).resolve().parent
 
 TWINS = {
-    "test_admit.py": ("test_torch_tier.py", "test_torch_env_switches.py"),
+    "test_admit.py": ("test_torch_tier.py", "test_torch_env_switches.py",
+                      "test_torch_admit_drills.py"),
     "test_analyze.py": ("test_torch_analyze.py",
                         "test_torch_analyze_drills.py",
                         "test_torch_sanitizer_drills.py"),
@@ -38,13 +39,14 @@ TWINS = {
     "test_bf_push.py": ("test_torch_bf_push.py", "test_torch_client.py"),
     "test_bloom.py": ("test_torch_pool_bloom.py", "test_torch_client.py",
                       "test_torch_bloom_drills.py"),
-    "test_cceh.py": ("test_torch_cceh.py",),
+    "test_cceh.py": ("test_torch_cceh.py", "test_torch_cceh_drills.py"),
     "test_chaos.py": ("test_torch_chaos.py",),
     "test_client.py": ("test_torch_client.py",),
     "test_containment.py": ("test_torch_containment.py",
                             "test_torch_bench_faults.py"),
     "test_durability.py": ("test_torch_checkpoint.py",
-                           "test_torch_journal.py"),
+                           "test_torch_journal.py",
+                           "test_torch_durability_drills.py"),
     "test_elastic.py": ("test_torch_ring.py", "test_torch_replica.py",
                         "test_torch_replica_rejoin.py",
                         "test_torch_bench_elastic.py",
@@ -53,10 +55,13 @@ TWINS = {
                         "test_torch_failure_ladder.py"),
     "test_fastpath.py": ("test_torch_fastpath.py", "test_torch_kv_surface.py",
                          "test_torch_net.py"),
-    "test_fused.py": ("test_torch_fused.py",),
-    "test_hashing.py": ("test_torch_hashing.py",),
-    "test_hotring.py": ("test_torch_hotring.py",),
+    "test_fused.py": ("test_torch_fused.py", "test_torch_fused_drills.py"),
+    "test_hashing.py": ("test_torch_hashing.py",
+                        "test_torch_hashing_drills.py"),
+    "test_hotring.py": ("test_torch_hotring.py",
+                        "test_torch_hotring_drills.py"),
     "test_index_conformance.py": ("test_torch_conformance.py",
+                                  "test_torch_index_conformance_drills.py",
                                   "test_torch_families.py",
                                   "test_torch_kv_family_paths.py",
                                   "test_torch_kv_family_paths_path.py",
@@ -72,7 +77,8 @@ TWINS = {
     "test_linear.py": ("test_torch_linear.py", "test_torch_linear_drills.py",
                        "test_torch_rowinsert.py"),
     "test_mesh.py": ("test_torch_plane.py", "test_torch_shard.py",
-                     "test_torch_partitioning.py"),
+                     "test_torch_partitioning.py",
+                     "test_torch_mesh_drills.py", "test_torch_mesh_ckpt.py"),
     "test_mesh2d.py": ("test_torch_mesh2d.py",
                        "test_torch_mesh2d_drills.py"),
     "test_multihost.py": ("test_torch_multihost.py",
@@ -128,6 +134,19 @@ _ATD = "test_torch_autotune_drills.py::"
 _AT = "test_torch_autotune.py::"
 _WALK = (_AT + "test_controllers_walk_identically",)
 _TLD = "test_torch_telemetry_drills.py::"
+_FD = "test_torch_fused_drills.py::"
+_TF = "test_torch_fused.py::"
+_HD = "test_torch_hashing_drills.py::"
+_CD = "test_torch_cceh_drills.py::"
+_HR = "test_torch_hotring.py::"
+_HRD = "test_torch_hotring_drills.py::"
+_ICD = "test_torch_index_conformance_drills.py::"
+_ADM = "test_torch_admit_drills.py::"
+_MD = "test_torch_mesh_drills.py::"
+_MCK = "test_torch_mesh_ckpt.py::"
+_JR = "test_torch_journal.py::"
+_CK = "test_torch_checkpoint.py::"
+_DD = "test_torch_durability_drills.py::"
 _RING = ("test_torch_ring.py::test_ring_matches_jax",)
 _HERMETIC = ("test_torch_replica.py::test_hermetic_drill_matches_jax",)
 _VERBS = (_SH + "test_sharded_verbs_match_jax",)
@@ -545,7 +564,155 @@ DRILLS = {
         "test_msg_stats_ships_registry_and_schema_conforms",
         "test_reconnecting_client_counters_shim_removed",
         "test_integrity_backend_namespaces_wrapper_counters")},
-
+    "test_fused.py": {
+        "test_fused_core_parity_representative":
+            (_FD + "test_fused_core_parity_representative",
+             _TF + "test_get_core_stats_match_both_jax_programs"),
+        # slow: phase 3 holds every variant against its plain version on
+        # every miss cause, and every path since (phases 4-18) again
+        "test_fused_core_parity_full_grid":
+            (_FD + "test_fused_core_parity_full_grid",
+             _TF + "test_tiered_get_core_matches_jax_composed"),
+        # slow: phase 8's recovering window and phase 9's restarted node
+        "test_fused_core_parity_recovering":
+            (_FD + "test_fused_core_parity_recovering",),
+        # slow: phase 3's digest cause, phase 14's pool poisoned in place
+        "test_fused_digest_cause_matches_composed":
+            (_FD + "test_fused_digest_cause_matches_composed",),
+        "test_fused_kv_stats_parity_and_reconcile":
+            (_FD + "test_fused_kv_stats_parity_and_reconcile",),
+        # the recorded differences: no PMDFC_FUSED, no KVConfig.fused_get,
+        # no recompile counters in the port
+        "test_fused_mode_env_parsing_is_strict":
+            (_FD + "test_fused_mode_env_parsing_is_strict_in_jax_and_"
+                   "absent_in_port",),
+        "test_fused_config_field_validated":
+            (_FD + "test_fused_config_field_validated_in_jax_and_absent_"
+                   "in_port",),
+        "test_unsupported_configs_ride_composed":
+            (_FD + "test_unsupported_configs_ride_composed",),
+        "test_fused_cold_rung_bumps_program_and_kernel_once":
+            (_FD + "test_fused_cold_rung_counts_in_jax_and_not_in_port",),
+        # slow: phase 13's fused_get harness (kernel side == composed chain
+        # bit for bit) and phase 10's 4-shard plane through the kernel
+        "test_fused_off_kill_switch_plane_is_conformant":
+            (_FD + "test_fused_off_kill_switch_plane_is_conformant",),
+    },
+    "test_hashing.py": {name: (_HD + name,) for name in (
+        "test_hash_deterministic_and_seed_sensitive",
+        "test_hash_distribution_uniform",
+        "test_hash_multi_independent",
+        "test_key_pack_roundtrip_and_invalid")},
+    "test_cceh.py": {name: (_CD + name,) for name in (
+        "test_roundtrip_no_split",
+        "test_split_grows_segments_and_keeps_entries",
+        "test_eviction_fallback_when_headroom_exhausted",
+        "test_update_in_place_and_delete",
+        "test_duplicate_keys_in_batch_last_wins",
+        "test_recovery_repairs_corrupt_directory",
+        "test_paged_kv_pages_survive_splits",
+        "test_kv_facade_end_to_end_with_cceh")},
+    "test_hotring.py": {
+        "test_shift_promotes_hot_keys_to_mirror":
+            (_HR + "test_shift_promotes_hot_keys_to_mirror",),
+        "test_mirror_never_serves_stale_values":
+            (_HR + "test_mirror_never_serves_stale_values",),
+        "test_decay_runs_shift":
+            (_HR + "test_decay_halves_and_runs_the_shift",),
+        # slow: at the JAX drill's own 700 keys; no phase on the card
+        # rehashes a HotRing index (ROADMAP Queue 1)
+        "test_rehash_splits_by_tag_half_losslessly":
+            (_HR + "test_rehash_splits_by_tag_half_losslessly",),
+        "test_facade_skew_workload_end_to_end":
+            (_HRD + "test_facade_skew_workload_end_to_end",),
+        "test_sampled_touch_counts_one_in_n":
+            (_HRD + "test_sampled_touch_counts_one_in_n",),
+    },
+    "test_index_conformance.py": {name: (_ICD + name,) for name in (
+        "test_roundtrip_and_update",
+        "test_delete_returns_old_value",
+        "test_duplicates_last_wins",
+        "test_clean_cache_accounting_under_pressure",
+        "test_padding_keys_are_noops",
+        "test_scan_powers_find_anyway",
+        "test_paged_kv_integration",
+        "test_hotring_prefers_evicting_cold_entries",
+        "test_hotring_decay_halves_counters",
+        "test_get_values_matches_get_batch")},
+    "test_admit.py": {
+        **{name: (_ENV + name,) for name in (
+            "test_admit_env_resolution",
+            "test_admit_off_bit_identical_conformance")},
+        "test_scan_flood_denied_and_zipf_residency_holds":
+            (_ADM + "test_scan_flood_denied_and_zipf_residency_holds",
+             _ADM + "test_scan_flood_at_a_get_wider_than_the_epoch_shared_"
+                    "by_both"),
+        **{name: (_ADM + name,) for name in (
+            "test_sketch_doorkeeper_then_cm_and_invalid_lanes",
+            "test_sketch_aging_halves_cm_and_clears_doorkeeper",
+            "test_ghost_override_readmits_below_threshold",
+            "test_put_is_a_touch",
+            "test_restore_restart_empty_matrix",
+            # slow: at the JAX drill's own 48 keys; no phase on the card
+            # restores or reshards a gated plane (ROADMAP Queue 1)
+            "test_sharded_restore_and_reshard_restart_empty",
+            "test_stats_surfaces_and_wire_pins",
+            "test_autotune_admit_knob_registration_and_walks",
+            "test_autotune_admit_knob_cadence_exemption",
+            "test_autotune_no_gate_no_knob",
+            "test_axis_rules_cover_admit_leaves")},
+    },
+    "test_mesh.py": {
+        **{name: (_MD + name,) for name in (
+            "test_axis_rules_cover_every_leaf",
+            "test_rules_validate_against_mesh",
+            "test_sharded_kv_rejects_bad_rules",
+            "test_router_binning_is_loss_free_and_stable",
+            "test_plane_matches_single_device_results",
+            "test_plane_per_shard_attribution_sums_to_truth",
+            "test_plane_backend_telemetry_and_warmup_are_stat_clean",
+            "test_plane_counting_path_still_migrates_tier",
+            # slow: phases 8 and 10 serve the single-device wire and the
+            # 4-shard plane behind the coalescing NetServer
+            "test_mesh_plane_bit_identical_to_single_device_serving",
+            "test_mesh_off_kill_switch_is_conformant",
+            "test_kvserver_mesh_mode_serves_engine_verbs",
+            "test_kvserver_mesh_respects_kill_switch",
+            # slow: no phase on the card reshards an unpaged plane or a
+            # tiered one (ROADMAP Queue 1)
+            "test_unpaged_reshard_keeps_values_and_extents",
+            "test_tiered_reshard_drops_only_stale")},
+        # 2 -> 3 and 8 -> 4 slow: the card reshards 4 -> 8 (phase 10),
+        # 2 -> 4 (phase 12 (a)) and 4 -> 2 (phase 16), not these two
+        "test_reshard_restore_loses_nothing":
+            (_MD + "test_reshard_restore_loses_nothing",
+             _MCK + "test_reshard_restore_loses_nothing_like_jax"),
+        "test_reshard_restore_rejects_mismatched_config":
+            (_MCK + "test_reshard_restore_rejects_mismatched_config",),
+    },
+    "test_durability.py": {
+        **{name: (_JR + name,) for name in (
+            "test_keyjournal_bounded_set",
+            "test_journal_seq_resumes_in_fresh_segment",
+            "test_journal_replay_idempotent_no_resurrection",
+            "test_torn_tail_truncated_and_counted",
+            "test_corrupt_history_refused",
+            "test_recovery_state_travels_the_wire",
+            "test_server_checkpoint_delta_and_health",
+            # slow: phase 9's crashbox kills and phase 17's kill and restore
+            "test_crashbox_sigkill_torn_tail_drill")},
+        **{name: (_CK + name,) for name in (
+            "test_delta_chain_roundtrip_and_refusals",
+            "test_restore_refusal_names_the_leaf")},
+        **{name: (_DD + name,) for name in (
+            "test_miss_recovering_attribution_and_ledger",
+            "test_warm_restart_end_to_end",
+            "test_warm_restart_empty_chain_replays_from_start",
+            "test_ring_rejoin_bumps_epoch_same_members",
+            # slow: phases 10 and 12 (a) restore a chain with restore_chain
+            # onto as many shards as wrote it; none onto fewer (ROADMAP)
+            "test_reshard_after_restore_chain")},
+    },
 }
 
 

@@ -86,6 +86,17 @@ def counters(st) -> dict:
     return {k: int(v) for k, v in st.items() if k != "uptime_s"}
 
 
+def bits(x) -> np.ndarray:
+    """A result or leaf of either package (a tensor or an array) as int64
+    of its 32-bit pattern: the port's int32 bits of u32 words, JAX's
+    uint32 words and both packages' int32 slots compare alike. Bools stay
+    bools."""
+    if hasattr(x, "numpy") and not isinstance(x, np.ndarray):
+        x = x.numpy()
+    a = np.asarray(x)
+    return a if a.dtype == bool else a.astype(np.int64) & 0xFFFFFFFF
+
+
 def same(a, b, where: str = "") -> None:
     """Deep equality of two packages' transcripts: arrays (and numpy
     scalars) by dtype, shape and value, sequences and dicts item by item,
