@@ -9508,6 +9508,19 @@ STORE_ADMIT = dict(sketch_width=1 << 10, door_bits=1 << 11, reset_ops=64,
                    threshold=2)
 STORE_ADMIT_SCAN = 4
 STORE_ADMIT_HI = 0xCA700000  # (e): zipf (hi, 1..), scan (hi, NEVER_LO - n..)
+# (f): `tests/test_replica.py`'s slow-primary hedge and multi-endpoint
+# chaos soak on (d)'s nodes, each behind a ChaosProxy: the hedge drill's
+# hedge_ms and armed delay, the soak's rates, breaker and kill/restore
+# schedule, its 520 steps cut to STORE_SOAK_STEPS (the schedule scaled)
+STORE_REPLICA_KEYS = 1 << 13  # (f): keys put through the group
+STORE_REPLICA_HI = 0xCA800000
+STORE_HEDGE_MS = 40.0
+STORE_HEDGE_DELAY_S = 0.6     # (f1): the delay armed on one frame of node 0
+STORE_SOAK_RATES = {"flip": 0.02, "truncate": 0.01, "duplicate": 0.02,
+                    "delay": 0.01}
+STORE_SOAK_STEPS = 16  # 52, 36, 24 steps took 9.4, 8.8, 8.9 s of (f) on the card
+STORE_SOAK_SCHEDULE = ((60, "kill", 2), (200, "restore", 2),
+                       (280, "kill", 0), (420, "restore", 0))  # of 520
 
 
 def store_dir():
@@ -10259,18 +10272,26 @@ class StoreNodes:
         for _ in range(n):
             self.spawn()
 
-    def spawn(self) -> int:
+    def spawn(self, i: int | None = None) -> int:
+        """A node in a new slot, or cold in slot i (a restore in place)."""
         from pmdfc_tpu_torch.client import DirectBackend
         from pmdfc_tpu_torch.kv import KV
         from pmdfc_tpu_torch.runtime.net import NetServer
 
+        if i is None:
+            i = len(self.servers)
+            for xs in (self.kvs, self.servers, self.ports):
+                xs.append(None)
         kv = KV(self.cfg, device=DEVICE)
         self.counts.append(StoreLaunches(kv))
-        self.kvs.append(kv)
         srv = NetServer(lambda kv=kv: DirectBackend(kv)).start()
-        self.servers.append(srv)
-        self.ports.append(srv.port)
-        return len(self.servers) - 1
+        self.kvs[i], self.servers[i] = kv, srv
+        self.ports[i] = self.front(i, srv.port)
+        return i
+
+    def front(self, i: int, port: int) -> int:
+        """The port that node i's endpoint dials: its server's own."""
+        return port
 
     def stop(self, i: int) -> None:
         if self.servers[i] is not None:
@@ -10539,11 +10560,290 @@ def store_admit(sm, smi: str) -> dict:
                        name="fused_get_linear_tiered")
 
 
+class ReplicaNodes(StoreNodes):
+    """(f)'s nodes: (d)'s `NetServer`s over `KV`s on the card, each behind
+    its own `ChaosProxy` (seeded as `tests/test_replica.py`'s `_Cluster`
+    seeds them), killed and cold-restored in place: the endpoint dials the
+    live proxy's port. Every `KV` ever built keeps its GET count, and a
+    killed node's serve errors, cause sums and fired faults are kept. Each
+    endpoint keeps the keys of every copy it lost on the wire: a put it
+    dropped since its node's last restore (`lost_puts`), a repair read it
+    degraded to a miss (`lost_reads`: a GET on the thread that ticks
+    repair; the group's own GETs run on its pool)."""
+
+    def __init__(self, cfg, n: int, seed: int):
+        import threading
+
+        self.seed, self.rates = seed, {}
+        self.proxies: list = []
+        self.errors, self.fired, self.unbalanced = 0, 0, []
+        self.lost_puts: dict = {}
+        self.lost_reads: dict = {}
+        self.ticker = threading.get_ident()
+        super().__init__(cfg, n)
+
+    def front(self, i: int, port: int) -> int:
+        from pmdfc_tpu_torch.runtime.failure import ChaosProxy
+
+        px = ChaosProxy("127.0.0.1", port, seed=self.seed * 97 + i,
+                        rates=self.rates, delay_s=0.02, reorder_wait_s=0.05)
+        self.proxies += [None] * (i + 1 - len(self.proxies))
+        self.proxies[i] = px
+        self.lost_puts[i] = set()
+        return px.port
+
+    def endpoint(self, i: int):
+        import threading
+
+        import numpy as np
+
+        client = super().endpoint(i)
+        put, get = client.put, client.get
+        reads = self.lost_reads.setdefault(i, set())
+
+        def lost(keys) -> set:
+            return set(map(tuple, np.asarray(keys).reshape(-1, 2).tolist()))
+
+        def put_kept(keys, pages):
+            n = client.stats()["dropped_puts"]
+            put(keys, pages)
+            if client.stats()["dropped_puts"] != n:
+                self.lost_puts[i] |= lost(keys)
+
+        def get_kept(keys):
+            n = client.stats()["missed_gets"]
+            out = get(keys)
+            if threading.get_ident() == self.ticker \
+                    and client.stats()["missed_gets"] != n:
+                reads.update(lost(keys))
+            return out
+
+        client.put, client.get = put_kept, get_kept
+        return client
+
+    def set_rates(self, rates: dict) -> None:
+        self.rates = dict(rates)
+        for px in self.proxies:
+            if px is not None:
+                px.rates = dict(rates)
+
+    def settle(self, i: int, causes) -> None:
+        """Node i's serve errors, fired faults and cause sum, taken once
+        (before it is killed, or at the end)."""
+        st = self.kvs[i].stats()
+        if st["misses"] != sum(st[c] for c in causes):
+            self.unbalanced.append(i)
+        self.errors += int(self.servers[i].stats["serve_errors"])
+        self.fired += sum(v for k, v in self.proxies[i].stats.items()
+                          if k.endswith("_frames")
+                          and k != "forwarded_frames")
+
+    def kill(self, i: int, causes) -> None:
+        self.settle(i, causes)
+        self.proxies[i].close()
+        self.stop(i)
+        self.proxies[i] = self.kvs[i] = None
+
+    def close(self) -> None:
+        for px in self.proxies:
+            if px is not None:
+                px.close()
+        super().close()
+
+
+def replica_heal(g, i: int, probe, deadline_s: float = 10.0) -> bool:
+    """Probe the group until node i's breaker closes, then tick repair
+    until its queue drains -> whether both happened in time."""
+    from pmdfc_tpu_torch.runtime.failure import CircuitBreaker
+
+    end = time.monotonic() + deadline_s
+    while g.breakers[i].state != CircuitBreaker.CLOSED \
+            and time.monotonic() < end:
+        g.get(probe)
+        time.sleep(0.01)
+    while time.monotonic() < end:
+        g.repair_tick()
+        if not g._repair_pending:
+            return g.breakers[i].state == CircuitBreaker.CLOSED
+        time.sleep(0.01)
+    return False
+
+
+def store_replica(sm, smi: str) -> dict:
+    """Part (f): `tests/test_replica.py`'s two `slow` drills that no phase
+    ran, on three card-backed nodes of (d)'s size, each behind a
+    `ChaosProxy`, and one `ReplicaGroup` (rf 2, repair by ticks): (f1)
+    node 0's proxy slowed under a GET of keys it is primary for, (f2) the
+    rolling kill and cold restore under chaos on every endpoint -> its
+    kernel entry."""
+    import numpy as np
+
+    from pmdfc_tpu_torch.client.replica import ReplicaGroup
+    from pmdfc_tpu_torch.config import ReplicaConfig
+
+    torch, fused = sm.torch, sm.fused
+    causes = sm.kv_mod.MISS_CAUSE_NAMES
+    cfg = store_cfg(STORE_NODE_INDEX, STORE_NODE_BLOOM_BITS)
+    pw = cfg.page_words
+    t0 = time.monotonic()
+    nodes = ReplicaNodes(cfg, 3, seed=77)
+    g = ReplicaGroup([nodes.endpoint(i) for i in range(3)], page_words=pw,
+                     cfg=ReplicaConfig(
+                         n_replicas=3, rf=2, hedge_ms=STORE_HEDGE_MS,
+                         breaker_failures=4, breaker_cooldown_s=0.05,
+                         breaker_max_cooldown_s=0.4, repair_interval_s=0.0,
+                         repair_batch=STORE_VERB), seed=77)
+    torch.cuda.synchronize()
+    n0 = fused.launches["fused_get_linear_flat"]
+    keys = fail_keys(STORE_REPLICA_HI, np.arange(STORE_REPLICA_KEYS))
+    pages = pages_np(keys[:, 0], keys[:, 1], pw)
+    try:
+        for i in range(0, len(keys), STORE_VERB):
+            g.put(keys[i:i + STORE_VERB], pages[i:i + STORE_VERB])
+        # (f1): the keys whose primary is node 0; one armed delay on its
+        # proxy holds the GET's request frame (JAX arms 8 frames; the
+        # rest would hold (f2)'s first frames)
+        sub = keys[np.asarray(g._members(keys))[:, 0] == 0][:STORE_VERB]
+        every = np.ones(len(sub), bool)
+        if len(sub) < STORE_VERB:
+            raise AssertionError(f"store (f1): {len(sub)} keys have node 0 "
+                                 "for primary")
+        fail_check(*g.get(sub), sub, pw, "store (f1) warm GET",
+                   expect=every)
+        fired0 = dict(g.counters)["hedges_fired"]
+        nodes.proxies[0].delay_next(1, seconds=STORE_HEDGE_DELAY_S)
+        t1 = time.monotonic()
+        out, found = g.get(sub)
+        hedge_s = time.monotonic() - t1
+        hedges = dict(g.counters)["hedges_fired"] - fired0
+        fail_check(out, found, sub, pw, "store (f1) hedged GET",
+                   expect=every)
+        if hedges < 1 or hedge_s >= STORE_HEDGE_DELAY_S:
+            raise AssertionError(
+                f"store (f1): the GET of {len(sub)} keys behind node 0's "
+                f"slowed proxy fired {hedges} hedges and took {hedge_s:.3f} "
+                f"s (the armed delay {STORE_HEDGE_DELAY_S} s)")
+        f1_s = time.monotonic() - t0
+        # (f2): the soak's rates on every proxy, its schedule scaled
+        t2 = time.monotonic()
+        nodes.set_rates(STORE_SOAK_RATES)
+        sched = {round(s * STORE_SOAK_STEPS / 520): (act, i)
+                 for s, act, i in STORE_SOAK_SCHEDULE}
+        rng = np.random.default_rng(77)
+        gets = hits = 0
+        rejoined = []
+        for step in range(STORE_SOAK_STEPS):
+            act = sched.get(step)
+            if act is not None and act[0] == "kill":
+                nodes.kill(act[1], causes)
+            elif act is not None:
+                nodes.spawn(act[1])
+                rejoined.append(act[1])
+            g.repair_tick()
+            op = rng.integers(4)
+            lo = int(rng.integers(0, len(keys) - STORE_VERB))
+            sel = slice(lo, lo + STORE_VERB)
+            if op == 0:
+                g.put(keys[sel], pages[sel])
+            else:
+                out, found = g.get(keys[sel])
+                gets += 1
+                hits += fail_check(out, found, keys[sel], pw,
+                                   f"store (f2) GET at step {step}")
+        soak_s = time.monotonic() - t2
+        # the faults stop; each rejoined node probed back in and its repair
+        # drained
+        nodes.set_rates({})
+        healed = all(replica_heal(g, i, keys[:8]) for i in rejoined)
+        repaired = dict(g.counters)["repair_pages"]
+        for i in range(0, len(keys), STORE_VERB):
+            fail_check(*g.get(keys[i:i + STORE_VERB]), keys[i:i + STORE_VERB],
+                       pw, "store (f2) after the repair")
+        # a rejoined node holds every key the ring gives it that the key's
+        # other member holds, but for a copy the wire lost after its
+        # restore (a put dropped on it, a repair read degraded to a miss):
+        # the group sends no such copy again while the node's breaker stays
+        # closed (ROADMAP Queue 3 item 9), so those are counted, and any
+        # other lack fails
+        members = np.asarray(g._members(keys))
+        present = np.zeros((3, len(keys)), bool)
+        for n in range(3):
+            for j in range(0, len(keys), STORE_VERB):
+                sel = slice(j, j + STORE_VERB)
+                out, found = nodes.kvs[n].get(keys[sel])
+                fail_check(out, found, keys[sel], pw,
+                           f"store (f2) node {n} after the repair")
+                present[n, sel] = found
+        held, gap, unexplained = {}, {}, {}
+        for i in rejoined:
+            mine = (members == i).any(axis=1)
+            other = np.where(members[:, 0] == i, members[:, 1], members[:, 0])
+            own = mine & present[other, np.arange(len(keys))]
+            lack = set(map(tuple, keys[own & ~present[i]].tolist()))
+            reads = set().union(*(nodes.lost_reads[s] for s in range(3)
+                                  if s != i))
+            held[i] = (int((own & present[i]).sum()), int(own.sum()))
+            gap[i] = (len(lack & nodes.lost_puts[i]),
+                      len((lack & reads) - nodes.lost_puts[i]))
+            unexplained[i] = len(lack - nodes.lost_puts[i] - reads)
+        for i in range(3):
+            nodes.settle(i, causes)
+        torch.cuda.synchronize()
+        launches = fused.launches["fused_get_linear_flat"] - n0
+        asked = sum(c.n for c in nodes.counts)
+        if not (hits and nodes.fired and healed and repaired
+                and not any(unexplained.values()) and not nodes.errors
+                and not nodes.unbalanced and launches == asked):
+            raise AssertionError(
+                f"store (f2): {hits} hits in {gets} GETs; {nodes.fired} "
+                f"faults fired; healed {healed}, repair_pages {repaired}; "
+                f"rejoined nodes holding (held, owed) {held}, lacking "
+                f"(put lost, repair read lost) {gap} and {unexplained} "
+                f"keys whose every copy reached the wire; serve_errors "
+                f"{nodes.errors}; misses != the causes on "
+                f"{nodes.unbalanced}; {launches} fused-GET launches for "
+                f"{asked} GETs on the nodes")
+        kv = nodes.kvs[1]
+        t = uncounted(fused, lambda: plane_kernel(
+            sm, kv.state, store_held(sm, kv, STORE_REPLICA_HI).cpu().numpy(),
+            pw, [STORE_VERB], "store (f) node 1", smi,
+            hi=STORE_REPLICA_HI))[STORE_VERB]
+        counters = dict(g.counters)
+    finally:
+        g.close()
+        nodes.close()
+    log("store", f"(f1) slow primary: 3 nodes of {cfg.index.capacity} slots "
+        f"on {DEVICE}, each behind a ChaosProxy, one ReplicaGroup (rf 2, "
+        f"hedge_ms {STORE_HEDGE_MS}); {len(keys)} keys put; a GET of the "
+        f"{len(sub)} keys node 0 is primary for, its proxy holding the "
+        f"request {STORE_HEDGE_DELAY_S} s: {hedges} hedges fired, every key "
+        f"served byte-exact in {hedge_s * 1e3:.1f} ms; {f1_s:.1f} s ({smi})")
+    log("store", f"(f2) chaos soak: rates {STORE_SOAK_RATES} on every "
+        f"proxy, {STORE_SOAK_STEPS} steps of {STORE_VERB}-key verbs, node 2 "
+        f"killed and cold-restored, then node 0 (steps "
+        f"{sorted(sched)}); {hits} hits in {gets} GETs, no wrong byte, every "
+        f"miss zeroed; {nodes.fired} faults fired; {counters['hedges_fired']} "
+        f"hedges, {counters['failover_gets']} failover GETs; repair_pages "
+        f"{repaired} once the rejoined nodes were probed back in; rejoined "
+        f"nodes hold (held, owed) {held} of the keys the ring gives them "
+        f"that the other member holds, each lack a copy lost on the wire "
+        f"after the restore and never sent again (put lost, repair read "
+        f"lost) {gap} (ROADMAP Queue 3 item 9); misses == sum of the causes "
+        f"on every node; "
+        f"serve_errors 0; {launches} fused-GET launches = the nodes' "
+        f"{asked} GETs; soak {soak_s:.1f} s ({smi})")
+    log("store", f"(f) took {time.monotonic() - t0:.1f} s")
+    del nodes, g, kv
+    free_card(torch)
+    return plane_entry(sm, "store-replica", launches, t)
+
+
 def run_store(sm):
     """Phase 18: the store's own suites' card-only drills: (a) `KV` edges
     on linear·flat, (b) a tiered snapshot restored, (c) a 2 x 2 plane's
     lane corrupted mid-soak, (d) breaker-driven auto-replacement, (e) the
-    admission gate's scan flood -> its kernel entries."""
+    admission gate's scan flood, (f) the slow-primary hedge and the
+    multi-endpoint chaos soak -> its kernel entries."""
     import shutil
 
     torch = sm.torch
@@ -10571,10 +10871,13 @@ def run_store(sm):
         t0 = time.monotonic()
         e_ = store_admit(sm, smi)
         times["e"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        f = store_replica(sm, smi)
+        times["f"] = time.monotonic() - t0
     finally:
         free_card(torch)
         shutil.rmtree(root, ignore_errors=True)
-    for e in (a, b, c, e_):
+    for e in (a, b, c, e_, f):
         log("store", f"{e['name']} ({e['path']}): kernel == plain, "
             f"{e['ms']:.4f} ms vs bound {e['bound_ms']:.4f} ms "
             f"({e['bound_ms'] / e['ms']:.0%}), plain {e['plain_ms']:.4f} ms; "
@@ -10585,8 +10888,9 @@ def run_store(sm):
         "status can arise")
     log("store", f"phase 18 took {time.monotonic() - t_phase:.1f} s: (a) "
         f"{times['a']:.1f} s, (b) {times['b']:.1f} s, (c) {times['c']:.1f} "
-        f"s, (d) {times['d']:.1f} s, (e) {times['e']:.1f} s")
-    return [a, b, c, e_]
+        f"s, (d) {times['d']:.1f} s, (e) {times['e']:.1f} s, (f) "
+        f"{times['f']:.1f} s")
+    return [a, b, c, e_, f]
 
 
 def store_subprocess(seed: int):

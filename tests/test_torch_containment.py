@@ -9,7 +9,11 @@ the JAX suite marks `slow`, run here through the port at the JAX test's
 size and are held to its invariants: only the culprit NACKed, within
 `ceil(log2 b)` failures, no connection dropped, the resubmit refused;
 `miss_deadline` and `miss_quarantined` attributed with
-`misses == Σ miss_*` on every surface. Their full size runs on the card
+`misses == Σ miss_*` on every surface. Each of these eight runs the JAX
+drill itself first, on the same seeds and sizes, so both packages are
+held to its assertions, which pin exact values where the drill is
+deterministic (the negotiated bits, `poison_ops`, `poison_refused`, the
+quarantined shard's causes). Their full size runs on the card
 (`chip_smoke.py`, phase 14).
 """
 
@@ -21,9 +25,10 @@ import time
 
 import numpy as np
 import pytest
+import test_containment as jcont
 import torch_threads  # noqa: F401 (one torch thread a worker)
 from torch_twin import (JAX, PKGS, PORT, cause_sum,  # noqa: F401
-                        registries, stop)
+                        fresh_jax_registry, registries, stop)
 
 pytestmark = pytest.mark.torch
 
@@ -60,7 +65,10 @@ def _tcp(srv, **kw):
 # -- negotiation ------------------------------------------------------
 
 
+@pytest.mark.usefixtures("fresh_jax_registry")
 def test_nack_negotiation_and_kill_switch(monkeypatch):
+    jcont.test_nack_negotiation_and_kill_switch(monkeypatch)
+    monkeypatch.undo()
     srv, _ = _faulty_server()
     try:
         with _tcp(srv) as be:
@@ -84,11 +92,13 @@ def test_nack_negotiation_and_kill_switch(monkeypatch):
 # -- bisection + fingerprint refusal ----------------------------------
 
 
+@pytest.mark.usefixtures("fresh_jax_registry")
 def test_poison_bisection_isolates_culprit():
     """b = 4 connections fuse one flush with one poisoned op: only the
     culprit is NACKed, within ceil(log2 b) failures; every healthy op is
     served and no connection drops; the resubmit is refused at staging
     without a second isolation."""
+    jcont.test_poison_bisection_isolates_culprit()
     srv, plan = _faulty_server()
     bad = _keys(8, seed=101)
     plan.poison_keys(bad)
@@ -133,11 +143,13 @@ def test_poison_bisection_isolates_culprit():
         stop(srv)
 
 
+@pytest.mark.usefixtures("fresh_jax_registry")
 def test_poison_fingerprint_is_verb_seeded():
     """The fingerprint is CRC32 of the key batch seeded with the verb, the
     same u32 in both packages; through the port's server a GET for a
     poisoned PUT's keys is its own op (isolated, all-miss), and the GET's
     resubmit is then refused."""
+    jcont.test_poison_fingerprint_is_verb_seeded()
     keys = _keys(8, seed=7)
     digests = []
     for p in PKGS:
@@ -166,7 +178,10 @@ def test_poison_fingerprint_is_verb_seeded():
         stop(srv)
 
 
+@pytest.mark.usefixtures("fresh_jax_registry")
 def test_unnegotiated_peer_keeps_conn_drop_semantics(monkeypatch):
+    jcont.test_unnegotiated_peer_keeps_conn_drop_semantics(monkeypatch)
+    monkeypatch.undo()
     srv, plan = _faulty_server()
     bad = _keys(8, seed=7)
     plan.poison_keys(bad)
@@ -191,7 +206,9 @@ def test_unnegotiated_peer_keeps_conn_drop_semantics(monkeypatch):
 # -- deadlines --------------------------------------------------------
 
 
+@pytest.mark.usefixtures("fresh_jax_registry")
 def test_deadline_shed_lands_in_miss_deadline():
+    jcont.test_deadline_shed_lands_in_miss_deadline()
     p = PORT
     c = p.config
     kv = p.KV(c.KVConfig(index=c.IndexConfig(capacity=1 << 12),
@@ -217,7 +234,9 @@ def test_deadline_shed_lands_in_miss_deadline():
         stop(srv)
 
 
+@pytest.mark.usefixtures("fresh_jax_registry")
 def test_deadline_zero_means_none():
+    jcont.test_deadline_zero_means_none()
     srv, _ = _faulty_server(flush_timeout_us=100_000, settle_us=60_000)
     try:
         with _tcp(srv) as be:
@@ -390,12 +409,14 @@ def _assert_shards_reconciled(rep):
         assert int(rep["misses"][i]) == sum(int(rep[k][i]) for k in names)
 
 
+@pytest.mark.usefixtures("fresh_jax_registry")
 def test_plane_shard_quarantine_and_readmission():
     """A 4-shard plane on the CPU: kill one shard via the fault seam; its
     breaker trips, its rows degrade to `miss_quarantined` while the
     healthy shards serve, `misses == Σ miss_*` on `stats()` and on every
     row of `shard_report()`, and healing re-admits it through the
     half-open probe with its keys intact."""
+    jcont.test_plane_shard_quarantine_and_readmission()
     be, plan = _plane()
     skv = be.skv
     pool = _keys(128, seed=7)
@@ -446,7 +467,10 @@ def test_plane_shard_quarantine_and_readmission():
     assert be.quarantine.report()["stats"]["readmits"] >= 1
 
 
+@pytest.mark.usefixtures("fresh_jax_registry")
 def test_plane_containment_off_is_conformant(monkeypatch):
+    jcont.test_plane_containment_off_is_conformant(monkeypatch)
+    monkeypatch.undo()
     monkeypatch.setenv("PMDFC_CONTAINMENT", "off")
     be, plan = _plane(containment=False)
     assert be.quarantine is None

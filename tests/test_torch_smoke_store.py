@@ -9,21 +9,26 @@ plane behind the coalescing `NetServer` whose lane 1 is corrupted
 mid-soak, MSG_RREPAIR, three `ReplicaGroup`s, the `PMDFC_MESH2D=off`
 transcript and an unpaged 2 x 2 plane, (d) breaker-driven
 auto-replacement of a killed node, (e) the admission gate's scan flood
-on a gated and a gateless tiered `KV`. Here it runs at 2^12 slots,
+on a gated and a gateless tiered `KV`, (f) the slow-primary hedge and the
+rolling kill and restore under a `ChaosProxy` on every endpoint of three
+nodes. Here it runs at 2^12 slots,
 64-word pages and 128-key verbs, with the card-only calls stood in for
-as `tests/test_torch_smoke.py` stands them in. Seven planted faults show
+as `tests/test_torch_smoke.py` stands them in. Ten planted faults show
 the phase fails when a compacted GET returns a poisoned row, when a
 recycled pool row serves the evicted key's page, when the corrupted
 lane's bytes are served, when a tiered restore loses a promoted key,
 when the auto-replacement never fires, when the gate's threshold is
-forced to 0 and when a GET of the scan flood serves one wrong page (the
-last two call part (e) alone).
+forced to 0, when a GET of the scan flood serves one wrong page, when
+(f)'s hedge never fires, when a replica GET of (f)'s soak serves one
+wrong page and when a rejoined node lacks a key whose copies all reached
+the wire (the last five call part (e) or (f) alone).
 """
 
 from __future__ import annotations
 
 import json
 
+import numpy as np
 import pytest
 import torch_threads  # noqa: F401 (one torch thread a worker)
 import torch
@@ -53,6 +58,7 @@ STORE_TINY = (
     ("STORE_NODE_BLOOM_BITS", 1 << 15),
     ("STORE_NODE_KEYS", 1 << 10),
     ("STORE_ADMIT_SCAN", 4),
+    ("STORE_REPLICA_KEYS", 1 << 10),
 )
 
 
@@ -67,10 +73,12 @@ def store(smoke, monkeypatch, tmp_path):  # noqa: F811
 def test_store_phase_and_its_kernels_line(store, capsys):
     entries = chip_smoke.run_store(store)
     assert [e["path"] for e in entries] == ["store", "store-tiered",
-                                            "store-2x2", "store-admit"]
+                                            "store-2x2", "store-admit",
+                                            "store-replica"]
     assert [e["name"] for e in entries] == [
         "fused_get_linear_flat", "fused_get_linear_tiered",
-        "fused_get_linear_flat", "fused_get_linear_tiered"]
+        "fused_get_linear_flat", "fused_get_linear_tiered",
+        "fused_get_linear_flat"]
     for e in entries:
         assert set(e) == KEYS
         assert e["launches"] > 0 and e["max_abs_err"] == 0
@@ -88,6 +96,12 @@ def test_store_phase_and_its_kernels_line(store, capsys):
                    "one repair tick replaced it (auto_replacements 1",
                    "(e) scan flood on linear·tiered, 512 hot rows",
                    "denied 256 of 256 promotions as JAX does",
+                   "(f1) slow primary: 3 nodes of 4096 slots",
+                   "every key served byte-exact in",
+                   "(f2) chaos soak: rates", "faults fired",
+                   "of the keys the ring gives them that the other member holds",
+                   "never sent again (put lost, repair read lost)",
+                   "(f) took",
                    "gates: no wrong byte", "kernel == plain",
                    "phase 18 took"):
         assert needle in out, needle
@@ -222,3 +236,62 @@ def test_store_fails_when_a_scan_get_serves_a_wrong_page(store,
     monkeypatch.setattr(tkv.KV, "get", flipped)
     with pytest.raises(AssertionError, match="store \\(e\\).*wrong page"):
         chip_smoke.store_admit(store, "CPU rehearsal")
+
+
+def test_store_fails_when_the_hedge_never_fires(store, monkeypatch):
+    """`hedge_ms` forced past the armed delay: the slowed primary answers
+    before any hedge is due, so none fires and the GET waits it out."""
+    monkeypatch.setattr(chip_smoke, "STORE_HEDGE_MS",
+                        chip_smoke.STORE_HEDGE_DELAY_S * 2e3)
+    with pytest.raises(AssertionError, match="store \\(f1\\): .* fired 0 "
+                                             "hedges"):
+        chip_smoke.store_replica(store, "CPU rehearsal")
+
+
+def test_store_fails_when_a_replica_get_serves_a_wrong_page(store,
+                                                           monkeypatch):
+    """The first GET of (f)'s soak that hits serves its first hit with one
+    word flipped (the group's own digest check passed)."""
+    real = trep.ReplicaGroup.get
+    calls = [0]
+
+    def flipped(self, keys):
+        out, found = real(self, keys)
+        calls[0] += 1
+        if calls[0] > 2 and found.any() and calls[0] < 1 << 30:
+            calls[0] = 1 << 30
+            out = out.copy()
+            out[found.nonzero()[0][0], 0] ^= 1
+        return out, found
+
+    monkeypatch.setattr(trep.ReplicaGroup, "get", flipped)
+    with pytest.raises(AssertionError, match="store \\(f2\\) GET at step "
+                                             "[0-9]+: 1 hits served a wrong "
+                                             "page"):
+        chip_smoke.store_replica(store, "CPU rehearsal")
+
+
+def test_store_fails_when_a_rejoined_node_lacks_a_key_the_wire_delivered(
+        store, monkeypatch):
+    """Once each rejoined node is healed, one key the ring gives it is
+    deleted from it: no copy of that key was lost on the wire, so (f2)'s
+    holdings gate must count it as unexplained and fail."""
+    real = chip_smoke.replica_heal
+
+    def heal_then_drop(g, i, probe, **kw):
+        healed = real(g, i, probe, **kw)
+        keys = chip_smoke.fail_keys(chip_smoke.STORE_REPLICA_HI,
+                                    np.arange(chip_smoke.STORE_REPLICA_KEYS))
+        members = np.asarray(g._members(keys))
+        both = np.ones(len(keys), bool)
+        for e in range(3):
+            mine = (members == e).any(axis=1)
+            both[mine] &= g.endpoints[e].get(keys[mine])[1]
+        own = keys[both & (members == i).any(axis=1)]
+        g.endpoints[i].invalidate(own[:1])
+        return healed
+
+    monkeypatch.setattr(chip_smoke, "replica_heal", heal_then_drop)
+    with pytest.raises(AssertionError, match="store \\(f2\\): .* and "
+                                             "\\{(\\d+: \\d+, )*\\d+: [1-9]"):
+        chip_smoke.store_replica(store, "CPU rehearsal")

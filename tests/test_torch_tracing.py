@@ -45,6 +45,7 @@ import types
 
 import numpy as np
 import pytest
+import test_tracing as jtracing
 import torch_threads  # noqa: F401 (one torch thread a worker)
 from torch_twin import stop
 
@@ -782,7 +783,10 @@ def test_check_bench_gate_over_port_net_sweep_rows(net_sweep_rows, tmp_path):
     """A rerun of each port row lands in its own lane (secondary measured
     outputs like `best_wall_s` are not identity), so the gate compares
     it; a 20% drop of a throughput lane regresses, within-band drift
-    passes, and the CLI exits 1 then 0."""
+    passes, and the CLI exits 1 then 0. The JAX drill runs first, the
+    same gate over the JAX system's synthetic rows."""
+    (tmp_path / "jax").mkdir()
+    jtracing.test_check_bench_lane_regression_gate(tmp_path / "jax")
     rows, n = net_sweep_rows
     first, second = rows[:n], rows[n:]
     assert first and len(second) == n
@@ -807,7 +811,9 @@ def test_check_bench_port_transports_never_collapse(net_sweep_rows):
     """The sweep's lockstep and coalesced rows at the same connections,
     window and verb are distinct lanes (a 2x gap between them never
     fires), and every (transport, connections, window) point is its own
-    lane; within one lane the band still gates."""
+    lane; within one lane the band still gates. The JAX drill runs first,
+    over the fused GET sweep's paired kernel rows."""
+    jtracing.test_check_bench_fused_kernel_lanes_never_collapse()
     rows, n = net_sweep_rows
     first = rows[:n]
     lanes = {check_bench.lane_key(r) for r in first}

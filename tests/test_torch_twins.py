@@ -8,12 +8,20 @@ that runs it on both packages, or to an earlier port test that already
 held it. The tests parse the files with `ast` and fail when a JAX suite
 or one of those JAX drills has no entry, when an entry names a JAX file
 or function that is gone, or when a named port file or function does not
-exist. They read no benchmark file.
+exist. Every twinned suite is mapped drill by drill. For the 13 suites
+mapped last (`LAST_SUITES`) each named port test must also reach JAX's
+side in its own function (`_reaches_jax`: through `torch_twin`'s `JAX`,
+`PKGS` or `twin`, an import of `pmdfc_tpu` or of a JAX test module, a
+`pmdfc_tpu.*` module named for a child process, or a helper of the file
+that does), or stand in `EXEMPT` with its reason. They read no
+benchmark file.
 """
 
 from __future__ import annotations
 
 import ast
+import functools
+import re
 from pathlib import Path
 
 import pytest
@@ -32,7 +40,8 @@ TWINS = {
     "test_autotune.py": ("test_torch_autotune.py",
                          "test_torch_autotune_drills.py"),
     "test_aux.py": ("test_torch_policy_cache.py", "test_torch_logger.py",
-                    "test_torch_checkpoint.py", "test_torch_server.py"),
+                    "test_torch_checkpoint.py", "test_torch_server.py",
+                    "test_torch_aux_drills.py"),
     "test_bench_cert.py": "certifies the TPU history rows of the frozen "
                           "`bench.py` (BENCH_HISTORY.jsonl, BENCH_TPU_CERT."
                           "json); the port has no TPU history to certify",
@@ -40,8 +49,9 @@ TWINS = {
     "test_bloom.py": ("test_torch_pool_bloom.py", "test_torch_client.py",
                       "test_torch_bloom_drills.py"),
     "test_cceh.py": ("test_torch_cceh.py", "test_torch_cceh_drills.py"),
-    "test_chaos.py": ("test_torch_chaos.py",),
-    "test_client.py": ("test_torch_client.py",),
+    "test_chaos.py": ("test_torch_chaos.py", "test_torch_chaos_drills.py"),
+    "test_client.py": ("test_torch_client.py", "test_torch_client_drills.py",
+                       "test_torch_workloads.py"),
     "test_containment.py": ("test_torch_containment.py",
                             "test_torch_bench_faults.py"),
     "test_durability.py": ("test_torch_checkpoint.py",
@@ -82,30 +92,35 @@ TWINS = {
     "test_mesh2d.py": ("test_torch_mesh2d.py",
                        "test_torch_mesh2d_drills.py"),
     "test_multihost.py": ("test_torch_multihost.py",
-                          "test_torch_multihost_plane.py"),
+                          "test_torch_multihost_plane.py",
+                          "test_torch_multihost_drills.py"),
     "test_net.py": ("test_torch_net.py", "test_torch_net_drills.py",
                     "test_torch_net_pipes.py", "test_torch_failure.py"),
     "test_onesided.py": ("test_torch_onesided.py", "test_torch_net.py"),
     "test_pressure.py": ("test_torch_workloads.py",
-                         "test_torch_bench_sweeps.py"),
+                         "test_torch_bench_sweeps.py",
+                         "test_torch_pressure_drills.py"),
     "test_profiler.py": ("test_torch_profiler.py",),
-    "test_qos.py": ("test_torch_qos.py",),
+    "test_qos.py": ("test_torch_qos.py", "test_torch_qos_drills.py"),
     "test_replica.py": ("test_torch_replica.py",
                         "test_torch_replica_rejoin.py",
-                        "test_torch_bench_replica.py"),
-    "test_runtime.py": ("test_torch_engine.py", "test_torch_server.py"),
+                        "test_torch_bench_replica.py",
+                        "test_torch_replica_drills.py"),
+    "test_runtime.py": ("test_torch_engine.py", "test_torch_server.py",
+                        "test_torch_runtime_drills.py"),
     "test_shard.py": ("test_torch_shard.py", "test_torch_mesh_ckpt.py",
                       "test_torch_shard_drills.py",
                       "test_torch_partitioning.py"),
     "test_soak.py": ("test_torch_bench_soaks.py",
                      "test_torch_bench_sweeps.py",
-                     "test_torch_harnesses.py"),
+                     "test_torch_harnesses.py",
+                     "test_torch_soak_drills.py"),
     "test_telemetry.py": ("test_torch_telemetry.py", "test_torch_teletop.py",
                           "test_torch_telemetry_drills.py"),
     "test_tier.py": ("test_torch_tier.py", "test_torch_env_switches.py",
                      "test_torch_tier_drills.py"),
     "test_tracing.py": ("test_torch_tracing.py",),
-    "test_xray.py": ("test_torch_xray.py",),
+    "test_xray.py": ("test_torch_xray.py", "test_torch_xray_drills.py"),
 }
 
 _FP = "test_torch_fastpath.py::"
@@ -151,6 +166,22 @@ _RING = ("test_torch_ring.py::test_ring_matches_jax",)
 _HERMETIC = ("test_torch_replica.py::test_hermetic_drill_matches_jax",)
 _VERBS = (_SH + "test_sharded_verbs_match_jax",)
 _LINOPS = (_LIN + "test_linear_ops_match_jax",)
+_QOS = "test_torch_qos.py::"
+_QOSD = "test_torch_qos_drills.py::"
+_XR = "test_torch_xray.py::"
+_XRD = "test_torch_xray_drills.py::"
+_CH = "test_torch_chaos.py::"
+_CHD = "test_torch_chaos_drills.py::"
+_CO = "test_torch_containment.py::"
+_TR = "test_torch_tracing.py::"
+_SPANS = (_TR + "test_span_semantics_match_jax",)
+_CLD = "test_torch_client_drills.py::"
+_RTD = "test_torch_runtime_drills.py::"
+_PRD = "test_torch_pressure_drills.py::"
+_RPD = "test_torch_replica_drills.py::"
+_AXD = "test_torch_aux_drills.py::"
+_PC = "test_torch_policy_cache.py::"
+_PF = "test_torch_profiler.py::"
 
 DRILLS = {
     "test_fastpath.py": {
@@ -713,6 +744,283 @@ DRILLS = {
             # onto as many shards as wrote it; none onto fewer (ROADMAP)
             "test_reshard_after_restore_chain")},
     },
+    # -- the last 13 suites, in ROADMAP Queue 1's order --------------------
+    "test_qos.py": {
+        **{name: (_QOS + name,) for name in (
+            "test_tag_roundtrip_and_payload_preserved",
+            "test_client_tag_agrees_with_plane_tag",
+            "test_untagged_and_unregistered_resolve_to_default",
+            "test_token_bucket_all_or_nothing_and_unlimited",
+            "test_drr_composition_follows_weights",
+            "test_drr_serves_whole_ops_and_repays_debt",
+            "test_shed_ladder_lowest_priority_newest_first",
+            "test_shed_ladder_spares_nonsheddable_ops",
+            "test_kv_account_shed_keeps_causes_exact",
+            "test_sharded_account_shed_keeps_causes_exact",
+            "test_check_qos_accepts_consistent_lanes",
+            "test_check_qos_rejects_drift",
+            "test_check_qos_rejects_straggler_lanes",
+            "test_miss_shed_in_cause_taxonomy",
+            "test_autotune_registers_rate_limited_tenants_only",
+            "test_config_validation")},
+        # slow: phase 14 (c), the QoS edge shed at 2^11-page verbs
+        "test_wire_shed_drill_end_to_end":
+            (_QOSD + "test_wire_shed_drill_end_to_end",),
+        # slow: phase 14 (c), PMDFC_QOS=off
+        "test_qos_off_is_single_tenant_fifo":
+            (_QOSD + "test_qos_off_is_single_tenant_fifo",),
+        "test_lock_rank_and_module_coverage_pins":
+            (_QOSD + "test_lock_rank_and_module_coverage_pins",),
+    },
+    "test_xray.py": {
+        **{name: (_XR + name,) for name in (
+            "test_delta_tracker_windows",
+            "test_series_ring_wraparound_and_sparse_windows",
+            "test_slo_watchdog_breaches_on_shared_windows",
+            "test_causes_cold_vs_evicted_flat",
+            "test_causes_stale_and_digest_tiered",
+            "test_causes_parked_nopage",
+            "test_causes_get_extent_and_sharded_arbitration",
+            "test_kmv_exact_below_k_and_bounded_error_above",
+            "test_heat_sketch_finds_the_hot_region",
+            "test_prometheus_render_labels_shard_families")},
+        **{name: (_XRD + name,) for name in (
+            "test_series_concurrent_writers",
+            "test_collector_daemon_dies_with_registry_swap",
+            "test_snapshot_v2_carries_series_and_v1_fields",
+            "test_workload_window_rolls",
+            "test_check_teledump_pins_v2",
+            "test_slo_breach_dump_carries_series_tail",
+            # slow: phase 14 (b), 2^16 slots a shard
+            "test_xray_acceptance_soak_and_teletop")},
+    },
+    "test_chaos.py": {
+        **{name: (_CH + name,) for name in (
+            "test_chaos_soak_short",
+            "test_chaos_extent_verbs_degrade_to_drop_conn",
+            "test_chaos_stats_verb_degrades_to_drop_conn",
+            "test_chaos_soak_deterministic_schedule",
+            "test_chaos_soak_short_pipelined",
+            "test_chaos_pipelined_replies_match_seq_or_drop",
+            "test_soak_leaves_attributable_trace")},
+        # slow: phase 14 (a) runs the short soak (120 steps, one kill) at
+        # 2^18 slots; no phase runs the doubled rates or a second kill
+        "test_chaos_soak_long": (_CHD + "test_chaos_soak_long",),
+        # slow: phase 14 (a)'s windowed soak (120 steps, no kill); none
+        # with kills
+        "test_chaos_soak_long_pipelined":
+            (_CHD + "test_chaos_soak_long_pipelined",),
+        # slow: phase 14 (c), the reconnect storm's bounded backoff
+        "test_reconnect_storm_after_phase_failures_is_backoff_bounded":
+            (_CHD + "test_reconnect_storm_after_phase_failures_is_backoff_"
+                    "bounded",),
+        # slow: phase 14 (c), the NACKed ops' spans closed failed
+        "test_nacked_ops_close_spans_as_failed_v2_records":
+            (_CHD + "test_nacked_ops_close_spans_as_failed_v2_records",),
+    },
+    "test_containment.py": {
+        **{name: (_CO + name,) for name in (
+            "test_replica_group_deadline_stops_failover",
+            "test_faultplan_seam",
+            "test_faulty_backend_capability_mirror",
+            "test_shard_quarantine_unit")},
+        # the eight slow drills: phase 14 (c) runs each at 2^11-page verbs
+        **{name: (_CO + name,) for name in (
+            "test_nack_negotiation_and_kill_switch",
+            "test_poison_bisection_isolates_culprit",
+            "test_unnegotiated_peer_keeps_conn_drop_semantics",
+            "test_deadline_shed_lands_in_miss_deadline",
+            "test_deadline_zero_means_none",
+            "test_plane_shard_quarantine_and_readmission",
+            "test_plane_containment_off_is_conformant",
+            "test_poison_fingerprint_is_verb_seeded")},
+    },
+    "test_tracing.py": {
+        "test_span_begin_end_ambient_nesting": _SPANS,
+        "test_span_out_of_order_end_unwinds_stack": _SPANS,
+        "test_span_kill_switch": _SPANS,
+        "test_record_span_parents_off_ambient": _SPANS,
+        "test_pipelined_get_yields_nested_trace_and_chrome_export":
+            (_TR + "test_get_trace_shape_matches_jax",),
+        "test_hedge_fires_hedge_marked_attempt_span":
+            (_TR + "test_hedge_attempt_spans_match_jax",),
+        "test_cold_ladder_rung_increments_exactly_one_named_counter":
+            (_TR + "test_cold_ladder_rung_counts_in_jax_and_not_in_port",),
+        "test_plane_wrap_cache_miss_is_tracked":
+            (_TR + "test_plane_wrap_tracked_in_jax_and_not_in_port",),
+        "test_slo_burn_windows_and_starvation":
+            (_TR + "test_slo_burn_windows_and_starvation_match_jax",),
+        "test_attribute_stage_names_dominant_disjoint_stage":
+            (_TR + "test_attribute_stage_matches_jax",),
+        "test_slo_watchdog_restartable":
+            (_TR + "test_slo_watchdog_restartable_in_both",),
+        "test_slo_config_from_dict_roundtrip_and_validation":
+            (_TR + "test_slo_config_from_dict_matches_jax",),
+        "test_injected_latency_breaches_p99_and_dumps_attributable_flight":
+            (_TR + "test_injected_latency_breach_names_flush_get_in_both",),
+        "test_dump_dir_rotation_caps_file_count":
+            (_TR + "test_dump_dir_rotation_caps_file_count_in_both",),
+        "test_shard_span_attribution_sums_to_mesh_counters":
+            (_TR + "test_shard_span_attribution_sums_to_mesh_counters_in_"
+                   "both",),
+        "test_check_bench_lane_regression_gate":
+            (_TR + "test_check_bench_gate_over_port_net_sweep_rows",),
+        "test_check_bench_fused_kernel_lanes_never_collapse":
+            (_TR + "test_check_bench_port_transports_never_collapse",),
+    },
+    "test_client.py": {name: (_CLD + name,) for name in (
+        "test_longkey_construction",
+        "test_cleancache_roundtrip_local_backend",
+        "test_cleancache_bloom_short_circuits_misses",
+        "test_bloom_refresh_pulls_server_truth",
+        "test_swap_client",
+        "test_paging_sim_seq_read_uses_cleancache",
+        "test_paging_sim_writes_never_read_stale",
+        "test_page_content_versioning",
+        "test_replay_synthetic",
+        "test_bundled_fileserver_trace_replays",
+        "test_write_fileserver_trace_deterministic",
+        "test_parse_trace",
+        "test_gen_input_patterns",
+        "test_hash_families_lockstep_and_distribution",
+        "test_hashing_np_matches_jax")},
+    "test_runtime.py": {name: (_RTD + name,) for name in (
+        "test_engine_mpmc_roundtrip_no_server",
+        "test_single_put_get_known_content",
+        "test_threaded_storm_with_content_verification",
+        "test_submit_batch_wait_many_roundtrip",
+        "test_queue_full_backpressure_without_driver",
+        "test_completion_slot_wraparound",
+        "test_deep_pipelined_client_needs_comp_slots",
+        "test_deep_pipelined_client_wedges_without_comp_slots",
+        # slow: phase 7, the engine-backed server under 32 client threads
+        "test_reference_grade_storm",
+        "test_extent_verbs_through_transport_storm",
+        "test_multi_client_arena_isolation",
+        "test_unpaged_u64_values_mode",
+        "test_double_start_is_idempotent",
+        "test_engine_destroy_under_client_fire",
+        "test_single_flush_put_delete_get_ordering")},
+    "test_pressure.py": {name: (_PRD + name,) for name in (
+        "test_fileserver_personality_verifies",
+        "test_webserver_personality_verifies",
+        "test_dgwebserver_scales_fileset",
+        "test_randomread_working_set",
+        "test_trim_is_invalidate_inode",
+        "test_fileset_gamma_sizes",
+        # slow: phase 13's train_pressure (4 KiB pages, 100 steps)
+        "test_train_pressure_learns",
+        "test_swap_randread_all_remote",
+        "test_swap_drops_recover_from_device",
+        "test_swap_writes_never_serve_stale",
+        "test_swap_iodepth_batch_path_verifies",
+        "test_swap_parallel_jobs_aggregate",
+        "test_paging_read_batch_matches_per_op_semantics")},
+    "test_replica.py": {
+        "test_replica_map_stable_spread_and_distinct":
+            ("test_torch_replica.py::"
+             "test_replica_map_stable_spread_and_distinct",),
+        "test_fanout_put_get_invalidate_local": _HERMETIC,
+        "test_rejoin_triggers_bloom_guided_repair":
+            (_RPD + "test_rejoin_triggers_bloom_guided_repair",
+             "test_torch_replica_rejoin.py::"
+             "test_rejoin_triggers_bloom_guided_repair"),
+        **{name: (_RPD + name,) for name in (
+            "test_breaker_state_machine",
+            "test_kill_one_server_failover_serves_and_breaker_opens",
+            "test_all_replicas_down_is_a_legal_miss",
+            # slow: phase 18 (f1), node 0's proxy slowed under 2^11 keys
+            "test_hedged_get_fires_on_slow_primary",
+            # slow: phase 13's replica_soak (a kill every 30 steps)
+            "test_rolling_kill_restore_drill",
+            # slow: phase 18 (f2), chaos on three card-backed endpoints
+            "test_multi_endpoint_chaos_soak")},
+    },
+    "test_aux.py": {
+        **{name: (_PC + name,) for name in (
+            "test_policy_cache_lru",
+            "test_policy_cache_lfu",
+            "test_policy_cache_fifo",
+            "test_policy_cache_update_not_evict")},
+        "test_logger_levels": ("test_torch_logger.py::test_logger_levels",),
+        "test_checkpoint_roundtrip":
+            (_AXD + "test_checkpoint_roundtrip",
+             "test_torch_checkpoint.py::test_full_snapshot_crosses_both_"
+             "ways"),
+        **{name: (_AXD + name,) for name in (
+            "test_timers_and_reporter",
+            "test_checkpoint_recovery_repairs_cceh",
+            "test_checkpoint_rejects_wrong_config")},
+    },
+    "test_profiler.py": {
+        "test_fetch_splits_device_and_dispatch":
+            (_PF + "test_fetch_splits_device_and_dispatch_like_jax",),
+        "test_kv_sync_verbs_attribute_through_the_seam":
+            (_PF + "test_kv_verbs_attribute_like_jax",),
+        "test_shard_lanes_reconcile_with_mesh_ops":
+            (_PF + "test_shard_lanes_reconcile_like_jax",),
+        "test_imbalance_gauge_tracks_skew_within_range":
+            (_PF + "test_imbalance_window_matches_jax",),
+        # slow: phase 11's MSG_PROFILE capture and its refused second ask
+        "test_msg_profile_capture_cooldown_and_old_peer":
+            (_PF + "test_msg_profile_port_server_captures_for_both_clients",
+             _PF + "test_msg_profile_jax_server_captures_for_the_port_"
+                   "client"),
+        # slow: no phase asks a server without a dump dir for a capture
+        "test_msg_profile_refused_without_dump_dir":
+            (_PF + "test_msg_profile_refused_without_dump_dir",),
+        "test_proftool_breakdown_and_perfetto":
+            (_PF + "test_proftool_reads_the_port_snapshot",),
+        "test_prof_off_snapshots_stay_v2":
+            (_PF + "test_fetch_is_a_passthrough_when_nothing_attaches",),
+    },
+    "test_soak.py": {
+        # slow: phase 13's soak (0.5 min, 4 KiB pages)
+        "test_soak_smoke_clean_run":
+            ("test_torch_bench_soaks.py::"
+             "test_soak_serves_verified_pages_like_jax",),
+        # slow: a recorded difference (ROADMAP), pinned on both packages;
+        # no phase runs it (the port's --history is a card-only log)
+        "test_soak_history_offchip_exits_3":
+            ("test_torch_soak_drills.py::"
+             "test_soak_history_offchip_exits_3_in_jax_and_0_in_port",),
+        # slow: phase 13's insert_profile
+        "test_insert_profile_smoke":
+            ("test_torch_bench_sweeps.py::"
+             "test_insert_profile_reports_jaxs_pieces",),
+    },
+    # the whole suite is slow (its module mark)
+    "test_multihost.py": {
+        # phase 12's multihost_bench, two gloo ranks on the card
+        "test_multihost_bench_smoke":
+            ("test_torch_multihost_drills.py::test_multihost_bench_smoke",),
+        # phase 12 (a): the two-process plane's verbs
+        "test_two_process_sharded_kv":
+            ("test_torch_multihost.py::"
+             "test_two_processes_match_one_process_and_jax",),
+    },
+}
+
+# the 13 suites mapped last: each target must run both packages in its own
+# function (the function-level check below), or stand here with its reason
+LAST_SUITES = ("test_qos.py", "test_xray.py", "test_chaos.py",
+               "test_containment.py", "test_tracing.py", "test_client.py",
+               "test_runtime.py", "test_pressure.py", "test_replica.py",
+               "test_aux.py", "test_profiler.py", "test_soak.py",
+               "test_multihost.py")
+_TIER1 = "timed: its JAX side is {} own tier-1 drill; the port's holds " \
+         "the same invariants on the same seed"
+EXEMPT = {
+    _CH + "test_chaos_soak_short": _TIER1.format("test_chaos.py's"),
+    _CH + "test_chaos_extent_verbs_degrade_to_drop_conn":
+        _TIER1.format("test_chaos.py's") + " (the reconnect loop)",
+    _CH + "test_chaos_stats_verb_degrades_to_drop_conn":
+        _TIER1.format("test_chaos.py's") + " (a flipped frame's drop)",
+    _CH + "test_chaos_soak_short_pipelined": _TIER1.format("test_chaos.py's"),
+    _CH + "test_chaos_pipelined_replies_match_seq_or_drop":
+        _TIER1.format("test_chaos.py's") + " (four threads, armed faults)",
+    _CH + "test_soak_leaves_attributable_trace":
+        _TIER1.format("test_chaos.py's") + " (the flight ring of a soak)",
 }
 
 
@@ -789,3 +1097,208 @@ def test_each_jax_drill_maps_to_an_existing_port_test(suite):
                 f"{suite}::{drill}: {target} does not exist"
             assert _packages(name) == {"pmdfc_tpu", "pmdfc_tpu_torch"}, \
                 f"{suite}::{drill}: {name} does not run both packages"
+
+
+def test_every_twinned_suite_is_mapped_drill_by_drill():
+    twinned = sorted(k for k, v in TWINS.items() if not isinstance(v, str))
+    assert len(twinned) >= 37
+    unmapped = sorted(set(twinned) - set(DRILLS))
+    assert not unmapped, f"twinned suites not mapped drill by drill: " \
+        f"{unmapped}"
+    assert set(LAST_SUITES) <= set(DRILLS) and len(LAST_SUITES) == 13
+
+
+def _jax_module(mod: str) -> bool:
+    """A module of the JAX side: `pmdfc_tpu` or a JAX test suite."""
+    top = mod.split(".")[0]
+    return top == "pmdfc_tpu" or (top.startswith("test_")
+                                  and not top.startswith("test_torch_"))
+
+
+_JAX_NAMES = ("JAX", "PKGS", "twin")  # torch_twin's names that run JAX
+
+
+def _reach_map(source: str, resolve=None) -> dict:
+    """For each module-level `test_*` function of a port test file's
+    source: whether it reaches JAX's side in its own body, its decorators,
+    its fixtures or the module's helpers it names. `resolve(module, name)`
+    answers for a name imported from another `test_torch_*` file."""
+    tree = ast.parse(source)
+    jax, imported, defs = set(), {}, {}
+    for n in tree.body:
+        if isinstance(n, ast.ImportFrom) and n.module:
+            for a in n.names:
+                bound = a.asname or a.name
+                if _jax_module(n.module) or (n.module == "torch_twin"
+                                             and a.name in _JAX_NAMES):
+                    jax.add(bound)
+                elif n.module.startswith("test_torch_"):
+                    imported[bound] = (n.module, a.name)
+        elif isinstance(n, ast.Import):
+            for a in n.names:
+                if _jax_module(a.name):
+                    jax.add((a.asname or a.name).split(".")[0])
+        elif isinstance(n, (ast.FunctionDef, ast.ClassDef)):
+            defs[n.name] = n
+        elif isinstance(n, (ast.Assign, ast.AnnAssign)) and n.value:
+            for t in (n.targets if isinstance(n, ast.Assign) else [n.target]):
+                for x in ast.walk(t):
+                    if isinstance(x, ast.Name):
+                        defs[x.id] = n.value
+
+    def names(node, bound: bool = False) -> set:
+        """The names `node` uses. A module-level value (`bound`) names
+        neither a constant it reads (`jmod.RATES`) nor what a comprehension
+        iterates: it holds that data, no code of either package."""
+        out = set()
+        todo = [node]
+        while todo:
+            x = todo.pop()
+            if bound and isinstance(x, ast.Attribute) \
+                    and re.fullmatch(r"[A-Z][A-Z0-9_]*", x.attr):
+                continue
+            if bound and isinstance(x, ast.comprehension):
+                todo.extend(x.ifs)
+                continue
+            if isinstance(x, ast.Name):
+                out.add(x.id)
+            elif isinstance(x, ast.arg):
+                out.add(x.arg)
+            elif isinstance(x, ast.Import) and any(
+                    _jax_module(a.name) for a in x.names):
+                out.add("JAX")
+            elif isinstance(x, ast.ImportFrom) and x.module \
+                    and _jax_module(x.module):
+                out.add("JAX")
+            elif isinstance(x, ast.Constant) and isinstance(x.value, str) \
+                    and re.fullmatch(r"pmdfc_tpu(\.\w+)+", x.value):
+                out.add("JAX")
+            todo.extend(ast.iter_child_nodes(x))
+        return out
+
+    def reaches(name: str, seen: set) -> bool:
+        if name in jax or name == "JAX":
+            return True
+        if name in seen:
+            return False
+        seen.add(name)
+        if name in imported and resolve is not None:
+            return resolve(*imported[name])
+        node = defs.get(name)
+        return node is not None and any(
+            reaches(u, seen)
+            for u in names(node, bound=isinstance(node, ast.expr)) - {name})
+
+    return {n.name: any(reaches(u, {n.name}) for u in names(n))
+            for n in tree.body if isinstance(n, ast.FunctionDef)
+            and n.name.startswith("test_")}
+
+
+@functools.lru_cache(maxsize=None)
+def _resolve(module: str, name: str, depth: int = 0) -> bool:
+    """Whether `name` of tests/<module>.py reaches JAX's side."""
+    if depth > 3 or not (TESTS / f"{module}.py").exists():
+        return False
+    src = (TESTS / f"{module}.py").read_text()
+    wrapped = f"{src}\n\ndef test__probe():\n    {name}\n"
+    return _reach_map(wrapped, lambda m, n: _resolve(m, n, depth + 1))[
+        "test__probe"]
+
+
+@functools.lru_cache(maxsize=None)
+def _file_reach(name: str) -> dict:
+    return _reach_map((TESTS / name).read_text(), _resolve)
+
+
+def _reaches_jax(name: str, func: str) -> bool:
+    return _file_reach(name)[func]
+
+
+@pytest.mark.parametrize("suite", LAST_SUITES)
+def test_each_drill_of_the_last_suites_runs_both_packages(suite):
+    alone = []
+    for drill, targets in DRILLS[suite].items():
+        for target in targets:
+            name, func = target.split("::")
+            if target in EXEMPT:
+                assert len(EXEMPT[target]) > 40, f"{target}: no reason"
+                assert not _reaches_jax(name, func), \
+                    f"{target} runs both packages: its exemption is stale"
+            elif not _reaches_jax(name, func):
+                alone.append(f"{drill} -> {target}")
+    assert not alone, f"{suite}: port tests that run the port alone: {alone}"
+
+
+def test_every_exemption_names_a_mapped_target():
+    targets = {t for suite in LAST_SUITES for ts in DRILLS[suite].values()
+               for t in ts}
+    assert set(EXEMPT) <= targets, sorted(set(EXEMPT) - targets)
+
+
+PLANTED = """
+import numpy as np
+import pmdfc_tpu.runtime.engine as jeng
+import pmdfc_tpu_torch.kv as tkv
+from torch_twin import PORT, twin
+from torch_twin import JAX as _J
+
+REF = (_J, PORT)
+OP_PUT = jeng.OP_PUT
+KINDS = [k.value for k in jeng.Kind]
+
+
+def _port_only(n):
+    return PORT.KV(None), tkv.KV
+
+
+def _both(n):
+    return [p for p in REF]
+
+
+def test_port_only_helper():
+    _port_only(3)
+
+
+def test_port_only_fixture(some_fixture):
+    assert np.zeros(3).sum() == 0
+
+
+def test_through_twin():
+    twin(lambda p: p)
+
+
+def test_through_a_helper():
+    _both(2)
+
+
+def test_through_a_local_import():
+    from pmdfc_tpu.bench import soak  # noqa: F401
+
+
+def test_through_a_child_process():
+    run(["python", "-m", "pmdfc_tpu.bench.soak"])
+
+
+def test_port_only_with_a_jax_constant():
+    PORT.KV(OP_PUT)
+
+
+def test_port_only_with_values_read_from_jax():
+    PORT.KV(KINDS)
+"""
+
+
+def test_the_function_check_catches_a_planted_port_only_fixture():
+    reach = _reach_map(PLANTED)
+    assert reach == {"test_port_only_helper": False,
+                     "test_port_only_fixture": False,
+                     "test_through_twin": True,
+                     "test_through_a_helper": True,
+                     "test_through_a_local_import": True,
+                     "test_through_a_child_process": True,
+                     "test_port_only_with_a_jax_constant": False,
+                     "test_port_only_with_values_read_from_jax": False}
+    # the real files: a port-only twin is caught, a two-package one passes
+    assert not _reaches_jax("test_torch_chaos.py", "test_chaos_soak_short")
+    assert _reaches_jax("test_torch_replica_drills.py",
+                        "test_multi_endpoint_chaos_soak")
