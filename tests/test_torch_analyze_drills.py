@@ -19,7 +19,9 @@ from __future__ import annotations
 
 import ast
 import os
+from collections import Counter
 from pathlib import Path
+from unittest import mock
 
 import pytest
 import torch_threads  # noqa: F401 (one torch thread a worker)
@@ -29,8 +31,8 @@ from test_torch_analyze import (ALLOW, JAX_TREE, PORT, kernel_gate,
 
 import pmdfc_tpu.runtime.sanitizer as jsan
 import pmdfc_tpu_torch.runtime.sanitizer as tsan
-from tools.analyze import (DEFAULT_ALLOWLIST, Allowlist, build_model,
-                           run_analysis)
+import test_analyze as jdrill
+from tools.analyze import DEFAULT_ALLOWLIST, Allowlist, build_model
 from tools.analyze import guarded, jaxrules, lockorder
 from tools.analyze.model import collect_files
 from tools.analyze.resolve import analyze_functions
@@ -65,14 +67,32 @@ def seated(findings, rel: str) -> list:
                    f.message.replace(rel, "<f>")) for f in findings)
 
 
+def jax_side(root: Path, files: dict) -> list:
+    """JAX's side of a drill: `files` ({relative path: source}) written
+    under `root` and run through JAX's own drill helper,
+    `test_analyze._run_all` (guarded-by, lock order and the JAX rules),
+    with its fixture directory pointed at `root`."""
+    write_tree(root, files)
+    with mock.patch.object(jdrill, "_FIXTURES", str(root)):
+        return jdrill._run_all(*files)
+
+
+def kinds(findings) -> Counter:
+    """How many findings of each rule."""
+    return Counter(f.rule for f in findings)
+
+
 def twin_fixture(tmp_path, name: str, src: str | None = None) -> tuple:
-    """The fixture `name` (or `src`) as JAX's drill runs it (its bare
-    name) and at a port path -> both seated findings, which must agree."""
+    """The fixture `name` (or `src`) through JAX's drill helper at its
+    bare name, and at a port path through the port's rules -> the port's
+    seated findings. The two must hold the same rule ids, the same count
+    of each kind, and the same findings their paths aside."""
     src = (FIXTURES / name).read_text() if src is None else src
-    j = write_tree(tmp_path / "j", {name: src})
-    p = write_tree(tmp_path / "p", {SEAT + name: src})
-    a = seated(rules(j, port=False), name)
-    b = seated(rules(p, port=True), SEAT + name)
+    found_j = jax_side(tmp_path / "j", {name: src})
+    found_p = rules(write_tree(tmp_path / "p", {SEAT + name: src}),
+                    port=True)
+    assert kinds(found_j) == kinds(found_p)
+    a, b = seated(found_j, name), seated(found_p, SEAT + name)
     assert a == b
     return b
 
@@ -127,15 +147,16 @@ def test_port_tree_holds_no_jax_construct(port_tree, jax_tree):
 
 
 def test_tree_is_clean_under_checked_in_allowlist(port_tree):
-    findings, stale = run_analysis()
-    assert not findings and not stale
+    # JAX's side: its tree gate as JAX's drill runs it
+    findings, stale = jdrill.run_analysis()
     model, facts = port_tree
     allow = Allowlist(dict(ALLOW))
     found = guarded.run(model, facts, allow) \
         + port_ranks(model, facts, allow) + jaxrules.run(model, allow) \
         + torch_seam(model, allow) + kernel_gate(model, allow)
+    assert kinds(found) == kinds(findings) == Counter()
     assert found == [], "\n".join(str(f) for f in found)
-    assert allow.unused() == []
+    assert allow.unused() == stale == []
 
 
 def test_lock_hierarchy_covers_every_ranked_module_lock(port_tree, jax_tree):
@@ -313,14 +334,18 @@ def test_profiler_seam_exempts_bench_and_the_seam_itself(tmp_path):
             "def measure(x):\n"
             "    torch.cuda.synchronize(x.device)\n"
             "    return x\n")
-    for pkg, body, port in (("pmdfc_tpu", src, False),
-                            ("pmdfc_tpu_torch", src, True),
-                            ("pmdfc_tpu_torch", tsrc, True)):
-        files = write_tree(tmp_path / f"{pkg}{port}{len(body)}", {
-            f"{pkg}/bench/lat.py": body,
-            f"{pkg}/runtime/profiler.py": body})
-        found = rules(files, port=port)
+    def tree(pkg, body):
+        return {f"{pkg}/bench/lat.py": body,
+                f"{pkg}/runtime/profiler.py": body}
+
+    # JAX's side through JAX's drill helper, the port's through its rules
+    found_j = jax_side(tmp_path / "j", tree("pmdfc_tpu", src))
+    for i, body in enumerate((src, tsrc)):
+        found = rules(write_tree(tmp_path / f"p{i}",
+                                 tree("pmdfc_tpu_torch", body)), port=True)
+        assert kinds(found) == kinds(found_j), (found, found_j)
         assert [f for f in found if f.rule == "profiler-seam"] == [], found
+    assert found_j == []
 
 
 def test_clean_fixtures_pass(tmp_path):
@@ -336,14 +361,20 @@ def test_clean_fixtures_pass(tmp_path):
 
 
 def test_allowlist_suppresses_and_reports_stale(tmp_path):
+    # JAX's side: JAX's drill itself, then what its fixture yields under
+    # no allowlist through JAX's helper
+    jdrill.test_allowlist_suppresses_and_reports_stale()
+    bare = kinds(jdrill._run_all("bad_unguarded.py"))
     for rel in ("bad_unguarded.py", SEAT + "bad_unguarded.py"):
         files = write_tree(tmp_path, {
             rel: (FIXTURES / "bad_unguarded.py").read_text()})
         model = build_model(files)
+        facts = analyze_functions(model)
+        assert kinds(guarded.run(model, facts, Allowlist({}))) == bare
         allow = Allowlist({
             f"guarded-write:{rel}:Box.drop:closed": "drill",
             f"guarded-write:{rel}:Box.gone:items": "stale entry"})
-        assert guarded.run(model, analyze_functions(model), allow) == []
+        assert guarded.run(model, facts, allow) == []
         assert allow.unused() == [f"guarded-write:{rel}:Box.gone:items"]
 
 
@@ -411,6 +442,12 @@ def test_none_guard_with_justification_declares_no_fields(tmp_path,
            "    def __init__(self):\n"
            "        # guarded-by: <none>  (pure section, alive, stats)\n"
            "        self._lock = threading.Lock()\n")
+    # JAX's side: JAX's drill itself, and JAX's helper over the same
+    # source finds nothing
+    (tmp_path / "jax").mkdir()
+    jdrill.test_none_guard_with_justification_declares_no_fields(
+        tmp_path / "jax")
+    assert jax_side(tmp_path / "j", {"none_guard.py": src}) == []
     for rel in ("none_guard.py", SEAT + "none_guard.py"):
         model = build_model(write_tree(tmp_path, {rel: src}))
         c = model.modules[rel].classes["C"]
@@ -429,12 +466,17 @@ def test_none_guard_with_justification_declares_no_fields(tmp_path,
 
 
 def test_wire_drift_rule_catches_constant_divergence(tmp_path):
-    for pkg in ("", "pmdfc_tpu_torch/"):
-        files = write_tree(tmp_path / (pkg or "j"), {
-            pkg + "runtime/net.py": "MSG_PUTPAGE = 3\nPIPE_FLAG = 0x100\n",
-            pkg + "runtime/peer.py": "MSG_PUTPAGE = 4\nTRACE_FLAG = 0x10\n"})
-        found = jaxrules.run(build_model(files), Allowlist({}))
-        assert {f.ident for f in found} == {
+    def tree(pkg):
+        return {pkg + "runtime/net.py": "MSG_PUTPAGE = 3\nPIPE_FLAG = 0x100\n",
+                pkg + "runtime/peer.py": "MSG_PUTPAGE = 4\nTRACE_FLAG = 0x10\n"}
+
+    # JAX's side through JAX's drill helper, the port's through the rule
+    found_j = jax_side(tmp_path / "j", tree(""))
+    files = write_tree(tmp_path / "p", tree("pmdfc_tpu_torch/"))
+    found = jaxrules.run(build_model(files), Allowlist({}))
+    assert kinds(found) == kinds(found_j) == Counter({"wire-drift": 2})
+    for pkg, got in (("", found_j), ("pmdfc_tpu_torch/", found)):
+        assert {f.ident for f in got} == {
             f"wire-drift:{pkg}runtime/peer.py:MSG_PUTPAGE",
             f"wire-drift:{pkg}runtime/peer.py:TRACE_FLAG"}
 

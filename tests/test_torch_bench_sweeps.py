@@ -28,6 +28,7 @@ import sys
 import numpy as np
 import pytest
 import torch_threads  # noqa: F401 (one torch thread a worker)
+from torch_twin import timeless
 
 from pmdfc_tpu.bench import fill_sweep as jfs
 from pmdfc_tpu.bench import fused_get as jfg
@@ -166,10 +167,9 @@ def test_fused_get_sides_and_jax_agree_on_every_lane(kind):
     for kv in (jc, tf, tc):
         out, f = kv.get(q)
         assert np.array_equal(out, out_j) and np.array_equal(f, f_j)
-    sj = {k: v for k, v in jf.stats().items() if k != "uptime_s"}
+    sj = timeless(jf.stats())
     for kv in (jc, tf, tc):
-        assert {k: v for k, v in kv.stats().items() if k != "uptime_s"} \
-            == sj
+        assert timeless(kv.stats()) == sj
 
 
 @pytest.mark.parametrize("kind", ["cuckoo", "level", "linear", "cceh",

@@ -61,10 +61,10 @@ def _long(smoke, tmp_path, pipe):  # noqa: F811
     t = tchaos._soak(smoke, tmp_path / "port", 200, 9, RATES, (70, 150),
                      pipe=pipe)
     out = []
-    for s in (j, t):
-        assert s["wrong_bytes"] == 0 and s["restores"] == 2
-        assert s["corrupt_detected"] > 0
-        assert tchaos._fired(s["chaos"]) > 0
+    for side, s in (("jax", j), ("port", t)):
+        assert s["wrong_bytes"] == 0 and s["restores"] == 2, (side, s)
+        assert s["corrupt_detected"] > 0, (side, s)
+        assert tchaos._fired(s["chaos"]) > 0, (side, s)
         out.append((s["restores"], s["poisoned"]))
     same(*out, "long soak")
 

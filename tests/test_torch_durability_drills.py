@@ -19,7 +19,9 @@ that have same-named twins run in `tests/test_torch_journal.py` and
 
 from __future__ import annotations
 
+import copy
 import json
+import time
 import types
 
 import jax
@@ -122,29 +124,105 @@ def _records(recs) -> list:
     return [tuple(_field(x) for x in r) for r in recs]
 
 
+def _recovery_drill(p):
+    """`test_miss_recovering_attribution_and_ledger`'s script -> its
+    transcript; the first `recovery_info` carries the recovering window's
+    age, `recovering_s` (a clock: `same` holds it by presence and type)."""
+    kv = p.KV(_cfg(p))
+    ka = _keys(0, 16)
+    kv.insert(ka, _pages(ka))
+    kv.begin_recovering()
+    info = kv.recovery_info()
+    assert info["recovering"] is True
+    _, f1 = kv.get(_keys(1024, 16))
+    assert not f1.any()
+    st1 = kv.stats()
+    _ledger(p, st1)
+    assert st1["miss_recovering"] == 16 and st1["miss_cold"] == 0
+    out, f2 = kv.get(ka)
+    assert f2.all()
+    assert kv.mark_recovered() is True
+    assert kv.mark_recovered() is False
+    _, f3 = kv.get(_keys(2048, 8))
+    st = kv.stats()
+    assert st["miss_cold"] == 8 and st["miss_recovering"] == 16
+    return (info, np.asarray(f1), _ledger(p, st1), np.asarray(out),
+            np.asarray(f3), _ledger(p, st), kv.recovery_info())
+
+
 def test_miss_recovering_attribution_and_ledger():
-    def drill(p):
-        kv = p.KV(_cfg(p))
-        ka = _keys(0, 16)
-        kv.insert(ka, _pages(ka))
-        kv.begin_recovering()
-        info = kv.recovery_info()
-        assert info["recovering"] is True
-        _, f1 = kv.get(_keys(1024, 16))
-        assert not f1.any()
-        st1 = kv.stats()
-        _ledger(p, st1)
-        assert st1["miss_recovering"] == 16 and st1["miss_cold"] == 0
-        out, f2 = kv.get(ka)
-        assert f2.all()
-        assert kv.mark_recovered() is True
-        assert kv.mark_recovered() is False
-        _, f3 = kv.get(_keys(2048, 8))
-        st = kv.stats()
-        assert st["miss_cold"] == 8 and st["miss_recovering"] == 16
-        return (info, np.asarray(f1), _ledger(p, st1), np.asarray(out),
-                np.asarray(f3), _ledger(p, st), kv.recovery_info())
-    twin(drill)
+    twin(_recovery_drill)
+
+
+class _LateClock:
+    """The `time` module, but each `monotonic()` reads 5 ms later than the
+    one before: the port's side stalls between any two readings."""
+
+    def __init__(self):
+        self.calls = 0
+
+    def monotonic(self):
+        self.calls += 1
+        return time.monotonic() + 0.005 * self.calls
+
+    def __getattr__(self, name):
+        return getattr(time, name)
+
+
+def test_the_recovery_twin_holds_under_a_skewed_port_clock(monkeypatch):
+    """A port clock that runs ahead between `begin_recovering` and
+    `recovery_info` gives another `recovering_s` than JAX's; the twin
+    still agrees, since a clock is compared by presence and type."""
+    monkeypatch.setattr(tkv, "time", _LateClock())
+    a, b = _recovery_drill(JAX), _recovery_drill(PORT)
+    assert b[0]["recovering_s"] >= 0.005 > a[0]["recovering_s"]
+    same(a, b, "skewed clock")
+
+
+@pytest.fixture(scope="module")
+def recovery_pair():
+    """The recovery drill's two transcripts, read only."""
+    return _recovery_drill(JAX), _recovery_drill(PORT)
+
+
+def _flip_recovering(t):
+    t[0]["recovering"] = False
+
+
+def _bump_miss_recovering(t):
+    t[2]["miss_recovering"] += 1
+
+
+def _drop_clock(t):
+    del t[0]["recovering_s"]
+
+
+def _int_clock(t):
+    t[0]["recovering_s"] = 0
+
+
+def _negative_clock(t):
+    t[0]["recovering_s"] = -0.001
+
+
+def _nan_clock(t):
+    t[0]["recovering_s"] = float("nan")
+
+
+@pytest.mark.parametrize("plant", [
+    _flip_recovering, _bump_miss_recovering, _drop_clock, _int_clock,
+    _negative_clock, _nan_clock], ids=lambda f: f.__name__.strip("_"))
+def test_the_recovery_twin_still_fails_on_a_wrong_transcript(recovery_pair,
+                                                             plant):
+    """Only a clock's value goes uncompared: a wrong `recovering` flag or
+    `miss_recovering` count, a missing clock, or one that is no finite
+    float >= 0 fails the twin."""
+    a, b = recovery_pair
+    same(a, b, "as read")
+    bad = copy.deepcopy(b)
+    plant(bad)
+    with pytest.raises(AssertionError):
+        same(a, bad, plant.__name__)
 
 
 def test_warm_restart_end_to_end(tmp_path):

@@ -20,6 +20,7 @@ import jax
 import numpy as np
 import pytest
 import torch_threads  # noqa: F401 (one torch thread a worker)
+from torch_twin import timeless
 
 from pmdfc_tpu import checkpoint as jckpt
 from pmdfc_tpu import tier as jtier
@@ -87,9 +88,7 @@ def _same_leaves(jstate, tstate):
 
 
 def _stats(kv) -> dict:
-    s = kv.stats()
-    s.pop("uptime_s")
-    return s
+    return timeless(kv.stats())
 
 
 def test_tier_off_env_is_flat(monkeypatch):

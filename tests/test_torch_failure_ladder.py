@@ -28,7 +28,7 @@ import torch_threads  # noqa: F401 (one torch thread a worker)
 from torch_twin import JAX as _JAX
 from torch_twin import PORT as _PORT
 from torch_twin import (cause_sum, counters, fresh_jax_registry,  # noqa: F401
-                        registries, same)
+                        registries, same, timeless)
 from torch_twin import twin as twin_of
 
 import pmdfc_tpu.bench.paging_sim as jpaging
@@ -520,8 +520,7 @@ def _paging_sim_restart(p, tmp):
         registry["server"] = _restored(p, path, pad=None)
         out = p.paging.run_job(sim, "rand_rw", file_pages=128, ops=400,
                                seed=7)
-        return {k: v for k, v in out.items()
-                if k not in ("secs", "pages_per_sec", "mib_per_sec")}
+        return timeless(out, {"secs", "pages_per_sec", "mib_per_sec"})
     finally:
         if registry["server"]:
             registry["server"].stop()

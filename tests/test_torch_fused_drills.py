@@ -30,6 +30,7 @@ import pytest
 import torch_threads  # noqa: F401 (one torch thread a worker)
 from torch_twin import (counters, fresh_jax_registry,  # noqa: F401
                         registries, same)
+from torch_twin import walk_in_reverse
 
 from pmdfc_tpu import config as jconf
 from pmdfc_tpu import kv as jkv
@@ -411,3 +412,6 @@ def test_fused_off_kill_switch_plane_is_conformant(monkeypatch, tmp_path):
     got_port = _verb_transcript(port)
     assert got_off == got_on == got_port
     assert not any("get_fused" in k for k in treg.snapshot()["counters"])
+
+
+walk_in_reverse(globals())

@@ -23,7 +23,7 @@ import numpy as np
 import pytest
 import torch
 import torch_threads  # noqa: F401 (one torch thread a worker)
-from torch_twin import bits, counters, same
+from torch_twin import bits, counters, same, walk_in_reverse
 
 from pmdfc_tpu import config as jconf
 from pmdfc_tpu import kv as jkv
@@ -333,3 +333,6 @@ def test_get_values_matches_get_batch(kind):
         assert not found2.any() and (vals2 == 0).all()
         return ref, vals, found, vals2, found2, p.index_leaves(st)
     twin(drill, kind)
+
+
+walk_in_reverse(globals())

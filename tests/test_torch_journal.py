@@ -20,8 +20,11 @@ Tolerance 0 throughout.
 
 from __future__ import annotations
 
+import functools
 import os
 import shutil
+import threading
+import types
 
 import jax
 import numpy as np
@@ -29,6 +32,16 @@ import pytest
 import torch_threads  # noqa: F401 (one torch thread a worker)
 import torch
 
+import pmdfc_tpu.client.backends as jbe
+import pmdfc_tpu.runtime.engine as jeng
+import pmdfc_tpu.runtime.failure as jfail
+import pmdfc_tpu.runtime.net as jnet
+import pmdfc_tpu.runtime.server as jsrv
+import pmdfc_tpu_torch.client.backends as tbe
+import pmdfc_tpu_torch.runtime.engine as teng
+import pmdfc_tpu_torch.runtime.failure as tfail
+import pmdfc_tpu_torch.runtime.net as tnet
+import pmdfc_tpu_torch.runtime.server as tsrv
 from pmdfc_tpu import checkpoint as jck
 from pmdfc_tpu import kv as jkv
 from pmdfc_tpu.config import IndexConfig as JIndexConfig
@@ -42,7 +55,10 @@ from pmdfc_tpu_torch.config import IndexConfig as TIndexConfig
 from pmdfc_tpu_torch.config import JournalConfig as TJournalConfig
 from pmdfc_tpu_torch.config import KVConfig as TKVConfig
 from pmdfc_tpu_torch.runtime import journal as tj
+from pmdfc_tpu_torch.tools import crashbox as tbox
 from pmdfc_tpu_torch.utils import u32
+from torch_twin import jax_registry, same, stop  # noqa: F401
+from tools import crashbox as jbox
 
 pytestmark = pytest.mark.torch
 
@@ -54,6 +70,53 @@ CFG = TKVConfig(index=TIndexConfig(capacity=1 << 10), paged=True,
 # rpo_ms=0: no flusher thread — syncs happen at the rpo_ops bound
 JOUR_J = JJournalConfig(rpo_ops=8, rpo_ms=0.0)
 JOUR = TJournalConfig(rpo_ops=8, rpo_ms=0.0)
+
+
+# each package's journal, KV, server, wire and crashbox under one name
+JAX = types.SimpleNamespace(
+    name="jax", j=jj, cfg=JCFG_J, jcfg=JJournalConfig, KV=jkv.KV,
+    KVServer=jsrv.KVServer, Engine=jeng.Engine, be=jbe, net=jnet,
+    failure=jfail, Crashbox=jbox.Crashbox)
+PORT = types.SimpleNamespace(
+    name="port", j=tj, cfg=CFG, jcfg=TJournalConfig,
+    KV=functools.partial(tkv.KV, device="cpu"),
+    KVServer=functools.partial(tsrv.KVServer, device="cpu"),
+    Engine=teng.Engine, be=tbe, net=tnet, failure=tfail,
+    Crashbox=functools.partial(tbox.Crashbox, device="cpu"))
+PAIR = (JAX, PORT)
+
+
+def _untimed(p, report) -> dict:
+    """A warm restart's replay report without the port's `timings_s` (a
+    recorded difference: the port adds the seconds of each restore
+    step)."""
+    report = dict(report)
+    timings = report.pop("timings_s", None)
+    assert (timings is not None) == (p.name == "port")
+    return report
+
+
+def _side_by_side(drill, *args) -> tuple:
+    """`drill(p, *args)` for both packages at once, each in its own
+    thread (the drills wait on child processes and sockets) -> JAX's and
+    the port's transcripts."""
+    out, errs = [None, None], []
+
+    def run(i, p):
+        try:
+            out[i] = drill(p, *args)
+        except BaseException as e:  # noqa: BLE001 (re-raised below)
+            errs.append(e)
+
+    ts = [threading.Thread(target=run, args=(i, p))
+          for i, p in enumerate(PAIR)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join()
+    if errs:
+        raise errs[0]
+    return tuple(out)
 
 
 def _keys(lo, n):
@@ -210,29 +273,35 @@ def test_journal_seq_resumes_in_fresh_segment(tmp_path):
     j3.close()
 
 
-def test_journal_replay_idempotent_no_resurrection(tmp_path):
-    d = str(tmp_path)
-    j = tj.Journal(d, JOUR)
+def _replay_twice(p, tmp_path):
+    d = str(tmp_path / p.name)
+    j = p.j.Journal(d, p.jcfg(rpo_ops=8, rpo_ms=0.0))
     ka, kb = _keys(0, 16), _keys(16, 8)
     j.append_put(ka, _pages(ka))
     j.append_put(kb, _pages(kb))
-    j.append_delete(ka[:4])
+    j.append_delete(ka[:4])       # deleted AFTER the put: must stay dead
     j.close()
 
     def state_of(kv):
         got, found = kv.get(_keys(0, 24))
         return np.array(found), np.array(got)
 
-    kv = tkv.KV(CFG, device="cpu")
-    rep1 = tj.replay(d, kv, after_mark=False)
+    kv = p.KV(p.cfg)
+    rep1 = p.j.replay(d, kv, after_mark=False)
     assert rep1["puts"] == 2 and rep1["deletes"] == 1
     f1, g1 = state_of(kv)
     assert not f1[:4].any() and f1[4:].all()
-    rep2 = tj.replay(d, kv, after_mark=False)
+    rep2 = p.j.replay(d, kv, after_mark=False)  # twice is once
     assert rep2["records"] == rep1["records"]
     f2, g2 = state_of(kv)
     np.testing.assert_array_equal(f1, f2)
     np.testing.assert_array_equal(g1[f1], g2[f2])
+    return rep1, rep2, f1, g1[f1], f2, g2[f2]
+
+
+def test_journal_replay_idempotent_no_resurrection(tmp_path):
+    a, b = (_replay_twice(p, tmp_path) for p in PAIR)
+    same(a, b, "replay twice")
 
 
 def test_replay_never_journals_itself(tmp_path):
@@ -377,97 +446,123 @@ def test_warm_restart_matches_jax(tmp_path, chain):
         [tj.REC_PUT, tj.REC_MARK] if chain else [tj.REC_DELETE, tj.REC_PUT])
 
 
-def test_server_checkpoint_delta_and_health(tmp_path):
-    from pmdfc_tpu_torch.runtime.engine import Engine
-    from pmdfc_tpu_torch.runtime.server import KVServer
+def _link(report) -> dict:
+    """A checkpoint report's chain fields (its path, random chain id and
+    clocks aside)."""
+    return {k: report[k] for k in ("kind", "seq") if k in report}
 
-    srv = KVServer(CFG, engine=Engine(num_queues=1, queue_cap=64, batch=64,
-                                      arena_pages=64, page_bytes=W * 4),
-                   device="cpu")
+
+def _server_checkpoints(p, tmp_path):
+    d = tmp_path / p.name
+    d.mkdir()
+    srv = p.KVServer(p.cfg, engine=p.Engine(
+        num_queues=1, queue_cap=64, batch=64, arena_pages=64,
+        page_bytes=W * 4))
     try:
         ka = _keys(0, 24)
         srv.kv.insert(ka, _pages(ka))
-        r0 = srv.checkpoint(str(tmp_path / "full.npz"))
+        r0 = srv.checkpoint(str(d / "full.npz"))
         assert r0["kind"] == "full"
         srv.kv.insert(_keys(24, 8), _pages(_keys(24, 8)))
-        r1 = srv.checkpoint(str(tmp_path / "d1.npz"), delta=True)
+        r1 = srv.checkpoint(str(d / "d1.npz"), delta=True)
         assert r1["kind"] == "delta" and r1["seq"] == 1
         assert r1["dirty_rows"] == 8
-        h = srv.health()
-        assert h["recovery"]["recovering"] is False
-        assert h["recovery"]["chain"]["seq"] == 1
+        h = srv.health()["recovery"]
+        assert h["recovering"] is False and h["chain"]["seq"] == 1
         srv.kv.begin_recovering()
-        assert srv.health()["recovery"]["recovering"] is True
+        h2 = srv.health()["recovery"]
+        assert h2["recovering"] is True
+        return (_link(r0), _link(r1), r1["dirty_rows"], h["recovering"],
+                h["chain"]["seq"], {k: v for k, v in h2.items()
+                                    if k != "chain"})
     finally:
         srv.stop()
 
 
-def test_recovery_state_travels_the_wire():
-    from pmdfc_tpu_torch.client.backends import DirectBackend
-    from pmdfc_tpu_torch.runtime.failure import ReconnectingClient
-    from pmdfc_tpu_torch.runtime.net import NetServer, TcpBackend
+def test_server_checkpoint_delta_and_health(tmp_path):
+    a, b = (_server_checkpoints(p, tmp_path) for p in PAIR)
+    same(a, b, "server checkpoints")
 
-    kv = tkv.KV(CFG, device="cpu")
+
+def _recovery_wire(p):
+    kv = p.KV(p.cfg)
     kv.begin_recovering()
-    srv = NetServer(lambda: DirectBackend(kv)).start()
+    srv = p.net.NetServer(lambda: p.be.DirectBackend(kv)).start()
+    out = []
     try:
-        with TcpBackend("127.0.0.1", srv.port, page_words=W) as be:
-            assert be.recovery_info()["recovering"] is True
-            assert be.mark_recovered() is True
-            assert be.recovery_info()["recovering"] is False
-            assert be.mark_recovered() is False
+        with p.net.TcpBackend("127.0.0.1", srv.port, page_words=W) as be:
+            out.append(be.recovery_info())
+            assert out[-1]["recovering"] is True
+            out.append(be.mark_recovered())
+            assert out[-1] is True
+            out.append(be.recovery_info())
+            assert out[-1]["recovering"] is False
+            out.append(be.mark_recovered())
+            assert out[-1] is False
         port = srv.port
     finally:
-        srv.stop()
-    rc = ReconnectingClient(
-        lambda: TcpBackend("127.0.0.1", port, page_words=W,
-                           op_timeout_s=0.2),
+        stop(srv)
+    # the endpoint is down: the queries degrade to not-recovering / no-op
+    rc = p.failure.ReconnectingClient(
+        lambda: p.net.TcpBackend("127.0.0.1", port, page_words=W,
+                                 op_timeout_s=0.2),
         page_words=W, retry_delay_s=0.005, max_retry_delay_s=0.01)
     try:
-        assert rc.recovery_info() == {"recovering": False}
-        assert rc.mark_recovered() is False
+        out.append(rc.recovery_info())
+        assert out[-1] == {"recovering": False}
+        out.append(rc.mark_recovered())
+        assert out[-1] is False
     finally:
         rc.close()
+    return out
 
 
-def test_crashbox_sigkill_torn_tail_drill(tmp_path):
+def test_recovery_state_travels_the_wire(jax_registry):
+    a, b = _side_by_side(_recovery_wire)
+    same(a, b, "MSG_RECOVERY")
+
+
+def _crash(p, tmp_path):
     """A real child process (spawn), a real SIGKILL between two acked
-    RPCs: zero wrong bytes, acked pages lost within the RPO bound, the
-    journal tail visible in the warm restart's report, the child's
-    serving counters read over the control pipe."""
-    from pmdfc_tpu_torch.runtime.net import TcpBackend
-    from pmdfc_tpu_torch.tools.crashbox import Crashbox
-
-    jdir = str(tmp_path / "wal")
-    full, delta = str(tmp_path / "full.npz"), str(tmp_path / "d1.npz")
-    jcfg = TJournalConfig(rpo_ops=64, rpo_ms=0.0)
-    box = Crashbox(CFG, jdir, jcfg, device="cpu")
+    RPCs -> the warm restart's replay report (untimed), the found mask of
+    every key and the pages found, the server's counters and the
+    recovering flag. The port's box also reports its snapshots' cost and
+    the child's serving counters (port-only surface)."""
+    d = tmp_path / p.name
+    jdir = str(d / "wal")
+    full, delta = str(d / "full.npz"), str(d / "d1.npz")
+    jcfg = p.jcfg(rpo_ops=64, rpo_ms=0.0)
+    box = p.Crashbox(p.cfg, jdir, jcfg)
     hello = box.start()
-    assert hello["device"] == "cpu" and hello["replay"]["records"] == 0
-    be = TcpBackend("127.0.0.1", box.port, page_words=W)
+    assert hello["replay"]["records"] == 0
+    be = p.net.TcpBackend("127.0.0.1", box.port, page_words=W)
     ka, kb, kc = _keys(0, 128), _keys(128, 32), _keys(160, 32)
     be.put(ka, _pages(ka))
     assert box.snapshot(full)["kind"] == "full"
     be.put(kb, _pages(kb))
     r1 = box.snapshot(delta, delta=True)
     assert r1["kind"] == "delta" and r1["dirty_rows"] == 32
-    assert r1["seconds"] > 0 and r1["peak_rss_bytes"] > 0
     be.put(kc, _pages(kc))                 # acked, journal tail only
     be.get(ka[:16])
-    sv = box.serving()
-    assert len(sv["get_phases"]) >= 1 and sv["server"]["serve_errors"] == 0
-    assert sv["journal"]["appends"] == 3 + 2  # puts and the two marks
+    if p.name == "port":
+        assert hello["device"] == "cpu"
+        assert r1["seconds"] > 0 and r1["peak_rss_bytes"] > 0
+        sv = box.serving()
+        assert len(sv["get_phases"]) >= 1
+        assert sv["server"]["serve_errors"] == 0
+        assert sv["journal"]["appends"] == 3 + 2  # puts and the two marks
     be.close()
     box.kill()
     assert not box.alive()
 
-    box2 = Crashbox(CFG, jdir, jcfg, chain_paths=[full, delta],
-                    device="cpu")
+    box2 = p.Crashbox(p.cfg, jdir, jcfg, chain_paths=[full, delta])
     hello = box2.start()
     try:
-        assert hello["replay"]["pages"] == 32
-        assert set(hello["replay"]["timings_s"]) >= {"read", "replay"}
-        be2 = TcpBackend("127.0.0.1", box2.port, page_words=W)
+        replay = _untimed(p, hello["replay"])
+        if p.name == "port":
+            assert set(hello["replay"]["timings_s"]) >= {"read", "replay"}
+        assert replay["pages"] == 32
+        be2 = p.net.TcpBackend("127.0.0.1", box2.port, page_words=W)
         allk = _keys(0, 192)
         got, found = be2.get(allk)
         lost = int((~found).sum())
@@ -476,11 +571,22 @@ def test_crashbox_sigkill_torn_tail_drill(tmp_path):
         assert int((got[found] != good[found]).any(axis=1).sum()) == 0
         st = be2.server_stats()
         _assert_ledger(st)
-        assert box2.recovery_info()["recovering"] is True
+        recovering = box2.recovery_info()["recovering"]
+        assert recovering is True
         assert be2.mark_recovered() is True
         be2.close()
+        return (replay, np.asarray(found), np.asarray(got)[found],
+                {k: int(st[k]) for k in tkv.STAT_NAMES}, recovering)
     finally:
         box2.stop()
+
+
+def test_crashbox_sigkill_torn_tail_drill(tmp_path):
+    """Both packages' boxes, side by side: zero wrong bytes, acked pages
+    lost within the RPO bound, the journal tail visible in the warm
+    restart's report; the reports, masks, pages and counters equal."""
+    a, b = _side_by_side(_crash, tmp_path)
+    same(a, b, "crashbox")
 
 
 def test_crashbox_child_failure_raises_in_the_parent(tmp_path):

@@ -22,6 +22,7 @@ import pytest
 import torch_threads  # noqa: F401 (one torch thread a worker)
 from torch_twin import (counters, fresh_jax_registry,  # noqa: F401
                         registries, same)
+from torch_twin import walk_in_reverse
 
 from pmdfc_tpu import config as jconf
 from pmdfc_tpu import kv as jkv
@@ -483,3 +484,6 @@ def test_reput_after_deletes_in_a_full_index_evicts_like_jax():
             out[found], np.repeat(pick[found, 1:2], 16, 1) ^ np.uint32(7))
         return _end(p, kv, res=_result(res), found=found)
     twin(drill)
+
+
+walk_in_reverse(globals())

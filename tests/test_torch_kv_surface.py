@@ -43,6 +43,7 @@ from pmdfc_tpu_torch.config import TierConfig as TTier
 from pmdfc_tpu_torch.ops import fused as tfused
 from pmdfc_tpu_torch.ops.pagepool import page_digest_np
 from pmdfc_tpu_torch.runtime.net import NetServer
+from torch_twin import JAX, PORT, jax_registry, same, timeless  # noqa: F401
 
 pytestmark = pytest.mark.torch
 
@@ -89,10 +90,10 @@ def _same_leaves(a, b, what):
 
 
 def _same_stats(a, b, what):
-    sa, sb = a.stats(), b.stats()
+    sa, sb = timeless(a.stats()), timeless(b.stats())
+    assert sa.keys() == sb.keys(), f"{what}: {set(sa) ^ set(sb)}"
     for k in sa:
-        if k != "uptime_s":
-            assert sa[k] == sb[k], f"{what}: stat {k}: {sa[k]} vs {sb[k]}"
+        assert sa[k] == sb[k], f"{what}: stat {k}: {sa[k]} vs {sb[k]}"
     assert sb["misses"] == sum(sb[c] for c in tkv.MISS_CAUSE_NAMES)
     return sb
 
@@ -250,10 +251,11 @@ def test_unpaged_kv_has_no_fast_surface_and_live_entries_match():
 # ---------------------------------------------------------------------------
 
 
-def _served_kv(n=256, seed=0):
-    cfg = TKVConfig(index=TIndexConfig(capacity=1 << 10), page_words=W,
-                    bloom=TBloomConfig(num_bits=1 << 12))
-    kv = tkv.KV(cfg, device="cpu")
+def _served_kv(n=256, seed=0, p=PORT):
+    cfg = p.config.KVConfig(index=p.config.IndexConfig(capacity=1 << 10),
+                            page_words=W,
+                            bloom=p.config.BloomConfig(num_bits=1 << 12))
+    kv = p.KV(cfg)
     rng = np.random.default_rng(seed)
     keys = np.stack([np.full(n, 5, np.uint32),
                      np.arange(n, dtype=np.uint32)], -1)
@@ -297,35 +299,50 @@ def test_fast_read_after_a_rewrite_serves_new_bytes_or_not_ok():
     assert np.array_equal(hit[order][:128], new[:128])
 
 
-def test_put_landing_between_check_and_gather_cannot_serve_wrong_bytes(
-        monkeypatch):
-    """A put that lands after the digest check and before the gather: the
-    port's server reads in one locked step, so the rewrite cannot slip in.
-    Were the server to call `validate` and then `gather`, the rewrite
-    (forced into that window here) would hand out the new bytes under the
-    old digest, and the drill would fail."""
-    kv, keys, rng = _served_kv()
-    srv, be = NetServer(lambda: be), DirectBackend(kv)
+def _landing(p):
+    """A put forced in after the digest check and before the gather, were
+    the server to take two steps -> what it served and how often the
+    forced put ran. The port's server reads in one locked step
+    (`FastView.read`): the put never runs, and were the server to call
+    `validate` then `gather`, it would hand out the new bytes under the
+    old digest. JAX's server does take the two steps, over a host mirror
+    that a put does not touch: the put runs and the old bytes serve."""
+    kv, keys, rng = _served_kv(p=p)
+    be = p.backends.DirectBackend(kv)
+    srv = p.net.NetServer(lambda: be)
     snap = kv.directory_snapshot()
-    real_gather = tkv.FastView.gather
+    real_gather = p.kv_mod.FastView.gather
+    forced = []
 
     def gather_after_a_put(self, shards, rows):
         kv.insert(keys, rng.integers(0, 1 << 32, (len(keys), W),
                                      dtype=np.uint32))
+        forced.append(len(keys))
         return real_gather(self, shards, rows)
 
-    monkeypatch.setattr(tkv.FastView, "gather", gather_after_a_put)
-    ok, hit, _ = _fastread(srv, be, snap, snap["epoch"])
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(p.kv_mod.FastView, "gather", gather_after_a_put)
+        ok, hit, _ = _fastread(srv, be, snap, snap["epoch"])
     assert ok.all()
     _no_stale_bytes(ok, hit, snap["digs"])
+    return (ok, hit), len(forced)
 
 
-def test_fast_reads_under_concurrent_rewrites_never_tear():
+def test_put_landing_between_check_and_gather_cannot_serve_wrong_bytes(
+        jax_registry):
+    (a, forced_j), (b, forced_t) = _landing(JAX), _landing(PORT)
+    same(a, b, "served")
+    assert (forced_j, forced_t) == (1, 0)
+
+
+def _rewrites(p) -> int:
     """A writer thread rewrites and recycles rows (delete, then insert a
     new key onto the freed row) while the reader serves fast reads: every
-    lane served matches its digest token, whichever side wins."""
-    kv, keys, rng = _served_kv(seed=1)
-    srv, be = NetServer(lambda: be), DirectBackend(kv)
+    lane served matches its digest token, whichever side wins -> lanes
+    served."""
+    kv, keys, rng = _served_kv(seed=1, p=p)
+    be = p.backends.DirectBackend(kv)
+    srv = p.net.NetServer(lambda: be)
     snap = kv.directory_snapshot()
     stop = threading.Event()
 
@@ -352,4 +369,12 @@ def test_fast_reads_under_concurrent_rewrites_never_tear():
     finally:
         stop.set()
         t.join()
-    assert served > 0
+    return served
+
+
+def test_fast_reads_under_concurrent_rewrites_never_tear(jax_registry):
+    """Threaded: each package is held to the drill's invariants (no lane
+    served under a digest its bytes do not have, some lanes served), not
+    to the other's count."""
+    for p in (JAX, PORT):
+        assert _rewrites(p) > 0

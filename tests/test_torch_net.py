@@ -25,6 +25,7 @@ import types
 import numpy as np
 import pytest
 import torch_threads  # noqa: F401 (one torch thread a worker)
+from torch_twin import timeless
 
 import pmdfc_tpu.client.backends as jbackends
 import pmdfc_tpu.config as jconfig
@@ -151,7 +152,7 @@ def _script(server_pkg, client_pkg, coalesce: bool):
         out.append(("pushes", sink.frames))
     finally:
         _stop(srv)
-    kvs = {k: v for k, v in kv.stats().items() if k != "uptime_s"}
+    kvs = timeless(kv.stats())
     counters = {k: int(srv.stats[k]) for k in NET_COUNTERS}
     return out, kvs, counters
 

@@ -20,7 +20,7 @@ import types
 import numpy as np
 import pytest
 import torch_threads  # noqa: F401 (one torch thread a worker)
-from torch_twin import registries, same  # noqa: F401
+from torch_twin import registries, same, timeless  # noqa: F401
 from torch_twin import twin as twin_of
 
 import pmdfc_tpu.bench.filebench as jfb
@@ -54,7 +54,7 @@ def twin(drill, *args):
 
 
 def _untimed(row: dict) -> dict:
-    return {k: v for k, v in row.items() if k not in TIMING}
+    return timeless(row, TIMING)
 
 
 def _store(be) -> list:

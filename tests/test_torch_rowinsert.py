@@ -12,6 +12,7 @@ through the row path.
 
 from __future__ import annotations
 
+import json
 import os
 import subprocess
 import sys
@@ -98,45 +99,57 @@ def test_row_path_matches_jax_row_path():
     assert all(seen.values()), seen
 
 
+_SWITCH = """
+import dataclasses, json
+import numpy as np
+from {pkg}.config import IndexConfig, IndexKind, KVConfig
+from {pkg}.models import base, linear
+want = linear.insert_batch_{path}
+out = {{"registered": linear.insert_batch is want
+        and base.get_index_ops(IndexKind.LINEAR).insert_batch is want}}
+calls = []
+def spy(*a):
+    calls.append(1)
+    return want(*a)
+base._REGISTRY[IndexKind.LINEAR] = dataclasses.replace(
+    base._REGISTRY[IndexKind.LINEAR], insert_batch=spy)
+from {pkg}.kv import KV
+kv = KV(KVConfig(index=IndexConfig(capacity=1 << 10), page_words=16){dev})
+keys = np.stack([np.full(64, 5, np.uint32),
+                 np.arange(64, dtype=np.uint32)], -1)
+pages = np.arange(64 * 16, dtype=np.uint32).reshape(64, 16)
+kv.insert(keys, pages)
+got, found = kv.get(keys)
+out.update(spied=bool(calls), found=int(np.asarray(found).sum()),
+           exact=bool((np.asarray(got) == pages).all()))
+print("SWITCH " + json.dumps(out))
+"""
+
+
 def test_insert_path_env_switch():
-    """PMDFC_INSERT_PATH=row registers the row path as the linear index's
-    `insert_batch` at import, and a `KV` then inserts through it."""
-    code = (
-        "import numpy as np\n"
-        "from pmdfc_tpu_torch.models import linear\n"
-        "from pmdfc_tpu_torch.models.base import get_index_ops\n"
-        "from pmdfc_tpu_torch.config import IndexKind, KVConfig, IndexConfig\n"
-        "assert linear.insert_batch is linear.insert_batch_row\n"
-        "assert get_index_ops(IndexKind.LINEAR).insert_batch "
-        "is linear.insert_batch_row\n"
-        "calls = []\n"
-        "real = linear.insert_batch_row\n"
-        "def spy(*a):\n"
-        "    calls.append(1)\n"
-        "    return real(*a)\n"
-        "import dataclasses\n"
-        "from pmdfc_tpu_torch.models import base\n"
-        "base._REGISTRY[IndexKind.LINEAR] = dataclasses.replace(\n"
-        "    base._REGISTRY[IndexKind.LINEAR], insert_batch=spy)\n"
-        "from pmdfc_tpu_torch.kv import KV\n"
-        "kv = KV(KVConfig(index=IndexConfig(capacity=1 << 10), "
-        "page_words=16), device='cpu')\n"
-        "keys = np.stack([np.full(64, 5, np.uint32), "
-        "np.arange(64, dtype=np.uint32)], -1)\n"
-        "pages = np.arange(64 * 16, dtype=np.uint32).reshape(64, 16)\n"
-        "kv.insert(keys, pages)\n"
-        "out, found = kv.get(keys)\n"
-        "assert calls and found.all() and (out == pages).all()\n"
-        "print('switch-ok')\n")
-    env = {**os.environ, "PMDFC_INSERT_PATH": "row"}
-    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
-                         capture_output=True, timeout=120)
-    assert b"switch-ok" in out.stdout, out.stderr[-800:]
-    env["PMDFC_INSERT_PATH"] = "element"
-    out = subprocess.run(
-        [sys.executable, "-c",
-         "from pmdfc_tpu_torch.models import linear\n"
-         "assert linear.insert_batch is linear.insert_batch_element\n"
-         "print('default-ok')"], env=env, cwd=ROOT, capture_output=True,
-        timeout=120)
-    assert b"default-ok" in out.stdout, out.stderr[-800:]
+    """PMDFC_INSERT_PATH flips the linear index's registered `insert_batch`
+    at import in both packages: `row` registers the row path, `element`
+    (the default) the element path, and a `KV` then inserts through the
+    one registered. Each package's child reports the same."""
+    children = {}
+    for path in ("row", "element"):
+        for lin, dev in ((jlin, ""), (tlin, ", device='cpu'")):
+            pkg = lin.__name__.split(".")[0]
+            env = {**os.environ, "PMDFC_INSERT_PATH": path,
+                   "JAX_PLATFORMS": "cpu"}
+            children[path, pkg] = subprocess.Popen(
+                [sys.executable, "-c",
+                 _SWITCH.format(pkg=pkg, path=path, dev=dev)],
+                env=env, cwd=ROOT, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE)
+    got = {}
+    for key, child in children.items():
+        out, err = child.communicate(timeout=120)
+        line = [ln for ln in out.decode().splitlines()
+                if ln.startswith("SWITCH ")]
+        assert line, (key, err[-800:])
+        got[key] = json.loads(line[0][len("SWITCH "):])
+    want = {"registered": True, "spied": True, "found": 64, "exact": True}
+    for path in ("row", "element"):
+        assert got[path, "pmdfc_tpu"] == got[path, "pmdfc_tpu_torch"] \
+            == want, path

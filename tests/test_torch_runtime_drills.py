@@ -29,6 +29,7 @@ from torch_twin import JAX as _JAX
 from torch_twin import PORT as _PORT
 from torch_twin import counters, fresh_jax_registry, registries  # noqa: F401
 from torch_twin import twin as twin_of
+from torch_twin import walk_in_reverse
 
 import pmdfc_tpu.runtime.engine as jengine
 import pmdfc_tpu.runtime.server as jserver
@@ -556,3 +557,6 @@ def test_single_flush_put_delete_get_ordering():
             srv.stop()
 
     twin(drill)
+
+
+walk_in_reverse(globals())

@@ -126,20 +126,22 @@ def test_sanitize_fails_on_a_lock_inversion_on_the_serving_path(
 
 def test_sanitize_fails_when_a_knob_leaves_its_envelope(sanitize,
                                                         monkeypatch):
-    """Every controller step lands its knob past the envelope's top and
-    publishes it there: `check_autotune` over the server's MSG_STATS
-    document refuses it."""
-    real = tautotune.AutotuneController._apply
+    """After every controller round a knob (not the balloon's) lands past
+    its envelope's top and is published there, whether or not the round
+    stepped a knob (a loaded host can end the phase before one does):
+    `check_autotune` over the server's MSG_STATS document refuses it."""
+    real = tautotune.AutotuneController.tick
 
-    def apply(self, k, dirn, why):
-        rec = real(self, k, dirn, why)
-        if rec is not None and k.name != "balloon_x":
-            out = k.hi * 2
-            k.setter(int(out) if k.integer else out)
-            self.stats.set(f"knob_{k.name}", out)
-        return rec
+    def tick(self):
+        out = real(self)
+        with self._lock:
+            k = self._knobs[min(n for n in self._knobs if n != "balloon_x")]
+            top = k.hi * 2
+            k.setter(int(top) if k.integer else top)
+            self.stats.set(f"knob_{k.name}", top)
+        return out
 
-    monkeypatch.setattr(tautotune.AutotuneController, "_apply", apply)
+    monkeypatch.setattr(tautotune.AutotuneController, "tick", tick)
     with pytest.raises(AssertionError, match="check_autotune"):
         chip_smoke.run_sanitize(sanitize)
 

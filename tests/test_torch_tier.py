@@ -23,6 +23,7 @@ import jax
 import numpy as np
 import pytest
 import torch_threads  # noqa: F401 (one torch thread a worker)
+from torch_twin import timeless
 import torch
 
 from pmdfc_tpu import kv as jkv
@@ -104,9 +105,7 @@ class Twin:
         for k in la:
             assert la[k].dtype == lb[k].dtype, f"{what}: {k} dtype"
             assert np.array_equal(la[k], lb[k]), f"{what}: leaf {k} differs"
-        sa, sb = self.a.stats(), self.b.stats()
-        sa.pop("uptime_s")
-        sb.pop("uptime_s")
+        sa, sb = timeless(self.a.stats()), timeless(self.b.stats())
         assert sa == sb, f"{what}: stats {sa} vs {sb}"
         assert sb["misses"] == sum(sb[c] for c in tkv.MISS_CAUSE_NAMES)
 

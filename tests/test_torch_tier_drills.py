@@ -23,6 +23,7 @@ import pytest
 import torch_threads  # noqa: F401 (one torch thread a worker)
 from torch_twin import (counters, fresh_jax_registry,  # noqa: F401
                         registries, same, stop)
+from torch_twin import walk_in_reverse
 
 from pmdfc_tpu import checkpoint as jckpt
 from pmdfc_tpu import config as jconf
@@ -444,3 +445,6 @@ def test_checkpoint_roundtrip_tiered(tmp_path):
         assert found.all() and (out == pages).all()
         return _end(p, kv2)
     twin(drill)
+
+
+walk_in_reverse(globals())

@@ -8,13 +8,12 @@ that runs it on both packages, or to an earlier port test that already
 held it. The tests parse the files with `ast` and fail when a JAX suite
 or one of those JAX drills has no entry, when an entry names a JAX file
 or function that is gone, or when a named port file or function does not
-exist. Every twinned suite is mapped drill by drill. For the 13 suites
-mapped last (`LAST_SUITES`) each named port test must also reach JAX's
-side in its own function (`_reaches_jax`: through `torch_twin`'s `JAX`,
-`PKGS` or `twin`, an import of `pmdfc_tpu` or of a JAX test module, a
-`pmdfc_tpu.*` module named for a child process, or a helper of the file
-that does), or stand in `EXEMPT` with its reason. They read no
-benchmark file.
+exist. Every twinned suite is mapped drill by drill, and every named
+port test must also reach JAX's side in its own function (`_reaches_jax`:
+through `torch_twin`'s `JAX`, `PKGS` or `twin`, an import of `pmdfc_tpu`
+or of a JAX test module (its drill helpers), a `pmdfc_tpu.*` module named
+for a child process, or a helper of the file that does), or stand in
+`EXEMPT` with its reason. They read no benchmark file.
 """
 
 from __future__ import annotations
@@ -1001,13 +1000,8 @@ DRILLS = {
     },
 }
 
-# the 13 suites mapped last: each target must run both packages in its own
-# function (the function-level check below), or stand here with its reason
-LAST_SUITES = ("test_qos.py", "test_xray.py", "test_chaos.py",
-               "test_containment.py", "test_tracing.py", "test_client.py",
-               "test_runtime.py", "test_pressure.py", "test_replica.py",
-               "test_aux.py", "test_profiler.py", "test_soak.py",
-               "test_multihost.py")
+# every target must run both packages in its own function (the
+# function-level check below), or stand in EXEMPT with its reason
 _TIER1 = "timed: its JAX side is {} own tier-1 drill; the port's holds " \
          "the same invariants on the same seed"
 EXEMPT = {
@@ -1105,7 +1099,12 @@ def test_every_twinned_suite_is_mapped_drill_by_drill():
     unmapped = sorted(set(twinned) - set(DRILLS))
     assert not unmapped, f"twinned suites not mapped drill by drill: " \
         f"{unmapped}"
-    assert set(LAST_SUITES) <= set(DRILLS) and len(LAST_SUITES) == 13
+    # the function-level walk takes every mapped suite
+    walk, = (m for m in
+             test_each_drill_of_the_last_suites_runs_both_packages.pytestmark
+             if m.name == "parametrize")
+    assert sorted(walk.args[1]) == sorted(DRILLS) and len(DRILLS) >= 37, \
+        "a mapped suite is not walked function by function"
 
 
 def _jax_module(mod: str) -> bool:
@@ -1214,7 +1213,7 @@ def _reaches_jax(name: str, func: str) -> bool:
     return _file_reach(name)[func]
 
 
-@pytest.mark.parametrize("suite", LAST_SUITES)
+@pytest.mark.parametrize("suite", sorted(DRILLS))
 def test_each_drill_of_the_last_suites_runs_both_packages(suite):
     alone = []
     for drill, targets in DRILLS[suite].items():
@@ -1230,7 +1229,7 @@ def test_each_drill_of_the_last_suites_runs_both_packages(suite):
 
 
 def test_every_exemption_names_a_mapped_target():
-    targets = {t for suite in LAST_SUITES for ts in DRILLS[suite].values()
+    targets = {t for drills in DRILLS.values() for ts in drills.values()
                for t in ts}
     assert set(EXEMPT) <= targets, sorted(set(EXEMPT) - targets)
 
@@ -1239,6 +1238,9 @@ PLANTED = """
 import numpy as np
 import pmdfc_tpu.runtime.engine as jeng
 import pmdfc_tpu_torch.kv as tkv
+import test_analyze as jdrill
+from test_torch_analyze import write_tree
+from tools.analyze import Allowlist, build_model, jaxrules
 from torch_twin import PORT, twin
 from torch_twin import JAX as _J
 
@@ -1285,6 +1287,15 @@ def test_port_only_with_a_jax_constant():
 
 def test_port_only_with_values_read_from_jax():
     PORT.KV(KINDS)
+
+
+def test_the_tool_over_a_port_fixture_only(tmp_path):
+    files = write_tree(tmp_path, {"pmdfc_tpu_torch/runtime/x.py": "X = 1"})
+    assert jaxrules.run(build_model(files), Allowlist({})) == []
+
+
+def test_the_tool_through_jaxs_own_suite():
+    assert jdrill._run_all("clean_locks.py") == []
 """
 
 
@@ -1297,7 +1308,9 @@ def test_the_function_check_catches_a_planted_port_only_fixture():
                      "test_through_a_local_import": True,
                      "test_through_a_child_process": True,
                      "test_port_only_with_a_jax_constant": False,
-                     "test_port_only_with_values_read_from_jax": False}
+                     "test_port_only_with_values_read_from_jax": False,
+                     "test_the_tool_over_a_port_fixture_only": False,
+                     "test_the_tool_through_jaxs_own_suite": True}
     # the real files: a port-only twin is caught, a two-package one passes
     assert not _reaches_jax("test_torch_chaos.py", "test_chaos_soak_short")
     assert _reaches_jax("test_torch_replica_drills.py",

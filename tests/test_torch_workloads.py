@@ -23,6 +23,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch_threads  # noqa: F401 (one torch thread a worker)
+from torch_twin import timeless
 
 from pmdfc_tpu.bench import common as jcommon
 from pmdfc_tpu.bench import filebench as jfb
@@ -49,12 +50,12 @@ TIMING = {"secs", "pages_per_sec", "mib_per_sec", "iops", "fault_iops",
 
 
 def _untimed(d: dict) -> dict:
-    return {k: v for k, v in d.items() if k not in TIMING}
+    return timeless(d, TIMING)
 
 
 def _kv_stats(backend) -> dict:
     """The KV's counters (its uptime is a host clock)."""
-    return {k: v for k, v in backend.kv.stats().items() if k != "uptime_s"}
+    return timeless(backend.kv.stats())
 
 
 @pytest.mark.parametrize("pattern", ["uniform", "one_to_n", "sequential",

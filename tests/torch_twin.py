@@ -7,6 +7,7 @@ two packages' transcripts."""
 
 from __future__ import annotations
 
+import math
 import socket
 import types
 
@@ -66,6 +67,18 @@ def fresh_jax_registry(registries):
     jtele.configure()
 
 
+@pytest.fixture
+def jax_registry():
+    """For a file that keeps its port registry: JAX's side registers its
+    servers' scopes in a fresh JAX registry, and the one found is put back
+    after the test (a later JAX test of the worker reads its scopes)."""
+    state = jtele._STATE
+    found = (state.registry, state.tracing)
+    jtele.configure()
+    yield
+    state.registry, state.tracing = found
+
+
 def stop(srv) -> None:
     """Stop a server of either package without waiting out its accept
     loop's join timeout."""
@@ -81,9 +94,9 @@ def cause_sum(pkg, st) -> int:
 
 
 def counters(st) -> dict:
-    """A stats document's counters (every int field but the clock's
-    `uptime_s`)."""
-    return {k: int(v) for k, v in st.items() if k != "uptime_s"}
+    """A stats document's counters: every int field, once its clock
+    `uptime_s` is checked to be there (`timeless`)."""
+    return {k: int(v) for k, v in timeless(st).items() if k != "uptime_s"}
 
 
 def bits(x) -> np.ndarray:
@@ -97,10 +110,56 @@ def bits(x) -> np.ndarray:
     return a if a.dtype == bool else a.astype(np.int64) & 0xFFFFFFFF
 
 
+# the wall-clock fields a transcript can carry: the recovering window's age
+# (`KV.recovery_info`, the MSG_RECOVERY reply), the last window's length
+# (the `recovery` scope's gauge) and a stats document's uptime
+CLOCKS = frozenset({"recovering_s", "last_recovery_s", "uptime_s"})
+
+
+class _Clock:
+    """What `timeless` leaves in place of a clock's reading: equal to any
+    other reading."""
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, _Clock)
+
+    def __repr__(self) -> str:
+        return "<clock>"
+
+
+CLOCK = _Clock()
+
+
+def timeless(x, keys=CLOCKS, where: str = ""):
+    """`x` with the value of every wall-clock field (a dict key in `keys`,
+    at any depth) replaced by `CLOCK`, once the value is checked to be a
+    finite float >= 0. Two packages each read their own clock, so a twin
+    compares such a field by its presence and type, never by its value."""
+    if isinstance(x, dict):
+        out = {}
+        for k, v in x.items():
+            if k in keys:
+                assert isinstance(v, (float, np.floating)) and \
+                    math.isfinite(v) and v >= 0, f"{where}.{k}: {v!r}"
+                out[k] = CLOCK
+            else:
+                out[k] = timeless(v, keys, f"{where}.{k}")
+        return out
+    if isinstance(x, (tuple, list)):
+        items = [timeless(v, keys, f"{where}[{i}]") for i, v in enumerate(x)]
+        return type(x)(*items) if hasattr(x, "_fields") else type(x)(items)
+    return x
+
+
 def same(a, b, where: str = "") -> None:
-    """Deep equality of two packages' transcripts: arrays (and numpy
-    scalars) by dtype, shape and value, sequences and dicts item by item,
-    anything else by ==."""
+    """Deep equality of two packages' transcripts (`timeless`: a clock
+    field by its presence and type): arrays (and numpy scalars) by dtype,
+    shape and value, sequences and dicts item by item, anything else by
+    ==."""
+    _same(timeless(a, where=where), timeless(b, where=where), where)
+
+
+def _same(a, b, where: str) -> None:
     if isinstance(a, (np.ndarray, np.generic)) or isinstance(
             b, (np.ndarray, np.generic)):
         a, b = np.asarray(a), np.asarray(b)
@@ -109,11 +168,11 @@ def same(a, b, where: str = "") -> None:
     elif isinstance(a, (tuple, list)):
         assert len(a) == len(b), f"{where}: length {len(a)} vs {len(b)}"
         for i, (x, y) in enumerate(zip(a, b)):
-            same(x, y, f"{where}[{i}]")
+            _same(x, y, f"{where}[{i}]")
     elif isinstance(a, dict):
         assert a.keys() == b.keys(), f"{where}: {set(a) ^ set(b)}"
         for k in a:
-            same(a[k], b[k], f"{where}.{k}")
+            _same(a[k], b[k], f"{where}.{k}")
     else:
         assert a == b, f"{where}: {a!r} vs {b!r}"
 
@@ -124,3 +183,15 @@ def twin(drill, *args, pkgs=PKGS):
     a, b = (drill(pkg, *args) for pkg in pkgs)
     same(a, b, drill.__name__)
     return b
+
+
+def walk_in_reverse(namespace: dict) -> None:
+    """Collect a module's tests in the reverse of their order in its file
+    (call last, with the module's `globals()`). A twin file replays its
+    JAX suite's drills, so it compiles the same JAX programs in the same
+    order. Under `--dist loadfile` the two files often run at once in two
+    workers: walking the opposite way, each finds about half of those
+    programs already in the persistent compile cache, written by the
+    other, instead of both compiling all of them at the same time."""
+    for name in [n for n in namespace if n.startswith("test_")][::-1]:
+        namespace[name] = namespace.pop(name)
