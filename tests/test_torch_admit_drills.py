@@ -30,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 import torch_threads  # noqa: F401 (one torch thread a worker)
+from torch_threads import jax_compile_settings  # noqa: F401 (autouse)
 from torch_twin import (bits, counters, fresh_jax_registry,  # noqa: F401
                         registries, same, stop)
 from torch_twin import walk_in_reverse

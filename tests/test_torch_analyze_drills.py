@@ -25,6 +25,7 @@ from unittest import mock
 
 import pytest
 import torch_threads  # noqa: F401 (one torch thread a worker)
+from torch_threads import jax_compile_settings  # noqa: F401 (autouse)
 from test_torch_analyze import (ALLOW, JAX_TREE, PORT, kernel_gate,
                                 port_ranks, torch_seam, unranked,
                                 write_tree)

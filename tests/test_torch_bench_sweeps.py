@@ -28,6 +28,7 @@ import sys
 import numpy as np
 import pytest
 import torch_threads  # noqa: F401 (one torch thread a worker)
+from torch_threads import jax_compile_settings  # noqa: F401 (autouse)
 from torch_twin import timeless
 
 from pmdfc_tpu.bench import fill_sweep as jfs
@@ -73,6 +74,32 @@ def _jax_main(main, argv, monkeypatch, capsys):
     monkeypatch.setattr(sys, "argv", ["harness", *argv])
     rc = main()
     return rc, _json_objects(capsys.readouterr().out)
+
+
+def run_twin_mains(jax_main, jax_argv, port_main, port_argv) -> dict:
+    """A JAX harness main (it reads `sys.argv`), then its port twin's
+    (`main(argv)`), with `PMDFC_COMPILE_CACHE=0` and each one's printout
+    captured -> {"jax": (rc, printed objects), "port": (...)}; a main
+    that exits reports its exit code. A module-scoped fixture runs the
+    pair once and each of the twin's checks is a test of its own over
+    the result."""
+    import contextlib
+    import io
+
+    out = {}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("PMDFC_COMPILE_CACHE", "0")
+        mp.setattr(sys, "argv", ["harness", *jax_argv])
+        for side, call in (("jax", jax_main),
+                           ("port", lambda: port_main(port_argv))):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                try:
+                    rc = call()
+                except SystemExit as ex:
+                    rc = ex.code
+            out[side] = (rc, _json_objects(buf.getvalue()))
+    return out
 
 
 def test_the_shared_stream_keys_and_pages_are_jax_draw_for_draw():

@@ -22,6 +22,7 @@ import types
 import numpy as np
 import pytest
 import torch_threads  # noqa: F401 (one torch thread a worker)
+from torch_threads import jax_compile_settings  # noqa: F401 (autouse)
 from torch_twin import fresh_jax_registry, registries, twin  # noqa: F401
 
 import pmdfc_tpu.client.backends as jbackends

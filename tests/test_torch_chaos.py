@@ -23,6 +23,7 @@ import time
 import numpy as np
 import pytest
 import torch_threads  # noqa: F401 (one torch thread a worker)
+from torch_threads import jax_compile_settings  # noqa: F401 (autouse)
 from test_torch_smoke import KEYS, smoke  # noqa: F401 (the fixture)
 from torch_twin import PKGS, PORT, registries, stop  # noqa: F401
 

@@ -23,6 +23,7 @@ import pytest
 import test_chaos as jchaos
 import test_torch_chaos as tchaos
 import torch_threads  # noqa: F401 (one torch thread a worker)
+from torch_threads import jax_compile_settings  # noqa: F401 (autouse)
 from test_torch_smoke import smoke  # noqa: F401 (the fixture)
 from torch_twin import JAX as _JAX
 from torch_twin import PORT as _PORT
@@ -161,3 +162,47 @@ def test_nacked_ops_close_spans_as_failed_v2_records():
         return found, out, srcs, errs
 
     twin(drill)
+
+
+def test_a_duplicated_get_shifts_lockstep_replies_in_both_packages():
+    """ROADMAP Queue 3 item 10's lead, pinned on both packages: the
+    lockstep wire matches a reply to the verb that reads it, with no
+    sequence id, so a duplicated GET request (ChaosProxy `duplicate`)
+    leaves its second reply queued, and the next GET of as many keys
+    takes it for its own. `IntegrityBackend` turns that into corrupt
+    misses where it has the keys' digests on record (b), and passes it
+    as hits where it has none: a key this client invalidated (c) is
+    served b's pages. The pipelined wire matches by sequence id and
+    fails the connection instead (`test_torch_chaos.py`)."""
+
+    def drill(p):
+        kv = p.KV(_cfg(p))
+        srv = p.net.NetServer(lambda: p.backends.DirectBackend(kv)).start()
+        px = p.failure.ChaosProxy("127.0.0.1", srv.port, seed=0)
+        keys = tchaos._keys(12, seed=41)
+        a, b, c = keys[:4], keys[4:8], keys[8:]
+        pages = tchaos._pages(keys)
+        try:
+            be = p.net.TcpBackend("127.0.0.1", px.port, page_words=W,
+                                  keepalive_s=None, op_timeout_s=120.0,
+                                  pipeline=False)
+            ib = p.backends.IntegrityBackend(be)
+            ib.put(keys, pages)
+            ib.invalidate(c)
+            px.arm("duplicate", 1)  # the next frame: GET(a)'s request
+            out_a, found_a = ib.get(a)
+            out_b, found_b = ib.get(b)   # reads GET(a)'s second reply
+            out_c, found_c = ib.get(c)   # reads GET(b)'s reply
+            be.close()
+        finally:
+            px.close()
+            stop(srv)
+        assert found_a.all() and np.array_equal(out_a, pages[:4])
+        assert not found_b.any()
+        assert found_c.all() and np.array_equal(out_c, pages[4:8])
+        return (found_a, found_b, found_c,
+                int(ib.counters["corrupt_pages"]),
+                int(px.stats["duplicated_frames"]))
+
+    *_, corrupt, dups = twin(drill)
+    assert corrupt == 4 and dups == 1

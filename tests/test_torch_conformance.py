@@ -21,6 +21,7 @@ from __future__ import annotations
 import numpy as np
 import pytest
 import torch_threads  # noqa: F401 (one torch thread a worker)
+from torch_threads import jax_compile_settings  # noqa: F401 (autouse)
 import torch
 
 from pmdfc_tpu_torch import kv as tkv

@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 import test_containment as jcont
 import torch_threads  # noqa: F401 (one torch thread a worker)
+from torch_threads import jax_compile_settings  # noqa: F401 (autouse)
 from torch_twin import (JAX, PKGS, PORT, cause_sum,  # noqa: F401
                         fresh_jax_registry, registries, stop)
 

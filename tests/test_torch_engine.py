@@ -19,6 +19,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch_threads  # noqa: F401 (one torch thread a worker)
+from torch_threads import jax_compile_settings  # noqa: F401 (autouse)
 
 from pmdfc_tpu.runtime import engine as jengine
 from pmdfc_tpu_torch.ops import _build

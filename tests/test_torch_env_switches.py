@@ -20,6 +20,7 @@ import jax
 import numpy as np
 import pytest
 import torch_threads  # noqa: F401 (one torch thread a worker)
+from torch_threads import jax_compile_settings  # noqa: F401 (autouse)
 from torch_twin import timeless
 
 from pmdfc_tpu import checkpoint as jckpt

@@ -25,6 +25,7 @@ import types
 import numpy as np
 import pytest
 import torch_threads  # noqa: F401 (one torch thread a worker)
+from torch_threads import jax_compile_settings  # noqa: F401 (autouse)
 from torch_twin import JAX as _JAX
 from torch_twin import PORT as _PORT
 from torch_twin import (cause_sum, counters, fresh_jax_registry,  # noqa: F401

@@ -36,12 +36,15 @@ every state leaf after it) and lean.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch_threads  # noqa: F401 (one torch thread a worker)
+from torch_threads import jax_compile_settings  # noqa: F401 (autouse)
+from torch_twin import jax_jit_caches_left_cold  # noqa: F401 (fixture)
 import torch
 
 from pmdfc_tpu import kv as jkv
@@ -59,7 +62,8 @@ from pmdfc_tpu_torch.config import TierConfig as TTier
 from pmdfc_tpu_torch.ops import fused as tfused
 from pmdfc_tpu_torch.utils import u32
 
-pytestmark = pytest.mark.torch
+pytestmark = [pytest.mark.torch,
+              pytest.mark.usefixtures("jax_jit_caches_left_cold")]
 
 PW = 64  # page words: inside the fused support set
 
@@ -88,6 +92,20 @@ def jax_leaves(state) -> dict:
             for path, v in flat}
 
 
+def _once(build):
+    """`build` run once per argument set, as several tests seed the same
+    JAX state: the state is immutable, and the probe keys (the last item)
+    are handed out as a copy."""
+    cached = functools.lru_cache(maxsize=None)(build)
+
+    @functools.wraps(build)
+    def call(*args, **kw):
+        *head, pk = cached(*args, **kw)
+        return (*head, pk.copy())
+    return call
+
+
+@_once
 def _seeded(slots, seed=7, kind="linear"):
     """A JAX KV state with capacity evictions (and for CCEH splits) and
     deletes, then one page corrupted and an extent: for CCEH real covers
@@ -136,6 +154,7 @@ def _seeded(slots, seed=7, kind="linear"):
     return jcfg, tcfg, st, pk
 
 
+@_once
 def _seeded_tiered(slots, kind="linear", seed=11):
     """A JAX KV state over a tiered pool holding every miss cause (see the
     module docstring) -> (config pair, JAX state, padded probe keys)."""

@@ -28,9 +28,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch_threads  # noqa: F401 (one torch thread a worker)
+from torch_threads import jax_compile_settings  # noqa: F401 (autouse)
 from torch_twin import (counters, fresh_jax_registry,  # noqa: F401
                         registries, same)
 from torch_twin import walk_in_reverse
+from torch_twin import jax_jit_caches_left_cold  # noqa: F401 (fixture)
 
 from pmdfc_tpu import config as jconf
 from pmdfc_tpu import kv as jkv
@@ -47,7 +49,10 @@ from pmdfc_tpu_torch.runtime import telemetry as ttele
 from pmdfc_tpu_torch.utils import u32
 
 pytestmark = [pytest.mark.torch, pytest.mark.usefixtures(
-    "fresh_jax_registry")]
+    "fresh_jax_registry", "jax_jit_caches_left_cold")]
+# the drills replay `test_fused.py`'s own JAX programs: compiled as the suite
+# compiles them, each file finds the other's in the persistent cache
+KEEP_XLA_DEFAULTS = True
 
 W = 64  # pow2 page words: inside both packages' fused support set
 INV = 0xFFFFFFFF

@@ -14,6 +14,7 @@ import json
 
 import pytest
 import torch_threads  # noqa: F401 (one torch thread a worker)
+from torch_threads import jax_compile_settings  # noqa: F401 (autouse)
 
 from pmdfc_tpu_torch.bench import common
 

@@ -18,6 +18,7 @@ from pathlib import Path
 
 import pytest
 import torch_threads  # noqa: F401 (one torch thread a worker)
+from torch_threads import jax_compile_settings  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.torch
 

@@ -10,7 +10,10 @@ the drill's own asserts, and what each returns must be equal (tolerance
 and their values and drops, every GET's values, found mask and slots
 (last-wins resolution among them), every delete's hits and old values,
 the scan, the final index leaves, and for the paged `KV` drill the pages,
-stats and every state leaf, the pool's free rows among them.
+stats and every state leaf, the pool's free rows among them. The last
+four drills (the paged `KV`, HotRing's two, the lean GET) are in
+`tests/test_torch_index_conformance_kv_drills.py`, which shares this
+file's namespaces and helpers, so that no one worker carries all ten.
 """
 
 from __future__ import annotations
@@ -23,7 +26,8 @@ import numpy as np
 import pytest
 import torch
 import torch_threads  # noqa: F401 (one torch thread a worker)
-from torch_twin import bits, counters, same, walk_in_reverse
+from torch_threads import jax_compile_settings  # noqa: F401 (autouse)
+from torch_twin import bits, same, walk_in_reverse
 
 from pmdfc_tpu import config as jconf
 from pmdfc_tpu import kv as jkv
@@ -35,6 +39,10 @@ from pmdfc_tpu_torch.models.base import get_index_ops as tops
 from pmdfc_tpu_torch.utils import u32
 
 pytestmark = pytest.mark.torch
+# the drills replay `test_index_conformance.py`'s own JAX programs: compiled
+# as the suite compiles them, each file finds the other's in the persistent
+# cache
+KEEP_XLA_DEFAULTS = True
 
 KINDS = [k.value for k in jconf.IndexKind]
 INV = 0xFFFFFFFF
@@ -225,113 +233,6 @@ def test_scan_powers_find_anyway(kind):
         assert where.sum() == 1
         assert int(fv[where][0, 1]) == 42
         return res, fk, fv
-    twin(drill, kind)
-
-
-def test_paged_kv_integration(kind):
-    def drill(p, kind):
-        cfg = p.conf.KVConfig(index=make_cfg(p, kind, capacity=1 << 9),
-                              bloom=None, paged=True, page_words=8)
-        kv = p.KV(cfg)
-        rng = np.random.default_rng(23)
-        n = 1024
-        lo = rng.choice(1 << 20, size=n, replace=False)
-        ks = keys_of(lo)
-        pages = rng.integers(0, 2**32, size=(n, 8), dtype=np.uint32)
-        results = [_res(kv.insert(ks[i:i + 128], pages[i:i + 128]))
-                   for i in range(0, n, 128)]
-        out, found = kv.get(ks)
-        s = kv.stats()
-        assert (~found).sum() <= s["evictions"] + s["drops"]
-        np.testing.assert_array_equal(out[found], pages[found])
-        live = float(p.utilization(kv.state, cfg)) * kv.capacity()
-        top = int(kv.state.pool.top)
-        assert top == kv.capacity() - round(live)
-        return (results, np.asarray(out), np.asarray(found), counters(s),
-                top, p.kv_leaves(kv))
-    twin(drill, kind)
-
-
-def test_hotring_prefers_evicting_cold_entries():
-    def drill(p):
-        c = p.conf
-        kv = p.KV(c.KVConfig(
-            index=c.IndexConfig(kind=c.IndexKind.HOTRING, capacity=1 << 6,
-                                cluster_slots=32),
-            bloom=None, paged=False))
-        lo = np.arange(256)
-        ks = keys_of(lo)
-        results = [_res(kv.insert(ks[:64], vals_of(lo[:64])))]
-        hot = ks[:16]
-        for _ in range(5):
-            kv.get(hot)
-        for i in range(64, 256, 16):
-            results.append(_res(kv.insert(ks[i:i + 16],
-                                          vals_of(lo[i:i + 16]))))
-        _, found_hot = kv.get(hot)
-        _, found_all = kv.get(ks[:64])
-        hot_rate = found_hot.mean()
-        cold_rate = found_all[16:].mean()
-        assert hot_rate >= cold_rate
-        assert hot_rate > 0.5
-        return (results, np.asarray(found_hot), np.asarray(found_all),
-                counters(kv.stats()), p.kv_leaves(kv))
-    twin(drill)
-
-
-def test_hotring_decay_halves_counters():
-    def drill(p):
-        c = p.conf
-        ops = p.ops("hotring")
-        kv = p.KV(c.KVConfig(
-            index=c.IndexConfig(kind=c.IndexKind.HOTRING, capacity=1 << 6,
-                                decay_every_gets=32),
-            bloom=None, paged=False))
-        ks = keys_of([1, 2, 3])
-        kv.insert(ks, vals_of([1, 2, 3]))
-        for _ in range(4):
-            kv.get(ks)
-        peak = int(bits(kv.state.index.counters).max())
-        assert peak >= 4
-        for _ in range(20):
-            kv.get(ks)
-        after = int(bits(kv.state.index.counters).max())
-        assert after < 24
-        assert ops.decay is not None
-        return peak, after, counters(kv.stats()), p.kv_leaves(kv)
-    twin(drill)
-
-
-def test_get_values_matches_get_batch(kind):
-    """The lean GET agrees with `get_batch` in each package (same found
-    mask, same values on hits, zero values on misses, padding a no-op),
-    and the two packages agree; a family without a lean GET has none in
-    either package."""
-    def drill(p, kind):
-        ops = p.ops(kind)
-        if ops.get_values is None:
-            return None
-        st = p.init(ops, make_cfg(p, kind))
-        ks = keys_of(np.arange(64))
-        st, _ = _insert(p, ops, st, ks, vals_of(np.arange(64) + 9))
-        cap = ops.num_slots(make_cfg(p, kind))
-        rng = np.random.default_rng(5)
-        fill = keys_of(rng.choice(1 << 20, size=min(2 * cap, 1 << 13),
-                                  replace=False) + 1000)
-        for lo in range(0, len(fill), 1 << 11):
-            st, _ = _insert(p, ops, st, fill[lo:lo + (1 << 11)],
-                            vals_of(fill[lo:lo + (1 << 11), 1]))
-        probe = keys_of(np.arange(0, 128, 2))
-        ref = _get(p, ops, st, probe)
-        vals, found = (bits(a) for a in ops.get_values(st, p.arr(probe)))
-        np.testing.assert_array_equal(found, ref["found"])
-        f = ref["found"]
-        np.testing.assert_array_equal(vals[f], ref["values"][f])
-        assert (vals[~f] == 0).all(), "miss rows must be zero"
-        pad = np.full((4, 2), INV, np.uint32)
-        vals2, found2 = (bits(a) for a in ops.get_values(st, p.arr(pad)))
-        assert not found2.any() and (vals2 == 0).all()
-        return ref, vals, found, vals2, found2, p.index_leaves(st)
     twin(drill, kind)
 
 

@@ -16,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 import pytest
 import torch_threads  # noqa: F401 (one torch thread a worker)
+from torch_threads import jax_compile_settings  # noqa: F401 (autouse)
 from test_torch_insert_compaction import Twin, _live_evicted, keys_of, vals_of
 
 from pmdfc_tpu.config import IndexKind as JKind

@@ -20,6 +20,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch_threads  # noqa: F401 (one torch thread a worker)
+from torch_threads import jax_compile_settings  # noqa: F401 (autouse)
 from torch_twin import (counters, fresh_jax_registry,  # noqa: F401
                         registries, same)
 from torch_twin import walk_in_reverse
@@ -39,6 +40,9 @@ from pmdfc_tpu_torch.utils import u32
 
 pytestmark = [pytest.mark.torch, pytest.mark.usefixtures(
     "fresh_jax_registry")]
+# the drills replay `test_kv.py`'s own JAX programs: compiled as the suite
+# compiles them, each file finds the other's in the persistent cache
+KEEP_XLA_DEFAULTS = True
 
 
 def _jax_leaves(state) -> dict:

@@ -4,6 +4,7 @@ the tiered pool, and of HotRing over the flat pool, against the JAX `KV`
 
 import pytest
 import torch_threads  # noqa: F401 (one torch thread a worker)
+from torch_threads import jax_compile_settings  # noqa: F401 (autouse)
 
 from test_torch_kv_family_paths import run_case
 

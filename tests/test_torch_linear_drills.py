@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch_threads  # noqa: F401 (one torch thread a worker)
+from torch_threads import jax_compile_settings  # noqa: F401 (autouse)
 from test_torch_linear import _assert_result, _assert_state, _n, _t
 
 from pmdfc_tpu.config import IndexConfig as JIndexConfig

@@ -13,6 +13,7 @@ import logging
 
 import pytest
 import torch_threads  # noqa: F401 (one torch thread a worker)
+from torch_threads import jax_compile_settings  # noqa: F401 (autouse)
 
 from pmdfc_tpu.utils import logger as jlogger
 from pmdfc_tpu_torch.utils import logger as tlogger

@@ -22,6 +22,7 @@ import json
 import numpy as np
 import pytest
 import torch_threads  # noqa: F401 (one torch thread a worker)
+from torch_threads import jax_compile_settings  # noqa: F401 (autouse)
 
 from pmdfc_tpu_torch import carry
 from pmdfc_tpu_torch.parallel import shard as tshard

@@ -22,6 +22,7 @@ import sys
 
 import pytest
 import torch_threads  # noqa: F401 (one torch thread a worker)
+from torch_threads import jax_compile_settings  # noqa: F401 (autouse)
 
 import pmdfc_tpu.bench.multihost_bench as jmh
 import pmdfc_tpu_torch.bench.multihost_bench as tmh

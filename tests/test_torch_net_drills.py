@@ -31,6 +31,7 @@ import zlib
 import numpy as np
 import pytest
 import torch_threads  # noqa: F401 (one torch thread a worker)
+from torch_threads import jax_compile_settings  # noqa: F401 (autouse)
 from test_torch_net import NET_COUNTERS, _Sink
 from torch_twin import JAX as _JAX
 from torch_twin import PORT as _PORT

@@ -25,6 +25,7 @@ import time
 import numpy as np
 import pytest
 import torch_threads  # noqa: F401 (one torch thread a worker)
+from torch_threads import jax_compile_settings  # noqa: F401 (autouse)
 from test_torch_net_drills import (JAX, PKGS, PORT, W, _keys, _kv_server,
                                    _local_server, _pages, _settled, _tcp,
                                    twin)

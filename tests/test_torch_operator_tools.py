@@ -34,6 +34,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch_threads  # noqa: F401 (one torch thread a worker)
+from torch_threads import jax_compile_settings  # noqa: F401 (autouse)
 
 import pmdfc_tpu_torch.config as tconfig
 from pmdfc_tpu_torch.parallel import plane as tplane

@@ -14,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import pytest
 import torch_threads  # noqa: F401 (one torch thread a worker)
+from torch_threads import jax_compile_settings  # noqa: F401 (autouse)
 
 from pmdfc_tpu.ops import policy_cache as jpc
 from pmdfc_tpu_torch.ops import policy_cache as tpc

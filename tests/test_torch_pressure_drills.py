@@ -20,6 +20,7 @@ import types
 import numpy as np
 import pytest
 import torch_threads  # noqa: F401 (one torch thread a worker)
+from torch_threads import jax_compile_settings  # noqa: F401 (autouse)
 from torch_twin import registries, same, timeless  # noqa: F401
 from torch_twin import twin as twin_of
 

@@ -24,6 +24,7 @@ import time
 import numpy as np
 import pytest
 import torch_threads  # noqa: F401 (one torch thread a worker)
+from torch_threads import jax_compile_settings  # noqa: F401 (autouse)
 
 import pmdfc_tpu.client.backends as jbackends
 import pmdfc_tpu.config as jconfig

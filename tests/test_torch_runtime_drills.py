@@ -25,6 +25,7 @@ import types
 import numpy as np
 import pytest
 import torch_threads  # noqa: F401 (one torch thread a worker)
+from torch_threads import jax_compile_settings  # noqa: F401 (autouse)
 from torch_twin import JAX as _JAX
 from torch_twin import PORT as _PORT
 from torch_twin import counters, fresh_jax_registry, registries  # noqa: F401
@@ -37,6 +38,9 @@ import pmdfc_tpu_torch.runtime.engine as tengine
 import pmdfc_tpu_torch.runtime.server as tserver
 
 pytestmark = [pytest.mark.torch, pytest.mark.usefixtures("fresh_jax_registry")]
+# the drills replay `test_runtime.py`'s own JAX programs: compiled as the
+# suite compiles them, each file finds the other's in the persistent cache
+KEEP_XLA_DEFAULTS = True
 
 JAX = types.SimpleNamespace(**vars(_JAX), name="jax", engine=jengine,
                             server=jserver, server_kw={})

@@ -24,6 +24,7 @@ import jax
 import numpy as np
 import pytest
 import torch_threads  # noqa: F401 (one torch thread a worker)
+from torch_threads import jax_compile_settings  # noqa: F401 (autouse)
 
 from pmdfc_tpu.config import BloomConfig as JBloom
 from pmdfc_tpu.config import IndexConfig as JIndex

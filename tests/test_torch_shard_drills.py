@@ -17,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 import pytest
 import torch_threads  # noqa: F401 (one torch thread a worker)
+from torch_threads import jax_compile_settings  # noqa: F401 (autouse)
 from test_torch_shard import (check_leaves, check_stats, cfg_pair, pair,
                               same, same_result)
 from torch_twin import fresh_jax_registry, registries  # noqa: F401

@@ -22,6 +22,7 @@ import time
 import numpy as np
 import pytest
 import torch_threads  # noqa: F401 (one torch thread a worker)
+from torch_threads import jax_compile_settings  # noqa: F401 (autouse)
 import torch
 
 import chip_smoke

@@ -22,6 +22,7 @@ import json
 import numpy as np
 import pytest
 import torch_threads  # noqa: F401 (one torch thread a worker)
+from torch_threads import jax_compile_settings  # noqa: F401 (autouse)
 from test_torch_smoke import KEYS, smoke  # noqa: F401  (fixture)
 
 import chip_smoke

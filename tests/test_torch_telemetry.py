@@ -19,6 +19,7 @@ import types
 import numpy as np
 import pytest
 import torch_threads  # noqa: F401 (one torch thread a worker)
+from torch_threads import jax_compile_settings  # noqa: F401 (autouse)
 
 import pmdfc_tpu.config as jconfig
 import pmdfc_tpu.runtime.qos as jqos

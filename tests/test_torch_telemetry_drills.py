@@ -26,6 +26,7 @@ import time
 import numpy as np
 import pytest
 import torch_threads  # noqa: F401 (one torch thread a worker)
+from torch_threads import jax_compile_settings  # noqa: F401 (autouse)
 from torch_twin import (JAX, PORT, fresh_jax_registry,  # noqa: F401
                         registries, same, stop)
 

@@ -17,6 +17,7 @@ import time
 import numpy as np
 import pytest
 import torch_threads  # noqa: F401 (one torch thread a worker)
+from torch_threads import jax_compile_settings  # noqa: F401 (autouse)
 from torch_twin import PORT, registries, stop  # noqa: F401
 
 from pmdfc_tpu_torch.tools import teletop as tteletop

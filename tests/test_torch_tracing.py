@@ -47,7 +47,9 @@ import numpy as np
 import pytest
 import test_tracing as jtracing
 import torch_threads  # noqa: F401 (one torch thread a worker)
+from torch_threads import jax_compile_settings  # noqa: F401 (autouse)
 from torch_twin import stop
+from torch_twin import jax_jit_caches_left_cold  # noqa: F401 (fixture)
 
 import pmdfc_tpu.client.backends as jbackends
 import pmdfc_tpu.client.replica as jreplica
@@ -67,7 +69,11 @@ import pmdfc_tpu_torch.runtime.slo as tslo
 import pmdfc_tpu_torch.runtime.telemetry as ttele
 from tools import check_bench, check_teledump, tracetool
 
-pytestmark = pytest.mark.torch
+pytestmark = [pytest.mark.torch,
+              pytest.mark.usefixtures("jax_jit_caches_left_cold")]
+# the drills replay `test_tracing.py`'s own JAX programs: compiled as the
+# suite compiles them, each file finds the other's in the persistent cache
+KEEP_XLA_DEFAULTS = True
 
 W = 16
 

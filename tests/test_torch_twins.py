@@ -25,6 +25,7 @@ from pathlib import Path
 
 import pytest
 import torch_threads  # noqa: F401 (one torch thread a worker)
+from torch_threads import jax_compile_settings  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.torch
 
@@ -71,6 +72,7 @@ TWINS = {
                         "test_torch_hotring_drills.py"),
     "test_index_conformance.py": ("test_torch_conformance.py",
                                   "test_torch_index_conformance_drills.py",
+                                  "test_torch_index_conformance_kv_drills.py",
                                   "test_torch_families.py",
                                   "test_torch_kv_family_paths.py",
                                   "test_torch_kv_family_paths_path.py",
@@ -155,6 +157,7 @@ _CD = "test_torch_cceh_drills.py::"
 _HR = "test_torch_hotring.py::"
 _HRD = "test_torch_hotring_drills.py::"
 _ICD = "test_torch_index_conformance_drills.py::"
+_ICK = "test_torch_index_conformance_kv_drills.py::"
 _ADM = "test_torch_admit_drills.py::"
 _MD = "test_torch_mesh_drills.py::"
 _MCK = "test_torch_mesh_ckpt.py::"
@@ -658,17 +661,19 @@ DRILLS = {
         "test_sampled_touch_counts_one_in_n":
             (_HRD + "test_sampled_touch_counts_one_in_n",),
     },
-    "test_index_conformance.py": {name: (_ICD + name,) for name in (
-        "test_roundtrip_and_update",
-        "test_delete_returns_old_value",
-        "test_duplicates_last_wins",
-        "test_clean_cache_accounting_under_pressure",
-        "test_padding_keys_are_noops",
-        "test_scan_powers_find_anyway",
-        "test_paged_kv_integration",
-        "test_hotring_prefers_evicting_cold_entries",
-        "test_hotring_decay_halves_counters",
-        "test_get_values_matches_get_batch")},
+    "test_index_conformance.py": {
+        **{name: (_ICD + name,) for name in (
+            "test_roundtrip_and_update",
+            "test_delete_returns_old_value",
+            "test_duplicates_last_wins",
+            "test_clean_cache_accounting_under_pressure",
+            "test_padding_keys_are_noops",
+            "test_scan_powers_find_anyway")},
+        **{name: (_ICK + name,) for name in (
+            "test_paged_kv_integration",
+            "test_hotring_prefers_evicting_cold_entries",
+            "test_hotring_decay_halves_counters",
+            "test_get_values_matches_get_batch")}},
     "test_admit.py": {
         **{name: (_ENV + name,) for name in (
             "test_admit_env_resolution",

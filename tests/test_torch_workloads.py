@@ -23,6 +23,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch_threads  # noqa: F401 (one torch thread a worker)
+from torch_threads import jax_compile_settings  # noqa: F401 (autouse)
 from torch_twin import timeless
 
 from pmdfc_tpu.bench import common as jcommon
@@ -40,6 +41,9 @@ from pmdfc_tpu_torch.bench import replay as trp
 from pmdfc_tpu_torch.bench import swap_sim as tss
 
 pytestmark = pytest.mark.torch
+# the harnesses run their JAX programs for many steps: XLA's optimized
+# code pays for its compile here
+KEEP_XLA_DEFAULTS = True
 
 ROOT = Path(__file__).resolve().parents[1]
 TRACE = ROOT / "tests" / "data" / "fileserver.trace"

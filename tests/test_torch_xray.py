@@ -30,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 import torch_threads  # noqa: F401 (one torch thread a worker)
+from torch_threads import jax_compile_settings  # noqa: F401 (autouse)
 from test_torch_chaos import CHAOS_TINY
 from test_torch_smoke import smoke  # noqa: F401 (the fixture)
 from torch_twin import JAX, PKGS, PORT, counters, registries  # noqa: F401

@@ -27,6 +27,7 @@ import pytest
 import test_torch_xray as txray
 import test_xray as jxray
 import torch_threads  # noqa: F401 (one torch thread a worker)
+from torch_threads import jax_compile_settings  # noqa: F401 (autouse)
 from test_torch_smoke import smoke  # noqa: F401 (the fixture)
 from torch_twin import JAX as _JAX
 from torch_twin import PORT as _PORT

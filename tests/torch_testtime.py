@@ -15,8 +15,9 @@ test to `$TORCH_TESTTIME_DIR/<worker>-<pid>.jsonl`.
 
 Reports (no JAX or torch needed):
 
-    python tests/torch_testtime.py junit RUN.xml   # worker s per file
-    python tests/torch_testtime.py split OUT       # JAX / port / other
+    python tests/torch_testtime.py junit RUN.xml     # worker s per file
+    python tests/torch_testtime.py schedule RUN.xml  # loadfile's queue
+    python tests/torch_testtime.py split OUT         # JAX / port / other
     python tests/torch_testtime.py keys OUT [JAX_SUITES_OUT]  # compiles
 
 Sampling holds the GIL for a moment every 5 ms in each worker, so the
@@ -155,13 +156,9 @@ def _records(out: str) -> list[dict]:
 def junit(path: str, top: int = 5) -> None:
     """Worker seconds summed per test file from a junit xml, the port's
     files (`test_torch_*`) apart, and the run's own wall time."""
-    per: dict = collections.defaultdict(float)
-    root = ET.parse(path).getroot()
-    for case in root.iter("testcase"):
-        per[case.get("classname", "").rsplit(".", 1)[-1] + ".py"] += float(
-            case.get("time", 0))
+    per = {f: sum(secs) for f, secs in _junit_files(path).items()}
     port = {f: s for f, s in per.items() if f.startswith("test_torch_")}
-    suite = next(root.iter("testsuite"))
+    suite = next(ET.parse(path).getroot().iter("testsuite"))
     print(f"worker s: all {sum(per.values()):.1f}, port files "
           f"{sum(port.values()):.1f} ({len(port)} files); wall "
           f"{suite.get('time')} s; tests {suite.get('tests')}, failures "
@@ -169,6 +166,65 @@ def junit(path: str, top: int = 5) -> None:
           f"{suite.get('skipped')}")
     for f, s in sorted(port.items(), key=lambda kv: -kv[1])[:int(top)]:
         print(f"  {s:8.1f} {f}")
+
+
+def _junit_files(path: str) -> dict:
+    """{file: [test seconds in run order]} from a junit xml, files in the
+    order pytest collects them (by name: `tests/` holds no subfolder)."""
+    per: dict = collections.defaultdict(list)
+    for case in ET.parse(path).getroot().iter("testcase"):
+        per[case.get("classname", "").rsplit(".", 1)[-1] + ".py"].append(
+            float(case.get("time", 0)))
+    return dict(sorted(per.items()))
+
+
+def replay(files: dict, workers: int = 6) -> list[tuple]:
+    """Replays per-test seconds through pytest-xdist 3.8's loadfile queue
+    (`xdist/scheduler/loadscope.py`, `schedule` and `_reschedule`): files
+    queued by test count, most first, ties in collection order; each
+    worker is handed one file, then one more at the start and after each
+    of its tests whenever at most two of its tests are left -> [(file,
+    worker, start, end)] in the order the files were handed out."""
+    queue = sorted(files, key=lambda f: -len(files[f]))
+    pending: list[list] = [[] for _ in range(workers)]   # (row, secs)
+    clock = [0.0] * workers
+    rows: list = []
+
+    def hand(w: int) -> None:
+        row = [queue.pop(0), w, None, None]
+        rows.append(row)
+        pending[w].extend((row, s) for s in files[row[0]])
+
+    for w in range(min(workers, len(queue))):
+        hand(w)
+    for w in range(workers):
+        if queue and len(pending[w]) <= 2:
+            hand(w)
+    while any(pending):
+        w = min((w for w in range(workers) if pending[w]),
+                key=lambda w: clock[w] + pending[w][0][1])
+        row, s = pending[w].pop(0)
+        if row[2] is None:
+            row[2] = clock[w]
+        clock[w] += s
+        row[3] = clock[w]
+        if queue and len(pending[w]) <= 2:
+            hand(w)
+    return [tuple(r) for r in rows]
+
+
+def schedule(path: str, workers: int = 6, last: int = 8) -> None:
+    """Projected wall of a junit's tests replayed through loadfile's queue
+    on `workers` workers, the mean per worker, and the last files to
+    start (few-test files are queued last, whatever their seconds)."""
+    files = _junit_files(path)
+    rows = replay(files, int(workers))
+    print(f"{len(rows)} files on {workers} workers: projected wall "
+          f"{max(r[3] for r in rows):.1f} s, mean per worker "
+          f"{sum(map(sum, files.values())) / int(workers):.1f} s")
+    for f, w, t0, t1 in sorted(rows, key=lambda r: r[2])[-int(last):]:
+        print(f"  starts {t0:7.1f} ends {t1:7.1f} gw{w} {len(files[f]):4d} "
+              f"tests {sum(files[f]):7.1f} s {f}")
 
 
 def split(out: str, top: int = 10) -> None:
@@ -193,10 +249,15 @@ def split(out: str, top: int = 10) -> None:
 
 
 def keys(out: str, jax_out: str | None = None, top: int = 8) -> None:
-    """Compiles, distinct programs, recompiles; with the JAX suites' run,
-    the compile seconds the port's files spend on the suites' programs."""
+    """The port files' compiles (`test_torch_*`; a whole-suite run holds
+    the JAX suites' too): compiles, distinct programs, recompiles; with a
+    run of the JAX suites alone, the compile seconds spent on the suites'
+    programs, by suite, and each port file's compile seconds split into
+    shared with a JAX suite, unique to the port's files, and recompiled
+    (a program the port's files compiled before, in any worker)."""
     comp = [(_file_of(r["id"]), k, s) for r in _records(out)
-            for _, k, s in r["keys"]]
+            for _, k, s in r["keys"] if _file_of(r["id"]).startswith(
+                "test_torch_")]
     first: dict = {}
     for f, k, s in comp:
         first.setdefault(k, s)
@@ -217,7 +278,21 @@ def keys(out: str, jax_out: str | None = None, top: int = 8) -> None:
         by[suite] += s
     for suite, s in by.most_common(int(top)):
         print(f"  {s:7.1f} {suite}")
+    per: dict = collections.defaultdict(collections.Counter)
+    seen: set = set()
+    for f, k, s in comp:
+        group = ("recompiled" if k in seen
+                 else "shared" if k in suite_of else "unique")
+        seen.add(k)
+        per[f][group] += s
+    print("per port file: compile s = shared with a JAX suite + unique + "
+          "recompiled")
+    for f, c in sorted(per.items(), key=lambda kv: -sum(kv[1].values()))[
+            :int(top)]:
+        print(f"  {sum(c.values()):7.1f} = {c['shared']:6.1f} + "
+              f"{c['unique']:6.1f} + {c['recompiled']:6.1f} {f}")
 
 
 if __name__ == "__main__":
-    {"junit": junit, "split": split, "keys": keys}[sys.argv[1]](*sys.argv[2:])
+    {"junit": junit, "split": split, "keys": keys,
+     "schedule": schedule}[sys.argv[1]](*sys.argv[2:])

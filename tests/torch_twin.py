@@ -11,6 +11,7 @@ import math
 import socket
 import types
 
+import jax
 import numpy as np
 import pytest
 
@@ -57,6 +58,19 @@ def registries():
     yield reg
     state.registry, state.tracing = found
     ttele.configure()
+
+
+@pytest.fixture(scope="module")
+def jax_jit_caches_left_cold():
+    """For a twin of a JAX suite that counts its own compiles
+    (`test_fused.py`, `test_tracing.py`: a batch outside the warmed pad
+    ladder is traced, and counted, exactly once): JAX's in-process jit
+    caches dropped once the twin's tests are done. A JAX program is traced
+    once per process, so the suite, if it runs later in the same worker,
+    would otherwise find the programs the twin's JAX side traced and
+    count nothing."""
+    yield
+    jax.clear_caches()
 
 
 @pytest.fixture
