@@ -33,7 +33,6 @@ import torch_threads  # noqa: F401 (one torch thread a worker)
 from torch_threads import jax_compile_settings  # noqa: F401 (autouse)
 from torch_twin import (bits, counters, fresh_jax_registry,  # noqa: F401
                         registries, same, stop)
-from torch_twin import walk_in_reverse
 
 import pmdfc_tpu.checkpoint as jckpt
 import pmdfc_tpu.client.backends as jbackends
@@ -620,6 +619,3 @@ def test_axis_rules_cover_admit_leaves():
             p.pt.spec_for(r["axes"], p.pt.DEFAULT_AXIS_RULES)))
             for r in rows]
     twin(drill)
-
-
-walk_in_reverse(globals())

@@ -25,7 +25,6 @@ from torch_twin import JAX as _JAX
 from torch_twin import PORT as _PORT
 from torch_twin import registries, same  # noqa: F401
 from torch_twin import twin as twin_of
-from torch_twin import walk_in_reverse
 
 import pmdfc_tpu.checkpoint as jckpt
 import pmdfc_tpu.models.cceh as jcceh
@@ -163,6 +162,3 @@ def test_checkpoint_rejects_wrong_config(tmp_path):
         return str(ex.value).replace(path, "<path>")
 
     twin(drill)
-
-
-walk_in_reverse(globals())

@@ -22,7 +22,7 @@ import numpy as np
 import pytest
 import torch_threads  # noqa: F401 (one torch thread a worker)
 from torch_threads import jax_compile_settings  # noqa: F401 (autouse)
-from torch_twin import bits, counters, same, walk_in_reverse
+from torch_twin import bits, counters, same
 
 from pmdfc_tpu import config as jconf
 from pmdfc_tpu import kv as jkv
@@ -295,6 +295,3 @@ def test_kv_facade_end_to_end_with_cceh():
                 np.asarray(found2), np.asarray(slots2), counters(kv.stats()),
                 p.kv_leaves(kv))
     twin(drill)
-
-
-walk_in_reverse(globals())

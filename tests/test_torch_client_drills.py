@@ -21,7 +21,6 @@ from torch_twin import JAX as _JAX
 from torch_twin import PORT as _PORT
 from torch_twin import counters, registries, same  # noqa: F401
 from torch_twin import twin as twin_of
-from torch_twin import walk_in_reverse
 
 import pmdfc_tpu.bench.gen_input as jgen
 import pmdfc_tpu.bench.paging_sim as jpaging
@@ -334,6 +333,3 @@ def test_hashing_np_matches_jax():
         return words, packed, ours
 
     twin(drill)
-
-
-walk_in_reverse(globals())

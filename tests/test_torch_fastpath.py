@@ -25,7 +25,6 @@ import torch_threads  # noqa: F401 (one torch thread a worker)
 from torch_threads import jax_compile_settings  # noqa: F401 (autouse)
 from torch_twin import (JAX, PKGS, PORT, fresh_jax_registry,  # noqa: F401
                         registries, same, stop, twin)
-from torch_twin import walk_in_reverse
 
 import pmdfc_tpu.client.replica as jreplica
 import pmdfc_tpu.parallel.shard as jshard
@@ -509,6 +508,3 @@ def test_chaos_fastpath_soak_no_wrong_bytes(pkg):
             rc.close()
     finally:
         stop(srv)
-
-
-walk_in_reverse(globals())

@@ -36,7 +36,6 @@ every state leaf after it) and lean.
 from __future__ import annotations
 
 import dataclasses
-import functools
 
 import jax
 import jax.numpy as jnp
@@ -45,6 +44,7 @@ import pytest
 import torch_threads  # noqa: F401 (one torch thread a worker)
 from torch_threads import jax_compile_settings  # noqa: F401 (autouse)
 from torch_twin import jax_jit_caches_left_cold  # noqa: F401 (fixture)
+from torch_twin import jax_memo
 import torch
 
 from pmdfc_tpu import kv as jkv
@@ -92,20 +92,7 @@ def jax_leaves(state) -> dict:
             for path, v in flat}
 
 
-def _once(build):
-    """`build` run once per argument set, as several tests seed the same
-    JAX state: the state is immutable, and the probe keys (the last item)
-    are handed out as a copy."""
-    cached = functools.lru_cache(maxsize=None)(build)
-
-    @functools.wraps(build)
-    def call(*args, **kw):
-        *head, pk = cached(*args, **kw)
-        return (*head, pk.copy())
-    return call
-
-
-@_once
+@jax_memo
 def _seeded(slots, seed=7, kind="linear"):
     """A JAX KV state with capacity evictions (and for CCEH splits) and
     deletes, then one page corrupted and an extent: for CCEH real covers
@@ -154,7 +141,7 @@ def _seeded(slots, seed=7, kind="linear"):
     return jcfg, tcfg, st, pk
 
 
-@_once
+@jax_memo
 def _seeded_tiered(slots, kind="linear", seed=11):
     """A JAX KV state over a tiered pool holding every miss cause (see the
     module docstring) -> (config pair, JAX state, padded probe keys)."""

@@ -21,7 +21,6 @@ the serving results of the two compared exactly.
 from __future__ import annotations
 
 import dataclasses
-import functools
 
 import jax
 import jax.numpy as jnp
@@ -31,8 +30,8 @@ import torch_threads  # noqa: F401 (one torch thread a worker)
 from torch_threads import jax_compile_settings  # noqa: F401 (autouse)
 from torch_twin import (counters, fresh_jax_registry,  # noqa: F401
                         registries, same)
-from torch_twin import walk_in_reverse
 from torch_twin import jax_jit_caches_left_cold  # noqa: F401 (fixture)
+from torch_twin import jax_memo
 
 from pmdfc_tpu import config as jconf
 from pmdfc_tpu import kv as jkv
@@ -104,7 +103,7 @@ def _stat(vec, name) -> int:
     return int(np.asarray(vec)[list(jkv.STAT_NAMES).index(name)])
 
 
-@functools.lru_cache(maxsize=None)
+@jax_memo
 def _jax_seeded(kind, tiered):
     cfg = _cfg(jconf, kind, tiered)
     kv = jkv.KV(cfg)
@@ -417,6 +416,3 @@ def test_fused_off_kill_switch_plane_is_conformant(monkeypatch, tmp_path):
     got_port = _verb_transcript(port)
     assert got_off == got_on == got_port
     assert not any("get_fused" in k for k in treg.snapshot()["counters"])
-
-
-walk_in_reverse(globals())

@@ -19,7 +19,6 @@ import numpy as np
 import pytest
 import torch_threads  # noqa: F401 (one torch thread a worker)
 from torch_threads import jax_compile_settings  # noqa: F401 (autouse)
-from torch_twin import walk_in_reverse
 import torch
 
 from pmdfc_tpu.config import IndexConfig as JIndexConfig
@@ -232,6 +231,3 @@ def test_sorts_and_decay_on_high_and_tied_counters():
     js, ts = jhr.decay(js), thr.decay(ts)
     _same_state(js, ts, "decay over edge counters")
     assert (u32.to_numpy(ts.counters) == 0x7FFFFFFF).any()  # 0xFFFFFFFF >> 1
-
-
-walk_in_reverse(globals())

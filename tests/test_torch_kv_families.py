@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch_threads  # noqa: F401 (one torch thread a worker)
 from torch_threads import jax_compile_settings  # noqa: F401 (autouse)
+from torch_twin import kv_configs
 import torch
 
 from pmdfc_tpu import kv as jkv
@@ -31,7 +32,6 @@ from pmdfc_tpu.config import BloomConfig as JBloomConfig
 from pmdfc_tpu.config import IndexConfig as JIndexConfig
 from pmdfc_tpu.config import IndexKind as JKind
 from pmdfc_tpu.config import KVConfig as JKVConfig
-from pmdfc_tpu.config import TierConfig as JTier
 from pmdfc_tpu.models import hotring as jhr
 from pmdfc_tpu_torch import carry
 from pmdfc_tpu_torch import kv as tkv
@@ -39,15 +39,12 @@ from pmdfc_tpu_torch.config import BloomConfig as TBloomConfig
 from pmdfc_tpu_torch.config import IndexConfig as TIndexConfig
 from pmdfc_tpu_torch.config import IndexKind as TKind
 from pmdfc_tpu_torch.config import KVConfig as TKVConfig
-from pmdfc_tpu_torch.config import TierConfig as TTier
 from pmdfc_tpu_torch.models import hotring as thr
 from pmdfc_tpu_torch.ops import fused as tfused
 from pmdfc_tpu_torch.utils import u32
 
 pytestmark = pytest.mark.torch
 
-TIER = dict(hot_fraction=16, ghost_rows=32, balloon_step=32,
-            max_promotes_per_batch=16, cold_init_rows=512, grow_free_rows=32)
 HOT = dict(touch_sample_every=2, decay_every_gets=700)
 
 CASES = {
@@ -65,14 +62,9 @@ CASES = {
 
 
 def _configs(kind, paged, tiered):
-    ix = dict(capacity=1024, **(HOT if kind == "hotring" else {}))
-
-    def make(K, I, B, T, Kind):
-        return K(index=I(kind=Kind(kind), **ix), page_words=64, paged=paged,
-                 bloom=B(num_bits=1 << 12), evicted_sketch_bits=1 << 10,
-                 tier=T(**TIER) if tiered else None)
-    return (make(JKVConfig, JIndexConfig, JBloomConfig, JTier, JKind),
-            make(TKVConfig, TIndexConfig, TBloomConfig, TTier, TKind))
+    return kv_configs(kind, "tiered" if tiered else
+                      "flat" if paged else "unpaged",
+                      **(HOT if kind == "hotring" else {}))
 
 
 def _same(a, b, what):

@@ -25,37 +25,15 @@ import numpy as np
 import pytest
 import torch_threads  # noqa: F401 (one torch thread a worker)
 from torch_threads import jax_compile_settings  # noqa: F401 (autouse)
+from torch_twin import kv_configs
 import torch
 
 from pmdfc_tpu import kv as jkv
-from pmdfc_tpu.config import BloomConfig as JBloomConfig
-from pmdfc_tpu.config import IndexConfig as JIndexConfig
-from pmdfc_tpu.config import IndexKind as JKind
-from pmdfc_tpu.config import KVConfig as JKVConfig
-from pmdfc_tpu.config import TierConfig as JTier
 from pmdfc_tpu_torch import carry
 from pmdfc_tpu_torch import kv as tkv
-from pmdfc_tpu_torch.config import BloomConfig as TBloomConfig
-from pmdfc_tpu_torch.config import IndexConfig as TIndexConfig
-from pmdfc_tpu_torch.config import IndexKind as TKind
-from pmdfc_tpu_torch.config import KVConfig as TKVConfig
-from pmdfc_tpu_torch.config import TierConfig as TTier
 from pmdfc_tpu_torch.utils import u32
 
 pytestmark = pytest.mark.torch
-
-TIER = dict(hot_fraction=16, ghost_rows=32, balloon_step=32,
-            max_promotes_per_batch=16, cold_init_rows=512, grow_free_rows=32)
-
-
-def _configs(kind, pool):
-    def make(K, I, B, T, Kind):
-        return K(index=I(kind=Kind(kind), capacity=1024), page_words=64,
-                 paged=pool != "unpaged", bloom=B(num_bits=1 << 12),
-                 evicted_sketch_bits=1 << 10,
-                 tier=T(**TIER) if pool == "tiered" else None)
-    return (make(JKVConfig, JIndexConfig, JBloomConfig, JTier, JKind),
-            make(TKVConfig, TIndexConfig, TBloomConfig, TTier, TKind))
 
 
 def _same(a, b, what):
@@ -84,7 +62,7 @@ def _host(y, like):
 def run_case(kind, pool):
     """The drill for one family over one pool ("flat", "tiered" or
     "unpaged")."""
-    jcfg, tcfg = _configs(kind, pool)
+    jcfg, tcfg = kv_configs(kind, pool)
     a, b = jkv.KV(jcfg), tkv.KV(tcfg, device="cpu")
     rng = np.random.default_rng(zlib.crc32(f"{kind}-{pool}".encode()))
     vw = 2 if pool == "unpaged" else 64

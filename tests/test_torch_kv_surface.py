@@ -30,27 +30,22 @@ from torch_threads import jax_compile_settings  # noqa: F401 (autouse)
 from pmdfc_tpu import kv as jkv
 from pmdfc_tpu.config import BloomConfig as JBloomConfig
 from pmdfc_tpu.config import IndexConfig as JIndexConfig
-from pmdfc_tpu.config import IndexKind as JKind
 from pmdfc_tpu.config import KVConfig as JKVConfig
-from pmdfc_tpu.config import TierConfig as JTier
 from pmdfc_tpu_torch import carry
 from pmdfc_tpu_torch import kv as tkv
 from pmdfc_tpu_torch.client.backends import DirectBackend
 from pmdfc_tpu_torch.config import BloomConfig as TBloomConfig
 from pmdfc_tpu_torch.config import IndexConfig as TIndexConfig
-from pmdfc_tpu_torch.config import IndexKind as TKind
 from pmdfc_tpu_torch.config import KVConfig as TKVConfig
-from pmdfc_tpu_torch.config import TierConfig as TTier
 from pmdfc_tpu_torch.ops import fused as tfused
 from pmdfc_tpu_torch.ops.pagepool import page_digest_np
 from pmdfc_tpu_torch.runtime.net import NetServer
 from torch_twin import JAX, PORT, jax_registry, same, timeless  # noqa: F401
+from torch_twin import kv_configs
 
 pytestmark = pytest.mark.torch
 
 W = 64
-TIER = dict(hot_fraction=16, ghost_rows=32, balloon_step=32,
-            max_promotes_per_batch=16, cold_init_rows=512, grow_free_rows=32)
 CASES = {
     # name: (index kind, tiered, fused GET)
     "linear": ("linear", False, True),
@@ -61,15 +56,8 @@ CASES = {
 
 
 def _configs(kind, tiered):
-    ix = dict(capacity=1024) if kind != "cceh" else dict(
-        capacity=1024, segment_slots=256)
-
-    def make(K, I, B, T, Kind):
-        return K(index=I(kind=Kind(kind), **ix), page_words=W,
-                 bloom=B(num_bits=1 << 12), evicted_sketch_bits=1 << 10,
-                 tier=T(**TIER) if tiered else None)
-    return (make(JKVConfig, JIndexConfig, JBloomConfig, JTier, JKind),
-            make(TKVConfig, TIndexConfig, TBloomConfig, TTier, TKind))
+    return kv_configs(kind, "tiered" if tiered else "flat", W,
+                      **({"segment_slots": 256} if kind == "cceh" else {}))
 
 
 def _same(a, b, what):

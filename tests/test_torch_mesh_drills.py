@@ -25,7 +25,6 @@ import torch_threads  # noqa: F401 (one torch thread a worker)
 from torch_threads import jax_compile_settings  # noqa: F401 (autouse)
 from torch_twin import (counters, fresh_jax_registry,  # noqa: F401
                         registries, same, stop)
-from torch_twin import walk_in_reverse
 
 import pmdfc_tpu.client.backends as jbackends
 import pmdfc_tpu.config as jconf
@@ -471,6 +470,3 @@ def test_tiered_reshard_drops_only_stale(tmp_path):
         np.testing.assert_array_equal(g.dense(), pages)
         return g.dense(), dst.tier_stats(), _report(dst)
     twin(drill)
-
-
-walk_in_reverse(globals())

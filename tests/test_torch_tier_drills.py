@@ -24,7 +24,6 @@ import torch_threads  # noqa: F401 (one torch thread a worker)
 from torch_threads import jax_compile_settings  # noqa: F401 (autouse)
 from torch_twin import (counters, fresh_jax_registry,  # noqa: F401
                         registries, same, stop)
-from torch_twin import walk_in_reverse
 
 from pmdfc_tpu import checkpoint as jckpt
 from pmdfc_tpu import config as jconf
@@ -446,6 +445,3 @@ def test_checkpoint_roundtrip_tiered(tmp_path):
         assert found.all() and (out == pages).all()
         return _end(p, kv2)
     twin(drill)
-
-
-walk_in_reverse(globals())

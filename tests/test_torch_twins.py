@@ -51,7 +51,8 @@ TWINS = {
     "test_cceh.py": ("test_torch_cceh.py", "test_torch_cceh_drills.py"),
     "test_chaos.py": ("test_torch_chaos.py", "test_torch_chaos_drills.py"),
     "test_client.py": ("test_torch_client.py", "test_torch_client_drills.py",
-                       "test_torch_workloads.py"),
+                       "test_torch_workloads.py",
+                       "test_torch_workloads_io.py"),
     "test_containment.py": ("test_torch_containment.py",
                             "test_torch_bench_faults.py"),
     "test_durability.py": ("test_torch_checkpoint.py",
@@ -83,8 +84,9 @@ TWINS = {
     "test_jax_pin.py": "pins the JAX and jaxlib versions the compile-cache "
                        "hardening of `pmdfc_tpu/bench/common.py` was "
                        "verified on; the port uses no JAX",
-    "test_kv.py": ("test_torch_kv.py", "test_torch_extents.py",
-                   "test_torch_kv_families.py", "test_torch_kv_drills.py"),
+    "test_kv.py": ("test_torch_kv.py", "test_torch_kv_tiered.py",
+                   "test_torch_extents.py", "test_torch_kv_families.py",
+                   "test_torch_kv_drills.py"),
     "test_linear.py": ("test_torch_linear.py", "test_torch_linear_drills.py",
                        "test_torch_rowinsert.py"),
     "test_mesh.py": ("test_torch_plane.py", "test_torch_shard.py",

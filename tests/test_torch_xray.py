@@ -34,7 +34,6 @@ from torch_threads import jax_compile_settings  # noqa: F401 (autouse)
 from test_torch_chaos import CHAOS_TINY
 from test_torch_smoke import smoke  # noqa: F401 (the fixture)
 from torch_twin import JAX, PKGS, PORT, counters, registries  # noqa: F401
-from torch_twin import walk_in_reverse
 
 import chip_smoke
 from tools import check_teledump as chk
@@ -484,6 +483,3 @@ def test_xray_acceptance_soak_and_teletop(smoke, monkeypatch, capsys):
     assert entry["max_abs_err"] == 0
     out = capsys.readouterr().out
     assert "teletop rows" in out and "every hit byte-exact" in out
-
-
-walk_in_reverse(globals())

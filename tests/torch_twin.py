@@ -7,6 +7,8 @@ two packages' transcripts."""
 
 from __future__ import annotations
 
+import copy
+import functools
 import math
 import socket
 import types
@@ -199,13 +201,76 @@ def twin(drill, *args, pkgs=PKGS):
     return b
 
 
+# -- the catalogue of the twins' store configs -------------------------------
+
+# the tiered pool of the family, path and KV-surface twins: a 16th of the
+# slots as hot rows, 512 cold rows circulating at first, the balloon
+# moving 32 rows a step and growing when fewer than 32 are free
+TWIN_TIER = dict(hot_fraction=16, ghost_rows=32, balloon_step=32,
+                 max_promotes_per_batch=16, cold_init_rows=512,
+                 grow_free_rows=32)
+
+
+def kv_configs(kind: str = "linear", pool: str = "flat", page_words: int = 64,
+               **index):
+    """The (JAX, port) `KVConfig` pair the family, path and KV-surface
+    twins share, so that one worker's jit cache and the persistent cache
+    serve them alike: an index of `kind` with 1024 slots (`index` adds or
+    overrides its fields), 64-word pages, a 2^12-bit bloom, a 2^10-bit
+    evicted-key sketch; `pool` is "flat", "unpaged" or "tiered" (with
+    `TWIN_TIER`)."""
+    assert pool in ("flat", "unpaged", "tiered"), pool
+
+    def make(c):
+        return c.KVConfig(
+            index=c.IndexConfig(kind=c.IndexKind(kind),
+                                **{"capacity": 1024, **index}),
+            page_words=page_words, paged=pool != "unpaged",
+            bloom=c.BloomConfig(num_bits=1 << 12),
+            evicted_sketch_bits=1 << 10,
+            tier=c.TierConfig(**TWIN_TIER) if pool == "tiered" else None)
+    return make(jconfig), make(tconfig)
+
+
+# -- JAX's answers, once per process -----------------------------------------
+
+_ANSWERS: dict = {}
+
+
+def jax_once(key, build):
+    """JAX's answer to one twin question, asked once per process:
+    `build()` runs live the first time `key` is asked in this worker, and
+    every caller, the first included, gets its own deep copy of the
+    answer, so a caller that changes its copy changes no other caller's.
+    Nothing is written to disk: another worker asks JAX again. The key
+    names the callable, the config and the seeded inputs in full."""
+    if key not in _ANSWERS:
+        _ANSWERS[key] = build()
+    return copy.deepcopy(_ANSWERS[key])
+
+
+def jax_memo(build):
+    """`build(*args, **kw)` through `jax_once`, keyed by its module, its
+    name and its arguments (all hashable)."""
+    @functools.wraps(build)
+    def call(*args, **kw):
+        key = (build.__module__, build.__qualname__, args,
+               tuple(sorted(kw.items())))
+        return jax_once(key, lambda: build(*args, **kw))
+    return call
+
+
 def walk_in_reverse(namespace: dict) -> None:
     """Collect a module's tests in the reverse of their order in its file
-    (call last, with the module's `globals()`). A twin file replays its
-    JAX suite's drills, so it compiles the same JAX programs in the same
-    order. Under `--dist loadfile` the two files often run at once in two
-    workers: walking the opposite way, each finds about half of those
+    (call last, with the module's `globals()`). A twin file that keeps
+    XLA's defaults (`KEEP_XLA_DEFAULTS`) replays its JAX suite's drills,
+    so it compiles the same JAX programs, with the same cache keys, in
+    the same order. Where `--dist loadfile` runs the two files at once in
+    two workers, walking the opposite way, each finds about half of those
     programs already in the persistent compile cache, written by the
-    other, instead of both compiling all of them at the same time."""
+    other, instead of both compiling all of them at the same time
+    (`torch_testtime.py overlap` says which pairs ran at once, `keys`
+    what each handed the other). A twin compiled with other options
+    shares no cache entry with its suite, and walking gains it nothing."""
     for name in [n for n in namespace if n.startswith("test_")][::-1]:
         namespace[name] = namespace.pop(name)
